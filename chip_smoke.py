@@ -3,14 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, then
-drives the slice's main path at the HIGGS shape (500 trees of depth 8
-over 28 features, ``binary:logistic``, made from a seed):
-``Booster.predict`` on 100,000 rows and a ``Server`` answering 200
-requests of 1/8/64/512 rows from 4 threads. It checks that both went
-through the kernel, that every served answer equals ``Booster.predict``
-bit for bit, and times the kernel, its plain version and its bound.
+Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc (one
+nvcc per source, all at once) and holds each kernel against its plain
+PyTorch version on the card: K1 (the forest walk), K2 (int8x2
+histogram), K3 (f32 histogram, exact int64 fixed point) and K4 (int8x2
+histogram over rows sorted by node), the last three bit for bit and twice
+each, at the shapes the training runs below give them. Then it drives the
+port's main paths, each with the launch counts set to 0 just before and
+read just after:
+
+- serving at the HIGGS shape (500 trees of depth 8 over 28 features,
+  ``binary:logistic``, made from a seed): ``Booster.predict`` on 100,000
+  rows and a ``Server`` answering 200 requests of 1/8/64/512 rows from 4
+  threads, every answer equal to ``Booster.predict`` bit for bit;
+- training at the HIGGS shape: ``xgboost_tpu_torch.train`` on 1,000,000 x
+  28 N(0, 1) features with labels from a fixed linear rule plus noise
+  (seed 0), ``max_depth`` 8, 20 rounds, evaluated on the training rows
+  and 100,000 held-out rows. Every level's histogram goes through K4, as
+  the TPU's ``auto`` takes its sorted kernel at this size; logloss must
+  fall, held-out AUC pass 0.6, and a ``save_raw`` round trip predict the
+  same bits;
+- training at ``max_depth`` 10 on 200,000 rows for 3 rounds, so that the
+  levels of 256 and 512 nodes run K3 through ``hist_method="auto"``;
+- training at ``max_depth`` 8 on 50,000 rows for 5 rounds, below the
+  sorted kernel's 65,536 rows, so that every level runs K2.
+
+It times each kernel, its plain version, one PyTorch library call for
+the same function where there is one, and the kernel's bound, at the
+main paths' shapes; seconds per boosting round on the host clock; and
+the device's idle share of the same rounds under ``torch.profiler``.
 
 Prints the card (``nvidia-smi`` name and power limit) and a JSON line
 of kernel numbers before the last line, and as the last line
@@ -139,6 +160,204 @@ def walk_bound_ms(pf, n, n_features, visits):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def auc(y: np.ndarray, p: np.ndarray) -> float:
+    """Area under the ROC curve (ties share their average rank)."""
+    _, inv, counts = np.unique(p, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    pos = y == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+# (rows, nodes, bin slots): the levels the training runs below give the
+# kernels, and the missing-slot layout (257 slots, u16). K3 runs at every
+# case, K2 and K4 at the cases of at most 128 nodes.
+HIST_CASES = ((1_000_000, 1, 256), (1_000_000, 4, 256),
+              (1_000_000, 16, 256), (1_000_000, 128, 256),
+              (1_000_000, 64, 257), (200_000, 256, 256),
+              (200_000, 512, 256), (50_000, 1, 256), (50_000, 128, 256))
+
+
+def hist_inputs(n, F, B, N, dev, seed):
+    """bins [n, F] (uint8, or uint16 with a missing slot at B-1 for
+    B = 257), gpair [n, 2] f32 and rel [n] int32 with 10% inactive rows,
+    made on the card from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if B > 256:
+        bins = torch.randint(0, B - 1, (n, F), generator=g, device=dev,
+                             dtype=torch.int32)
+        miss = torch.rand((n, F), generator=g, device=dev) < 0.05
+        bins = torch.where(miss, torch.full_like(bins, B - 1), bins)
+        bins = bins.to(torch.uint16)
+    else:
+        bins = torch.randint(0, B, (n, F), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+    gpair = torch.stack([torch.randn(n, generator=g, device=dev),
+                         torch.rand(n, generator=g, device=dev)], dim=1)
+    rel = torch.randint(0, N, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    rel = torch.where(torch.rand(n, generator=g, device=dev) < 0.1,
+                      torch.full_like(rel, N), rel)
+    return bins.contiguous(), gpair.contiguous(), rel.contiguous()
+
+
+def hist_totals_ok(name, out, gpair, rel, N, quantum):
+    """Every feature's bins add up to its node's gradient sums: within
+    half a quantum per row (0.51: K2's dequant factor is itself rounded)
+    plus one f32 rounding per bin."""
+    act = rel < N
+    exact = torch.zeros((N, 2), dtype=torch.float64, device=out.device)
+    exact.index_add_(0, rel[act].long(), gpair[act].double())
+    count = torch.bincount(rel[act].long(), minlength=N).double()
+    o = out.double()                                   # [N, F, B, 2]
+    tot = o.sum(dim=2)                                  # [N, F, 2]
+    ulp = torch.abs(out).double() * 2.0 ** -24
+    bound = (count[:, None, None] * 0.51 * quantum.double()[None, None, :]
+             + ulp.sum(dim=2) + exact.abs()[:, None, :] * 2.0 ** -22)
+    err = (tot - exact[:, None, :]).abs()
+    if bool((err > bound).any()):
+        raise AssertionError(f"{name}: totals off by {float(err.max())}")
+    return float((err / bound).max())
+
+
+def hist_kernels(N):
+    """The kernels that run at a level of N nodes, with their plain
+    versions: (name, kernel(args), plain(args), maker of the args)."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    def int8x2_args(bins, gpair, rel):
+        q, inv = H.quantise_int8x2(gpair)
+        return bins, q, rel, inv
+
+    def f32_args(bins, gpair, rel):
+        qs, inv = H.fixed_point_scale(gpair)
+        return bins, gpair, rel, qs, inv
+
+    out = [("hist_f32", K.hist_f32_cuda, H.build_hist_f32_reference,
+            f32_args)]
+    if N <= 128:
+        out += [("hist_int8x2", K.hist_int8x2_cuda,
+                 H.build_hist_int8x2_reference, int8x2_args),
+                ("hist_scan", K.hist_scan_cuda, H.build_hist_scan_reference,
+                 int8x2_args)]
+    return out
+
+
+def check_hist(bins, gpair, rel, N, B, label):
+    """Each kernel against its plain version on the same card tensors:
+    equal bit for bit on two launches; totals against the row sums.
+    Returns {kernel: max |kernel - plain|}."""
+    errs = {}
+    ratios = []
+    for name, kernel, plain, make in hist_kernels(N):
+        args = make(bins, gpair, rel)
+        runs = [kernel(*args, N, B) for _ in range(2)]
+        want = plain(*args, N, B)
+        torch.cuda.synchronize()
+        errs[name] = max(float((r - want).abs().max()) for r in runs)
+        if not all(torch.equal(r, want) for r in runs):
+            raise AssertionError(f"{name} {label}: a launch differs from the "
+                                 f"plain version (max {errs[name]})")
+        ratios.append(hist_totals_ok(f"{name} {label}", runs[0], gpair, rel,
+                                     N, args[-1]))
+    log(f"check hist {label}: rows={bins.shape[0]} features={bins.shape[1]} "
+        f"nodes={N} bins={B} ({bins.dtype}): {sorted(errs)} equal their "
+        f"plain versions bit for bit on two launches; totals at "
+        f"{max(ratios):.3f} of their bound at most")
+    return errs
+
+
+def hist_bound_ms(bins, N, B, n_active, planes):
+    """(ms, "bytes"|"operations", ops): bins, the gradients (q or gpair,
+    8 B a row) and rel read once, the [N, F, B, 2] f32 histogram written
+    once, over 3.35 TB/s; against one integer add per (active row,
+    feature, plane) over the f32 lane rate (the table has no scalar
+    integer rate)."""
+    n, F = bins.shape
+    nbytes = n * F * bins.element_size() + n * 8 + n * 4 + N * F * B * 8
+    ops = n_active * F * planes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", ops
+    return t_ops, "operations", ops
+
+
+def time_hist(bins, gpair, rel, N, B, flush):
+    """{kernel: (ms, plain_ms, library_ms)} for the kernels of a level of
+    N nodes: CUDA-event times of each kernel (L2 flushed), its plain
+    version, and the nearest single PyTorch call, one ``index_add_`` of
+    the four int32 planes (K2, K4) or of the f32 (g, h) pairs (K3), with
+    the (row, feature) cells and values prepared beforehand. Also the
+    active row count."""
+    from xgboost_tpu_torch.ops import histogram as H
+
+    F = bins.shape[1]
+    seg, active = H._segments(bins, rel, N, B)
+    q, _ = H.quantise_int8x2(gpair)
+    hi = (q + 128) >> 8
+    planes = torch.stack([hi[:, 0], hi[:, 1], q[:, 0] - 256 * hi[:, 0],
+                          q[:, 1] - 256 * hi[:, 1]], dim=1)
+    vals = planes[active][:, None, :].expand(-1, F, 4).reshape(-1, 4)
+    acc = torch.zeros((N * F * B, 4), dtype=torch.int32, device=bins.device)
+    lib_int = event_ms(lambda: acc.index_add_(0, seg, vals), reps=10,
+                       flush=flush)
+    del vals, acc
+    gv = gpair[active][:, None, :].expand(-1, F, 2).reshape(-1, 2)
+    accf = torch.zeros((N * F * B, 2), dtype=torch.float32,
+                       device=bins.device)
+    lib_f32 = event_ms(lambda: accf.index_add_(0, seg, gv), reps=10,
+                       flush=flush)
+    del seg, gv, accf
+    out = {}
+    for name, kernel, plain, make in hist_kernels(N):
+        args = make(bins, gpair, rel)
+        out[name] = (
+            event_ms(lambda: kernel(*args, N, B), reps=20, flush=flush),
+            event_ms(lambda: plain(*args, N, B), reps=5),
+            lib_f32 if name == "hist_f32" else lib_int)
+    return out, int(active.sum())
+
+
+def higgs_like(n, F, seed):
+    """[n, F] f32 N(0, 1) features and 0/1 labels from a fixed linear rule
+    plus noise, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, F), dtype=np.float32)
+    w = rng.standard_normal(F).astype(np.float32)
+    logit = X @ w + rng.standard_normal(n).astype(np.float32) * 1.5
+    return X, (logit > 0).astype(np.float32)
+
+
+def train_launches(name, train):
+    """Run ``train()`` with every launch count set to 0 just before and
+    read just after; returns (its result, the counts)."""
+    reset_counts()
+    out = train()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{name}: launches {counts}")
+    return out, counts
+
+
+def reset_counts():
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.cuda import walk as W
+
+    W.LAUNCHES = 0
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+
+
+def read_counts():
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.cuda import walk as W
+
+    return {"walk_packed": W.LAUNCHES, **dict(K.LAUNCHES)}
 
 
 def main() -> int:
@@ -293,9 +512,143 @@ def main() -> int:
         s = snap["stages"][st]
         log(f"  stage {st}: p50 {s['p50_ms']} ms p99 {s['p99_ms']} ms")
 
+    # ------------------------------ K2 / K3 / K4 against their plain versions
+    F = 28
+    hist_errs = {}
+    for i, (n_rows, N, B) in enumerate(HIST_CASES):
+        bins, gpair, rel = hist_inputs(n_rows, F, B, N, dev, seed=10 + i)
+        for k, e in check_hist(bins, gpair, rel, N, B,
+                               f"n={n_rows} N={N} B={B}").items():
+            hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+        del bins, gpair, rel
+
+    # -------------------------------------- main path: training, depth 8
+    X, y = higgs_like(1_100_000, F, seed=0)
+    dtr = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
+    dte = xt.DMatrix(X[1_000_000:], label=y[1_000_000:])
+    params = {"objective": "binary:logistic", "max_depth": 8, "eta": 0.1,
+              "max_bin": 256}
+    rounds = 20
+    res = {}
+    t0 = time.perf_counter()
+    bst, train_counts = train_launches("train depth 8", lambda: xt.train(
+        params, dtr, rounds, evals=[(dtr, "train"), (dte, "test")],
+        evals_result=res, verbose_eval=5))
+    t_train = time.perf_counter() - t0
+    if train_counts["hist_scan"] != 8 * rounds or \
+            train_counts["hist_int8x2"] != 0 or train_counts["hist_f32"] != 0:
+        raise AssertionError(f"training launched {train_counts}, expected "
+                             f"K4 8 times a round, K2 and K3 never")
+    if train_counts["walk_packed"] < rounds:
+        raise AssertionError("the held-out evaluation did not walk the "
+                             "trees through K1")
+    ll = res["train"]["logloss"]
+    if not ll[-1] < ll[0]:
+        raise AssertionError(f"train logloss did not fall: {ll}")
+    p_te = bst.predict(dte)
+    auc_te = auc(y[1_000_000:], p_te)
+    if not (np.isfinite(p_te).all() and auc_te > 0.6):
+        raise AssertionError(f"held-out AUC {auc_te}")
+    again = xt.Booster(model_file=bst.save_raw("ubj"))
+    if not np.array_equal(again.predict(dte), p_te):
+        raise AssertionError("save_raw -> Booster(model_file=) predicts "
+                             "other bits")
+    log(f"train: {rounds} rounds of depth 8 on 1,000,000 x {F} in "
+        f"{t_train:.3f} s (host clock, sketch and binning included); "
+        f"train logloss {ll[0]} -> {ll[-1]}, test logloss "
+        f"{res['test']['logloss'][-1]}, held-out AUC {auc_te:.6f}; "
+        f"save_raw round trip predicts the same bits")
+
+    # seconds per round: update() between two syncs, on the same matrix;
+    # then three more rounds under torch.profiler, timed the same way, for
+    # the device's busy and idle shares of those rounds
+    timer = xt.Booster(params)
+    per_round = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.update(dtr, i)
+        torch.cuda.synchronize()
+        per_round.append(time.perf_counter() - t0)
+    log(f"seconds per round (update + sync, host clock): "
+        f"{['%.6f' % t for t in per_round]}; median of rounds 1-5 "
+        f"{float(np.median(per_round[1:])):.6f} s")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(6, 9):
+            timer.update(dtr, i)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    # device time: the kernel rows only (an operator's row counts the
+    # kernels it launched a second time)
+    from torch.autograd import DeviceType
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    log(f"profile of 3 rounds: {wall_prof * 1e3:.3f} ms on the host clock "
+        f"(profiler on), device busy {dev_ms:.3f} ms, device idle "
+        f"{(1 - dev_ms / (wall_prof * 1e3)) * 100:.2f}% of those rounds; "
+        f"kernels by device time:")
+    for e in rows[:12]:
+        log(f"  {e.key[:70]:70s} n={e.count:5d} device "
+            f"{e.self_device_time_total / 1e3:.3f} ms")
+
+    # ------------------------------------- main path: training, depth 10
+    d10 = xt.DMatrix(X[:200_000], label=y[:200_000])
+    deep, deep_counts = train_launches("train depth 10", lambda: xt.train(
+        dict(params, max_depth=10), d10, 3, verbose_eval=False))
+    if deep_counts["hist_scan"] != 8 * 3 or deep_counts["hist_f32"] != 2 * 3 \
+            or deep_counts["hist_int8x2"] != 0:
+        raise AssertionError(f"depth 10 launched {deep_counts}, expected K4 "
+                             "8 and K3 2 times a round")
+    if max(t.max_depth() for t in deep.gbm.trees) != 10:
+        raise AssertionError("the depth-10 trees did not reach depth 10")
+
+    # ------------------------------- main path: training below 65,536 rows
+    d50 = xt.DMatrix(X[:50_000], label=y[:50_000])
+    res50 = {}
+    _, small_counts = train_launches("train 50,000 rows", lambda: xt.train(
+        params, d50, 5, evals=[(d50, "train")], evals_result=res50,
+        verbose_eval=False))
+    if small_counts["hist_int8x2"] != 8 * 5 or small_counts["hist_scan"] != 0 \
+            or small_counts["hist_f32"] != 0:
+        raise AssertionError(f"50,000 rows launched {small_counts}, expected "
+                             "K2 8 times a round")
+    ll50 = res50["train"]["logloss"]
+    if not ll50[-1] < ll50[0]:
+        raise AssertionError(f"train logloss did not fall: {ll50}")
+    log(f"train 50,000 rows: logloss {ll50[0]} -> {ll50[-1]}")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
+    # each kernel at the deepest level its main path gives it, and at the
+    # root; K2 also at 1M rows, beside K4 on the same inputs
+    hist_times = {}
+    for i, (n_rows, N) in enumerate(((1_000_000, 1), (1_000_000, 128),
+                                     (200_000, 256), (200_000, 512),
+                                     (50_000, 1), (50_000, 128))):
+        bins, gpair, rel = hist_inputs(n_rows, F, 256, N, dev, seed=40 + i)
+        t, n_active = time_hist(bins, gpair, rel, N, 256, flush)
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            planes = 2 if name == "hist_f32" else 4
+            bound = hist_bound_ms(bins, N, 256, n_active, planes)
+            hist_times[(name, n_rows, N)] = (ms, plain_ms, lib_ms, bound)
+            log(f"hist {name} n={n_rows} N={N} B=256 x {F} u8 (L2 flushed): "
+                f"{ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ "
+                f"{lib_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
+                f"{bound[2]} integer adds), kernel at "
+                f"{bound[0] / ms * 100:.4f}% of it")
+        del bins, gpair, rel
     times = {}
     for n in (1, 512, n_big):
         X = Xd[:n].contiguous()
@@ -328,7 +681,8 @@ def main() -> int:
         "route": "cuda",
         "source": "xgboost_tpu_torch/csrc/walk.cu",
         "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
-        "launches": launches_predict + launches_serve,
+        "launches": (launches_predict + launches_serve
+                     + train_counts["walk_packed"]),
         "max_abs_err": max(errs),
         "ms": times[n_big],
         "plain_ms": plain[n_big],
@@ -336,6 +690,20 @@ def main() -> int:
         "bound_by": bounds[n_big][1],
         "library_ms": None,
     }]
+    for name, replaces, shape, launches in (
+            ("hist_int8x2", ":621", (50_000, 128),
+             small_counts["hist_int8x2"]),
+            ("hist_f32", ":634", (200_000, 512), deep_counts["hist_f32"]),
+            ("hist_scan", ":478", (1_000_000, 128),
+             train_counts["hist_scan"] + deep_counts["hist_scan"])):
+        ms, plain_ms, lib_ms, bound = hist_times[(name, *shape)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/hist.cu",
+            "replaces": "xgboost_tpu/ops/pallas/histogram.py" + replaces,
+            "launches": launches, "max_abs_err": hist_errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,14 @@ from xgboost_tpu_torch.testing import make_forest, make_forest_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "xgboost_tpu")
+# the training slice's modules, each held to the same rule
+TRAINING_MODULES = (
+    "params.py", "config.py", "tree/param.py", "tree/grow.py",
+    "data/quantile.py", "data/binned.py", "data/dmatrix.py",
+    "objective/base.py", "objective/regression.py", "ops/histogram.py",
+    "ops/split.py", "ops/partition.py", "ops/cuda/hist.py",
+    "boosting/gbtree.py", "core.py", "metric/base.py",
+    "metric/elementwise.py")
 
 
 def _port_sources():
@@ -42,6 +50,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     itself passes and xgboost_tpu (or any of its modules) does not."""
     paths = list(_port_sources())
     assert len(paths) > 20
+    scanned = {os.path.relpath(p, REPO) for p in paths}
+    for mod in TRAINING_MODULES:
+        assert os.path.join("xgboost_tpu_torch", mod) in scanned, mod
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -1,15 +1,19 @@
 """xgboost_tpu_torch — the PyTorch/CUDA port of xgboost_tpu.
 
-This slice loads gbtree models, packs them, and answers predictions
-through ``Booster.predict`` and ``serve.Server``; the forest walk is a
-CUDA kernel written by hand for Hopper (``csrc/walk.cu``). Entry points
-run on the card unless the caller asks for ``device="cpu"``.
+``train`` grows gbtree models (depthwise ``hist``, ``binary:logistic``
+or ``reg:squarederror``) with histograms built by CUDA kernels written
+by hand for Hopper (``csrc/hist.cu``); ``Booster.predict`` and
+``serve.Server`` answer predictions through the forest walk kernel
+(``csrc/walk.cu``). Entry points run on the card unless the caller asks
+for ``device="cpu"``.
 """
 
 from .context import Context, resolve_device
-from .core import Booster
+from .config import config_context, get_config, set_config
+from .core import Booster, train
 from .data.dmatrix import DMatrix
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Context", "DMatrix", "resolve_device"]
+__all__ = ["Booster", "Context", "DMatrix", "config_context", "get_config",
+           "resolve_device", "set_config", "train"]

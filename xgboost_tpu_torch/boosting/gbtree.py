@@ -1,16 +1,22 @@
-"""Gradient-boosted tree ensemble: the model container only.
+"""Gradient-boosted tree ensemble: the forest container and one boosting
+round for a single output group.
 
-The serving subset of the JAX package's ``boosting/gbtree.py``: the
-forest, its per-tree output groups and per-round boundaries, and the
-same JSON payload. Growing trees comes with the training slice.
+The port of the JAX package's ``boosting/gbtree.py``: the forest, its
+per-tree output groups and per-round boundaries, the same JSON payload,
+and ``do_boost`` for K = 1 with ``num_parallel_tree`` 1 and no sampling
+(so no random numbers are drawn). Multiclass, random forests and dart
+wait with ROADMAP A.5.1, A.5.2 and A.5.9.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..tree.grow import TreeGrower
+from ..tree.param import TrainParam
 from ..tree.tree import TreeModel
 
 
@@ -22,9 +28,45 @@ class GBTree:
         self.n_groups = n_groups
         self.num_parallel_tree = num_parallel_tree
         self.multi_strategy = multi_strategy
+        # set by the Booster before training
+        self.tree_param = TrainParam()
+        self.hist_method = "auto"
         self.trees: List[TreeModel] = []
         self.tree_info: List[int] = []
         self.iteration_indptr: List[int] = [0]
+        self._grower: Optional[TreeGrower] = None
+
+    # -- training -------------------------------------------------------------
+    def _grower_for(self, binned) -> TreeGrower:
+        if self._grower is None or self._grower.cuts is not binned.cuts:
+            self._grower = TreeGrower(self.tree_param, binned.max_nbins,
+                                      binned.cuts,
+                                      hist_method=self.hist_method,
+                                      has_missing=binned.has_missing)
+        return self._grower
+
+    def do_boost(self, binned, gpair: torch.Tensor) -> torch.Tensor:
+        """gpair [n, K, 2] on the device of ``binned`` -> margin delta
+        [n, K]; appends the round's trees."""
+        K = gpair.shape[1]
+        if K != 1 or self.n_groups != 1:
+            raise NotImplementedError(
+                "multi-output boosting is not in the PyTorch port yet "
+                "(ROADMAP A.5.1)")
+        if self.num_parallel_tree != 1:
+            raise NotImplementedError(
+                "num_parallel_tree > 1 is not in the PyTorch port yet "
+                "(ROADMAP A.5.2)")
+        grower = self._grower_for(binned)
+        grown = grower.grow(binned.bins, gpair[:, 0, :].contiguous())
+        self.trees.append(grower.to_tree_model(grown))
+        self.tree_info.append(0)
+        self.iteration_indptr.append(len(self.trees))
+        return grown.delta[:, None]
+
+    def version(self) -> int:
+        """Tree count: the margin caches slice trees by it."""
+        return len(self.trees)
 
     def _tree_range(self, iteration_range=None):
         """iteration_range -> (tree_lo, tree_hi) indices."""

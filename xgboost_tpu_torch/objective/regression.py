@@ -1,7 +1,9 @@
-"""Regression / binary objectives: prediction transforms.
+"""Regression / binary objectives: gradients and prediction transforms.
 
-Sigmoid is ``1 / (1 + exp(-x))`` as in the JAX package, so the value
-path rounds the same way on every device.
+Gradients are the JAX package's ``objective/regression.py`` formulas
+(reference ``src/objective/regression_obj.cu``). Sigmoid is
+``1 / (1 + exp(-x))`` as there; the two packages' ``exp`` are different
+approximations, so gradients agree to about one f32 ulp, not bit for bit.
 """
 
 from __future__ import annotations
@@ -16,12 +18,33 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+def _pack(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    return torch.stack([g, h], dim=-1)
+
+
 @register("reg:squarederror", "reg:linear")
 class SquaredError(Objective):
     name = "reg:squarederror"
+    default_metric = "rmse"
+
+    def gradient(self, preds, labels, iteration=0):
+        return _pack(preds - labels, torch.ones_like(preds))
 
 
 class _LogisticBase(Objective):
+    """Shared logistic math (reference ``LogisticRegression``)."""
+
+    def gradient(self, preds, labels, iteration=0):
+        p = _sigmoid(preds)
+        g = p - labels
+        h = torch.clamp(p * (1.0 - p), min=1e-16)
+        spw = float(np.float32(self.params.get("scale_pos_weight", 1.0)))
+        if spw != 1.0:
+            w = torch.where(labels == 1.0, torch.full_like(labels, spw),
+                            torch.ones_like(labels))
+            g, h = g * w, h * w
+        return _pack(g, h)
+
     def pred_transform(self, margin):
         return _sigmoid(margin)
 
@@ -33,16 +56,19 @@ class _LogisticBase(Objective):
 @register("binary:logistic")
 class BinaryLogistic(_LogisticBase):
     name = "binary:logistic"
+    default_metric = "logloss"
 
 
 @register("reg:logistic")
 class RegLogistic(_LogisticBase):
     name = "reg:logistic"
+    default_metric = "rmse"
 
 
 @register("binary:logitraw")
 class LogitRaw(_LogisticBase):
     name = "binary:logitraw"
+    default_metric = "logloss"
 
     def pred_transform(self, margin):
         return margin  # raw margin output

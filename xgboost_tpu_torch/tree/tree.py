@@ -1,5 +1,5 @@
-"""Tree model container (host numpy; the serving subset of the JAX
-package's ``tree/tree.py``).
+"""Tree model container (host numpy; the JAX package's ``tree/tree.py``
+without categorical training and dumps).
 
 Node ids are BFS order (root 0, every parent id smaller than its
 children); children are addressed through ``left_child`` /
@@ -61,6 +61,56 @@ class TreeModel:
 
     def max_depth(self) -> int:
         return int(self.depths().max(initial=0))
+
+    @classmethod
+    def from_heap(cls, split_feature, split_bin, split_value, default_left,
+                  is_leaf, active, leaf_value, sum_hess, gain,
+                  base_weight=None) -> "TreeModel":
+        """Compact a heap-layout tree (node i has children 2i+1 / 2i+2,
+        ``active`` marks the nodes that exist) into BFS order, as the JAX
+        package's ``TreeModel.from_heap``; ``heap_map`` maps heap ids to
+        compact ids."""
+        cap = len(is_leaf)
+        order: List[int] = []
+        heap_map = np.full(cap, -1, np.int32)
+        queue = [0]
+        while queue:
+            h = queue.pop(0)
+            if h >= cap or not active[h]:
+                continue
+            heap_map[h] = len(order)
+            order.append(h)
+            if not is_leaf[h]:
+                queue.append(2 * h + 1)
+                queue.append(2 * h + 2)
+        if not order:            # completely empty tree -> single leaf root
+            order = [0]
+            heap_map[0] = 0
+        o = np.asarray(order, np.int64)
+        n = len(order)
+        internal = ~np.asarray(is_leaf)[o]
+        li = np.minimum(2 * o + 1, cap - 1)
+        ri = np.minimum(2 * o + 2, cap - 1)
+        left = np.where(internal, heap_map[li], -1).astype(np.int32)
+        right = np.where(internal, heap_map[ri], -1).astype(np.int32)
+        parent = np.full(n, -1, np.int32)
+        parent[left[internal]] = np.nonzero(internal)[0]
+        parent[right[internal]] = np.nonzero(internal)[0]
+        t = cls(
+            left_child=left, right_child=right, parent=parent,
+            split_feature=np.where(internal, np.asarray(split_feature)[o],
+                                   -1).astype(np.int32),
+            split_bin=np.asarray(split_bin)[o].astype(np.int32),
+            split_value=np.asarray(split_value)[o].astype(np.float32),
+            default_left=np.asarray(default_left)[o].astype(bool),
+            is_leaf=~internal,
+            leaf_value=np.asarray(leaf_value)[o].astype(np.float32),
+            sum_hess=np.asarray(sum_hess)[o].astype(np.float32),
+            gain=np.asarray(gain)[o].astype(np.float32),
+            base_weight=None if base_weight is None
+            else np.asarray(base_weight)[o].astype(np.float32))
+        t.heap_map = heap_map
+        return t
 
     @staticmethod
     def single_leaf(value: float = 0.0) -> "TreeModel":
