@@ -6,11 +6,15 @@
 Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, all at once) and holds each kernel against its plain
 PyTorch version on the card: K1 (the forest walk), K2 (int8x2
-histogram), K3 (f32 histogram, exact int64 fixed point) and K4 (int8x2
-histogram over rows sorted by node), the last three bit for bit and twice
-each, at the shapes the training runs below give them. Then it drives the
-port's main paths, each with the launch counts set to 0 just before and
-read just after:
+histogram), K3 (f32 histogram, exact int64 fixed point), K4 (int8x2
+histogram over rows sorted by node) and its coarse fold, and K5 (the
+level advance fused with the next level's coarse histogram), all but K1
+bit for bit and twice each, at the shapes the training runs below give
+them: K2, K3 and K4 over 256/257 bin slots and over the two-level
+schedules' 20-slot coarse ids and 36-slot refine ids (a window of 32
+fine bins chosen per node and feature, the rest on slot 35). Then it
+drives the port's main paths, each with the launch counts set to 0 just
+before and read just after:
 
 - serving at the HIGGS shape (500 trees of depth 8 over 28 features,
   ``binary:logistic``, made from a seed): ``Booster.predict`` on 100,000
@@ -26,7 +30,13 @@ read just after:
 - training at ``max_depth`` 10 on 200,000 rows for 3 rounds, so that the
   levels of 256 and 512 nodes run K3 through ``hist_method="auto"``;
 - training at ``max_depth`` 8 on 50,000 rows for 5 rounds, below the
-  sorted kernel's 65,536 rows, so that every level runs K2.
+  sorted kernel's 65,536 rows, so that every level runs K2;
+- the two-level schedules on the HIGGS-shape training: ``hist_method``
+  ``coarse``, ``fused`` and ``scan``, 10 rounds each, whose models must be
+  the same bytes (K2 twice a level; K5 at every level boundary and K2 for
+  the coarse root and the refines; K4 with its fold at every level);
+- ``fused`` and ``scan`` at ``max_depth`` 10 on 200,000 rows for 2 rounds,
+  where the levels of 256 and 512 nodes take the plain advance and K3.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -181,6 +191,16 @@ HIST_CASES = ((1_000_000, 1, 256), (1_000_000, 4, 256),
               (200_000, 512, 256), (50_000, 1, 256), (50_000, 128, 256))
 
 
+# (rows, nodes, id slots): the builds of the two-level schedules that go
+# through ``build_hist``: coarse ids (20 slots) and refine ids (36 slots),
+# K2 at the HIGGS run's root and deepest level, K3 at the depth-10 runs'
+# levels of 256 and 512 nodes
+TWO_LEVEL_CASES = ((1_000_000, 1, 20), (1_000_000, 1, 36),
+                   (1_000_000, 128, 36), (200_000, 256, 20),
+                   (200_000, 256, 36), (200_000, 512, 20),
+                   (200_000, 512, 36))
+
+
 def hist_inputs(n, F, B, N, dev, seed):
     """bins [n, F] (uint8, or uint16 with a missing slot at B-1 for
     B = 257), gpair [n, 2] f32 and rel [n] int32 with 10% inactive rows,
@@ -202,6 +222,35 @@ def hist_inputs(n, F, B, N, dev, seed):
     rel = torch.where(torch.rand(n, generator=g, device=dev) < 0.1,
                       torch.full_like(rel, N), rel)
     return bins.contiguous(), gpair.contiguous(), rel.contiguous()
+
+
+def two_level_inputs(n, F, N, B, dev, seed):
+    """``hist_inputs``' u8 bins (256 slots, no missing slot) as the
+    two-level schedules hand them to ``build_hist``: their coarse ids for
+    B = 20; for B = 36 their refine ids, each row's window that of its
+    node and feature, chosen from the level's coarse histogram as
+    ``tree/grow.py`` chooses it (rows outside the level take window 0)."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.split import (COARSE_B, WINDOW,
+                                             choose_refine_window,
+                                             coarse_bin_ids, refine_bin_ids)
+    from xgboost_tpu_torch.tree.param import TrainParam
+
+    bins, gpair, rel = hist_inputs(n, F, 256, N, dev, seed)
+    cb = coarse_bin_ids(bins, 256)
+    if B == COARSE_B:
+        return cb, gpair, rel
+    if B != WINDOW + 4:
+        raise ValueError(f"no two-level build has {B} slots")
+    q, inv = H.quantise_int8x2(gpair)
+    hist_c = H.build_hist_int8x2_reference(cb, q, rel, inv, N, COARSE_B)
+    span = choose_refine_window(
+        hist_c, hist_c[:, 0].sum(dim=1),
+        torch.full((F,), 256, dtype=torch.int64, device=dev), TrainParam(),
+        False)
+    span_row = torch.cat([span, torch.zeros_like(span[:1])]).to(
+        torch.int32)[rel.long()]
+    return refine_bin_ids(bins, span_row, 256).contiguous(), gpair, rel
 
 
 def hist_totals_ok(name, out, gpair, rel, N, quantum):
@@ -299,10 +348,8 @@ def time_hist(bins, gpair, rel, N, B, flush):
     F = bins.shape[1]
     seg, active = H._segments(bins, rel, N, B)
     q, _ = H.quantise_int8x2(gpair)
-    hi = (q + 128) >> 8
-    planes = torch.stack([hi[:, 0], hi[:, 1], q[:, 0] - 256 * hi[:, 0],
-                          q[:, 1] - 256 * hi[:, 1]], dim=1)
-    vals = planes[active][:, None, :].expand(-1, F, 4).reshape(-1, 4)
+    vals = H.int8x2_planes(q)[active][:, None, :].expand(-1, F, 4).reshape(
+        -1, 4)
     acc = torch.zeros((N * F * B, 4), dtype=torch.int32, device=bins.device)
     lib_int = event_ms(lambda: acc.index_add_(0, seg, vals), reps=10,
                        flush=flush)
@@ -321,6 +368,204 @@ def time_hist(bins, gpair, rel, N, B, flush):
             event_ms(lambda: plain(*args, N, B), reps=5),
             lib_f32 if name == "hist_f32" else lib_int)
     return out, int(active.sum())
+
+
+# (rows, nodes of the new level, bin slots): K5 at the level boundaries
+# the fused runs give it, and with the missing-slot layout
+K5_CASES = ((1_000_000, 2, 256), (1_000_000, 128, 256),
+            (1_000_000, 64, 257))
+
+
+def level_inputs(n, F, B, N, dev, seed):
+    """A level boundary made on the card from ``seed``: ``hist_inputs``'s
+    bins and gradients; int64 positions at the previous level of N / 2
+    nodes, 10% of them strays above it; that level's splits, 20% of its
+    nodes not splitting."""
+    from xgboost_tpu_torch.ops.partition import LevelSplits
+
+    bins, gpair, _ = hist_inputs(n, F, B, 1, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n_prev = N // 2
+    lo_prev = n_prev - 1
+    pos = lo_prev + torch.randint(0, n_prev, (n,), generator=g, device=dev)
+    stray = torch.randint(0, max(lo_prev, 1), (n,), generator=g, device=dev)
+    pos = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, stray,
+                      pos)
+    cs = torch.rand(n_prev, generator=g, device=dev) < 0.8
+    feat = torch.randint(0, F, (n_prev,), generator=g, device=dev)
+    thr = torch.randint(0, B - 1, (n_prev,), generator=g, device=dev)
+    dleft = torch.rand(n_prev, generator=g, device=dev) < 0.5
+    prev = LevelSplits(lo_prev, torch.where(cs, feat, -1),
+                       torch.where(cs, thr, 0), cs & dleft, cs)
+    return bins, gpair, pos.contiguous(), prev
+
+
+def check_fused(n_rows, N, B, dev, seed):
+    """K5 against its plain version on the same card tensors: positions
+    and coarse histogram equal bit for bit on two launches, and the
+    histogram equal to K2 over the coarse ids of the advanced rows.
+    Returns max |kernel - plain| of the histogram."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.partition import level_rel
+    from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
+
+    bins, gpair, pos, prev = level_inputs(n_rows, 28, B, N, dev, seed)
+    missing = B - 1 if B > 256 else B
+    lo = 2 * prev.lo + 1
+    q, inv = H.quantise_int8x2(gpair)
+    runs = [K.fused_advance_coarse_cuda(bins, q, inv, pos, prev, lo, N,
+                                        missing) for _ in range(2)]
+    want_pos, want = H.fused_advance_coarse_reference(bins, q, inv, pos,
+                                                      prev, lo, N, missing)
+    k2 = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q,
+                            level_rel(want_pos, lo, N), inv, N, COARSE_B)
+    torch.cuda.synchronize()
+    err = max(float((h - want).abs().max()) for _, h in runs)
+    for p, h in runs:
+        if not (torch.equal(p, want_pos) and torch.equal(h, want)):
+            raise AssertionError(f"fused_advance_coarse n={n_rows} N={N} "
+                                 f"B={B}: a launch differs from the plain "
+                                 f"version (max {err})")
+    if not torch.equal(k2, want):
+        raise AssertionError("K5's coarse histogram differs from K2's")
+    moved = int((want_pos != pos).sum())
+    log(f"check fused_advance_coarse n={n_rows} F=28 N={N} B={B} "
+        f"({bins.dtype}): positions ({moved} rows moved) and the coarse "
+        f"histogram equal the plain version bit for bit on two launches, "
+        f"and K2 over the coarse ids")
+    return err
+
+
+def check_fold(n_rows, N, B, dev, seed):
+    """K4's int32 accumulators against the plain ones, their coarse fold
+    against the plain fold, and the folded histogram against K2's direct
+    build over the coarse ids, bit for bit."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
+
+    bins, gpair, rel = hist_inputs(n_rows, 28, B, N, dev, seed)
+    missing = B - 1 if B > 256 else B
+    q, inv = H.quantise_int8x2(gpair)
+    _, acc = K.hist_scan_cuda(bins, q, rel, inv, N, B, with_acc=True)
+    folded = H.coarse_fold(acc, missing)
+    want = H.coarse_fold(H.scan_acc_reference(bins, q, rel, N, B), missing)
+    direct = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q, rel, inv,
+                                N, COARSE_B)
+    torch.cuda.synchronize()
+    if not torch.equal(folded, want):
+        raise AssertionError(f"K4's fold differs from the plain fold "
+                             f"(n={n_rows} N={N} B={B})")
+    if not torch.equal(H.dequant_int8x2(folded, inv), direct):
+        raise AssertionError("K4's folded coarse histogram differs from "
+                             "K2's direct build")
+    log(f"check coarse fold n={n_rows} F=28 N={N} B={B}: K4's fold equals "
+        f"the plain fold and K2's direct coarse build bit for bit")
+
+
+def fused_bound_ms(bins, N, n_active):
+    """(ms, "bytes"|"operations", ops) of K5: bins, q (8 B a row) and the
+    int64 positions read once, the positions written once and the
+    [N, F, 20, 2] f32 histogram written once, over 3.35 TB/s; against one
+    integer add per (row in the new level, feature, plane) over the f32
+    lane rate."""
+    n, F = bins.shape
+    nbytes = n * F * bins.element_size() + n * 8 + 2 * n * 8 + N * F * 20 * 8
+    ops = n_active * F * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", ops
+    return t_ops, "operations", ops
+
+
+def time_fused(n_rows, N, dev, flush, seed):
+    """K5 at a level boundary of N nodes: (ms, plain_ms, index_add_ ms of
+    the coarse planes, bound, active rows). The yardstick is one
+    ``index_add_`` of the four int32 planes at the advanced rows' coarse
+    cells, with cells and values prepared beforehand: the histogram half
+    only, as no PyTorch call advances rows."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.partition import level_rel
+    from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
+
+    bins, gpair, pos, prev = level_inputs(n_rows, 28, 256, N, dev, seed)
+    lo = 2 * prev.lo + 1
+    q, inv = H.quantise_int8x2(gpair)
+    new_pos, _ = H.fused_advance_coarse_reference(bins, q, inv, pos, prev,
+                                                  lo, N, 256)
+    cb = coarse_bin_ids(bins, 256)
+    seg, active = H._segments(cb, level_rel(new_pos, lo, N), N, COARSE_B)
+    vals = H.int8x2_planes(q)[active][:, None, :].expand(
+        -1, 28, 4).reshape(-1, 4)
+    acc = torch.zeros((N * 28 * COARSE_B, 4), dtype=torch.int32, device=dev)
+    lib = event_ms(lambda: acc.index_add_(0, seg, vals), reps=10,
+                   flush=flush)
+    n_active = int(active.sum())
+    del seg, vals, acc, cb
+    ms = event_ms(lambda: K.fused_advance_coarse_cuda(
+        bins, q, inv, pos, prev, lo, N, 256), reps=20, flush=flush)
+    plain = event_ms(lambda: H.fused_advance_coarse_reference(
+        bins, q, inv, pos, prev, lo, N, 256), reps=5)
+    return ms, plain, lib, fused_bound_ms(bins, N, n_active), n_active
+
+
+def saved_bytes(bst):
+    """``save_raw`` bytes with the ``hist_method`` the booster records set
+    to one value, so that models of different schedules compare."""
+    bst.set_param({"hist_method": "scan"})
+    return bytes(bst.save_raw("ubj"))
+
+
+def seconds_per_round(params, dtr):
+    """Six ``update`` calls between device syncs on a new booster (host
+    clock); returns (the booster, all six times, the median of rounds
+    1-5)."""
+    import xgboost_tpu_torch as xt
+
+    timer = xt.Booster(params)
+    per_round = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.update(dtr, i)
+        torch.cuda.synchronize()
+        per_round.append(time.perf_counter() - t0)
+    return timer, per_round, float(np.median(per_round[1:]))
+
+
+def profile_rounds(label, timer, dtr, top=12):
+    """Three more ``update`` rounds of ``timer`` (after its six timed ones)
+    under ``torch.profiler``, timed on the host clock: the device's busy
+    time from the kernel rows (an operator's row counts the kernels it
+    launched a second time), its idle share, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(6, 9):
+            timer.update(dtr, i)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    log(f"profile of 3 {label} rounds: {wall_prof * 1e3:.3f} ms on the host "
+        f"clock (profiler on), device busy {dev_ms:.3f} ms, device idle "
+        f"{(1 - dev_ms / (wall_prof * 1e3)) * 100:.2f}% of those rounds; "
+        f"kernels by device time:")
+    for e in rows[:top]:
+        log(f"  {e.key[:70]:70s} n={e.count:5d} device "
+            f"{e.self_device_time_total / 1e3:.3f} ms")
 
 
 def higgs_like(n, F, seed):
@@ -368,6 +613,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import xgboost_tpu_torch as xt
     from xgboost_tpu_torch.ops.cuda import build
+    from xgboost_tpu_torch.ops.cuda import hist as K
     from xgboost_tpu_torch.ops.cuda import walk as cuda_walk
     from xgboost_tpu_torch.ops.walk import walk_packed_reference
     from xgboost_tpu_torch.serve import Server
@@ -522,6 +768,21 @@ def main() -> int:
             hist_errs[k] = max(hist_errs.get(k, 0.0), e)
         del bins, gpair, rel
 
+    for i, (n_rows, N, B) in enumerate(TWO_LEVEL_CASES):
+        ids, gpair, rel = two_level_inputs(n_rows, F, N, B, dev, seed=90 + i)
+        kind = "coarse" if B == 20 else "refine"
+        for k, e in check_hist(ids, gpair, rel, N, B,
+                               f"{kind} ids n={n_rows} N={N} B={B}").items():
+            hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+        del ids, gpair, rel
+
+    # -------------------- K5 and K4's coarse fold against their plain versions
+    hist_errs["fused_advance_coarse"] = max(
+        check_fused(n_rows, N, B, dev, seed=60 + i)
+        for i, (n_rows, N, B) in enumerate(K5_CASES))
+    check_fold(1_000_000, 128, 256, dev, seed=70)
+    check_fold(1_000_000, 64, 257, dev, seed=71)
+
     # -------------------------------------- main path: training, depth 8
     X, y = higgs_like(1_100_000, F, seed=0)
     dtr = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
@@ -536,9 +797,11 @@ def main() -> int:
         evals_result=res, verbose_eval=5))
     t_train = time.perf_counter() - t0
     if train_counts["hist_scan"] != 8 * rounds or \
-            train_counts["hist_int8x2"] != 0 or train_counts["hist_f32"] != 0:
+            train_counts["hist_int8x2"] != 0 or \
+            train_counts["hist_f32"] != 0 or \
+            train_counts["fused_advance_coarse"] != 0:
         raise AssertionError(f"training launched {train_counts}, expected "
-                             f"K4 8 times a round, K2 and K3 never")
+                             f"K4 8 times a round, K2, K3 and K5 never")
     if train_counts["walk_packed"] < rounds:
         raise AssertionError("the held-out evaluation did not walk the "
                              "trees through K1")
@@ -562,45 +825,11 @@ def main() -> int:
     # seconds per round: update() between two syncs, on the same matrix;
     # then three more rounds under torch.profiler, timed the same way, for
     # the device's busy and idle shares of those rounds
-    timer = xt.Booster(params)
-    per_round = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        timer.update(dtr, i)
-        torch.cuda.synchronize()
-        per_round.append(time.perf_counter() - t0)
+    timer, per_round, auto_s = seconds_per_round(params, dtr)
     log(f"seconds per round (update + sync, host clock): "
         f"{['%.6f' % t for t in per_round]}; median of rounds 1-5 "
-        f"{float(np.median(per_round[1:])):.6f} s")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(6, 9):
-            timer.update(dtr, i)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    # device time: the kernel rows only (an operator's row counts the
-    # kernels it launched a second time)
-    from torch.autograd import DeviceType
-
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)),
-                  key=lambda e: -e.self_device_time_total)
-    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    if dev_ms <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    log(f"profile of 3 rounds: {wall_prof * 1e3:.3f} ms on the host clock "
-        f"(profiler on), device busy {dev_ms:.3f} ms, device idle "
-        f"{(1 - dev_ms / (wall_prof * 1e3)) * 100:.2f}% of those rounds; "
-        f"kernels by device time:")
-    for e in rows[:12]:
-        log(f"  {e.key[:70]:70s} n={e.count:5d} device "
-            f"{e.self_device_time_total / 1e3:.3f} ms")
+        f"{auto_s:.6f} s")
+    profile_rounds("auto", timer, dtr)
 
     # ------------------------------------- main path: training, depth 10
     d10 = xt.DMatrix(X[:200_000], label=y[:200_000])
@@ -628,27 +857,114 @@ def main() -> int:
         raise AssertionError(f"train logloss did not fall: {ll50}")
     log(f"train 50,000 rows: logloss {ll50[0]} -> {ll50[-1]}")
 
+    # ------------- main path: the two-level schedules at the HIGGS shape
+    # launches a round at depth 8: K2 for every coarse and refine build
+    # (coarse); K5 at the 7 level boundaries, K2 for the root's coarse
+    # histogram and the 8 refines (fused); K4 with its fold at every level
+    # (scan)
+    two_rounds = 10
+    per_round_k = {"coarse": {"hist_int8x2": 16},
+                   "fused": {"fused_advance_coarse": 7, "hist_int8x2": 9},
+                   "scan": {"hist_scan": 8}}
+    auto_ll10 = res["test"]["logloss"][two_rounds - 1]
+    auto_auc10 = auc(y[1_000_000:], bst.predict(
+        dte, iteration_range=(0, two_rounds)))
+    log(f"auto after {two_rounds} rounds: held-out logloss {auto_ll10}, "
+        f"AUC {auto_auc10:.6f}; {auto_s:.6f} s a round")
+    two_level, two_counts, raws = {}, {}, {}
+    for method, want in per_round_k.items():
+        p2 = dict(params, hist_method=method)
+        r2 = {}
+        b2, c2 = train_launches(f"train {method}", lambda p2=p2, r2=r2:
+                                xt.train(p2, dtr, two_rounds,
+                                         evals=[(dtr, "train"),
+                                                (dte, "test")],
+                                         evals_result=r2, verbose_eval=False))
+        want = {k: want.get(k, 0) * two_rounds for k in K.LAUNCHES}
+        if {k: c2[k] for k in K.LAUNCHES} != want:
+            raise AssertionError(f"{method} launched {c2}, expected {want}")
+        ll2 = r2["train"]["logloss"]
+        if not ll2[-1] < ll2[0]:
+            raise AssertionError(f"{method}: train logloss did not fall")
+        p_te2 = b2.predict(dte)
+        auc2 = auc(y[1_000_000:], p_te2)
+        if not (np.isfinite(p_te2).all() and auc2 > 0.6):
+            raise AssertionError(f"{method}: held-out AUC {auc2}")
+        timer2, _, s2 = seconds_per_round(p2, dtr)
+        profile_rounds(method, timer2, dtr, top=8)
+        two_level[method] = (s2, r2["test"]["logloss"][-1], auc2)
+        two_counts[method] = c2
+        raws[method] = saved_bytes(b2)
+        log(f"train {method}: {two_rounds} rounds of depth 8 on 1,000,000 x "
+            f"{F}; train logloss {ll2[0]} -> {ll2[-1]}, held-out logloss "
+            f"{two_level[method][1]}, AUC {auc2:.6f}; {s2:.6f} s a round "
+            f"(median of rounds 1-5, host clock; auto {auto_s:.6f})")
+    if not raws["coarse"] == raws["fused"] == raws["scan"]:
+        raise AssertionError("coarse, fused and scan saved different models")
+    log("coarse, fused and scan saved the same model bytes")
+
+    # ------------------ main path: fused and scan at depth 10 on 200k rows
+    deep2 = {}
+    for method, want in (("fused", {"fused_advance_coarse": 7,
+                                    "hist_int8x2": 9, "hist_f32": 4}),
+                         ("scan", {"hist_scan": 8, "hist_f32": 4})):
+        b10, c10 = train_launches(f"train {method} depth 10", lambda m=method:
+                                  xt.train(dict(params, max_depth=10,
+                                                hist_method=m), d10, 2,
+                                           verbose_eval=False))
+        want = {k: want.get(k, 0) * 2 for k in K.LAUNCHES}
+        if {k: c10[k] for k in K.LAUNCHES} != want:
+            raise AssertionError(f"{method} depth 10 launched {c10}, "
+                                 f"expected {want}")
+        if max(t.max_depth() for t in b10.gbm.trees) != 10:
+            raise AssertionError(f"{method}: no tree reached depth 10")
+        deep2[method] = (c10, saved_bytes(b10))
+    if deep2["fused"][1] != deep2["scan"][1]:
+        raise AssertionError("fused and scan at depth 10 saved different "
+                             "models")
+    log("fused and scan at depth 10 saved the same model bytes")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
     # each kernel at the deepest level its main path gives it, and at the
     # root; K2 also at 1M rows, beside K4 on the same inputs
+    # and at the two-level schedules' refine builds (36 slots: K2 at the
+    # HIGGS run's root and deepest level, K3 at depth 10's deepest) and the
+    # root's coarse build (20 slots)
     hist_times = {}
-    for i, (n_rows, N) in enumerate(((1_000_000, 1), (1_000_000, 128),
-                                     (200_000, 256), (200_000, 512),
-                                     (50_000, 1), (50_000, 128))):
-        bins, gpair, rel = hist_inputs(n_rows, F, 256, N, dev, seed=40 + i)
-        t, n_active = time_hist(bins, gpair, rel, N, 256, flush)
+    for i, (n_rows, N, B) in enumerate((
+            (1_000_000, 1, 256), (1_000_000, 128, 256), (200_000, 256, 256),
+            (200_000, 512, 256), (50_000, 1, 256), (50_000, 128, 256),
+            (1_000_000, 1, 20), (1_000_000, 1, 36), (1_000_000, 128, 36),
+            (200_000, 512, 36))):
+        if B == 256:
+            bins, gpair, rel = hist_inputs(n_rows, F, B, N, dev,
+                                           seed=40 + i)
+        else:
+            bins, gpair, rel = two_level_inputs(n_rows, F, N, B, dev,
+                                                seed=40 + i)
+        t, n_active = time_hist(bins, gpair, rel, N, B, flush)
         for name, (ms, plain_ms, lib_ms) in t.items():
             planes = 2 if name == "hist_f32" else 4
-            bound = hist_bound_ms(bins, N, 256, n_active, planes)
-            hist_times[(name, n_rows, N)] = (ms, plain_ms, lib_ms, bound)
-            log(f"hist {name} n={n_rows} N={N} B=256 x {F} u8 (L2 flushed): "
+            bound = hist_bound_ms(bins, N, B, n_active, planes)
+            hist_times[(name, n_rows, N, B)] = (ms, plain_ms, lib_ms, bound)
+            log(f"hist {name} n={n_rows} N={N} B={B} x {F} u8 (L2 flushed): "
                 f"{ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ "
                 f"{lib_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
                 f"{bound[2]} integer adds), kernel at "
                 f"{bound[0] / ms * 100:.4f}% of it")
         del bins, gpair, rel
+    fused_times = {}
+    for i, N in enumerate((2, 8, 32, 128)):
+        ms, plain_ms, lib_ms, bound, n_act = time_fused(1_000_000, N, dev,
+                                                        flush, seed=80 + i)
+        fused_times[N] = (ms, plain_ms, bound)
+        log(f"fused_advance_coarse n=1000000 N={N} x {F} u8 (L2 flushed): "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ of the "
+            f"coarse planes {lib_ms:.6f} ms, bound {bound[0]:.6f} ms "
+            f"({bound[1]}; {bound[2]} integer adds), kernel at "
+            f"{bound[0] / ms * 100:.4f}% of it")
     times = {}
     for n in (1, 512, n_big):
         X = Xd[:n].contiguous()
@@ -676,13 +992,16 @@ def main() -> int:
             f"kernel at {bounds[n][0] / times[n] * 100:.4f}% of it")
     torch.cuda.synchronize()
 
+    # launches: every main-path run of the kernel
+    runs = [train_counts, deep_counts, small_counts,
+            *two_counts.values(), *(c for c, _ in deep2.values())]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
         "source": "xgboost_tpu_torch/csrc/walk.cu",
         "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
         "launches": (launches_predict + launches_serve
-                     + train_counts["walk_packed"]),
+                     + sum(c["walk_packed"] for c in runs)),
         "max_abs_err": max(errs),
         "ms": times[n_big],
         "plain_ms": plain[n_big],
@@ -690,13 +1009,14 @@ def main() -> int:
         "bound_by": bounds[n_big][1],
         "library_ms": None,
     }]
-    for name, replaces, shape, launches in (
-            ("hist_int8x2", ":621", (50_000, 128),
-             small_counts["hist_int8x2"]),
-            ("hist_f32", ":634", (200_000, 512), deep_counts["hist_f32"]),
-            ("hist_scan", ":478", (1_000_000, 128),
-             train_counts["hist_scan"] + deep_counts["hist_scan"])):
+    # times at the shape that takes most of each kernel's launches (K2:
+    # the refine builds of coarse/fused)
+    for name, replaces, shape in (
+            ("hist_int8x2", ":621", (1_000_000, 128, 36)),
+            ("hist_f32", ":634", (200_000, 512, 256)),
+            ("hist_scan", ":478", (1_000_000, 128, 256))):
         ms, plain_ms, lib_ms, bound = hist_times[(name, *shape)]
+        launches = sum(c[name] for c in runs)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "xgboost_tpu_torch/csrc/hist.cu",
@@ -704,6 +1024,15 @@ def main() -> int:
             "launches": launches, "max_abs_err": hist_errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms})
+    ms, plain_ms, bound = fused_times[128]
+    kernels.append({
+        "name": "fused_advance_coarse", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/hist.cu",
+        "replaces": "xgboost_tpu/ops/pallas/histogram.py:344",
+        "launches": sum(c["fused_advance_coarse"] for c in runs),
+        "max_abs_err": hist_errs["fused_advance_coarse"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

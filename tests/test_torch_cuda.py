@@ -1,4 +1,5 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card, and
+training on the card against training on the CPU.
 
 Marked ``cuda``: skips where ``torch.cuda.is_available()`` is False. It
 imports no JAX, so it also runs on a GPU machine without it:
@@ -113,3 +114,121 @@ def test_training_on_the_card_equals_training_on_the_cpu():
                                    atol=1e-6)
         np.testing.assert_allclose(gpu.predict(xt.DMatrix(X[:n])),
                                    cpu.predict(xt.DMatrix(X[:n])), atol=1e-3)
+
+
+def _level_inputs(n, F, B, n_prev, dev, seed):
+    """A level boundary: bins (u8, or u16 with the missing slot B - 1 for
+    B = 257), gpair, int64 positions at the previous level of ``n_prev``
+    nodes with strays above it, and that level's splits (20% of its nodes
+    do not split)."""
+    from xgboost_tpu_torch.ops.partition import LevelSplits
+
+    bins, g, _ = _hist_inputs(n, F, B, 1, dev, seed)
+    rng = np.random.RandomState(seed + 1)
+    lo_prev = n_prev - 1
+    pos = rng.randint(lo_prev, lo_prev + n_prev, n)
+    pos[rng.rand(n) < 0.1] = rng.randint(0, max(lo_prev, 1))   # strays
+    cs = rng.rand(n_prev) < 0.8
+    prev = LevelSplits(
+        lo_prev,
+        torch.from_numpy(np.where(cs, rng.randint(0, F, n_prev), -1)).to(dev),
+        torch.from_numpy(np.where(cs, rng.randint(0, B - 1, n_prev),
+                                  0)).to(dev),
+        torch.from_numpy(cs & (rng.rand(n_prev) < 0.5)).to(dev),
+        torch.from_numpy(cs).to(dev))
+    return bins, g, torch.from_numpy(pos).to(dev), prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prev,B", [(1, 256), (8, 256), (64, 256),
+                                      (32, 257)])
+def test_fused_advance_coarse_matches_plain_version_on_the_card(n_prev, B):
+    """K5 against its plain version on the card: positions and coarse
+    histogram equal bit for bit on two launches, and the histogram equal
+    to K2 over the coarse ids of the advanced rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.partition import level_rel
+    from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
+
+    dev = torch.device("cuda")
+    bins, g, pos, prev = _level_inputs(200_003, 28, B, n_prev, dev,
+                                       seed=n_prev + B)
+    lo, N = 2 * n_prev - 1, 2 * n_prev
+    missing = B - 1 if B > 256 else B
+    q, inv = H.quantise_int8x2(g)
+    want_pos, want = H.fused_advance_coarse_reference(
+        bins, q, inv, pos, prev, lo, N, missing)
+    for _ in range(2):
+        got_pos, got = K.fused_advance_coarse_cuda(bins, q, inv, pos, prev,
+                                                   lo, N, missing)
+        torch.cuda.synchronize()
+        assert torch.equal(got_pos, want_pos)
+        assert torch.equal(got, want)
+    k2 = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q,
+                            level_rel(want_pos, lo, N), inv, N, COARSE_B)
+    assert torch.equal(k2, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B", [(1, 256), (128, 256), (64, 257)])
+def test_coarse_fold_matches_plain_version_on_the_card(N, B):
+    """K4's int32 accumulators equal the plain ones, so their fold does;
+    the folded coarse histogram equals K2's direct build over the coarse
+    ids bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
+
+    dev = torch.device("cuda")
+    bins, g, rel = _hist_inputs(200_003, 28, B, N, dev, seed=3 * N + B)
+    missing = B - 1 if B > 256 else B
+    q, inv = H.quantise_int8x2(g)
+    fine, acc = K.hist_scan_cuda(bins, q, rel, inv, N, B, with_acc=True)
+    want = H.scan_acc_reference(bins, q, rel, N, B)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want)
+    assert torch.equal(fine, H.dequant_int8x2(want, inv))
+    folded = H.dequant_int8x2(H.coarse_fold(acc, missing), inv)
+    direct = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q, rel, inv,
+                                N, COARSE_B)
+    assert torch.equal(folded, direct)
+
+
+@pytest.mark.cuda
+def test_two_level_training_on_the_card():
+    """``fused`` on the card equals ``fused`` on the CPU in its first tree
+    (equal gradients, equal integer histograms); on the card ``coarse``,
+    ``fused`` and ``scan`` save the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    rng = np.random.RandomState(6)
+    X = rng.randn(70000, 28).astype(np.float32)
+    y = (X[:, :4].sum(1) + rng.randn(70000) > 0).astype(np.float32)
+    X[rng.rand(70000, 28) < 0.05] = np.nan
+    params = {"objective": "binary:logistic", "max_depth": 6,
+              "base_score": 0.5}
+    raws = []
+    for method in ("coarse", "fused", "scan"):
+        bst = xt.train(dict(params, hist_method=method),
+                       xt.DMatrix(X, label=y), 3, verbose_eval=False)
+        bst.set_param({"hist_method": "scan"})
+        raws.append(bytes(bst.save_raw("ubj")))
+        if method == "fused":
+            gpu = bst
+    assert raws[0] == raws[1] == raws[2]
+    cpu = xt.train(dict(params, hist_method="fused", device="cpu"),
+                   xt.DMatrix(X, label=y), 3, verbose_eval=False)
+    a, b = gpu.gbm.trees[0], cpu.gbm.trees[0]
+    np.testing.assert_array_equal(a.split_feature, b.split_feature)
+    np.testing.assert_array_equal(a.split_bin, b.split_bin)
+    np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(gpu.predict(xt.DMatrix(X)),
+                               cpu.predict(xt.DMatrix(X)), atol=1e-3)

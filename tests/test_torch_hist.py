@@ -275,8 +275,16 @@ def test_hist_method_map():
     assert {resolve_hist_kernel(m, 1000, 4, 256) for m in k3} == {"f32"}
     assert resolve_hist_kernel("auto", 1000, 256, 256) == "f32"
     assert resolve_hist_kernel("auto+nosub", 10 ** 6, 4, 256) == "scan"
-    for m in ("pallas:bf16x2", "pallas:bf16", "scan", "mega", "fused",
-              "coarse", "auto+sub"):
+    # the two-level schedules: coarse and fused build through auto, scan's
+    # fine histogram is K4 at up to 128 nodes within the int32 guard
+    for m in ("coarse", "fused"):
+        for args in ((1000, 4, 256), (10 ** 6, 4, 256), (1000, 256, 256)):
+            assert resolve_hist_kernel(m, *args) == \
+                resolve_hist_kernel("auto", *args)
+    assert resolve_hist_kernel("scan", 1000, 128, 256) == "scan"
+    assert resolve_hist_kernel("scan", 1000, 256, 256) == "f32"
+    assert resolve_hist_kernel("scan", 2 ** 24, 1, 256) == "f32"
+    for m in ("pallas:bf16x2", "pallas:bf16", "mega", "auto+sub"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             resolve_hist_kernel(m, 1000, 4, 256)
     with pytest.raises(ValueError, match="unknown"):

@@ -279,11 +279,13 @@ def compare_forests(jtrees, ttrees, eta, lam=1.0):
     return len(jtrees), [], drift
 
 
-def _train_both(X, y, objective, depth, jax_method, port_method):
+def _train_both(X, y, objective, depth, jax_method, port_method,
+               jax_obj=None):
     params = {"objective": objective, "max_depth": depth, "eta": 0.3,
               "base_score": 0.5}
     jb = xgb.train(dict(params, hist_method=jax_method),
-                   xgb.DMatrix(X, label=y), ROUNDS, verbose_eval=False)
+                   xgb.DMatrix(X, label=y), ROUNDS, verbose_eval=False,
+                   obj=jax_obj)
     tb = xt.train(dict(params, hist_method=port_method, device="cpu"),
                   xt.DMatrix(X, label=y), ROUNDS, verbose_eval=False)
     return jb, tb
@@ -304,13 +306,24 @@ SLICE_CASES = [
                          "clean_min", SLICE_CASES)
 def test_slice_matches_jax(higgs, objective, depth, jax_method, port_method,
                            full_min, clean_min, monkeypatch):
+    # XTPU_BATCH_ROUNDS=1: one fused round program per config instead of
+    # the 8- and 2-round scans (bit-identical models, one compile fewer)
     monkeypatch.setenv("XTPU_BATCH_ROUNDS", "1")
     X, y, y_reg = higgs
     labels = y if objective == "binary:logistic" else y_reg
-    # XTPU_BATCH_ROUNDS=1: one fused round program per config instead of
-    # the 8- and 2-round scans (bit-identical models, one compile fewer)
+    check_slice_against_jax(X, labels, objective, depth, jax_method,
+                            port_method, full_min, clean_min)
+
+
+def check_slice_against_jax(X, labels, objective, depth, jax_method,
+                            port_method, full_min, clean_min, jax_obj=None):
+    """Both packages train ``ROUNDS`` rounds; trees compared end to end
+    (at least ``full_min`` equal in full) and round by round (at least
+    ``clean_min`` rounds without a near tie), leaves and predictions at
+    rtol 1e-5 plus ``LEAF_ATOL``. ``jax_obj``: a custom objective for the
+    JAX package's side."""
     jb, tb = _train_both(X, labels, objective, depth, jax_method,
-                         port_method)
+                         port_method, jax_obj)
     assert tb.num_boosted_rounds() == jb.num_boosted_rounds() == ROUNDS
     full, ties, drift = compare_forests(jb.gbm.trees, tb.gbm.trees,
                                         eta=0.3)

@@ -3,7 +3,7 @@
 Training is the JAX package's ``core.py`` general round loop on one
 device: ``Booster.update`` computes the gradient from a margin cache,
 ``GBTree.do_boost`` grows the round's tree (histograms through kernels
-K2, K3, K4), and the cache moves by the tree's per-row delta. ``train`` runs
+K2 to K5), and the cache moves by the tree's per-row delta. ``train`` runs
 the rounds and evaluates ``evals`` after each one. ``predict`` and the
 eval sets other than the training matrix go through the packed walk
 (``serve/packed.py`` + ``ops/walk.py``, kernel K1). Everything runs on

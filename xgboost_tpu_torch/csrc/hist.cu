@@ -1,11 +1,13 @@
-// Gradient histograms for Hopper (sm_90a): kernels K2, K3 and K4.
+// Gradient histograms for Hopper (sm_90a): kernels K2, K3, K4 and K5.
 //
 // K2 (`xtt_hist_int8x2`) replaces the TPU kernel
 // `xgboost_tpu/ops/pallas/histogram.py _make_int8_kernel` (pallas_call at
 // :621 in `build_hist_pallas`). K3 (`xtt_hist_f32`) replaces the f32
 // variant of `_make_kernel` (pallas_call at :634). K4 (`xtt_hist_scan`)
-// replaces `_make_scan_kernel` (pallas_call at :478 in `scan_hist_pallas`);
-// it is described with its code below. All three compute
+// replaces `_make_scan_kernel` (pallas_call at :478 in `scan_hist_pallas`)
+// and K5 (`xtt_fused_advance_coarse`) replaces `_make_fused_kernel`
+// (pallas_call at :344 in `fused_advance_coarse_pallas`); both are
+// described with their code below. K2, K3 and K4 compute
 // [n_nodes, F, B, 2] (g, h) sums by (node, feature, bin) over rows whose
 // rel[row] < n_nodes, the function of the JAX package's
 // `ops/histogram.py build_hist`.
@@ -493,6 +495,136 @@ cudaError_t launch_scan_accumulate(const void* bins, const int* q,
   return cudaGetLastError();
 }
 
+// ---- K5: the level advance fused with the next level's coarse histogram --
+//
+// One pass over the rows at a level boundary of the `fused` schedule. For
+// each row: if it sits at a node of the previous level that split, read
+// its bin at that node's split feature and move it to 2p + 1 + go_right
+// (the missing bin goes the default way, otherwise right when bin > thr);
+// write the new position; if that lies in the new level, add the row's four
+// int8x2 planes at every feature's coarse id (bin >> shift, the missing bin
+// on slot B - 1) to the [N, F, B, 4] int32 table. One dequantisation as
+// K2's. The caller gives the geometry (ops/split.py: shift 4, B = 20).
+// Rows above the previous level, and rows at its nodes that did not split,
+// stay put and fall outside the new level.
+//
+// The TPU kernel adds 2048-row blocks of each coarse bin's sums in f32, so
+// it equals this exact-int32 function only while those sums stay below
+// 2^24 quanta; K5 is K2's function over the coarse ids at every size.
+//
+// Design: K2's tiling at 20 bins (a 96 KB tile holds 10 nodes x 28
+// features), so the levels of up to 128 nodes take shared-memory tiles
+// and past K2's tile limit the rows add straight into the device table.
+// Measured once on an H100 at 1M x 28 (PERF.md): the tiles beat global
+// atomics at every level width of the path, 0.147 against 4.14 ms at
+// N = 2 and 1.03 against 1.24 ms at N = 128, so K2's limit stays. Each
+// tile's blocks recompute the advance of their rows (one payload lookup
+// in shared memory and one bin read a row); only the first tile writes
+// the positions. What bounds it: the least traffic is ~52 MB at 1M x 28
+// (bins, q and the positions read, the positions and the table written),
+// ~16 us; the scatter of 4 integer adds per (row, feature) into 20 slots
+// contends more than K2's into 256, and at 128 nodes each of the 13 tiles
+// re-reads every row's position and split bin.
+
+constexpr int kFusedMaxPrev = 64;   // the TPU's gate: levels of <= 128 nodes
+
+template <typename BinT>
+__global__ void __launch_bounds__(kThreads, 2) fused_accumulate(
+    const BinT* __restrict__ bins, const long long* __restrict__ pos_in,
+    const int* __restrict__ payload, int n_prev, long long lo_prev,
+    long long lo, int missing_bin, int B, int shift, Int8x2 pol, long long n,
+    int F, int N, int nc, int fc, int n_ftiles, long long rows_per_split,
+    bool use_smem, long long* __restrict__ pos_out, int* __restrict__ acc) {
+  constexpr int P = Int8x2::kPlanes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* tile = reinterpret_cast<int*>(smem_raw);
+  // the previous level's payload: feature, threshold, default_left,
+  // can_split, n_prev entries each
+  __shared__ int split[4 * kFusedMaxPrev];
+
+  const int t = blockIdx.y;
+  const int n0 = (t / n_ftiles) * nc;
+  const int f0 = (t % n_ftiles) * fc;
+  const int ncur = nc < N - n0 ? nc : N - n0;
+  const int fcur = fc < F - f0 ? fc : F - f0;
+  const int tile_cells = nc * fc * B * P;
+
+  for (int i = threadIdx.x; i < 4 * n_prev; i += blockDim.x)
+    split[i] = payload[i];
+  if (use_smem)
+    for (int i = threadIdx.x; i < tile_cells; i += blockDim.x) tile[i] = 0;
+  __syncthreads();
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_split;
+  const long long r1 = r0 + rows_per_split < n ? r0 + rows_per_split : n;
+  for (long long row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
+    long long p = pos_in[row];
+    const long long j = p - lo_prev;
+    if (j >= 0 && j < n_prev && split[3 * n_prev + j] != 0) {
+      const int b = static_cast<int>(bins[row * F + split[j]]);
+      const bool right = b == missing_bin ? split[2 * n_prev + j] == 0
+                                          : b > split[n_prev + j];
+      p = 2 * p + 1 + (right ? 1 : 0);
+    }
+    if (t == 0) pos_out[row] = p;
+    const long long node = p - lo - n0;
+    if (node < 0 || node >= ncur) continue;   // other tile, or not in level
+    int v[P];
+    pol.load(row, v);
+    const BinT* brow = bins + row * F + f0;
+    for (int k = 0; k < fcur; ++k) {
+      const int b = static_cast<int>(brow[k]);
+      const int c = b == missing_bin ? B - 1 : b >> shift;
+      int* cell = use_smem
+          ? tile + ((node * fc + k) * B + c) * P
+          : acc + ((static_cast<long long>(n0 + node) * F + f0 + k) * B + c)
+                * P;
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        if (v[q] != 0) atomicAdd(cell + q, v[q]);
+    }
+  }
+
+  if (use_smem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile_cells; i += blockDim.x) {
+      const int v = tile[i];
+      if (v == 0) continue;
+      const int q = i % P;
+      const int cell = i / P;
+      const int c = cell % B;
+      const int rest = cell / B;
+      const int k = rest % fc;
+      const int node = rest / fc;
+      if (node >= ncur || k >= fcur) continue;
+      atomicAdd(acc + ((static_cast<long long>(n0 + node) * F + f0 + k) * B
+                       + c) * P + q, v);
+    }
+  }
+}
+
+template <typename BinT>
+cudaError_t launch_fused(const void* bins, const long long* pos_in,
+                         const int* payload, int n_prev, long long lo_prev,
+                         long long lo, int missing_bin, int B, int shift,
+                         const int* q, long long n, int F, int N, int num_sms,
+                         long long* pos_out, int* acc, cudaStream_t stream) {
+  const Plan p = make_plan(n, F, B, N, num_sms, Int8x2::kMaxTiles);
+  if (p.n_tiles > 65535) return cudaErrorInvalidConfiguration;
+  auto kernel = fused_accumulate<BinT>;
+  const int smem = p.smem ? p.nc * p.fc * B * kCellBytes : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.splits, p.n_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const BinT*>(bins), pos_in, payload, n_prev, lo_prev, lo,
+      missing_bin, B, shift, Int8x2{reinterpret_cast<const int2*>(q)}, n, F,
+      N, p.nc,
+      p.fc, p.n_ftiles, p.rows_per_split, p.smem, pos_out, acc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bins [n, F] (1, 2 or 4 bytes per id), rel [n] int32, q [n, 2] int32,
@@ -583,6 +715,54 @@ extern "C" int xtt_hist_scan(const void* bins, int bin_bytes, const int* rel,
       case 4:
         err = launch_scan_accumulate<int32_t>(bins, q, perm, offsets, n, F, B,
                                               N, num_sms, acc, stream);
+        break;
+      default:
+        return cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  dequant_int8x2<<<grid_for(cells), 256, 0, stream>>>(
+      reinterpret_cast<const int4*>(acc), inv, cells,
+      reinterpret_cast<float2*>(out));
+  return cudaGetLastError();
+}
+
+// K5: bins [n, F] (1, 2 or 4 bytes per id), pos_in [n] int64 heap ids,
+// payload [4, n_prev] int32 (feature >= 0, threshold bin, default_left,
+// can_split) of the previous level starting at heap node lo_prev, q [n, 2]
+// int32, inv [2] f32; the new level has N nodes from heap node lo. The
+// coarse geometry comes from the caller (ops/split.py): B coarse slots,
+// coarse id bin >> shift, the missing bin on slot B - 1. Writes pos_out
+// [n] int64 and out [N, F, B, 2] f32; acc [N*F*B*4] int32 scratch.
+// Returns a cudaError_t (0 on success). Launches on `stream` and does not
+// synchronise.
+extern "C" int xtt_fused_advance_coarse(
+    const void* bins, int bin_bytes, const long long* pos_in,
+    const int* payload, int n_prev, long long lo_prev, long long lo,
+    int missing_bin, int B, int shift, const int* q, const float* inv,
+    long long n, int F, int N, int num_sms, int* acc, long long* pos_out,
+    float* out, cudaStream_t stream) {
+  if (n_prev < 1 || n_prev > kFusedMaxPrev) return cudaErrorInvalidValue;
+  if (B < 2 || shift < 0 || shift > 15) return cudaErrorInvalidValue;
+  const long long cells = static_cast<long long>(N) * F * B;
+  cudaError_t err = cudaMemsetAsync(acc, 0, cells * 4 * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  if (n > 0) {
+    switch (bin_bytes) {
+      case 1:
+        err = launch_fused<uint8_t>(bins, pos_in, payload, n_prev, lo_prev, lo,
+                                    missing_bin, B, shift, q, n, F, N,
+                                    num_sms, pos_out, acc, stream);
+        break;
+      case 2:
+        err = launch_fused<uint16_t>(bins, pos_in, payload, n_prev, lo_prev,
+                                     lo, missing_bin, B, shift, q, n, F, N,
+                                     num_sms, pos_out, acc, stream);
+        break;
+      case 4:
+        err = launch_fused<int32_t>(bins, pos_in, payload, n_prev, lo_prev, lo,
+                                    missing_bin, B, shift, q, n, F, N,
+                                    num_sms, pos_out, acc, stream);
         break;
       default:
         return cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""Histogram building: ``build_hist``'s dispatch and the plain versions of
-kernels K2, K3 and K4.
+"""Histogram building: ``build_hist``'s dispatch, the two-level
+schedules' level sweeps, and the plain versions of kernels K2, K3, K4
+and K5.
 
 Output layout, as in the JAX package's ``ops/histogram.py``: dense
 ``[n_nodes, n_features, max_nbins, 2]`` (g, h) sums over the padded bin
@@ -37,9 +38,25 @@ on every device: the sorted build (K4) where the JAX package promotes
 ``auto`` to its scan schedule (``tree/grow.py auto_selects_coarse``: at
 least 65,536 rows and 128 to 256 real bins) and the level has at most 128
 nodes; K2 at the other levels of at most 128 nodes; K3 above 128 nodes,
-where the TPU builds in f32 too. The port keeps the exact split search
-at every level; the TPU's scan schedule also narrows the search to a
-coarse-then-refined window (ROADMAP A.6), which the port does not do.
+where the TPU builds in f32 too. ``auto`` keeps the exact split search
+over every bin. The TPU's schedule also narrows the search to a
+coarse-then-refined window; in the port that search is opt-in, as the
+``hist_method`` values ``coarse``, ``fused`` and ``scan``
+(``tree/grow.py``), which build their histograms here:
+
+- ``coarse``: every level's 20-slot coarse histogram and 36-slot refine
+  histogram through ``auto`` (K2, or K3 above 128 nodes);
+- ``fused``: the same, but at each level boundary of at most 128 nodes
+  one pass (kernel K5, :func:`fused_advance_coarse`) advances the rows
+  below the previous level's splits and builds the new level's coarse
+  histogram;
+- ``scan``: one sorted build (K4) of each level's fine histogram, with
+  the coarse histogram folded from K4's int32 accumulators
+  (:func:`coarse_fold`) and the refine histogram sliced from the fine
+  one; above 128 nodes K3 builds the fine and the coarse histogram.
+
+All three sum the same integers (or, through K3, the same int64 fixed
+point), so they grow the same trees bit for bit.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel in
 ``csrc/hist.cu`` runs (``ops/cuda/hist.py``) or the call raises.
@@ -51,6 +68,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .partition import LevelSplits, advance_level, level_rel
+from .split import COARSE_B, COARSE_SPAN, coarse_bin_ids
 
 # int32 accumulation of the int8x2 planes is exact while n * 128 < 2^31
 # (the JAX package's guard, ops/histogram.py:356): |hi|, |lo| <= 128
@@ -88,11 +108,16 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     (K3).
 
     ``auto`` follows the TPU's choice on every device (module docstring);
-    the int32 overflow guard sends it to K3. ``prehot`` above the guard
-    falls back to the f32 build as the JAX package's does; ``pallas`` /
-    ``pallas:int8x2`` there refuse rather than wrap."""
+    the int32 overflow guard sends it to K3. ``coarse`` and ``fused``
+    build every histogram of a level through ``auto``. ``scan`` builds a
+    level's fine histogram with K4 at up to 128 nodes within the guard,
+    with K3 elsewhere. ``prehot`` above the guard falls back to the f32
+    build as the JAX package's does; ``pallas`` / ``pallas:int8x2`` there
+    refuse rather than wrap."""
     base = method[:-len("+nosub")] if method.endswith("+nosub") else method
-    if base == "auto":
+    if base == "scan":
+        return "scan" if n_nodes <= 128 and int8x2_fits(n_rows) else "f32"
+    if base in ("auto", "coarse", "fused"):
         if n_nodes > 128 or not int8x2_fits(n_rows):
             return "f32"
         if auto_selects_scan(n_rows, max_nbins, has_missing):
@@ -113,11 +138,10 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
         raise NotImplementedError(
             f"hist_method={method!r} is not in the PyTorch port yet "
             "(K3's bf16 variants, ROADMAP B.2)")
-    if base in ("scan", "coarse", "fused", "mega") or method.endswith("+sub"):
+    if base == "mega" or method.endswith("+sub"):
         raise NotImplementedError(
             f"hist_method={method!r} is not in the PyTorch port yet "
-            "(the two-level schedules and sibling subtraction, "
-            "ROADMAP A.6)")
+            "(the mega schedule and sibling subtraction, ROADMAP A.6)")
     raise ValueError(f"unknown hist method {method!r}")
 
 
@@ -154,23 +178,46 @@ def _segments(bins: torch.Tensor, rel: torch.Tensor, n_nodes: int,
     return seg[active].reshape(-1), active
 
 
-def build_hist_int8x2_reference(bins: torch.Tensor, q: torch.Tensor,
-                                rel: torch.Tensor, inv: torch.Tensor,
-                                n_nodes: int, max_nbins: int) -> torch.Tensor:
-    """Plain version of K2: exact int32 sums of the hi/lo planes by
-    ``index_add_``, then the dequantisation of ``:282-285``."""
-    n, F = bins.shape
-    seg, active = _segments(bins, rel, n_nodes, max_nbins)
+def int8x2_planes(q: torch.Tensor) -> torch.Tensor:
+    """q [n, 2] int32 -> the four byte planes [n, 4] int32 (g_hi, h_hi,
+    g_lo, h_lo): ``hi = (q + 128) >> 8`` (round to nearest),
+    ``lo = q - 256 * hi`` in [-128, 127]."""
     hi = (q + 128) >> 8
     lo = q - hi * 256
-    planes = torch.stack([hi[:, 0], hi[:, 1], lo[:, 0], lo[:, 1]], dim=1)
-    vals = planes[active][:, None, :].expand(-1, F, 4).reshape(-1, 4)
+    return torch.stack([hi[:, 0], hi[:, 1], lo[:, 0], lo[:, 1]], dim=1)
+
+
+def int8x2_acc_reference(bins: torch.Tensor, q: torch.Tensor,
+                         rel: torch.Tensor, n_nodes: int,
+                         max_nbins: int) -> torch.Tensor:
+    """Exact int32 sums of the four planes by (node, feature, bin):
+    [n_nodes, F, max_nbins, 4] int32, by ``index_add_``."""
+    n, F = bins.shape
+    seg, active = _segments(bins, rel, n_nodes, max_nbins)
+    vals = int8x2_planes(q)[active][:, None, :].expand(-1, F, 4).reshape(
+        -1, 4)
     acc = torch.zeros((n_nodes * F * max_nbins, 4), dtype=torch.int32,
                       device=bins.device)
     acc.index_add_(0, seg, vals)
-    out = acc[:, :2].to(torch.float32) * 256.0 + acc[:, 2:].to(torch.float32)
-    out = out * inv[None, :]
-    return out.reshape(n_nodes, F, max_nbins, 2)
+    return acc.reshape(n_nodes, F, max_nbins, 4)
+
+
+def dequant_int8x2(acc: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """[..., 4] int32 plane sums -> [..., 2] f32:
+    ``(f32(sum hi) * 256 + f32(sum lo)) * inv`` (``:282-285``), one
+    rounding for the add and one for the product, as the kernels do."""
+    out = (acc[..., :2].to(torch.float32) * 256.0
+           + acc[..., 2:].to(torch.float32))
+    return out * inv
+
+
+def build_hist_int8x2_reference(bins: torch.Tensor, q: torch.Tensor,
+                                rel: torch.Tensor, inv: torch.Tensor,
+                                n_nodes: int, max_nbins: int) -> torch.Tensor:
+    """Plain version of K2: exact int32 sums of the hi/lo planes, then
+    the dequantisation."""
+    return dequant_int8x2(
+        int8x2_acc_reference(bins, q, rel, n_nodes, max_nbins), inv)
 
 
 # ---- K4: int8x2 over rows sorted by node ------------------------------------
@@ -191,19 +238,51 @@ def counting_sort_by_node(rel: torch.Tensor, n_nodes: int
     return perm, offsets
 
 
-def build_hist_scan_reference(bins: torch.Tensor, q: torch.Tensor,
-                              rel: torch.Tensor, inv: torch.Tensor,
-                              n_nodes: int, max_nbins: int) -> torch.Tensor:
-    """Plain version of K4: the rows counting-sorted by node, then K2's
-    plain version over the sorted rows. Integer sums: equal to
-    ``build_hist_int8x2_reference`` on the unsorted rows bit for bit."""
+def scan_acc_reference(bins: torch.Tensor, q: torch.Tensor,
+                       rel: torch.Tensor, n_nodes: int,
+                       max_nbins: int) -> torch.Tensor:
+    """K4's int32 accumulators [n_nodes, F, max_nbins, 4]: the rows
+    counting-sorted by node, then K2's plain sums over the sorted rows.
+    Integer sums: equal to ``int8x2_acc_reference`` on the unsorted rows."""
     perm, offsets = counting_sort_by_node(rel, n_nodes)
     node = torch.repeat_interleave(
         torch.arange(n_nodes, device=rel.device), offsets.diff())
     # int32 ids: PyTorch's CUDA gather has no uint16
-    return build_hist_int8x2_reference(bins.to(torch.int32)[perm], q[perm],
-                                       node.to(torch.int32), inv, n_nodes,
-                                       max_nbins)
+    return int8x2_acc_reference(bins.to(torch.int32)[perm], q[perm],
+                                node.to(torch.int32), n_nodes, max_nbins)
+
+
+def build_hist_scan_reference(bins: torch.Tensor, q: torch.Tensor,
+                              rel: torch.Tensor, inv: torch.Tensor,
+                              n_nodes: int, max_nbins: int) -> torch.Tensor:
+    """Plain version of K4: ``scan_acc_reference`` dequantised; equal to
+    ``build_hist_int8x2_reference`` bit for bit."""
+    return dequant_int8x2(scan_acc_reference(bins, q, rel, n_nodes,
+                                             max_nbins), inv)
+
+
+def coarse_fold(acc: torch.Tensor, missing_bin: int) -> torch.Tensor:
+    """K4's ``with_coarse`` fold (``ops/pallas/histogram.py:493-513``) in
+    the integer domain: fine plane sums [N, F, B, 4] int32 -> coarse ones
+    [N, F, COARSE_B, 4] int32. The missing slot is zeroed, a prefix sum
+    over bins taken, and ``COARSE_SPAN``-wide slice differences give the
+    16 real slots; 3 zero pad slots follow and the missing mass goes to
+    slot ``COARSE_B - 1`` (zero without a missing slot, ``missing_bin >=
+    B``). These are the integers of a direct build over
+    ``coarse_bin_ids``, so dequantised with the same ``inv`` they equal it
+    bit for bit."""
+    N, F, B, _ = acc.shape
+    miss = torch.zeros((N, F, 1, 4), dtype=torch.int64, device=acc.device)
+    accz = acc.to(torch.int64, copy=True)
+    if missing_bin < B:
+        miss = accz[:, :, missing_bin:missing_bin + 1].clone()
+        accz[:, :, missing_bin] = 0
+    cz = torch.cat([torch.zeros_like(miss), torch.cumsum(accz, dim=2)], dim=2)
+    edges = (torch.arange(17, device=acc.device) * COARSE_SPAN).clamp(max=B)
+    real = cz[:, :, edges[1:]] - cz[:, :, edges[:-1]]       # [N, F, 16, 4]
+    pad = torch.zeros((N, F, COARSE_B - 17, 4), dtype=torch.int64,
+                      device=acc.device)
+    return torch.cat([real, pad, miss], dim=2).to(torch.int32)
 
 
 # ---- K3: f32 through exact int64 fixed point -------------------------------
@@ -281,3 +360,94 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
 
     return hist_f32_cuda(bins, gpair.contiguous(), rel, qscale, inv, n_nodes,
                          max_nbins)
+
+
+# ---- K5 and the two-level level sweeps --------------------------------------
+
+def fused_advance_coarse_reference(bins: torch.Tensor, q: torch.Tensor,
+                                   inv: torch.Tensor, positions: torch.Tensor,
+                                   prev: LevelSplits, lo: int, n_level: int,
+                                   missing_bin: int):
+    """Plain version of K5: the rows advanced below ``prev``'s splits
+    (``ops/partition.py advance_level``), then K2's plain version over
+    ``coarse_bin_ids`` at the new level of ``n_level`` nodes from heap
+    node ``lo`` -> (positions [n] int64, [n_level, F, COARSE_B, 2] f32)."""
+    positions = advance_level(bins, positions, prev, missing_bin)
+    hist = build_hist_int8x2_reference(
+        coarse_bin_ids(bins, missing_bin), q, level_rel(positions, lo,
+                                                        n_level),
+        inv, n_level, COARSE_B)
+    return positions, hist
+
+
+def fused_advance_coarse(bins: torch.Tensor, gpair: torch.Tensor,
+                         positions: torch.Tensor, prev: LevelSplits, lo: int,
+                         n_level: int, missing_bin: int):
+    """One sweep at a level boundary of ``fused``: advance the rows below
+    the previous level's splits ``prev`` and build the new level's coarse
+    histogram -> (positions [n] int64, [n_level, F, COARSE_B, 2] f32).
+
+    K5 runs where the TPU runs its fused kernel: levels of at most 128
+    nodes (``prev`` at most 64) and the int8x2 guard
+    ``n * 128 < 2^31``. (The TPU also bounds the kernel's f32 table by its
+    VMEM, ``F * COARSE_B * 2 * N * 4 <= 8 MiB``; that is a limit of the
+    TPU's memory, not of the function, and K5 has no such limit.)
+    Elsewhere the plain advance runs, then ``build_hist`` over the coarse
+    ids (K3 above 128 nodes). Both give the same integers
+    where both run."""
+    n = bins.shape[0]
+    if n_level <= 128 and prev.feat.shape[0] <= 64 and int8x2_fits(n):
+        q, inv = quantise_int8x2(gpair)
+        if bins.device.type == "cpu":
+            return fused_advance_coarse_reference(
+                bins, q, inv, positions, prev, lo, n_level, missing_bin)
+        from .cuda.hist import fused_advance_coarse_cuda
+
+        return fused_advance_coarse_cuda(bins, q, inv, positions, prev, lo,
+                                         n_level, missing_bin)
+    positions = advance_level(bins, positions, prev, missing_bin)
+    hist = build_hist(coarse_bin_ids(bins, missing_bin), gpair,
+                      level_rel(positions, lo, n_level), n_level, COARSE_B)
+    return positions, hist
+
+
+def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
+                     rel: torch.Tensor, n_level: int, max_nbins: int,
+                     missing_bin: int):
+    """One level of ``scan`` -> (fine [N, F, max_nbins, 2], coarse
+    [N, F, COARSE_B, 2]). At most 128 nodes within the int8x2 guard: one
+    K4 build, the coarse histogram folded from its int32 accumulators
+    (:func:`coarse_fold`). Elsewhere, as the TPU's f32 branch: K3 builds
+    the fine histogram and, over ``coarse_bin_ids``, the coarse one. (The
+    JAX package's opt-in bf16 accumulator, ``XTPU_SCAN_ACC=bf16``, is not
+    bit-compatible and not ported: ROADMAP A.6.)"""
+    if resolve_hist_kernel("scan", bins.shape[0], n_level,
+                           max_nbins) == "scan":
+        q, inv = quantise_int8x2(gpair)
+        rel = rel.to(torch.int32).contiguous()
+        if bins.device.type == "cpu":
+            acc = scan_acc_reference(bins, q, rel, n_level, max_nbins)
+            fine = dequant_int8x2(acc, inv)
+        else:
+            from .cuda.hist import hist_scan_cuda
+
+            fine, acc = hist_scan_cuda(bins, q, rel, inv, n_level,
+                                       max_nbins, with_acc=True)
+        return fine, dequant_int8x2(coarse_fold(acc, missing_bin), inv)
+    fine = build_hist(bins, gpair, rel, n_level, max_nbins, method="segment")
+    coarse = build_hist(coarse_bin_ids(bins, missing_bin), gpair, rel,
+                        n_level, COARSE_B, method="segment")
+    return fine, coarse
+
+
+def scan_advance_level(bins: torch.Tensor, gpair: torch.Tensor,
+                       positions: torch.Tensor, prev: LevelSplits, lo: int,
+                       n_level: int, missing_bin: int, max_nbins: int):
+    """A level boundary of ``scan``: the plain advance below ``prev``'s
+    splits, then :func:`scan_level_hists` of the new level ->
+    (positions, fine, coarse)."""
+    positions = advance_level(bins, positions, prev, missing_bin)
+    fine, coarse = scan_level_hists(bins, gpair,
+                                    level_rel(positions, lo, n_level),
+                                    n_level, max_nbins, missing_bin)
+    return positions, fine, coarse

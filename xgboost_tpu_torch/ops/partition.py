@@ -12,7 +12,22 @@ with ROADMAP A.5.5.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class LevelSplits(NamedTuple):
+    """The splits of one level of ``n`` nodes starting at heap node ``lo``
+    (the JAX package's ``"dense"`` payload of ``fused_advance_coarse``):
+    feature (-1 where the node did not split), threshold bin, default
+    direction and whether the node split, [n] each."""
+
+    lo: int
+    feat: torch.Tensor
+    thr: torch.Tensor
+    dleft: torch.Tensor
+    can_split: torch.Tensor
 
 
 def gather_bins(bins: torch.Tensor, rows: torch.Tensor,
@@ -24,6 +39,22 @@ def gather_bins(bins: torch.Tensor, rows: torch.Tensor,
     return b & 0xFFFF if bins.dtype == torch.uint16 else b
 
 
+def _route(bins, positions, feat, thr, dleft, splitting, missing_bin):
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    b = gather_bins(bins, rows, torch.clamp(feat, min=0))
+    go_right = torch.where(b == missing_bin, ~dleft, b > thr)
+    return torch.where(splitting, 2 * positions + 1 + go_right.long(),
+                       positions)
+
+
+def level_rel(positions: torch.Tensor, lo: int, n_level: int) -> torch.Tensor:
+    """[n] int32 position relative to the level of ``n_level`` nodes
+    starting at heap node ``lo``; ``n_level`` outside it (inactive)."""
+    in_level = (positions >= lo) & (positions < lo + n_level)
+    return torch.where(in_level, positions - lo,
+                       torch.full_like(positions, n_level)).to(torch.int32)
+
+
 def update_positions(bins: torch.Tensor, positions: torch.Tensor,
                      split_feature: torch.Tensor, split_bin: torch.Tensor,
                      default_left: torch.Tensor, is_split: torch.Tensor,
@@ -31,12 +62,22 @@ def update_positions(bins: torch.Tensor, positions: torch.Tensor,
     """bins [n, F]; positions [n] int64 heap ids; split_* / is_split
     [max_nodes] (is_split True where the node was just expanded) -> new
     positions [n]. Rows at nodes that did not split stay put."""
-    feat = split_feature[positions]
-    thr = split_bin[positions]
-    dleft = default_left[positions]
-    splitting = is_split[positions]
-    rows = torch.arange(positions.shape[0], device=positions.device)
-    b = gather_bins(bins, rows, torch.clamp(feat, min=0))
-    go_right = torch.where(b == missing_bin, ~dleft, b > thr)
-    return torch.where(splitting, 2 * positions + 1 + go_right.long(),
-                       positions)
+    return _route(bins, positions, split_feature[positions],
+                  split_bin[positions], default_left[positions],
+                  is_split[positions], missing_bin)
+
+
+def advance_level(bins: torch.Tensor, positions: torch.Tensor,
+                  prev: LevelSplits, missing_bin: int) -> torch.Tensor:
+    """The same advance below one level's splits given as a per-level
+    payload (the plain advance of ``fused_advance_coarse``): rows outside
+    the level, and rows at its nodes that did not split, stay put. Equal
+    to the JAX package's ``advance_positions_level`` and, over the whole
+    heap, ``update_positions``."""
+    n_prev = prev.feat.shape[0]
+    in_prev = (positions >= prev.lo) & (positions < prev.lo + n_prev)
+    rel = torch.where(in_prev, positions - prev.lo,
+                      torch.zeros_like(positions))
+    return _route(bins, positions, prev.feat[rel], prev.thr[rel],
+                  prev.dleft[rel], in_prev & prev.can_split[rel],
+                  missing_bin)

@@ -10,6 +10,13 @@ lowest flat index. The cumulative sum runs in another order than XLA's,
 so gains agree with the JAX package's to f32 rounding, not bit for bit.
 Categorical features, monotone constraints and feature masks wait with
 ROADMAP A.5.4-A.5.5 and A.5.2.
+
+Also the pieces of the two-level coarse -> refine search (the JAX
+package's ``ops/split.py:286-424``, ``hist_method`` ``coarse``, ``fused``
+and ``scan``): a 20-slot coarse histogram over ``bins >> 4``, a refine
+window of two coarse spans per (node, feature) chosen from the coarse
+boundary gains, and an exact ``evaluate_splits`` over a synthetic layout
+that keeps every coarse boundary and every in-window fine boundary.
 """
 
 from __future__ import annotations
@@ -72,3 +79,116 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
     return SplitResult(gain=best_gain, feature=f_idx, bin=b_idx,
                        default_left=d_idx.bool(), left_sum=best_left,
                        right_sum=parent_sum - best_left)
+
+
+# ---- two-level coarse -> refine search --------------------------------------
+
+COARSE_SPAN = 16   # fine bins per coarse bin
+COARSE_B = 20      # coarse slots: 16 real + 3 pad + missing at 19
+WINDOW = 32        # refined fine bins: the 2 spans around the boundary
+SYN_B = 46         # synthetic slots: 14 lower + 32 fine + the upper ones
+
+
+def coarse_bin_ids(bins: torch.Tensor, missing_bin: int) -> torch.Tensor:
+    """Coarse slot of every element, uint8: ``bins >> 4``, the missing bin
+    on slot ``COARSE_B - 1``. Without a missing slot ``missing_bin`` is the
+    out-of-range sentinel and never matches."""
+    b = bins.to(torch.int32)
+    shift = COARSE_SPAN.bit_length() - 1
+    return torch.where(b == missing_bin, COARSE_B - 1, b >> shift).to(
+        torch.uint8)
+
+
+def refine_bin_ids(bins: torch.Tensor, span: torch.Tensor,
+                   missing_bin: int) -> torch.Tensor:
+    """Refine slot of every element, uint8, given each element's window
+    start ``span`` (in coarse units, broadcast against ``bins``): fine bins
+    in the window land on [0, WINDOW); the rest, and the missing bin, on the
+    discarded pad slot ``WINDOW + 3`` of a ``WINDOW + 4``-slot build."""
+    b = bins.to(torch.int32)
+    rb = b - COARSE_SPAN * span.to(torch.int32)
+    ok = (rb >= 0) & (rb < WINDOW) & (b != missing_bin)
+    return torch.where(ok, rb, WINDOW + 3).to(torch.uint8)
+
+
+def refine_from_fine(fine: torch.Tensor, window: torch.Tensor,
+                     missing_bin: int) -> torch.Tensor:
+    """The refine histogram [N, F, WINDOW, 2] as a slice of the fine one
+    [N, F, B, 2]: slot w of (node, feature) with window start c is fine
+    bin ``16c + w``, the same rows as the direct ``refine_bin_ids`` build,
+    so with integer sums the two are equal bit for bit. Slots past the
+    last bin and the missing bin are zero, as the direct build drops
+    them."""
+    N, F, B, _ = fine.shape
+    idx = (COARSE_SPAN * window.to(torch.int64)[:, :, None]
+           + torch.arange(WINDOW, device=fine.device)[None, None, :])
+    out = torch.gather(fine, 2, idx.clamp(0, B - 1)[..., None].expand(
+        N, F, WINDOW, 2))
+    ok = (idx < B) & (idx != missing_bin)
+    return torch.where(ok[..., None], out, torch.zeros_like(out))
+
+
+def choose_refine_window(hist_c: torch.Tensor, parent_sum: torch.Tensor,
+                         n_real_bins: torch.Tensor, param: TrainParam,
+                         has_missing: bool) -> torch.Tensor:
+    """[N, F] int64 window start w (the window covers coarse spans w and
+    w + 1): the best coarse boundary over both missing directions under
+    the min_child_weight test, first maximum on ties, clamped per feature
+    so that the window stays on the feature's real coarse bins."""
+    present = hist_c[:, :, :COARSE_SPAN, :].movedim(3, 2)   # [N, F, 2, 16]
+    cum = torch.cumsum(present, dim=3)
+    if has_missing:
+        miss = hist_c[:, :, COARSE_B - 1, :]                # [N, F, 2]
+        left = torch.stack([cum, cum + miss[:, :, :, None]], dim=2)
+    else:
+        left = cum[:, :, None]                  # [N, F, dirs, 2, 16]
+    right = parent_sum[:, None, None, :, None] - left
+    lg, lh = left[:, :, :, 0, :], left[:, :, :, 1, :]
+    rg, rh = right[:, :, :, 0, :], right[:, :, :, 1, :]
+    g = calc_gain(lg, lh, param) + calc_gain(rg, rh, param)
+    mcw = _f32(param.min_child_weight)
+    g = torch.where((lh >= mcw) & (rh >= mcw), g,
+                    torch.full_like(g, float("-inf")))
+    best = torch.argmax(g.amax(dim=2), dim=2)               # [N, F]
+    c_cnt = torch.div(n_real_bins + COARSE_SPAN - 1, COARSE_SPAN,
+                      rounding_mode="floor")
+    w_max = torch.clamp(c_cnt - 2, min=0).clamp(max=14)     # [F]
+    return torch.minimum(best, w_max[None, :])
+
+
+def assemble_two_level(hist_c: torch.Tensor, hist_r: torch.Tensor,
+                       window: torch.Tensor, n_real_bins: torch.Tensor,
+                       has_missing: bool):
+    """-> (synthetic histogram [N, F, SYN_B (+1), 2], its real-slot count
+    [F] int64). Slots [0, w) hold the coarse bins below the window,
+    [w, w + 32) the window's fine bins, [w + 32, 46) the coarse bins above
+    it, and the last slot the missing mass: cumulative sums over this
+    order score every coarse and every in-window fine boundary exactly."""
+    N, F = window.shape
+    s = torch.arange(SYN_B, device=hist_c.device)[None, None, :]
+    w = window.to(torch.int64)[:, :, None]
+    in_fine = (s >= w) & (s < w + WINDOW)
+    c_idx = torch.where(s < w, s, s - 30).clamp(0, COARSE_SPAN - 1)
+    f_idx = (s - w).clamp(0, WINDOW - 1)
+
+    def take(h, idx):
+        return torch.gather(h, 2, idx[..., None].expand(N, F, SYN_B, 2))
+
+    syn = torch.where(in_fine[..., None], take(hist_r, f_idx),
+                      take(hist_c, c_idx))
+    if has_missing:
+        syn = torch.cat([syn, hist_c[:, :, COARSE_B - 1:, :]], dim=2)
+    c_cnt = torch.div(n_real_bins + COARSE_SPAN - 1, COARSE_SPAN,
+                      rounding_mode="floor")
+    return syn, torch.clamp(c_cnt + 30, 1, SYN_B)
+
+
+def decode_two_level_bin(slot: torch.Tensor,
+                         window_sel: torch.Tensor) -> torch.Tensor:
+    """Synthetic slot -> fine split bin, given the window start of each
+    node's winning feature."""
+    lower = 16 * slot + 15
+    fine = 16 * window_sel + (slot - window_sel)
+    upper = 16 * (slot - 30) + 15
+    return torch.where(slot < window_sel, lower,
+                       torch.where(slot < window_sel + WINDOW, fine, upper))

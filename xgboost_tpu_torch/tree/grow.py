@@ -11,11 +11,21 @@ level loop. Per-row margin deltas are the leaf values at each row's
 final node, which is what the JAX package's level-by-level accumulation
 adds up to.
 
-Not ported here (each raises where it is asked for): the coarse / fused
-/ scan / mega schedules and sibling subtraction (ROADMAP A.6), sampling
-(A.5.2), monotone and interaction constraints (A.5.4), categorical
-splits (A.5.5), ``max_leaves`` truncation and lossguide (A.5.6), meshes
-and column split (A.8).
+The two-level schedules of ``_grow`` are ported as the explicit
+``hist_method`` values ``coarse``, ``fused`` and ``scan`` (``auto`` keeps
+the exact search): each level scores 16 coarse slots, refines a window
+of 32 fine bins per (node, feature) and evaluates splits exactly on the
+synthetic layout of ``ops/split.py assemble_two_level``. ``fused`` and
+``scan`` defer each level's advance to the next level's sweep
+(``ops/histogram.py fused_advance_coarse`` / ``scan_advance_level``) and
+advance below the last level after the loop. The three build the same
+integer histograms and grow the same trees.
+
+Not ported here (each raises where it is asked for): the mega schedule
+and sibling subtraction (ROADMAP A.6), sampling (A.5.2), monotone and
+interaction constraints (A.5.4), categorical splits (A.5.5),
+``max_leaves`` truncation and lossguide (A.5.6), meshes and column split
+(A.8).
 """
 
 from __future__ import annotations
@@ -26,9 +36,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.histogram import build_hist, resolve_hist_kernel
-from ..ops.partition import update_positions
-from ..ops.split import evaluate_splits
+from ..ops.histogram import (build_hist, fused_advance_coarse,
+                             resolve_hist_kernel, scan_advance_level,
+                             scan_level_hists)
+from ..ops.partition import (LevelSplits, advance_level, level_rel,
+                             update_positions)
+from ..ops.split import (COARSE_B, WINDOW, assemble_two_level,
+                         choose_refine_window, coarse_bin_ids,
+                         decode_two_level_bin, evaluate_splits,
+                         refine_bin_ids, refine_from_fine)
 from .param import TrainParam, _f32, calc_weight
 from .tree import TreeModel
 
@@ -51,6 +67,22 @@ class GrownTree(NamedTuple):
     base_weight: torch.Tensor    # [max_nodes] f32 node weight * eta
 
 
+def two_level_schedule(hist_method: str, max_nbins: int,
+                       has_missing: bool):
+    """``"coarse"``, ``"fused"`` or ``"scan"`` when ``hist_method`` asks
+    for a two-level schedule, else None. Like the JAX package's, they
+    take at most 256 real bins."""
+    base = hist_method[:-len("+nosub")] if hist_method.endswith("+nosub") \
+        else hist_method
+    if base not in ("coarse", "fused", "scan"):
+        return None
+    if max_nbins > 256 + int(has_missing):
+        raise NotImplementedError(
+            f"hist_method={hist_method!r} supports numeric features and "
+            "max_bin <= 256")
+    return base
+
+
 def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
@@ -66,6 +98,9 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     for depth in range(max_depth):      # refuse an unported method up front
         resolve_hist_kernel(hist_method, n, 2 ** depth, max_nbins,
                             has_missing)
+    schedule = two_level_schedule(hist_method, max_nbins, has_missing)
+    cb = (coarse_bin_ids(bins, missing_bin)
+          if schedule in ("coarse", "fused") else None)
 
     split_feature = torch.full((max_nodes,), -1, dtype=torch.int64,
                                device=dev)
@@ -79,18 +114,56 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     node_sum[0] = gpair.sum(dim=0)
     positions = torch.zeros((n,), dtype=torch.int64, device=dev)
     min_gain = _f32(max(param.gamma, _EPS))
+    pending = None      # fused/scan: the splits whose advance is deferred
 
     for depth in range(max_depth):
         lo = 2 ** depth - 1
         n_level = 2 ** depth
         hi = lo + n_level
-        in_level = (positions >= lo) & (positions < hi)
-        rel = torch.where(in_level, positions - lo,
-                          torch.full_like(positions, n_level))
-        hist = build_hist(bins, gpair, rel, n_level, max_nbins,
-                          method=hist_method, has_missing=has_missing)
-        res = evaluate_splits(hist, node_sum[lo:hi], n_real_bins, param,
+        hist_c = hist_f = None
+        if pending is not None:
+            # the boundary sweep: advance below the previous level's
+            # splits and build this level's histograms in one pass
+            if schedule == "scan":
+                positions, hist_f, hist_c = scan_advance_level(
+                    bins, gpair, positions, pending, lo, n_level,
+                    missing_bin, max_nbins)
+            else:
+                positions, hist_c = fused_advance_coarse(
+                    bins, gpair, positions, pending, lo, n_level,
+                    missing_bin)
+            pending = None
+        rel = level_rel(positions, lo, n_level)
+        n_real_eval = n_real_bins
+        if schedule is None:
+            hist = build_hist(bins, gpair, rel, n_level, max_nbins,
+                              method=hist_method, has_missing=has_missing)
+        else:
+            if schedule == "scan" and hist_f is None:
+                hist_f, hist_c = scan_level_hists(
+                    bins, gpair, rel, n_level, max_nbins, missing_bin)
+            if hist_c is None:
+                hist_c = build_hist(cb, gpair, rel, n_level, COARSE_B)
+            span = choose_refine_window(hist_c, node_sum[lo:hi],
+                                        n_real_bins, param, has_missing)
+            if schedule == "scan":
+                hist_r = refine_from_fine(hist_f, span, missing_bin)
+            else:
+                # each row's window is its node's (rows outside the level
+                # take window 0 and add nothing)
+                span_row = torch.cat([span, torch.zeros_like(span[:1])]).to(
+                    torch.int32)[rel.long()]
+                rb = refine_bin_ids(bins, span_row, missing_bin)
+                hist_r = build_hist(rb, gpair, rel, n_level,
+                                    WINDOW + 4)[:, :, :WINDOW]
+            hist, n_real_eval = assemble_two_level(
+                hist_c, hist_r, span, n_real_bins, has_missing)
+        res = evaluate_splits(hist, node_sum[lo:hi], n_real_eval, param,
                               has_missing=has_missing)
+        if schedule is not None:
+            span_sel = torch.gather(span, 1,
+                                    res.feature.clamp(min=0)[:, None])[:, 0]
+            res = res._replace(bin=decode_two_level_bin(res.bin, span_sel))
         # a node exists at this level iff its parent split; it expands
         # unless the best gain fails the gamma / kRtEps test
         can_split = (active[lo:hi] & (res.gain > min_gain)
@@ -110,11 +183,18 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
             [torch.where(can_split[:, None], res.left_sum, zero2),
              torch.where(can_split[:, None], res.right_sum, zero2)],
             dim=1).reshape(-1, 2)
-        is_split = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
-        is_split[lo:hi] = can_split
-        positions = update_positions(bins, positions, split_feature,
-                                     split_bin, default_left, is_split,
-                                     missing_bin)
+        if schedule in ("fused", "scan"):
+            pending = LevelSplits(lo, split_feature[lo:hi], split_bin[lo:hi],
+                                  default_left[lo:hi], can_split)
+        else:
+            is_split = torch.zeros((max_nodes,), dtype=torch.bool,
+                                   device=dev)
+            is_split[lo:hi] = can_split
+            positions = update_positions(bins, positions, split_feature,
+                                         split_bin, default_left, is_split,
+                                         missing_bin)
+    if pending is not None:     # below the last level: the advance alone
+        positions = advance_level(bins, positions, pending, missing_bin)
 
     w = calc_weight(node_sum[:, 0], node_sum[:, 1], param) * _f32(param.eta)
     zero = torch.zeros_like(w)
