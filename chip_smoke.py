@@ -10,7 +10,8 @@ histogram), K3 (f32 histogram, exact int64 fixed point), K4 (int8x2
 histogram over rows sorted by node) and its coarse fold, and K5 (the
 level advance fused with the next level's coarse histogram), all but K1
 bit for bit and twice each, at the shapes the training runs below give
-them: K2, K3 and K4 over 256/257 bin slots and over the two-level
+them: K2, K3 and K4 over 256/257 bin slots, also at skewed levels (one
+node with 55% of the rows, three empty), and over the two-level
 schedules' 20-slot coarse ids and 36-slot refine ids (a window of 32
 fine bins chosen per node and feature, the rest on slot 35). Then it
 drives the port's main paths, each with the launch counts set to 0 just
@@ -28,7 +29,8 @@ before and read just after:
   fall, held-out AUC pass 0.6, and a ``save_raw`` round trip predict the
   same bits;
 - training at ``max_depth`` 10 on 200,000 rows for 3 rounds, so that the
-  levels of 256 and 512 nodes run K3 through ``hist_method="auto"``;
+  levels of 256 and 512 nodes run K3 through ``hist_method="auto"``, and
+  K3's share of the device time of such rounds;
 - training at ``max_depth`` 8 on 50,000 rows for 5 rounds, below the
   sorted kernel's 65,536 rows, so that every level runs K2;
 - the two-level schedules on the HIGGS-shape training: ``hist_method``
@@ -182,13 +184,17 @@ def auc(y: np.ndarray, p: np.ndarray) -> float:
                  / (n_pos * n_neg))
 
 
-# (rows, nodes, bin slots): the levels the training runs below give the
-# kernels, and the missing-slot layout (257 slots, u16). K3 runs at every
-# case, K2 and K4 at the cases of at most 128 nodes.
-HIST_CASES = ((1_000_000, 1, 256), (1_000_000, 4, 256),
-              (1_000_000, 16, 256), (1_000_000, 128, 256),
-              (1_000_000, 64, 257), (200_000, 256, 256),
-              (200_000, 512, 256), (50_000, 1, 256), (50_000, 128, 256))
+# (rows, nodes, bin slots, skewed): the levels the training runs below
+# give the kernels, and the missing-slot layout (257 slots, u16). K3 runs
+# at every case, K2 and K4 at the cases of at most 128 nodes. Skewed: one
+# node holds 55% of the rows and three are empty, as in real trees, so
+# that K2 and K3 split a node's run over several blocks.
+HIST_CASES = ((1_000_000, 1, 256, False), (1_000_000, 4, 256, False),
+              (1_000_000, 16, 256, False), (1_000_000, 128, 256, False),
+              (1_000_000, 64, 257, False), (200_000, 256, 256, False),
+              (200_000, 512, 256, False), (50_000, 1, 256, False),
+              (50_000, 128, 256, False), (1_000_000, 128, 256, True),
+              (200_000, 512, 256, True))
 
 
 # (rows, nodes, id slots): the builds of the two-level schedules that go
@@ -201,10 +207,11 @@ TWO_LEVEL_CASES = ((1_000_000, 1, 20), (1_000_000, 1, 36),
                    (200_000, 512, 36))
 
 
-def hist_inputs(n, F, B, N, dev, seed):
+def hist_inputs(n, F, B, N, dev, seed, skew=False):
     """bins [n, F] (uint8, or uint16 with a missing slot at B-1 for
     B = 257), gpair [n, 2] f32 and rel [n] int32 with 10% inactive rows,
-    made on the card from ``seed``."""
+    made on the card from ``seed``. ``skew``: node 1 holds 55% of the
+    rows and nodes 0, 2 and 5 none."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if B > 256:
         bins = torch.randint(0, B - 1, (n, F), generator=g, device=dev,
@@ -219,6 +226,11 @@ def hist_inputs(n, F, B, N, dev, seed):
                          torch.rand(n, generator=g, device=dev)], dim=1)
     rel = torch.randint(0, N, (n,), generator=g, device=dev,
                         dtype=torch.int32)
+    if skew:
+        rel = torch.where((rel == 0) | (rel == 2) | (rel == 5),
+                          torch.full_like(rel, 3 % N), rel)
+        rel = torch.where(torch.rand(n, generator=g, device=dev) < 0.55,
+                          torch.full_like(rel, 1 % N), rel)
     rel = torch.where(torch.rand(n, generator=g, device=dev) < 0.1,
                       torch.full_like(rel, N), rel)
     return bins.contiguous(), gpair.contiguous(), rel.contiguous()
@@ -269,7 +281,8 @@ def hist_totals_ok(name, out, gpair, rel, N, quantum):
     err = (tot - exact[:, None, :]).abs()
     if bool((err > bound).any()):
         raise AssertionError(f"{name}: totals off by {float(err.max())}")
-    return float((err / bound).max())
+    # an empty node's bound is 0 and so is its error
+    return float(torch.where(bound > 0, err / bound, err).max())
 
 
 def hist_kernels(N):
@@ -566,6 +579,7 @@ def profile_rounds(label, timer, dtr, top=12):
     for e in rows[:top]:
         log(f"  {e.key[:70]:70s} n={e.count:5d} device "
             f"{e.self_device_time_total / 1e3:.3f} ms")
+    return dev_ms, rows
 
 
 def higgs_like(n, F, seed):
@@ -761,10 +775,11 @@ def main() -> int:
     # ------------------------------ K2 / K3 / K4 against their plain versions
     F = 28
     hist_errs = {}
-    for i, (n_rows, N, B) in enumerate(HIST_CASES):
-        bins, gpair, rel = hist_inputs(n_rows, F, B, N, dev, seed=10 + i)
-        for k, e in check_hist(bins, gpair, rel, N, B,
-                               f"n={n_rows} N={N} B={B}").items():
+    for i, (n_rows, N, B, skew) in enumerate(HIST_CASES):
+        bins, gpair, rel = hist_inputs(n_rows, F, B, N, dev, seed=10 + i,
+                                       skew=skew)
+        label = f"n={n_rows} N={N} B={B}{' skewed' if skew else ''}"
+        for k, e in check_hist(bins, gpair, rel, N, B, label).items():
             hist_errs[k] = max(hist_errs.get(k, 0.0), e)
         del bins, gpair, rel
 
@@ -841,6 +856,15 @@ def main() -> int:
                              "8 and K3 2 times a round")
     if max(t.max_depth() for t in deep.gbm.trees) != 10:
         raise AssertionError("the depth-10 trees did not reach depth 10")
+    # K3's share of a depth-10 round: its own kernels (the Fixed64
+    # instantiations; the sort kernels it shares with K4 are not counted)
+    timer10, _, s10 = seconds_per_round(dict(params, max_depth=10), d10)
+    dev10, rows10 = profile_rounds("auto depth 10", timer10, d10, top=8)
+    k3_ms = sum(e.self_device_time_total for e in rows10
+                if "Fixed64" in e.key) / 1e3
+    log(f"depth 10 on 200,000 rows: {s10:.6f} s a round (median of rounds "
+        f"1-5, host clock); K3's kernels {k3_ms:.3f} ms of {dev10:.3f} ms "
+        f"device busy over 3 rounds ({k3_ms / dev10 * 100:.2f}%)")
 
     # ------------------------------- main path: training below 65,536 rows
     d50 = xt.DMatrix(X[:50_000], label=y[:50_000])
@@ -937,7 +961,7 @@ def main() -> int:
             (1_000_000, 1, 256), (1_000_000, 128, 256), (200_000, 256, 256),
             (200_000, 512, 256), (50_000, 1, 256), (50_000, 128, 256),
             (1_000_000, 1, 20), (1_000_000, 1, 36), (1_000_000, 128, 36),
-            (200_000, 512, 36))):
+            (200_000, 512, 36), (1_000_000, 128, 20))):
         if B == 256:
             bins, gpair, rel = hist_inputs(n_rows, F, B, N, dev,
                                            seed=40 + i)

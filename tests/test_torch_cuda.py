@@ -62,9 +62,9 @@ def _hist_inputs(n, F, B, N, dev, seed):
                                  (64, 257), (4, 17)])
 def test_hist_kernels_match_plain_versions_on_the_card(N, B):
     """K2, K3 and K4 against their plain versions on the card: equal bit
-    for bit, on two launches. N = 1 and 4 (K3) and N = 16 (K2) take the
-    shared-memory tiles, N = 128 the global atomics, N = 4 at 17 bins a
-    tile of several nodes."""
+    for bit, on two launches. For K2 and K3, N = 1 and N = 4 at 17 bins
+    fit one tile (rows in their own order, split over many blocks); the
+    others take one node a tile over rows sorted by node."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from xgboost_tpu_torch.ops import histogram as H
@@ -232,3 +232,73 @@ def test_two_level_training_on_the_card():
                                atol=1e-6)
     np.testing.assert_allclose(gpu.predict(xt.DMatrix(X)),
                                cpu.predict(xt.DMatrix(X)), atol=1e-3)
+
+
+def _level(n, N, B, seed, skew):
+    """Rows at a level of N nodes over B slots (u8 ids, or u16 with a
+    missing slot at 257). ``skew``: node 1 holds 55% of the rows and nodes
+    0, 2 and 5 none; at 20 and 36 slots, 85% of the ids on the last slot
+    (the missing slot, or the refine ids' slot for rows outside their
+    window)."""
+    dev = torch.device("cuda")
+    bins, g, rel = _hist_inputs(n, 28, B, N, dev, seed)
+    if skew:
+        rng = np.random.RandomState(seed + 1)
+        r = rel.cpu().numpy()
+        r[np.isin(r, (0, 2, 5)) & (r < N)] = 3 % N
+        r[rng.rand(n) < 0.55] = 1 % N
+        rel = torch.from_numpy(r).to(dev)
+        if B in (20, 36):
+            b = bins.cpu().numpy()
+            b[rng.rand(*b.shape) < 0.85] = B - 1
+            bins = torch.from_numpy(b).to(dev)
+    return bins, g, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N,B,skew", [
+    (200_003, 256, 256, False), (200_003, 512, 256, False),
+    (200_003, 256, 257, False), (200_003, 512, 257, False),
+    (1_000_000, 512, 256, True), (10, 512, 256, False),
+    (10, 256, 257, True)])
+def test_k3_matches_plain_version_on_the_card(n, N, B, skew):
+    """K3 at the levels of 256 and 512 nodes (u8 and 257-slot u16), a
+    skewed level whose big node spans many blocks, and levels of 10 rows:
+    equal to ``build_hist_f32_reference`` bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    bins, g, rel = _level(n, N, B, 7 * N + B + n % 97, skew)
+    qs, inv = H.fixed_point_scale(g)
+    want = H.build_hist_f32_reference(bins, g, rel, qs, inv, N, B)
+    for _ in range(2):
+        got = K.hist_f32_cuda(bins, g, rel, qs, inv, N, B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 16, 128])
+@pytest.mark.parametrize("B", [256, 20, 36])
+@pytest.mark.parametrize("n,skew", [(1_000_000, False), (1_000_000, True),
+                                    (10, False)])
+def test_k2_matches_plain_version_on_the_card(n, skew, B, N):
+    """K2 at N = 1, 16 and 128 over 256 slots, the 20 coarse slots and the
+    36 refine slots; on evenly spread and on skewed levels (one node with
+    55% of the rows, three empty, 85% of the ids on the last slot) and on
+    a level of 10 rows: equal to ``build_hist_int8x2_reference`` bit for
+    bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    bins, g, rel = _level(n, N, B, 11 * N + B + n % 89, skew)
+    q, inv = H.quantise_int8x2(g)
+    want = H.build_hist_int8x2_reference(bins, q, rel, inv, N, B)
+    for _ in range(2):
+        got = K.hist_int8x2_cuda(bins, q, rel, inv, N, B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -116,7 +116,11 @@ def test_cuts_and_bins_bit_for_bit(higgs, case):
 def test_gradients(higgs, objective):
     """rtol 1e-6: XLA's exp is its own approximation. p - y cancels, so
     the gradient is held to 1e-6 of the sigmoid's scale (atol), not of
-    itself."""
+    itself. Both packages are also held to a float64 evaluation of the
+    same formula, so that a run where one side moves says which: a
+    process's first CPU torch.exp split over threads once returned whole
+    thread chunks off by 3.3e-5 here (the port now makes that first call
+    on one element, ``objective/regression.py``)."""
     X, y, y_reg = higgs
     labels = y if objective == "binary:logistic" else y_reg
     rng = np.random.RandomState(1)
@@ -134,6 +138,19 @@ def test_gradients(higgs, objective):
         torch.from_numpy(margin), torch.from_numpy(labels),
         torch.from_numpy(weights)).numpy()
     assert got.shape == want.shape == (len(labels), 1, 2)
+    m = margin.astype(np.float64)
+    w = weights.astype(np.float64)[:, None]
+    if objective == "binary:logistic":
+        p = 1.0 / (1.0 + np.exp(-m))
+        exact = np.stack([(p - labels[:, None]) * w,
+                          np.maximum(p * (1.0 - p), 1e-16) * w], axis=-1)
+    else:
+        exact = np.stack([(m - labels[:, None]) * w,
+                          np.ones_like(m) * w], axis=-1)
+    np.testing.assert_allclose(want, exact, rtol=1e-6, atol=1e-6,
+                               err_msg="the JAX package")
+    np.testing.assert_allclose(got, exact, rtol=1e-6, atol=1e-6,
+                               err_msg="the port")
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     bad = margin.copy()
     bad[5] = np.nan

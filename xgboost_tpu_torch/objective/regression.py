@@ -13,6 +13,14 @@ import torch
 
 from .base import Objective, register
 
+# A process's first torch.exp on the CPU, when PyTorch splits it over its
+# OpenMP threads, can return whole thread chunks off by up to 1.5e-4
+# (relative) while the vector math library sets itself up; later calls are
+# within an ulp (torch 2.13 with MKL: 5 of 64 fresh processes under load,
+# none of 64 after this call). One call on one element, which runs on one
+# thread, does that set-up before any gradient is computed.
+torch.exp(torch.zeros(1))
+
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
