@@ -2,20 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (``xgboost_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --levels-of DIR
 
 Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, all at once) and holds each kernel against its plain
 PyTorch version on the card: K1 (the forest walk), K2 (int8x2
-histogram), K3 (f32 histogram, exact int64 fixed point), K4 (int8x2
-histogram over rows sorted by node) and its coarse fold, and K5 (the
-level advance fused with the next level's coarse histogram), all but K1
-bit for bit and twice each, at the shapes the training runs below give
-them: K2, K3 and K4 over 256/257 bin slots, also at skewed levels (one
-node with 55% of the rows, three empty), and over the two-level
-schedules' 20-slot coarse ids and 36-slot refine ids (a window of 32
-fine bins chosen per node and feature, the rest on slot 35). Then it
-drives the port's main paths, each with the launch counts set to 0 just
-before and read just after:
+histogram), K3 (f32 histogram, exact int64 fixed point), K4 (K2's
+function over the sorted build, with its coarse fold taken in the
+kernel) and K5 (the level advance fused with the next level's coarse
+histogram), all but K1 bit for bit and twice each, at the shapes the
+training runs below give them: K2, K3 and K4 over 256/257 bin slots,
+also at skewed levels (one node with 55% of the rows, three empty), and
+over the two-level schedules' 20-slot coarse ids and 36-slot refine ids
+(a window of 32 fine bins chosen per node and feature, the rest on slot
+35); K4's fold and K5 at one-group and sorted levels, skewed ones
+included. Then it drives the port's main paths, each with the launch
+counts set to 0 just before and read just after:
 
 - serving at the HIGGS shape (500 trees of depth 8 over 28 features,
   ``binary:logistic``, made from a seed): ``Booster.predict`` on 100,000
@@ -42,8 +44,16 @@ before and read just after:
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
-main paths' shapes; seconds per boosting round on the host clock; and
-the device's idle share of the same rounds under ``torch.profiler``.
+main paths' shapes: K4 at every level width of the HIGGS run (N = 1, 2,
+..., 128 on 1,000,000 rows) and K5 at every level boundary (N = 2, ...,
+128), each split into its phases (sort or advance, tiles, combine and
+fold) with CUDA events; seconds per boosting round on the host clock;
+and the device's idle share of the same rounds under ``torch.profiler``.
+
+``--levels-of DIR`` times only K4's and K5's levels (and K2 beside them)
+with the ``xgboost_tpu_torch`` package found in DIR, through the calls
+every version of the port has, so that two trees compare in one run;
+it prints them as a JSON line and exits.
 
 Prints the card (``nvidia-smi`` name and power limit) and a JSON line
 of kernel numbers before the last line, and as the last line
@@ -333,14 +343,15 @@ def check_hist(bins, gpair, rel, N, B, label):
     return errs
 
 
-def hist_bound_ms(bins, N, B, n_active, planes):
+def hist_bound_ms(bins, N, B, n_active, planes, coarse=False):
     """(ms, "bytes"|"operations", ops): bins, the gradients (q or gpair,
-    8 B a row) and rel read once, the [N, F, B, 2] f32 histogram written
-    once, over 3.35 TB/s; against one integer add per (active row,
-    feature, plane) over the f32 lane rate (the table has no scalar
-    integer rate)."""
+    8 B a row) and rel read once, the [N, F, B, 2] f32 histogram (and
+    with ``coarse`` the [N, F, 20, 2] coarse one) written once, over
+    3.35 TB/s; against one integer add per (active row, feature, plane)
+    over the f32 lane rate (the table has no scalar integer rate)."""
     n, F = bins.shape
-    nbytes = n * F * bins.element_size() + n * 8 + n * 4 + N * F * B * 8
+    nbytes = (n * F * bins.element_size() + n * 8 + n * 4
+              + N * F * (B + (20 if coarse else 0)) * 8)
     ops = n_active * F * planes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -383,17 +394,23 @@ def time_hist(bins, gpair, rel, N, B, flush):
     return out, int(active.sum())
 
 
-# (rows, nodes of the new level, bin slots): K5 at the level boundaries
-# the fused runs give it, and with the missing-slot layout
-K5_CASES = ((1_000_000, 2, 256), (1_000_000, 128, 256),
-            (1_000_000, 64, 257))
+# (rows, nodes of the new level, bin slots, skewed): K5 at the level
+# boundaries the fused runs give it (read in row order up to 16 nodes, in
+# two feature tiles at 16; sorted above), with the missing-slot layout,
+# and below skewed levels
+K5_CASES = ((1_000_000, 2, 256, False), (1_000_000, 8, 256, False),
+            (1_000_000, 16, 256, False), (1_000_000, 32, 256, False),
+            (1_000_000, 128, 256, False), (1_000_000, 64, 257, False),
+            (1_000_000, 8, 257, True), (1_000_000, 16, 257, True),
+            (1_000_000, 128, 256, True))
 
 
-def level_inputs(n, F, B, N, dev, seed):
+def level_inputs(n, F, B, N, dev, seed, skew=False):
     """A level boundary made on the card from ``seed``: ``hist_inputs``'s
     bins and gradients; int64 positions at the previous level of N / 2
     nodes, 10% of them strays above it; that level's splits, 20% of its
-    nodes not splitting."""
+    nodes not splitting. ``skew``: every node splits, 55% of the rows sit
+    at its node 1 and its nodes 0 and 2 hold none."""
     from xgboost_tpu_torch.ops.partition import LevelSplits
 
     bins, gpair, _ = hist_inputs(n, F, B, 1, dev, seed)
@@ -405,6 +422,13 @@ def level_inputs(n, F, B, N, dev, seed):
     pos = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, stray,
                       pos)
     cs = torch.rand(n_prev, generator=g, device=dev) < 0.8
+    if skew:
+        big = lo_prev + 1 % n_prev
+        pos = torch.where((pos == lo_prev) | (pos == lo_prev + 2),
+                          torch.full_like(pos, big), pos)
+        pos = torch.where(torch.rand(n, generator=g, device=dev) < 0.55,
+                          torch.full_like(pos, big), pos)
+        cs = torch.ones_like(cs)
     feat = torch.randint(0, F, (n_prev,), generator=g, device=dev)
     thr = torch.randint(0, B - 1, (n_prev,), generator=g, device=dev)
     dleft = torch.rand(n_prev, generator=g, device=dev) < 0.5
@@ -413,7 +437,7 @@ def level_inputs(n, F, B, N, dev, seed):
     return bins, gpair, pos.contiguous(), prev
 
 
-def check_fused(n_rows, N, B, dev, seed):
+def check_fused(n_rows, N, B, skew, dev, seed):
     """K5 against its plain version on the same card tensors: positions
     and coarse histogram equal bit for bit on two launches, and the
     histogram equal to K2 over the coarse ids of the advanced rows.
@@ -423,7 +447,7 @@ def check_fused(n_rows, N, B, dev, seed):
     from xgboost_tpu_torch.ops.partition import level_rel
     from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
 
-    bins, gpair, pos, prev = level_inputs(n_rows, 28, B, N, dev, seed)
+    bins, gpair, pos, prev = level_inputs(n_rows, 28, B, N, dev, seed, skew)
     missing = B - 1 if B > 256 else B
     lo = 2 * prev.lo + 1
     q, inv = H.quantise_int8x2(gpair)
@@ -438,43 +462,62 @@ def check_fused(n_rows, N, B, dev, seed):
     for p, h in runs:
         if not (torch.equal(p, want_pos) and torch.equal(h, want)):
             raise AssertionError(f"fused_advance_coarse n={n_rows} N={N} "
-                                 f"B={B}: a launch differs from the plain "
-                                 f"version (max {err})")
+                                 f"B={B} skew={skew}: a launch differs from "
+                                 f"the plain version (max {err})")
     if not torch.equal(k2, want):
         raise AssertionError("K5's coarse histogram differs from K2's")
     moved = int((want_pos != pos).sum())
-    log(f"check fused_advance_coarse n={n_rows} F=28 N={N} B={B} "
-        f"({bins.dtype}): positions ({moved} rows moved) and the coarse "
+    log(f"check fused_advance_coarse n={n_rows} F=28 N={N} B={B}"
+        f"{' skewed' if skew else ''} ({bins.dtype}): positions ({moved} "
+        f"rows moved) and the coarse "
         f"histogram equal the plain version bit for bit on two launches, "
         f"and K2 over the coarse ids")
     return err
 
 
-def check_fold(n_rows, N, B, dev, seed):
-    """K4's int32 accumulators against the plain ones, their coarse fold
-    against the plain fold, and the folded histogram against K2's direct
-    build over the coarse ids, bit for bit."""
+# (rows, nodes, bin slots, skewed): K4's fold at the scan schedule's
+# levels: the root (one item a node's tile split over the card), one node
+# a group (16, 128), the missing-slot layout, and a skewed level
+FOLD_CASES = ((1_000_000, 1, 256, False), (1_000_000, 16, 256, False),
+              (1_000_000, 128, 256, False), (1_000_000, 64, 257, False),
+              (1_000_000, 128, 256, True), (10_000, 16, 257, True))
+
+
+def check_fold(n_rows, N, B, skew, dev, seed):
+    """K4 with its fold against the plain versions on the same card
+    tensors, bit for bit on two launches: the fine histogram against
+    ``build_hist_scan_reference``, the coarse one against the plain fold
+    of the plain accumulators and against K2's direct build over the
+    coarse ids. Returns max |kernel - plain| of the coarse histogram."""
     from xgboost_tpu_torch.ops import histogram as H
     from xgboost_tpu_torch.ops.cuda import hist as K
     from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
 
-    bins, gpair, rel = hist_inputs(n_rows, 28, B, N, dev, seed)
+    bins, gpair, rel = hist_inputs(n_rows, 28, B, N, dev, seed, skew)
     missing = B - 1 if B > 256 else B
     q, inv = H.quantise_int8x2(gpair)
-    _, acc = K.hist_scan_cuda(bins, q, rel, inv, N, B, with_acc=True)
-    folded = H.coarse_fold(acc, missing)
-    want = H.coarse_fold(H.scan_acc_reference(bins, q, rel, N, B), missing)
+    runs = [K.hist_scan_cuda(bins, q, rel, inv, N, B, with_coarse=True,
+                             missing_bin=missing) for _ in range(2)]
+    acc = H.scan_acc_reference(bins, q, rel, N, B)
+    want_fine = H.dequant_int8x2(acc, inv)
+    want = H.dequant_int8x2(H.coarse_fold(acc, missing), inv)
     direct = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q, rel, inv,
                                 N, COARSE_B)
     torch.cuda.synchronize()
-    if not torch.equal(folded, want):
-        raise AssertionError(f"K4's fold differs from the plain fold "
-                             f"(n={n_rows} N={N} B={B})")
-    if not torch.equal(H.dequant_int8x2(folded, inv), direct):
+    err = max(float((c - want).abs().max()) for _, c in runs)
+    label = f"n={n_rows} N={N} B={B}{' skewed' if skew else ''}"
+    for fine, coarse in runs:
+        if not (torch.equal(fine, want_fine) and torch.equal(coarse, want)):
+            raise AssertionError(f"K4 with its fold {label}: a launch "
+                                 f"differs from the plain version (max "
+                                 f"{err})")
+    if not torch.equal(want, direct):
         raise AssertionError("K4's folded coarse histogram differs from "
                              "K2's direct build")
-    log(f"check coarse fold n={n_rows} F=28 N={N} B={B}: K4's fold equals "
-        f"the plain fold and K2's direct coarse build bit for bit")
+    log(f"check coarse fold {label}: K4's fine and folded coarse "
+        f"histograms equal the plain versions bit for bit on two launches, "
+        f"and K2's direct coarse build")
+    return err
 
 
 def fused_bound_ms(bins, N, n_active):
@@ -493,36 +536,150 @@ def fused_bound_ms(bins, N, n_active):
     return t_ops, "operations", ops
 
 
-def time_fused(n_rows, N, dev, flush, seed):
-    """K5 at a level boundary of N nodes: (ms, plain_ms, index_add_ ms of
-    the coarse planes, bound, active rows). The yardstick is one
-    ``index_add_`` of the four int32 planes at the advanced rows' coarse
-    cells, with cells and values prepared beforehand: the histogram half
-    only, as no PyTorch call advances rows."""
+QUEUE_CYCLES = 2_000_000     # ~1 ms of device sleep ahead of each call
+
+
+def queued_ms(fn, reps, flush):
+    """Mean device time of ``fn`` with no host gap inside it: before each
+    call the L2 is flushed and the device sleeps ~1 ms, so that the host
+    has queued the whole call before its start event runs. ``event_ms``
+    instead lets a wrapper's host work show where the device waits."""
+    return phase_ms(lambda ev: fn(), reps, flush, phases=False)[0]
+
+
+def phase_ms(fn, reps, flush, phases=True):
+    """Mean device time of each phase of ``fn(events)`` (a kernel wrapper
+    taking ``phase_events``): start -> sort, -> tiles, -> combine and
+    fold, over ``reps`` calls queued as in :func:`queued_ms`, after three
+    warm-up calls (the events made and recorded once beforehand). With
+    ``phases`` False: [start -> end]."""
+    for _ in range(3):
+        fn(None)
+    k = 4 if phases else 2
+    runs = [[torch.cuda.Event(enable_timing=True) for _ in range(k)]
+            for _ in range(reps)]
+    for ev in runs:
+        for e in ev:
+            e.record()
+    torch.cuda.synchronize()
+    for ev in runs:
+        flush.zero_()
+        torch.cuda._sleep(QUEUE_CYCLES)
+        ev[0].record()
+        if phases:
+            fn(ev[1:])
+        else:
+            fn(None)
+            ev[1].record()
+    torch.cuda.synchronize()
+    return [sum(ev[i].elapsed_time(ev[i + 1]) for ev in runs) / reps
+            for i in range(k - 1)]
+
+
+# the level widths of the HIGGS run (depth 8): K4 at each, K5 at each
+# boundary
+LEVEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def time_levels(dev, flush, current=True):
+    """K4 at every level width (1M x 28, 256 slots) and K5 at every level
+    boundary, through the calls every version of the port has: K4 as
+    ``auto`` calls it (``hist_scan_cuda``) and as ``scan`` does
+    (``scan_level_hists``: K4 and its coarse fold), K5
+    (``fused_advance_coarse_cuda``), and K2 on K4's inputs. ``current``:
+    also K4 with its fold alone, the plain versions, one ``index_add_``,
+    the bounds and the phase split of this tree's kernels. Returns
+    {name: {N: {...}}} and logs each level."""
     from xgboost_tpu_torch.ops import histogram as H
     from xgboost_tpu_torch.ops.cuda import hist as K
     from xgboost_tpu_torch.ops.partition import level_rel
     from xgboost_tpu_torch.ops.split import COARSE_B, coarse_bin_ids
 
-    bins, gpair, pos, prev = level_inputs(n_rows, 28, 256, N, dev, seed)
-    lo = 2 * prev.lo + 1
-    q, inv = H.quantise_int8x2(gpair)
-    new_pos, _ = H.fused_advance_coarse_reference(bins, q, inv, pos, prev,
-                                                  lo, N, 256)
-    cb = coarse_bin_ids(bins, 256)
-    seg, active = H._segments(cb, level_rel(new_pos, lo, N), N, COARSE_B)
-    vals = H.int8x2_planes(q)[active][:, None, :].expand(
-        -1, 28, 4).reshape(-1, 4)
-    acc = torch.zeros((N * 28 * COARSE_B, 4), dtype=torch.int32, device=dev)
-    lib = event_ms(lambda: acc.index_add_(0, seg, vals), reps=10,
-                   flush=flush)
-    n_active = int(active.sum())
-    del seg, vals, acc, cb
-    ms = event_ms(lambda: K.fused_advance_coarse_cuda(
-        bins, q, inv, pos, prev, lo, N, 256), reps=20, flush=flush)
-    plain = event_ms(lambda: H.fused_advance_coarse_reference(
-        bins, q, inv, pos, prev, lo, N, 256), reps=5)
-    return ms, plain, lib, fused_bound_ms(bins, N, n_active), n_active
+    F = 28
+    out = {"hist_scan": {}, "fused_advance_coarse": {}}
+    for i, N in enumerate(LEVEL_WIDTHS):
+        bins, gpair, rel = hist_inputs(1_000_000, F, 256, N, dev,
+                                       seed=200 + i)
+        q, inv = H.quantise_int8x2(gpair)
+        k4 = lambda: K.hist_scan_cuda(bins, q, rel, inv, N, 256)
+        scan = lambda: H.scan_level_hists(bins, gpair, rel, N, 256, 256)
+        k2 = lambda: K.hist_int8x2_cuda(bins, q, rel, inv, N, 256)
+        r = {"ms": event_ms(k4, reps=20, flush=flush),
+             "queued_ms": queued_ms(k4, 20, flush),
+             "scan_level_queued_ms": queued_ms(scan, 20, flush),
+             "k2_queued_ms": queued_ms(k2, 20, flush)}
+        if current:
+            seg, active = H._segments(bins, rel, N, 256)
+            vals = H.int8x2_planes(q)[active][:, None, :].expand(
+                -1, F, 4).reshape(-1, 4)
+            acc = torch.zeros((N * F * 256, 4), dtype=torch.int32,
+                              device=dev)
+            r["library_ms"] = event_ms(lambda: acc.index_add_(0, seg, vals),
+                                       reps=10, flush=flush)
+            n_active = int(active.sum())
+            del seg, vals, acc
+            r["coarse_queued_ms"] = queued_ms(lambda: K.hist_scan_cuda(
+                bins, q, rel, inv, N, 256, with_coarse=True, missing_bin=256),
+                20, flush)
+            r["plain_ms"] = event_ms(lambda: H.build_hist_scan_reference(
+                bins, q, rel, inv, N, 256), reps=5)
+            r["plain_coarse_ms"] = event_ms(lambda: H.dequant_int8x2(
+                H.coarse_fold(H.scan_acc_reference(bins, q, rel, N, 256),
+                              256), inv), reps=5)
+            r["bound"] = hist_bound_ms(bins, N, 256, n_active, 4)
+            r["coarse_bound"] = hist_bound_ms(bins, N, 256, n_active, 4,
+                                              coarse=True)
+            r["phases"] = phase_ms(lambda ev: K.hist_scan_cuda(
+                bins, q, rel, inv, N, 256, phase_events=ev), 20, flush)
+            r["coarse_phases"] = phase_ms(lambda ev: K.hist_scan_cuda(
+                bins, q, rel, inv, N, 256, with_coarse=True, missing_bin=256,
+                phase_events=ev), 20, flush)
+        out["hist_scan"][N] = r
+        log(f"level K4 n=1000000 N={N} x {F} u8 256 slots (L2 flushed): "
+            + ", ".join(f"{k} {_fmt(v)}" for k, v in r.items()))
+        del bins, gpair, rel, q, inv
+    for i, N in enumerate(LEVEL_WIDTHS[1:]):
+        bins, gpair, pos, prev = level_inputs(1_000_000, F, 256, N, dev,
+                                              seed=220 + i)
+        lo = 2 * prev.lo + 1
+        q, inv = H.quantise_int8x2(gpair)
+        k5 = lambda: K.fused_advance_coarse_cuda(bins, q, inv, pos, prev, lo,
+                                                 N, 256)
+        r = {"ms": event_ms(k5, reps=20, flush=flush),
+             "queued_ms": queued_ms(k5, 20, flush)}
+        if current:
+            new_pos, _ = H.fused_advance_coarse_reference(
+                bins, q, inv, pos, prev, lo, N, 256)
+            cb = coarse_bin_ids(bins, 256)
+            seg, active = H._segments(cb, level_rel(new_pos, lo, N), N,
+                                      COARSE_B)
+            vals = H.int8x2_planes(q)[active][:, None, :].expand(
+                -1, F, 4).reshape(-1, 4)
+            acc = torch.zeros((N * F * COARSE_B, 4), dtype=torch.int32,
+                              device=dev)
+            r["library_ms"] = event_ms(lambda: acc.index_add_(0, seg, vals),
+                                       reps=10, flush=flush)
+            n_active = int(active.sum())
+            del seg, vals, acc, cb, new_pos
+            r["plain_ms"] = event_ms(lambda: H.fused_advance_coarse_reference(
+                bins, q, inv, pos, prev, lo, N, 256), reps=5)
+            r["bound"] = fused_bound_ms(bins, N, n_active)
+            r["phases"] = phase_ms(lambda ev: K.fused_advance_coarse_cuda(
+                bins, q, inv, pos, prev, lo, N, 256, phase_events=ev), 20,
+                flush)
+        out["fused_advance_coarse"][N] = r
+        log(f"level K5 n=1000000 N={N} x {F} u8 (L2 flushed): "
+            + ", ".join(f"{k} {_fmt(v)}" for k, v in r.items()))
+        del bins, gpair, pos, prev, q, inv
+    return out
+
+
+def _fmt(v):
+    if isinstance(v, float):
+        return f"{v:.6f} ms"
+    if isinstance(v, tuple):               # a bound
+        return f"{v[0]:.6f} ms ({v[1]}; {v[2]} integer adds)"
+    return "[" + ", ".join(f"{x:.6f}" for x in v) + "] ms"
 
 
 def saved_bytes(bst):
@@ -619,11 +776,37 @@ def read_counts():
     return {"walk_packed": W.LAUNCHES, **dict(K.LAUNCHES)}
 
 
+def levels_of(root: str) -> int:
+    """``--levels-of``: K4's and K5's level times with the port in
+    ``root`` (:func:`time_levels` through the calls every version has)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import xgboost_tpu_torch
+    from xgboost_tpu_torch.ops.cuda import build
+
+    if not xgboost_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"imported {xgboost_tpu_torch.__file__}, not "
+                             f"the port in {root}")
+    card = gpu_line()
+    log(f"gpu: {card}; port from {os.path.abspath(root)}")
+    build.build_all(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    levels = time_levels(torch.device("cuda"), flush, current=False)
+    print(json.dumps({"levels_of": os.path.abspath(root), "levels": levels}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--levels-of":
+        return levels_of(sys.argv[2])
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--levels-of DIR]", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import xgboost_tpu_torch as xt
     from xgboost_tpu_torch.ops.cuda import build
@@ -793,10 +976,12 @@ def main() -> int:
 
     # -------------------- K5 and K4's coarse fold against their plain versions
     hist_errs["fused_advance_coarse"] = max(
-        check_fused(n_rows, N, B, dev, seed=60 + i)
-        for i, (n_rows, N, B) in enumerate(K5_CASES))
-    check_fold(1_000_000, 128, 256, dev, seed=70)
-    check_fold(1_000_000, 64, 257, dev, seed=71)
+        check_fused(n_rows, N, B, skew, dev, seed=60 + i)
+        for i, (n_rows, N, B, skew) in enumerate(K5_CASES))
+    hist_errs["hist_scan"] = max(
+        [hist_errs["hist_scan"]]
+        + [check_fold(n_rows, N, B, skew, dev, seed=70 + i)
+           for i, (n_rows, N, B, skew) in enumerate(FOLD_CASES)])
 
     # -------------------------------------- main path: training, depth 8
     X, y = higgs_like(1_100_000, F, seed=0)
@@ -844,7 +1029,7 @@ def main() -> int:
     log(f"seconds per round (update + sync, host clock): "
         f"{['%.6f' % t for t in per_round]}; median of rounds 1-5 "
         f"{auto_s:.6f} s")
-    profile_rounds("auto", timer, dtr)
+    profile_rounds("auto", timer, dtr, top=16)
 
     # ------------------------------------- main path: training, depth 10
     d10 = xt.DMatrix(X[:200_000], label=y[:200_000])
@@ -915,7 +1100,7 @@ def main() -> int:
         if not (np.isfinite(p_te2).all() and auc2 > 0.6):
             raise AssertionError(f"{method}: held-out AUC {auc2}")
         timer2, _, s2 = seconds_per_round(p2, dtr)
-        profile_rounds(method, timer2, dtr, top=8)
+        profile_rounds(method, timer2, dtr, top=16)
         two_level[method] = (s2, r2["test"]["logloss"][-1], auc2)
         two_counts[method] = c2
         raws[method] = saved_bytes(b2)
@@ -979,16 +1164,19 @@ def main() -> int:
                 f"{bound[2]} integer adds), kernel at "
                 f"{bound[0] / ms * 100:.4f}% of it")
         del bins, gpair, rel
-    fused_times = {}
-    for i, N in enumerate((2, 8, 32, 128)):
-        ms, plain_ms, lib_ms, bound, n_act = time_fused(1_000_000, N, dev,
-                                                        flush, seed=80 + i)
-        fused_times[N] = (ms, plain_ms, bound)
-        log(f"fused_advance_coarse n=1000000 N={N} x {F} u8 (L2 flushed): "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ of the "
-            f"coarse planes {lib_ms:.6f} ms, bound {bound[0]:.6f} ms "
-            f"({bound[1]}; {bound[2]} integer adds), kernel at "
-            f"{bound[0] / ms * 100:.4f}% of it")
+    # K4 at every level width and K5 at every level boundary of the HIGGS
+    # run, with their phases
+    levels = time_levels(dev, flush)
+    for name, label in (("hist_scan", "K4"), ("fused_advance_coarse", "K5")):
+        for N, r in levels[name].items():
+            sort, tiles, comb = r["phases"]
+            log(f"phases {label} N={N}: sort {sort:.6f} ms, tiles "
+                f"{tiles:.6f} ms, combine and fold {comb:.6f} ms (sum "
+                f"{sort + tiles + comb:.6f}, queued call "
+                f"{r['queued_ms']:.6f}, event call {r['ms']:.6f}); queued "
+                f"call at {r['bound'][0] / r['queued_ms'] * 100:.4f}% of its "
+                f"bound, time - bound {r['queued_ms'] - r['bound'][0]:.6f} "
+                f"ms")
     times = {}
     for n in (1, 512, n_big):
         X = Xd[:n].contiguous()
@@ -1048,7 +1236,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": hist_errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms})
-    ms, plain_ms, bound = fused_times[128]
+    k5 = levels["fused_advance_coarse"][128]
+    ms, plain_ms, bound = k5["ms"], k5["plain_ms"], k5["bound"]
     kernels.append({
         "name": "fused_advance_coarse", "route": "cuda",
         "source": "xgboost_tpu_torch/csrc/hist.cu",

@@ -175,9 +175,10 @@ def test_fused_advance_coarse_matches_plain_version_on_the_card(n_prev, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,B", [(1, 256), (128, 256), (64, 257)])
 def test_coarse_fold_matches_plain_version_on_the_card(N, B):
-    """K4's int32 accumulators equal the plain ones, so their fold does;
-    the folded coarse histogram equals K2's direct build over the coarse
-    ids bit for bit."""
+    """K4's coarse fold, taken in the kernel from each node's integer
+    sums, equals the plain fold of the plain accumulators and K2's direct
+    build over the coarse ids bit for bit, at u8/256 and u16/257 with the
+    missing slot; the fine histogram beside it equals the plain one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from xgboost_tpu_torch.ops import histogram as H
@@ -188,15 +189,17 @@ def test_coarse_fold_matches_plain_version_on_the_card(N, B):
     bins, g, rel = _hist_inputs(200_003, 28, B, N, dev, seed=3 * N + B)
     missing = B - 1 if B > 256 else B
     q, inv = H.quantise_int8x2(g)
-    fine, acc = K.hist_scan_cuda(bins, q, rel, inv, N, B, with_acc=True)
-    want = H.scan_acc_reference(bins, q, rel, N, B)
-    torch.cuda.synchronize()
-    assert torch.equal(acc, want)
-    assert torch.equal(fine, H.dequant_int8x2(want, inv))
-    folded = H.dequant_int8x2(H.coarse_fold(acc, missing), inv)
+    acc = H.scan_acc_reference(bins, q, rel, N, B)
+    want = H.dequant_int8x2(H.coarse_fold(acc, missing), inv)
+    for _ in range(2):
+        fine, coarse = K.hist_scan_cuda(bins, q, rel, inv, N, B,
+                                        with_coarse=True, missing_bin=missing)
+        torch.cuda.synchronize()
+        assert torch.equal(fine, H.dequant_int8x2(acc, inv))
+        assert torch.equal(coarse, want)
     direct = K.hist_int8x2_cuda(coarse_bin_ids(bins, missing), q, rel, inv,
                                 N, COARSE_B)
-    assert torch.equal(folded, direct)
+    assert torch.equal(coarse, direct)
 
 
 @pytest.mark.cuda
@@ -301,4 +304,78 @@ def test_k2_matches_plain_version_on_the_card(n, skew, B, N):
     for _ in range(2):
         got = K.hist_int8x2_cuda(bins, q, rel, inv, N, B)
         torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 16, 128])
+@pytest.mark.parametrize("B", [256, 257])
+@pytest.mark.parametrize("n,skew", [(1_000_000, False), (1_000_000, True),
+                                    (10, False)])
+def test_k4_matches_plain_version_on_the_card(n, skew, B, N):
+    """K4 at N = 1, 16 and 128 over u8/256 and u16/257 slots, on evenly
+    spread and skewed levels (one node with 55% of the rows, three empty)
+    and on a level of 10 rows: the fine histogram equal to
+    ``build_hist_scan_reference`` and, with the fold, the coarse one equal
+    to the plain fold of the plain accumulators, bit for bit on two
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    bins, g, rel = _level(n, N, B, 13 * N + B + n % 83, skew)
+    missing = B - 1 if B > 256 else B
+    q, inv = H.quantise_int8x2(g)
+    acc = H.scan_acc_reference(bins, q, rel, N, B)
+    want = H.dequant_int8x2(acc, inv)
+    want_c = H.dequant_int8x2(H.coarse_fold(acc, missing), inv)
+    for _ in range(2):
+        fine = K.hist_scan_cuda(bins, q, rel, inv, N, B)
+        fine2, coarse = K.hist_scan_cuda(bins, q, rel, inv, N, B,
+                                         with_coarse=True,
+                                         missing_bin=missing)
+        torch.cuda.synchronize()
+        assert torch.equal(fine, want)
+        assert torch.equal(fine2, want)
+        assert torch.equal(coarse, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prev,B", [(2, 256), (4, 257), (64, 256),
+                                      (64, 257)])
+@pytest.mark.parametrize("n", [1_000_000, 10])
+def test_fused_advance_coarse_skewed_level_on_the_card(n, n_prev, B):
+    """K5 below a skewed level (55% of the rows at node 1 of the previous
+    level, nodes 0 and 2 empty), so that one new node holds most rows and
+    several none: at one group (N = 4, 8) and sorted (N = 128), u8/256 and
+    u16/257, and on 10 rows; positions and coarse histogram equal the
+    plain version bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    dev = torch.device("cuda")
+    bins, g, pos, prev = _level_inputs(n, 28, B, n_prev, dev,
+                                       seed=5 * n_prev + B + n % 7)
+    rng = np.random.RandomState(n_prev + B)
+    p = pos.cpu().numpy()
+    lo_prev = n_prev - 1
+    big = lo_prev + 1 % n_prev
+    p[(p == lo_prev) | (p == lo_prev + 2)] = big    # empty nodes 0 and 2
+    p[rng.rand(n) < 0.55] = big
+    pos = torch.from_numpy(p).to(dev)
+    prev = prev._replace(can_split=torch.ones_like(prev.can_split),
+                         feat=prev.feat.clamp(min=0))
+    lo, N = 2 * n_prev - 1, 2 * n_prev
+    missing = B - 1 if B > 256 else B
+    q, inv = H.quantise_int8x2(g)
+    want_pos, want = H.fused_advance_coarse_reference(
+        bins, q, inv, pos, prev, lo, N, missing)
+    for _ in range(2):
+        got_pos, got = K.fused_advance_coarse_cuda(bins, q, inv, pos, prev,
+                                                   lo, N, missing)
+        torch.cuda.synchronize()
+        assert torch.equal(got_pos, want_pos)
         assert torch.equal(got, want)

@@ -5,12 +5,12 @@
 // :621 in `build_hist_pallas`). K3 (`xtt_hist_f32`) replaces the f32
 // variant of `_make_kernel` (pallas_call at :634). K4 (`xtt_hist_scan`)
 // replaces `_make_scan_kernel` (pallas_call at :478 in `scan_hist_pallas`)
-// and K5 (`xtt_fused_advance_coarse`) replaces `_make_fused_kernel`
-// (pallas_call at :344 in `fused_advance_coarse_pallas`); both are
-// described with their code below. K2, K3 and K4 compute
-// [n_nodes, F, B, 2] (g, h) sums by (node, feature, bin) over rows whose
-// rel[row] < n_nodes, the function of the JAX package's
-// `ops/histogram.py build_hist`.
+// with its `with_coarse` fold (:493-513), and K5
+// (`xtt_fused_advance_coarse`) replaces `_make_fused_kernel` (pallas_call
+// at :344 in `fused_advance_coarse_pallas`); K4 and K5 are described with
+// their entry points at the end. K2, K3 and K4 compute [n_nodes, F, B, 2]
+// (g, h) sums by (node, feature, bin) over rows whose rel[row] < n_nodes,
+// the function of the JAX package's `ops/histogram.py build_hist`.
 //
 // K2: the wrapper quantises the gradients (q = round(g * 32512/max|g|));
 // each row splits q into hi = (q + 128) >> 8 and lo = q - 256*hi and adds
@@ -30,29 +30,31 @@
 // What bounds them: the least traffic is the bins (n*F bytes), the
 // gradients and rel read once and the histogram written once (14 us at
 // 1M x 28, N = 128, on 3.35 TB/s; at 200k rows and N = 512 the 29 MB f32
-// table is most of it). The work is n*F scatter-adds of 4 (K2) or 2 (K3)
-// counters into a table that does not fit in shared memory at depth (128
-// nodes x 28 features x 256 bins x 16 B = 14.7 MB), so what a design has
-// to avoid is re-reading rows per tile and scattering atomics over the
-// device table. What bounds this design on an H100 is the shared-memory
-// pipe: four 32-bit atomics an element (K3's two int64 sums are kept as
-// 32-bit words with an explicit carry, as 64-bit shared atomics cost
-// several times more), at 7-10% of the bytes bound at 1M x 28 (PERF.md).
+// table is most of it). The work is n*F scatter-adds of 4 (K2, K4, K5) or
+// 2 (K3) counters into a table that does not fit in shared memory at
+// depth (128 nodes x 28 features x 256 bins x 16 B = 14.7 MB), so what a
+// design has to avoid is re-reading rows per tile and scattering atomics
+// over the device table. What bounds this design on an H100 is the
+// shared-memory pipe: four 32-bit atomics an element (K3's two int64 sums
+// are kept as 32-bit words with an explicit carry, as 64-bit shared
+// atomics cost several times more), at 7-10% of the bytes bound at
+// 1M x 28 (PERF.md).
 //
-// Design (K2 and K3 share it; the policy structs below differ): the level
-// is cut into groups of G consecutive nodes whose [G, F, B] cells of 16
-// bytes (4 x 32-bit words) fit one 112.5 KB shared-memory tile (at 28
-// features x 256 bins one node, at 36 slots six); where one node
-// does not fit, features and then bins are cut into tiles (grid y). The
-// plan (G, the tiles, R rows an item) is computed by the wrapper
-// (`ops/cuda/hist.py hist_plan`), where the CPU tests reach it.
+// Design (all four kernels share it; the policy structs below say what a
+// row adds, the bin maps which slot a bin id lands in): the level is cut
+// into groups of G consecutive nodes whose [G, F, B] cells of 16 bytes
+// (4 x 32-bit words) fit one 112.5 KB shared-memory tile (at 28 features x
+// 256 bins one node, at 36 slots six, at K5's 20 coarse slots twelve);
+// where one node does not fit, features and then bins are cut into tiles
+// (grid y). The plan (G, the tiles, R rows an item) is computed by the
+// wrapper (`ops/cuda/hist.py hist_plan`), where the CPU tests reach it.
 // - One group (the whole level fits a tile, e.g. the root, or the 20-slot
 //   coarse ids at a few nodes): no sort. Item i reads rows [iR, iR + R) in
 //   their own order, each row's rel, gradients and bins once.
-// - Several groups: the rows are counting-sorted by node with K4's count
-//   and scatter kernels; `level_plan` (one block) turns the counts into
-//   the runs' offsets and cuts each group's run into items of at most R
-//   rows (one item for an empty group).
+// - Several groups: the rows are counting-sorted by node (`scan_count`,
+//   `level_plan`, `scan_scatter`); `level_plan` (one block) turns the
+//   counts into the runs' offsets and cuts each group's run into items of
+//   at most R rows (one item for an empty group).
 // A block zeroes its tile, adds its item's (row, feature) elements with
 // shared-memory integer atomics, and then, if its item is its group's
 // only one, converts the tile to f32 and writes the group's part of the
@@ -71,46 +73,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kTileBytes = 96 * 1024;   // shared memory of one K5 tile
 constexpr int kCellBytes = 16;          // 4 x 32-bit words a cell
 
-// K5's tiles of (node chunk x feature chunk x B) cells in kTileBytes.
-struct Plan {
-  int nc, fc;              // nodes and features of one tile
-  int n_ftiles, n_tiles;   // feature tiles, all tiles
-  long long rows_per_split;
-  int splits;
-};
-
-Plan make_plan(long long n, int F, int B, int N, int num_sms) {
-  Plan p;
-  const int pairs = kTileBytes / (kCellBytes * B);   // (node, feature) pairs
-  p.fc = F;
-  if (F > pairs) {
-    const int nft = (F + pairs - 1) / pairs;
-    p.fc = (F + nft - 1) / nft;
-  }
-  const int nc = pairs / p.fc;
-  p.nc = nc < 1 ? 1 : (nc < N ? nc : N);
-  p.n_ftiles = (F + p.fc - 1) / p.fc;
-  p.n_tiles = ((N + p.nc - 1) / p.nc) * p.n_ftiles;
-  // about two resident blocks per SM
-  const long long target = 2LL * num_sms;
-  long long splits = (target + p.n_tiles - 1) / p.n_tiles;
-  const long long by_rows = (n + 4095) / 4096;   // at least 4096 rows each
-  if (splits > by_rows) splits = by_rows;
-  if (splits < 1) splits = 1;
-  long long rps = (n + splits - 1) / splits;
-  if (rps < 1) rps = 1;
-  p.rows_per_split = rps;
-  p.splits = static_cast<int>((n + rps - 1) / rps);
-  return p;
-}
-
-// K2's row values: the hi/lo byte planes of the quantised (g, h).
+// K2, K4 and K5's row values: the hi/lo byte planes of the quantised
+// (g, h).
 struct Int8x2 {
   using Counter = int;
   using Raw = int2;
@@ -126,10 +97,7 @@ struct Int8x2 {
     v[2] = x.x - 256 * ghi;
     v[3] = x.y - 256 * hhi;
   }
-  __device__ __forceinline__ void load(long long row, Counter v[4]) const {
-    expand(raw(row), v);
-  }
-  // K2 and K3's tiles: plane p of cell c in word p * cells + c
+  // the tiles: plane p of cell c in word p * cells + c
   using Word = int;
   static __device__ __forceinline__ void add(Word* cell, int cells,
                                              const Counter v[4]) {
@@ -141,6 +109,11 @@ struct Int8x2 {
                                               int cells, Counter a[4]) {
 #pragma unroll
     for (int p = 0; p < 4; ++p) a[p] = base[p * cells + i];
+  }
+  static __device__ __forceinline__ void write(Word* base, int i, int cells,
+                                               const Counter a[4]) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) base[p * cells + i] = a[p];
   }
   // (f32(sum hi) * 256 + f32(sum lo)) * inv; the product by 256 is exact
   // and __fmul_rn/__fadd_rn keep the compiler from contracting into an FMA
@@ -200,6 +173,14 @@ struct Fixed64 {
       a[p] = (static_cast<Counter>(base[(2 * p + 1) * cells + i]) << 32)
              | base[2 * p * cells + i];
   }
+  static __device__ __forceinline__ void write(Word* base, int i, int cells,
+                                               const Counter a[2]) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      base[2 * p * cells + i] = static_cast<Word>(a[p]);
+      base[(2 * p + 1) * cells + i] = static_cast<Word>(a[p] >> 32);
+    }
+  }
   // f32(sum) * 2^-k: one rounding of the exact int64 sum
   static __device__ __forceinline__ float2 to_f32(const Counter a[2],
                                                   float i0, float i1) {
@@ -209,27 +190,71 @@ struct Fixed64 {
   }
 };
 
-// (f32(sum hi) * 256 + f32(sum lo)) * inv over a table of int32 planes
-// (K4 and K5, whose blocks flush into one device table).
-__global__ void dequant_int8x2(const int4* __restrict__ acc,
-                               const float* __restrict__ inv, long long cells,
-                               float2* __restrict__ out) {
-  const float i0 = inv[0], i1 = inv[1];
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x)
-                     + threadIdx.x;
-       i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int4 a = acc[i];   // (g_hi, h_hi, g_lo, h_lo)
-    const int v[4] = {a.x, a.y, a.z, a.w};
-    out[i] = Int8x2::to_f32(v, i0, i1);
+// Bin maps: the slot a loaded bin id adds into. K2, K3 and K4 add at the
+// bin itself; K5 at its coarse id (`ops/split.py coarse_bin_ids`).
+struct SameBin {
+  __device__ __forceinline__ unsigned operator()(unsigned b) const {
+    return b;
   }
-}
+};
 
-int grid_for(long long cells) {
-  long long blocks = (cells + 255) / 256;
-  return static_cast<int>(blocks > 4096 ? 4096 : (blocks < 1 ? 1 : blocks));
-}
+struct CoarseBin {
+  unsigned missing;   // the missing bin (never matches when >= the width)
+  unsigned last;      // its coarse slot, B - 1
+  int shift;          // the coarse id of any other bin: bin >> shift
+  __device__ __forceinline__ unsigned operator()(unsigned b) const {
+    return b == missing ? last : b >> shift;
+  }
+};
 
-// ---- K2 and K3: node-group tiles ------------------------------------------
+// K5's advance of one row below the previous level's splits: a row at a
+// node of that level that split reads its bin at the node's split feature
+// and moves to 2p + 1 + go_right (the missing bin goes the default way,
+// otherwise right when bin > threshold); every other row stays put.
+struct Advance {
+  const long long* pos_in;
+  // the previous level's nodes (`ops/partition.py LevelSplits`, n_prev
+  // each): split feature and threshold bin (read where the node split),
+  // default_left and can_split
+  const long long* feat;
+  const long long* thr;
+  const unsigned char* dleft;
+  const unsigned char* can_split;
+  int n_prev;
+  long long lo_prev;      // the previous level's first heap node
+  long long lo;           // the new level's
+  int missing;
+  long long* pos_out;
+  template <typename BinT>
+  __device__ __forceinline__ long long step(const BinT* __restrict__ bins,
+                                            long long row, int F) const {
+    long long p = pos_in[row];
+    const long long j = p - lo_prev;
+    if (j >= 0 && j < n_prev && __ldg(can_split + j) != 0) {
+      const long long b = bins[row * F + __ldg(feat + j)];
+      const bool right = b == missing ? __ldg(dleft + j) == 0
+                                      : b > __ldg(thr + j);
+      p = 2 * p + 1 + (right ? 1 : 0);
+    }
+    return p;
+  }
+  // the row's node in the new level of N nodes; N when outside it
+  __device__ __forceinline__ int node(long long p, int N) const {
+    const long long k = p - lo;
+    return k >= 0 && k < N ? static_cast<int>(k) : N;
+  }
+};
+
+// K4's `with_coarse` fold (`ops/histogram.py coarse_fold`), taken from a
+// node's integer sums while they are in one tile: real slot k < coarse_b
+// - 1 holds bins [k << shift, (k + 1) << shift) but the missing one, the
+// last slot the missing bin; dequantised once, as the fine cells.
+struct Fold {
+  float2* out;        // [N, F, coarse_b, 2] (read by kFold kernels only)
+  int missing;        // the missing bin (>= B when there is none)
+  int coarse_b;
+  int shift;
+};
 
 // The wrapper's plan (`ops/cuda/hist.py hist_plan`), in the order of the
 // host array the C entry points take.
@@ -246,7 +271,101 @@ struct TilePlan {
 };
 
 constexpr int kBatch = 4;     // elements a thread loads before its atomics
-constexpr int kTilePlanBytes = 115200;   // two blocks a SM, as K4's tile
+// two blocks a SM: two blocks of 115,200 B (plus 1 KB each for the
+// system) fill the 228 KB of an SM
+constexpr int kTilePlanBytes = 115200;
+// K5's one-group route keeps the nodes of this many rows (one byte each)
+// in shared memory beside its tile (`ops/cuda/hist.py ADVANCE_CHUNK`)
+constexpr int kAdvanceChunk = 1024;
+
+// ---- the sort by node ---------------------------------------------------
+
+constexpr int kScanThreads = 512;
+constexpr int kSortRowsPerThread = 8;
+
+// Where scan_count finds a row's node: rel, or (K5's sorted route) the
+// row's advance, which also writes its new position and its node.
+struct RelOf {
+  const int* rel;
+  __device__ __forceinline__ int operator()(long long r, int) const {
+    return __ldg(rel + r);
+  }
+};
+
+template <typename BinT>
+struct AdvanceOf {
+  const BinT* bins;
+  Advance adv;
+  int F;
+  int* rel;               // written: each row's node in the new level
+  __device__ __forceinline__ int operator()(long long r, int N) const {
+    const long long p = adv.step(bins, r, F);
+    adv.pos_out[r] = p;
+    const int v = adv.node(p, N);
+    rel[r] = v;
+    return v;
+  }
+};
+
+// Each block counts its rows per node in shared memory and adds the
+// counts to the global ones (one atomic per block and node).
+template <typename NodeOf>
+__global__ void __launch_bounds__(kScanThreads) scan_count(
+    NodeOf node_of, long long n, int N, int* __restrict__ counts) {
+  extern __shared__ int cnt[];                              // [N]
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  const long long r0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x * kSortRowsPerThread;
+#pragma unroll
+  for (int k = 0; k < kSortRowsPerThread; ++k) {
+    const long long r = r0 + static_cast<long long>(k) * blockDim.x
+                        + threadIdx.x;
+    if (r < n) {
+      const int v = node_of(r, N);
+      if (v >= 0 && v < N) atomicAdd(&cnt[v], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    if (cnt[i] != 0) atomicAdd(&counts[i], cnt[i]);
+}
+
+// Each block counts again, reserves its place in every node's run with one
+// global atomic per node, and writes its active rows' ids there. The order
+// inside a run depends on the atomics; the integer sums do not, so the
+// result is deterministic.
+__global__ void __launch_bounds__(kScanThreads) scan_scatter(
+    const int* __restrict__ rel, long long n, int N, int* __restrict__ cursor,
+    int* __restrict__ perm) {
+  extern __shared__ int sh[];                               // [2N]
+  int* cnt = sh;
+  int* base = sh + N;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  const long long r0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x * kSortRowsPerThread;
+  int node[kSortRowsPerThread], rank[kSortRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kSortRowsPerThread; ++k) {
+    const long long r = r0 + static_cast<long long>(k) * blockDim.x
+                        + threadIdx.x;
+    node[k] = r < n ? rel[r] : -1;
+    if (node[k] >= 0 && node[k] < N) rank[k] = atomicAdd(&cnt[node[k]], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    base[i] = cnt[i] != 0 ? atomicAdd(&cursor[i], cnt[i]) : 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kSortRowsPerThread; ++k) {
+    if (node[k] >= 0 && node[k] < N) {
+      const long long r = r0 + static_cast<long long>(k) * blockDim.x
+                          + threadIdx.x;
+      perm[base[node[k]] + rank[k]] = static_cast<int>(r);
+    }
+  }
+}
 
 // Exclusive prefix sum of one value a thread over the block; *total gets
 // the sum of all. Every thread of the block must call it.
@@ -282,12 +401,11 @@ constexpr int kPlanThreads = 1024;
 constexpr int kPlanPer = 4;               // N and n_groups <= 4096
 
 // One block: the sorted runs' offsets [N + 1] and the scatter's cursors
-// from the counts (K4's scan_offsets, in parallel), then the items of
-// every group of G nodes: a group of c rows takes max(1, ceil(c / R))
-// items; a group of more than one item gets the next partial slots and
-// a place in the split list (in group order). Entry n_groups of
-// item_start is the item count; *n_split the split groups.
-// `ops/cuda/hist.py group_items` is the same arithmetic in Python.
+// from the counts, then the items of every group of G nodes: a group of c
+// rows takes max(1, ceil(c / R)) items; a group of more than one item gets
+// the next partial slots and a place in the split list (in group order).
+// Entry n_groups of item_start is the item count; *n_split the split
+// groups. `ops/cuda/hist.py group_items` is the same arithmetic in Python.
 __global__ void __launch_bounds__(kPlanThreads) level_plan(
     const int* __restrict__ counts, int N, int G, int n_groups, long long R,
     int* __restrict__ offsets, int* __restrict__ cursor,
@@ -355,19 +473,53 @@ __global__ void __launch_bounds__(kPlanThreads) level_plan(
   }
 }
 
-// Add the (row, feature) elements of sorted positions (or rows) [a, e)
-// into the tile. Sorted: idx is perm and every row is at group node gi.
-// Unsorted: idx is rel and a row's node is its rel (inactive when outside
+// ---- the tiles -------------------------------------------------------------
+
+// Where add_elements finds the row and the tile node of position i.
+struct SortedNodes {        // rows sorted by node, all at group node gi
+  static constexpr bool kAllActive = true;
+  const int* perm;
+  int gi;
+  __device__ __forceinline__ void at(long long i, long long& row,
+                                     int& node) const {
+    row = __ldg(perm + i);
+    node = gi;
+  }
+};
+
+struct RelNodes {           // rows in their order, nodes from rel
+  static constexpr bool kAllActive = false;
+  const int* rel;
+  __device__ __forceinline__ void at(long long i, long long& row,
+                                     int& node) const {
+    row = i;
+    node = __ldg(rel + i);
+  }
+};
+
+struct ChunkNodes {         // rows in their order, nodes in shared memory
+  static constexpr bool kAllActive = false;
+  const unsigned char* node_of;   // of rows [c0, c0 + kAdvanceChunk)
+  long long c0;
+  __device__ __forceinline__ void at(long long i, long long& row,
+                                     int& node) const {
+    row = i;
+    node = node_of[i - c0];
+  }
+};
+
+// Add the (row, feature) elements of positions [a, e) into the tile;
+// `nodes` gives each position's row and tile node (inactive when outside
 // [0, N)). Elements run row-major over the tile's fcur features; thread t
 // starts at element t and steps by blockDim.x. A thread issues the loads
-// of kBatch elements before their adds; unsorted, a row's rel, bins and
-// gradients are loaded together. The tile keeps each plane's words apart
-// (the policies' `add`) and a feature's bins at an odd stride, so that the lanes of a warp, which mostly add into different
-// features, spread over the banks even where they add into one slot.
-template <bool kSorted, typename BinT, typename Pol>
+// of kBatch elements before their adds. The tile keeps each plane's words
+// apart (the policies' `add`) and a feature's bins at an odd stride, so
+// that the lanes of a warp, which mostly add into different features,
+// spread over the banks even where they add into one slot.
+template <typename Nodes, typename BinT, typename Pol, typename Map>
 __device__ __forceinline__ void add_elements(
-    const BinT* __restrict__ bins, const int* __restrict__ idx,
-    const Pol& pol, long long a, long long e, int F, int N, int gi, int f0,
+    const BinT* __restrict__ bins, const Nodes& nodes, const Pol& pol,
+    const Map& map, long long a, long long e, int F, int N, int f0,
     int fcur, int fc, int b0, int bcur, int bs, int cells,
     typename Pol::Word* __restrict__ tile) {
   using C = typename Pol::Counter;
@@ -394,21 +546,18 @@ __device__ __forceinline__ void add_elements(
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {   // loads
       if (row[u] < 0) continue;
-      if (kSorted) {
-        row[u] = idx[row[u]];
-        node[u] = gi;
-      } else {
-        node[u] = idx[row[u]];
-      }
+      nodes.at(row[u], row[u], node[u]);
       bin[u] = static_cast<unsigned>(bins[row[u] * F + f0 + feat[u]]);
       x[u] = pol.raw(row[u]);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {   // shared-memory integer adds
       if (row[u] < 0) continue;
-      const unsigned b = bin[u] - static_cast<unsigned>(b0);
+      const unsigned b = map(bin[u]) - static_cast<unsigned>(b0);
       if (b >= static_cast<unsigned>(bcur)) continue;             // other tile
-      if (!kSorted && (node[u] < 0 || node[u] >= N)) continue;   // inactive
+      if (!Nodes::kAllActive &&
+          static_cast<unsigned>(node[u]) >= static_cast<unsigned>(N))
+        continue;                                                 // inactive
       C v[P];
       pol.expand(x[u], v);
       Pol::add(tile + (node[u] * fc + feat[u]) * bs + static_cast<int>(b),
@@ -440,20 +589,83 @@ __device__ __forceinline__ void write_tile(
   }
 }
 
-template <bool kSorted, typename BinT, typename Pol>
+// The fold's work: for each (node, feature) row of a group's tile,
+// fold_passes(fd) warp tasks of 32 bins each, the last the missing slot.
+__device__ __forceinline__ int fold_passes(const Fold& fd) {
+  return ((((fd.coarse_b - 1) << fd.shift) + 31) >> 5) + 1;
+}
+
+// Fold task i (< G * fc * fold_passes) of group g's tile (f0; one bin tile;
+// in shared memory, or a combined partial in device memory), by one warp
+// (all its lanes call it): lane l reads bin 32 * pass + l of row r (a warp
+// reads 32 consecutive counters of a plane), and the lanes of one slot's
+// span (1 << shift <= 32) sum them by shuffles; the last pass reads the
+// missing bin.
+template <typename Pol>
+__device__ __forceinline__ void fold_task(
+    const typename Pol::Word* tile, const TilePlan& tp, int g, int f0, int i,
+    int N, int F, int B, const Fold& fd, float i0, float i1) {
+  using C = typename Pol::Counter;
+  constexpr int P = Pol::kPlanes;
+  const int n_pass = fold_passes(fd);
+  const int r = i / n_pass;               // (group node, feature) row
+  const int pass = i - r * n_pass;
+  const int gi = r / tp.fc;
+  const int j = r - gi * tp.fc;
+  const int node = g * tp.G + gi;
+  if (node >= N || f0 + j >= F) return;                  // warp-uniform
+  const int cells = tp.G * tp.fc * tp.bs;
+  const int lane = threadIdx.x & 31;
+  const int n_real = fd.coarse_b - 1;     // slots below the missing one
+  const int real_bins = n_real << fd.shift;
+  float2* dst = fd.out + (static_cast<long long>(node) * F + f0 + j)
+                             * fd.coarse_b;
+  C x[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) x[p] = 0;
+  if (pass == n_pass - 1) {               // the missing slot, or zeros
+    if (lane == 0) {
+      if (fd.missing < B) Pol::read(tile, r * tp.bs + fd.missing, cells, x);
+      dst[n_real] = Pol::to_f32(x, i0, i1);
+    }
+    return;
+  }
+  const int b = 32 * pass + lane;
+  if (b < B && b < real_bins && b != fd.missing)
+    Pol::read(tile, r * tp.bs + b, cells, x);
+  const int span = 1 << fd.shift;
+  for (int d = span >> 1; d > 0; d >>= 1)
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      x[p] += __shfl_down_sync(0xffffffffu, x[p], d, span);
+  if ((lane & (span - 1)) == 0 && b < real_bins)
+    dst[b >> fd.shift] = Pol::to_f32(x, i0, i1);
+}
+
+// Row sources of hist_tiles.
+enum { kRel, kSorted, kAdvance };
+
+// One block per (item, tile). kRel: one group, rows in their order, nodes
+// from rel. kSorted: rows sorted by node (perm, offsets), the item's group
+// found from item_start. kAdvance (K5, one group): rows in their order,
+// each advanced once as it is loaded (adv): its new position written by
+// the first tile's block, its node kept in shared memory beside the tile
+// for kAdvanceChunk rows at a time. kFold (K4's fold): a group of one item
+// also folds its tile into fold.out.
+template <int kRows, typename BinT, typename Pol, typename Map, bool kFold>
 __global__ void __launch_bounds__(kThreads, 2) hist_tiles(
     const BinT* __restrict__ bins, const int* __restrict__ rel,
     const int* __restrict__ perm, const int* __restrict__ offsets,
     const int* __restrict__ item_start, const int* __restrict__ pslot,
-    Pol pol, const float* __restrict__ inv, long long n, int F, int B,
-    int N, TilePlan tp, typename Pol::Word* __restrict__ partial,
-    float2* __restrict__ out) {
+    Advance adv, Pol pol, Map map, const float* __restrict__ inv,
+    long long n, int F, int B, int N, TilePlan tp, Fold fold,
+    typename Pol::Word* __restrict__ partial, float2* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename Pol::Word* tile = reinterpret_cast<typename Pol::Word*>(smem_raw);
 
   const int item = blockIdx.x;
   int g = 0, seg = item, n_seg = gridDim.x, slot = 0;
-  if (kSorted) {
+  if (kRows == kSorted) {
     if (item >= item_start[tp.n_groups]) return;
     int lo = 0, hi = tp.n_groups;       // the group whose items hold `item`
     while (hi - lo > 1) {
@@ -478,7 +690,7 @@ __global__ void __launch_bounds__(kThreads, 2) hist_tiles(
   pol.init();
   __syncthreads();
 
-  if (kSorted) {
+  if constexpr (kRows == kSorted) {
     const int k0 = g * tp.G;
     const int k1 = k0 + tp.G < N ? k0 + tp.G : N;
     const long long s0 = offsets[k0] + static_cast<long long>(seg) * tp.R;
@@ -488,20 +700,41 @@ __global__ void __launch_bounds__(kThreads, 2) hist_tiles(
       const long long a = offsets[k] > s0 ? offsets[k] : s0;
       const long long e = offsets[k + 1] < s1 ? offsets[k + 1] : s1;
       if (a < e)
-        add_elements<true>(bins, perm, pol, a, e, F, N, k - k0, f0, fcur,
-                           tp.fc, b0, bcur, tp.bs, cells, tile);
+        add_elements(bins, SortedNodes{perm, k - k0}, pol, map, a, e, F, N,
+                     f0, fcur, tp.fc, b0, bcur, tp.bs, cells, tile);
     }
   } else {
     const long long a = static_cast<long long>(item) * tp.R;
     const long long e = a + tp.R < n ? a + tp.R : n;
-    if (a < e)
-      add_elements<false>(bins, rel, pol, a, e, F, N, 0, f0, fcur, tp.fc, b0,
-                          bcur, tp.bs, cells, tile);
+    if constexpr (kRows == kRel) {
+      if (a < e)
+        add_elements(bins, RelNodes{rel}, pol, map, a, e, F, N, f0, fcur,
+                     tp.fc, b0, bcur, tp.bs, cells, tile);
+    } else {
+      unsigned char* node_of = smem_raw + cells * kCellBytes;
+      for (long long c0 = a; c0 < e; c0 += kAdvanceChunk) {
+        const long long c1 = c0 + kAdvanceChunk < e ? c0 + kAdvanceChunk : e;
+        for (long long r = c0 + threadIdx.x; r < c1; r += blockDim.x) {
+          const long long p = adv.step(bins, r, F);
+          if (t == 0) adv.pos_out[r] = p;
+          node_of[r - c0] = static_cast<unsigned char>(adv.node(p, N));
+        }
+        __syncthreads();
+        add_elements(bins, ChunkNodes{node_of, c0}, pol, map, c0, c1, F, N,
+                     f0, fcur, tp.fc, b0, bcur, tp.bs, cells, tile);
+        __syncthreads();                  // node_of is reused next
+      }
+    }
   }
   __syncthreads();
 
   if (n_seg == 1) {                      // the group's only item
-    write_tile<Pol>(tile, tp, g, f0, b0, N, F, B, inv[0], inv[1], out);
+    const float i0 = inv[0], i1 = inv[1];
+    write_tile<Pol>(tile, tp, g, f0, b0, N, F, B, i0, i1, out);
+    if constexpr (kFold)
+      for (int i = threadIdx.x >> 5; i < tp.G * tp.fc * fold_passes(fold);
+           i += blockDim.x >> 5)
+        fold_task<Pol>(tile, tp, g, f0, i, N, F, B, fold, i0, i1);
     return;
   }
   const int n_tiles = tp.n_ftiles * tp.n_btiles;
@@ -516,12 +749,15 @@ __global__ void __launch_bounds__(kThreads, 2) hist_tiles(
 // at most kCombineWarps and n_seg) share a 32-cell chunk and take every
 // ws-th partial; lane l reads counter chunk + l of each plane, so a warp
 // reads 32 consecutive counters; their sums meet in shared memory.
-// Unsorted (one group): unsorted_items partials at slot 0.
+// Unsorted (one group): unsorted_items partials at slot 0. kKeepSums (K4's
+// fold): the sums also go back into the group's first partial for
+// `fold_partials`; otherwise the partials are read-only here.
 constexpr int kCombineWarps = 8;
 
-template <typename Pol>
+template <typename Pol, bool kKeepSums>
 __global__ void __launch_bounds__(32 * kCombineWarps) combine_partials(
-    const typename Pol::Word* __restrict__ partial,
+    std::conditional_t<kKeepSums, typename Pol::Word,
+                       const typename Pol::Word>* __restrict__ partial,
     const int* __restrict__ item_start, const int* __restrict__ pslot,
     const int* __restrict__ split_list, const int* __restrict__ n_split,
     int unsorted_items, const float* __restrict__ inv, int F, int B, int N,
@@ -577,11 +813,15 @@ __global__ void __launch_bounds__(32 * kCombineWarps) combine_partials(
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) sums[warp][p][lane] = a[p];
-    __syncthreads();
+    __syncthreads();                      // every partial has been read
     if (warp % ws == 0 && i < cells) {
       for (int w = 1; w < ws; ++w)
 #pragma unroll
         for (int p = 0; p < P; ++p) a[p] += sums[warp + w][p][lane];
+      if constexpr (kKeepSums)
+        Pol::write(partial + (static_cast<long long>(slot) * n_tiles + t)
+                                 * cells * 4,
+                   i, cells, a);
       const int gi = i / per_node;
       const int j = (i - gi * per_node) / tp.bs;
       const int b = i - gi * per_node - j * tp.bs;
@@ -594,315 +834,30 @@ __global__ void __launch_bounds__(32 * kCombineWarps) combine_partials(
   }
 }
 
-// ---- K4: the int8x2 histogram over rows sorted by node ---------------------
-//
-// The TPU kernel streams 2048-row blocks of rows that its wrapper
-// counting-sorted by node (`ops/partition.py counting_sort_by_node`), so
-// each block belongs to one node and its accumulator tile is one node's
-// [F, B, 4] int32 sums, however many nodes the level has. K4 keeps that
-// design and K2's arithmetic: the same quantised q, the same hi/lo planes,
-// exact int32 sums, the same dequantisation, so it computes K2's function
-// bit for bit. What it changes is the bound at depth: one tile of one
-// node holds its counters however many nodes the level has. K2 and K3
-// share its count and scatter kernels.
-//
-// Steps, all on one stream:
-// 1. count: each block counts its rows per node in shared memory and adds
-//    the counts to the global ones (one atomic per block and node);
-// 2. offsets: one thread turns the counts into the start of every node's
-//    run (N + 1 entries; entry N is the number of active rows);
-// 3. scatter: each block counts again, reserves its place in every node's
-//    run with one global atomic per node, and writes its active rows' ids
-//    there. The order inside a run depends on the atomics; the integer sums
-//    do not, so the result is deterministic;
-// 4. accumulate: block b owns sorted positions [b*R, (b+1)*R) and walks
-//    them run by run: zero the tile, add the run's rows with shared-memory
-//    atomics, add the tile's non-zero counters to the node's row of the
-//    global table. A run crosses few block borders, so the table sees
-//    about (blocks + N) tile flushes in all;
-// 5. dequantise, as K2.
-// Inactive rows (rel outside [0, N)) are dropped by the sort.
+// K4's fold of the split groups, from the sums `combine_partials` left in
+// each group's first partial. Grid: (a stride over the split groups,
+// chunk of kFoldWarps fold tasks, feature tile); a warp a task.
+constexpr int kFoldWarps = 8;
 
-constexpr int kScanThreads = 512;
-constexpr int kSortRowsPerThread = 8;
-// one node's tile: 28 features x 257 bins x 16 B = 115,136 B, and two
-// blocks of 115,200 B (plus 1 KB each for the system) fit the 228 KB of an
-// SM
-constexpr int kScanTileBytes = 115200;
-
-__global__ void __launch_bounds__(kScanThreads) scan_count(
-    const int* __restrict__ rel, long long n, int N, int* __restrict__ counts) {
-  extern __shared__ int cnt[];                              // [N]
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
-  __syncthreads();
-  const long long r0 =
-      static_cast<long long>(blockIdx.x) * blockDim.x * kSortRowsPerThread;
-#pragma unroll
-  for (int k = 0; k < kSortRowsPerThread; ++k) {
-    const long long r = r0 + static_cast<long long>(k) * blockDim.x
-                        + threadIdx.x;
-    if (r < n) {
-      const int v = rel[r];
-      if (v >= 0 && v < N) atomicAdd(&cnt[v], 1);
-    }
+template <typename Pol>
+__global__ void __launch_bounds__(32 * kFoldWarps) fold_partials(
+    const typename Pol::Word* __restrict__ partial,
+    const int* __restrict__ pslot, const int* __restrict__ split_list,
+    const int* __restrict__ n_split, int unsorted, const float* __restrict__
+    inv, int F, int B, int N, TilePlan tp, Fold fold) {
+  const int t = blockIdx.z;
+  const int f0 = t * tp.fc;               // one bin tile (the wrapper's check)
+  const int cells = tp.G * tp.fc * tp.bs;
+  const int i = blockIdx.y * kFoldWarps + (threadIdx.x >> 5);
+  if (i >= tp.G * tp.fc * fold_passes(fold)) return;     // warp-uniform
+  const int groups = unsorted ? 1 : *n_split;
+  for (int js = blockIdx.x; js < groups; js += gridDim.x) {
+    const int g = unsorted ? 0 : split_list[js];
+    const int slot = unsorted ? 0 : pslot[g];
+    fold_task<Pol>(partial + (static_cast<long long>(slot) * tp.n_ftiles + t)
+                                 * cells * 4,
+                   tp, g, f0, i, N, F, B, fold, inv[0], inv[1]);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    if (cnt[i] != 0) atomicAdd(&counts[i], cnt[i]);
-}
-
-__global__ void scan_offsets(const int* __restrict__ counts, int N,
-                             int* __restrict__ offsets,
-                             int* __restrict__ cursor) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  int run = 0;
-  for (int i = 0; i < N; ++i) {
-    offsets[i] = run;
-    cursor[i] = run;
-    run += counts[i];
-  }
-  offsets[N] = run;
-}
-
-__global__ void __launch_bounds__(kScanThreads) scan_scatter(
-    const int* __restrict__ rel, long long n, int N, int* __restrict__ cursor,
-    int* __restrict__ perm) {
-  extern __shared__ int sh[];                               // [2N]
-  int* cnt = sh;
-  int* base = sh + N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
-  __syncthreads();
-  const long long r0 =
-      static_cast<long long>(blockIdx.x) * blockDim.x * kSortRowsPerThread;
-  int node[kSortRowsPerThread], rank[kSortRowsPerThread];
-#pragma unroll
-  for (int k = 0; k < kSortRowsPerThread; ++k) {
-    const long long r = r0 + static_cast<long long>(k) * blockDim.x
-                        + threadIdx.x;
-    node[k] = r < n ? rel[r] : -1;
-    if (node[k] >= 0 && node[k] < N) rank[k] = atomicAdd(&cnt[node[k]], 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    base[i] = cnt[i] != 0 ? atomicAdd(&cursor[i], cnt[i]) : 0;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kSortRowsPerThread; ++k) {
-    if (node[k] >= 0 && node[k] < N) {
-      const long long r = r0 + static_cast<long long>(k) * blockDim.x
-                          + threadIdx.x;
-      perm[base[node[k]] + rank[k]] = static_cast<int>(r);
-    }
-  }
-}
-
-template <typename BinT>
-__global__ void __launch_bounds__(kScanThreads, 2) scan_accumulate(
-    const BinT* __restrict__ bins, const int2* __restrict__ q,
-    const int* __restrict__ perm, const int* __restrict__ offsets, int F,
-    int B, int N, int fc, long long rows_per_block, int* __restrict__ acc) {
-  extern __shared__ __align__(16) int tile[];               // [fc, B, 4]
-  const long long n_active = offsets[N];
-  long long s = static_cast<long long>(blockIdx.x) * rows_per_block;
-  if (s >= n_active) return;
-  const long long e =
-      s + rows_per_block < n_active ? s + rows_per_block : n_active;
-  const int f0 = blockIdx.y * fc;
-  const int fcur = fc < F - f0 ? fc : F - f0;
-  const int cells = fcur * B * 4;
-  while (s < e) {
-    // the run holding sorted position s: the first node whose run ends
-    // after s (runs may be empty)
-    int lo = 1, hi = N;
-    while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (offsets[mid] > s) hi = mid; else lo = mid + 1;
-    }
-    const int node = lo - 1;
-    const long long run_end = offsets[lo] < e ? offsets[lo] : e;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) tile[i] = 0;
-    __syncthreads();
-    for (long long i = s + threadIdx.x; i < run_end; i += blockDim.x) {
-      const long long row = perm[i];
-      const int2 x = q[row];
-      const int ghi = (x.x + 128) >> 8;   // arithmetic shift: round to nearest
-      const int hhi = (x.y + 128) >> 8;
-      const int v[4] = {ghi, hhi, x.x - 256 * ghi, x.y - 256 * hhi};
-      const BinT* brow = bins + row * F + f0;
-      for (int j = 0; j < fcur; ++j) {
-        const unsigned b = static_cast<unsigned>(brow[j]);
-        if (b >= static_cast<unsigned>(B)) continue;   // never for valid bins
-        int* cell = tile + (j * B + b) * 4;
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          if (v[p] != 0) atomicAdd(cell + p, v[p]);
-      }
-    }
-    __syncthreads();
-    int* dst = acc + (static_cast<long long>(node) * F + f0) * B * 4;
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const int v = tile[i];
-      if (v != 0) atomicAdd(dst + i, v);
-    }
-    __syncthreads();                      // the tile is zeroed again next
-    s = run_end;
-  }
-}
-
-template <typename BinT>
-cudaError_t launch_scan_accumulate(const void* bins, const int* q,
-                                   const int* perm, const int* offsets,
-                                   long long n, int F, int B, int N,
-                                   int num_sms, int* acc,
-                                   cudaStream_t stream) {
-  int fc = kScanTileBytes / (B * 16);
-  if (fc < 1) return cudaErrorInvalidValue;   // one feature's bins must fit
-  if (fc > F) fc = F;
-  const int n_ftiles = (F + fc - 1) / fc;
-  fc = (F + n_ftiles - 1) / n_ftiles;         // balance the feature tiles
-  // about two blocks per SM over all rows (inactive ones included: their
-  // count is on the device), at least 1024 rows each
-  const long long target = 2LL * num_sms;
-  long long rpb = (n + target - 1) / target;
-  if (rpb < 1024) rpb = 1024;
-  const long long blocks = (n + rpb - 1) / rpb;
-  if (blocks > 0x7fffffffLL || n_ftiles > 65535)
-    return cudaErrorInvalidConfiguration;
-  auto kernel = scan_accumulate<BinT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanTileBytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(blocks), n_ftiles);
-  kernel<<<grid, kScanThreads, fc * B * 16, stream>>>(
-      static_cast<const BinT*>(bins), reinterpret_cast<const int2*>(q), perm,
-      offsets, F, B, N, fc, rpb, acc);
-  return cudaGetLastError();
-}
-
-// ---- K5: the level advance fused with the next level's coarse histogram --
-//
-// One pass over the rows at a level boundary of the `fused` schedule. For
-// each row: if it sits at a node of the previous level that split, read
-// its bin at that node's split feature and move it to 2p + 1 + go_right
-// (the missing bin goes the default way, otherwise right when bin > thr);
-// write the new position; if that lies in the new level, add the row's four
-// int8x2 planes at every feature's coarse id (bin >> shift, the missing bin
-// on slot B - 1) to the [N, F, B, 4] int32 table. One dequantisation as
-// K2's. The caller gives the geometry (ops/split.py: shift 4, B = 20).
-// Rows above the previous level, and rows at its nodes that did not split,
-// stay put and fall outside the new level.
-//
-// The TPU kernel adds 2048-row blocks of each coarse bin's sums in f32, so
-// it equals this exact-int32 function only while those sums stay below
-// 2^24 quanta; K5 is K2's function over the coarse ids at every size.
-//
-// Design: shared-memory tiles at 20 bins (a 96 KB tile holds 10 nodes x
-// 28 features, so a level of 128 nodes takes 13 tiles). Measured once on
-// an H100 at 1M x 28 (PERF.md): the tiles beat global atomics at every
-// level width of the path, 0.147 against 4.14 ms at N = 2 and 1.03
-// against 1.24 ms at N = 128. Each tile's blocks recompute the advance of
-// their rows (one payload lookup in shared memory and one bin read a
-// row); only the first tile writes the positions. What bounds it: the least traffic is ~52 MB at 1M x 28
-// (bins, q and the positions read, the positions and the table written),
-// ~16 us; the scatter of 4 integer adds per (row, feature) into 20 slots
-// contends more than K2's into 256, and at 128 nodes each of the 13 tiles
-// re-reads every row's position and split bin.
-
-constexpr int kFusedMaxPrev = 64;   // the TPU's gate: levels of <= 128 nodes
-
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads, 2) fused_accumulate(
-    const BinT* __restrict__ bins, const long long* __restrict__ pos_in,
-    const int* __restrict__ payload, int n_prev, long long lo_prev,
-    long long lo, int missing_bin, int B, int shift, Int8x2 pol, long long n,
-    int F, int N, int nc, int fc, int n_ftiles, long long rows_per_split,
-    long long* __restrict__ pos_out, int* __restrict__ acc) {
-  constexpr int P = Int8x2::kPlanes;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* tile = reinterpret_cast<int*>(smem_raw);
-  // the previous level's payload: feature, threshold, default_left,
-  // can_split, n_prev entries each
-  __shared__ int split[4 * kFusedMaxPrev];
-
-  const int t = blockIdx.y;
-  const int n0 = (t / n_ftiles) * nc;
-  const int f0 = (t % n_ftiles) * fc;
-  const int ncur = nc < N - n0 ? nc : N - n0;
-  const int fcur = fc < F - f0 ? fc : F - f0;
-  const int tile_cells = nc * fc * B * P;
-
-  for (int i = threadIdx.x; i < 4 * n_prev; i += blockDim.x)
-    split[i] = payload[i];
-  for (int i = threadIdx.x; i < tile_cells; i += blockDim.x) tile[i] = 0;
-  __syncthreads();
-
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_split;
-  const long long r1 = r0 + rows_per_split < n ? r0 + rows_per_split : n;
-  for (long long row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-    long long p = pos_in[row];
-    const long long j = p - lo_prev;
-    if (j >= 0 && j < n_prev && split[3 * n_prev + j] != 0) {
-      const int b = static_cast<int>(bins[row * F + split[j]]);
-      const bool right = b == missing_bin ? split[2 * n_prev + j] == 0
-                                          : b > split[n_prev + j];
-      p = 2 * p + 1 + (right ? 1 : 0);
-    }
-    if (t == 0) pos_out[row] = p;
-    const long long node = p - lo - n0;
-    if (node < 0 || node >= ncur) continue;   // other tile, or not in level
-    int v[P];
-    pol.load(row, v);
-    const BinT* brow = bins + row * F + f0;
-    for (int k = 0; k < fcur; ++k) {
-      const int b = static_cast<int>(brow[k]);
-      const int c = b == missing_bin ? B - 1 : b >> shift;
-      int* cell = tile + ((node * fc + k) * B + c) * P;
-#pragma unroll
-      for (int q = 0; q < P; ++q)
-        if (v[q] != 0) atomicAdd(cell + q, v[q]);
-    }
-  }
-
-  __syncthreads();
-  for (int i = threadIdx.x; i < tile_cells; i += blockDim.x) {
-    const int v = tile[i];
-    if (v == 0) continue;
-    const int q = i % P;
-    const int cell = i / P;
-    const int c = cell % B;
-    const int rest = cell / B;
-    const int k = rest % fc;
-    const int node = rest / fc;
-    if (node >= ncur || k >= fcur) continue;
-    atomicAdd(acc + ((static_cast<long long>(n0 + node) * F + f0 + k) * B
-                     + c) * P + q, v);
-  }
-}
-
-template <typename BinT>
-cudaError_t launch_fused(const void* bins, const long long* pos_in,
-                         const int* payload, int n_prev, long long lo_prev,
-                         long long lo, int missing_bin, int B, int shift,
-                         const int* q, long long n, int F, int N, int num_sms,
-                         long long* pos_out, int* acc, cudaStream_t stream) {
-  if (B * kCellBytes > kTileBytes) return cudaErrorInvalidValue;
-  const Plan p = make_plan(n, F, B, N, num_sms);
-  if (p.n_tiles > 65535) return cudaErrorInvalidConfiguration;
-  auto kernel = fused_accumulate<BinT>;
-  const int smem = p.nc * p.fc * B * kCellBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.splits, p.n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const BinT*>(bins), pos_in, payload, n_prev, lo_prev, lo,
-      missing_bin, B, shift, Int8x2{reinterpret_cast<const int2*>(q)}, n, F,
-      N, p.nc,
-      p.fc, p.n_ftiles, p.rows_per_split, pos_out, acc);
-  return cudaGetLastError();
 }
 
 // Two blocks of a full tile a SM: the shared-memory limit and carveout,
@@ -923,18 +878,30 @@ cudaError_t allow_tile(Kernel kernel, unsigned* done) {
   return err;
 }
 
-template <typename BinT, typename Pol>
-cudaError_t launch_tiles(const void* bins_v, const int* rel, Pol pol,
-                         const float* inv, long long n, int F, int B, int N,
-                         const TilePlan& tp, int* work,
-                         typename Pol::Word* partial, float* out,
-                         cudaStream_t stream) {
-  const BinT* bins = static_cast<const BinT*>(bins_v);
-  float2* out2 = reinterpret_cast<float2*>(out);
+// The launches of one level, all on `stream`. kFused (K5): the rows are
+// advanced first (adv), in the sort's count or in the one-group tiles.
+// kFold (K4's fold): the tiles and the split groups' sums are folded into
+// fold.out. marks (optional, for timing): three events recorded after the
+// sort (count or advance, plan, scatter), after the tiles and after the
+// combine and fold.
+template <typename BinT, typename Pol, typename Map, bool kFused, bool kFold>
+cudaError_t launch_tiles(const BinT* bins, const int* rel, const Advance& adv,
+                         Pol pol, Map map, const float* inv, long long n,
+                         int F, int B, int N, const TilePlan& tp,
+                         const Fold& fold, int* work,
+                         typename Pol::Word* partial, float2* out,
+                         cudaEvent_t const* marks, cudaStream_t stream) {
   const int cells = tp.G * tp.fc * tp.bs;
   const int n_tiles = tp.n_ftiles * tp.n_btiles;
   const dim3 grid(static_cast<unsigned>(tp.max_items), n_tiles);
   const unsigned chunks = static_cast<unsigned>((cells + 31) / 32);
+  const int fold_tasks =
+      tp.G * tp.fc * (((((fold.coarse_b - 1) << fold.shift) + 31) >> 5) + 1);
+  const unsigned fold_chunks = static_cast<unsigned>(
+      (fold_tasks + kFoldWarps - 1) / kFoldWarps);
+  auto mark = [&](int i) {
+    if (marks != nullptr) cudaEventRecord(marks[i], stream);
+  };
   cudaError_t err;
   if (tp.sorted) {
     int* counts = work;
@@ -951,55 +918,94 @@ cudaError_t launch_tiles(const void* bins_v, const int* rel, Pol pol,
         static_cast<long long>(kScanThreads) * kSortRowsPerThread;
     const unsigned sort_blocks =
         static_cast<unsigned>((n + per_block - 1) / per_block);
-    if (n > 0)
-      scan_count<<<sort_blocks, kScanThreads, N * sizeof(int), stream>>>(
-          rel, n, N, counts);
+    if (n > 0) {
+      if constexpr (kFused) {
+        int* rel_w = n_split + 1;         // the advanced rows' nodes
+        scan_count<<<sort_blocks, kScanThreads, N * sizeof(int), stream>>>(
+            AdvanceOf<BinT>{bins, adv, F, rel_w}, n, N, counts);
+        rel = rel_w;
+      } else {
+        scan_count<<<sort_blocks, kScanThreads, N * sizeof(int), stream>>>(
+            RelOf{rel}, n, N, counts);
+      }
+    }
     level_plan<<<1, kPlanThreads, 0, stream>>>(
         counts, N, tp.G, tp.n_groups, tp.R, offsets, cursor, item_start,
         pslot, split_list, n_split);
     if (n > 0)
       scan_scatter<<<sort_blocks, kScanThreads, 2 * N * sizeof(int),
                      stream>>>(rel, n, N, cursor, perm);
+    mark(0);
     static unsigned ready = 0;   // per instantiation
-    auto kernel = hist_tiles<true, BinT, Pol>;
+    auto kernel = hist_tiles<kSorted, BinT, Pol, Map, kFold>;
     err = allow_tile(kernel, &ready);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, cells * kCellBytes, stream>>>(
-        bins, rel, perm, offsets, item_start, pslot, pol, inv, n, F, B, N, tp,
-        partial, out2);
+        bins, rel, perm, offsets, item_start, pslot, adv, pol, map, inv, n, F,
+        B, N, tp, fold, partial, out);
+    mark(1);
     // about 2048 blocks over the split groups' chunks, looping over groups
     const unsigned stride = static_cast<unsigned>(
         tp.max_split < 2048 / chunks ? tp.max_split : (2048 + chunks - 1)
                                                           / chunks);
-    if (tp.max_split > 0)
-      combine_partials<Pol><<<dim3(stride, chunks, n_tiles),
-                              32 * kCombineWarps, 0, stream>>>(
+    if (tp.max_split > 0) {
+      combine_partials<Pol, kFold><<<dim3(stride, chunks, n_tiles),
+                                     32 * kCombineWarps, 0, stream>>>(
           partial, item_start, pslot, split_list, n_split, 0, inv, F, B, N,
-          tp, out2);
+          tp, out);
+      if constexpr (kFold) {
+        // the fold's own stride over the groups: about 2048 blocks too
+        const unsigned fold_stride = static_cast<unsigned>(
+            tp.max_split < 2048 / fold_chunks ? tp.max_split
+                                              : 2048 / fold_chunks + 1);
+        fold_partials<Pol><<<dim3(fold_stride, fold_chunks, n_tiles),
+                             32 * kFoldWarps, 0, stream>>>(
+            partial, pslot, split_list, n_split, 0, inv, F, B, N, tp, fold);
+      }
+    }
   } else {
-    static unsigned ready = 0;   // per instantiation
-    auto kernel = hist_tiles<false, BinT, Pol>;
-    err = allow_tile(kernel, &ready);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, cells * kCellBytes, stream>>>(
-        bins, rel, nullptr, nullptr, nullptr, nullptr, pol, inv, n, F, B, N,
-        tp, partial, out2);
-    if (tp.max_items > 1)
-      combine_partials<Pol><<<dim3(1, chunks, n_tiles), 32 * kCombineWarps,
-                              0, stream>>>(
-          partial, nullptr, nullptr, nullptr, nullptr, tp.max_items, inv, F, B,
-          N, tp, out2);
+    mark(0);
+    if constexpr (kFused) {
+      static unsigned ready = 0;   // per instantiation
+      auto kernel = hist_tiles<kAdvance, BinT, Pol, Map, kFold>;
+      err = allow_tile(kernel, &ready);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, cells * kCellBytes + kAdvanceChunk, stream>>>(
+          bins, nullptr, nullptr, nullptr, nullptr, nullptr, adv, pol, map,
+          inv, n, F, B, N, tp, fold, partial, out);
+    } else {
+      static unsigned ready = 0;   // per instantiation
+      auto kernel = hist_tiles<kRel, BinT, Pol, Map, kFold>;
+      err = allow_tile(kernel, &ready);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, cells * kCellBytes, stream>>>(
+          bins, rel, nullptr, nullptr, nullptr, nullptr, adv, pol, map, inv,
+          n, F, B, N, tp, fold, partial, out);
+    }
+    mark(1);
+    if (tp.max_items > 1) {
+      combine_partials<Pol, kFold><<<dim3(1, chunks, n_tiles),
+                                     32 * kCombineWarps, 0, stream>>>(
+          partial, nullptr, nullptr, nullptr, nullptr, tp.max_items, inv, F,
+          B, N, tp, out);
+      if constexpr (kFold)
+        fold_partials<Pol><<<dim3(1, fold_chunks, n_tiles), 32 * kFoldWarps,
+                             0, stream>>>(
+            partial, nullptr, nullptr, nullptr, 1, inv, F, B, N, tp, fold);
+    }
   }
+  mark(2);
   return cudaGetLastError();
 }
 
-// Reads and checks the wrapper's plan, then launches K2's or K3's kernels
-// for the bin width.
-template <typename Pol>
+// Reads and checks the wrapper's plan, then launches the kernels for the
+// bin width.
+template <typename Pol, typename Map, bool kFused, bool kFold>
 cudaError_t run_tiles(const void* bins, int bin_bytes, const int* rel,
-                      Pol pol, const float* inv, long long n, int F, int B,
-                      int N, const long long* plan, int* work, int* partial,
-                      float* out, cudaStream_t stream) {
+                      const Advance& adv, Pol pol, Map map, const float* inv,
+                      long long n, int F, int B, int N, const long long* plan,
+                      const Fold& fold, int* work, int* partial, float* out,
+                      cudaEvent_t const* marks, cudaStream_t stream) {
   TilePlan tp;
   tp.G = static_cast<int>(plan[0]);
   tp.fc = static_cast<int>(plan[1]);
@@ -1013,31 +1019,45 @@ cudaError_t run_tiles(const void* bins, int bin_bytes, const int* rel,
   tp.max_items = static_cast<int>(plan[9]);
   tp.max_split = static_cast<int>(plan[10]);
   const long long cells = static_cast<long long>(tp.G) * tp.fc * tp.bs;
+  // K5's one-group route keeps a chunk's node ids beside its tile
+  const long long extra = kFused && !tp.sorted ? kAdvanceChunk : 0;
   if (tp.G < 1 || tp.fc < 1 || tp.bc < 1 || tp.bs < tp.bc || tp.R < 1 ||
       tp.max_items < 1 ||
-      cells * kCellBytes > kTilePlanBytes ||
+      cells * kCellBytes + extra > kTilePlanBytes ||
       static_cast<long long>(tp.n_ftiles) * tp.fc < F ||
       static_cast<long long>(tp.n_btiles) * tp.bc < B ||
       static_cast<long long>(tp.n_groups) * tp.G < N ||
       tp.n_ftiles * tp.n_btiles > 65535 || (tp.sorted && N > 4096) ||
       (tp.sorted && tp.n_groups > kPlanThreads * kPlanPer) ||
-      (!tp.sorted && tp.n_groups != 1) || n >= (1LL << 31))
+      (!tp.sorted && tp.n_groups != 1) || n >= (1LL << 31) ||
+      (kFused && N > 255) ||                 // byte node ids
+      (kFold &&                              // a feature's bins in one tile
+       (fold.out == nullptr || tp.n_btiles != 1 || fold.coarse_b < 2 ||
+        fold.shift < 0 || fold.shift > 5)))
     return cudaErrorInvalidValue;
   auto* words = reinterpret_cast<typename Pol::Word*>(partial);
+  float2* out2 = reinterpret_cast<float2*>(out);
   switch (bin_bytes) {
     case 1:
-      return launch_tiles<uint8_t>(bins, rel, pol, inv, n, F, B, N, tp, work,
-                                   words, out, stream);
+      return launch_tiles<uint8_t, Pol, Map, kFused, kFold>(
+          static_cast<const uint8_t*>(bins), rel, adv, pol, map, inv, n, F, B,
+          N, tp, fold, work, words, out2, marks, stream);
     case 2:
-      return launch_tiles<uint16_t>(bins, rel, pol, inv, n, F, B, N, tp,
-                                    work, words, out, stream);
+      return launch_tiles<uint16_t, Pol, Map, kFused, kFold>(
+          static_cast<const uint16_t*>(bins), rel, adv, pol, map, inv, n, F,
+          B, N, tp, fold, work, words, out2, marks, stream);
     case 4:
-      return launch_tiles<int32_t>(bins, rel, pol, inv, n, F, B, N, tp, work,
-                                   words, out, stream);
+      return launch_tiles<int32_t, Pol, Map, kFused, kFold>(
+          static_cast<const int32_t*>(bins), rel, adv, pol, map, inv, n, F, B,
+          N, tp, fold, work, words, out2, marks, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+constexpr Advance kNoAdvance{nullptr, nullptr, nullptr, nullptr, nullptr,
+                             0,       0,       0,       0,       nullptr};
+constexpr Fold kNoFold{nullptr, 0, 0, 0};
 
 }  // namespace
 
@@ -1046,17 +1066,17 @@ cudaError_t run_tiles(const void* bins, int bin_bytes, const int* rel,
 // fields that `ops/cuda/hist.py hist_plan` makes; work: int32 scratch of
 // `hist_work_ints` entries; partial: 16-byte aligned 32-bit scratch of
 // `hist_partial_words` entries; out [N, F, B, 2] f32, every entry
-// written. Returns a
-// cudaError_t (0 on success). Launches on `stream` and does not
-// synchronise.
+// written. Returns a cudaError_t (0 on success). Launches on `stream` and
+// does not synchronise.
 extern "C" int xtt_hist_int8x2(const void* bins, int bin_bytes,
                                const int* rel, const int* q, const float* inv,
                                long long n, int F, int B, int N,
                                const long long* plan, int* work, int* partial,
                                float* out, cudaStream_t stream) {
-  return run_tiles(bins, bin_bytes, rel,
-                   Int8x2{reinterpret_cast<const int2*>(q)}, inv, n, F, B, N,
-                   plan, work, partial, out, stream);
+  return run_tiles<Int8x2, SameBin, false, false>(
+      bins, bin_bytes, rel, kNoAdvance,
+      Int8x2{reinterpret_cast<const int2*>(q)}, SameBin{}, inv, n, F, B, N,
+      plan, kNoFold, work, partial, out, nullptr, stream);
 }
 
 // K3: the same with gpair [n, 2] f32, qscale [2] (2^k) and inv [2] (2^-k)
@@ -1066,111 +1086,108 @@ extern "C" int xtt_hist_f32(const void* bins, int bin_bytes, const int* rel,
                             const float* inv, long long n, int F, int B,
                             int N, const long long* plan, int* work,
                             int* partial, float* out, cudaStream_t stream) {
-  return run_tiles(bins, bin_bytes, rel,
-                   Fixed64{reinterpret_cast<const float2*>(gpair), qscale,
-                           0.0f, 0.0f},
-                   inv, n, F, B, N, plan, work, partial, out, stream);
+  return run_tiles<Fixed64, SameBin, false, false>(
+      bins, bin_bytes, rel, kNoAdvance,
+      Fixed64{reinterpret_cast<const float2*>(gpair), qscale, 0.0f, 0.0f},
+      SameBin{}, inv, n, F, B, N, plan, kNoFold, work, partial, out, nullptr,
+      stream);
 }
 
-
-// K4: the same arguments as xtt_hist_int8x2, with `work` an int32 scratch
-// of 3*N + 1 + n entries (counts [N], offsets [N + 1], cursor [N],
-// perm [n]). Returns a cudaError_t (0 on success). Launches on `stream`
-// and does not synchronise.
+// ---- K4: the int8x2 histogram over rows sorted by node, with its fold ----
+//
+// The TPU kernel streams 2048-row blocks of rows that its wrapper
+// counting-sorted by node (`ops/partition.py counting_sort_by_node`), so
+// each block's accumulator tile is one node's [F, B, 4] int32 sums however
+// many nodes the level has; `with_coarse` folds those sums into the
+// 20-slot coarse histogram of the two-level search before one
+// dequantisation. On the H100, K2's tiles do exactly that: at 28 features
+// x 257 slots one node fills one tile (G = 1), so K4 is K2's instantiation
+// over the same plan (the same function, bit for bit), sorted from two
+// nodes up and read in row order at the root. What bounds it is K2's
+// bound and K2's shared-memory pipe. Its fold runs where the node's sums
+// are integers in one place: in the tile's epilogue for a node of one
+// item, after `combine_partials` (which leaves the summed integers in the
+// node's first partial) in `fold_partials` for a split node. Each coarse
+// cell is written once, as each fine one; no table is zeroed, no global
+// atomic, no second dequantisation.
+//
+// K2's arguments, then missing_bin (>= B when there is none), coarse_b and
+// shift (`ops/split.py`: 20 slots, ids bin >> 4; shift <= 5) and coarse
+// [N, F, coarse_b, 2] f32 (nullptr: no fold; otherwise no bin tiles, which
+// holds for B <= 257); marks: nullptr, or three events recorded after the
+// sort, the tiles and the combine (for timing). Returns a cudaError_t (0
+// on success). Launches on `stream` and does not synchronise.
 extern "C" int xtt_hist_scan(const void* bins, int bin_bytes, const int* rel,
                              const int* q, const float* inv, long long n,
-                             int F, int B, int N, int num_sms, int* work,
-                             int* acc, float* out, cudaStream_t stream) {
-  const long long cells = static_cast<long long>(N) * F * B;
-  int* counts = work;
-  int* offsets = work + N;
-  int* cursor = offsets + N + 1;
-  int* perm = cursor + N;
-  if (N > 4096) return cudaErrorInvalidValue;   // the sort's shared counts
-  cudaError_t err = cudaMemsetAsync(acc, 0, cells * 4 * sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(counts, 0, N * sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  if (n > 0) {
-    const long long per_block =
-        static_cast<long long>(kScanThreads) * kSortRowsPerThread;
-    const unsigned sort_blocks =
-        static_cast<unsigned>((n + per_block - 1) / per_block);
-    scan_count<<<sort_blocks, kScanThreads, N * sizeof(int), stream>>>(
-        rel, n, N, counts);
-    scan_offsets<<<1, 32, 0, stream>>>(counts, N, offsets, cursor);
-    scan_scatter<<<sort_blocks, kScanThreads, 2 * N * sizeof(int), stream>>>(
-        rel, n, N, cursor, perm);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    switch (bin_bytes) {
-      case 1:
-        err = launch_scan_accumulate<uint8_t>(bins, q, perm, offsets, n, F, B,
-                                              N, num_sms, acc, stream);
-        break;
-      case 2:
-        err = launch_scan_accumulate<uint16_t>(bins, q, perm, offsets, n, F,
-                                               B, N, num_sms, acc, stream);
-        break;
-      case 4:
-        err = launch_scan_accumulate<int32_t>(bins, q, perm, offsets, n, F, B,
-                                              N, num_sms, acc, stream);
-        break;
-      default:
-        return cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess) return err;
-  }
-  dequant_int8x2<<<grid_for(cells), 256, 0, stream>>>(
-      reinterpret_cast<const int4*>(acc), inv, cells,
-      reinterpret_cast<float2*>(out));
-  return cudaGetLastError();
+                             int F, int B, int N, const long long* plan,
+                             int* work, int* partial, float* out,
+                             int missing_bin, int coarse_b, int shift,
+                             float* coarse, cudaEvent_t const* marks,
+                             cudaStream_t stream) {
+  const Fold fold{reinterpret_cast<float2*>(coarse), missing_bin, coarse_b,
+                  shift};
+  const Int8x2 pol{reinterpret_cast<const int2*>(q)};
+  if (coarse == nullptr)
+    return run_tiles<Int8x2, SameBin, false, false>(
+        bins, bin_bytes, rel, kNoAdvance, pol, SameBin{}, inv, n, F, B, N,
+        plan, fold, work, partial, out, marks, stream);
+  return run_tiles<Int8x2, SameBin, false, true>(
+      bins, bin_bytes, rel, kNoAdvance, pol, SameBin{}, inv, n, F, B, N, plan,
+      fold, work, partial, out, marks, stream);
 }
 
-// K5: bins [n, F] (1, 2 or 4 bytes per id), pos_in [n] int64 heap ids,
-// payload [4, n_prev] int32 (feature >= 0, threshold bin, default_left,
-// can_split) of the previous level starting at heap node lo_prev, q [n, 2]
-// int32, inv [2] f32; the new level has N nodes from heap node lo. The
-// coarse geometry comes from the caller (ops/split.py): B coarse slots,
-// coarse id bin >> shift, the missing bin on slot B - 1. Writes pos_out
-// [n] int64 and out [N, F, B, 2] f32; acc [N*F*B*4] int32 scratch.
-// Returns a cudaError_t (0 on success). Launches on `stream` and does not
-// synchronise.
+// ---- K5: the level advance fused with the next level's coarse histogram --
+//
+// One sweep at a level boundary of the `fused` schedule: each row below a
+// split of the previous level moves to 2p + 1 + go_right, the positions
+// are written, and the rows in the new level add their four int8x2 planes
+// at every feature's coarse id (bin >> shift, the missing bin on slot
+// B - 1). The TPU kernel adds 2048-row blocks of each coarse bin's sums
+// in f32, so it equals this exact-int32 function only while those sums
+// stay below 2^24 quanta; K5 is K2's function over the coarse ids at
+// every size.
+//
+// Design: K2's tiles with the coarse map applied to each bin id as it is
+// loaded (at 20 slots and stride 21, twelve nodes a group at 28
+// features). A level whose nodes fit one or two feature tiles (up to 24
+// nodes at 28 features) is read in row order: each item advances its
+// rows as it loads them, kAdvanceChunk rows at a time, once per feature
+// tile (the first tile's blocks write the positions); a second tile costs
+// less than the sort. At a wider level the advance is fused into the
+// sort's count (`scan_count` with `AdvanceOf` writes the positions and
+// each row's node), and the tiles read the sorted rows. So each row's
+// position and split bin are read once or twice, not once per tile of a
+// few nodes. What bounds it: the least traffic is ~52 MB at 1M x 28
+// (bins, q and the positions read, the positions and the table written),
+// ~16 us; what sets its pace is K2's: four shared-memory atomics per
+// (row, feature), which cost the same at 20 slots as at 256 (PERF.md).
+//
+// bins [n, F] (1, 2 or 4 bytes per id), pos_in [n] int64 heap ids; the
+// previous level's n_prev nodes from heap node lo_prev: feat and thr
+// [n_prev] int64, dleft and can_split [n_prev] bool (one byte each);
+// q [n, 2] int32, inv [2] f32; the new level has N <= 255 nodes from heap
+// node lo.
+// The coarse geometry comes from the caller (`ops/split.py`): B coarse
+// slots, coarse id bin >> shift, the missing bin on slot B - 1. plan, work
+// and partial as K2's over [N, F, B] (`ops/cuda/hist.py fused_plan`,
+// `fused_work_ints`). Writes pos_out [n] int64 and out [N, F, B, 2] f32;
+// marks as K4's. Returns a cudaError_t (0 on success). Launches on
+// `stream` and does not synchronise.
 extern "C" int xtt_fused_advance_coarse(
     const void* bins, int bin_bytes, const long long* pos_in,
-    const int* payload, int n_prev, long long lo_prev, long long lo,
-    int missing_bin, int B, int shift, const int* q, const float* inv,
-    long long n, int F, int N, int num_sms, int* acc, long long* pos_out,
-    float* out, cudaStream_t stream) {
-  if (n_prev < 1 || n_prev > kFusedMaxPrev) return cudaErrorInvalidValue;
-  if (B < 2 || shift < 0 || shift > 15) return cudaErrorInvalidValue;
-  const long long cells = static_cast<long long>(N) * F * B;
-  cudaError_t err = cudaMemsetAsync(acc, 0, cells * 4 * sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  if (n > 0) {
-    switch (bin_bytes) {
-      case 1:
-        err = launch_fused<uint8_t>(bins, pos_in, payload, n_prev, lo_prev, lo,
-                                    missing_bin, B, shift, q, n, F, N,
-                                    num_sms, pos_out, acc, stream);
-        break;
-      case 2:
-        err = launch_fused<uint16_t>(bins, pos_in, payload, n_prev, lo_prev,
-                                     lo, missing_bin, B, shift, q, n, F, N,
-                                     num_sms, pos_out, acc, stream);
-        break;
-      case 4:
-        err = launch_fused<int32_t>(bins, pos_in, payload, n_prev, lo_prev, lo,
-                                    missing_bin, B, shift, q, n, F, N,
-                                    num_sms, pos_out, acc, stream);
-        break;
-      default:
-        return cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess) return err;
-  }
-  dequant_int8x2<<<grid_for(cells), 256, 0, stream>>>(
-      reinterpret_cast<const int4*>(acc), inv, cells,
-      reinterpret_cast<float2*>(out));
-  return cudaGetLastError();
+    const long long* feat, const long long* thr, const unsigned char* dleft,
+    const unsigned char* can_split, int n_prev, long long lo_prev,
+    long long lo, int missing_bin, int B, int shift, const int* q,
+    const float* inv, long long n, int F, int N, const long long* plan,
+    int* work, int* partial, long long* pos_out, float* out,
+    cudaEvent_t const* marks, cudaStream_t stream) {
+  if (n_prev < 1 || B < 2 || shift < 0 || shift > 15)
+    return cudaErrorInvalidValue;
+  const Advance adv{pos_in, feat, thr, dleft, can_split, n_prev, lo_prev, lo,
+                    missing_bin, pos_out};
+  const CoarseBin map{static_cast<unsigned>(missing_bin),
+                      static_cast<unsigned>(B - 1), shift};
+  return run_tiles<Int8x2, CoarseBin, true, false>(
+      bins, bin_bytes, nullptr, adv, Int8x2{reinterpret_cast<const int2*>(q)},
+      map, inv, n, F, B, N, plan, kNoFold, work, partial, out, marks, stream);
 }

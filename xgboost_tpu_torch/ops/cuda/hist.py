@@ -1,18 +1,21 @@
 """ctypes wrappers of the Hopper histogram kernels (``csrc/hist.cu``):
 K2 (``hist_int8x2_cuda``), K3 (``hist_f32_cuda``), K4
-(``hist_scan_cuda``, which can also hand back its int32 accumulators for
-the coarse fold) and K5 (``fused_advance_coarse_cuda``, the level advance
+(``hist_scan_cuda``, K2's function with the two-level search's coarse
+fold on request) and K5 (``fused_advance_coarse_cuda``, the level advance
 fused with the next level's coarse histogram).
 
-K2 and K3 run on a plan made here (:func:`hist_plan`), where the CPU
+All four run on a plan made here (:func:`hist_plan`), where the CPU
 tests reach it: groups of consecutive nodes whose [G, F, B] cells of 16
 bytes fit one shared-memory tile (features, then bins, cut into tiles
 where one node does not fit), and items of at most R rows. A level that
 fits one tile is read in row order; otherwise the kernel sorts the rows
 by node and cuts each group's run into items (:func:`group_items`, the
-arithmetic of the device's ``level_plan``). A group of one item writes its output once; a
-split group's items leave integer partials that one more kernel adds
-and converts."""
+arithmetic of the device's ``level_plan``). A group of one item writes
+its output once; a split group's items leave integer partials that one
+more kernel adds and converts. K4 folds a node's integer sums into the
+coarse histogram where they meet (:func:`fold_fits`); K5 adds each row
+at its coarse id and advances the rows in the sort's count, or, at a
+level of one group, as the tiles load them (:func:`fused_plan`)."""
 
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,11 +50,12 @@ def _kernel(name: str):
             fn.argtypes = [p, i, p, p, p, p, ll, i, i, i, p, p, p, p, p]
         elif name == "hist_int8x2":
             fn.argtypes = [p, i, p, p, p, ll, i, i, i, p, p, p, p, p]
-        elif name == "hist_scan":                    # K2's + work
-            fn.argtypes = [p, i, p, p, p, ll, i, i, i, i, p, p, p, p]
+        elif name == "hist_scan":                    # K2's + the fold
+            fn.argtypes = [p, i, p, p, p, ll, i, i, i, p, p, p, p, i, i, i,
+                           p, p, p]
         else:                                        # fused_advance_coarse
-            fn.argtypes = [p, i, p, p, i, ll, ll, i, i, i, p, p, ll, i, i,
-                           i, p, p, p, p]
+            fn.argtypes = [p, i, p, p, p, p, p, i, ll, ll, i, i, i, p, p, ll,
+                           i, i, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -114,24 +118,37 @@ def _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins):
     return dev, n, F, out
 
 
-def _table(out: torch.Tensor) -> torch.Tensor:
-    """K4's and K5's int32 device table of the four planes of ``out``'s
-    cells."""
-    return torch.empty((out[..., 0].numel() * 4,), dtype=torch.int32,
-                       device=out.device)
+def _marks(events):
+    """The C entry points' optional phase events: a host array of three
+    ``cudaEvent_t`` from three ``torch.cuda.Event(enable_timing=True)``
+    (recorded once here, so that each has its handle), or None."""
+    if events is None:
+        return None
+    if len(events) != 3:
+        raise ValueError(f"phase_events takes 3 events, got {len(events)}")
+    for e in events:
+        if not e.cuda_event:
+            e.record()
+    return (ctypes.c_void_p * 3)(*[e.cuda_event for e in events])
 
 
-# ---- K2 and K3's plan --------------------------------------------------------
+# ---- the plan of the tiles -------------------------------------------------
 
 TILE_BYTES = 115_200      # csrc/hist.cu kTilePlanBytes: two blocks a SM
 CELL_BYTES = 16           # four 32-bit words a cell
-SORT_MAX_NODES = 4096     # the sort kernels' shared counts (K4's limit)
+SORT_MAX_NODES = 4096     # the sort kernels' shared counts
 MIN_ITEM_ROWS = 1024
 ITEMS_PER_SM = 2
+# K5's one-group route keeps the node ids (one byte each) of this many
+# rows beside its tile (csrc/hist.cu kAdvanceChunk), so its tiles are
+# planned in the rest
+ADVANCE_CHUNK = 1024
+FUSED_TILE_BYTES = TILE_BYTES - ADVANCE_CHUNK
+FUSED_MAX_NODES = 255     # K5's byte node ids (N marks a row outside)
 
 
 class HistPlan(NamedTuple):
-    """K2 and K3's launch plan, in the order of ``csrc/hist.cu
+    """The kernels' launch plan, in the order of ``csrc/hist.cu
     TilePlan`` (the host array the C entry points read)."""
     G: int              # nodes of one group
     fc: int             # features of one tile
@@ -155,31 +172,40 @@ class HistPlan(NamedTuple):
         return self.n_ftiles * self.n_btiles
 
 
-def tile_geometry(F: int, B: int,
-                  N: int) -> Tuple[int, int, int, int, int, int]:
+def tile_geometry(F: int, B: int, N: int, tile_bytes: int = TILE_BYTES
+                  ) -> Tuple[int, int, int, int, int, int]:
     """(G, fc, bc, bs, n_ftiles, n_btiles): the most consecutive nodes
-    whose [F, B] cells fit one tile; where one node does not fit, balanced
-    feature tiles of whole features, and where one feature does not fit,
-    balanced bin tiles of one feature. A feature's bins sit at the odd
-    stride bs (bc, or bc + 1) so that one slot of every feature falls in
-    different shared-memory banks."""
+    whose [F, B] cells fit one tile of ``tile_bytes``; where one node does
+    not fit, balanced feature tiles of whole features, and where one
+    feature does not fit, balanced bin tiles of one feature. A feature's
+    bins sit at the odd stride bs (bc, or bc + 1) so that one slot of
+    every feature falls in different shared-memory banks."""
     bs = B | 1
-    if F * bs * CELL_BYTES <= TILE_BYTES:
-        G = max(1, min(N, TILE_BYTES // (F * bs * CELL_BYTES)))
+    if F * bs * CELL_BYTES <= tile_bytes:
+        G = max(1, min(N, tile_bytes // (F * bs * CELL_BYTES)))
         return G, F, B, bs, 1, 1
-    if bs * CELL_BYTES <= TILE_BYTES:
-        nft = math.ceil(F / (TILE_BYTES // (bs * CELL_BYTES)))
+    if bs * CELL_BYTES <= tile_bytes:
+        nft = math.ceil(F / (tile_bytes // (bs * CELL_BYTES)))
         return 1, math.ceil(F / nft), B, bs, nft, 1
-    nbt = math.ceil(B / (TILE_BYTES // CELL_BYTES - 1))
+    nbt = math.ceil(B / (tile_bytes // CELL_BYTES - 1))
     bc = math.ceil(B / nbt)
     return 1, 1, bc, bc | 1, F, nbt
 
 
-def hist_plan(n: int, F: int, B: int, N: int, num_sms: int) -> HistPlan:
-    """The plan of one launch of K2 or K3 over n rows and N nodes (at most
-    ``SORT_MAX_NODES`` where the rows are sorted; :func:`node_chunks`)."""
-    G, fc, bc, bs, nft, nbt = tile_geometry(F, B, N)
+def hist_plan(n: int, F: int, B: int, N: int, num_sms: int,
+              tile_bytes: int = TILE_BYTES,
+              row_order_ftiles: int = 1) -> HistPlan:
+    """The plan of one launch over n rows and N nodes (at most
+    ``SORT_MAX_NODES`` where the rows are sorted; :func:`node_chunks`).
+    A level that does not fit one tile is sorted by node, unless all its
+    nodes fit ``row_order_ftiles`` feature tiles: then it is one group
+    read in row order, once per feature tile."""
+    G, fc, bc, bs, nft, nbt = tile_geometry(F, B, N, tile_bytes)
     n_groups = math.ceil(N / G)
+    per = tile_bytes // (N * bs * CELL_BYTES)   # features a tile at N nodes
+    if n_groups > 1 and per >= 1 and math.ceil(F / per) <= row_order_ftiles:
+        nft = math.ceil(F / per)
+        G, fc, n_groups = N, math.ceil(F / nft), 1
     R = max(MIN_ITEM_ROWS, math.ceil(n / (ITEMS_PER_SM * num_sms)))
     k = math.ceil(n / R)
     if n_groups == 1:
@@ -192,11 +218,29 @@ def hist_plan(n: int, F: int, B: int, N: int, num_sms: int) -> HistPlan:
                     min(n_groups, n // R), min(n_groups + k, 2 * k))
 
 
-def node_chunks(F: int, B: int, N: int) -> List[Tuple[int, int]]:
+def fused_plan(n: int, F: int, B: int, N: int, num_sms: int) -> HistPlan:
+    """K5's plan: K2's over the [N, F, B] coarse cells in
+    ``FUSED_TILE_BYTES``, read in row order up to two feature tiles (at
+    28 features x 20 slots up to 24 nodes). Row order: the tiles advance
+    the rows as they load them, once per feature tile; sorted: the sort's
+    count does, once (the sort costs about one such pass)."""
+    return hist_plan(n, F, B, N, num_sms, FUSED_TILE_BYTES, 2)
+
+
+def fold_fits(max_nbins: int, missing_bin: int) -> bool:
+    """K4's in-tile fold takes the layouts of the two-level schedules
+    (``tree/grow.py two_level_schedule``): at most 256 real bins, the
+    missing slot last, so that a feature's bins fit one tile and every
+    real bin has a real coarse slot."""
+    return max_nbins <= 256 or (max_nbins == 257 and missing_bin == 256)
+
+
+def node_chunks(F: int, B: int, N: int,
+                tile_bytes: int = TILE_BYTES) -> List[Tuple[int, int]]:
     """(first node, nodes) of each launch: one, unless the rows are sorted
     and the level has more than ``SORT_MAX_NODES`` nodes; then chunks of
     whole groups. Rows outside a chunk are inactive in it."""
-    G = tile_geometry(F, B, N)[0]
+    G = tile_geometry(F, B, N, tile_bytes)[0]
     if N <= G or N <= SORT_MAX_NODES:
         return [(0, N)]
     step = (SORT_MAX_NODES // G) * G
@@ -225,13 +269,15 @@ def group_items(offsets: List[int], N: int, G: int, R: int):
     return starts + [items], pslot, split
 
 
-def hist_work_ints(n: int, N: int, plan: HistPlan) -> int:
+def hist_work_ints(n: int, N: int, plan: HistPlan,
+                   fused: bool = False) -> int:
     """int32 scratch of one launch: counts [N], offsets [N + 1], cursor
     [N], perm [n], item starts [n_groups + 1], partial slots and split
-    groups [n_groups] each, the split count (sorted plans only)."""
+    groups [n_groups] each, the split count, and for K5 (``fused``) the
+    advanced rows' nodes [n] (sorted plans only)."""
     if not plan.sorted:
         return 1
-    return 3 * N + 1 + n + 3 * plan.n_groups + 2
+    return 3 * N + 1 + n + 3 * plan.n_groups + 2 + (n if fused else 0)
 
 
 def hist_partial_words(plan: HistPlan) -> int:
@@ -241,14 +287,17 @@ def hist_partial_words(plan: HistPlan) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _launches(n: int, F: int, B: int, N: int, num_sms: int):
+def _launches(n: int, F: int, B: int, N: int, num_sms: int,
+              fused: bool = False):
     """(first node, nodes, the plan's kernel fields as a host array, work
-    ints, scratch ints) of each launch over a level; the scratch holds the
-    work and, from a 16-byte boundary, the partial tiles."""
+    ints, scratch ints) of each launch over a level (K5's: ``fused``); the
+    scratch holds the work and, from a 16-byte boundary, the partial
+    tiles."""
+    tile_bytes = FUSED_TILE_BYTES if fused else TILE_BYTES
     out = []
-    for n0, nc in node_chunks(F, B, N):
-        plan = hist_plan(n, F, B, nc, num_sms)
-        work = -(-hist_work_ints(n, nc, plan) // 4) * 4
+    for n0, nc in node_chunks(F, B, N, tile_bytes):
+        plan = (fused_plan if fused else hist_plan)(n, F, B, nc, num_sms)
+        work = -(-hist_work_ints(n, nc, plan, fused) // 4) * 4
         # the kernel's fields; max_partials only sizes the scratch
         host = (ctypes.c_longlong * 11)(*plan[:11])
         out.append((n0, nc, host, work, work + hist_partial_words(plan)))
@@ -256,10 +305,11 @@ def _launches(n: int, F: int, B: int, N: int, num_sms: int):
 
 
 def _tiles(name: str, dev: torch.device, bins: torch.Tensor,
-           rel: torch.Tensor, values: Tuple[int, ...],
-           out: torch.Tensor) -> None:
-    """Launch K2 or K3 (``values``: their gradient pointers) once per node
-    chunk of ``out`` [N, F, B, 2]."""
+           rel: torch.Tensor, values: Tuple[int, ...], out: torch.Tensor,
+           tail=None) -> None:
+    """Launch K2, K3 or K4 (``values``: their gradient pointers; ``tail``:
+    K4's further arguments for the chunk at node n0 of nc nodes) once per
+    node chunk of ``out`` [N, F, B, 2]."""
     n, F = bins.shape
     N, _, B, _ = out.shape
     for n0, nc, host, work, total in _launches(n, F, B, N, _num_sms(dev)):
@@ -268,7 +318,8 @@ def _tiles(name: str, dev: torch.device, bins: torch.Tensor,
         base = scratch.data_ptr()
         _launch(name, dev, bins.data_ptr(), _BIN_BYTES[bins.dtype],
                 r.data_ptr(), *values, n, F, B, nc, ctypes.addressof(host),
-                base, base + 4 * work, out[n0:n0 + nc].data_ptr())
+                base, base + 4 * work, out[n0:n0 + nc].data_ptr(),
+                *(tail(n0, nc) if tail is not None else ()))
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
@@ -297,36 +348,73 @@ def hist_int8x2_cuda(bins: torch.Tensor, q: torch.Tensor, rel: torch.Tensor,
 
 def hist_scan_cuda(bins: torch.Tensor, q: torch.Tensor, rel: torch.Tensor,
                    inv: torch.Tensor, n_nodes: int, max_nbins: int,
-                   with_acc: bool = False):
-    """K4 on the card: K2's function (the same arguments, the same bits),
-    built over the rows counting-sorted by node so that one node's
-    [F, B, 4] counters share one shared-memory tile at any level width.
-    Computes ``build_hist_scan_reference``'s function bit for bit;
-    ``with_acc`` also returns its int32 plane sums [n_nodes, F, B, 4]
-    (``scan_acc_reference``'s), from which ``ops/histogram.py
-    coarse_fold`` takes the coarse histogram. Replaces the TPU kernel
-    ``xgboost_tpu/ops/pallas/histogram.py _make_scan_kernel``. Launches on
-    the current stream and does not synchronise."""
+                   with_coarse: bool = False,
+                   missing_bin: Optional[int] = None,
+                   phase_events=None):
+    """K4 on the card: K2's function (the same arguments, the same bits)
+    over K2's tiles, one node a tile at 28 features x 257 slots.
+    Computes ``build_hist_scan_reference``'s function bit for bit.
+    ``with_coarse``: also the two-level search's coarse histogram
+    [n_nodes, F, COARSE_B, 2] f32, folded from each node's integer sums
+    before one dequantisation (``ops/histogram.py coarse_fold``, with
+    ``missing_bin``, ``max_nbins`` or more when there is none) -> (fine,
+    coarse). ``phase_events``: three ``torch.cuda.Event(enable_timing=
+    True)`` recorded after the sort, the tiles and the combine (for
+    timing). Replaces the TPU kernel ``xgboost_tpu/ops/pallas/
+    histogram.py _make_scan_kernel`` with its ``with_coarse`` fold.
+    Launches on the current stream and does not synchronise."""
     dev, n, F, out = _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins)
-    acc = _table(out)
-    work = torch.empty((3 * n_nodes + 1 + n,), dtype=torch.int32, device=dev)
-    _launch("hist_scan", dev, bins.data_ptr(), _BIN_BYTES[bins.dtype],
-            rel.data_ptr(), q.data_ptr(), inv.data_ptr(), n, F, max_nbins,
-            n_nodes, _num_sms(dev), work.data_ptr(), acc.data_ptr(),
-            out.data_ptr())
-    if with_acc:
-        return out, acc.view(n_nodes, F, max_nbins, 4)
+    coarse = None
+    if with_coarse:
+        if missing_bin is None or not fold_fits(max_nbins, missing_bin):
+            raise ValueError(
+                f"K4's coarse fold takes at most 256 real bins with the "
+                f"missing slot last, got {max_nbins} slots, missing bin "
+                f"{missing_bin}")
+        coarse = torch.empty((n_nodes, F, COARSE_B, 2), dtype=torch.float32,
+                             device=dev)
+    marks = _marks(phase_events)
+    shift = COARSE_SPAN.bit_length() - 1
+
+    def tail(n0, nc):
+        dst = None if coarse is None else coarse[n0:n0 + nc].data_ptr()
+        return (max_nbins if missing_bin is None else missing_bin, COARSE_B,
+                shift, dst, marks)
+
+    _tiles("hist_scan", dev, bins, rel, (q.data_ptr(), inv.data_ptr()), out,
+           tail)
+    return (out, coarse) if with_coarse else out
+
+
+def _splits(prev, dev: torch.device):
+    """K5's view of the previous level's splits (``ops/partition.py
+    LevelSplits``), as the grower hands them over: feature and threshold
+    int64, default_left and can_split one byte each (no copy when they
+    already are)."""
+    n_prev = prev.feat.shape[0]
+    out = []
+    for name, t, dtype in (("feat", prev.feat, torch.int64),
+                           ("thr", prev.thr, torch.int64),
+                           ("dleft", prev.dleft, torch.bool),
+                           ("can_split", prev.can_split, torch.bool)):
+        t = t.to(dtype).contiguous()
+        if t.device != dev or tuple(t.shape) != (n_prev,):
+            raise ValueError(f"prev.{name} must be [{n_prev}] on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        out.append(t)
     return out
 
 
 def fused_advance_coarse_cuda(bins: torch.Tensor, q: torch.Tensor,
                               inv: torch.Tensor, positions: torch.Tensor,
-                              prev, lo: int, n_level: int, missing_bin: int):
+                              prev, lo: int, n_level: int, missing_bin: int,
+                              phase_events=None):
     """K5 on the card: advance the rows below the previous level's splits
     ``prev`` (``ops/partition.py LevelSplits``, at most 64 nodes) and build
-    the new level's int8x2 coarse histogram in the same pass ->
+    the new level's int8x2 coarse histogram in the same sweep ->
     (positions [n] int64, [n_level, F, COARSE_B, 2] f32). ``positions``
-    [n] int64; ``q``, ``inv`` as for K2. Computes ``ops/histogram.py
+    [n] int64; ``q``, ``inv`` as for K2; ``phase_events`` as for K4 (the
+    first phase is the advance and the sort). Computes ``ops/histogram.py
     fused_advance_coarse_reference``'s function bit for bit; the coarse
     geometry of ``ops/split.py`` (``COARSE_B`` slots, ids
     ``bin >> log2(COARSE_SPAN)``) is passed to the kernel, which keeps
@@ -334,22 +422,27 @@ def fused_advance_coarse_cuda(bins: torch.Tensor, q: torch.Tensor,
     ``xgboost_tpu/ops/pallas/histogram.py _make_fused_kernel``. Launches
     on the current stream and does not synchronise."""
     dev, n, F, out = _int8x2_args(bins, q, None, inv, n_level, COARSE_B)
-    acc = _table(out)
     _check("positions", positions, torch.int64, dev, (n,))
     n_prev = prev.feat.shape[0]
     if not 1 <= n_prev <= 64:
         raise ValueError(f"K5 advances below levels of 1 to 64 nodes, got "
                          f"{n_prev}")
-    payload = torch.stack([a.to(torch.int32) for a in (
-        prev.feat.clamp(min=0), prev.thr, prev.dleft, prev.can_split)])
-    _check("payload", payload, torch.int32, dev, (4, n_prev))
+    if n_level > FUSED_MAX_NODES:
+        raise ValueError(f"K5 builds levels of at most {FUSED_MAX_NODES} "
+                         f"nodes, got {n_level}")
+    splits = _splits(prev, dev)
     pos_out = torch.empty_like(positions)
+    (_, _, host, work, total), = _launches(n, F, COARSE_B, n_level,
+                                           _num_sms(dev), True)
+    scratch = torch.empty((total,), dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
     _launch("fused_advance_coarse", dev, bins.data_ptr(),
-            _BIN_BYTES[bins.dtype], positions.data_ptr(), payload.data_ptr(),
-            n_prev, prev.lo, lo, missing_bin, COARSE_B,
+            _BIN_BYTES[bins.dtype], positions.data_ptr(),
+            *(t.data_ptr() for t in splits), n_prev, prev.lo, lo,
+            missing_bin, COARSE_B,
             COARSE_SPAN.bit_length() - 1, q.data_ptr(), inv.data_ptr(), n, F,
-            n_level, _num_sms(dev), acc.data_ptr(), pos_out.data_ptr(),
-            out.data_ptr())
+            n_level, ctypes.addressof(host), base, base + 4 * work,
+            pos_out.data_ptr(), out.data_ptr(), _marks(phase_events))
     return pos_out, out
 
 

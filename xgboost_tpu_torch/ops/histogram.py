@@ -22,10 +22,10 @@ kernels:
   for bit. (The TPU's unsorted kernel adds 2048-row blocks in f32, so it
   equals this only while the per-bin sums stay below 2^24; its sorted
   kernel sums in int32 throughout and equals it at every size.)
-  K2 (``pallas``, ``pallas:int8x2``, ``prehot``) scatters rows in their
-  own order; K4 counting-sorts them by node first, as the TPU's
-  ``scan_hist_pallas`` does, so that one node's counters fit one
-  shared-memory tile at any level width.
+  K2 (``pallas``, ``pallas:int8x2``, ``prehot``) and K4 (the TPU's
+  sorted ``scan_hist_pallas``) run the same kernel on the card, rows in
+  their order where a level fits one tile, sorted by node where it does
+  not; K4 also folds the coarse histogram from its integer sums.
 - **f32** (K3; ``pallas:f32``, ``segment``, ``onehot``): each component is
   scaled by a power of two ``2^k`` chosen so that
   ``n * max|x| * 2^k <= 2^62``, rounded to int64, summed exactly in int64
@@ -51,9 +51,9 @@ coarse-then-refined window; in the port that search is opt-in, as the
   below the previous level's splits and builds the new level's coarse
   histogram;
 - ``scan``: one sorted build (K4) of each level's fine histogram, with
-  the coarse histogram folded from K4's int32 accumulators
-  (:func:`coarse_fold`) and the refine histogram sliced from the fine
-  one; above 128 nodes K3 builds the fine and the coarse histogram.
+  the coarse histogram folded from its int32 sums (:func:`coarse_fold`,
+  in K4's epilogue on the card) and the refine histogram sliced from the
+  fine one; above 128 nodes K3 builds the fine and the coarse histogram.
 
 All three sum the same integers (or, through K3, the same int64 fixed
 point), so they grow the same trees bit for bit.
@@ -262,8 +262,9 @@ def build_hist_scan_reference(bins: torch.Tensor, q: torch.Tensor,
 
 
 def coarse_fold(acc: torch.Tensor, missing_bin: int) -> torch.Tensor:
-    """K4's ``with_coarse`` fold (``ops/pallas/histogram.py:493-513``) in
-    the integer domain: fine plane sums [N, F, B, 4] int32 -> coarse ones
+    """Plain version of K4's ``with_coarse`` fold
+    (``ops/pallas/histogram.py:493-513``), which the kernel takes in its
+    epilogue: fine plane sums [N, F, B, 4] int32 -> coarse ones
     [N, F, COARSE_B, 4] int32. The missing slot is zeroed, a prefix sum
     over bins taken, and ``COARSE_SPAN``-wide slice differences give the
     16 real slots; 3 zero pad slots follow and the missing mass goes to
@@ -416,24 +417,24 @@ def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
                      missing_bin: int):
     """One level of ``scan`` -> (fine [N, F, max_nbins, 2], coarse
     [N, F, COARSE_B, 2]). At most 128 nodes within the int8x2 guard: one
-    K4 build, the coarse histogram folded from its int32 accumulators
-    (:func:`coarse_fold`). Elsewhere, as the TPU's f32 branch: K3 builds
-    the fine histogram and, over ``coarse_bin_ids``, the coarse one. (The
-    JAX package's opt-in bf16 accumulator, ``XTPU_SCAN_ACC=bf16``, is not
-    bit-compatible and not ported: ROADMAP A.6.)"""
+    K4 build, the coarse histogram folded from its int32 sums
+    (:func:`coarse_fold`; on the card in the kernel). Elsewhere, as the
+    TPU's f32 branch: K3 builds the fine histogram and, over
+    ``coarse_bin_ids``, the coarse one. (The JAX package's opt-in bf16
+    accumulator, ``XTPU_SCAN_ACC=bf16``, is not bit-compatible and not
+    ported: ROADMAP A.6.)"""
     if resolve_hist_kernel("scan", bins.shape[0], n_level,
                            max_nbins) == "scan":
         q, inv = quantise_int8x2(gpair)
         rel = rel.to(torch.int32).contiguous()
         if bins.device.type == "cpu":
             acc = scan_acc_reference(bins, q, rel, n_level, max_nbins)
-            fine = dequant_int8x2(acc, inv)
-        else:
-            from .cuda.hist import hist_scan_cuda
+            return (dequant_int8x2(acc, inv),
+                    dequant_int8x2(coarse_fold(acc, missing_bin), inv))
+        from .cuda.hist import hist_scan_cuda
 
-            fine, acc = hist_scan_cuda(bins, q, rel, inv, n_level,
-                                       max_nbins, with_acc=True)
-        return fine, dequant_int8x2(coarse_fold(acc, missing_bin), inv)
+        return hist_scan_cuda(bins, q, rel, inv, n_level, max_nbins,
+                              with_coarse=True, missing_bin=missing_bin)
     fine = build_hist(bins, gpair, rel, n_level, max_nbins, method="segment")
     coarse = build_hist(coarse_bin_ids(bins, missing_bin), gpair, rel,
                         n_level, COARSE_B, method="segment")
