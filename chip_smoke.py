@@ -6,12 +6,20 @@
 
 Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, all at once) and holds each kernel against its plain
-PyTorch version on the card: K1 (the forest walk), K2 (int8x2
+PyTorch version on the card. K1 (the forest walk): leaf indices equal to
+the plain walk's, margins within its reassociation bound and equal bit
+for bit to the kernel-order fold of its leaves
+(``walk_fold_kernel_order``), on the HIGGS-shape forest at every server
+bucket (1, 2, ..., 512 rows), 100,000 and 1,000,000 rows, on both
+schedules at 512 and 100,000 rows (one row's margin the same bits in all
+of them), a 3-group and a categorical forest on both schedules, the
+one-tree eval walk at 100,000 rows, a forest of 1,100 features and a
+depth-15 forest that the plan sends to the spread schedule. K2 (int8x2
 histogram), K3 (f32 histogram, exact int64 fixed point), K4 (K2's
 function over the sorted build, with its coarse fold taken in the
 kernel) and K5 (the level advance fused with the next level's coarse
-histogram), all but K1 bit for bit and twice each, at the shapes the
-training runs below give them: K2, K3 and K4 over 256/257 bin slots,
+histogram) bit for bit and twice each, at the shapes the training runs
+below give them: K2, K3 and K4 over 256/257 bin slots,
 also at skewed levels (one node with 55% of the rows, three empty), and
 over the two-level schedules' 20-slot coarse ids and 36-slot refine ids
 (a window of 32 fine bins chosen per node and feature, the rest on slot
@@ -21,8 +29,9 @@ counts set to 0 just before and read just after:
 
 - serving at the HIGGS shape (500 trees of depth 8 over 28 features,
   ``binary:logistic``, made from a seed): ``Booster.predict`` on 100,000
-  rows and a ``Server`` answering 200 requests of 1/8/64/512 rows from 4
-  threads, every answer equal to ``Booster.predict`` bit for bit;
+  rows (K1's staged schedule) and a ``Server`` answering 200 requests of
+  1/8/64/512 rows from 4 threads (the spread schedule), every answer
+  equal to ``Booster.predict`` bit for bit;
 - training at the HIGGS shape: ``xgboost_tpu_torch.train`` on 1,000,000 x
   28 N(0, 1) features with labels from a fixed linear rule plus noise
   (seed 0), ``max_depth`` 8, 20 rounds, evaluated on the training rows
@@ -44,16 +53,18 @@ counts set to 0 just before and read just after:
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
-main paths' shapes: K4 at every level width of the HIGGS run (N = 1, 2,
+main paths' shapes: K1 at 1, 512, 100,000 and 1,000,000 rows and the
+one-tree walk at 100,000, and both of its schedules from 1 to 100,000
+rows; K4 at every level width of the HIGGS run (N = 1, 2,
 ..., 128 on 1,000,000 rows) and K5 at every level boundary (N = 2, ...,
 128), each split into its phases (sort or advance, tiles, combine and
 fold) with CUDA events; seconds per boosting round on the host clock;
 and the device's idle share of the same rounds under ``torch.profiler``.
 
 ``--levels-of DIR`` times only K4's and K5's levels (and K2 beside them)
-with the ``xgboost_tpu_torch`` package found in DIR, through the calls
-every version of the port has, so that two trees compare in one run;
-it prints them as a JSON line and exits.
+and K1's main-path shapes with the ``xgboost_tpu_torch`` package found in
+DIR, through the calls every version of the port has, so that two trees
+compare in one run; it prints them as a JSON line and exits.
 
 Prints the card (``nvidia-smi`` name and power limit) and a JSON line
 of kernel numbers before the last line, and as the last line
@@ -61,6 +72,7 @@ of kernel numbers before the last line, and as the last line
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
+import hashlib
 import json
 import math
 import os
@@ -106,34 +118,61 @@ def sum_bound(pf, leaves, base, tree_chunk):
     return (k_plain + k_kernel) * U * mag
 
 
-def check_kernel(name, pf, X, base):
-    """Kernel against its plain version on the same device tensors:
-    leaf indices equal, margins within the reassociation bound."""
-    from xgboost_tpu_torch.ops.walk import walk_packed_reference
+PLAIN_ROWS = 100_000           # rows of one plain-walk call in a check
+
+
+def check_kernel(name, pf, X, base, schedule=None):
+    """K1 (on ``schedule``, else the plan's) against the plain walk on the
+    same device tensors: leaf indices equal, margins within the
+    reassociation bound, and equal bit for bit to the kernel-order fold of
+    the plain walk's leaves (``walk_fold_kernel_order``). The plain walk
+    runs on 100,000 rows at a time (its rows are independent). Returns
+    (max |kernel - plain|, the kernel's margins, the schedule launched)."""
+    from xgboost_tpu_torch.ops.cuda import walk as W
+    from xgboost_tpu_torch.ops.walk import (walk_fold_kernel_order,
+                                            walk_packed_reference)
     from xgboost_tpu_torch.serve.packed import tree_step
 
     d = pf.device_arrays(X.device)
-    got, got_leaf = pf.margin(X, base, leaf_index=True)
-    tc = tree_step(X.shape[0])
-    want, want_leaf = walk_packed_reference(
-        d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
-        d["group_onehot"], X, base, d.get("cat_words"),
-        max_depth=pf.max_depth, tree_chunk=tc, leaf_index=True)
-    torch.cuda.synchronize()
-    if not torch.equal(got_leaf, want_leaf):
-        bad = int((got_leaf != want_leaf).sum())
-        raise AssertionError(f"{name}: {bad} leaf indices differ")
-    err = (got - want).abs()
-    bound = sum_bound(pf, want_leaf, base, tc)
-    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-        raise AssertionError(
-            f"{name}: margin off by {float(err.max())} "
-            f"(bound {float(bound.min())}..{float(bound.max())})")
+    before = dict(W.SCHEDULE_LAUNCHES)
+    got, got_leaf = pf.margin(X, base, leaf_index=True, schedule=schedule)
+    took = [k for k, v in W.SCHEDULE_LAUNCHES.items() if v != before[k]]
+    if len(took) != 1 or (schedule is not None and took != [schedule]):
+        raise AssertionError(f"{name}: launched {took}, asked {schedule}")
+    err = ratio = 0.0
+    for lo in range(0, X.shape[0], PLAIN_ROWS):
+        hi = min(lo + PLAIN_ROWS, X.shape[0])
+        tc = tree_step(hi - lo)
+        want, want_leaf = walk_packed_reference(
+            d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+            d["group_onehot"], X[lo:hi], base, d.get("cat_words"),
+            max_depth=pf.max_depth, tree_chunk=tc, leaf_index=True)
+        replica = walk_fold_kernel_order(
+            d["values"][want_leaf.long()], d["tree_weight"],
+            d["tree_group"], base)
+        torch.cuda.synchronize()
+        if not torch.equal(got_leaf[lo:hi], want_leaf):
+            bad = int((got_leaf[lo:hi] != want_leaf).sum())
+            raise AssertionError(f"{name}: {bad} leaf indices differ")
+        if not torch.equal(got[lo:hi], replica):
+            bad = int((got[lo:hi] != replica).sum())
+            raise AssertionError(f"{name}: {bad} margins differ from the "
+                                 "kernel-order fold")
+        e = (got[lo:hi] - want).abs()
+        bound = sum_bound(pf, want_leaf, base, tc)
+        if not bool(torch.isfinite(got[lo:hi]).all()) or \
+                bool((e > bound).any()):
+            raise AssertionError(
+                f"{name}: margin off by {float(e.max())} "
+                f"(bound {float(bound.min())}..{float(bound.max())})")
+        err = max(err, float(e.max()))
+        ratio = max(ratio, float((e / bound).max()))
     log(f"check {name}: rows={X.shape[0]} trees={pf.n_trees} "
-        f"groups={pf.n_groups} cat={pf.has_cat} leaf_index equal, "
-        f"max_abs_err={float(err.max())} "
-        f"max_err/bound={float((err / bound).max())}")
-    return float(err.max())
+        f"groups={pf.n_groups} cat={pf.has_cat} features={X.shape[1]} "
+        f"schedule={took[0]}: leaf_index equal, margins equal the "
+        f"kernel-order fold bit for bit, max_abs_err={err} "
+        f"max_err/bound={ratio}")
+    return err, got, took[0]
 
 
 def event_ms(fn, reps, flush=None):
@@ -541,9 +580,10 @@ QUEUE_CYCLES = 2_000_000     # ~1 ms of device sleep ahead of each call
 
 def queued_ms(fn, reps, flush):
     """Mean device time of ``fn`` with no host gap inside it: before each
-    call the L2 is flushed and the device sleeps ~1 ms, so that the host
-    has queued the whole call before its start event runs. ``event_ms``
-    instead lets a wrapper's host work show where the device waits."""
+    call the L2 is flushed (unless ``flush`` is None) and the device sleeps
+    ~1 ms, so that the host has queued the whole call before its start
+    event runs. ``event_ms`` instead lets a wrapper's host work show where
+    the device waits."""
     return phase_ms(lambda ev: fn(), reps, flush, phases=False)[0]
 
 
@@ -563,7 +603,8 @@ def phase_ms(fn, reps, flush, phases=True):
             e.record()
     torch.cuda.synchronize()
     for ev in runs:
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(QUEUE_CYCLES)
         ev[0].record()
         if phases:
@@ -674,9 +715,142 @@ def time_levels(dev, flush, current=True):
     return out
 
 
+# K1's main-path shapes, timed through ``PackedForest.margin`` (the call
+# every version of the port has): the HIGGS-shape forest at 1 and 512 rows
+# (L2 warm: a server bucket), 100,000 and 1,000,000 rows (L2 flushed: a
+# batch predict), and a one-tree forest at 100,000 rows (the eval walk of
+# a training round, L2 flushed)
+WALK_SHAPES = (("1", 1), ("512", 512), ("100000", 100_000),
+               ("1000000", 1_000_000), ("Tp=1 100000", 100_000))
+# both schedules, device-only, across the crossover: the server's buckets,
+# 2k, 8k and 32k rows, 100,000 rows
+CROSSOVER_ROWS = (1, 8, 64, 512, 2048, 8192, 32768, 100_000)
+
+
+def walk_forests(dev):
+    """(booster, its packed forest, its base margin, one-tree forest,
+    X [1M, 28] on the card): ``make_forest_model(500, 8, 28)`` through
+    ``Booster``, and ``make_forest(1, 8, 28)``, with the calls every
+    version has."""
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.serve.packed import PackedForest
+    from xgboost_tpu_torch.testing import make_forest, make_forest_model
+
+    b = xt.Booster(model_file=make_forest_model(500, 8, 28, seed=0))
+    trees, info = make_forest(1, 8, 28, seed=3)
+    g = torch.Generator(device=dev).manual_seed(300)
+    X = torch.randn(1_000_000, 28, generator=g, device=dev)
+    return (b, b.packed_forest(), torch.tensor(b._base_np(), device=dev),
+            PackedForest.from_trees(trees, info, 1), X)
+
+
+def time_walk(dev, flush, current=True):
+    """K1 at ``WALK_SHAPES`` through ``PackedForest.margin``: CUDA-event
+    time (the wrapper's host work included, as a caller sees it) and
+    device-only time (``queued_ms``); at 1 and 512 rows also the host
+    clock of the call alone (``host_ms``, until it returns) and of the
+    call and a sync (``host_sync_ms``), medians of 500. ``current``: also both schedules at
+    ``CROSSOVER_ROWS`` (device-only), the plain walk at 512 and 100,000
+    rows, each shape's bound, and at 100,000 and 1,000,000 rows the staged
+    walk stopped at the roots (``max_depth`` 0: X staged, every chunk
+    copied, every root read, no node visited), the part of its time that
+    is not the walk itself. Also ``Booster.predict`` on 100,000 and
+    1,000,000 rows (host clock, numpy in and out, median of 5). Returns
+    {"shapes": {name: {...}}, "predict": {rows: {...}}, "schedules":
+    {schedule: {rows: ms}}}."""
+    import xgboost_tpu_torch as xt
+
+    booster, pf, base, one, X = walk_forests(dev)
+    zero = torch.zeros(1, device=dev)
+    out = {"shapes": {}, "predict": {}}
+    for label, n in WALK_SHAPES:
+        f, b = (one, zero) if label.startswith("Tp=1") else (pf, base)
+        Xn = X[:n].contiguous()
+        cold = flush if n >= 100_000 else None
+        fn = lambda: f.margin(Xn, b)
+        r = {"ms": event_ms(fn, reps=10 if n >= 1_000_000 else
+                            20 if cold is not None else 200, flush=cold),
+             "queued_ms": queued_ms(fn, 10 if n >= 1_000_000 else 20, cold)}
+        if cold is None:
+            host, full = [], []
+            for _ in range(500):
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append(t1 - t0)
+                full.append(time.perf_counter() - t0)
+            r["host_ms"] = float(np.median(host)) * 1e3
+            r["host_sync_ms"] = float(np.median(full)) * 1e3
+        if current:
+            _, leaves = f.margin(Xn, b, leaf_index=True)
+            depth = torch.from_numpy(node_depths(f)).to(dev)
+            r["bound"] = walk_bound_ms(f, n, 28, int(
+                depth[leaves.long()].sum()))
+            del leaves
+        out["shapes"][label] = r
+        l2 = "L2 flushed" if cold is not None else "L2 warm"
+        log(f"walk {label} rows ({l2}): "
+            + ", ".join(f"{k} {_fmt(v)}" for k, v in r.items()))
+    if current:
+        from xgboost_tpu_torch.ops.walk import walk_packed_reference
+        from xgboost_tpu_torch.serve.packed import tree_step
+
+        from xgboost_tpu_torch.ops.cuda.walk import walk_packed_cuda
+
+        d = pf.device_arrays(dev)
+        for n in (100_000, 1_000_000):
+            Xn = X[:n].contiguous()
+            r = out["shapes"][str(n)]
+            r["roots_ms"] = queued_ms(lambda: walk_packed_cuda(
+                d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+                d["tree_group"], Xn, base, max_depth=0,
+                max_feature=pf.max_feature, nodes=d["nodes"],
+                spans=pf.slot_spans(), plans=pf.walk_plans(dev),
+                schedule="staged"), 10, flush)
+            log(f"walk {n} rows, staged, stopped at the roots (device-only, "
+                f"L2 flushed): {r['roots_ms']:.6f} ms of "
+                f"{r['queued_ms']:.6f} ms")
+        for n in (512, 100_000):
+            Xn = X[:n].contiguous()
+            out["shapes"][str(n)]["plain_ms"] = event_ms(
+                lambda: walk_packed_reference(
+                    d["words"], d["values"], d["tree_offsets"],
+                    d["tree_weight"], d["group_onehot"], Xn, base,
+                    max_depth=pf.max_depth, tree_chunk=tree_step(n)),
+                reps=5 if n > 512 else 20)
+        out["schedules"] = {}
+        for sch in ("spread", "staged"):
+            row = {}
+            for n in CROSSOVER_ROWS:
+                Xn = X[:n].contiguous()
+                row[n] = queued_ms(lambda: pf.margin(Xn, base, schedule=sch),
+                                   20, flush if n >= 100_000 else None)
+            out["schedules"][sch] = row
+            log(f"walk schedule {sch} (device-only; L2 flushed from 100000 "
+                f"rows): " + ", ".join(f"{n} rows {ms:.6f} ms"
+                                       for n, ms in row.items()))
+    Xh = X.cpu().numpy()
+    for n in (100_000, 1_000_000):
+        dm = xt.DMatrix(Xh[:n])
+        booster.predict(dm)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            booster.predict(dm)
+            ts.append(time.perf_counter() - t0)
+        s = float(np.median(ts))
+        out["predict"][n] = {"s": s, "rows_per_s": n / s}
+        log(f"Booster.predict {n} rows: {s * 1e3:.3f} ms (median of 5, host "
+            f"clock, numpy in and out) = {n / s:.1f} rows/s")
+    return out
+
+
 def _fmt(v):
     if isinstance(v, float):
         return f"{v:.6f} ms"
+    if isinstance(v, tuple) and len(v) == 2:     # K1's bound
+        return f"{v[0]:.6f} ms ({v[1]})"
     if isinstance(v, tuple):               # a bound
         return f"{v[0]:.6f} ms ({v[1]}; {v[2]} integer adds)"
     return "[" + ", ".join(f"{x:.6f}" for x in v) + "] ms"
@@ -687,6 +861,37 @@ def saved_bytes(bst):
     to one value, so that models of different schedules compare."""
     bst.set_param({"hist_method": "scan"})
     return bytes(bst.save_raw("ubj"))
+
+
+# the HIGGS-shape training of the main path (``main`` and ``model_digests``)
+HIGGS_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "eta": 0.1,
+                "max_bin": 256}
+
+
+def digest(bst) -> str:
+    """sha256 of :func:`saved_bytes`."""
+    return hashlib.sha256(saved_bytes(bst)).hexdigest()
+
+
+def model_digests():
+    """:func:`digest` of the HIGGS-shape models the main path trains
+    (``auto`` 20 rounds, ``scan`` 10 rounds, evaluated on the training and
+    100,000 held-out rows), through the calls every version has, so that
+    two trees' model bytes compare in one run."""
+    import xgboost_tpu_torch as xt
+
+    X, y = higgs_like(1_100_000, 28, seed=0)
+    dtr = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
+    dte = xt.DMatrix(X[1_000_000:], label=y[1_000_000:])
+    out = {}
+    for method, rounds in (("auto", 20), ("scan", 10)):
+        p = dict(HIGGS_PARAMS) if method == "auto" else \
+            dict(HIGGS_PARAMS, hist_method=method)
+        out[method] = digest(xt.train(p, dtr, rounds,
+                                      evals=[(dtr, "train"), (dte, "test")],
+                                      verbose_eval=False))
+    log(f"model digests: {out}")
+    return out
 
 
 def seconds_per_round(params, dtr):
@@ -765,20 +970,27 @@ def reset_counts():
     from xgboost_tpu_torch.ops.cuda import walk as W
 
     W.LAUNCHES = 0
+    for k in W.SCHEDULE_LAUNCHES:
+        W.SCHEDULE_LAUNCHES[k] = 0
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
 
 
 def read_counts():
+    """Launches of every kernel since ``reset_counts``; K1 in all and per
+    schedule (``walk_spread``, ``walk_staged``)."""
     from xgboost_tpu_torch.ops.cuda import hist as K
     from xgboost_tpu_torch.ops.cuda import walk as W
 
-    return {"walk_packed": W.LAUNCHES, **dict(K.LAUNCHES)}
+    return {"walk_packed": W.LAUNCHES,
+            **{f"walk_{k}": v for k, v in W.SCHEDULE_LAUNCHES.items()},
+            **dict(K.LAUNCHES)}
 
 
 def levels_of(root: str) -> int:
-    """``--levels-of``: K4's and K5's level times with the port in
-    ``root`` (:func:`time_levels` through the calls every version has)."""
+    """``--levels-of``: K4's and K5's level times and K1's main-path times
+    with the port in ``root`` (:func:`time_levels`, :func:`time_walk`,
+    through the calls every version has)."""
     sys.path.insert(0, os.path.abspath(root))
     import xgboost_tpu_torch
     from xgboost_tpu_torch.ops.cuda import build
@@ -792,7 +1004,10 @@ def levels_of(root: str) -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     levels = time_levels(torch.device("cuda"), flush, current=False)
-    print(json.dumps({"levels_of": os.path.abspath(root), "levels": levels}))
+    walk = time_walk(torch.device("cuda"), flush, current=False)
+    models = model_digests()
+    print(json.dumps({"levels_of": os.path.abspath(root), "levels": levels,
+                      "walk": walk, "models": models}))
     print(card)
     return 0
 
@@ -811,8 +1026,8 @@ def main() -> int:
     import xgboost_tpu_torch as xt
     from xgboost_tpu_torch.ops.cuda import build
     from xgboost_tpu_torch.ops.cuda import hist as K
-    from xgboost_tpu_torch.ops.cuda import walk as cuda_walk
-    from xgboost_tpu_torch.ops.walk import walk_packed_reference
+    from xgboost_tpu_torch.ops.walk import (walk_fold_kernel_order,
+                                            walk_packed_reference)
     from xgboost_tpu_torch.serve import Server
     from xgboost_tpu_torch.serve.packed import PackedForest, tree_step
     from xgboost_tpu_torch.testing import make_forest, make_forest_model
@@ -850,47 +1065,97 @@ def main() -> int:
         X[rng.rand(n, f) < nan] = np.nan
         return X
 
-    errs = [check_kernel("slice", slice_pf,
-                         torch.from_numpy(normal(4096, 28)).to(dev), base)]
+    # K1 on the HIGGS-shape forest at every server bucket, 100,000 and
+    # 1,000,000 rows on the plan's schedule, and on the other schedule at
+    # 512 and 100,000 rows; one row's margin the same bits in all of them
+    Xk = torch.from_numpy(normal(1_000_000, 28)).to(dev)
+    errs, row0 = [], {}
+    for n in (*[1 << k for k in range(10)], 100_000, 1_000_000):
+        e, m, sch = check_kernel(f"slice n={n}", slice_pf, Xk[:n], base)
+        errs.append(e)
+        row0[(n, sch)] = m[0]
+    for n, sch in ((512, "staged"), (100_000, "spread")):
+        e, m, took = check_kernel(f"slice n={n} forced", slice_pf, Xk[:n],
+                                  base, schedule=sch)
+        errs.append(e)
+        row0[(n, took)] = m[0]
+    if not all(torch.equal(v, row0[(1, "spread")]) for v in row0.values()):
+        raise AssertionError(f"row 0's margin depends on its batch: "
+                             f"{ {k: v.tolist() for k, v in row0.items()} }")
+    log(f"row 0's margin has the same bits at {len(row0)} (rows, schedule) "
+        f"pairs from 1 to 1,000,000 rows: {sorted(row0)}")
+    del Xk
     trees, info = make_forest(300, 8, 28, n_groups=3, seed=1)
     pf3 = PackedForest.from_trees(trees, info, 3)
     if list(pf3.tree_info[:6]) != [0, 1, 2, 0, 1, 2]:
         raise AssertionError("3-group forest does not cycle its groups")
-    errs.append(check_kernel(
-        "3-group", pf3, torch.from_numpy(normal(4096, 28)).to(dev),
-        torch.tensor([0.1, -0.2, 0.3], device=dev)))
+    base3 = torch.tensor([0.1, -0.2, 0.3], device=dev)
+    X3 = torch.from_numpy(normal(100_000, 28)).to(dev)
     cats = (0, 5, 11)
     trees, info = make_forest(200, 8, 28, cat_features=cats, seed=2,
                               n_categories=40)
     pfc = PackedForest.from_trees(trees, info, 1)
-    Xc = normal(4096, 28)
+    Xc = normal(100_000, 28)
     for c in cats:
-        Xc[:, c] = rng.randint(-2, 45, 4096)
-        edge = rng.rand(4096) < 0.1
+        Xc[:, c] = rng.randint(-2, 45, 100_000)
+        edge = rng.rand(100_000) < 0.1
         Xc[edge, c] = rng.choice([-0.5, 1e10, -1e10, np.nan, 39.9, 40.0],
                                  int(edge.sum()))
-    errs.append(check_kernel("categorical", pfc,
-                             torch.from_numpy(Xc).to(dev),
-                             torch.tensor([0.25], device=dev)))
+    Xc = torch.from_numpy(Xc).to(dev)
+    basec = torch.tensor([0.25], device=dev)
+    for n in (4096, 100_000):
+        for sch in ("spread", "staged"):
+            errs.append(check_kernel(f"3-group n={n}", pf3, X3[:n], base3,
+                                     sch)[0])
+            errs.append(check_kernel(f"categorical n={n}", pfc, Xc[:n],
+                                     basec, sch)[0])
+    # the eval walk's one tree (Tp = 1) at 100,000 rows; a forest wider
+    # than 1,024 features (both schedules read X from global memory); a
+    # deep forest whose trees overflow a chunk buffer
+    trees, info = make_forest(1, 8, 28, seed=3)
+    pf1 = PackedForest.from_trees(trees, info, 1)
+    zero = torch.zeros(1, device=dev)
+    _, _, took = check_kernel("Tp=1 n=100000", pf1, X3, zero)
+    if took != "staged":
+        raise AssertionError(f"the one-tree walk of 100,000 rows took {took}")
+    trees, info = make_forest(64, 8, 1100, seed=4)
+    pfw = PackedForest.from_trees(trees, info, 1)
+    Xw = torch.from_numpy(normal(100_000, 1100)).to(dev)
+    for n in (512, 100_000):
+        errs.append(check_kernel(f"wide n={n}", pfw, Xw[:n], zero)[0])
+    del Xw
+    trees, info = make_forest(8, 15, 28, seed=5)
+    pfd = PackedForest.from_trees(trees, info, 1)
+    _, _, took = check_kernel("deep n=100000", pfd, X3, zero)
+    biggest = int((pfd.slot_spans()[:, 1] - pfd.slot_spans()[:, 0]).max())
+    if took != "spread":
+        raise AssertionError(f"the deep forest's walk took {took}")
+    log(f"deep forest (depth 15, largest tree {biggest} nodes) planned and "
+        f"launched on the spread schedule at 100,000 rows")
+    del X3, Xc
     torch.cuda.synchronize()
 
     # ------------------------------------------ main path: Booster.predict
     n_big = 100_000
     Xbig = rng.randn(n_big, 28).astype(np.float32)
     dm = xt.DMatrix(Xbig)
-    cuda_walk.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     pred = booster.predict(dm)
     t_predict = time.perf_counter() - t0
-    launches_predict = cuda_walk.LAUNCHES
-    if launches_predict < 1:
-        raise AssertionError("Booster.predict did not launch the kernel")
+    counts_predict = read_counts()
+    launches_predict = counts_predict["walk_packed"]
+    if launches_predict < 1 or counts_predict["walk_staged"] != \
+            launches_predict:
+        raise AssertionError(f"Booster.predict launched {counts_predict}, "
+                             "expected K1 on the staged schedule")
     if pred.shape != (n_big,) or not np.isfinite(pred).all() \
             or not ((pred > 0) & (pred < 1)).all():
         raise AssertionError("Booster.predict gave no valid probabilities")
     log(f"Booster.predict: {n_big} rows in {t_predict * 1e3:.3f} ms "
         f"(host clock, includes H2D/D2H), kernel launches "
-        f"{launches_predict}")
+        f"{launches_predict} (spread {counts_predict['walk_spread']}, "
+        f"staged {counts_predict['walk_staged']})")
     # the same rows through the plain version on the card
     d = slice_pf.device_arrays(dev)
     Xd = torch.from_numpy(Xbig).to(dev)
@@ -903,18 +1168,24 @@ def main() -> int:
     err = np.abs(margin - ref_margin[:, 0].cpu().numpy())
     if (err > bound[:, 0].cpu().numpy()).any():
         raise AssertionError(f"slice margins off by {err.max()}")
+    replica = walk_fold_kernel_order(d["values"][ref_leaf.long()],
+                                     d["tree_weight"], d["tree_group"], base)
+    if not np.array_equal(margin, replica[:, 0].cpu().numpy()):
+        raise AssertionError("Booster.predict's margins differ from the "
+                             "kernel-order fold")
     errs.append(float(err.max()))
     depth = torch.from_numpy(node_depths(slice_pf)).to(dev)
     visits_big = int(depth[ref_leaf.long()].sum())
     del ref_margin, ref_leaf
     log(f"slice vs plain: max_abs_err={err.max()} over {n_big} rows, "
-        f"{visits_big} internal-node visits")
+        f"{visits_big} internal-node visits; Booster.predict's margins equal "
+        f"the kernel-order fold bit for bit")
 
     # ----------------------------------------------- main path: the Server
     sizes = (1, 8, 64, 512)
     n_req, n_threads = 200, 4
     answers = [None] * n_req
-    cuda_walk.LAUNCHES = 0
+    reset_counts()
     with Server(models={"higgs": raw}, max_batch=512) as srv:
         srv.warmup()
 
@@ -933,9 +1204,11 @@ def main() -> int:
             t.join()
         wall = time.perf_counter() - t0
         snap = srv.metrics_snapshot()
-    launches_serve = cuda_walk.LAUNCHES
-    if launches_serve < 1:
-        raise AssertionError("the Server did not launch the kernel")
+    counts_serve = read_counts()
+    launches_serve = counts_serve["walk_packed"]
+    if launches_serve < 1 or counts_serve["walk_spread"] != launches_serve:
+        raise AssertionError(f"the Server launched {counts_serve}, expected "
+                             "K1 on the spread schedule")
     for k, a in enumerate(answers):
         if a is None:
             raise AssertionError(f"request {k} got no answer")
@@ -950,7 +1223,9 @@ def main() -> int:
         f"{sum(a[1] for a in answers) / wall:.1f} rows/s; "
         f"e2e p50 {e2e['p50_ms']} ms p99 {e2e['p99_ms']} ms; "
         f"batches {snap['counters'].get('batches')}, kernel launches "
-        f"{launches_serve}; answers equal Booster.predict bit for bit")
+        f"{launches_serve} (spread {counts_serve['walk_spread']}, staged "
+        f"{counts_serve['walk_staged']}); answers equal Booster.predict "
+        f"bit for bit")
     for st in ("queue", "pad", "h2d", "compute", "d2h"):
         s = snap["stages"][st]
         log(f"  stage {st}: p50 {s['p50_ms']} ms p99 {s['p99_ms']} ms")
@@ -987,8 +1262,7 @@ def main() -> int:
     X, y = higgs_like(1_100_000, F, seed=0)
     dtr = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
     dte = xt.DMatrix(X[1_000_000:], label=y[1_000_000:])
-    params = {"objective": "binary:logistic", "max_depth": 8, "eta": 0.1,
-              "max_bin": 256}
+    params = dict(HIGGS_PARAMS)
     rounds = 20
     res = {}
     t0 = time.perf_counter()
@@ -1002,9 +1276,10 @@ def main() -> int:
             train_counts["fused_advance_coarse"] != 0:
         raise AssertionError(f"training launched {train_counts}, expected "
                              f"K4 8 times a round, K2, K3 and K5 never")
-    if train_counts["walk_packed"] < rounds:
+    if train_counts["walk_packed"] < rounds or \
+            train_counts["walk_staged"] != train_counts["walk_packed"]:
         raise AssertionError("the held-out evaluation did not walk the "
-                             "trees through K1")
+                             "trees through K1's staged schedule")
     ll = res["train"]["logloss"]
     if not ll[-1] < ll[0]:
         raise AssertionError(f"train logloss did not fall: {ll}")
@@ -1177,32 +1452,17 @@ def main() -> int:
                 f"call at {r['bound'][0] / r['queued_ms'] * 100:.4f}% of its "
                 f"bound, time - bound {r['queued_ms'] - r['bound'][0]:.6f} "
                 f"ms")
-    times = {}
-    for n in (1, 512, n_big):
-        X = Xd[:n].contiguous()
-        cold = n == n_big
-        ms = event_ms(lambda X=X: slice_pf.margin(X, base),
-                      reps=20 if cold else 200, flush=flush if cold else None)
-        times[n] = ms
-        log(f"kernel walk n={n}: {ms:.6f} ms "
-            f"({'L2 flushed' if cold else 'L2 warm'})")
-    plain = {}
-    for n in (512, n_big):
-        X = Xd[:n].contiguous()
-        plain[n] = event_ms(lambda X=X: walk_packed_reference(
-            d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
-            d["group_onehot"], X, base, max_depth=slice_pf.max_depth,
-            tree_chunk=tree_step(n)), reps=5 if n == n_big else 20)
-        log(f"plain walk n={n}: {plain[n]:.6f} ms")
-    bounds = {}
-    for n in (1, 512, n_big):
-        _, leaves = slice_pf.margin(Xd[:n].contiguous(), base,
-                                    leaf_index=True)
-        visits = int(depth[leaves.long()].sum())
-        bounds[n] = walk_bound_ms(slice_pf, n, 28, visits)
-        log(f"bound n={n}: {bounds[n][0]:.6f} ms ({bounds[n][1]}), "
-            f"kernel at {bounds[n][0] / times[n] * 100:.4f}% of it")
+    # K1 at its main-path shapes, and both schedules across the crossover
+    walk = time_walk(dev, flush)
+    for label, r in walk["shapes"].items():
+        log(f"K1 {label} rows: device-only {r['queued_ms']:.6f} ms at "
+            f"{r['bound'][0] / r['queued_ms'] * 100:.4f}% of its bound "
+            f"({r['bound'][1]}), time - bound "
+            f"{r['queued_ms'] - r['bound'][0]:.6f} ms")
     torch.cuda.synchronize()
+
+    log(f"model digests: {{'auto': {digest(bst)!r}, 'scan': "
+        f"{hashlib.sha256(raws['scan']).hexdigest()!r}}}")
 
     # launches: every main-path run of the kernel
     runs = [train_counts, deep_counts, small_counts,
@@ -1215,10 +1475,10 @@ def main() -> int:
         "launches": (launches_predict + launches_serve
                      + sum(c["walk_packed"] for c in runs)),
         "max_abs_err": max(errs),
-        "ms": times[n_big],
-        "plain_ms": plain[n_big],
-        "bound_ms": bounds[n_big][0],
-        "bound_by": bounds[n_big][1],
+        "ms": walk["shapes"]["100000"]["ms"],
+        "plain_ms": walk["shapes"]["100000"]["plain_ms"],
+        "bound_ms": walk["shapes"]["100000"]["bound"][0],
+        "bound_by": walk["shapes"]["100000"]["bound"][1],
         "library_ms": None,
     }]
     # times at the shape that takes most of each kernel's launches (K2:

@@ -379,3 +379,114 @@ def test_fused_advance_coarse_skewed_level_on_the_card(n, n_prev, B):
         torch.cuda.synchronize()
         assert torch.equal(got_pos, want_pos)
         assert torch.equal(got, want)
+
+
+def _k1_forest(kind, seed=21):
+    """(forest, X, base) at a small size: ``one`` group, ``three`` groups,
+    ``cat`` (categorical splits on features 1 and 4), ``deep`` (depth 15:
+    its trees overflow the staged schedule's chunk buffer), ``wide``
+    (1,100 features, read from global memory in both schedules),
+    ``single`` (one tree, Tp = 1, the training's eval walk)."""
+    n_trees, depth, F, G, cats = {
+        "one": (70, 6, 7, 1, ()), "three": (45, 5, 7, 3, ()),
+        "cat": (40, 6, 7, 2, (1, 4)), "deep": (6, 15, 9, 1, ()),
+        "wide": (33, 6, 1100, 1, ()), "single": (1, 8, 7, 1, ())}[kind]
+    trees, info = make_forest(n_trees, depth, F, n_groups=G,
+                              cat_features=cats, seed=seed)
+    pf = PackedForest.from_trees(trees, info, G)
+    rng = np.random.RandomState(seed + 1)
+    X = rng.randn(10_000, F).astype(np.float32)
+    for c in cats:
+        X[:, c] = rng.randint(-2, 20, 10_000)
+        X[rng.rand(10_000) < 0.1, c] = rng.choice([-0.5, 1e10, 16.0, 15.7],
+                                                1)
+    X[rng.rand(10_000, F) < 0.1] = np.nan
+    return pf, X, np.linspace(-0.5, 0.5, G).astype(np.float32)
+
+
+def _k1_check(pf, X, base, schedule):
+    """K1 on ``schedule`` against the plain walk's leaf indices and, bit
+    for bit, against the kernel-order fold of their leaf values."""
+    from xgboost_tpu_torch.ops.walk import walk_fold_kernel_order
+
+    dev = X.device
+    d = pf.device_arrays(dev)
+    got, gl = pf.margin(X, base, leaf_index=True, schedule=schedule)
+    _, wl = walk_packed_reference(
+        d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+        d["group_onehot"], X, base, d.get("cat_words"),
+        max_depth=pf.max_depth, tree_chunk=tree_step(X.shape[0]),
+        leaf_index=True)
+    want = walk_fold_kernel_order(d["values"][wl.long()], d["tree_weight"],
+                                  d["tree_group"], base)
+    torch.cuda.synchronize()
+    assert torch.equal(gl, wl)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one", "three", "cat", "wide", "single"])
+@pytest.mark.parametrize("schedule", ["spread", "staged"])
+def test_k1_schedules_equal_the_fold_replica_on_the_card(kind, schedule):
+    """Each schedule of K1: leaf indices equal the plain walk's, margins
+    equal ``walk_fold_kernel_order`` bit for bit, at 1, 33 and 10,000
+    rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops.cuda import walk as W
+
+    pf, X, base = _k1_forest(kind)
+    dev = torch.device("cuda")
+    Xd, bd = torch.from_numpy(X).to(dev), torch.from_numpy(base).to(dev)
+    before = W.SCHEDULE_LAUNCHES[schedule]
+    for n in (1, 33, 10_000):
+        _k1_check(pf, Xd[:n].contiguous(), bd, schedule)
+    assert W.SCHEDULE_LAUNCHES[schedule] - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one", "three", "cat"])
+def test_k1_row_margin_does_not_depend_on_the_batch_on_the_card(kind):
+    """A row's margin has the same bits alone, inside 64 rows (spread),
+    inside 10,000 (the plan's staged schedule) and forced onto either."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pf, X, base = _k1_forest(kind, seed=31)
+    dev = torch.device("cuda")
+    Xd, bd = torch.from_numpy(X).to(dev), torch.from_numpy(base).to(dev)
+    row = 17
+    alone = pf.margin(Xd[row:row + 1].contiguous(), bd)
+    for n, schedule in ((64, None), (10_000, None), (10_000, "spread"),
+                        (64, "staged")):
+        m = pf.margin(Xd[:n].contiguous(), bd, schedule=schedule)
+        torch.cuda.synchronize()
+        assert torch.equal(m[row], alone[0]), (n, schedule)
+
+
+@pytest.mark.cuda
+def test_k1_plan_routes_on_the_card():
+    """The plan's schedule is the one launched: 10,000 rows staged, 64
+    rows spread, the deep forest spread at 10,000 rows (its trees do not
+    fit a chunk buffer, and forcing staged raises), the one-tree eval
+    walk staged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops.cuda import walk as W
+
+    dev = torch.device("cuda")
+    for kind, n, want in (("one", 10_000, "staged"), ("one", 64, "spread"),
+                          ("deep", 10_000, "spread"),
+                          ("single", 10_000, "staged")):
+        pf, X, base = _k1_forest(kind, seed=41)
+        Xd, bd = torch.from_numpy(X[:n]).to(dev), torch.from_numpy(
+            base).to(dev)
+        before = dict(W.SCHEDULE_LAUNCHES)
+        _k1_check(pf, Xd, bd, None)
+        after = W.SCHEDULE_LAUNCHES
+        assert after[want] - before[want] == 1, (kind, n)
+        assert sum(after.values()) - sum(before.values()) == 1
+    pf, X, base = _k1_forest("deep", seed=41)
+    with pytest.raises(ValueError, match="does not fit"):
+        pf.margin(torch.from_numpy(X).to(dev), torch.from_numpy(base).to(dev),
+                  schedule="staged")

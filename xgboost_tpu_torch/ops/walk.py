@@ -10,6 +10,10 @@ package's ``ops/walk.py walk_packed`` on tensors: the same
 ``leaf_v[:, lo:hi] @ group_onehot[lo:hi]`` left fold, and ``base``
 added strictly AFTER the fold. The CPU tests hold it against JAX, and
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+
+:func:`walk_fold_kernel_order` replays, in PyTorch, the one order in which
+the kernel sums a row's leaf terms in every schedule and batch; the tests
+and ``chip_smoke.py`` hold the kernel's margins to it bit for bit.
 """
 
 from __future__ import annotations
@@ -85,19 +89,52 @@ def walk_packed_reference(words: torch.Tensor, values: torch.Tensor,
     return margin
 
 
+def walk_fold_kernel_order(leaf_v: torch.Tensor, tree_weight: torch.Tensor,
+                           tree_group: torch.Tensor,
+                           base: torch.Tensor) -> torch.Tensor:
+    """Margin [n, G] from the leaf values ``leaf_v`` [n, Tp] (``values``
+    at :func:`walk_packed_reference`'s leaf indices), summed in the
+    kernel's order (``csrc/walk.cu``): each term is ``leaf * weight``
+    rounded once. One group: partial l folds the terms of slots t = l mod
+    32 in increasing t, from 0; then a[l] += a[l + o] for o = 16, 8, 4,
+    2, 1; then ``base``. Several groups: each group's terms folded left in
+    slot order, from 0; then ``base``. Used by the tests and
+    ``chip_smoke.py`` only."""
+    terms = leaf_v * tree_weight[None, :]
+    n, Tp = terms.shape
+    G = base.shape[0]
+    if G == 1:
+        acc = torch.zeros((n, 32), dtype=terms.dtype, device=terms.device)
+        for t0 in range(0, Tp, 32):
+            block = terms[:, t0:t0 + 32]
+            acc[:, :block.shape[1]] = acc[:, :block.shape[1]] + block
+        for o in (16, 8, 4, 2, 1):
+            acc = acc[:, :o] + acc[:, o:2 * o]
+        return acc + base[None, :]
+    acc = torch.zeros((n, G), dtype=terms.dtype, device=terms.device)
+    for t, g in enumerate(tree_group.tolist()):
+        acc[:, g] = acc[:, g] + terms[:, t]
+    return acc + base[None, :]
+
+
 def walk_packed(words: torch.Tensor, values: torch.Tensor,
                 tree_offsets: torch.Tensor, tree_weight: torch.Tensor,
                 group_onehot: torch.Tensor, X: torch.Tensor,
                 base: torch.Tensor,
                 cat_words: Optional[torch.Tensor] = None, *,
                 max_depth: int, tree_chunk: int, tree_group: torch.Tensor,
-                max_feature: int, leaf_index: bool = False):
+                max_feature: int, leaf_index: bool = False,
+                nodes: Optional[torch.Tensor] = None, spans=None,
+                plans: Optional[dict] = None,
+                schedule: Optional[str] = None):
     """Margin [n, G] of a packed forest (plus ``leaf_index`` [n, Tp] on
     request). A CUDA ``X`` goes through the Hopper kernel, a CPU ``X``
     through :func:`walk_packed_reference`. ``tree_group`` (each tree's
     output group) and ``max_feature`` (the largest split feature id) are
     what the kernel takes in place of ``group_onehot`` and a device-side
-    bounds check."""
+    bounds check; ``nodes``, ``spans``, ``plans`` and ``schedule`` (the
+    forest's interleaved nodes and tree spans, its cache of launch plans
+    and a forced schedule, ``ops/cuda/walk.py``) only the kernel reads."""
     if X.device.type == "cpu":
         return walk_packed_reference(
             words, values, tree_offsets, tree_weight, group_onehot, X, base,
@@ -108,5 +145,6 @@ def walk_packed(words: torch.Tensor, values: torch.Tensor,
     margin, leaves = walk_packed_cuda(
         words, values, tree_offsets, tree_weight, tree_group, X, base,
         cat_words, max_depth=max_depth, max_feature=max_feature,
-        leaf_index=leaf_index)
+        leaf_index=leaf_index, nodes=nodes, spans=spans, plans=plans,
+        schedule=schedule)
     return (margin, leaves) if leaf_index else margin

@@ -135,6 +135,8 @@ class PackedForest:
         self.max_feature = int(feats.max()) if feats.size else -1
         self._dev: Dict[str, Dict[str, torch.Tensor]] = {}
         self._dev_lock = threading.Lock()
+        self._spans: Optional[np.ndarray] = None
+        self._plans: Dict[str, dict] = {}
 
     @property
     def n_groups(self) -> int:
@@ -242,7 +244,9 @@ class PackedForest:
     # ------------------------------------------------------------ the walk
     def device_arrays(self, device: torch.device) -> Dict[str, torch.Tensor]:
         """The walk's buffers as tensors on ``device``, uploaded once per
-        device. Words are int32 tensors holding the uint32 bits."""
+        device. Words are int32 tensors holding the uint32 bits; ``nodes``
+        [N, 2] int32 holds each node's word and value bits side by side,
+        as the walk kernel reads a node."""
         key = str(device)
         d = self._dev.get(key)
         if d is None:
@@ -251,7 +255,10 @@ class PackedForest:
                 if d is None:
                     def put(a):
                         return torch.from_numpy(a).to(device)
+                    nodes = np.stack([self.words.view(np.int32),
+                                      self.values.view(np.int32)], axis=1)
                     d = {"words": put(self.words.view(np.int32)),
+                         "nodes": put(nodes),
                          "values": put(self.values),
                          "tree_offsets": put(self.tree_offsets),
                          "tree_weight": put(self.tree_weight),
@@ -262,12 +269,34 @@ class PackedForest:
                     self._dev[key] = d
         return d
 
+    def slot_spans(self) -> np.ndarray:
+        """[Tp, 2] (first node, end node) of each tree slot in the pool,
+        the spans the walk kernel stages (``ops/cuda/walk.py
+        slot_spans``)."""
+        if self._spans is None:
+            from ..ops.cuda.walk import slot_spans
+
+            self._spans = slot_spans(self.tree_offsets, self.words.shape[0])
+        return self._spans
+
+    def walk_plans(self, device: torch.device) -> dict:
+        """The walk kernel's launch plans and chunk tables on ``device``,
+        kept beside :meth:`device_arrays` (filled by ``ops/cuda/walk.py``)."""
+        key = str(device)
+        plans = self._plans.get(key)
+        if plans is None:
+            with self._dev_lock:
+                plans = self._plans.setdefault(key, {})
+        return plans
+
     def margin(self, X, base, *, device: Optional[str] = None,
-               leaf_index: bool = False):
+               leaf_index: bool = False, schedule: Optional[str] = None):
         """Margin [n, G] (and, on request, the final flat node index
         [n, Tp]) of a batch through the packed walk. A tensor ``X`` runs
         on its own device; anything else is moved to ``device`` (the
-        card unless the caller asks for ``"cpu"``)."""
+        card unless the caller asks for ``"cpu"``). ``schedule`` forces
+        the kernel's ``"spread"`` or ``"staged"`` schedule (timing and
+        tests; ``ops/cuda/walk.py walk_plan`` picks otherwise)."""
         from ..context import resolve_device
         from ..ops.walk import walk_packed
 
@@ -281,12 +310,19 @@ class PackedForest:
             raise ValueError(f"base must have shape ({self.n_groups},), "
                              f"got {tuple(base.shape)}")
         d = self.device_arrays(dev)
+        kernel = {}
+        if dev.type == "cuda":
+            kernel = {"nodes": d["nodes"], "spans": self.slot_spans(),
+                      "plans": self.walk_plans(dev), "schedule": schedule}
+        elif schedule is not None:
+            raise ValueError("a walk schedule names a CUDA kernel's; X is "
+                             f"on {dev}")
         return walk_packed(
             d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
             d["group_onehot"], X.contiguous(), base, d.get("cat_words"),
             max_depth=self.max_depth, tree_chunk=tree_step(X.shape[0]),
             tree_group=d["tree_group"], max_feature=self.max_feature,
-            leaf_index=leaf_index)
+            leaf_index=leaf_index, **kernel)
 
     # ----------------------------------------------------------- metadata
     @property
