@@ -13,9 +13,11 @@ for bit to the kernel-order fold of its leaves
 bucket (1, 2, ..., 512 rows), 100,000 and 1,000,000 rows, on both
 schedules at 512 and 100,000 rows (one row's margin the same bits in all
 of them), a 3-group and a categorical forest on both schedules, the
-one-tree eval walk at 100,000 rows, a forest of 1,100 features and a
-depth-15 forest that the plan sends to the spread schedule. K2 (int8x2
-histogram), K3 (f32 histogram, exact int64 fixed point), K4 (K2's
+one-tree eval walk at 100,000 rows, a forest of 1,100 features, a
+depth-15 forest that the plan sends to the spread schedule, and the
+trained 7-group Covertype forest on both schedules. K2 (int8x2
+histogram), K3 (f32 histogram, exact int64 fixed point; and its bf16 and
+bf16x2 precisions, each row rounded to bfloat16 first), K4 (K2's
 function over the sorted build, with its coarse fold taken in the
 kernel) and K5 (the level advance fused with the next level's coarse
 histogram) bit for bit and twice each, at the shapes the training runs
@@ -49,13 +51,29 @@ counts set to 0 just before and read just after:
   the same bytes (K2 twice a level; K5 at every level boundary and K2 for
   the coarse root and the refines; K4 with its fold at every level);
 - ``fused`` and ``scan`` at ``max_depth`` 10 on 200,000 rows for 2 rounds,
-  where the levels of 256 and 512 nodes take the plain advance and K3.
+  where the levels of 256 and 512 nodes take the plain advance and K3;
+- multiclass at the Covertype shape (``covtype_like``: 581,012 x 54 with
+  covtype's 7 class counts, 100,000 held-out rows, made from a seed):
+  ``multi:softprob``, depth 8, ``subsample`` / ``colsample_bytree`` /
+  ``colsample_bynode`` 0.8, up to 30 rounds with early stopping after 5
+  on the held-out mlogloss, twice: K4 at every level of every class tree
+  (56 launches a round), K1 staged for the held-out walk (once a round),
+  the two runs' model bytes the same sha256, every round's sampled masks
+  and row draws drawn on the card equal to the same draws on the CPU,
+  held-out mlogloss and merror falling; then seconds a round and three
+  profiled rounds, ``Booster.predict`` on the held-out rows, a 7-group
+  ``Server`` answering 1/8/64/512-row requests (each answer equal to
+  ``Booster.predict``), one ``num_parallel_tree`` 4 round, a
+  ``gradient_based`` run with ``subsample`` 0.5, and one round each
+  through ``hist_method`` ``pallas:bf16x2`` and ``pallas:bf16`` (K3's
+  rounded precisions at every level).
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
 main paths' shapes: K1 at 1, 512, 100,000 and 1,000,000 rows and the
 one-tree walk at 100,000, and both of its schedules from 1 to 100,000
-rows; K4 at every level width of the HIGGS run (N = 1, 2,
+rows; K1 on the Covertype forest (7 groups) at 1, 512 and 100,000 rows
+and its one-round eval walk; K4 at every level width of the HIGGS run (N = 1, 2,
 ..., 128 on 1,000,000 rows) and K5 at every level boundary (N = 2, ...,
 128), each split into its phases (sort or advance, tiles, combine and
 fold) with CUDA events; seconds per boosting round on the host clock;
@@ -334,9 +352,17 @@ def hist_totals_ok(name, out, gpair, rel, N, quantum):
     return float(torch.where(bound > 0, err / bound, err).max())
 
 
+def k3_precisions():
+    """K3's kernels -> their precisions (``ops/cuda/hist.py K3_KERNELS``)."""
+    from xgboost_tpu_torch.ops.cuda.hist import K3_KERNELS
+    return {name: prec for prec, name in K3_KERNELS.items()}
+
+
 def hist_kernels(N):
     """The kernels that run at a level of N nodes, with their plain
-    versions: (name, kernel(args), plain(args), maker of the args)."""
+    versions: (name, kernel(args), plain(args), maker of the args). K3
+    in its three precisions at every level (``pallas:bf16x2`` /
+    ``pallas:bf16`` build every level with it)."""
     from xgboost_tpu_torch.ops import histogram as H
     from xgboost_tpu_torch.ops.cuda import hist as K
 
@@ -348,8 +374,12 @@ def hist_kernels(N):
         qs, inv = H.fixed_point_scale(gpair)
         return bins, gpair, rel, qs, inv
 
-    out = [("hist_f32", K.hist_f32_cuda, H.build_hist_f32_reference,
-            f32_args)]
+    def k3(prec):
+        return (lambda *a: K.hist_f32_cuda(*a, precision=prec),
+                lambda *a: H.build_hist_f32_reference(*a, precision=prec))
+
+    out = [(name, *k3(prec), f32_args)
+           for name, prec in k3_precisions().items()]
     if N <= 128:
         out += [("hist_int8x2", K.hist_int8x2_cuda,
                  H.build_hist_int8x2_reference, int8x2_args),
@@ -362,6 +392,8 @@ def check_hist(bins, gpair, rel, N, B, label):
     """Each kernel against its plain version on the same card tensors:
     equal bit for bit on two launches; totals against the row sums.
     Returns {kernel: max |kernel - plain|}."""
+    from xgboost_tpu_torch.ops.histogram import bf16_parts
+
     errs = {}
     ratios = []
     for name, kernel, plain, make in hist_kernels(N):
@@ -373,8 +405,12 @@ def check_hist(bins, gpair, rel, N, B, label):
         if not all(torch.equal(r, want) for r in runs):
             raise AssertionError(f"{name} {label}: a launch differs from the "
                                  f"plain version (max {errs[name]})")
-        ratios.append(hist_totals_ok(f"{name} {label}", runs[0], gpair, rel,
-                                     N, args[-1]))
+        # the totals of what the rows add: K3's rounded precisions add
+        # each row's bfloat16 parts, each rounded to the fixed point
+        parts = bf16_parts(gpair, k3_precisions().get(name, "f32"))
+        ratios.append(hist_totals_ok(f"{name} {label}", runs[0],
+                                     sum(p.double() for p in parts), rel, N,
+                                     args[-1] * len(parts)))
     log(f"check hist {label}: rows={bins.shape[0]} features={bins.shape[1]} "
         f"nodes={N} bins={B} ({bins.dtype}): {sorted(errs)} equal their "
         f"plain versions bit for bit on two launches; totals at "
@@ -429,7 +465,7 @@ def time_hist(bins, gpair, rel, N, B, flush):
         out[name] = (
             event_ms(lambda: kernel(*args, N, B), reps=20, flush=flush),
             event_ms(lambda: plain(*args, N, B), reps=5),
-            lib_f32 if name == "hist_f32" else lib_int)
+            lib_f32 if name in k3_precisions() else lib_int)
     return out, int(active.sum())
 
 
@@ -856,6 +892,92 @@ def _fmt(v):
     return "[" + ", ".join(f"{x:.6f}" for x in v) + "] ms"
 
 
+# ---- the Covertype shape (BASELINE.json config #4) ---------------------------
+
+# UCI Covertype (covtype): 581,012 rows of 54 features (10 continuous, a
+# one-hot wilderness area of 4 and a one-hot soil type of 40), 7 cover
+# types with these row counts; the held-out rows are extra draws
+COVTYPE_CLASS_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
+                        20_510)
+COVTYPE_TEST_ROWS = 100_000
+COVTYPE_PARAMS = {"objective": "multi:softprob", "num_class": 7,
+                  "max_depth": 8, "eta": 0.1, "max_bin": 256,
+                  "subsample": 0.8, "colsample_bytree": 0.8,
+                  "colsample_bynode": 0.8, "eval_metric": "mlogloss"}
+COVTYPE_ROUNDS = 30
+COVTYPE_EARLY_STOP = 5
+
+
+def covtype_like(seed):
+    """(X [581,012 + 100,000, 54] f32, labels) with covtype's structure:
+    10 continuous N(0, 1) columns, a one-hot wilderness area (4 columns,
+    skewed areas) and a one-hot soil type (40 columns, Zipf-like), made
+    from ``seed``. The label comes from a fixed rule plus noise: a score
+    linear in the continuous columns plus an effect per area and per soil
+    type, cut at covtype's class counts over the first 581,012 rows (the
+    cut points then label the held-out rows), the score's 7 bands mapped
+    to the classes in a fixed order."""
+    rng = np.random.default_rng(seed)
+    n = sum(COVTYPE_CLASS_COUNTS) + COVTYPE_TEST_ROWS
+    cont = rng.standard_normal((n, 10), dtype=np.float32)
+    area = rng.choice(4, n, p=(0.45, 0.05, 0.44, 0.06))
+    soil_p = 1.0 / np.arange(1, 41) ** 1.1
+    soil = rng.choice(40, n, p=soil_p / soil_p.sum())
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = cont
+    X[np.arange(n), 10 + area] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    score = (cont @ rng.standard_normal(10).astype(np.float32)
+             + rng.standard_normal(4)[area] + rng.standard_normal(40)[soil]
+             + 0.5 * rng.standard_normal(n))
+    n_train = sum(COVTYPE_CLASS_COUNTS)
+    order = (1, 0, 6, 2, 5, 4, 3)            # class of each score band
+    cuts = np.sort(score[:n_train])[np.cumsum(
+        [COVTYPE_CLASS_COUNTS[c] for c in order])[:-1]]
+    y = np.asarray(order, np.float32)[np.searchsorted(cuts, score,
+                                                      side="right")]
+    return X, y
+
+
+def round_masks(params, iterations, base_mask, device):
+    """Every feature mask and the first tree's row sample of the Covertype
+    rounds ``iterations``, drawn on ``device`` as ``train`` draws them
+    (``Booster.update``'s round key, ``GBTree.do_boost``'s tree keys),
+    over the features with real bins (``base_mask``) -> sha256 of their
+    bytes."""
+    from xgboost_tpu_torch.context import Context
+    from xgboost_tpu_torch.tree.grow import draw_feature_masks
+    from xgboost_tpu_torch.tree.param import TrainParam
+    from xgboost_tpu_torch.utils import random as xrandom
+
+    tp = TrainParam()
+    tp.update_allow_unknown(dict(params))
+    ctx = Context(device="cpu")
+    h = hashlib.sha256()
+    base = torch.from_numpy(base_mask).to(device)
+    K = params["num_class"]
+    for it in iterations:
+        key = xrandom.fold_in(ctx.make_key(it), it)
+        tkeys = [xrandom.fold_in(key, k) for k in range(K)]
+        for tree in draw_feature_masks(tkeys, base, tp, tp.max_depth):
+            for m in tree:
+                h.update(m.cpu().numpy().tobytes())
+        rows = xrandom.bernoulli(xrandom.fold_in(tkeys[0], 0x5AB),
+                                 tp.subsample, (sum(COVTYPE_CLASS_COUNTS),),
+                                 device)
+        h.update(rows.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def multi_logloss(p, y):
+    return float(-np.mean(np.log(np.clip(p[np.arange(len(y)),
+                                           y.astype(np.int64)], 1e-16, 1))))
+
+
+def merror(p, y):
+    return float(np.mean(p.argmax(axis=1) != y))
+
+
 def saved_bytes(bst):
     """``save_raw`` bytes with the ``hist_method`` the booster records set
     to one value, so that models of different schedules compare."""
@@ -1026,6 +1148,7 @@ def main() -> int:
     import xgboost_tpu_torch as xt
     from xgboost_tpu_torch.ops.cuda import build
     from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.cuda import walk as W
     from xgboost_tpu_torch.ops.walk import (walk_fold_kernel_order,
                                             walk_packed_reference)
     from xgboost_tpu_torch.serve import Server
@@ -1408,6 +1531,186 @@ def main() -> int:
                              "models")
     log("fused and scan at depth 10 saved the same model bytes")
 
+    # ------------------- main path: multiclass at the Covertype shape
+    # multi:softprob over 7 classes with row and column sampling and early
+    # stopping on the held-out rows: K4 at every level of every class tree
+    # (the sorted build, as the TPU's auto at 581,012 rows), K1 for the
+    # held-out walks, Booster.predict and a 7-group Server
+    Xc, yc = covtype_like(seed=4)
+    n_cov = sum(COVTYPE_CLASS_COUNTS)
+    if np.bincount(yc[:n_cov].astype(np.int64)).tolist() != \
+            list(COVTYPE_CLASS_COUNTS):
+        raise AssertionError("the Covertype-shape labels miss covtype's "
+                             "class counts")
+    dcov = xt.DMatrix(Xc[:n_cov], label=yc[:n_cov])
+    dcte = xt.DMatrix(Xc[n_cov:], label=yc[n_cov:])
+    yte = yc[n_cov:]
+    cov_runs, cov_raw = [], []
+    for run in range(2):
+        res_c = {}
+        t0 = time.perf_counter()
+        bc, cc = train_launches(f"train Covertype run {run}", lambda r=res_c:
+                                xt.train(COVTYPE_PARAMS, dcov, COVTYPE_ROUNDS,
+                                         evals=[(dcte, "test")],
+                                         evals_result=r, verbose_eval=10,
+                                         early_stopping_rounds=(
+                                             COVTYPE_EARLY_STOP)))
+        t_cov = time.perf_counter() - t0
+        rounds_c = bc.num_boosted_rounds()
+        if cc["hist_scan"] != 56 * rounds_c or cc["hist_int8x2"] != 0 or \
+                cc["hist_f32"] != 0 or cc["fused_advance_coarse"] != 0:
+            raise AssertionError(f"Covertype launched {cc}, expected K4 56 "
+                                 f"times a round (8 levels x 7 classes)")
+        if cc["walk_packed"] != rounds_c or \
+                cc["walk_staged"] != rounds_c:
+            raise AssertionError(f"Covertype's held-out walks launched {cc}, "
+                                 "expected K1 staged once a round")
+        cov_runs.append(cc)
+        cov_raw.append(bytes(bc.save_raw("ubj")))
+        log(f"train Covertype run {run}: {rounds_c} rounds in {t_cov:.3f} s "
+            f"(host clock, sketch and binning included on run 0); launches "
+            f"a round: K4 {cc['hist_scan'] / rounds_c:g}, K1 "
+            f"{cc['walk_packed'] / rounds_c:g}; best_iteration "
+            f"{bc.best_iteration}, best_score {bc.best_score}, "
+            f"{'stopped early' if rounds_c < COVTYPE_ROUNDS else 'ran every round'}")
+    digests = [hashlib.sha256(r).hexdigest() for r in cov_raw]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two Covertype runs saved different models: "
+                             f"{digests}")
+    log(f"Covertype model sha256 (two runs): {digests[0]} {digests[1]}")
+    mll = res_c["test"]["mlogloss"]
+    p_first = bc.predict(dcte, iteration_range=(0, 1))
+    p_cov = bc.predict(dcte)
+    me0, me1 = merror(p_first, yte), merror(p_cov, yte)
+    if not (mll[-1] < mll[0] and me1 < me0 and np.isfinite(p_cov).all()
+            and p_cov.shape == (COVTYPE_TEST_ROWS, 7)):
+        raise AssertionError(f"Covertype held-out mlogloss {mll[0]} -> "
+                             f"{mll[-1]}, merror {me0} -> {me1}")
+    if abs(multi_logloss(p_cov, yte) - mll[-1]) > 1e-5:
+        raise AssertionError("Booster.predict disagrees with the eval line")
+    log(f"Covertype held-out: mlogloss {mll[0]} -> {mll[-1]} (round "
+        f"{len(mll) - 1}), merror {me0:.6f} -> {me1:.6f}; early-stopping "
+        f"round {bc.num_boosted_rounds() - 1}, best_iteration "
+        f"{bc.best_iteration}")
+    # the sampled masks and row draws of every round of the run: the
+    # threefry on the card against the threefry on the CPU
+    base_mask = dcov.binned(256, dev).cuts.n_real_bins() > 0
+    its = range(bc.num_boosted_rounds())
+    mask_card = round_masks(COVTYPE_PARAMS, its, base_mask, dev)
+    mask_cpu = round_masks(COVTYPE_PARAMS, its, base_mask,
+                           torch.device("cpu"))
+    if mask_card != mask_cpu:
+        raise AssertionError(f"the sampled masks differ: card {mask_card}, "
+                             f"CPU {mask_cpu}")
+    log(f"Covertype sampled masks and row draws of {len(its)} rounds: "
+        f"sha256 {mask_card} on the card and on the CPU")
+    # seconds a round and device busy over three profiled rounds
+    timer_c, per_c, cov_s = seconds_per_round(COVTYPE_PARAMS, dcov)
+    log(f"Covertype seconds per round (update + sync, host clock): "
+        f"{['%.6f' % t for t in per_c]}; median of rounds 1-5 {cov_s:.6f} s")
+    cov_busy, _ = profile_rounds("Covertype", timer_c, dcov, top=12)
+    # the round's random draws alone (host clock, ending in a sync): the
+    # seven trees' feature masks and row samples of one round
+    from xgboost_tpu_torch.boosting.gbtree import sample_gradients
+    from xgboost_tpu_torch.tree.grow import draw_feature_masks
+    from xgboost_tpu_torch.utils import random as xrandom
+
+    gp_c = torch.randn(n_cov, 2, device=dev)
+    tp_c = timer_c.tree_param
+    base_t = torch.from_numpy(base_mask).to(dev)
+    draws = []
+    for it in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key = xrandom.fold_in(xrandom.key(0), it)
+        tkeys = [xrandom.fold_in(key, k) for k in range(7)]
+        draw_feature_masks(tkeys, base_t, tp_c, tp_c.max_depth)
+        for tk in tkeys:
+            sample_gradients(gp_c, tk, tp_c)
+        torch.cuda.synchronize()
+        draws.append(time.perf_counter() - t0)
+    log(f"Covertype random draws of one round (7 trees' masks and row "
+        f"samples; host clock, ending in a sync): median of rounds 1-5 "
+        f"{float(np.median(draws[1:])) * 1e3:.3f} ms")
+    # Booster.predict on the 100k held-out rows and a 7-group Server
+    reset_counts()
+    p_again = bc.predict(dcte)
+    cov_predict_counts = read_counts()
+    if not np.array_equal(p_again, p_cov) or \
+            cov_predict_counts["walk_staged"] != 1:
+        raise AssertionError(f"Covertype predict: {cov_predict_counts}")
+    Xte = Xc[n_cov:]
+    answers_c = []
+    reset_counts()
+    with Server(models={"covtype": cov_raw[0]}, max_batch=512) as srv:
+        srv.warmup()
+        for i in range(80):
+            n = sizes[i % len(sizes)]
+            lo = (i * 1237) % (COVTYPE_TEST_ROWS - n)
+            answers_c.append((lo, n, np.asarray(srv.predict(Xte[lo:lo + n]))))
+        snap_c = srv.metrics_snapshot()
+    cov_serve_counts = read_counts()
+    for lo, n, got in answers_c:
+        if not np.array_equal(got, p_cov[lo:lo + n]):
+            raise AssertionError(f"a 7-class Server answer ({n} rows at "
+                                 f"{lo}) differs from Booster.predict")
+    if cov_serve_counts["walk_spread"] < 1:
+        raise AssertionError(f"the 7-class Server launched "
+                             f"{cov_serve_counts}")
+    log(f"Covertype serve: 80 requests of {sizes} rows, 7 groups, every "
+        f"answer equal to Booster.predict bit for bit; e2e p50 "
+        f"{snap_c['stages']['e2e']['p50_ms']} ms p99 "
+        f"{snap_c['stages']['e2e']['p99_ms']} ms; K1 launches "
+        f"{cov_serve_counts['walk_packed']} (spread "
+        f"{cov_serve_counts['walk_spread']})")
+    # one random-forest round (num_parallel_tree 4) and a gradient-based
+    # row sample
+    rf, rf_counts = train_launches("Covertype num_parallel_tree 4", lambda:
+                                   xt.train(dict(COVTYPE_PARAMS,
+                                                 num_parallel_tree=4),
+                                            dcov, 1, verbose_eval=False))
+    if rf_counts["hist_scan"] != 8 * 7 * 4 or len(rf.gbm.trees) != 28 or \
+            rf.gbm.tree_info[:8] != [0, 0, 0, 0, 1, 1, 1, 1]:
+        raise AssertionError(f"num_parallel_tree 4: {rf_counts}, "
+                             f"{len(rf.gbm.trees)} trees")
+    res_g = {}
+    gb, gb_counts = train_launches("Covertype gradient_based", lambda:
+                                   xt.train(dict(COVTYPE_PARAMS,
+                                                 subsample=0.5,
+                                                 sampling_method=
+                                                 "gradient_based"),
+                                            dcov, 3, evals=[(dcte, "test")],
+                                            evals_result=res_g,
+                                            verbose_eval=False))
+    gll = res_g["test"]["mlogloss"]
+    if not gll[-1] < gll[0] or gb_counts["hist_scan"] != 56 * 3:
+        raise AssertionError(f"gradient_based: {gll}, {gb_counts}")
+    log(f"Covertype num_parallel_tree 4: 28 trees in one round, K4 "
+        f"{rf_counts['hist_scan']}; gradient_based subsample 0.5: held-out "
+        f"mlogloss {gll[0]} -> {gll[-1]} in 3 rounds")
+    # one round each through K3's rounded precisions
+    bf16_counts = {}
+    for prec in ("bf16x2", "bf16"):
+        bb, cb16 = train_launches(f"Covertype pallas:{prec}", lambda p=prec:
+                                  xt.train(dict(COVTYPE_PARAMS,
+                                                hist_method=f"pallas:{p}"),
+                                           dcov, 1, verbose_eval=False))
+        name = f"hist_{prec}"
+        if cb16[name] != 56 or cb16["hist_scan"] != 0:
+            raise AssertionError(f"pallas:{prec} launched {cb16}, expected "
+                                 f"{name} 56 times a round")
+        bf16_counts[name] = cb16
+    cov_pf = bc.packed_forest()
+    Xte_dev = torch.from_numpy(np.ascontiguousarray(Xte)).to(dev)
+    cov_base = torch.tensor(bc._base_np(), device=dev)
+    last_pf = PackedForest.from_trees(bc.gbm.trees[-7:],
+                                      bc.gbm.tree_info[-7:], 7)
+    # K1's 7-group fold against the plain walk on both schedules
+    for n, sch in ((512, "spread"), (100_000, "staged")):
+        errs.append(check_kernel(f"Covertype 7-group n={n}", cov_pf,
+                                 Xte_dev[:n].contiguous(), cov_base, sch)[0])
+    del Xc, dcov, dcte
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -1430,7 +1733,7 @@ def main() -> int:
                                                 seed=40 + i)
         t, n_active = time_hist(bins, gpair, rel, N, B, flush)
         for name, (ms, plain_ms, lib_ms) in t.items():
-            planes = 2 if name == "hist_f32" else 4
+            planes = 2 if name in k3_precisions() else 4
             bound = hist_bound_ms(bins, N, B, n_active, planes)
             hist_times[(name, n_rows, N, B)] = (ms, plain_ms, lib_ms, bound)
             log(f"hist {name} n={n_rows} N={N} B={B} x {F} u8 (L2 flushed): "
@@ -1452,6 +1755,31 @@ def main() -> int:
                 f"call at {r['bound'][0] / r['queued_ms'] * 100:.4f}% of its "
                 f"bound, time - bound {r['queued_ms'] - r['bound'][0]:.6f} "
                 f"ms")
+    # K1 on the Covertype forest (7 groups, X read from global memory by
+    # the staged walk at 54 features): the 100,000 held-out rows through
+    # the whole forest (a predict) and through one round's 7 trees (an
+    # eval walk), and the server's 1- and 512-row buckets
+    cov_walk = {}
+    for label, f, n, cold in (("forest 100000", cov_pf, 100_000, flush),
+                              ("round 100000", last_pf, 100_000, flush),
+                              ("forest 1", cov_pf, 1, None),
+                              ("forest 512", cov_pf, 512, None)):
+        Xn = Xte_dev[:n].contiguous()
+        b7 = cov_base if f is cov_pf else torch.zeros(7, device=dev)
+        before = dict(W.SCHEDULE_LAUNCHES)
+        _, leaves = f.margin(Xn, b7, leaf_index=True)
+        took = [k for k, v in W.SCHEDULE_LAUNCHES.items() if v != before[k]]
+        depth7 = torch.from_numpy(node_depths(f)).to(dev)
+        r = {"queued_ms": queued_ms(lambda: f.margin(Xn, b7), 20, cold),
+             "ms": event_ms(lambda: f.margin(Xn, b7), reps=20, flush=cold),
+             "bound": walk_bound_ms(f, n, 54, int(
+                 depth7[leaves.long()].sum()))}
+        cov_walk[label] = r
+        r["schedule"] = took[0]
+        log(f"K1 Covertype {label} rows (Tp={f.tree_offsets.shape[0]}, 7 "
+            f"groups, {took[0]}): "
+            + ", ".join(f"{k} {_fmt(v)}" for k, v in r.items()
+                        if k != "schedule"))
     # K1 at its main-path shapes, and both schedules across the crossover
     walk = time_walk(dev, flush)
     for label, r in walk["shapes"].items():
@@ -1466,13 +1794,16 @@ def main() -> int:
 
     # launches: every main-path run of the kernel
     runs = [train_counts, deep_counts, small_counts,
-            *two_counts.values(), *(c for c, _ in deep2.values())]
+            *two_counts.values(), *(c for c, _ in deep2.values()),
+            *cov_runs, rf_counts, gb_counts, *bf16_counts.values()]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
         "source": "xgboost_tpu_torch/csrc/walk.cu",
         "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
         "launches": (launches_predict + launches_serve
+                     + cov_predict_counts["walk_packed"]
+                     + cov_serve_counts["walk_packed"]
                      + sum(c["walk_packed"] for c in runs)),
         "max_abs_err": max(errs),
         "ms": walk["shapes"]["100000"]["ms"],
@@ -1486,6 +1817,8 @@ def main() -> int:
     for name, replaces, shape in (
             ("hist_int8x2", ":621", (1_000_000, 128, 36)),
             ("hist_f32", ":634", (200_000, 512, 256)),
+            ("hist_bf16x2", ":634", (200_000, 512, 256)),
+            ("hist_bf16", ":634", (200_000, 512, 256)),
             ("hist_scan", ":478", (1_000_000, 128, 256))):
         ms, plain_ms, lib_ms, bound = hist_times[(name, *shape)]
         launches = sum(c[name] for c in runs)

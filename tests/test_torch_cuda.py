@@ -283,6 +283,86 @@ def test_k3_matches_plain_version_on_the_card(n, N, B, skew):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x2"])
+@pytest.mark.parametrize("n,N,B,skew", [
+    (200_003, 512, 256, False), (200_003, 512, 257, True),
+    (1_000_000, 128, 256, False), (1_000_000, 128, 256, True),
+    (1_000_000, 1, 256, False), (10, 4, 256, False)])
+def test_k3_rounded_precisions_match_plain_versions_on_the_card(
+        precision, n, N, B, skew):
+    """K3's bf16 and bf16x2 precisions: each row's (g, h) rounded to
+    bfloat16 on the card as the plain version rounds it on the card,
+    and the sums equal ``build_hist_f32_reference(precision=)`` bit for
+    bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    bins, g, rel = _level(n, N, B, 11 * N + B + n % 89, skew)
+    qs, inv = H.fixed_point_scale(g)
+    want = H.build_hist_f32_reference(bins, g, rel, qs, inv, N, B,
+                                      precision=precision)
+    cpu = H.build_hist_f32_reference(bins.cpu(), g.cpu(), rel.cpu(),
+                                     qs.cpu(), inv.cpu(), N, B,
+                                     precision=precision)
+    for _ in range(2):
+        got = K.hist_f32_cuda(bins, g, rel, qs, inv, N, B,
+                              precision=precision)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_multiclass_sampled_training_on_the_card_equals_the_cpu():
+    """A 5-class forest with row and column sampling: the masks and row
+    samples are drawn on the card with the same bits as on the CPU, so
+    the first round's trees agree split for split. The root's gradient
+    sum is an f32 reduction taken in another order on each device, and a
+    right child's sum is its parent's minus the left one, so a leaf of a
+    class whose sums nearly cancel carries that difference (measured on
+    the card: 1.4e-4, 0.13% of its leaf): leaves are held at rtol 1e-3
+    plus 1e-4, predictions within 1e-3 as in the binary test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.tree.grow import draw_feature_masks
+    from xgboost_tpu_torch.tree.param import TrainParam
+    from xgboost_tpu_torch.utils import random as xrandom
+
+    keys = [xrandom.fold_in(xrandom.key(3), i) for i in range(7)]
+    p = TrainParam(colsample_bytree=0.8, colsample_bylevel=0.9,
+                   colsample_bynode=0.7)
+    base = torch.ones(54, dtype=torch.bool)
+    base[[4, 9]] = False
+    on_card = draw_feature_masks(keys, base.cuda(), p, 8)
+    on_cpu = draw_feature_masks(keys, base, p, 8)
+    for a, b in zip(on_card, on_cpu):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+    u = xrandom.uniform(keys[0], (1 << 20,), device="cuda")
+    assert torch.equal(u.cpu(), xrandom.uniform(keys[0], (1 << 20,)))
+    rng = np.random.RandomState(8)
+    X = rng.randn(70000, 20).astype(np.float32)
+    y = np.argmax(X[:, :5] + rng.randn(70000, 5), axis=1).astype(np.float32)
+    params = {"objective": "multi:softprob", "num_class": 5, "max_depth": 5,
+              "subsample": 0.8, "colsample_bytree": 0.8,
+              "colsample_bynode": 0.8}
+    gpu = xt.train(params, xt.DMatrix(X, label=y), 2, verbose_eval=False)
+    cpu = xt.train(dict(params, device="cpu"), xt.DMatrix(X, label=y), 2,
+                   verbose_eval=False)
+    for a, b in zip(gpu.gbm.trees[:5], cpu.gbm.trees[:5]):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.split_bin, b.split_bin)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-3,
+                                   atol=1e-4)
+    np.testing.assert_allclose(
+        gpu.predict(xt.DMatrix(X), iteration_range=(0, 1)),
+        cpu.predict(xt.DMatrix(X), iteration_range=(0, 1)), atol=1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 16, 128])
 @pytest.mark.parametrize("B", [256, 20, 36])
 @pytest.mark.parametrize("n,skew", [(1_000_000, False), (1_000_000, True),

@@ -284,7 +284,11 @@ def test_hist_method_map():
     assert resolve_hist_kernel("scan", 1000, 128, 256) == "scan"
     assert resolve_hist_kernel("scan", 1000, 256, 256) == "f32"
     assert resolve_hist_kernel("scan", 2 ** 24, 1, 256) == "f32"
-    for m in ("pallas:bf16x2", "pallas:bf16", "mega", "auto+sub"):
+    # K3's rounded precisions, at every level width
+    for args in ((1000, 4, 256), (10 ** 6, 1, 256), (1000, 512, 256)):
+        assert resolve_hist_kernel("pallas:bf16x2", *args) == "bf16x2"
+        assert resolve_hist_kernel("pallas:bf16", *args) == "bf16"
+    for m in ("mega", "auto+sub"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             resolve_hist_kernel(m, 1000, 4, 256)
     with pytest.raises(ValueError, match="unknown"):

@@ -167,9 +167,9 @@ def test_load_refusals(trained):
         port.predict(xt.DMatrix(X[:, :4]))
     with pytest.raises(ValueError, match="no model loaded"):
         xt.Booster(CPU).predict(xt.DMatrix(X))
-    with pytest.raises(NotImplementedError, match="multi:softprob"):
+    with pytest.raises(NotImplementedError, match="rank:pairwise"):
         obj = json.loads(bytes(bst.save_raw("json")))
-        obj["learner"]["objective"] = {"name": "multi:softprob"}
+        obj["learner"]["objective"] = {"name": "rank:pairwise"}
         xt.Booster(CPU, model_file=json.dumps(obj).encode())
 
 

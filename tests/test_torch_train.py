@@ -481,16 +481,16 @@ def test_train_runs_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"subsample": 0.5}, "A.5.2"),
-    ({"colsample_bytree": 0.5}, "A.5.2"),
+    ({"interaction_constraints": "[[0, 1]]"}, "A.5.4"),
+    ({"booster": "gblinear"}, "A.5.9"),
     ({"grow_policy": "lossguide"}, "A.5.6"),
     ({"max_leaves": 4}, "A.5.6"),
     ({"monotone_constraints": "(1,0)"}, "A.5.4"),
     ({"hist_method": "mega"}, "A.6"),
-    ({"hist_method": "pallas:bf16x2"}, "B.2"),
+    ({"hist_method": "scan+sub"}, "A.6"),
     ({"tree_method": "exact"}, "A.5.8"),
     ({"booster": "dart"}, "A.5.9"),
-    ({"objective": "multi:softprob", "num_class": 3}, "A.5.1"),
+    ({"objective": "rank:pairwise"}, "A.5.11"),
 ])
 def test_unported_options_name_their_roadmap_item(params, item):
     rng = np.random.RandomState(4)

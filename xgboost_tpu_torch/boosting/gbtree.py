@@ -1,11 +1,14 @@
 """Gradient-boosted tree ensemble: the forest container and one boosting
-round for a single output group.
+round.
 
 The port of the JAX package's ``boosting/gbtree.py``: the forest, its
 per-tree output groups and per-round boundaries, the same JSON payload,
-and ``do_boost`` for K = 1 with ``num_parallel_tree`` 1 and no sampling
-(so no random numbers are drawn). Multiclass, random forests and dart
-wait with ROADMAP A.5.1, A.5.2 and A.5.9.
+and ``do_boost``: one tree per output group and parallel tree a round
+(reference ``GBTree::BoostNewTrees``), all grown from the round's margin
+snapshot in class order, each from its own key ``fold_in(key, k * npt +
+p)``, with the learning rate divided by ``num_parallel_tree`` (boosted
+random forests). Row sampling (:func:`sample_gradients`) and the
+trees' column samples come from that key. Dart waits with ROADMAP A.5.9.
 """
 
 from __future__ import annotations
@@ -16,8 +19,39 @@ import numpy as np
 import torch
 
 from ..tree.grow import TreeGrower
-from ..tree.param import TrainParam
+from ..tree.param import TrainParam, _f32
 from ..tree.tree import TreeModel
+from ..utils import random as xrandom
+
+
+def sample_gradients(gp: torch.Tensor, tkey: xrandom.Key,
+                     param: TrainParam) -> torch.Tensor:
+    """Row sampling of one tree's gradients gp [n, 2] (the JAX package's
+    ``sample_gradients``) under ``fold_in(tkey, 0x5AB)``. ``uniform``:
+    rows kept with probability ``subsample``, the others zeroed.
+    ``gradient_based``: row i kept with probability
+    ``p_i = min(1, subsample * n * u_i / sum(u))``,
+    ``u_i = sqrt(g_i^2 + lambda * h_i^2)``, and its pair scaled by
+    ``1 / p_i``. ``sum(u)`` is an f32 sum whose order differs from
+    XLA's, so p can differ from the JAX package's by an ulp or two."""
+    if param.subsample >= 1.0:
+        return gp
+    skey = xrandom.fold_in(tkey, 0x5AB)
+    n = gp.shape[0]
+    if param.sampling_method == "gradient_based":
+        u = torch.sqrt(gp[:, 0] * gp[:, 0]
+                       + _f32(param.reg_lambda) * (gp[:, 1] * gp[:, 1]))
+        p = torch.clamp(_f32(param.subsample * n) * u
+                        / (u.sum() + _f32(1e-30)), max=1.0)
+        keep = xrandom.bernoulli(skey, p)
+        # a true division (a Python number over a tensor would go
+        # through the reciprocal)
+        scale = torch.where(keep, torch.ones_like(p)
+                            / torch.clamp(p, min=_f32(1e-30)),
+                            torch.zeros_like(p))
+        return gp * scale[:, None]
+    mask = xrandom.bernoulli(skey, param.subsample, (n,), gp.device)
+    return gp * mask[:, None].to(gp.dtype)
 
 
 class GBTree:
@@ -39,30 +73,44 @@ class GBTree:
     # -- training -------------------------------------------------------------
     def _grower_for(self, binned) -> TreeGrower:
         if self._grower is None or self._grower.cuts is not binned.cuts:
-            self._grower = TreeGrower(self.tree_param, binned.max_nbins,
-                                      binned.cuts,
+            param = self.tree_param
+            if self.num_parallel_tree > 1:
+                # reference BoostNewTrees: lr /= num_parallel_tree
+                param = param.clone()
+                param.eta = param.eta / self.num_parallel_tree
+            self._grower = TreeGrower(param, binned.max_nbins, binned.cuts,
                                       hist_method=self.hist_method,
                                       has_missing=binned.has_missing)
         return self._grower
 
-    def do_boost(self, binned, gpair: torch.Tensor) -> torch.Tensor:
-        """gpair [n, K, 2] on the device of ``binned`` -> margin delta
-        [n, K]; appends the round's trees."""
+    def do_boost(self, binned, gpair: torch.Tensor,
+                 key: xrandom.Key) -> torch.Tensor:
+        """gpair [n, K, 2] on the device of ``binned`` and the round's key
+        -> margin delta [n, K]; appends the round's K * num_parallel_tree
+        trees (class k's trees tagged k in ``tree_info``)."""
         K = gpair.shape[1]
-        if K != 1 or self.n_groups != 1:
-            raise NotImplementedError(
-                "multi-output boosting is not in the PyTorch port yet "
-                "(ROADMAP A.5.1)")
-        if self.num_parallel_tree != 1:
-            raise NotImplementedError(
-                "num_parallel_tree > 1 is not in the PyTorch port yet "
-                "(ROADMAP A.5.2)")
+        if K != self.n_groups:
+            raise ValueError(f"{K} gradient columns for a forest of "
+                             f"{self.n_groups} output groups")
+        npt = max(self.num_parallel_tree, 1)
         grower = self._grower_for(binned)
-        grown = grower.grow(binned.bins, gpair[:, 0, :].contiguous())
-        self.trees.append(grower.to_tree_model(grown))
-        self.tree_info.append(0)
+        tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
+        masks = grower.feature_masks(tkeys, binned.bins.device)
+        deltas = []
+        for k in range(K):
+            delta = None
+            for p in range(npt):
+                i = k * npt + p
+                gp = sample_gradients(gpair[:, k, :].contiguous(), tkeys[i],
+                                      self.tree_param)
+                grown = grower.grow(binned.bins, gp,
+                                    None if masks is None else masks[i])
+                self.trees.append(grower.to_tree_model(grown))
+                self.tree_info.append(k)
+                delta = grown.delta if delta is None else delta + grown.delta
+            deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
-        return grown.delta[:, None]
+        return torch.stack(deltas, dim=1)
 
     def version(self) -> int:
         """Tree count: the margin caches slice trees by it."""

@@ -6,6 +6,11 @@ default; ``"auto"`` means the same), ``"cuda:<n>"`` and ``"cpu"``, as
 XGBoost 2.0 spells them. Every entry point of the port runs on the card
 unless the caller asks for the CPU: when no CUDA device is present,
 :func:`resolve_device` raises instead of carrying on quietly on the CPU.
+
+The context also holds the seed of the random stream (row and column
+sampling): :meth:`Context.raw_seed` and :meth:`Context.make_key` are the
+JAX package's (``context.py``), over the threefry of
+``utils/random.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from .utils import random as xrandom
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -47,6 +54,18 @@ class Context:
     plays the role ``tpu`` plays in the JAX package)."""
 
     device: str = "cuda"
+    seed: int = 0
+    seed_per_iteration: bool = False
 
     def torch_device(self) -> torch.device:
         return resolve_device(self.device)
+
+    def raw_seed(self, iteration: int = 0) -> int:
+        """The uint32 seed of round ``iteration``: ``seed``, plus the
+        round when ``seed_per_iteration``, modulo 2^32."""
+        seed = (self.seed + iteration if self.seed_per_iteration
+                else self.seed)
+        return seed & 0xFFFFFFFF
+
+    def make_key(self, iteration: int = 0) -> xrandom.Key:
+        return xrandom.key(self.raw_seed(iteration))

@@ -1,10 +1,14 @@
 """Booster and ``train``: the main training path, prediction and model IO.
 
 Training is the JAX package's ``core.py`` general round loop on one
-device: ``Booster.update`` computes the gradient from a margin cache,
-``GBTree.do_boost`` grows the round's tree (histograms through kernels
-K2 to K5), and the cache moves by the tree's per-row delta. ``train`` runs
-the rounds and evaluates ``evals`` after each one. ``predict`` and the
+device: ``Booster.update`` computes the gradient [n, K, 2] from a margin
+cache [n, K] (K = 1, or ``num_class``), derives the round's key
+``fold_in(make_key(it), it)`` and has ``GBTree.do_boost`` grow the
+round's trees (row and column samples from that key, histograms through
+kernels K2 to K5); the cache moves by their per-row deltas. ``train``
+runs the rounds through ``callback.CallbackContainer`` (evaluation of
+``evals`` after each one, ``EvaluationMonitor``, ``EarlyStopping``), as
+the JAX package's ``train`` does. ``predict`` and the
 eval sets other than the training matrix go through the packed walk
 (``serve/packed.py`` + ``ops/walk.py``, kernel K1). Everything runs on
 the card unless the Booster was made with ``{"device": "cpu"}``.
@@ -17,7 +21,7 @@ bytes it was read from.
 
 from __future__ import annotations
 
-import collections
+import dataclasses
 import json
 import threading
 import warnings
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from .boosting.gbtree import GBTree
+from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
 from .data.dmatrix import DMatrix
@@ -35,6 +40,7 @@ from .metric import get_metric
 from .objective import get_objective
 from .serve.packed import PackedForest
 from .tree.param import TrainParam
+from .utils import random as xrandom
 from .utils.ubjson import dumps_ubjson, loads_ubjson
 
 # learner-level keys that are not TrainParam fields (the JAX package's
@@ -112,7 +118,8 @@ class Booster:
         params = dict(params)
         for k in _DEVICE_KEYS:
             if k in params:
-                self.ctx = Context(device=str(params.pop(k)))
+                self.ctx = dataclasses.replace(self.ctx,
+                                               device=str(params.pop(k)))
         if "eval_metric" in params:
             em = params.pop("eval_metric")
             names = em if isinstance(em, (list, tuple)) else [em]
@@ -121,6 +128,7 @@ class Booster:
         for k in list(params):
             if k in _LEARNER_KEYS:
                 self.learner_params[k] = params.pop(k)
+        self._seed_from_params()
         for k in self.tree_param.update_allow_unknown(params):
             warnings.warn(f"Unknown parameter: {k}", stacklevel=2)
         if self._configured and self.obj is not None:
@@ -131,6 +139,20 @@ class Booster:
                 self.gbm.tree_param = self.tree_param
                 self.gbm._grower = None
         self._packed = {}
+
+    def _seed_from_params(self) -> None:
+        """The random stream's seed from ``seed`` / ``random_state`` and
+        ``seed_per_iteration`` (kept in ``learner_params``, so a saved
+        model carries them). The context is replaced, not changed, since
+        a slice of this Booster shares it."""
+        seed, per_it = self.ctx.seed, self.ctx.seed_per_iteration
+        for k in ("seed", "random_state"):
+            if k in self.learner_params:
+                seed = int(self.learner_params[k])
+        if "seed_per_iteration" in self.learner_params:
+            per_it = bool(self.learner_params["seed_per_iteration"])
+        self.ctx = dataclasses.replace(self.ctx, seed=seed,
+                                       seed_per_iteration=per_it)
 
     def _obj_params(self) -> Dict[str, Any]:
         return {k: v for k, v in self.learner_params.items()
@@ -154,6 +176,62 @@ class Booster:
     def num_boosted_rounds(self) -> int:
         return self.gbm.num_boosted_rounds() if self.gbm is not None else 0
 
+    # ------------------------------------------------------------ attributes
+    def attr(self, key: str) -> Optional[str]:
+        return self.attributes_.get(key)
+
+    def attributes(self) -> Dict[str, str]:
+        return dict(self.attributes_)
+
+    def set_attr(self, **kwargs: Any) -> None:
+        """Set string attributes (saved with the model); None removes
+        one."""
+        for k, v in kwargs.items():
+            if v is None:
+                self.attributes_.pop(k, None)
+            else:
+                self.attributes_[k] = str(v)
+
+    @property
+    def best_iteration(self) -> int:
+        """The round early stopping found best, else the last round."""
+        b = self.attr("best_iteration")
+        if b is None:
+            return self.num_boosted_rounds() - 1
+        return int(b)
+
+    @property
+    def best_score(self) -> float:
+        return float(self.attr("best_score"))
+
+    def __getitem__(self, val: slice) -> "Booster":
+        """A Booster of the rounds ``val`` selects (a slice of rounds,
+        ``step`` included), sharing this one's trees."""
+        if not isinstance(val, slice):
+            raise TypeError("Booster slicing requires a slice of iterations")
+        self._require_model()
+        begin = val.start or 0
+        end = val.stop if val.stop is not None else self.num_boosted_rounds()
+        step = val.step if val.step is not None else 1
+        new = Booster.__new__(Booster)
+        new.__dict__.update(self.__dict__)
+        old = self.gbm
+        gbm = GBTree(self.n_groups, num_parallel_tree=old.num_parallel_tree,
+                     multi_strategy=old.multi_strategy)
+        gbm.tree_param, gbm.hist_method = old.tree_param, old.hist_method
+        for it in range(begin, min(end, self.num_boosted_rounds()), step):
+            lo, hi = old.iteration_indptr[it], old.iteration_indptr[it + 1]
+            gbm.trees.extend(old.trees[lo:hi])
+            gbm.tree_info.extend(old.tree_info[lo:hi])
+            gbm.iteration_indptr.append(len(gbm.trees))
+        new.gbm = gbm
+        new._caches = {}
+        new._packed = {}
+        new._packed_lock = threading.Lock()
+        new.attributes_ = dict(self.attributes_)
+        new.learner_params = dict(self.learner_params)
+        return new
+
     def _require_model(self) -> None:
         if self.gbm is None:
             raise ValueError("no model loaded; pass model_file= or call "
@@ -173,10 +251,6 @@ class Booster:
             raise NotImplementedError(
                 f"booster {booster!r} is not in the PyTorch port yet "
                 "(ROADMAP A.5.9)")
-        if int(self.learner_params.get("num_class", 0) or 0) > 1:
-            raise NotImplementedError(
-                "multiclass training is not in the PyTorch port yet "
-                "(ROADMAP A.5.1)")
         if self.learner_params.get("data_split_mode", "row") != "row":
             raise NotImplementedError(
                 "column-split training is not in the PyTorch port yet "
@@ -184,11 +258,12 @@ class Booster:
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
+        n_groups = max(1, self.obj.n_targets())
         if dtrain is not None and not self._num_features:
             self._num_features = dtrain.num_col()
         if self.gbm is None:
             self.gbm = GBTree(
-                1, num_parallel_tree=int(self.learner_params.get(
+                n_groups, num_parallel_tree=int(self.learner_params.get(
                     "num_parallel_tree", 1)))
         self.gbm.tree_param = self.tree_param
         self.gbm.hist_method = str(self.learner_params.get("hist_method",
@@ -197,13 +272,15 @@ class Booster:
             bs = self.learner_params.get("base_score")
             if bs is not None:
                 margin = self.obj.prob_to_margin(np.asarray([float(bs)]))
-                self.base_margin_ = np.asarray(margin, np.float32).reshape(-1)
+                self.base_margin_ = np.full(
+                    n_groups, float(np.asarray(margin).reshape(-1)[0]),
+                    np.float32)
             elif dtrain is not None and dtrain.info.labels is not None:
                 st = self._state_of(dtrain, is_train=True)
                 self.base_margin_ = self.obj.init_estimation(
                     st["labels"], st["weights"]).reshape(-1)
             else:
-                self.base_margin_ = np.zeros(1, np.float32)
+                self.base_margin_ = np.zeros(n_groups, np.float32)
         if not self._eval_metrics and not bool(self.learner_params.get(
                 "disable_default_eval_metric", False)):
             self._eval_metrics = [get_metric(self.obj.default_metric)]
@@ -275,7 +352,8 @@ class Booster:
         margin = self._cached_margin(dtrain, is_train=True)
         gpair = self.obj.get_gradient(margin, st["labels"], st["weights"],
                                       iteration)
-        delta = self.gbm.do_boost(st["binned"], gpair)
+        key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
+        delta = self.gbm.do_boost(st["binned"], gpair, key)
         st["margin"] = margin + delta
         st["n_trees"] = self.gbm.version()
         self._packed = {}
@@ -361,6 +439,14 @@ class Booster:
             out = out[:, 0]
         return out
 
+    def __getstate__(self):
+        return {"raw": bytes(self.save_raw("json")),
+                "device": self.ctx.device}
+
+    def __setstate__(self, state):
+        self.__init__({"device": state["device"]},
+                      model_file=state["raw"])
+
     # ------------------------------------------------------------------ IO
     def save_raw(self, raw_format: str = "ubj") -> bytearray:
         obj = self._model_to_json()
@@ -437,6 +523,7 @@ class Booster:
         if self.learner_params.get("data_split_mode", "row") == "col":
             # the split mode describes the training data, not the model
             self.learner_params["data_split_mode"] = "row"
+        self._seed_from_params()
         self.attributes_ = dict(learner.get("attributes", {}))
         self.feature_names = learner.get("feature_names") or None
         self.feature_types = learner.get("feature_types") or None
@@ -476,21 +563,32 @@ class Booster:
 def train(params: Dict[str, Any], dtrain: DMatrix,
           num_boost_round: int = 10, *,
           evals: Sequence[Tuple[DMatrix, str]] = (),
+          maximize: Optional[bool] = None,
+          early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
           verbose_eval: Union[bool, int, None] = True,
           xgb_model: Optional[Union[str, bytes, Booster]] = None,
-          early_stopping_rounds: Optional[int] = None,
           callbacks: Optional[Sequence] = None) -> Booster:
-    """Train loop (reference ``python-package/xgboost/training.py``):
-    ``num_boost_round`` rounds of ``Booster.update``, each followed by an
-    evaluation of ``evals`` into ``evals_result`` ({data: {metric:
-    [scores]}}, scores as the 6-digit eval line gives them), printed every
-    ``verbose_eval`` rounds. Early stopping and callbacks wait with
-    ROADMAP A.5.3."""
-    if early_stopping_rounds is not None or callbacks:
-        raise NotImplementedError(
-            "early stopping and callbacks are not in the PyTorch port yet "
-            "(ROADMAP A.5.3)")
+    """Train loop (reference ``python-package/xgboost/training.py``; the
+    JAX package's ``train``): ``num_boost_round`` rounds of
+    ``Booster.update``, each followed by an evaluation of ``evals`` into
+    the callbacks' history ({data: {metric: [scores]}}, scores as the
+    6-digit eval line gives them), which ``evals_result`` receives.
+    ``verbose_eval`` prints the history's last scores every so many
+    rounds (``EvaluationMonitor``, when the global verbosity is above 0);
+    ``early_stopping_rounds`` stops when the last metric on the last eval
+    set has not improved for that many rounds (``EarlyStopping``, which
+    records ``best_iteration`` and ``best_score`` on the booster);
+    ``callbacks``: more ``callback.TrainingCallback`` objects, run in
+    order before those two."""
+    callbacks = list(callbacks) if callbacks else []
+    if verbose_eval and get_config()["verbosity"] > 0:
+        period = 1 if verbose_eval is True else int(verbose_eval)
+        callbacks.append(EvaluationMonitor(period=period))
+    if early_stopping_rounds is not None:
+        callbacks.append(EarlyStopping(rounds=early_stopping_rounds,
+                                       maximize=maximize, save_best=False))
+    container = CallbackContainer(callbacks)
     if isinstance(xgb_model, Booster):
         bst = xgb_model
         bst.set_param(params)
@@ -498,29 +596,15 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
         bst = Booster(params, model_file=xgb_model)
     else:
         bst = Booster(params)
-    verbose = bool(verbose_eval) and get_config()["verbosity"] > 0
-    period = 1 if verbose_eval is True else max(1, int(verbose_eval or 1))
-    history: Dict[str, Dict[str, List[float]]] = collections.OrderedDict()
+    bst = container.before_training(bst)
     start = bst.num_boosted_rounds()
-    latest = None
     for i in range(start, start + num_boost_round):
+        if container.before_iteration(bst, i):
+            break
         bst.update(dtrain, i)
-        if not evals:
-            continue
-        for part in bst.eval_set(evals, i).split("\t")[1:]:
-            key, val = part.split(":")
-            data_name, metric_name = key.split("-", 1)
-            history.setdefault(data_name, collections.OrderedDict()) \
-                .setdefault(metric_name, []).append(float(val))
-        line = f"[{i}]" + "".join(
-            f"\t{d}-{m}:{log[-1]:.5f}" for d, ms in history.items()
-            for m, log in ms.items())
-        latest = line
-        if verbose and i % period == 0:
-            print(line, flush=True)
-            latest = None
-    if verbose and latest is not None:
-        print(latest, flush=True)
+        if container.after_iteration(bst, i, list(evals)):
+            break
+    bst = container.after_training(bst)
     if evals_result is not None:
-        evals_result.update(history)
+        evals_result.update(container.history)
     return bst

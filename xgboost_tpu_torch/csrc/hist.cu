@@ -26,6 +26,14 @@
 // exactly; each sum is converted to f32 once and multiplied by 2^-k. f32
 // atomics would make a trained model change from run to run; this is
 // deterministic and within about one f32 rounding of the exact sum.
+// K3's bf16 and bf16x2 precisions (`xtt_hist_bf16`, `xtt_hist_bf16x2`,
+// the `precision` branch of `_make_kernel`, :92-112) are the same kernel
+// with each component rounded to bfloat16 as it is loaded (round to
+// nearest even, as the TPU kernel's astype(bfloat16)): hi = bf16(x), and
+// for bf16x2 also lo = bf16(x - hi); a row's hi and lo are scaled and
+// rounded to int64 apart and added into the same counter. The TPU kernel
+// adds its rounded values in f32 on the matrix unit, 1,024-row blocks
+// under bf16x2; here the sum is exact and converted once.
 //
 // What bounds them: the least traffic is the bins (n*F bytes), the
 // gradients and rel read once and the histogram written once (14 us at
@@ -70,6 +78,7 @@
 // odd stride, so those cells fall in different banks. Each thread issues
 // kBatch elements' loads before their atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -187,6 +196,28 @@ struct Fixed64 {
     return make_float2(
         __fmul_rn(__ll2float_rn(static_cast<long long>(a[0])), i0),
         __fmul_rn(__ll2float_rn(static_cast<long long>(a[1])), i1));
+  }
+};
+
+// K3's bf16 (kTwo false) and bf16x2 (kTwo true) precisions: Fixed64 over
+// each component's bfloat16 rounding, hi = bf16(x), plus lo = bf16(x - hi)
+// for bf16x2, each scaled by 2^k and rounded to int64 apart. A rounded
+// value is at most 2^e (max|x| < 2^e), so the wrapper's 2^k keeps the
+// int64 sums within range.
+template <bool kTwo>
+struct RoundedFixed64 : Fixed64 {
+  static __device__ __forceinline__ float bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ Counter part(float x, float s) {
+    const float hi = bf16(x);
+    long long q = __float2ll_rn(__fmul_rn(hi, s));
+    if (kTwo) q += __float2ll_rn(__fmul_rn(bf16(__fsub_rn(x, hi)), s));
+    return static_cast<Counter>(q);
+  }
+  __device__ __forceinline__ void expand(Raw x, Counter v[2]) const {
+    v[0] = part(x.x, s0);
+    v[1] = part(x.y, s1);
   }
 };
 
@@ -1089,6 +1120,36 @@ extern "C" int xtt_hist_f32(const void* bins, int bin_bytes, const int* rel,
   return run_tiles<Fixed64, SameBin, false, false>(
       bins, bin_bytes, rel, kNoAdvance,
       Fixed64{reinterpret_cast<const float2*>(gpair), qscale, 0.0f, 0.0f},
+      SameBin{}, inv, n, F, B, N, plan, kNoFold, work, partial, out, nullptr,
+      stream);
+}
+
+// K3's bf16 and bf16x2 precisions: K3's arguments; each component of
+// gpair is rounded to bfloat16 (bf16x2: also its remainder) before it is
+// summed (RoundedFixed64).
+extern "C" int xtt_hist_bf16(const void* bins, int bin_bytes, const int* rel,
+                             const float* gpair, const float* qscale,
+                             const float* inv, long long n, int F, int B,
+                             int N, const long long* plan, int* work,
+                             int* partial, float* out, cudaStream_t stream) {
+  return run_tiles<RoundedFixed64<false>, SameBin, false, false>(
+      bins, bin_bytes, rel, kNoAdvance,
+      RoundedFixed64<false>{
+          {reinterpret_cast<const float2*>(gpair), qscale, 0.0f, 0.0f}},
+      SameBin{}, inv, n, F, B, N, plan, kNoFold, work, partial, out, nullptr,
+      stream);
+}
+
+extern "C" int xtt_hist_bf16x2(const void* bins, int bin_bytes,
+                               const int* rel, const float* gpair,
+                               const float* qscale, const float* inv,
+                               long long n, int F, int B, int N,
+                               const long long* plan, int* work, int* partial,
+                               float* out, cudaStream_t stream) {
+  return run_tiles<RoundedFixed64<true>, SameBin, false, false>(
+      bins, bin_bytes, rel, kNoAdvance,
+      RoundedFixed64<true>{
+          {reinterpret_cast<const float2*>(gpair), qscale, 0.0f, 0.0f}},
       SameBin{}, inv, n, F, B, N, plan, kNoFold, work, partial, out, nullptr,
       stream);
 }

@@ -1,4 +1,4 @@
 from .base import METRICS, Metric, get_metric
-from . import elementwise  # noqa: F401  (registers the metrics)
+from . import elementwise, multiclass  # noqa: F401  (register metrics)
 
 __all__ = ["METRICS", "Metric", "get_metric"]

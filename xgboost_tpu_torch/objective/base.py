@@ -1,8 +1,9 @@
 """Objective base class: gradients, the non-finite gradient guard, the
 base-score stump, the prediction transform and JSON.
 
-Shapes follow the JAX package: margins are [n, k] (k = 1 in this
-slice), gradients [n, k, 2] packing (grad, hess).
+Shapes follow the JAX package: margins are [n, k] (k = ``n_targets()``:
+1, or ``num_class`` for the multiclass objectives), gradients
+[n, k, 2] packing (grad, hess).
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ class Objective:
 
     def configure(self, params: Dict[str, Any]) -> None:
         self.params.update(params)
+
+    def n_targets(self) -> int:
+        """Output groups of the model: one margin column each."""
+        return 1
 
     def gradient(self, preds: torch.Tensor, labels: torch.Tensor,
                  iteration: int = 0) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """ctypes wrappers of the Hopper histogram kernels (``csrc/hist.cu``):
-K2 (``hist_int8x2_cuda``), K3 (``hist_f32_cuda``), K4
+K2 (``hist_int8x2_cuda``), K3 (``hist_f32_cuda``; its bf16 and bf16x2
+precisions through ``precision=``), K4
 (``hist_scan_cuda``, K2's function with the two-level search's coarse
 fold on request) and K5 (``fused_advance_coarse_cuda``, the level advance
 fused with the next level's coarse histogram).
@@ -32,8 +33,12 @@ from . import build
 
 # launches of each kernel in this process (the counts chip_smoke.py reads
 # to show that the main path went through the kernels)
-LAUNCHES: Dict[str, int] = {"hist_int8x2": 0, "hist_f32": 0, "hist_scan": 0,
+LAUNCHES: Dict[str, int] = {"hist_int8x2": 0, "hist_f32": 0, "hist_bf16": 0,
+                            "hist_bf16x2": 0, "hist_scan": 0,
                             "fused_advance_coarse": 0}
+# K3's precisions -> their kernels
+K3_KERNELS = {"f32": "hist_f32", "bf16": "hist_bf16",
+              "bf16x2": "hist_bf16x2"}
 _launch_lock = threading.Lock()
 
 _fns: Dict[str, object] = {}
@@ -46,7 +51,7 @@ def _kernel(name: str):
     if fn is None:
         fn = getattr(build.load("hist"), f"xtt_{name}")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "hist_f32":
+        if name in K3_KERNELS.values():
             fn.argtypes = [p, i, p, p, p, p, ll, i, i, i, p, p, p, p, p]
         elif name == "hist_int8x2":
             fn.argtypes = [p, i, p, p, p, ll, i, i, i, p, p, p, p, p]
@@ -448,14 +453,19 @@ def fused_advance_coarse_cuda(bins: torch.Tensor, q: torch.Tensor,
 
 def hist_f32_cuda(bins: torch.Tensor, gpair: torch.Tensor, rel: torch.Tensor,
                   qscale: torch.Tensor, inv: torch.Tensor, n_nodes: int,
-                  max_nbins: int) -> torch.Tensor:
+                  max_nbins: int, precision: str = "f32") -> torch.Tensor:
     """K3 on the card: [n_nodes, F, max_nbins, 2] f32 from ``gpair``
     [n, 2] f32 through exact int64 fixed point, with ``qscale`` = 2^k and
     ``inv`` = 2^-k ([2] f32 each, ``ops/histogram.py
-    fixed_point_scale``). Computes ``build_hist_f32_reference``'s function
-    bit for bit. Replaces the f32 variant of the TPU kernel
-    ``xgboost_tpu/ops/pallas/histogram.py _make_kernel``. Launches on the
-    current stream and does not synchronise."""
+    fixed_point_scale``). ``precision`` ``"bf16"`` / ``"bf16x2"``: each
+    row's (g, h) rounded to bfloat16 first (``ops/histogram.py
+    bf16_parts``). Computes ``build_hist_f32_reference``'s function at
+    the same precision bit for bit. Replaces the TPU kernel
+    ``xgboost_tpu/ops/pallas/histogram.py _make_kernel`` (its f32, bf16
+    and bf16x2 bodies). Launches on the current stream and does not
+    synchronise."""
+    if precision not in K3_KERNELS:
+        raise ValueError(f"unknown K3 precision {precision!r}")
     dev, n, F = _common(bins, n_nodes, max_nbins)
     _check("rel", rel, torch.int32, dev, (n,))
     _check("gpair", gpair, torch.float32, dev, (n, 2))
@@ -463,6 +473,6 @@ def hist_f32_cuda(bins: torch.Tensor, gpair: torch.Tensor, rel: torch.Tensor,
     _check("inv", inv, torch.float32, dev, (2,))
     out = torch.empty((n_nodes, F, max_nbins, 2), dtype=torch.float32,
                       device=dev)
-    _tiles("hist_f32", dev, bins, rel,
+    _tiles(K3_KERNELS[precision], dev, bins, rel,
            (gpair.data_ptr(), qscale.data_ptr(), inv.data_ptr()), out)
     return out

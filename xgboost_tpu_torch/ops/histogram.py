@@ -32,6 +32,16 @@ kernels:
   and converted to f32 once. The result is deterministic and within about
   one f32 rounding of the exact sum, which no f32 summation order
   guarantees.
+- **bf16** and **bf16x2** (K3's other precisions; ``pallas:bf16``,
+  ``pallas:bf16x2``): each row's (g, h) is first rounded to bfloat16
+  (round to nearest even, as the TPU kernel's ``astype(bfloat16)``):
+  ``hi = bf16(x)``, and for bf16x2 also ``lo = bf16(x - hi)``. Each
+  rounded value is then summed as K3 sums a value (``round(v * 2^k)`` in
+  int64, ``2^k`` from the unrounded gradients); a row's ``hi`` and
+  ``lo`` go into the same int64 sum, which is converted to f32 once. The
+  TPU kernel instead adds the rounded values in f32 on its matrix unit,
+  1,024 rows a block under bf16x2, so it agrees with this to the f32
+  rounding of its block sums.
 
 ``auto`` takes the kernel that the TPU's ``auto`` runs at the same level,
 on every device: the sorted build (K4) where the JAX package promotes
@@ -69,6 +79,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .cuda.hist import K3_KERNELS
 from .partition import LevelSplits, advance_level, level_rel
 from .split import COARSE_B, COARSE_SPAN, coarse_bin_ids
 
@@ -79,7 +90,7 @@ INT8X2_MAX_ROWS = (2 ** 31 - 1) // 128
 _INV_32512 = float(np.float32(1.0 / 32512.0))
 
 _K2_METHODS = ("pallas", "pallas:int8x2", "prehot")
-_K3_METHODS = ("pallas:f32", "segment", "onehot")
+_K3_METHODS = ("segment", "onehot")
 
 # the JAX package's promotion of ``auto`` to its sorted (scan) schedule,
 # ``tree/grow.py AUTO_COARSE_MIN_ROWS`` / ``AUTO_COARSE_MIN_BINS``
@@ -104,8 +115,10 @@ def auto_selects_scan(n_rows: int, max_nbins: int,
 
 def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
                         max_nbins: int, has_missing: bool = True) -> str:
-    """``hist_method`` -> ``"scan"`` (K4), ``"int8x2"`` (K2) or ``"f32"``
-    (K3).
+    """``hist_method`` -> ``"scan"`` (K4), ``"int8x2"`` (K2), ``"f32"``
+    (K3), or ``"bf16x2"`` / ``"bf16"`` (K3 on rows rounded to bfloat16,
+    at every level, as the JAX package's ``pallas:bf16x2`` /
+    ``pallas:bf16``).
 
     ``auto`` follows the TPU's choice on every device (module docstring);
     the int32 overflow guard sends it to K3. ``coarse`` and ``fused``
@@ -134,10 +147,8 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
         return "int8x2"
     if base in _K3_METHODS:
         return "f32"
-    if base in ("pallas:bf16x2", "pallas:bf16"):
-        raise NotImplementedError(
-            f"hist_method={method!r} is not in the PyTorch port yet "
-            "(K3's bf16 variants, ROADMAP B.2)")
+    if base.startswith("pallas:") and base[len("pallas:"):] in K3_KERNELS:
+        return base[len("pallas:"):]       # pallas:f32 / :bf16 / :bf16x2
     if base == "mega" or method.endswith("+sub"):
         raise NotImplementedError(
             f"hist_method={method!r} is not in the PyTorch port yet "
@@ -313,15 +324,40 @@ def fixed_point_scale(gpair: torch.Tensor) -> Tuple[torch.Tensor,
     return _pow2(k).contiguous(), _pow2(-k).contiguous()
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bfloat16 (ties to even), as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_parts(gpair: torch.Tensor, precision: str):
+    """The rounded values a row adds under ``precision``: [gpair] (f32),
+    [hi] (bf16) or [hi, lo] (bf16x2), ``hi = bf16(x)``,
+    ``lo = bf16(x - hi)``, each [n, 2] f32. A rounded value is at most
+    2^e where max|x| < 2^e, so :func:`fixed_point_scale`'s 2^k, taken
+    from the unrounded gradients, keeps their int64 sums in range."""
+    if precision == "f32":
+        return [gpair]
+    hi = round_bf16(gpair)
+    if precision == "bf16":
+        return [hi]
+    if precision == "bf16x2":
+        return [hi, round_bf16(gpair - hi)]
+    raise ValueError(f"unknown K3 precision {precision!r}")
+
+
 def build_hist_f32_reference(bins: torch.Tensor, gpair: torch.Tensor,
                              rel: torch.Tensor, qscale: torch.Tensor,
                              inv: torch.Tensor, n_nodes: int,
-                             max_nbins: int) -> torch.Tensor:
+                             max_nbins: int,
+                             precision: str = "f32") -> torch.Tensor:
     """Plain version of K3: ``round(x * 2^k)`` to int64, exact int64 sums
-    by ``index_add_``, one conversion to f32, times ``2^-k``."""
+    by ``index_add_``, one conversion to f32, times ``2^-k``. ``bf16`` /
+    ``bf16x2``: the same over each row's rounded values
+    (:func:`bf16_parts`), a row's ``hi`` and ``lo`` into one sum."""
     n, F = bins.shape
     seg, active = _segments(bins, rel, n_nodes, max_nbins)
-    q = torch.round(gpair * qscale[None, :]).to(torch.int64)
+    q = sum(torch.round(v * qscale[None, :]).to(torch.int64)
+            for v in bf16_parts(gpair, precision))
     vals = q[active][:, None, :].expand(-1, F, 2).reshape(-1, 2)
     acc = torch.zeros((n_nodes * F * max_nbins, 2), dtype=torch.int64,
                       device=bins.device)
@@ -356,11 +392,11 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
     qscale, inv = fixed_point_scale(gpair)
     if on_cpu:
         return build_hist_f32_reference(bins, gpair, rel, qscale, inv,
-                                        n_nodes, max_nbins)
+                                        n_nodes, max_nbins, precision=kernel)
     from .cuda.hist import hist_f32_cuda
 
     return hist_f32_cuda(bins, gpair.contiguous(), rel, qscale, inv, n_nodes,
-                         max_nbins)
+                         max_nbins, precision=kernel)
 
 
 # ---- K5 and the two-level level sweeps --------------------------------------

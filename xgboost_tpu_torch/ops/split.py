@@ -8,8 +8,9 @@ missing-right and ``left + missing`` for missing-left. The best split of
 each node is a flat argmax over (feature, direction, bin); ties go to the
 lowest flat index. The cumulative sum runs in another order than XLA's,
 so gains agree with the JAX package's to f32 rounding, not bit for bit.
-Categorical features, monotone constraints and feature masks wait with
-ROADMAP A.5.4-A.5.5 and A.5.2.
+A feature mask (column sampling) takes features out of the search.
+Categorical features and monotone constraints wait with ROADMAP
+A.5.4-A.5.5.
 
 Also the pieces of the two-level coarse -> refine search (the JAX
 package's ``ops/split.py:286-424``, ``hist_method`` ``coarse``, ``fused``
@@ -21,7 +22,7 @@ that keeps every coarse boundary and every in-window fine boundary.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,9 +40,13 @@ class SplitResult(NamedTuple):
 
 def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
                     n_real_bins: torch.Tensor, param: TrainParam,
-                    has_missing: bool = True) -> SplitResult:
+                    has_missing: bool = True,
+                    feature_mask: Optional[torch.Tensor] = None
+                    ) -> SplitResult:
     """hist [N, F, B, 2] with the missing mass in slot B-1 when
-    ``has_missing``; parent_sum [N, 2]; n_real_bins [F] int64."""
+    ``has_missing``; parent_sum [N, 2]; n_real_bins [F] int64;
+    feature_mask [F] or [N, F] bool, True where a feature may split (the
+    sampled columns)."""
     N, F, B, _ = hist.shape
     nb = B - 1 if has_missing else B                    # real-bin slots
     present = hist[:, :, :nb, :].movedim(3, 2)          # [N, F, 2, nb]
@@ -64,6 +69,9 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
                 - pgain[:, None, None, None])
     mcw = _f32(param.min_child_weight)
     valid = base_valid[None] & (lh >= mcw) & (rh >= mcw)
+    if feature_mask is not None:
+        fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+        valid = valid & fm[:, :, None, None]
     loss_chg = torch.where(valid, loss_chg,
                            torch.full_like(loss_chg, float("-inf")))
 

@@ -21,17 +21,27 @@ synthetic layout of ``ops/split.py assemble_two_level``. ``fused`` and
 advance below the last level after the loop. The three build the same
 integer histograms and grow the same trees.
 
+Column sampling (``colsample_bytree``, ``_bylevel``, ``_bynode``) is
+the JAX package's ``_sample_features`` over the threefry stream of
+``utils/random.py``: a tree's features are drawn from those with real
+bins under ``fold_in(tkey, 0xC0)``; the tree's key is then
+``fold_in(tkey, 0x5EED)``, level d's ``fold_in(key, d)`` and its nodes'
+``split(fold_in(level_key, 1), n_level)``. No draw depends on the data,
+so :func:`draw_feature_masks` makes every mask of a round's trees at
+once on the device, before the trees grow; each level's split search
+takes its masks (``evaluate_splits(feature_mask=)``), on every
+schedule, as the JAX package's ``_grow`` does.
+
 Not ported here (each raises where it is asked for): the mega schedule
-and sibling subtraction (ROADMAP A.6), sampling (A.5.2), monotone and
-interaction constraints (A.5.4), categorical splits (A.5.5),
-``max_leaves`` truncation and lossguide (A.5.6), meshes and column split
-(A.8).
+and sibling subtraction (ROADMAP A.6), monotone and interaction
+constraints (A.5.4), categorical splits (A.5.5), ``max_leaves``
+truncation and lossguide (A.5.6), meshes and column split (A.8).
 """
 
 from __future__ import annotations
 
 import re
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ from ..ops.split import (COARSE_B, WINDOW, assemble_two_level,
                          choose_refine_window, coarse_bin_ids,
                          decode_two_level_bin, evaluate_splits,
                          refine_bin_ids, refine_from_fine)
+from ..utils import random as xrandom
 from .param import TrainParam, _f32, calc_weight
 from .tree import TreeModel
 
@@ -67,6 +78,72 @@ class GrownTree(NamedTuple):
     base_weight: torch.Tensor    # [max_nodes] f32 node weight * eta
 
 
+def sample_features(keys, base_mask: torch.Tensor,
+                    frac: float) -> torch.Tensor:
+    """The JAX package's ``_sample_features``: a draw without replacement
+    of ``ceil(frac * count)`` of the features in ``base_mask`` [..., F]
+    (count its True entries; the product in f32, as JAX's weakly typed
+    float times int32), by the smallest uniforms of ``keys`` (one key
+    pair, or [..., 2] key words, one draw per key) -> bool [..., F]."""
+    if frac >= 1.0:
+        return base_mask
+    F = base_mask.shape[-1]
+    u = xrandom.uniform(keys, (F,), device=base_mask.device)
+    base = base_mask.expand(u.shape)
+    u = torch.where(base, u, torch.full_like(u, float("inf")))
+    count = base.sum(dim=-1, dtype=torch.int32).to(torch.float32)
+    k = torch.ceil(torch.tensor(_f32(frac), dtype=torch.float32,
+                                device=u.device) * count)
+    k = torch.clamp(k.to(torch.int64), 1, F)
+    thr = torch.gather(torch.sort(u, dim=-1).values, -1, (k - 1)[..., None])
+    return base & (u <= thr)
+
+
+def draw_feature_masks(tkeys: Sequence[xrandom.Key], base_mask: torch.Tensor,
+                       param: TrainParam, max_depth: int
+                       ) -> Optional[List[List[torch.Tensor]]]:
+    """Every feature mask of the trees with keys ``tkeys`` (the trees of
+    one round): per tree, per level d, a [2^d, F] (node sampling) or
+    [1, F] bool mask; None when no column is sampled. ``base_mask`` [F]:
+    the features with real bins. Four draws in all, each over every tree
+    at once: the trees', the levels', the nodes' keys and the nodes'."""
+    if min(param.colsample_bytree, param.colsample_bylevel,
+           param.colsample_bynode) >= 1.0:
+        return None
+    dev = base_mask.device
+    T = len(tkeys)
+
+    def words(pairs):
+        return torch.tensor(pairs, dtype=torch.int64, device=dev)
+
+    tree = sample_features(
+        words([xrandom.fold_in(k, 0xC0) for k in tkeys]), base_mask,
+        param.colsample_bytree).expand(T, -1)                    # [T, F]
+    gkeys = [xrandom.fold_in(k, 0x5EED) for k in tkeys]
+    lkeys = [[xrandom.fold_in(g, d) for d in range(max_depth)]
+             for g in gkeys]
+    level = sample_features(words(lkeys), tree[:, None, :].expand(
+        T, max_depth, -1), param.colsample_bylevel)              # [T, D, F]
+    if param.colsample_bynode >= 1.0:
+        return [[level[t, d][None] for d in range(max_depth)]
+                for t in range(T)]
+    # node i of level d (heap node 2^d - 1 + i) has key i of
+    # split(fold_in(level_key, 1), 2^d): the hash of counter (0, i)
+    split_keys = words([[xrandom.fold_in(lk, 1) for lk in row]
+                        for row in lkeys])                       # [T, D, 2]
+    depth = torch.cat([torch.full((1 << d,), d, dtype=torch.int64,
+                                  device=dev) for d in range(max_depth)])
+    local = torch.cat([torch.arange(1 << d, dtype=torch.int64, device=dev)
+                       for d in range(max_depth)])
+    k0, k1 = xrandom.threefry2x32(split_keys[:, depth, 0],
+                                  split_keys[:, depth, 1], 0, local[None])
+    node = sample_features(torch.stack([k0, k1], dim=-1),
+                           level[:, depth, :],
+                           param.colsample_bynode)               # [T, nodes, F]
+    return [[node[t, (1 << d) - 1:(2 << d) - 1] for d in range(max_depth)]
+            for t in range(T)]
+
+
 def two_level_schedule(hist_method: str, max_nbins: int,
                        has_missing: bool):
     """``"coarse"``, ``"fused"`` or ``"scan"`` when ``hist_method`` asks
@@ -86,9 +163,13 @@ def two_level_schedule(hist_method: str, max_nbins: int,
 def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
-              has_missing: bool = True) -> GrownTree:
+              has_missing: bool = True,
+              feature_masks: Optional[List[torch.Tensor]] = None
+              ) -> GrownTree:
     """One tree from bins [n, F] and gpair [n, 2] f32 on one device;
-    ``n_real_bins`` [F] int64 on the same device."""
+    ``n_real_bins`` [F] int64 on the same device; ``feature_masks``: per
+    level a [n_level or 1, F] bool mask of the features its nodes may
+    split on (:func:`draw_feature_masks`), or None."""
     n, F = bins.shape
     dev = bins.device
     max_depth = param.max_depth
@@ -158,8 +239,11 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
                                     WINDOW + 4)[:, :, :WINDOW]
             hist, n_real_eval = assemble_two_level(
                 hist_c, hist_r, span, n_real_bins, has_missing)
-        res = evaluate_splits(hist, node_sum[lo:hi], n_real_eval, param,
-                              has_missing=has_missing)
+        res = evaluate_splits(
+            hist, node_sum[lo:hi], n_real_eval, param,
+            has_missing=has_missing,
+            feature_mask=(None if feature_masks is None
+                          else feature_masks[depth]))
         if schedule is not None:
             span_sel = torch.gather(span, 1,
                                     res.feature.clamp(min=0)[:, None])[:, 0]
@@ -221,11 +305,10 @@ class TreeGrower:
             raise NotImplementedError(
                 "max_leaves > 0 is not in the PyTorch port yet "
                 "(ROADMAP A.5.6)")
-        if min(param.subsample, param.colsample_bytree,
-               param.colsample_bylevel, param.colsample_bynode) < 1.0:
-            raise NotImplementedError(
-                "row and column sampling below 1 are not in the PyTorch "
-                "port yet (ROADMAP A.5.2)")
+        if param.sampling_method not in ("uniform", "gradient_based"):
+            raise ValueError(
+                f"unknown sampling_method {param.sampling_method!r}; use "
+                "'uniform' or 'gradient_based'")
         if any(int(c) for c in re.findall(r"-?\d+",
                                           param.monotone_constraints)) \
                 or param.interaction_constraints.strip():
@@ -245,15 +328,29 @@ class TreeGrower:
         self.has_missing = has_missing
         self._n_real = {}
 
-    def grow(self, bins: torch.Tensor, gpair: torch.Tensor) -> GrownTree:
-        key = str(bins.device)
+    def _n_real_on(self, device: torch.device) -> torch.Tensor:
+        key = str(device)
         if key not in self._n_real:
             self._n_real[key] = torch.from_numpy(
-                self.cuts.n_real_bins().astype(np.int64)).to(bins.device)
-        return grow_tree(bins, gpair, self._n_real[key], param=self.param,
-                         max_nbins=self.max_nbins,
+                self.cuts.n_real_bins().astype(np.int64)).to(device)
+        return self._n_real[key]
+
+    def feature_masks(self, tkeys: Sequence[xrandom.Key],
+                      device: torch.device):
+        """:func:`draw_feature_masks` of the trees with keys ``tkeys``
+        over the features with real bins (features without any are never
+        candidates and take no draw)."""
+        return draw_feature_masks(tkeys, self._n_real_on(device) > 0,
+                                  self.param, self.param.max_depth)
+
+    def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
+             masks: Optional[List[torch.Tensor]]) -> GrownTree:
+        """One tree; ``masks``: its column samples from
+        :meth:`feature_masks`, or None when no column is sampled."""
+        return grow_tree(bins, gpair, self._n_real_on(bins.device),
+                         param=self.param, max_nbins=self.max_nbins,
                          hist_method=self.hist_method,
-                         has_missing=self.has_missing)
+                         has_missing=self.has_missing, feature_masks=masks)
 
     def to_tree_model(self, g: GrownTree) -> TreeModel:
         """Pull the heap to the host, compact it, attach raw thresholds."""
