@@ -17,7 +17,9 @@ one-tree eval walk at 100,000 rows, a forest of 1,100 features, a
 depth-15 forest that the plan sends to the spread schedule, and the
 trained 7-group Covertype forest on both schedules. K2 (int8x2
 histogram), K3 (f32 histogram, exact int64 fixed point; and its bf16 and
-bf16x2 precisions, each row rounded to bfloat16 first), K4 (K2's
+bf16x2 precisions, each row rounded to bfloat16 first), K2's and K3's
+``packed_u4`` bodies over u4-packed pages (against their plain versions
+and the same kernels on the unpacked ids, at a 1M-row page), K4 (K2's
 function over the sorted build, with its coarse fold taken in the
 kernel) and K5 (the level advance fused with the next level's coarse
 histogram) bit for bit and twice each, at the shapes the training runs
@@ -66,7 +68,24 @@ counts set to 0 just before and read just after:
   ``Booster.predict``), one ``num_parallel_tree`` 4 round, a
   ``gradient_based`` run with ``subsample`` 0.5, and one round each
   through ``hist_method`` ``pallas:bf16x2`` and ``pallas:bf16`` (K3's
-  rounded precisions at every level).
+  rounded precisions at every level);
+- external memory at the HIGGS-11M shape (``external_memory``): a
+  ``QuantileDMatrix`` from a ``DataIter`` of 11 batches of 1,000,000 x
+  28 rows (``higgs_batch``, made from a seed batch by batch) with a
+  ``cache_prefix``, its bins a memmap streamed in 11 pages of 1,000,000
+  rows with 4 in the page cache (``XTPU_PAGE_CACHE_BYTES``,
+  ``XTPU_PAGED_COLLAPSE=0``): 10 rounds at depth 8 with 100,000 held-out
+  rows (K4 on every page and level, 88 launches a round; held-out
+  logloss falling every round), seconds, ring uploads, H2D bytes and
+  overlap a round, three profiled rounds, the same model bytes under
+  budgets of 0, 4 and 11 pages and in two runs; the u4 run (``max_bin``
+  16, pages packed two ids a byte: K2-u4 on every page and level) equal
+  in bytes to the same with ``XTPU_PAGE_PACK=0``, 2 rounds at depth 10
+  on the first 2,000,000 rows (K3-u4 at 256 and 512 nodes) and a round
+  each through ``pallas:bf16x2`` / ``pallas:bf16`` on packed pages;
+  ``Booster.predict`` on the paged matrix against the walk over its
+  bins; and the default budget, which collapses the matrix to the
+  resident tier.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -96,6 +115,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -418,14 +438,16 @@ def check_hist(bins, gpair, rel, N, B, label):
     return errs
 
 
-def hist_bound_ms(bins, N, B, n_active, planes, coarse=False):
+def hist_bound_ms(bins, N, B, n_active, planes, coarse=False, F=None):
     """(ms, "bytes"|"operations", ops): bins, the gradients (q or gpair,
     8 B a row) and rel read once, the [N, F, B, 2] f32 histogram (and
     with ``coarse`` the [N, F, 20, 2] coarse one) written once, over
     3.35 TB/s; against one integer add per (active row, feature, plane)
-    over the f32 lane rate (the table has no scalar integer rate)."""
-    n, F = bins.shape
-    nbytes = (n * F * bins.element_size() + n * 8 + n * 4
+    over the f32 lane rate (the table has no scalar integer rate). ``F``:
+    the features of a u4-packed page (``bins`` [n, ceil(F/2)] bytes)."""
+    n, W = bins.shape
+    F = F or W
+    nbytes = (n * W * bins.element_size() + n * 8 + n * 4
               + N * F * (B + (20 if coarse else 0)) * 8)
     ops = n_active * F * planes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1076,6 +1098,412 @@ def higgs_like(n, F, seed):
     return X, (logit > 0).astype(np.float32)
 
 
+# the external-memory phase (``external_memory``): BASELINE.json's
+# HIGGS-11M shape streamed from an iterator, 11 batches and pages of
+# 1,000,000 rows, four of them in the page cache
+EXT_ROWS = 11_000_000
+EXT_BATCH_ROWS = 1_000_000
+EXT_TEST_ROWS = 100_000
+EXT_ROUNDS = 10
+EXT_U4_ROUNDS = 5
+EXT_DEEP_ROWS = 2_000_000
+EXT_DEEP_DEPTH = 10
+EXT_CACHED_PAGES = 4
+EXT_SEED = 11
+
+
+def higgs_batch(seed, i, m, F):
+    """Batch ``i`` of ``m`` rows of ``higgs_like``'s rule (N(0, 1)
+    features, labels from a fixed linear rule plus noise), the rule's
+    weights from ``seed`` and the batch's draws from (seed, i)."""
+    w = np.random.default_rng(seed).standard_normal(F).astype(np.float32)
+    rng = np.random.default_rng([seed, i])
+    X = rng.standard_normal((m, F), dtype=np.float32)
+    logit = X @ w + rng.standard_normal(m).astype(np.float32) * 1.5
+    return X, (logit > 0).astype(np.float32)
+
+
+def higgs_batches(xt, n_rows, F, cache_prefix, seed=EXT_SEED):
+    """A ``DataIter`` over the first ``n_rows`` rows of ``higgs_batch``'s
+    stream, ``EXT_BATCH_ROWS`` a batch, made anew on every pass (the raw
+    matrix never exists whole)."""
+
+    class Batches(xt.DataIter):
+        def __init__(self):
+            super().__init__(cache_prefix)
+            self.i = 0
+
+        def next(self, input_data):
+            s = self.i * EXT_BATCH_ROWS
+            if s >= n_rows:
+                return 0
+            X, y = higgs_batch(seed, self.i, min(EXT_BATCH_ROWS, n_rows - s),
+                               F)
+            input_data(data=X, label=y)
+            self.i += 1
+            return 1
+
+        def reset(self):
+            self.i = 0
+
+    return Batches()
+
+
+def xtpu_env():
+    """The ``XTPU_*`` settings in force."""
+    return {k: v for k, v in sorted(os.environ.items())
+            if k.startswith("XTPU_")}
+
+
+def paged_rounds(xt, params, dm, paged, rounds=6):
+    """``rounds`` ``update`` calls of a new booster on the paged matrix
+    between device syncs (host clock), each with the ring's statistics
+    and the kernels' launches reset before it -> (the booster, [(seconds,
+    uploads, H2D bytes, overlap, launches)], the launches of all)."""
+    timer = xt.Booster(params)
+    per, total = [], {}
+    for i in range(rounds):
+        paged.reset_ring_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer.update(dm, i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        st = paged.ring_stats
+        per.append((dt, st["uploads"], st["bytes"], paged.streaming_overlap(),
+                    {k: v for k, v in c.items() if v}))
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return timer, per, total
+
+
+def u4_inputs(n, F, N, dev, seed, skew=False):
+    """``hist_inputs``' 16-slot ids, u4-packed as the paged tier packs them
+    (``PagedBinnedMatrix._pack_host``) -> (packed, ids, gpair, rel)."""
+    from xgboost_tpu_torch.data.binned import PagedBinnedMatrix
+
+    bins, gpair, rel = hist_inputs(n, F, 16, N, dev, seed, skew)
+    packed = torch.from_numpy(PagedBinnedMatrix._pack_host(
+        bins.cpu().numpy())).to(dev)
+    return packed, bins, gpair, rel
+
+
+def u4_kernels(N, F):
+    """K2's and K3's ``packed_u4`` bodies at a level of N nodes: (name,
+    kernel(packed args), plain version(packed args), the unpacked
+    kernel(ids args), maker of the args)."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    def int8x2_args(bins, gpair, rel):
+        q, inv = H.quantise_int8x2(gpair)
+        return q, rel, inv
+
+    def f32_args(bins, gpair, rel):
+        qs, inv = H.fixed_point_scale(gpair)
+        return gpair, rel, qs, inv
+
+    out = [(f"{name}_u4",
+            lambda p, *a, N=N, prec=prec: K.hist_f32_cuda(
+                p, *a, N, 16, precision=prec, packed_u4=F),
+            lambda p, *a, N=N, prec=prec: H.build_hist_f32_u4_reference(
+                p, F, *a, N, 16, precision=prec),
+            lambda b, *a, N=N, prec=prec: K.hist_f32_cuda(
+                b, *a, N, 16, precision=prec), f32_args)
+           for name, prec in k3_precisions().items()]
+    if N <= 128:
+        out.append((
+            "hist_int8x2_u4",
+            lambda p, *a: K.hist_int8x2_cuda(p, *a, N, 16, packed_u4=F),
+            lambda p, *a: H.build_hist_int8x2_u4_reference(p, F, *a, N, 16),
+            lambda b, *a: K.hist_int8x2_cuda(b, *a, N, 16), int8x2_args))
+    return out
+
+
+# (rows, features, nodes, skewed): a 1M-row page at the u4 run's levels
+U4_CASES = ((1_000_000, 28, 1, False), (1_000_000, 28, 16, True),
+            (1_000_000, 28, 128, False), (1_000_000, 28, 128, True),
+            (1_000_000, 28, 512, False), (1_000_000, 28, 512, True),
+            (1_000_000, 27, 128, True), (1_000_000, 27, 256, False))
+
+
+def check_u4(n, F, N, skew, dev, seed):
+    """K2-u4 and K3-u4 (three precisions) on a packed page: equal bit for
+    bit on two launches to their plain versions and to the same kernel on
+    the unpacked ids. Returns {kernel: max |kernel - plain|}."""
+    packed, bins, gpair, rel = u4_inputs(n, F, N, dev, seed, skew)
+    errs = {}
+    for name, kernel, plain, flat, make in u4_kernels(N, F):
+        args = make(bins, gpair, rel)
+        runs = [kernel(packed, *args) for _ in range(2)]
+        want = plain(packed, *args)
+        unpacked = flat(bins, *args)
+        torch.cuda.synchronize()
+        errs[name] = max(float((r - want).abs().max()) for r in runs)
+        if not all(torch.equal(r, want) for r in runs) or \
+                not torch.equal(unpacked, want):
+            raise AssertionError(f"{name} n={n} F={F} N={N}: differs from "
+                                 f"its plain version or the unpacked kernel")
+    log(f"check u4 n={n} F={F} N={N}{' skewed' if skew else ''}: "
+        f"{sorted(errs)} equal their plain versions and the unpacked-page "
+        f"kernels bit for bit on two launches")
+    return errs
+
+
+def time_u4(n, F, N, dev, flush, seed):
+    """{kernel: (ms, plain_ms, library_ms, bound)} of the u4 bodies at a
+    page of n rows and N nodes (L2 flushed): the library call is one
+    ``unpack_u4`` and one ``index_add_`` over the unpacked ids (the
+    cells prepared beforehand), the decode counted."""
+    from xgboost_tpu_torch.ops import histogram as H
+
+    packed, bins, gpair, rel = u4_inputs(n, F, N, dev, seed)
+    seg, active = H._segments(bins, rel, N, 16)
+    q, _ = H.quantise_int8x2(gpair)
+    vals = H.int8x2_planes(q)[active][:, None, :].expand(-1, F, 4).reshape(
+        -1, 4)
+    acc = torch.zeros((N * F * 16, 4), dtype=torch.int32, device=dev)
+    lib_int = event_ms(lambda: (H.unpack_u4(packed, F),
+                                acc.index_add_(0, seg, vals)), reps=10,
+                       flush=flush)
+    del vals, acc
+    gv = gpair[active][:, None, :].expand(-1, F, 2).reshape(-1, 2)
+    accf = torch.zeros((N * F * 16, 2), dtype=torch.float32, device=dev)
+    lib_f32 = event_ms(lambda: (H.unpack_u4(packed, F),
+                                accf.index_add_(0, seg, gv)), reps=10,
+                       flush=flush)
+    del seg, gv, accf
+    out = {}
+    for name, kernel, plain, _, make in u4_kernels(N, F):
+        args = make(bins, gpair, rel)
+        planes = 4 if name == "hist_int8x2_u4" else 2
+        out[name] = (
+            event_ms(lambda: kernel(packed, *args), reps=20, flush=flush),
+            event_ms(lambda: plain(packed, *args), reps=5),
+            lib_int if planes == 4 else lib_f32,
+            hist_bound_ms(packed, N, 16, int(active.sum()), planes, F=F))
+    return out
+
+
+def external_memory(xt, dev, F, tmp):
+    """The external-memory phase: ``xt.train`` on a ``QuantileDMatrix``
+    built from an iterator with a ``cache_prefix`` at the HIGGS-11M shape
+    (the bins a memmap under ``tmp``, 11 pages of 1,000,000 rows, four in
+    the page cache), 10 rounds at depth 8 with K4 on every page and
+    level; its ring, launches, seconds and profile a round; model bytes
+    under budgets of 0, 4 and 11 pages and across two runs; the u4 run
+    (max_bin 16, packed pages, K2-u4) against the same with
+    ``XTPU_PAGE_PACK=0``, depth 10 on 2,000,000 rows (K3-u4 at 256 and
+    512 nodes) and a round each through ``pallas:bf16x2`` / ``:bf16``;
+    ``Booster.predict`` on a paged matrix; the default budget's collapse
+    to the resident tier. Returns (the main-path launch counts of every
+    run, the device's busy ms over three profiled rounds, seconds a
+    round)."""
+    from xgboost_tpu_torch.data.binned import BinnedMatrix
+
+    page = EXT_BATCH_ROWS * F                  # u8 bytes of a page
+    os.environ.update({"XTPU_PAGED_COLLAPSE": "0",
+                       "XTPU_PAGE_CACHE_BYTES": str(EXT_CACHED_PAGES * page)})
+    params = dict(HIGGS_PARAMS)
+    depth = params["max_depth"]
+    t0 = time.perf_counter()
+    dm = xt.QuantileDMatrix(higgs_batches(xt, EXT_ROWS, F, f"{tmp}/b256"),
+                            max_bin=256)
+    t_build = time.perf_counter() - t0
+    paged = dm.binned(256, dev)
+    n_pages = -(-EXT_ROWS // EXT_BATCH_ROWS)
+    n_streamed = n_pages - EXT_CACHED_PAGES
+    if not (dm.is_paged and paged.n_pages() == n_pages and not paged.packed
+            and isinstance(paged.bins_host, np.memmap)
+            and paged.page_nbytes() == page):
+        raise AssertionError("the iterator matrix is not the paged tier")
+    Xte, yte = higgs_batch(EXT_SEED, 10_000, EXT_TEST_ROWS, F)
+    dte = xt.DMatrix(Xte, label=yte)
+    log(f"external memory: iterator matrix of {EXT_ROWS} x {F} built in "
+        f"{t_build:.3f} s (sketch of {n_pages} batches, then binning into a "
+        f"{paged.bins_host.nbytes} B memmap); {paged.n_pages()} pages of "
+        f"{paged.page_nbytes()} B; settings {xtpu_env()}")
+    runs = []
+
+    def run(label, p, d, rounds, **kw):
+        b, c = train_launches(label, lambda: xt.train(p, d, rounds,
+                                                      verbose_eval=False,
+                                                      **kw))
+        runs.append(c)
+        return b, c
+
+    res = {}
+    bst, c = run("external memory run 1", params, dm, EXT_ROUNDS,
+                 evals=[(dte, "test")], evals_result=res)
+    want = {k: 0 for k in c if k.startswith("hist") or k.startswith("fused")}
+    want["hist_scan"] = n_pages * depth * EXT_ROUNDS
+    if {k: c[k] for k in want} != want or c["walk_packed"] < EXT_ROUNDS:
+        raise AssertionError(f"external memory launched {c}, expected K4 "
+                             f"{n_pages * depth} times a round (pages x "
+                             "levels) and K1 for the held-out evaluation")
+    if bst._caches[id(dm)]["binned"] is not paged:
+        raise AssertionError("the paged matrix collapsed to the resident tier")
+    cached, streamed = paged.cached_split(dev)
+    if len(cached) != EXT_CACHED_PAGES or len(streamed) != n_streamed:
+        raise AssertionError(f"{len(cached)} pages cached, {len(streamed)} "
+                             "streamed")
+    ll = res["test"]["logloss"]
+    if not (all(b < a for a, b in zip(ll, ll[1:]))):
+        raise AssertionError(f"held-out logloss did not fall: {ll}")
+    p_te = bst.predict(dte)
+    auc_paged = auc(yte, p_te)
+    auc_first = auc(yte, bst.predict(dte, iteration_range=(0, 1)))
+    log(f"external memory: tier paged (not collapsed), {len(cached)} pages "
+        f"cached and {len(streamed)} streamed; held-out logloss {ll[0]} -> "
+        f"{ll[-1]}, AUC {auc_first:.6f} -> {auc_paged:.6f} (rounds 1 and "
+        f"{EXT_ROUNDS})")
+    digests = {"4 pages": digest(bst)}
+
+    # a round: seconds, the ring's uploads and bytes, launches; then three
+    # profiled rounds for the device's busy time and idle share
+    timer, per, total = paged_rounds(xt, params, dm, paged)
+    runs.append(total)
+    for i, (dt, ups, nbytes, ov, cnt) in enumerate(per):
+        log(f"external memory round {i}: {dt:.6f} s (update + sync, host "
+            f"clock), ring uploads {ups}, H2D {nbytes} B, overlap "
+            f"{ov if ov is None else round(ov, 6)}, launches {cnt}")
+        if ups != (depth + 1) * n_streamed or \
+                nbytes != ups * page or \
+                cnt.get("hist_scan") != n_pages * depth:
+            raise AssertionError(
+                f"a warm round did not upload the {n_streamed} streamed pages "
+                f"once a pass ({depth + 1} passes) or launch K4 "
+                f"{n_pages * depth} times")
+    s_round = float(np.median([p[0] for p in per[1:]]))
+    ups = (depth + 1) * n_streamed
+    log(f"external memory: {s_round:.6f} s a round (median of rounds 1-5); "
+        f"{ups} uploads and {ups * page} B of H2D a round")
+    reset_counts()
+    busy, _ = profile_rounds("external memory", timer, dm, top=12)
+    runs.append(read_counts())
+
+    # model bytes under budgets of 0 and 11 pages, and a second run at 4
+    for pages in (0, n_pages, EXT_CACHED_PAGES):
+        paged.set_cache_budget(pages * page)
+        b, _ = run(f"external memory budget {pages} pages", params, dm,
+                   EXT_ROUNDS)
+        if paged.cached_pages(dev) != pages:
+            raise AssertionError(f"budget {pages}: "
+                                 f"{paged.cached_pages(dev)} pages cached")
+        digests[f"{pages} pages" if pages != EXT_CACHED_PAGES
+                else "4 pages, run 2"] = digest(b)
+    log(f"external memory model sha256: {digests}")
+    if len(set(digests.values())) != 1:
+        raise AssertionError("budgets or runs saved different models")
+
+    # the u4 run: max_bin 16, pages packed two ids a byte
+    p16 = dict(params, max_bin=16)
+    t0 = time.perf_counter()
+    dm16 = xt.QuantileDMatrix(higgs_batches(xt, EXT_ROWS, F, f"{tmp}/b16"),
+                              max_bin=16)
+    t16 = time.perf_counter() - t0
+    paged16 = dm16.binned(16, dev)
+    if not paged16.packed or paged16.page_nbytes() != page // 2:
+        raise AssertionError("the 16-bin pages are not u4-packed")
+    paged16.reset_ring_stats()
+    b16, c16 = run("external memory u4", p16, dm16, EXT_U4_ROUNDS)
+    if c16["hist_int8x2_u4"] != n_pages * depth * EXT_U4_ROUNDS or \
+            c16["hist_int8x2"] or c16["hist_scan"]:
+        raise AssertionError(f"the u4 run launched {c16}, expected K2-u4 "
+                             f"{n_pages * depth} times a round")
+    u4_bytes = paged16.ring_stats["bytes"]
+    _, per16, tot16 = paged_rounds(xt, p16, dm16, paged16, rounds=4)
+    runs.append(tot16)
+    for i, (dt, ups, nbytes, ov, cnt) in enumerate(per16):
+        log(f"external memory u4 round {i}: {dt:.6f} s (update + sync, "
+            f"host clock), ring uploads {ups}, H2D {nbytes} B, overlap "
+            f"{ov if ov is None else round(ov, 6)}, launches {cnt}")
+    os.environ["XTPU_PAGE_PACK"] = "0"
+    dm16u = xt.QuantileDMatrix(higgs_batches(xt, EXT_ROWS, F, f"{tmp}/b16u"),
+                               max_bin=16, ref=dm16)
+    paged16u = dm16u.binned(16, dev)
+    del os.environ["XTPU_PAGE_PACK"]
+    paged16u.reset_ring_stats()
+    b16u, c16u = run("external memory u4, XTPU_PAGE_PACK=0", p16, dm16u,
+                     EXT_U4_ROUNDS)
+    if paged16u.packed or \
+            c16u["hist_int8x2"] != n_pages * depth * EXT_U4_ROUNDS:
+        raise AssertionError(f"the unpacked run launched {c16u}")
+    if digest(b16) != digest(b16u):
+        raise AssertionError("packed and unpacked transport saved different "
+                             "models")
+    log(f"external memory u4 (max_bin 16, built in {t16:.3f} s, pages of "
+        f"{paged16.page_nbytes()} B, {paged16.cached_pages(dev)} cached): "
+        f"model sha256 {digest(b16)} equal with XTPU_PAGE_PACK=0 (pages of "
+        f"{paged16u.page_nbytes()} B, {paged16u.cached_pages(dev)} cached); "
+        f"H2D {u4_bytes} B packed against {paged16u.ring_stats['bytes']} B "
+        f"unpacked over {EXT_U4_ROUNDS} rounds")
+
+    # depth 10 on the first 2,000,000 rows: levels of 256 and 512 nodes
+    # through K3-u4, and K3-u4's rounded precisions at every level
+    dm2 = xt.QuantileDMatrix(higgs_batches(xt, EXT_DEEP_ROWS, F,
+                                           f"{tmp}/b16d"), max_bin=16,
+                             ref=dm16)
+    dd, d_pages = EXT_DEEP_DEPTH, -(-EXT_DEEP_ROWS // EXT_BATCH_ROWS)
+    k2, k3 = d_pages * min(dd, 8), d_pages * max(dd - 8, 0)
+    b10, c10 = run(f"external memory u4 depth {dd}", dict(p16, max_depth=dd),
+                   dm2, 2)
+    if c10["hist_int8x2_u4"] != k2 * 2 or c10["hist_f32_u4"] != k3 * 2 or \
+            max(t.max_depth() for t in b10.gbm.trees) != dd:
+        raise AssertionError(f"depth {dd} u4 launched {c10}, expected K2-u4 "
+                             f"{k2} and K3-u4 {k3} times a round")
+    for prec in ("bf16x2", "bf16"):
+        name = f"hist_{prec}_u4"
+        _, cb = run(f"external memory u4 pallas:{prec}",
+                    dict(p16, max_depth=dd, hist_method=f"pallas:{prec}"),
+                    dm2, 1)
+        if cb[name] != d_pages * dd:
+            raise AssertionError(f"pallas:{prec} launched {cb}, expected "
+                                 f"{name} {d_pages * dd} times (pages x "
+                                 "levels)")
+    # Booster.predict on a paged matrix: its representative values through
+    # K1, against the margin the cache walked over its bins
+    reset_counts()
+    pm = b10.predict(dm2, output_margin=True)
+    walked = b10.gbm.full_margin_binned(
+        dm2.binned(16, dev),
+        torch.tensor(b10._base_np(), device=dev)).cpu().numpy()[:, 0]
+    runs.append(read_counts())
+    if runs[-1]["walk_packed"] != 1 or pm.shape != (EXT_DEEP_ROWS,) or \
+            not np.isfinite(pm).all():
+        raise AssertionError("predict on the paged matrix did not walk K1")
+    err = float(np.abs(pm - walked).max())
+    if err > 1e-5:
+        raise AssertionError(f"predict on the paged matrix is {err} from the "
+                             "walk over its bins")
+    log(f"external memory predict on the paged {EXT_DEEP_ROWS}-row matrix: "
+        f"K1 over its representative values, {err} from the walk over its "
+        f"pages' bins")
+
+    # the default budget (4 GiB) collapses the 308 MB matrix to the
+    # resident tier: the same 11M rows trained resident
+    del os.environ["XTPU_PAGED_COLLAPSE"]
+    del os.environ["XTPU_PAGE_CACHE_BYTES"]
+    paged.set_cache_budget()
+    res_r = {}
+    bres, cres = run("external memory default budget", params, dm,
+                     EXT_ROUNDS, evals=[(dte, "test")], evals_result=res_r)
+    if not isinstance(bres._caches[id(dm)]["binned"], BinnedMatrix) or \
+            paged._resident is None or cres["hist_scan"] != depth * EXT_ROUNDS:
+        raise AssertionError(f"the default budget did not collapse ({cres})")
+    llr = res_r["test"]["logloss"]
+    auc_r0 = auc(yte, bres.predict(dte, iteration_range=(0, 1)))
+    log(f"external memory default budget ({paged.cache_budget_bytes} B, "
+        f"settings {xtpu_env()}): collapsed to the resident tier, K4 "
+        f"{depth} times a round on {EXT_ROWS} rows; held-out logloss "
+        f"{llr[0]} -> {llr[-1]}, AUC {auc_r0:.6f} -> "
+        f"{auc(yte, bres.predict(dte)):.6f} (paged: {ll[0]} -> {ll[-1]}, "
+        f"AUC {auc_first:.6f} -> {auc_paged:.6f})")
+    return runs, busy, s_round
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -1380,6 +1808,10 @@ def main() -> int:
         [hist_errs["hist_scan"]]
         + [check_fold(n_rows, N, B, skew, dev, seed=70 + i)
            for i, (n_rows, N, B, skew) in enumerate(FOLD_CASES)])
+    # ----------- K2's and K3's packed_u4 bodies against their plain versions
+    for i, case in enumerate(U4_CASES):
+        for k, e in check_u4(*case, dev, seed=120 + i).items():
+            hist_errs[k] = max(hist_errs.get(k, 0.0), e)
 
     # -------------------------------------- main path: training, depth 8
     X, y = higgs_like(1_100_000, F, seed=0)
@@ -1711,6 +2143,10 @@ def main() -> int:
                                  Xte_dev[:n].contiguous(), cov_base, sch)[0])
     del Xc, dcov, dcte
 
+    # --------- main path: external memory at the HIGGS-11M shape (paged)
+    with tempfile.TemporaryDirectory(prefix="xtt_ext_") as tmp:
+        ext_runs, ext_busy, ext_s = external_memory(xt, dev, F, tmp)
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -1742,6 +2178,16 @@ def main() -> int:
                 f"{bound[2]} integer adds), kernel at "
                 f"{bound[0] / ms * 100:.4f}% of it")
         del bins, gpair, rel
+    # K2-u4 and K3-u4 at a 1M-row page of the u4 run's deepest levels
+    u4_times = {}
+    for N in (128, 512):
+        for name, (ms, plain_ms, lib_ms, bound) in time_u4(
+                1_000_000, F, N, dev, flush, seed=130 + N).items():
+            u4_times[(name, N)] = (ms, plain_ms, lib_ms, bound)
+            log(f"hist {name} n=1000000 N={N} B=16 x {F} u4-packed (L2 "
+                f"flushed): {ms:.6f} ms, plain {plain_ms:.6f} ms, unpack_u4 "
+                f"+ index_add_ {lib_ms:.6f} ms, bound {bound[0]:.6f} ms "
+                f"({bound[1]}), kernel at {bound[0] / ms * 100:.4f}% of it")
     # K4 at every level width and K5 at every level boundary of the HIGGS
     # run, with their phases
     levels = time_levels(dev, flush)
@@ -1795,7 +2241,8 @@ def main() -> int:
     # launches: every main-path run of the kernel
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
-            *cov_runs, rf_counts, gb_counts, *bf16_counts.values()]
+            *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
+            *ext_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -1829,6 +2276,20 @@ def main() -> int:
             "launches": launches, "max_abs_err": hist_errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms})
+    # the packed_u4 bodies: K2-u4 at the u4 run's levels of 128 nodes, K3-u4
+    # at depth 10's levels of 512
+    for name, replaces, N in (("hist_int8x2_u4", ":62", 128),
+                              ("hist_f32_u4", ":62", 512),
+                              ("hist_bf16x2_u4", ":62", 512),
+                              ("hist_bf16_u4", ":62", 512)):
+        ms, plain_ms, lib_ms, bound = u4_times[(name, N)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/hist.cu",
+            "replaces": "xgboost_tpu/ops/pallas/histogram.py" + replaces,
+            "launches": sum(c[name] for c in runs),
+            "max_abs_err": hist_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
     k5 = levels["fused_advance_coarse"][128]
     ms, plain_ms, bound = k5["ms"], k5["plain_ms"], k5["bound"]
     kernels.append({

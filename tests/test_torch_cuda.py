@@ -570,3 +570,141 @@ def test_k1_plan_routes_on_the_card():
     with pytest.raises(ValueError, match="does not fit"):
         pf.margin(torch.from_numpy(X).to(dev), torch.from_numpy(base).to(dev),
                   schedule="staged")
+
+
+def _u4_level(n, F, N, dev, seed, skew=False, B=16):
+    """A level over u4-packed pages: bins < B, packed as the paged tier
+    packs them (``PagedBinnedMatrix._pack_host``), and the unpacked ids."""
+    from xgboost_tpu_torch.data.binned import PagedBinnedMatrix
+
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (n, F)).astype(np.uint8)
+    g = rng.randn(n, 2).astype(np.float32)
+    g[:, 1] = np.abs(g[:, 1])
+    rel = rng.randint(0, N, n).astype(np.int32)
+    if skew:
+        rel[np.isin(rel, (0, 2, 5))] = 3 % N
+        rel[rng.rand(n) < 0.55] = 1 % N
+        bins[rng.rand(n, F) < 0.6] = B - 1
+    rel[rng.rand(n) < 0.1] = N                     # inactive rows
+    packed = PagedBinnedMatrix._pack_host(bins)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (packed, bins, g, rel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [27, 28])
+@pytest.mark.parametrize("N", [1, 16, 128, 512])
+@pytest.mark.parametrize("skew", [False, True])
+def test_u4_bodies_match_plain_versions_on_the_card(F, N, skew):
+    """K2's and K3's ``packed_u4`` bodies (K3 in f32, bf16x2 and bf16)
+    over a u4-packed page of odd and even F: equal bit for bit to their
+    plain versions (unpack, then the plain build) and to the same kernel
+    on the unpacked ids, on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    dev = torch.device("cuda")
+    packed, bins, g, rel = _u4_level(200_003, F, N, dev, 13 * N + F, skew)
+    assert torch.equal(H.unpack_u4(packed, F), bins)
+    B = 16
+    if N <= 128:
+        q, inv = H.quantise_int8x2(g)
+        want = H.build_hist_int8x2_u4_reference(packed, F, q, rel, inv, N, B)
+        before = K.LAUNCHES["hist_int8x2_u4"]
+        for _ in range(2):
+            got = K.hist_int8x2_cuda(packed, q, rel, inv, N, B, packed_u4=F)
+            flat = K.hist_int8x2_cuda(bins, q, rel, inv, N, B)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(flat, want)
+        assert K.LAUNCHES["hist_int8x2_u4"] == before + 2
+    qs, inv3 = H.fixed_point_scale(g)
+    for precision in ("f32", "bf16x2", "bf16"):
+        want = H.build_hist_f32_u4_reference(packed, F, g, rel, qs, inv3, N,
+                                             B, precision=precision)
+        for _ in range(2):
+            got = K.hist_f32_cuda(packed, g, rel, qs, inv3, N, B,
+                                  precision=precision, packed_u4=F)
+            flat = K.hist_f32_cuda(bins, g, rel, qs, inv3, N, B,
+                                   precision=precision)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(flat, want)
+
+
+def _batches(X, y, n_batches, cache_prefix):
+    """A ``DataIter`` over a fixed matrix in batches."""
+    import xgboost_tpu_torch as xt
+
+    class Batches(xt.DataIter):
+        def __init__(self):
+            super().__init__(cache_prefix)
+            self.parts = np.array_split(np.arange(len(X)), n_batches)
+            self.i = 0
+
+        def next(self, input_data):
+            if self.i >= len(self.parts):
+                return 0
+            idx = self.parts[self.i]
+            input_data(data=X[idx], label=y[idx])
+            self.i += 1
+            return 1
+
+        def reset(self):
+            self.i = 0
+
+    return Batches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin", [15, 64])
+def test_paged_training_on_the_card_equals_the_cpu(max_bin, tmp_path,
+                                                   monkeypatch):
+    """External-memory training on the card (pages of 19,999 rows, so
+    that every other page's gradients start off a 16-byte boundary; K2 or
+    K2-u4 per page; a budget of two pages, so that pages are both cached
+    and streamed through the ring) against the same on the CPU: the
+    first tree's structure bit for bit, predictions at 1e-3; the budget
+    of 0 saves the same bytes on the card. The first tree's leaves are
+    held to 1e-5: the root sum is ``gpair.sum``, an f32 reduction in a
+    different order on each device, and every node's sum is the root's
+    less its siblings', so the leaves may differ in their last bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    monkeypatch.setenv("XTPU_PAGE_ROWS", "19999")
+    monkeypatch.setenv("XTPU_PAGED_COLLAPSE", "0")
+    rng = np.random.RandomState(8)
+    X = rng.randn(90000, 27).astype(np.float32)
+    y = (X[:, :4].sum(1) + rng.randn(90000) > 0).astype(np.float32)
+    X[rng.rand(90000, 27) < 0.05] = np.nan
+    params = {"objective": "binary:logistic", "max_depth": 6,
+              "base_score": 0.5, "max_bin": max_bin}
+    raws = {}
+    for budget in (2, 0):
+        monkeypatch.setenv("XTPU_PAGE_CACHE_BYTES",
+                           str(budget * 20000 * (14 if max_bin < 16 else 27)))
+        dm = xt.QuantileDMatrix(
+            _batches(X, y, 4, str(tmp_path / f"c{budget}")), max_bin=max_bin)
+        paged = dm.binned(max_bin, torch.device("cuda"))
+        assert paged.is_paged and paged.packed == (max_bin < 16)
+        gpu = xt.train(params, dm, 3, verbose_eval=False)
+        raws[budget] = bytes(gpu.save_raw("ubj"))
+        assert paged.cached_pages(torch.device("cuda")) == budget
+        if budget == 2:
+            first = gpu
+    assert raws[0] == raws[2]
+    dm = xt.QuantileDMatrix(_batches(X, y, 4, str(tmp_path / "cpu")),
+                            max_bin=max_bin)
+    cpu = xt.train(dict(params, device="cpu"), dm, 3, verbose_eval=False)
+    a, b = first.gbm.trees[0], cpu.gbm.trees[0]
+    np.testing.assert_array_equal(a.split_feature, b.split_feature)
+    np.testing.assert_array_equal(a.split_bin, b.split_bin)
+    np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(first.predict(xt.DMatrix(X)),
+                               cpu.predict(xt.DMatrix(X)), atol=1e-3)

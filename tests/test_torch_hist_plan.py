@@ -108,10 +108,12 @@ def tile_fold(total, B, missing, coarse_b=COARSE_B,
 
 
 def emulate(bins, vals, rel, N, B, convert, sms=SMS, plan_fn=hist_plan,
-            fold=None):
+            fold=None, load=None):
     """The kernels' decomposition in torch. ``fold``: (missing bin, the
     conversion of the folded integers), K4's fold of each group's summed
-    tile (one item's, or a split group's after the combine)."""
+    tile (one item's, or a split group's after the combine). ``load``:
+    the elements' bin ids of rows and a feature slice (default: read
+    from ``bins``)."""
     n, F = bins.shape
     P = vals.shape[1]
     out = torch.full((N, F, B, 2), float("nan"))
@@ -136,7 +138,8 @@ def emulate(bins, vals, rel, N, B, convert, sms=SMS, plan_fn=hist_plan,
                 keep = (nodes >= 0) & (nodes < plan.G) & (r[rows] >= 0) & \
                     (r[rows] < nc)
                 rows, nodes = rows[keep], nodes[keep]
-                b = bins[rows][:, fs].long() - b0
+                b = (bins[rows][:, fs].long() if load is None
+                     else load(rows, fs)) - b0
                 inb = (b >= 0) & (b < plan.bc)
                 seen[rows[:, None].expand_as(b)[inb],
                      torch.arange(fs.start, fs.stop).expand_as(b)[inb]] += 1
@@ -220,6 +223,54 @@ def test_emulated_k3_equals_plain_bit_for_bit(n, F, B, N, skew):
     q = torch.round(g * qs[None, :]).to(torch.int64)
     got = emulate(bins, q, rel, N, B,
                   lambda t: t.to(torch.float32) * inv).out
+    assert torch.equal(got, want)
+
+
+def u4_load(packed, F):
+    """The kernels' element load from a u4-packed page (``csrc/hist.cu
+    load_bin`` for ``U4``): feature f of a row is byte f >> 1 of the row
+    (rows ceil(F/2) bytes apart), shifted right by 4 * (f & 1), its low
+    nibble."""
+    W = (F + 1) // 2
+    flat = packed.reshape(-1).long()
+
+    def load(rows, fs):
+        f = torch.arange(fs.start, fs.stop)
+        byte = flat[rows[:, None] * W + (f >> 1)[None, :]]
+        return (byte >> (4 * (f & 1))[None, :]) & 0xF
+
+    return load
+
+
+U4_CASES = [  # (n, F, N, skew): 16 slots, odd and even F
+    (5000, 28, 1, False), (5000, 27, 16, True), (20000, 28, 128, True),
+    (20000, 27, 128, False), (4000, 27, 512, True), (6000, 5, 5000, False),
+]
+
+
+@pytest.mark.parametrize("n,F,N,skew", U4_CASES)
+def test_emulated_u4_bodies_equal_plain_bit_for_bit(n, F, N, skew):
+    """K2's and K3's ``packed_u4`` bodies: the same decomposition over the
+    logical F, each element's id read as its nibble of the packed page,
+    equal to the plain versions (unpack, then the plain build)."""
+    from xgboost_tpu_torch.data.binned import PagedBinnedMatrix
+
+    B = 16
+    bins, g, rel = _inputs(n, F, B, N, seed=7 * n + F + N, skew=skew)
+    packed = torch.from_numpy(PagedBinnedMatrix._pack_host(bins.numpy()))
+    load = u4_load(packed, F)
+    if N <= 128:
+        q, inv = H.quantise_int8x2(g)
+        want = H.build_hist_int8x2_u4_reference(packed, F, q, rel, inv, N, B)
+        got = emulate(bins, H.int8x2_planes(q).long(), rel, N, B,
+                      lambda t: H.dequant_int8x2(t.to(torch.int32), inv),
+                      load=load).out
+        assert torch.equal(got, want)
+    qs, inv3 = H.fixed_point_scale(g)
+    want = H.build_hist_f32_u4_reference(packed, F, g, rel, qs, inv3, N, B)
+    q3 = torch.round(g * qs[None, :]).to(torch.int64)
+    got = emulate(bins, q3, rel, N, B, lambda t: t.to(torch.float32) * inv3,
+                  load=load).out
     assert torch.equal(got, want)
 
 

@@ -8,7 +8,10 @@ and ``do_boost``: one tree per output group and parallel tree a round
 snapshot in class order, each from its own key ``fold_in(key, k * npt +
 p)``, with the learning rate divided by ``num_parallel_tree`` (boosted
 random forests). Row sampling (:func:`sample_gradients`) and the
-trees' column samples come from that key. Dart waits with ROADMAP A.5.9.
+trees' column samples come from that key. A paged (external-memory)
+matrix grows with ``tree/paged.py PagedGrower``, and its margins are
+walked over its bins page by page (:meth:`GBTree.margin_delta_binned`,
+:meth:`GBTree.full_margin_binned`). Dart waits with ROADMAP A.5.9.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import numpy as np
 import torch
 
 from ..tree.grow import TreeGrower
+from ..tree.paged import PagedGrower
 from ..tree.param import TrainParam, _f32
 from ..tree.tree import TreeModel
 from ..utils import random as xrandom
+from .predict import margin_binned, stack_trees
 
 
 def sample_gradients(gp: torch.Tensor, tkey: xrandom.Key,
@@ -72,15 +77,17 @@ class GBTree:
 
     # -- training -------------------------------------------------------------
     def _grower_for(self, binned) -> TreeGrower:
-        if self._grower is None or self._grower.cuts is not binned.cuts:
+        cls = PagedGrower if binned.is_paged else TreeGrower
+        if self._grower is None or self._grower.cuts is not binned.cuts \
+                or type(self._grower) is not cls:
             param = self.tree_param
             if self.num_parallel_tree > 1:
                 # reference BoostNewTrees: lr /= num_parallel_tree
                 param = param.clone()
                 param.eta = param.eta / self.num_parallel_tree
-            self._grower = TreeGrower(param, binned.max_nbins, binned.cuts,
-                                      hist_method=self.hist_method,
-                                      has_missing=binned.has_missing)
+            self._grower = cls(param, binned.max_nbins, binned.cuts,
+                               hist_method=self.hist_method,
+                               has_missing=binned.has_missing)
         return self._grower
 
     def do_boost(self, binned, gpair: torch.Tensor,
@@ -95,7 +102,7 @@ class GBTree:
         npt = max(self.num_parallel_tree, 1)
         grower = self._grower_for(binned)
         tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
-        masks = grower.feature_masks(tkeys, binned.bins.device)
+        masks = grower.feature_masks(tkeys, gpair.device)
         deltas = []
         for k in range(K):
             delta = None
@@ -103,14 +110,47 @@ class GBTree:
                 i = k * npt + p
                 gp = sample_gradients(gpair[:, k, :].contiguous(), tkeys[i],
                                       self.tree_param)
-                grown = grower.grow(binned.bins, gp,
-                                    None if masks is None else masks[i])
+                grown = grower.grow(
+                    binned if binned.is_paged else binned.bins, gp,
+                    None if masks is None else masks[i])
                 self.trees.append(grower.to_tree_model(grown))
                 self.tree_info.append(k)
                 delta = grown.delta if delta is None else delta + grown.delta
             deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
         return torch.stack(deltas, dim=1)
+
+    # -- margins over bins ---------------------------------------------------
+    def _margin_binned_paged(self, forest, binned, base: torch.Tensor
+                             ) -> torch.Tensor:
+        """The walk over a paged matrix's pages (through its ring), one
+        page at a time."""
+        return torch.cat([
+            margin_binned(forest, page, binned.missing_bin, base,
+                          packed=binned.packed)
+            for _, _, page in binned.pages(base.device)])
+
+    def _margin_binned(self, lo: int, hi: int, binned,
+                       base: torch.Tensor) -> torch.Tensor:
+        forest = stack_trees(self.trees[lo:hi], self.tree_info[lo:hi],
+                             self.n_groups, base.device)
+        if binned.is_paged:
+            return self._margin_binned_paged(forest, binned, base)
+        return margin_binned(forest, binned.bins, binned.missing_bin, base)
+
+    def margin_delta_binned(self, binned, tree_lo: int, tree_hi: int,
+                            device: torch.device) -> torch.Tensor:
+        """Margin contribution [n, G] of trees [tree_lo, tree_hi) over the
+        bins of ``binned`` (resident or paged), on ``device``: the margin
+        cache's increment on a matrix without raw values."""
+        zero = torch.zeros(self.n_groups, dtype=torch.float32, device=device)
+        return self._margin_binned(tree_lo, tree_hi, binned, zero)
+
+    def full_margin_binned(self, binned, base: torch.Tensor) -> torch.Tensor:
+        """Margins [n, G] of every tree plus ``base`` [G] over the bins."""
+        if not self.trees:
+            return base[None, :].expand(binned.shape[0], -1).clone()
+        return self._margin_binned(0, len(self.trees), binned, base)
 
     def version(self) -> int:
         """Tree count: the margin caches slice trees by it."""

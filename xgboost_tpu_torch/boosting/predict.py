@@ -1,0 +1,98 @@
+"""The forest walk over bin ids (the JAX package's ``boosting/predict.py
+_predict_margin_binned`` and ``ForestPredictor.margin_binned``), as torch
+ops.
+
+This is the margin cache's walk on an iterator-built matrix, whose raw
+values were never kept: every (row, tree) pair steps one level at a time
+through the trees' compact arrays, comparing the row's bin id with the
+node's split bin (``bin > split_bin`` goes right, the missing bin the
+default way), and the leaves are summed per output group. The JAX
+package runs it as an XLA function, not a Pallas kernel. Trees are
+walked in chunks so that the [rows, trees] positions stay small; a
+paged matrix is walked page by page (``boosting/gbtree.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.partition import gather_bins
+from ..tree.tree import TreeModel
+
+# the [rows, trees] position arrays of one chunk hold at most this many
+# entries
+WALK_CHUNK_ELEMENTS = 1 << 24
+
+
+class StackedForest(NamedTuple):
+    """Trees' compact arrays padded to M nodes, flattened to [T * M], and
+    each tree's output group as a one-hot [T, G]."""
+
+    split_feature: torch.Tensor
+    split_bin: torch.Tensor
+    default_left: torch.Tensor
+    is_leaf: torch.Tensor
+    left_child: torch.Tensor
+    right_child: torch.Tensor
+    leaf_value: torch.Tensor
+    group_onehot: torch.Tensor
+    n_nodes: int                # M
+    max_depth: int
+
+
+def stack_trees(trees: Sequence[TreeModel], tree_info: Sequence[int],
+                n_groups: int, device: torch.device) -> StackedForest:
+    """The trees as a :class:`StackedForest` on ``device``."""
+    T = len(trees)
+    M = max(t.num_nodes() for t in trees)
+
+    def pad(name, fill, dtype):
+        out = np.full((T, M), fill, dtype)
+        for i, t in enumerate(trees):
+            out[i, :t.num_nodes()] = getattr(t, name)
+        return torch.from_numpy(out.reshape(-1)).to(device)
+
+    onehot = np.zeros((T, n_groups), np.float32)
+    onehot[np.arange(T), np.asarray(tree_info, np.int64)] = 1.0
+    return StackedForest(
+        split_feature=pad("split_feature", -1, np.int64),
+        split_bin=pad("split_bin", 0, np.int64),
+        default_left=pad("default_left", False, bool),
+        is_leaf=pad("is_leaf", True, bool),
+        left_child=pad("left_child", 0, np.int64),
+        right_child=pad("right_child", 0, np.int64),
+        leaf_value=pad("leaf_value", 0.0, np.float32),
+        group_onehot=torch.from_numpy(onehot).to(device), n_nodes=M,
+        max_depth=max(t.max_depth() for t in trees))
+
+
+def margin_binned(forest: StackedForest, bins: torch.Tensor,
+                  missing_bin: int, base: torch.Tensor,
+                  packed: bool = False) -> torch.Tensor:
+    """Margins [n, G] of ``forest`` over bin ids ``bins`` [n, F] (a
+    u4-packed page when ``packed``), plus ``base`` [G]."""
+    n = bins.shape[0]
+    dev = bins.device
+    M, T = forest.n_nodes, forest.group_onehot.shape[0]
+    chunk = max(1, min(T, WALK_CHUNK_ELEMENTS // max(n, 1)))
+    rows = torch.arange(n, device=dev)[:, None]
+    margin = base[None, :].expand(n, -1).clone()
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        tofs = (torch.arange(t0, t1, device=dev) * M)[None, :]
+        pos = torch.zeros((n, t1 - t0), dtype=torch.int64, device=dev)
+        for _ in range(forest.max_depth):
+            gi = tofs + pos
+            feat = forest.split_feature[gi].clamp(min=0)
+            b = gather_bins(bins, rows.expand_as(feat), feat, packed)
+            go_right = torch.where(b == missing_bin, ~forest.default_left[gi],
+                                   b > forest.split_bin[gi])
+            child = torch.where(go_right, forest.right_child[gi],
+                                forest.left_child[gi])
+            pos = torch.where(forest.is_leaf[gi], pos, child)
+        margin = margin + (forest.leaf_value[tofs + pos]
+                           @ forest.group_onehot[t0:t1])
+    return margin

@@ -13,6 +13,12 @@ eval sets other than the training matrix go through the packed walk
 (``serve/packed.py`` + ``ops/walk.py``, kernel K1). Everything runs on
 the card unless the Booster was made with ``{"device": "cpu"}``.
 
+A matrix built from a ``DataIter`` keeps no raw values: its margin cache
+walks new trees over its bins (``GBTree.margin_delta_binned``), page by
+page when it is paged, and never as an [n, F] float matrix on the card.
+A paged training matrix that fits the page-cache budget collapses to
+the resident tier first (:meth:`Booster._collapse_paged_if_fits`).
+
 ``save_raw`` writes the model JSON the JAX package writes
 (``_model_to_json``), ``config`` block included, so a model trained
 here loads into ``xgboost_tpu`` and a model loaded here saves back to the
@@ -255,6 +261,12 @@ class Booster:
             raise NotImplementedError(
                 "column-split training is not in the PyTorch port yet "
                 "(ROADMAP A.8)")
+        if self.learner_params.get("multi_strategy",
+                                   "one_output_per_tree") != \
+                "one_output_per_tree":
+            raise NotImplementedError(
+                "multi_strategy='multi_output_tree' is not in the PyTorch "
+                "port yet (ROADMAP A.5.7)")
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
@@ -298,14 +310,16 @@ class Booster:
             dev = self.device
             info = dm.info
             st = {"dm": dm, "margin": None, "n_trees": 0, "binned": None,
-                  "X": None,
+                  "X": None, "is_train": False,
                   "labels": None if info.labels is None else
                   torch.from_numpy(info.labels).to(dev),
                   "weights": None if info.weights is None else
                   torch.from_numpy(info.weights).to(dev)}
             self._caches[id(dm)] = st
-        if is_train and st["binned"] is None:
-            st["binned"] = dm.binned(self.tree_param.max_bin, self.device)
+        if is_train and not st["is_train"]:
+            st["binned"] = self._collapse_paged_if_fits(
+                dm.binned(self.tree_param.max_bin, self.device))
+            st["is_train"] = True
         if st["margin"] is None and self.base_margin_ is not None:
             n = dm.num_row()
             if dm.info.base_margin is not None:
@@ -317,10 +331,52 @@ class Booster:
                 st["margin"] = base[None, :].expand(n, -1).contiguous()
         return st
 
+    def _collapse_paged_if_fits(self, binned):
+        """A paged matrix that fits the page-cache budget, as a resident
+        ``BinnedMatrix`` on this Booster's device (``PagedBinnedMatrix.
+        resident_binned``; ``XTPU_PAGED_COLLAPSE=0`` keeps it paged);
+        anything else as it is."""
+        if not binned.is_paged:
+            return binned
+        res = binned.resident_binned(self.device)
+        return binned if res is None else res
+
+    def _binned_for_walk(self, st: Dict[str, Any]):
+        """The bins a matrix without raw values (built from an iterator)
+        walks new trees over: its training bins, or, for an evaluation
+        set, its bins when they share the training matrix's cuts (the
+        trees' split bins index those). None: walk raw (or representative)
+        values through K1, as for a loaded model, which has no training
+        cuts."""
+        dm = st["dm"]
+        if dm.X is not None:
+            return None
+        if st["binned"] is not None:
+            return st["binned"]
+        train = [c["binned"].cuts for c in self._caches.values()
+                 if c["is_train"] and c["binned"] is not None]
+        if not train:
+            return None
+        binned = dm.binned(self.tree_param.max_bin, self.device)
+        cuts = binned.cuts
+        if not (np.array_equal(cuts.ptrs, train[0].ptrs)
+                and np.array_equal(cuts.values, train[0].values)):
+            raise ValueError(
+                "this matrix was quantized from an iterator with other cuts "
+                "than the training matrix; build it with "
+                "QuantileDMatrix(..., ref=<the training matrix>)")
+        st["binned"] = self._collapse_paged_if_fits(binned)
+        return st["binned"]
+
     def _walk_trees(self, st: Dict[str, Any], lo: int, hi: int
                     ) -> torch.Tensor:
         """Margin contribution [n, G] of trees [lo, hi) on the cached
-        matrix, through the packed walk (kernel K1 on the card)."""
+        matrix: over its bins when it keeps no raw values (and has the
+        training cuts), else through the packed walk (kernel K1 on the
+        card)."""
+        binned = self._binned_for_walk(st)
+        if binned is not None:
+            return self.gbm.margin_delta_binned(binned, lo, hi, self.device)
         if st["X"] is None:
             st["X"] = torch.from_numpy(np.ascontiguousarray(
                 st["dm"].values())).to(self.device)

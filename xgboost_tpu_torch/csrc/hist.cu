@@ -35,6 +35,19 @@
 // adds its rounded values in f32 on the matrix unit, 1,024-row blocks
 // under bf16x2; here the sum is exact and converted once.
 //
+// K2's and K3's `packed_u4` bodies (`_make_int8_kernel(u4=True)` and
+// `_make_kernel(u4=True)`, which read each feature's row of a packed block
+// through `_u4_row`, histogram.py:62) are the same kernels over a u4-packed
+// page, the external-memory tier's compressed transport (bin ids < 16):
+// bins [n, W = ceil(F/2)] bytes, feature f in byte f >> 1 of its row, the
+// low nibble for even f and the high one for odd f (bin_bytes 0, the `U4`
+// bin type below). Only the element load changes, to
+// (bins[row * W + (f >> 1)] >> 4 * (f & 1)) & 0xF; the tiles, the plan
+// (over the logical F) and the sums are the unpacked kernel's, so the
+// result is bit for bit that of the kernel on the unpacked page. Two
+// neighbouring lanes read one byte; a row's bytes are half as many, so
+// the least traffic falls by n * F / 2 bytes.
+//
 // What bounds them: the least traffic is the bins (n*F bytes), the
 // gradients and rel read once and the histogram written once (14 us at
 // 1M x 28, N = 128, on 3.35 TB/s; at 200k rows and N = 512 the 29 MB f32
@@ -238,6 +251,25 @@ struct CoarseBin {
   }
 };
 
+// The bin source of a launch: `BinT` bins [n, F] of 1, 2 or 4 bytes an id,
+// or `U4`, two ids a byte ([n, ceil(F/2)] bytes, feature f in byte f >> 1,
+// the low nibble for even f). load_bin reads feature f of a row.
+struct U4 {
+  unsigned char byte;
+};
+
+template <typename BinT>
+__device__ __forceinline__ unsigned load_bin(const BinT* __restrict__ bins,
+                                             long long row, int F, int f) {
+  return static_cast<unsigned>(bins[row * F + f]);
+}
+
+__device__ __forceinline__ unsigned load_bin(const U4* __restrict__ bins,
+                                             long long row, int F, int f) {
+  const unsigned byte = bins[row * ((F + 1) >> 1) + (f >> 1)].byte;
+  return (byte >> (4 * (f & 1))) & 0xFu;
+}
+
 // K5's advance of one row below the previous level's splits: a row at a
 // node of that level that split reads its bin at the node's split feature
 // and moves to 2p + 1 + go_right (the missing bin goes the default way,
@@ -262,7 +294,8 @@ struct Advance {
     long long p = pos_in[row];
     const long long j = p - lo_prev;
     if (j >= 0 && j < n_prev && __ldg(can_split + j) != 0) {
-      const long long b = bins[row * F + __ldg(feat + j)];
+      const long long b =
+          load_bin(bins, row, F, static_cast<int>(__ldg(feat + j)));
       const bool right = b == missing ? __ldg(dleft + j) == 0
                                       : b > __ldg(thr + j);
       p = 2 * p + 1 + (right ? 1 : 0);
@@ -578,7 +611,7 @@ __device__ __forceinline__ void add_elements(
     for (int u = 0; u < kBatch; ++u) {   // loads
       if (row[u] < 0) continue;
       nodes.at(row[u], row[u], node[u]);
-      bin[u] = static_cast<unsigned>(bins[row[u] * F + f0 + feat[u]]);
+      bin[u] = load_bin(bins, row[u], F, f0 + feat[u]);
       x[u] = pol.raw(row[u]);
     }
 #pragma unroll
@@ -1069,6 +1102,12 @@ cudaError_t run_tiles(const void* bins, int bin_bytes, const int* rel,
   auto* words = reinterpret_cast<typename Pol::Word*>(partial);
   float2* out2 = reinterpret_cast<float2*>(out);
   switch (bin_bytes) {
+    case 0:                                  // u4-packed pages: K2 and K3
+      if constexpr (kFused || kFold) return cudaErrorInvalidValue;
+      else
+        return launch_tiles<U4, Pol, Map, kFused, kFold>(
+            static_cast<const U4*>(bins), rel, adv, pol, map, inv, n, F, B,
+            N, tp, fold, work, words, out2, marks, stream);
     case 1:
       return launch_tiles<uint8_t, Pol, Map, kFused, kFold>(
           static_cast<const uint8_t*>(bins), rel, adv, pol, map, inv, n, F, B,
@@ -1092,7 +1131,8 @@ constexpr Fold kNoFold{nullptr, 0, 0, 0};
 
 }  // namespace
 
-// K2. bins [n, F] (1, 2 or 4 bytes per id), rel [n] int32, q [n, 2] int32,
+// K2. bins [n, F] (bin_bytes 1, 2 or 4 bytes per id; 0: u4-packed,
+// [n, ceil(F/2)] bytes, at most 16 bin slots), rel [n] int32, q [n, 2] int32,
 // inv [2] f32 on the device; plan: the host array of TilePlan's eleven
 // fields that `ops/cuda/hist.py hist_plan` makes; work: int32 scratch of
 // `hist_work_ints` entries; partial: 16-byte aligned 32-bit scratch of
@@ -1111,7 +1151,7 @@ extern "C" int xtt_hist_int8x2(const void* bins, int bin_bytes,
 }
 
 // K3: the same with gpair [n, 2] f32, qscale [2] (2^k) and inv [2] (2^-k)
-// f32.
+// f32 (u4-packed bins too, in each precision).
 extern "C" int xtt_hist_f32(const void* bins, int bin_bytes, const int* rel,
                             const float* gpair, const float* qscale,
                             const float* inv, long long n, int F, int B,

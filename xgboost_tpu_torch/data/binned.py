@@ -1,4 +1,4 @@
-"""Quantized bin matrix resident on the device (resident form only).
+"""Quantized bin matrices: resident on the device, or paged from the host.
 
 The port of the JAX package's ``data/binned.py BinnedMatrix``: a dense
 ``[n_rows, n_features]`` tensor of LOCAL bin ids with a uniform slot
@@ -8,26 +8,48 @@ Bins are uint8 while the largest id fits a byte and uint16 above, the
 layout policy of ``_matrix_layout`` / ``_dtype_for`` (so 256 real bins
 plus a missing slot is uint16). Binning runs on the device:
 ``torch.searchsorted(side="left")`` against each feature's cuts, clamped
-into the last real bin, NaN -> the missing bin. Paged external memory
-waits with ROADMAP A.7.
+into the last real bin, NaN -> the missing bin (on the CPU for the
+batches of an iterator).
+
+:class:`PagedBinnedMatrix` is the external-memory tier (the JAX
+package's class of that name, single device): the bins stay in host
+memory (a memmap under the iterator's ``cache_prefix``) and stream to
+the device in row pages through an HBM page cache and a prefetch ring
+(module docstring of ``tree/paged.py``).
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
+import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .quantile import HistogramCuts
 
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.uint16): torch.uint16,
+                 np.dtype(np.int32): torch.int32}
+
+
+def np_dtype_for(max_local_bins: int) -> np.dtype:
+    """The smallest of uint8 / uint16 / int32 that holds the bin ids."""
+    if max_local_bins <= np.iinfo(np.uint8).max:
+        return np.dtype(np.uint8)
+    if max_local_bins <= np.iinfo(np.uint16).max:
+        return np.dtype(np.uint16)
+    return np.dtype(np.int32)
+
 
 def _dtype_for(max_local_bins: int) -> torch.dtype:
-    if max_local_bins <= np.iinfo(np.uint8).max:
-        return torch.uint8
-    if max_local_bins <= np.iinfo(np.uint16).max:
-        return torch.uint16
-    return torch.int32
+    return _TORCH_DTYPES[np_dtype_for(max_local_bins)]
 
 
 def padded_cuts(cuts: HistogramCuts) -> np.ndarray:
@@ -57,6 +79,22 @@ def search_bin(X: torch.Tensor, cuts: HistogramCuts,
     return b.t()
 
 
+def values_of_bins(local: np.ndarray, cuts: HistogramCuts) -> np.ndarray:
+    """Representative feature values [n, F] f32 of host bin ids (each
+    bin's upper cut; NaN at the missing slot): what an iterator-built
+    matrix, which keeps no raw values, predicts on (the JAX package's
+    ``_values_page``)."""
+    ptrs = np.asarray(cuts.ptrs[:-1], np.int64)
+    vals = np.asarray(cuts.values, np.float32)
+    n_real = cuts.n_real_bins().astype(np.int64)
+    local = np.asarray(local, np.int64)
+    gb = np.clip(ptrs[None, :] + np.minimum(local, n_real - 1), 0,
+                 len(vals) - 1)
+    page = vals[gb]
+    page[local >= n_real[None, :]] = np.nan
+    return page
+
+
 @dataclass
 class BinnedMatrix:
     """Quantized feature matrix resident on the device.
@@ -76,6 +114,10 @@ class BinnedMatrix:
     def missing_bin(self) -> int:
         return self.max_nbins - 1 if self.has_missing else self.max_nbins
 
+    @property
+    def shape(self):
+        return tuple(self.bins.shape)
+
     @staticmethod
     def from_dense(X: np.ndarray, cuts: HistogramCuts,
                    device: torch.device) -> "BinnedMatrix":
@@ -89,3 +131,373 @@ class BinnedMatrix:
         bins = b.to(_dtype_for(max(max_nbins - 1, 0))).contiguous()
         return BinnedMatrix(bins=bins, cuts=cuts, max_nbins=max_nbins,
                             has_missing=has_missing)
+
+    is_paged = False
+
+    @staticmethod
+    def from_local_bins(local: np.ndarray, cuts: HistogramCuts,
+                        max_nbins: int, has_missing: bool,
+                        device: torch.device) -> "BinnedMatrix":
+        """Host bin ids (missing already at ``max_nbins - 1``) copied to
+        ``device``."""
+        bins = torch.from_numpy(np.ascontiguousarray(local)).to(device)
+        return BinnedMatrix(bins=bins, cuts=cuts, max_nbins=max_nbins,
+                            has_missing=has_missing)
+
+
+def _pack_into(arr: np.ndarray, out: np.ndarray) -> None:
+    """u4-pack the bin ids ``arr`` [p, F] (each < 16) into ``out``
+    [p, ceil(F/2)] uint8: byte w = feature 2w | feature 2w+1 << 4, the
+    high nibble of the last byte zero when F is odd."""
+    F = arr.shape[1]
+    h = F // 2
+    np.bitwise_or(arr[:, 0:2 * h:2], arr[:, 1:2 * h:2] << 4, out=out[:, :h])
+    if F % 2:
+        out[:, h] = arr[:, F - 1]
+
+
+class _Staging:
+    """The ring's device side: ``depth`` pinned host buffers of one page
+    each, the copy stream, and the CUDA event of each buffer's last
+    copy."""
+
+    def __init__(self, depth: int, nbytes: int, device: torch.device) -> None:
+        self.bufs = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(depth)]
+        self.events: List[Optional[torch.cuda.Event]] = [None] * depth
+        self.stream = torch.cuda.Stream(device)
+
+
+@dataclass(eq=False)
+class PagedBinnedMatrix:
+    """Quantized matrix in HOST memory (numpy array or memmap), streamed
+    to one device in row pages: the training counterpart of the
+    reference's external-memory ``SparsePageDMatrix``, whose pages reach
+    the updater through a prefetch ring
+    (``src/data/sparse_page_source.h:180-200``). Per-row vectors
+    (gradients, positions, margins) stay on the device.
+
+    The page cache (``XTPU_PAGE_CACHE_BYTES``, default 4 GiB): a page
+    uploaded on its first visit stays on the device while the cache
+    holds fewer than ``budget // page_nbytes()`` pages; the others
+    upload on every visit. The cache fills in page order and never
+    evicts, so its pages are a prefix and ``cached + streamed`` is page
+    order under every budget: a pass adds its pages' histograms in the
+    same order whatever the budget.
+
+    Compressed transport (``XTPU_PAGE_PACK``, default on): at
+    ``max_nbins <= 16`` with uint8 bins a page ships and caches u4-packed,
+    [p, ceil(F/2)] bytes (:meth:`_pack_host`); the histogram kernels read
+    the packed page themselves and other consumers decode it
+    (:meth:`decode_page`).
+
+    The prefetch ring (``XTPU_PAGE_RING`` pages ahead, default 3): one
+    worker thread reads each streamed page from host memory, packs it if
+    needed, and, on the card, copies it through a pinned staging buffer
+    on a copy stream, the buffer refilled only after its last copy's
+    event; the consumer's stream waits on that event. On the CPU the
+    ring yields tensors made straight from numpy.
+
+    ``ring_stats``: ``upload_s`` (the worker's wall time reading and
+    packing pages and, on the card, queueing their copies), ``blocked_s``
+    (the consumer's wall time waiting for a page), ``uploads`` and
+    ``bytes`` (pages and transport bytes shipped); reset with
+    :meth:`reset_ring_stats`."""
+
+    bins_host: np.ndarray
+    cuts: HistogramCuts
+    max_nbins: int
+    has_missing: bool = True
+    page_rows: int = 1_000_000
+    cache_budget_bytes: int = -1      # -1: XTPU_PAGE_CACHE_BYTES or 4 GiB
+
+    is_paged = True
+
+    def __post_init__(self) -> None:
+        # per device: {page start: (page end, device page)}
+        self._device_cache: Dict[str, Dict[int, Tuple[int, torch.Tensor]]] = {}
+        self._staging: Dict[str, _Staging] = {}
+        self._resident: Optional[Tuple[str, BinnedMatrix]] = None
+        self._stats_lock = threading.Lock()
+        self.ring_stats = {"upload_s": 0.0, "blocked_s": 0.0, "uploads": 0,
+                           "bytes": 0}
+        if self.cache_budget_bytes < 0:
+            self.set_cache_budget()
+        self.packed = (os.environ.get("XTPU_PAGE_PACK", "1") != "0"
+                       and self.max_nbins <= 16
+                       and self.bins_host.dtype == np.uint8)
+        self.ring_depth = max(1, int(os.environ.get("XTPU_PAGE_RING", 3)))
+
+    # -- geometry -------------------------------------------------------------
+    @property
+    def n_rows(self) -> int:
+        return self.bins_host.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.bins_host.shape[1]
+
+    @property
+    def shape(self):
+        return self.bins_host.shape
+
+    @property
+    def missing_bin(self) -> int:
+        return self.max_nbins - 1 if self.has_missing else self.max_nbins
+
+    def n_real_bins(self) -> np.ndarray:
+        return np.asarray(self.cuts.n_real_bins())
+
+    def n_pages(self) -> int:
+        return max(-(-self.n_rows // self.page_rows), 1)
+
+    def page_width(self) -> int:
+        """Columns of a page in transport layout: ceil(F/2) packed."""
+        return (self.n_features + 1) // 2 if self.packed else self.n_features
+
+    def page_nbytes(self) -> int:
+        """Device (and host-to-device) bytes of one full page in transport
+        layout."""
+        return (self.page_rows * self.page_width()
+                * self.bins_host.dtype.itemsize)
+
+    # -- pages ----------------------------------------------------------------
+    @staticmethod
+    def _pack_host(arr: np.ndarray) -> np.ndarray:
+        """u4-pack a host page along the feature axis: byte w = feature 2w
+        (low nibble) | feature 2w+1 << 4; an odd F pads a zero column."""
+        out = np.empty((arr.shape[0], (arr.shape[1] + 1) // 2), np.uint8)
+        _pack_into(arr, out)
+        return out
+
+    def decode_page(self, page: torch.Tensor) -> torch.Tensor:
+        """A page in transport layout -> its [p, F] bin ids, for consumers
+        other than the histogram kernels (the resident collapse, the
+        margin walk over bins)."""
+        if not self.packed:
+            return page
+        from ..ops.histogram import unpack_u4
+
+        return unpack_u4(page, self.n_features)
+
+    def _host_page(self, s: int, e: int, out: Optional[np.ndarray] = None
+                   ) -> np.ndarray:
+        """Rows [s, e) in transport layout, into ``out`` when given."""
+        src = self.bins_host[s:e]
+        if out is None:
+            return (self._pack_host(src) if self.packed
+                    else np.ascontiguousarray(src))
+        if self.packed:
+            _pack_into(src, out)
+        else:
+            np.copyto(out, src)
+        return out
+
+    @staticmethod
+    def _key(device: torch.device) -> str:
+        """One name for a device however it is spelled ("cuda" and a
+        tensor's "cuda:0" name the same card)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return str(device)
+
+    def _cache(self, device: torch.device):
+        return self._device_cache.setdefault(self._key(device), {})
+
+    def set_cache_budget(self, nbytes: Optional[int] = None) -> None:
+        """A new page-cache budget (None: ``XTPU_PAGE_CACHE_BYTES``, or
+        4 GiB); the cached pages are dropped, and the next pass fills the
+        cache anew in page order."""
+        if nbytes is None:
+            nbytes = int(os.environ.get("XTPU_PAGE_CACHE_BYTES", 4 << 30))
+        self.cache_budget_bytes = int(nbytes)
+        self._device_cache.clear()
+        self._resident = None
+
+    def reset_ring_stats(self) -> None:
+        self.ring_stats.update(upload_s=0.0, blocked_s=0.0, uploads=0,
+                               bytes=0)
+
+    def streaming_overlap(self) -> Optional[float]:
+        """The share of upload time hidden behind the consumer since the
+        last :meth:`reset_ring_stats`, ``max(0, 1 - blocked / upload)``;
+        None before any upload."""
+        up = self.ring_stats["upload_s"]
+        if up <= 0:
+            return None
+        return max(0.0, 1.0 - self.ring_stats["blocked_s"] / up)
+
+    def _fetch(self, s: int, slot: int, device: torch.device):
+        """(start, (end, page), uploaded, bytes) of the page at ``s``: the
+        cached page, or an upload through staging buffer ``slot``."""
+        e = min(s + self.page_rows, self.n_rows)
+        hit = self._cache(device).get(s)
+        if hit is not None:
+            return s, hit, False, 0
+        shape = (e - s, self.page_width())
+        if device.type != "cuda":
+            page = torch.from_numpy(self._host_page(s, e))
+            return s, (e, page), True, page.numel() * page.element_size()
+        st = self._staging.get(self._key(device))
+        if st is None:
+            st = self._staging[self._key(device)] = _Staging(
+                self.ring_depth, self.page_nbytes(), device)
+        nbytes = shape[0] * shape[1] * self.bins_host.dtype.itemsize
+        ev = st.events[slot]
+        if ev is not None:
+            ev.synchronize()        # the buffer's last copy has completed
+        host = st.bufs[slot][:nbytes]
+        self._host_page(s, e, host.numpy().view(self.bins_host.dtype)
+                        .reshape(shape))
+        with torch.cuda.device(device), torch.cuda.stream(st.stream):
+            raw = torch.empty(nbytes, dtype=torch.uint8, device=device)
+            raw.copy_(host, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(st.stream)
+        st.events[slot] = ev
+        page = raw.view(_TORCH_DTYPES[self.bins_host.dtype]).view(shape)
+        return s, (e, page, ev), True, nbytes
+
+    def _ring(self, starts: List[int], device: torch.device):
+        """(start, end, page) of ``starts`` in order: cached pages straight
+        from the device, the others uploaded ``ring_depth`` pages ahead by
+        one worker thread; uploaded pages join the cache while it holds
+        fewer than ``cache_budget_bytes // page_nbytes()``. On the card the
+        consumer's stream waits on each upload's event, and the page is
+        recorded on that stream (the caching allocator keeps its memory
+        until the stream's work on it is done)."""
+        self._resident = None      # streaming supersedes a collapse
+        cache = self._cache(device)
+        page_bytes = self.page_nbytes()
+        max_cached = self.cache_budget_bytes // page_bytes if page_bytes else 0
+        stats = self.ring_stats
+        depth = self.ring_depth
+
+        def timed_fetch(s, slot):
+            t0 = time.perf_counter()
+            out = self._fetch(s, slot, device)
+            if out[2]:
+                with self._stats_lock:
+                    stats["upload_s"] += time.perf_counter() - t0
+                    stats["uploads"] += 1
+                    stats["bytes"] += out[3]
+            return out
+
+        with ThreadPoolExecutor(1) as ex:
+            pending = deque(ex.submit(timed_fetch, s, i % depth)
+                            for i, s in enumerate(starts[:depth]))
+            for i in range(len(starts)):
+                t0 = time.perf_counter()
+                s, payload, uploaded, _ = pending.popleft().result()
+                if uploaded:
+                    with self._stats_lock:
+                        stats["blocked_s"] += time.perf_counter() - t0
+                if i + depth < len(starts):
+                    pending.append(ex.submit(timed_fetch, starts[i + depth],
+                                             (i + depth) % depth))
+                if uploaded and device.type == "cuda":
+                    e, page, ev = payload
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(ev)
+                    page.record_stream(stream)
+                    payload = (e, page)
+                if uploaded and len(cache) < max_cached:
+                    cache[s] = payload
+                yield s, payload[0], payload[1]
+
+    def stream_pages(self, starts: List[int], device: torch.device):
+        """(start, end, device page) for the page ``starts`` through the
+        ring, pages in transport layout."""
+        if not starts or self.n_rows == 0:
+            return
+        yield from self._ring(list(starts), device)
+
+    def pages(self, device: torch.device):
+        """(start, end, device page) of every page, in order."""
+        yield from self.stream_pages(
+            list(range(0, self.n_rows, self.page_rows)), device)
+
+    def cached_split(self, device: torch.device):
+        """``(cached, streamed)``: [(start, end, page)] of the pages in the
+        device's cache and the starts of the pages that upload this visit;
+        a prefix and the rest, so together they are in page order."""
+        cache = self._cache(device)
+        cached, streamed = [], []
+        for s in range(0, self.n_rows, self.page_rows):
+            hit = cache.get(s)
+            if hit is None:
+                streamed.append(s)
+            else:
+                cached.append((s, hit[0], hit[1]))
+        return cached, streamed
+
+    def cached_pages(self, device: torch.device) -> int:
+        return len(self._cache(device))
+
+    def resident_binned(self, device: torch.device) -> Optional[BinnedMatrix]:
+        """A device-resident :class:`BinnedMatrix` of this matrix when all
+        of it fits the page-cache budget (and ``XTPU_PAGED_COLLAPSE`` is
+        not ``0``), else None. Pages copy into one preallocated buffer one
+        at a time, each cache entry freed after its copy, so the peak is
+        about the matrix plus one page. Only a device allocation failure
+        (``torch.cuda.OutOfMemoryError``) is caught: it warns and the
+        matrix keeps streaming on the same device."""
+        if (self.bins_host.nbytes > self.cache_budget_bytes
+                or os.environ.get("XTPU_PAGED_COLLAPSE") == "0"
+                or self.n_rows == 0):
+            return None
+        key = self._key(device)
+        if self._resident is None or self._resident[0] != key:
+            cache = self._cache(device)
+            bins = None
+            try:
+                for s, e, page in self.pages(device):
+                    page = self.decode_page(page)
+                    if bins is None:
+                        bins = torch.empty((self.n_rows, self.n_features),
+                                           dtype=page.dtype, device=device)
+                    bins[s:e] = page
+                    cache.pop(s, None)
+            except torch.cuda.OutOfMemoryError as exc:
+                warnings.warn(f"resident collapse of the paged matrix failed "
+                              f"({exc}); it keeps streaming", stacklevel=2)
+                cache.clear()
+                return None
+            cache.clear()
+            self._resident = (key, BinnedMatrix(
+                bins=bins, cuts=self.cuts, max_nbins=self.max_nbins,
+                has_missing=self.has_missing))
+        return self._resident[1]
+
+    # -- host values ----------------------------------------------------------
+    def _values_page(self, s: int) -> np.ndarray:
+        """Representative feature values of one host page (NaN missing)."""
+        return values_of_bins(self.bins_host[s:s + self.page_rows], self.cuts)
+
+    def to_values_host(self) -> np.ndarray:
+        """Representative feature values [n, F] f32 from the bin ids, page
+        by page on the host."""
+        out = np.empty((self.n_rows, self.n_features), np.float32)
+        for s in range(0, self.n_rows, self.page_rows):
+            page = self._values_page(s)
+            out[s:s + page.shape[0]] = page
+        return out
+
+    # -- not in the port yet --------------------------------------------------
+    def mesh_layout(self, *args, **kwargs):
+        raise NotImplementedError(
+            "paged matrices over a device mesh are not in the PyTorch port "
+            "yet (ROADMAP A.8)")
+
+    pages_sharded = stream_pages_sharded = cached_split_mesh = mesh_layout
+
+    def resketch(self, *args, **kwargs):
+        raise NotImplementedError(
+            "tree_method='approx' (resketching a paged matrix) is not in "
+            "the PyTorch port yet (ROADMAP A.5.8)")
+
+    def append_rows(self, X: np.ndarray) -> None:
+        raise NotImplementedError(
+            "appending rows to a paged matrix is not in the PyTorch port "
+            "yet (ROADMAP A.7)")

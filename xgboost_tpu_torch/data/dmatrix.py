@@ -1,18 +1,35 @@
-"""A dense in-memory data matrix (reference ``SimpleDMatrix``): numpy
-input, ``missing`` mapped to NaN, labels, sample weights, feature names,
-a per-row base margin, and its quantized form for training, built once
-per ``(max_bin, device)`` and cached."""
+"""Data matrices: a dense in-memory matrix (reference ``SimpleDMatrix``),
+and matrices built from a :class:`DataIter` (reference
+``IterativeDMatrix`` / ``SparsePageDMatrix``).
+
+A :class:`DMatrix` made from numpy keeps its raw values (``missing``
+mapped to NaN), labels, sample weights, feature names and a per-row
+base margin, and its quantized form for training, built once per
+``(max_bin, device)`` and cached. One made from a :class:`DataIter`
+(the JAX package's ``DMatrix._init_from_iter``) never holds the raw
+matrix whole: pass 1 sketches each batch (sampled to a quarter of
+``SKETCH_SAMPLE_ROWS`` when unweighted) and merges the summaries; pass
+2 bins each batch into a preallocated host array, or, under the
+iterator's ``cache_prefix``, a memmap at ``<cache_prefix>.bins`` that
+trains as a :class:`~.binned.PagedBinnedMatrix` (external memory) in
+pages of ``XTPU_PAGE_ROWS`` rows (default 1,000,000). Such a matrix is
+quantized once, at ``max_bin``; training asks for the same ``max_bin``.
+"""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from .binned import BinnedMatrix
-from .quantile import sketch_matrix
+from .binned import (BinnedMatrix, PagedBinnedMatrix, np_dtype_for,
+                     search_bin, values_of_bins)
+from .quantile import (FeatureSummary, HistogramCuts, cuts_from_summaries,
+                       sketch_matrix)
+from . import quantile
 
 
 @dataclass
@@ -31,44 +48,99 @@ def _rows(name: str, value: Any, n: int) -> np.ndarray:
     return arr
 
 
+def _dense(data: Any, missing: float) -> np.ndarray:
+    """[n, F] f32 with ``missing`` mapped to NaN."""
+    X = np.asarray(data, dtype=np.float32)
+    if X.ndim == 1:
+        X = X[:, None]
+    if X.ndim != 2:
+        raise ValueError(f"expected a 2-D matrix, got shape {X.shape}")
+    if missing is not None and not np.isnan(missing):
+        X = X.copy()
+        X[X == missing] = np.nan
+    return X
+
+
+class DataIter:
+    """External-memory data iterator (reference ``DataIter``): a subclass
+    implements ``next(input_data)``, which calls ``input_data(data=...,
+    label=..., weight=..., base_margin=...)`` for one batch and returns
+    1, or returns 0 at the end, and ``reset()``. ``cache_prefix`` asks
+    for the external-memory tier: the bins in a memmap at
+    ``<cache_prefix>.bins``, streamed to the device in pages."""
+
+    def __init__(self, cache_prefix: Optional[str] = None) -> None:
+        self.cache_prefix = cache_prefix
+
+    def next(self, input_data) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def reset(self) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def collect(self) -> Iterator[dict]:
+        """Drive the callback protocol from a reset, yielding each batch's
+        keyword dict; resets again at the end."""
+        self.reset()
+        while True:
+            batches: List[dict] = []
+            if not self.next(lambda **kw: batches.append(kw)):
+                break
+            yield from batches
+        self.reset()
+
+
+_UNPORTED_BATCH_KEYS = ("qid", "group", "label_lower_bound",
+                        "label_upper_bound")
+
+
 class DMatrix:
-    """Dense float32 feature matrix with NaN for missing entries."""
+    """Dense float32 feature matrix with NaN for missing entries, or a
+    matrix built from a :class:`DataIter` (module docstring)."""
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
-                 feature_names: Optional[List[str]] = None) -> None:
-        X = np.asarray(data, dtype=np.float32)
-        if X.ndim == 1:
-            X = X[:, None]
-        if X.ndim != 2:
-            raise ValueError(f"expected a 2-D matrix, got shape {X.shape}")
-        if missing is not None and not np.isnan(missing):
-            X = X.copy()
-            X[X == missing] = np.nan
-        self.X = X
+                 feature_names: Optional[List[str]] = None,
+                 max_bin: int = 256) -> None:
+        self._binned: Dict[tuple, BinnedMatrix] = {}
+        self._cuts: Dict[int, HistogramCuts] = {}
+        # iterator-built: the host bins (array, or paged) and their max_bin
+        self._quantized = None
+        self._max_bin: Optional[int] = None
+        if isinstance(data, DataIter):
+            self._init_from_iter(data, max_bin, None, missing,
+                                 data.cache_prefix)
+            return
+        self.X: Optional[np.ndarray] = _dense(data, missing)
+        self._n_rows = self.X.shape[0]
         self.info = MetaInfo()
         self.feature_names = feature_names
         n = self.num_row()
         if label is not None:
-            lab = _rows("label", label, n)
-            if lab.ndim == 2 and lab.shape[1] == 1:
-                lab = lab[:, 0]
-            if lab.ndim != 1:
-                raise NotImplementedError(
-                    "multi-target labels are not in the PyTorch port yet "
-                    "(ROADMAP A.5.7)")
-            self.info.labels = lab
+            self.info.labels = self._labels(label, n)
         if weight is not None:
             self.info.weights = _rows("weight", weight, n)
         if base_margin is not None:
             self.info.base_margin = _rows("base_margin", base_margin, n)
-        self._binned: dict = {}
+
+    @staticmethod
+    def _labels(label: Any, n: int) -> np.ndarray:
+        lab = _rows("label", label, n)
+        if lab.ndim == 2 and lab.shape[1] == 1:
+            lab = lab[:, 0]
+        if lab.ndim != 1:
+            raise NotImplementedError(
+                "multi-target labels are not in the PyTorch port yet "
+                "(ROADMAP A.5.7)")
+        return lab
 
     def num_row(self) -> int:
-        return self.X.shape[0]
+        return self._n_rows
 
     def num_col(self) -> int:
-        return self.X.shape[1]
+        if self.X is not None:
+            return self.X.shape[1]
+        return self._quantized.shape[1]
 
     @property
     def feature_names(self) -> Optional[List[str]]:
@@ -86,18 +158,169 @@ class DMatrix:
                 raise ValueError("feature_names must be unique")
         self.info.feature_names = names
 
-    def values(self) -> np.ndarray:
-        """The raw [n, F] float32 features, NaN where missing."""
-        return self.X
+    @property
+    def is_paged(self) -> bool:
+        """Built from an iterator with a ``cache_prefix``: the bins stay in
+        host memory and stream to the device in pages."""
+        return isinstance(self._quantized, PagedBinnedMatrix)
 
-    def binned(self, max_bin: int, device: torch.device) -> BinnedMatrix:
-        """The quantized matrix on ``device``, sketched here, built once
-        and cached."""
+    def values(self) -> np.ndarray:
+        """The raw [n, F] float32 features, NaN where missing; for an
+        iterator-built matrix, which keeps no raw values, each bin's
+        representative value (its upper cut), page by page on the host."""
+        if self.X is not None:
+            return self.X
+        if self.is_paged:
+            return self._quantized.to_values_host()
+        return values_of_bins(self._quantized, self._cuts[self._max_bin])
+
+    def cuts(self, max_bin: int) -> HistogramCuts:
+        """The cuts this matrix bins with at ``max_bin`` (sketched once)."""
+        if self._quantized is not None:
+            self._require_max_bin(max_bin)
+        elif max_bin not in self._cuts:
+            self._cuts[max_bin] = sketch_matrix(
+                self.X, max_bin, self.info.weights, self.info.feature_types)
+        return self._cuts[max_bin]
+
+    def _require_max_bin(self, max_bin: int) -> None:
+        if max_bin != self._max_bin:
+            raise ValueError(
+                f"this matrix was quantized from an iterator at max_bin="
+                f"{self._max_bin}; train it with max_bin={self._max_bin}, "
+                f"or rebuild it at max_bin={max_bin}")
+
+    def binned(self, max_bin: int, device: torch.device):
+        """The quantized matrix for training on ``device``: a
+        :class:`~.binned.PagedBinnedMatrix` (host memory) when paged, else
+        a :class:`~.binned.BinnedMatrix` on ``device``, built once and
+        cached."""
+        if self.is_paged:
+            self._require_max_bin(max_bin)
+            return self._quantized
         key = (max_bin, str(device))
         bm = self._binned.get(key)
         if bm is None:
-            cuts = sketch_matrix(self.X, max_bin, self.info.weights,
-                                 self.info.feature_types)
-            bm = BinnedMatrix.from_dense(self.X, cuts, device)
+            if self._quantized is not None:
+                self._require_max_bin(max_bin)
+                q = self._quantized
+                bm = BinnedMatrix.from_local_bins(
+                    q, self._cuts[max_bin], self._max_nbins,
+                    self._has_missing, device)
+            else:
+                bm = BinnedMatrix.from_dense(self.X, self.cuts(max_bin),
+                                             device)
             self._binned[key] = bm
         return bm
+
+    def _init_from_iter(self, it: DataIter, max_bin: int,
+                        ref: Optional["DMatrix"], missing: float,
+                        cache_prefix: Optional[str]) -> None:
+        """The two passes over ``it`` (module docstring); ``ref``: take its
+        cuts at ``max_bin`` instead of sketching."""
+        labels, weights, margins = [], [], []
+        summaries: Optional[List[FeatureSummary]] = None
+        n_rows = n_feat = 0
+        has_missing = False
+        feature_names = None
+        cap = quantile.SKETCH_SAMPLE_ROWS // 4
+        for batch in it.collect():
+            for key in _UNPORTED_BATCH_KEYS:
+                if batch.get(key) is not None:
+                    raise NotImplementedError(
+                        f"iterator batches with {key!r} are not in the "
+                        "PyTorch port yet (ROADMAP A.5.11)")
+            types = batch.get("feature_types")
+            if types is not None and "c" in types:
+                raise NotImplementedError(
+                    "categorical features are not in the PyTorch port yet "
+                    "(ROADMAP A.5.5)")
+            X = _dense(batch["data"], missing)
+            n_rows += X.shape[0]
+            n_feat = X.shape[1]
+            has_missing = has_missing or bool(np.isnan(X).any())
+            if batch.get("feature_names") is not None:
+                feature_names = list(batch["feature_names"])
+            for key, dest in (("label", labels), ("weight", weights),
+                              ("base_margin", margins)):
+                if batch.get(key) is not None:
+                    dest.append(np.asarray(batch[key], dtype=np.float32))
+            if ref is None:
+                bw = batch.get("weight")
+                ws = None if bw is None else np.asarray(bw, np.float64)
+                Xs = X
+                if bw is None and cap and X.shape[0] > cap:
+                    Xs = X[::-(-X.shape[0] // cap)]
+                part = [FeatureSummary.from_data(Xs[:, f], ws)
+                        for f in range(Xs.shape[1])]
+                summaries = part if summaries is None else [
+                    a.merge(b).prune(max_bin * 8)
+                    for a, b in zip(summaries, part)]
+        self.X = None
+        self._n_rows = n_rows
+        self.info = MetaInfo()
+        if labels:
+            self.info.labels = self._labels(np.concatenate(labels), n_rows)
+        if weights:
+            self.info.weights = _rows("weight", np.concatenate(weights),
+                                      n_rows)
+        if margins:
+            self.info.base_margin = _rows(
+                "base_margin", np.concatenate(margins), n_rows)
+        cuts = (ref.cuts(max_bin) if ref is not None
+                else cuts_from_summaries(summaries or [], max_bin))
+
+        # pass 2: bin each batch into one preallocated host matrix
+        max_nbins = int(cuts.n_real_bins().max(initial=0)) + int(has_missing)
+        dtype = np_dtype_for(max(max_nbins - 1, 0))
+        if cache_prefix:
+            local = np.memmap(f"{cache_prefix}.bins", mode="w+",
+                              dtype=dtype, shape=(n_rows, n_feat))
+        else:
+            local = np.empty((n_rows, n_feat), dtype)
+        row = 0
+        for batch in it.collect():
+            X = _dense(batch["data"], missing)
+            local[row:row + X.shape[0]] = search_bin(
+                torch.from_numpy(np.ascontiguousarray(X)), cuts,
+                max_nbins - 1).numpy()
+            row += X.shape[0]
+        if row != n_rows:
+            raise ValueError(f"the iterator gave {row} rows in its second "
+                             f"pass, {n_rows} in its first")
+        self._cuts[max_bin] = cuts
+        self._max_bin = max_bin
+        self._max_nbins = max_nbins
+        self._has_missing = has_missing
+        if cache_prefix:
+            self._quantized = PagedBinnedMatrix(
+                bins_host=local, cuts=cuts, max_nbins=max_nbins,
+                has_missing=has_missing,
+                page_rows=max(int(os.environ.get("XTPU_PAGE_ROWS",
+                                                 1_000_000)), 1))
+        else:
+            self._quantized = local
+        self.feature_names = feature_names
+
+
+class QuantileDMatrix(DMatrix):
+    """A matrix quantized at ``max_bin`` when it is made (reference
+    ``QuantileDMatrix``): from a :class:`DataIter` (two passes, the raw
+    values not kept) or from an array; ``ref``: another matrix whose cuts
+    it bins with (a validation set shares the training set's cuts)."""
+
+    def __init__(self, data: Any, label: Any = None, *, max_bin: int = 256,
+                 ref: Optional[DMatrix] = None, missing: float = np.nan,
+                 weight: Any = None, base_margin: Any = None,
+                 feature_names: Optional[List[str]] = None) -> None:
+        self.max_bin = max_bin
+        if isinstance(data, DataIter):
+            self._binned, self._cuts = {}, {}
+            self._quantized, self._max_bin = None, None
+            self._init_from_iter(data, max_bin, ref, missing,
+                                 data.cache_prefix)
+            return
+        super().__init__(data, label, weight=weight, base_margin=base_margin,
+                         missing=missing, feature_names=feature_names)
+        if ref is not None:
+            self._cuts[max_bin] = ref.cuts(max_bin)

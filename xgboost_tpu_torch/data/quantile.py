@@ -3,7 +3,10 @@
 The port of the JAX package's ``data/quantile.py`` numpy path (reference
 ``src/common/quantile.h``, ``src/common/hist_util.cc:32-69``): per-feature
 weighted summaries (sorted unique values and their total weight) cut at
-evenly spaced weighted ranks into at most ``max_bin`` real bins. The JAX
+evenly spaced weighted ranks into at most ``max_bin`` real bins. An
+iterator-built matrix sketches batch by batch and merges the summaries,
+each merge pruned to ``8 * max_bin`` entries (``FeatureSummary.merge`` /
+``prune``, reference ``WQSummary::Prune``). The JAX
 package may route the same computation through its native C++ sketch,
 which it documents as giving the same cuts; the port keeps only the
 numpy path.
@@ -15,6 +18,7 @@ uniform slot count with a trailing missing slot.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -57,6 +61,37 @@ class FeatureSummary:
             uniq, wsum = _sorted_unique_sums(
                 v[order], weights[mask].astype(np.float64)[order])
         return FeatureSummary(uniq, wsum)
+
+    def merge(self, other: "FeatureSummary") -> "FeatureSummary":
+        """The union of two summaries: equal values' weights added."""
+        if self.values.size == 0:
+            return other
+        if other.values.size == 0:
+            return self
+        v = np.concatenate([self.values, other.values])
+        w = np.concatenate([self.weights, other.weights])
+        order = np.argsort(v)
+        return FeatureSummary(*_sorted_unique_sums(v[order], w[order]))
+
+    def prune(self, max_size: int) -> "FeatureSummary":
+        """About ``max_size`` entries at evenly spaced weighted ranks, the
+        extremes kept; a dropped entry's weight goes to the kept entry at
+        or after it."""
+        k = self.values.size
+        if k <= max_size:
+            return self
+        cum = np.cumsum(self.weights)
+        ranks = np.linspace(0.0, cum[-1], max_size)
+        idx = np.searchsorted(cum, ranks, side="left")
+        idx = np.unique(np.clip(idx, 0, k - 1))
+        if idx[0] != 0:
+            idx = np.concatenate([[0], idx])
+        if idx[-1] != k - 1:
+            idx = np.concatenate([idx, [k - 1]])
+        seg = np.clip(np.searchsorted(idx, np.arange(k), side="left"), 0,
+                      idx.size - 1)
+        w = np.bincount(seg, weights=self.weights, minlength=idx.size)
+        return FeatureSummary(self.values[idx], w)
 
 
 @dataclass
@@ -168,9 +203,12 @@ def cuts_from_summaries(summaries: Sequence[FeatureSummary], max_bin: int,
 
 # Rows used for quantile sketching of large unweighted matrices: above this
 # the sketch runs on a deterministic strided row sample (the JAX package's
-# default; at 2M sampled rows the order-statistic error is ~0.2 of one
-# 256-bin width). Values above the sampled maximum clamp into the last bin.
-SKETCH_SAMPLE_ROWS = 2_000_000
+# setting and default, ``XTPU_SKETCH_SAMPLE_ROWS``, read once as it is; at
+# 2M sampled rows the order-statistic error is ~0.2 of one 256-bin width).
+# Values above the sampled maximum clamp into the last bin. 0 disables it.
+# An iterator-built matrix samples each batch to a quarter of it.
+SKETCH_SAMPLE_ROWS = int(os.environ.get("XTPU_SKETCH_SAMPLE_ROWS",
+                                        2_000_000))
 
 
 def sketch_matrix(X: np.ndarray, max_bin: int,

@@ -16,7 +16,14 @@ its output once; a split group's items leave integer partials that one
 more kernel adds and converts. K4 folds a node's integer sums into the
 coarse histogram where they meet (:func:`fold_fits`); K5 adds each row
 at its coarse id and advances the rows in the sort's count, or, at a
-level of one group, as the tiles load them (:func:`fused_plan`)."""
+level of one group, as the tiles load them (:func:`fused_plan`).
+
+K2 and K3 also read u4-packed pages (``packed_u4=F``: bins [n,
+ceil(F/2)] uint8, feature f in byte f // 2, the low nibble for even f),
+the external-memory tier's compressed transport; the plan is made over
+the logical F, and the kernel reads a feature's nibble where it read its
+byte. Their launches count under ``hist_int8x2_u4`` / ``hist_f32_u4`` /
+``hist_bf16_u4`` / ``hist_bf16x2_u4``."""
 
 from __future__ import annotations
 
@@ -35,7 +42,9 @@ from . import build
 # to show that the main path went through the kernels)
 LAUNCHES: Dict[str, int] = {"hist_int8x2": 0, "hist_f32": 0, "hist_bf16": 0,
                             "hist_bf16x2": 0, "hist_scan": 0,
-                            "fused_advance_coarse": 0}
+                            "fused_advance_coarse": 0, "hist_int8x2_u4": 0,
+                            "hist_f32_u4": 0, "hist_bf16_u4": 0,
+                            "hist_bf16x2_u4": 0}
 # K3's precisions -> their kernels
 K3_KERNELS = {"f32": "hist_f32", "bf16": "hist_bf16",
               "bf16x2": "hist_bf16x2"}
@@ -44,6 +53,7 @@ _launch_lock = threading.Lock()
 _fns: Dict[str, object] = {}
 _sms: Dict[int, int] = {}
 _BIN_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+U4_BIN_CODE = 0           # csrc/hist.cu: bin_bytes 0 = u4-packed pages
 
 
 def _kernel(name: str):
@@ -87,7 +97,9 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _common(bins: torch.Tensor, n_nodes: int, max_nbins: int):
+def _common(bins: torch.Tensor, n_nodes: int, max_nbins: int,
+            packed_u4: int = 0):
+    """-> (device, rows, logical features, the kernel's bin code)."""
     dev = bins.device
     if dev.type != "cuda":
         raise ValueError(f"the histogram kernels need CUDA tensors, bins "
@@ -97,12 +109,22 @@ def _common(bins: torch.Tensor, n_nodes: int, max_nbins: int):
                         f"{bins.dtype}")
     if bins.dim() != 2:
         raise ValueError(f"bins must be 2-D, got shape {tuple(bins.shape)}")
-    n, F = bins.shape
-    _check("bins", bins, None, dev, (n, F))
+    n, W = bins.shape
+    _check("bins", bins, None, dev, (n, W))
+    F, code = W, _BIN_BYTES[bins.dtype]
+    if packed_u4:
+        F, code = packed_u4, U4_BIN_CODE
+        if bins.dtype != torch.uint8 or W != (F + 1) // 2:
+            raise ValueError(f"u4-packed bins of {F} features must be "
+                             f"[n, {(F + 1) // 2}] uint8, got "
+                             f"{tuple(bins.shape)} {bins.dtype}")
+        if max_nbins > 16:
+            raise ValueError(f"u4-packed bins take at most 16 bin slots, "
+                             f"got {max_nbins}")
     if n_nodes < 1 or max_nbins < 1 or F < 1:
         raise ValueError(f"bad histogram geometry: nodes={n_nodes}, "
                          f"bins={max_nbins}, features={F}")
-    return dev, n, F
+    return dev, n, F, code
 
 
 def _count(name: str) -> None:
@@ -110,8 +132,8 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins):
-    dev, n, F = _common(bins, n_nodes, max_nbins)
+def _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins, packed_u4=0):
+    dev, n, F, code = _common(bins, n_nodes, max_nbins, packed_u4)
     if rel is not None:
         _check("rel", rel, torch.int32, dev, (n,))
     if n * 128 >= 2 ** 31:
@@ -120,7 +142,7 @@ def _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins):
     _check("inv", inv, torch.float32, dev, (2,))
     out = torch.empty((n_nodes, F, max_nbins, 2), dtype=torch.float32,
                       device=dev)
-    return dev, n, F, out
+    return dev, n, F, code, out
 
 
 def _marks(events):
@@ -309,45 +331,53 @@ def _launches(n: int, F: int, B: int, N: int, num_sms: int,
     return tuple(out)
 
 
-def _tiles(name: str, dev: torch.device, bins: torch.Tensor,
+def _tiles(name: str, dev: torch.device, bins: torch.Tensor, code: int,
            rel: torch.Tensor, values: Tuple[int, ...], out: torch.Tensor,
-           tail=None) -> None:
-    """Launch K2, K3 or K4 (``values``: their gradient pointers; ``tail``:
-    K4's further arguments for the chunk at node n0 of nc nodes) once per
-    node chunk of ``out`` [N, F, B, 2]."""
-    n, F = bins.shape
-    N, _, B, _ = out.shape
+           tail=None, count: Optional[str] = None) -> None:
+    """Launch K2, K3 or K4 (``values``: their gradient pointers; ``code``:
+    the bin code, bytes an id or ``U4_BIN_CODE``; ``tail``: K4's further
+    arguments for the chunk at node n0 of nc nodes) once per node chunk
+    of ``out`` [N, F, B, 2] (F the logical features); each launch counts
+    under ``count`` (default ``name``)."""
+    n = bins.shape[0]
+    N, F, B, _ = out.shape
     for n0, nc, host, work, total in _launches(n, F, B, N, _num_sms(dev)):
         r = rel if n0 == 0 else rel - n0
         scratch = torch.empty((total,), dtype=torch.int32, device=dev)
         base = scratch.data_ptr()
-        _launch(name, dev, bins.data_ptr(), _BIN_BYTES[bins.dtype],
+        _launch(name, dev, bins.data_ptr(), code,
                 r.data_ptr(), *values, n, F, B, nc, ctypes.addressof(host),
                 base, base + 4 * work, out[n0:n0 + nc].data_ptr(),
-                *(tail(n0, nc) if tail is not None else ()))
+                *(tail(n0, nc) if tail is not None else ()), count=count)
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, dev: torch.device, *args,
+            count: Optional[str] = None) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _count(name)
+    _count(count or name)
 
 
 def hist_int8x2_cuda(bins: torch.Tensor, q: torch.Tensor, rel: torch.Tensor,
-                     inv: torch.Tensor, n_nodes: int,
-                     max_nbins: int) -> torch.Tensor:
+                     inv: torch.Tensor, n_nodes: int, max_nbins: int,
+                     packed_u4: int = 0) -> torch.Tensor:
     """K2 on the card: [n_nodes, F, max_nbins, 2] f32 from the quantised
     gradients ``q`` [n, 2] int32 and the dequantisation factors ``inv``
     [2] f32 (``ops/histogram.py quantise_int8x2``). Computes
     ``build_hist_int8x2_reference``'s function bit for bit. Replaces the
     TPU kernel ``xgboost_tpu/ops/pallas/histogram.py _make_int8_kernel``.
-    Launches on the current stream and does not synchronise."""
-    dev, _, _, out = _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins)
-    _tiles("hist_int8x2", dev, bins, rel, (q.data_ptr(), inv.data_ptr()),
-           out)
+    ``packed_u4=F``: ``bins`` is a u4-packed page of F features (its
+    ``packed_u4`` body, ``_u4_row``), the function of
+    ``build_hist_int8x2_u4_reference``. Launches on the current stream and
+    does not synchronise."""
+    dev, _, _, code, out = _int8x2_args(bins, q, rel, inv, n_nodes,
+                                        max_nbins, packed_u4)
+    _tiles("hist_int8x2", dev, bins, code, rel,
+           (q.data_ptr(), inv.data_ptr()), out,
+           count="hist_int8x2_u4" if packed_u4 else None)
     return out
 
 
@@ -368,7 +398,8 @@ def hist_scan_cuda(bins: torch.Tensor, q: torch.Tensor, rel: torch.Tensor,
     timing). Replaces the TPU kernel ``xgboost_tpu/ops/pallas/
     histogram.py _make_scan_kernel`` with its ``with_coarse`` fold.
     Launches on the current stream and does not synchronise."""
-    dev, n, F, out = _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins)
+    dev, n, F, code, out = _int8x2_args(bins, q, rel, inv, n_nodes,
+                                        max_nbins)
     coarse = None
     if with_coarse:
         if missing_bin is None or not fold_fits(max_nbins, missing_bin):
@@ -386,8 +417,8 @@ def hist_scan_cuda(bins: torch.Tensor, q: torch.Tensor, rel: torch.Tensor,
         return (max_nbins if missing_bin is None else missing_bin, COARSE_B,
                 shift, dst, marks)
 
-    _tiles("hist_scan", dev, bins, rel, (q.data_ptr(), inv.data_ptr()), out,
-           tail)
+    _tiles("hist_scan", dev, bins, code, rel,
+           (q.data_ptr(), inv.data_ptr()), out, tail)
     return (out, coarse) if with_coarse else out
 
 
@@ -426,7 +457,7 @@ def fused_advance_coarse_cuda(bins: torch.Tensor, q: torch.Tensor,
     none of its own. Replaces the TPU kernel
     ``xgboost_tpu/ops/pallas/histogram.py _make_fused_kernel``. Launches
     on the current stream and does not synchronise."""
-    dev, n, F, out = _int8x2_args(bins, q, None, inv, n_level, COARSE_B)
+    dev, n, F, _, out = _int8x2_args(bins, q, None, inv, n_level, COARSE_B)
     _check("positions", positions, torch.int64, dev, (n,))
     n_prev = prev.feat.shape[0]
     if not 1 <= n_prev <= 64:
@@ -453,7 +484,8 @@ def fused_advance_coarse_cuda(bins: torch.Tensor, q: torch.Tensor,
 
 def hist_f32_cuda(bins: torch.Tensor, gpair: torch.Tensor, rel: torch.Tensor,
                   qscale: torch.Tensor, inv: torch.Tensor, n_nodes: int,
-                  max_nbins: int, precision: str = "f32") -> torch.Tensor:
+                  max_nbins: int, precision: str = "f32",
+                  packed_u4: int = 0) -> torch.Tensor:
     """K3 on the card: [n_nodes, F, max_nbins, 2] f32 from ``gpair``
     [n, 2] f32 through exact int64 fixed point, with ``qscale`` = 2^k and
     ``inv`` = 2^-k ([2] f32 each, ``ops/histogram.py
@@ -462,17 +494,21 @@ def hist_f32_cuda(bins: torch.Tensor, gpair: torch.Tensor, rel: torch.Tensor,
     bf16_parts``). Computes ``build_hist_f32_reference``'s function at
     the same precision bit for bit. Replaces the TPU kernel
     ``xgboost_tpu/ops/pallas/histogram.py _make_kernel`` (its f32, bf16
-    and bf16x2 bodies). Launches on the current stream and does not
-    synchronise."""
+    and bf16x2 bodies). ``packed_u4=F``: ``bins`` is a u4-packed page of
+    F features (the ``packed_u4`` body, in each precision), the function
+    of ``build_hist_f32_u4_reference``. Launches on the current stream
+    and does not synchronise."""
     if precision not in K3_KERNELS:
         raise ValueError(f"unknown K3 precision {precision!r}")
-    dev, n, F = _common(bins, n_nodes, max_nbins)
+    dev, n, F, code = _common(bins, n_nodes, max_nbins, packed_u4)
     _check("rel", rel, torch.int32, dev, (n,))
     _check("gpair", gpair, torch.float32, dev, (n, 2))
     _check("qscale", qscale, torch.float32, dev, (2,))
     _check("inv", inv, torch.float32, dev, (2,))
     out = torch.empty((n_nodes, F, max_nbins, 2), dtype=torch.float32,
                       device=dev)
-    _tiles(K3_KERNELS[precision], dev, bins, rel,
-           (gpair.data_ptr(), qscale.data_ptr(), inv.data_ptr()), out)
+    name = K3_KERNELS[precision]
+    _tiles(name, dev, bins, code, rel,
+           (gpair.data_ptr(), qscale.data_ptr(), inv.data_ptr()), out,
+           count=f"{name}_u4" if packed_u4 else None)
     return out

@@ -68,6 +68,16 @@ coarse-then-refined window; in the port that search is opt-in, as the
 All three sum the same integers (or, through K3, the same int64 fixed
 point), so they grow the same trees bit for bit.
 
+``packed_u4=F`` (the external-memory tier's compressed pages, at most 16
+bin slots): ``bins`` is a u4-packed page [n, ceil(F/2)] uint8 (feature f
+in byte f // 2, the low nibble for even f; :func:`unpack_u4` decodes
+it). On the card K2 and K3 read the packed page themselves (their
+``packed_u4`` bodies); the plain versions unpack it first
+(:func:`build_hist_int8x2_u4_reference`,
+:func:`build_hist_f32_u4_reference`). K4 has no such body in the JAX
+package and ``auto`` never sends at most 16 bins to it, so ``scan`` on a
+packed page raises.
+
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel in
 ``csrc/hist.cu`` runs (``ops/cuda/hist.py``) or the call raises.
 """
@@ -156,6 +166,18 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     raise ValueError(f"unknown hist method {method!r}")
 
 
+# ---- u4-packed pages --------------------------------------------------------
+
+def unpack_u4(packed: torch.Tensor, n_features: int) -> torch.Tensor:
+    """A u4-packed page [p, ceil(F/2)] uint8 -> its [p, F] uint8 bin ids:
+    byte w holds feature 2w in its low nibble and feature 2w+1 in its
+    high nibble (the JAX package's ``unpack_u4``)."""
+    lo = packed & 0x0F
+    hi = packed >> 4
+    out = torch.stack([lo, hi], dim=2).reshape(packed.shape[0], -1)
+    return out[:, :n_features].contiguous()
+
+
 # ---- K2: int8x2 ------------------------------------------------------------
 
 def quantise_int8x2(gpair: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,6 +251,16 @@ def build_hist_int8x2_reference(bins: torch.Tensor, q: torch.Tensor,
     the dequantisation."""
     return dequant_int8x2(
         int8x2_acc_reference(bins, q, rel, n_nodes, max_nbins), inv)
+
+
+def build_hist_int8x2_u4_reference(packed: torch.Tensor, n_features: int,
+                                   q: torch.Tensor, rel: torch.Tensor,
+                                   inv: torch.Tensor, n_nodes: int,
+                                   max_nbins: int) -> torch.Tensor:
+    """Plain version of K2's ``packed_u4`` body: :func:`unpack_u4`, then
+    K2's plain version."""
+    return build_hist_int8x2_reference(unpack_u4(packed, n_features), q, rel,
+                                       inv, n_nodes, max_nbins)
 
 
 # ---- K4: int8x2 over rows sorted by node ------------------------------------
@@ -366,37 +398,63 @@ def build_hist_f32_reference(bins: torch.Tensor, gpair: torch.Tensor,
     return out.reshape(n_nodes, F, max_nbins, 2)
 
 
+def build_hist_f32_u4_reference(packed: torch.Tensor, n_features: int,
+                                gpair: torch.Tensor, rel: torch.Tensor,
+                                qscale: torch.Tensor, inv: torch.Tensor,
+                                n_nodes: int, max_nbins: int,
+                                precision: str = "f32") -> torch.Tensor:
+    """Plain version of K3's ``packed_u4`` body (each precision):
+    :func:`unpack_u4`, then K3's plain version."""
+    return build_hist_f32_reference(unpack_u4(packed, n_features), gpair, rel,
+                                    qscale, inv, n_nodes, max_nbins,
+                                    precision=precision)
+
+
 # ---- dispatch ----------------------------------------------------------------
 
 def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
                n_nodes: int, max_nbins: int, method: str = "auto",
-               has_missing: bool = True) -> torch.Tensor:
+               has_missing: bool = True, packed_u4: int = 0) -> torch.Tensor:
     """bins [n, F] uint8/uint16/int32; gpair [n, 2] f32; rel_pos [n]
     int32 in [0, n_nodes] -> [n_nodes, F, max_nbins, 2] f32.
     ``has_missing``: the last bin slot is the missing slot (it feeds
-    ``auto``'s choice only)."""
+    ``auto``'s choice only). ``packed_u4=F``: ``bins`` is a u4-packed
+    page [n, ceil(F/2)] uint8 of F features."""
     kernel = resolve_hist_kernel(method, bins.shape[0], n_nodes, max_nbins,
                                  has_missing)
+    if packed_u4 and kernel == "scan":
+        raise ValueError(
+            f"hist_method={method!r} runs K4, which takes no u4-packed bins "
+            "(the TPU's sorted kernel has no packed body)")
     rel = rel_pos.to(torch.int32).contiguous()
     on_cpu = bins.device.type == "cpu"
     if kernel in ("int8x2", "scan"):
         q, inv = quantise_int8x2(gpair)
         if on_cpu:
+            if packed_u4:
+                return build_hist_int8x2_u4_reference(
+                    bins, packed_u4, q, rel, inv, n_nodes, max_nbins)
             plain = (build_hist_scan_reference if kernel == "scan"
                      else build_hist_int8x2_reference)
             return plain(bins, q, rel, inv, n_nodes, max_nbins)
         from .cuda.hist import hist_int8x2_cuda, hist_scan_cuda
 
-        cuda = hist_scan_cuda if kernel == "scan" else hist_int8x2_cuda
-        return cuda(bins, q, rel, inv, n_nodes, max_nbins)
+        if kernel == "scan":
+            return hist_scan_cuda(bins, q, rel, inv, n_nodes, max_nbins)
+        return hist_int8x2_cuda(bins, q, rel, inv, n_nodes, max_nbins,
+                                packed_u4=packed_u4)
     qscale, inv = fixed_point_scale(gpair)
     if on_cpu:
+        if packed_u4:
+            return build_hist_f32_u4_reference(
+                bins, packed_u4, gpair, rel, qscale, inv, n_nodes, max_nbins,
+                precision=kernel)
         return build_hist_f32_reference(bins, gpair, rel, qscale, inv,
                                         n_nodes, max_nbins, precision=kernel)
     from .cuda.hist import hist_f32_cuda
 
     return hist_f32_cuda(bins, gpair.contiguous(), rel, qscale, inv, n_nodes,
-                         max_nbins, precision=kernel)
+                         max_nbins, precision=kernel, packed_u4=packed_u4)
 
 
 # ---- K5 and the two-level level sweeps --------------------------------------

@@ -31,17 +31,23 @@ class LevelSplits(NamedTuple):
 
 
 def gather_bins(bins: torch.Tensor, rows: torch.Tensor,
-                feat: torch.Tensor) -> torch.Tensor:
+                feat: torch.Tensor, packed: bool = False) -> torch.Tensor:
     """bins[rows, feat] as int64 for uint8/uint16/int32 bins (uint16 is
-    gathered through its int16 view, which every backend supports)."""
+    gathered through its int16 view, which every backend supports).
+    ``packed``: ``bins`` is a u4-packed page (``ops/histogram.py
+    unpack_u4``) and the id is feature ``feat``'s nibble."""
+    if packed:
+        b = bins[rows, feat >> 1].to(torch.int64)
+        return (b >> (4 * (feat & 1))) & 0xF
     src = bins.view(torch.int16) if bins.dtype == torch.uint16 else bins
     b = src[rows, feat].to(torch.int64)
     return b & 0xFFFF if bins.dtype == torch.uint16 else b
 
 
-def _route(bins, positions, feat, thr, dleft, splitting, missing_bin):
+def _route(bins, positions, feat, thr, dleft, splitting, missing_bin,
+           packed=False):
     rows = torch.arange(positions.shape[0], device=positions.device)
-    b = gather_bins(bins, rows, torch.clamp(feat, min=0))
+    b = gather_bins(bins, rows, torch.clamp(feat, min=0), packed)
     go_right = torch.where(b == missing_bin, ~dleft, b > thr)
     return torch.where(splitting, 2 * positions + 1 + go_right.long(),
                        positions)
@@ -68,11 +74,13 @@ def update_positions(bins: torch.Tensor, positions: torch.Tensor,
 
 
 def advance_level(bins: torch.Tensor, positions: torch.Tensor,
-                  prev: LevelSplits, missing_bin: int) -> torch.Tensor:
+                  prev: LevelSplits, missing_bin: int,
+                  packed: bool = False) -> torch.Tensor:
     """The same advance below one level's splits given as a per-level
-    payload (the plain advance of ``fused_advance_coarse``): rows outside
-    the level, and rows at its nodes that did not split, stay put. Equal
-    to the JAX package's ``advance_positions_level`` and, over the whole
+    payload (the plain advance of ``fused_advance_coarse``, and of the
+    paged grower's pages, u4-packed when ``packed``): rows outside the
+    level, and rows at its nodes that did not split, stay put. Equal to
+    the JAX package's ``advance_positions_level`` and, over the whole
     heap, ``update_positions``."""
     n_prev = prev.feat.shape[0]
     in_prev = (positions >= prev.lo) & (positions < prev.lo + n_prev)
@@ -80,4 +88,4 @@ def advance_level(bins: torch.Tensor, positions: torch.Tensor,
                       torch.zeros_like(positions))
     return _route(bins, positions, prev.feat[rel], prev.thr[rel],
                   prev.dleft[rel], in_prev & prev.can_split[rel],
-                  missing_bin)
+                  missing_bin, packed)

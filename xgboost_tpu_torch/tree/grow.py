@@ -160,6 +160,84 @@ def two_level_schedule(hist_method: str, max_nbins: int,
     return base
 
 
+class HeapTree:
+    """The heap arrays of one growing tree (node i has children 2i+1 /
+    2i+2) and the bookkeeping of a level, shared by :func:`grow_tree` and
+    ``tree/paged.py PagedGrower``: each level's split results go in
+    through :meth:`record`, and :meth:`finish` turns the heap and the
+    rows' final nodes into a :class:`GrownTree`."""
+
+    def __init__(self, max_depth: int, root_sum: torch.Tensor,
+                 param: TrainParam) -> None:
+        dev = root_sum.device
+        self.max_nodes = max_nodes = 2 ** (max_depth + 1) - 1
+        self.param = param
+        self.split_feature = torch.full((max_nodes,), -1, dtype=torch.int64,
+                                        device=dev)
+        self.split_bin = torch.zeros((max_nodes,), dtype=torch.int64,
+                                     device=dev)
+        self.default_left = torch.zeros((max_nodes,), dtype=torch.bool,
+                                        device=dev)
+        self.is_leaf = torch.ones((max_nodes,), dtype=torch.bool, device=dev)
+        self.active = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
+        self.active[0] = True
+        self.gain = torch.zeros((max_nodes,), dtype=torch.float32, device=dev)
+        self.node_sum = torch.zeros((max_nodes, 2), dtype=torch.float32,
+                                    device=dev)
+        self.node_sum[0] = root_sum
+        self.min_gain = _f32(max(param.gamma, _EPS))
+
+    def record(self, lo: int, n_level: int, res) -> torch.Tensor:
+        """Record the split search ``res`` (``ops/split.py
+        evaluate_splits``) of the level of ``n_level`` nodes from heap node
+        ``lo``: a node exists iff its parent split, and expands unless its
+        best gain fails the gamma / kRtEps test. Returns can_split
+        [n_level]."""
+        hi = lo + n_level
+        can_split = (self.active[lo:hi] & (res.gain > self.min_gain)
+                     & torch.isfinite(res.gain))
+        self.split_feature[lo:hi] = torch.where(
+            can_split, res.feature, torch.full_like(res.feature, -1))
+        self.split_bin[lo:hi] = torch.where(can_split, res.bin,
+                                            torch.zeros_like(res.bin))
+        self.default_left[lo:hi] = can_split & res.default_left
+        self.is_leaf[lo:hi] = ~can_split
+        self.gain[lo:hi] = torch.where(can_split, res.gain,
+                                       torch.zeros_like(res.gain))
+        children = slice(2 * lo + 1, 2 * hi + 1)    # [l0, r0, l1, r1, ...]
+        self.active[children] = can_split.repeat_interleave(2)
+        zero2 = torch.zeros_like(res.left_sum)
+        self.node_sum[children] = torch.stack(
+            [torch.where(can_split[:, None], res.left_sum, zero2),
+             torch.where(can_split[:, None], res.right_sum, zero2)],
+            dim=1).reshape(-1, 2)
+        return can_split
+
+    def level_splits(self, lo: int, n_level: int,
+                     can_split: torch.Tensor) -> LevelSplits:
+        """The splits of the recorded level, for the advance below it."""
+        hi = lo + n_level
+        return LevelSplits(lo, self.split_feature[lo:hi],
+                           self.split_bin[lo:hi], self.default_left[lo:hi],
+                           can_split)
+
+    def finish(self, positions: torch.Tensor) -> GrownTree:
+        """The grown tree, with ``positions`` [n] the rows' final heap
+        nodes: leaf weights ``calc_weight * eta`` and each row's delta, the
+        leaf value at its node."""
+        w = (calc_weight(self.node_sum[:, 0], self.node_sum[:, 1], self.param)
+             * _f32(self.param.eta))
+        zero = torch.zeros_like(w)
+        leaf_value = torch.where(self.active & self.is_leaf, w, zero)
+        return GrownTree(
+            split_feature=self.split_feature, split_bin=self.split_bin,
+            default_left=self.default_left, is_leaf=self.is_leaf,
+            active=self.active, leaf_value=leaf_value,
+            node_sum=self.node_sum, gain=self.gain, positions=positions,
+            delta=leaf_value[positions],
+            base_weight=torch.where(self.active, w, zero))
+
+
 def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
@@ -173,7 +251,6 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     n, F = bins.shape
     dev = bins.device
     max_depth = param.max_depth
-    max_nodes = 2 ** (max_depth + 1) - 1
     # out-of-range sentinel when the matrix carries no missing slot
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
@@ -183,18 +260,9 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     cb = (coarse_bin_ids(bins, missing_bin)
           if schedule in ("coarse", "fused") else None)
 
-    split_feature = torch.full((max_nodes,), -1, dtype=torch.int64,
-                               device=dev)
-    split_bin = torch.zeros((max_nodes,), dtype=torch.int64, device=dev)
-    default_left = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
-    is_leaf = torch.ones((max_nodes,), dtype=torch.bool, device=dev)
-    active = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
-    active[0] = True
-    gain = torch.zeros((max_nodes,), dtype=torch.float32, device=dev)
-    node_sum = torch.zeros((max_nodes, 2), dtype=torch.float32, device=dev)
-    node_sum[0] = gpair.sum(dim=0)
+    tree = HeapTree(max_depth, gpair.sum(dim=0), param)
+    node_sum = tree.node_sum
     positions = torch.zeros((n,), dtype=torch.int64, device=dev)
-    min_gain = _f32(max(param.gamma, _EPS))
     pending = None      # fused/scan: the splits whose advance is deferred
 
     for depth in range(max_depth):
@@ -248,47 +316,19 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
             span_sel = torch.gather(span, 1,
                                     res.feature.clamp(min=0)[:, None])[:, 0]
             res = res._replace(bin=decode_two_level_bin(res.bin, span_sel))
-        # a node exists at this level iff its parent split; it expands
-        # unless the best gain fails the gamma / kRtEps test
-        can_split = (active[lo:hi] & (res.gain > min_gain)
-                     & torch.isfinite(res.gain))
-        split_feature[lo:hi] = torch.where(can_split, res.feature,
-                                           torch.full_like(res.feature, -1))
-        split_bin[lo:hi] = torch.where(can_split, res.bin,
-                                       torch.zeros_like(res.bin))
-        default_left[lo:hi] = can_split & res.default_left
-        is_leaf[lo:hi] = ~can_split
-        gain[lo:hi] = torch.where(can_split, res.gain,
-                                  torch.zeros_like(res.gain))
-        children = slice(2 * lo + 1, 2 * hi + 1)    # [l0, r0, l1, r1, ...]
-        active[children] = can_split.repeat_interleave(2)
-        zero2 = torch.zeros_like(res.left_sum)
-        node_sum[children] = torch.stack(
-            [torch.where(can_split[:, None], res.left_sum, zero2),
-             torch.where(can_split[:, None], res.right_sum, zero2)],
-            dim=1).reshape(-1, 2)
+        can_split = tree.record(lo, n_level, res)
         if schedule in ("fused", "scan"):
-            pending = LevelSplits(lo, split_feature[lo:hi], split_bin[lo:hi],
-                                  default_left[lo:hi], can_split)
+            pending = tree.level_splits(lo, n_level, can_split)
         else:
-            is_split = torch.zeros((max_nodes,), dtype=torch.bool,
+            is_split = torch.zeros((tree.max_nodes,), dtype=torch.bool,
                                    device=dev)
             is_split[lo:hi] = can_split
-            positions = update_positions(bins, positions, split_feature,
-                                         split_bin, default_left, is_split,
-                                         missing_bin)
+            positions = update_positions(bins, positions, tree.split_feature,
+                                         tree.split_bin, tree.default_left,
+                                         is_split, missing_bin)
     if pending is not None:     # below the last level: the advance alone
         positions = advance_level(bins, positions, pending, missing_bin)
-
-    w = calc_weight(node_sum[:, 0], node_sum[:, 1], param) * _f32(param.eta)
-    zero = torch.zeros_like(w)
-    leaf_value = torch.where(active & is_leaf, w, zero)
-    base_weight = torch.where(active, w, zero)
-    return GrownTree(split_feature=split_feature, split_bin=split_bin,
-                     default_left=default_left, is_leaf=is_leaf,
-                     active=active, leaf_value=leaf_value, node_sum=node_sum,
-                     gain=gain, positions=positions,
-                     delta=leaf_value[positions], base_weight=base_weight)
+    return tree.finish(positions)
 
 
 class TreeGrower:
