@@ -69,6 +69,21 @@ counts set to 0 just before and read just after:
   ``gradient_based`` run with ``subsample`` 0.5, and one round each
   through ``hist_method`` ``pallas:bf16x2`` and ``pallas:bf16`` (K3's
   rounded precisions at every level);
+- BASELINE config #4 in full (``covertype_categorical_dart``): the same
+  Covertype draws with the wilderness area (4 categories) and the soil
+  type (40) as category codes beside the 10 continuous columns (581,012
+  x 12, ``enable_categorical``), ``booster="dart"`` (``rate_drop`` 0.1,
+  ``skip_drop`` 0.5, uniform, tree), up to 30 rounds with early stopping
+  twice: K2 at every level of every class tree (56 launches a round), K4
+  never, K1 for the held-out walk once a round, the two runs' model
+  bytes the same sha256, both split kinds in the forest (one-hot on the
+  area, sorted partition on the soil), the drops and ``weight_drop``
+  range a round, held-out mlogloss falling beside the one-hot gbtree
+  run's, a save/load round trip and a ``Server`` predicting the same
+  bits, K1 on the trained weighted forest on both schedules, seconds a
+  round and three profiled rounds, K2 over the codes against its plain
+  version (and timed), and one round at depth 10 on 200,000 rows (K3 at
+  256 and 512 nodes over the codes, against its plain version);
 - external memory at the HIGGS-11M shape (``external_memory``): a
   ``QuantileDMatrix`` from a ``DataIter`` of 11 batches of 1,000,000 x
   28 rows (``higgs_batch``, made from a seed batch by batch) with a
@@ -89,7 +104,8 @@ counts set to 0 just before and read just after:
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
-main paths' shapes: K1 at 1, 512, 100,000 and 1,000,000 rows and the
+main paths' shapes: K2 at the categorical run's levels of 128 nodes; K1
+at 1, 512, 100,000 and 1,000,000 rows and the
 one-tree walk at 100,000, and both of its schedules from 1 to 100,000
 rows; K1 on the Covertype forest (7 groups) at 1, 512 and 100,000 rows
 and its one-round eval walk; K4 at every level width of the HIGGS run (N = 1, 2,
@@ -1005,6 +1021,239 @@ def saved_bytes(bst):
     to one value, so that models of different schedules compare."""
     bst.set_param({"hist_method": "scan"})
     return bytes(bst.save_raw("ubj"))
+
+
+# ---- BASELINE.json config #4 in full: categorical codes and dart ------------
+
+# ``covtype_like``'s draws with the two qualitative attributes as codes;
+# XGBoost's DART tutorial settings; the categorical defaults (area: 4
+# categories, one-hot; soil: 40, sorted partition)
+COVDART_PARAMS = dict(COVTYPE_PARAMS, booster="dart", sample_type="uniform",
+                      normalize_type="tree", rate_drop=0.1, skip_drop=0.5,
+                      max_cat_to_onehot=4, max_cat_threshold=64,
+                      eval_metric=["merror", "mlogloss"])
+COVDART_TYPES = ["q"] * 10 + ["c", "c"]
+COVDART_DEEP_ROWS = 200_000
+
+
+def covtype_codes(X):
+    """``covtype_like``'s rows with the wilderness area (0-3) and soil
+    type (0-39) as the codes they were drawn as, in place of their one-hot
+    columns: UCI Covertype's 12 attributes, [n, 12] f32."""
+    area = X[:, 10:14].argmax(axis=1)
+    soil = X[:, 14:54].argmax(axis=1)
+    return np.concatenate([X[:, :10], area[:, None], soil[:, None]],
+                          axis=1).astype(np.float32)
+
+
+def split_kinds(bst):
+    """(one-hot, partition) splits in the forest: the categorical splits
+    on ``area`` (4 categories) and on ``soil`` (40)."""
+    onehot = part = 0
+    for t in bst.gbm.trees:
+        onehot += int((t.is_cat_split & (t.split_feature == 10)).sum())
+        part += int((t.is_cat_split & (t.split_feature == 11)).sum())
+    return onehot, part
+
+
+def covertype_categorical_dart(xt, dev, Xc, yc, gbtree_quality):
+    """The ``covertype_categorical_dart`` phase (module docstring):
+    returns (the main-path runs' launch counts, {kernel: max |kernel -
+    plain|}, K1's errors, K2's times at the categorical levels of 128
+    nodes, seconds a round, device busy over three rounds)."""
+    from xgboost_tpu_torch.boosting.dart import Dart
+    from xgboost_tpu_torch.callback import TrainingCallback
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.serve import Server
+
+    class WeightLog(TrainingCallback):
+        """Each round's drop count and weight_drop range."""
+
+        def __init__(self):
+            self.rows = []
+
+        def after_iteration(self, model, epoch, evals_log):
+            w = model.gbm.weight_drop
+            self.rows.append((drops[-1], min(w), max(w)))
+            return False
+
+    n_cov = sum(COVTYPE_CLASS_COUNTS)
+    Xk = covtype_codes(Xc)
+    kw = dict(feature_types=COVDART_TYPES, enable_categorical=True)
+    dtr = xt.DMatrix(Xk[:n_cov], label=yc[:n_cov], **kw)
+    dte = xt.DMatrix(Xk[n_cov:], label=yc[n_cov:], **kw)
+    yte = yc[n_cov:]
+    drops = []
+    select = Dart._select_drop
+
+    def counted(self):
+        out = select(self)
+        drops.append(len(out))
+        return out
+
+    Dart._select_drop = counted
+    runs, raws, logs = [], [], []
+    try:
+        for run in range(2):
+            res = {}
+            wl = WeightLog()
+            t0 = time.perf_counter()
+            bst, c = train_launches(
+                f"Covertype categorical dart run {run}",
+                lambda r=res, w=wl: xt.train(
+                    COVDART_PARAMS, dtr, COVTYPE_ROUNDS,
+                    evals=[(dte, "test")], evals_result=r, verbose_eval=10,
+                    early_stopping_rounds=COVTYPE_EARLY_STOP,
+                    callbacks=[w]))
+            t_run = time.perf_counter() - t0
+            rounds = bst.num_boosted_rounds()
+            want = {k: 0 for k in K.LAUNCHES}
+            want["hist_int8x2"] = 56 * rounds
+            if {k: c[k] for k in K.LAUNCHES} != want:
+                raise AssertionError(f"categorical dart launched {c}, "
+                                     f"expected {want}: K2 at every level "
+                                     "of every class tree, K4 never")
+            if c["walk_packed"] != rounds or c["walk_staged"] != rounds:
+                raise AssertionError(f"categorical dart's held-out walks: "
+                                     f"{c}, expected K1 once a round")
+            runs.append(c)
+            raws.append(bytes(bst.save_raw("ubj")))
+            logs.append(wl.rows)
+            log(f"train Covertype categorical dart run {run}: {rounds} "
+                f"rounds in {t_run:.3f} s (host clock, sketch and binning "
+                f"included on run 0); launches a round: K2 "
+                f"{c['hist_int8x2'] / rounds:g}, K4 {c['hist_scan']}, K1 "
+                f"{c['walk_packed'] / rounds:g}")
+    finally:
+        Dart._select_drop = select
+    if logs[0] != logs[1]:
+        raise AssertionError("two dart runs drew other drops")
+    log("Covertype categorical dart drops and weight_drop range a round: "
+        + "; ".join(f"[{i}] {k} dropped, w {lo:.6f}..{hi:.6f}"
+                    for i, (k, lo, hi) in enumerate(logs[0])))
+    digests = [hashlib.sha256(r).hexdigest() for r in raws]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two categorical dart runs saved different "
+                             f"models: {digests}")
+    log(f"Covertype categorical dart model sha256 (two runs): {digests[0]} "
+        f"{digests[1]}")
+    onehot, part = split_kinds(bst)
+    if not (onehot > 0 and part > 0):
+        raise AssertionError(f"one-hot splits {onehot}, partition splits "
+                             f"{part}: both kinds must appear")
+    # held-out quality, beside the one-hot gbtree phase at the same round
+    mll, mer = res["test"]["mlogloss"], res["test"]["merror"]
+    p = bst.predict(dte)
+    if not (mll[-1] < mll[0] and np.isfinite(p).all()
+            and p.shape == (COVTYPE_TEST_ROWS, 7)):
+        raise AssertionError(f"categorical dart held-out mlogloss {mll[0]} "
+                             f"-> {mll[-1]}")
+    if abs(multi_logloss(p, yte) - mll[-1]) > 1e-5:
+        raise AssertionError("Booster.predict disagrees with the eval line")
+    g_mll, g_me = gbtree_quality
+    last = len(mll) - 1
+    log(f"Covertype categorical dart held-out: mlogloss {mll[0]} -> "
+        f"{mll[-1]}, merror {mer[0]} -> {mer[-1]} (round {last}); the "
+        f"one-hot gbtree phase at round {min(last, len(g_mll) - 1)}: "
+        f"mlogloss {g_mll[0]} -> {g_mll[min(last, len(g_mll) - 1)]}, "
+        f"merror {g_me[0]:.6f} -> {g_me[1]:.6f} (its last round); splits: "
+        f"{onehot} one-hot (area), {part} partition (soil)")
+    # a save/load round trip, a Server, and K1 against its plain version on
+    # the trained forest (weights from 1 down, 8 left-set words)
+    again = xt.Booster(model_file=raws[1])
+    if not np.array_equal(again.predict(dte), p):
+        raise AssertionError("the dart model's round trip predicts other "
+                             "bits")
+    Xte = Xk[n_cov:]
+    reset_counts()
+    with Server(models={"covdart": raws[1]}, max_batch=512) as srv:
+        srv.warmup()
+        for i in range(40):
+            n = (1, 8, 64, 512)[i % 4]
+            lo = (i * 1237) % (COVTYPE_TEST_ROWS - n)
+            if not np.array_equal(np.asarray(srv.predict(Xte[lo:lo + n])),
+                                  p[lo:lo + n]):
+                raise AssertionError(f"a dart Server answer ({n} rows at "
+                                     f"{lo}) differs from Booster.predict")
+    serve_counts = read_counts()
+    log(f"Covertype categorical dart serve: 40 requests of 1/8/64/512 rows, "
+        f"every answer equal to Booster.predict; K1 "
+        f"{serve_counts['walk_packed']}; save_raw round trip predicts the "
+        f"same bits")
+    pf = bst.packed_forest()
+    if not (pf.has_cat and pf.cat_words.shape[1] == 8
+            and float(pf.tree_weight[:pf.n_trees].min()) < 1.0):
+        raise AssertionError("the trained dart forest packs no categorical "
+                             "node or no tree weight below 1")
+    Xte_dev = torch.from_numpy(np.ascontiguousarray(Xte)).to(dev)
+    base = torch.tensor(bst._base_np(), device=dev)
+    k1_errs = []
+    for n in (512, 100_000):
+        for sch in ("spread", "staged"):
+            k1_errs.append(check_kernel(f"Covertype dart n={n}", pf,
+                                        Xte_dev[:n].contiguous(), base,
+                                        sch)[0])
+    # seconds a round and three profiled rounds
+    timer, per, s_round = seconds_per_round(COVDART_PARAMS, dtr)
+    log(f"Covertype categorical dart seconds per round (update + sync, host "
+        f"clock): {['%.6f' % t for t in per]}; median of rounds 1-5 "
+        f"{s_round:.6f} s")
+    busy, _ = profile_rounds("Covertype categorical dart", timer, dtr,
+                             top=14)
+    del timer
+    # K2 over the category-code bins against its plain version, and its
+    # time at the levels of 128 nodes
+    errs = {}
+    bins = dtr.binned(256, dev).bins
+    g = torch.Generator(device=dev).manual_seed(140)
+    gpair = torch.stack([torch.randn(n_cov, generator=g, device=dev),
+                         torch.rand(n_cov, generator=g, device=dev)], dim=1)
+    for N in (1, 128):
+        rel = torch.randint(0, N + 1, (n_cov,), generator=g, device=dev,
+                            dtype=torch.int32)
+        for k, e in check_hist(bins, gpair, rel, N, 256,
+                               f"category codes n={n_cov} N={N}").items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    t, n_active = time_hist(bins, gpair, rel, 128, 256, flush)
+    k2_ms, k2_plain, k2_lib = t["hist_int8x2"]
+    k2_bound = hist_bound_ms(bins, 128, 256, n_active, 4)
+    k2 = (k2_ms, k2_plain, k2_lib, k2_bound)
+    log(f"hist hist_int8x2 category codes n={n_cov} N=128 B=256 x 12 u8 "
+        f"(L2 flushed): {k2_ms:.6f} ms, plain {k2_plain:.6f} ms, "
+        f"index_add_ {k2_lib:.6f} ms, bound {k2_bound[0]:.6f} ms "
+        f"({k2_bound[1]})")
+    del flush, gpair, rel
+    # depth 10 on the first 200,000 rows, one round: K3 at the levels of
+    # 256 and 512 nodes over the category codes, held to its plain version
+    d10 = xt.DMatrix(Xk[:COVDART_DEEP_ROWS], label=yc[:COVDART_DEEP_ROWS],
+                     **kw)
+    deep, c10 = train_launches("Covertype categorical dart depth 10",
+                               lambda: xt.train(dict(COVDART_PARAMS,
+                                                     max_depth=10),
+                                                d10, 1, verbose_eval=False))
+    want = {k: 0 for k in K.LAUNCHES}
+    want.update(hist_int8x2=56, hist_f32=14)
+    if {k: c10[k] for k in K.LAUNCHES} != want:
+        raise AssertionError(f"categorical depth 10 launched {c10}, expected "
+                             f"{want}")
+    if max(t.max_depth() for t in deep.gbm.trees) != 10:
+        raise AssertionError("no categorical tree reached depth 10")
+    bins10 = d10.binned(256, dev).bins
+    g10 = torch.stack([torch.randn(COVDART_DEEP_ROWS, generator=g,
+                                   device=dev),
+                       torch.rand(COVDART_DEEP_ROWS, generator=g,
+                                  device=dev)], dim=1)
+    for N in (256, 512):
+        rel = torch.randint(0, N + 1, (COVDART_DEEP_ROWS,), generator=g,
+                            device=dev, dtype=torch.int32)
+        for k, e in check_hist(bins10, g10, rel, N, 256,
+                               f"category codes n={COVDART_DEEP_ROWS} "
+                               f"N={N}").items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    log(f"Covertype categorical dart depth 10 on {COVDART_DEEP_ROWS} rows: "
+        f"launches {c10}; {sum(split_kinds(deep))} categorical splits")
+    return runs + [c10], errs, k1_errs, k2, s_round, busy
 
 
 # the HIGGS-shape training of the main path (``main`` and ``model_digests``)
@@ -2141,6 +2390,17 @@ def main() -> int:
     for n, sch in ((512, "spread"), (100_000, "staged")):
         errs.append(check_kernel(f"Covertype 7-group n={n}", cov_pf,
                                  Xte_dev[:n].contiguous(), cov_base, sch)[0])
+
+    # ---- main path: BASELINE config #4 in full (categorical codes, dart)
+    (covdart_runs, covdart_errs, covdart_k1, covdart_k2, covdart_s,
+     covdart_busy) = covertype_categorical_dart(xt, dev, Xc, yc,
+                                                (mll, (me0, me1)))
+    errs += covdart_k1
+    for k, e in covdart_errs.items():
+        hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+    log(f"covertype_categorical_dart: {covdart_s:.6f} s a round, device busy "
+        f"{covdart_busy:.3f} ms over 3 rounds; Covertype one-hot gbtree "
+        f"{cov_s:.6f} s a round, busy {cov_busy:.3f} ms")
     del Xc, dcov, dcte
 
     # --------- main path: external memory at the HIGGS-11M shape (paged)
@@ -2242,7 +2502,7 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs]
+            *ext_runs, *covdart_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -2260,9 +2520,10 @@ def main() -> int:
         "library_ms": None,
     }]
     # times at the shape that takes most of each kernel's launches (K2:
-    # the refine builds of coarse/fused)
+    # the categorical dart runs' levels over 12 features, at 128 nodes)
+    hist_times[("hist_int8x2", "codes")] = covdart_k2
     for name, replaces, shape in (
-            ("hist_int8x2", ":621", (1_000_000, 128, 36)),
+            ("hist_int8x2", ":621", ("codes",)),
             ("hist_f32", ":634", (200_000, 512, 256)),
             ("hist_bf16x2", ":634", (200_000, 512, 256)),
             ("hist_bf16", ":634", (200_000, 512, 256)),

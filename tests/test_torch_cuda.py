@@ -708,3 +708,80 @@ def test_paged_training_on_the_card_equals_the_cpu(max_bin, tmp_path,
                                atol=1e-6)
     np.testing.assert_allclose(first.predict(xt.DMatrix(X)),
                                cpu.predict(xt.DMatrix(X)), atol=1e-3)
+
+
+def _covtype_codes(n, seed):
+    """[n, 12] f32 rows of 10 N(0, 1) columns and two category codes (4
+    and 40 categories, NaN missing in a few), and 3-class labels."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 12).astype(np.float32)
+    X[:, 10] = rng.randint(0, 4, n)
+    soil = rng.randint(0, 40, n)
+    X[:, 11] = soil
+    X[rng.rand(n) < 0.02, 11] = np.nan
+    score = X[:, 0] + rng.randn(40)[soil] + 0.5 * X[:, 10] \
+        + 0.3 * rng.randn(n)
+    y = np.digitize(score, np.quantile(score, [0.4, 0.7])).astype(np.float32)
+    return X, y
+
+
+CODES_TYPES = ["q"] * 10 + ["c", "c"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 16, 128])
+def test_k2_over_category_codes_matches_plain_version_on_the_card(N):
+    """K2 over a categorical matrix's bins (bin == category code: 4 and
+    40 of the 257 slots beside 10 numeric features, a missing slot)
+    against its plain version, bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    dev = torch.device("cuda")
+    X, _ = _covtype_codes(300_007, seed=N)
+    bm = xt.DMatrix(X, feature_types=CODES_TYPES,
+                    enable_categorical=True).binned(256, dev)
+    assert bm.cuts.n_real_bins()[10:].tolist() == [4, 40]
+    rng = np.random.RandomState(N)
+    g = torch.from_numpy(rng.randn(X.shape[0], 2).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(rng.randint(0, N + 1, X.shape[0]).astype(
+        np.int32)).to(dev)
+    q, inv = H.quantise_int8x2(g)
+    B = bm.max_nbins
+    want = H.build_hist_int8x2_reference(bm.bins, q, rel, inv, N, B)
+    for _ in range(2):
+        assert torch.equal(K.hist_int8x2_cuda(bm.bins, q, rel, inv, N, B),
+                           want)
+
+
+@pytest.mark.cuda
+def test_k1_over_a_trained_categorical_dart_forest_on_the_card():
+    """A categorical dart forest trained on the CPU (tree weights below
+    1, left sets over 8 words) walked by K1 on both schedules: leaf
+    indices equal the plain walk's, margins the kernel-order fold's bit
+    for bit; Booster.predict on the card within 1e-6 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    X, y = _covtype_codes(20_000, seed=3)
+    kw = dict(feature_types=CODES_TYPES, enable_categorical=True)
+    params = {"objective": "multi:softprob", "num_class": 3,
+              "max_depth": 6, "booster": "dart", "rate_drop": 0.5}
+    cpu = xt.train(dict(params, device="cpu"), xt.DMatrix(X, label=y, **kw),
+                   6, verbose_eval=False)
+    card = xt.Booster(model_file=cpu.save_raw("ubj"))
+    pf = card.packed_forest()
+    assert pf.has_cat and float(pf.tree_weight[:pf.n_trees].min()) < 1.0
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(X).to(dev)
+    base = torch.from_numpy(card._base_np()).to(dev)
+    for schedule in ("spread", "staged"):
+        for n in (1, 512, 20_000):
+            _k1_check(pf, Xd[:n].contiguous(), base, schedule)
+    dm = xt.DMatrix(X, **kw)
+    np.testing.assert_allclose(card.predict(dm), cpu.predict(dm), rtol=1e-6,
+                               atol=1e-6)

@@ -489,7 +489,7 @@ def test_train_runs_on_the_card_unless_asked():
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
     ({"tree_method": "exact"}, "A.5.8"),
-    ({"booster": "dart"}, "A.5.9"),
+    ({"booster": "gblinear", "updater": "coord_descent"}, "A.5.9"),
     ({"objective": "rank:pairwise"}, "A.5.11"),
 ])
 def test_unported_options_name_their_roadmap_item(params, item):

@@ -11,7 +11,8 @@ random forests). Row sampling (:func:`sample_gradients`) and the
 trees' column samples come from that key. A paged (external-memory)
 matrix grows with ``tree/paged.py PagedGrower``, and its margins are
 walked over its bins page by page (:meth:`GBTree.margin_delta_binned`,
-:meth:`GBTree.full_margin_binned`). Dart waits with ROADMAP A.5.9.
+:meth:`GBTree.full_margin_binned`). ``boosting/dart.py`` derives dart
+from this class.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ def sample_gradients(gp: torch.Tensor, tkey: xrandom.Key,
 
 class GBTree:
     name = "gbtree"
+    # the Booster's margin caches move by each round's delta (dart's old
+    # trees change weight, so it recomputes instead)
+    supports_margin_cache = True
 
     def __init__(self, n_groups: int, num_parallel_tree: int = 1,
                  multi_strategy: str = "one_output_per_tree") -> None:
@@ -132,8 +136,10 @@ class GBTree:
 
     def _margin_binned(self, lo: int, hi: int, binned,
                        base: torch.Tensor) -> torch.Tensor:
+        w = self.tree_weights()
         forest = stack_trees(self.trees[lo:hi], self.tree_info[lo:hi],
-                             self.n_groups, base.device)
+                             self.n_groups, base.device,
+                             None if w is None else w[lo:hi])
         if binned.is_paged:
             return self._margin_binned_paged(forest, binned, base)
         return margin_binned(forest, binned.bins, binned.missing_bin, base)
@@ -165,11 +171,32 @@ class GBTree:
             return self.iteration_indptr[b], self.iteration_indptr[e]
         return 0, len(self.trees)
 
+    def tree_weights(self) -> Optional[np.ndarray]:
+        """[T] f32 weight of each tree in the margin; None: every weight
+        is 1 (gbtree)."""
+        return None
+
     def forest_slice(self, iteration_range=None):
-        """-> (trees, tree_info, tree_weights) of the selected rounds; every
-        gbtree tree has weight 1, so tree_weights is None."""
+        """-> (trees, tree_info, tree_weights) of the selected rounds
+        (tree_weights None when every weight is 1)."""
         lo, hi = self._tree_range(iteration_range)
-        return self.trees[lo:hi], np.asarray(self.tree_info[lo:hi]), None
+        w = self.tree_weights()
+        return (self.trees[lo:hi], np.asarray(self.tree_info[lo:hi]),
+                None if w is None else w[lo:hi])
+
+    def slice_rounds(self, rounds) -> "GBTree":
+        """A forest of the same kind holding the trees of ``rounds`` (an
+        iterable of round indices), sharing them with this one."""
+        new = type(self)(self.n_groups,
+                         num_parallel_tree=self.num_parallel_tree,
+                         multi_strategy=self.multi_strategy)
+        new.tree_param, new.hist_method = self.tree_param, self.hist_method
+        for it in rounds:
+            lo, hi = self.iteration_indptr[it], self.iteration_indptr[it + 1]
+            new.trees.extend(self.trees[lo:hi])
+            new.tree_info.extend(self.tree_info[lo:hi])
+            new.iteration_indptr.append(len(new.trees))
+        return new
 
     def num_boosted_rounds(self) -> int:
         return len(self.iteration_indptr) - 1

@@ -3,23 +3,26 @@ _predict_margin_binned`` and ``ForestPredictor.margin_binned``), as torch
 ops.
 
 This is the margin cache's walk on an iterator-built matrix, whose raw
-values were never kept: every (row, tree) pair steps one level at a time
-through the trees' compact arrays, comparing the row's bin id with the
-node's split bin (``bin > split_bin`` goes right, the missing bin the
-default way), and the leaves are summed per output group. The JAX
-package runs it as an XLA function, not a Pallas kernel. Trees are
+values were never kept, and dart's walk of the training matrix: every
+(row, tree) pair steps one level at a time through the trees' compact
+arrays, comparing the row's bin id with the node's split bin (``bin >
+split_bin`` goes right, the missing bin the default way; at a
+categorical node, where bin == category code, a code outside the node's
+left set goes right), and the leaves, each times its tree's weight
+(dart's ``weight_drop``; 1 otherwise), are summed per output group. The
+JAX package runs it as an XLA function, not a Pallas kernel. Trees are
 walked in chunks so that the [rows, trees] positions stay small; a
 paged matrix is walked page by page (``boosting/gbtree.py``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.partition import gather_bins
+from ..ops.partition import cat_goes_right, gather_bins
 from ..tree.tree import TreeModel
 
 # the [rows, trees] position arrays of one chunk hold at most this many
@@ -29,7 +32,9 @@ WALK_CHUNK_ELEMENTS = 1 << 24
 
 class StackedForest(NamedTuple):
     """Trees' compact arrays padded to M nodes, flattened to [T * M], and
-    each tree's output group as a one-hot [T, G]."""
+    each tree's output group as a one-hot [T, G]; ``tree_weight`` [T]
+    (None: every weight 1); ``is_cat_split`` [T * M] and ``cat_words``
+    [T * M, W] (uint32 words in int64) when a tree splits a category."""
 
     split_feature: torch.Tensor
     split_bin: torch.Tensor
@@ -41,13 +46,24 @@ class StackedForest(NamedTuple):
     group_onehot: torch.Tensor
     n_nodes: int                # M
     max_depth: int
+    tree_weight: Optional[torch.Tensor] = None
+    is_cat_split: Optional[torch.Tensor] = None
+    cat_words: Optional[torch.Tensor] = None
 
 
 def stack_trees(trees: Sequence[TreeModel], tree_info: Sequence[int],
-                n_groups: int, device: torch.device) -> StackedForest:
+                n_groups: int, device: torch.device,
+                tree_weights: Optional[np.ndarray] = None) -> StackedForest:
     """The trees as a :class:`StackedForest` on ``device``."""
     T = len(trees)
     M = max(t.num_nodes() for t in trees)
+    cats = None
+    if any(t.is_cat_split.any() for t in trees):
+        W = max(t.cat_words.shape[1] for t in trees)
+        words = np.zeros((T, M, W), np.int64)
+        for i, t in enumerate(trees):
+            words[i, :t.num_nodes(), :t.cat_words.shape[1]] = t.cat_words
+        cats = torch.from_numpy(words.reshape(T * M, W)).to(device)
 
     def pad(name, fill, dtype):
         out = np.full((T, M), fill, dtype)
@@ -66,7 +82,12 @@ def stack_trees(trees: Sequence[TreeModel], tree_info: Sequence[int],
         right_child=pad("right_child", 0, np.int64),
         leaf_value=pad("leaf_value", 0.0, np.float32),
         group_onehot=torch.from_numpy(onehot).to(device), n_nodes=M,
-        max_depth=max(t.max_depth() for t in trees))
+        max_depth=max(t.max_depth() for t in trees),
+        tree_weight=None if tree_weights is None else torch.from_numpy(
+            np.asarray(tree_weights, np.float32)).to(device),
+        is_cat_split=None if cats is None
+        else pad("is_cat_split", False, bool),
+        cat_words=cats)
 
 
 def margin_binned(forest: StackedForest, bins: torch.Tensor,
@@ -88,11 +109,18 @@ def margin_binned(forest: StackedForest, bins: torch.Tensor,
             gi = tofs + pos
             feat = forest.split_feature[gi].clamp(min=0)
             b = gather_bins(bins, rows.expand_as(feat), feat, packed)
+            go_right = b > forest.split_bin[gi]
+            if forest.cat_words is not None:
+                go_right = torch.where(
+                    forest.is_cat_split[gi],
+                    cat_goes_right(b, forest.cat_words, gi), go_right)
             go_right = torch.where(b == missing_bin, ~forest.default_left[gi],
-                                   b > forest.split_bin[gi])
+                                   go_right)
             child = torch.where(go_right, forest.right_child[gi],
                                 forest.left_child[gi])
             pos = torch.where(forest.is_leaf[gi], pos, child)
-        margin = margin + (forest.leaf_value[tofs + pos]
-                           @ forest.group_onehot[t0:t1])
+        leaf = forest.leaf_value[tofs + pos]
+        if forest.tree_weight is not None:
+            leaf = leaf * forest.tree_weight[None, t0:t1]
+        margin = margin + leaf @ forest.group_onehot[t0:t1]
     return margin

@@ -5,7 +5,10 @@ device: ``Booster.update`` computes the gradient [n, K, 2] from a margin
 cache [n, K] (K = 1, or ``num_class``), derives the round's key
 ``fold_in(make_key(it), it)`` and has ``GBTree.do_boost`` grow the
 round's trees (row and column samples from that key, histograms through
-kernels K2 to K5); the cache moves by their per-row deltas. ``train``
+kernels K2 to K5); the cache moves by their per-row deltas. A ``dart``
+booster (``boosting/dart.py``) has no such cache: each round it draws
+the trees to drop, takes its gradient from the margin without them and
+rolls its own full margin forward. ``train``
 runs the rounds through ``callback.CallbackContainer`` (evaluation of
 ``evals`` after each one, ``EvaluationMonitor``, ``EarlyStopping``), as
 the JAX package's ``train`` does. ``predict`` and the
@@ -36,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .boosting.dart import Dart
 from .boosting.gbtree import GBTree
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
@@ -144,6 +148,8 @@ class Booster:
             if self.gbm is not None:
                 self.gbm.tree_param = self.tree_param
                 self.gbm._grower = None
+                if isinstance(self.gbm, Dart):
+                    self.gbm.configure(self.learner_params, self.ctx.seed)
         self._packed = {}
 
     def _seed_from_params(self) -> None:
@@ -212,7 +218,8 @@ class Booster:
 
     def __getitem__(self, val: slice) -> "Booster":
         """A Booster of the rounds ``val`` selects (a slice of rounds,
-        ``step`` included), sharing this one's trees."""
+        ``step`` included), sharing this one's trees (a dart forest's
+        with their weights)."""
         if not isinstance(val, slice):
             raise TypeError("Booster slicing requires a slice of iterations")
         self._require_model()
@@ -221,16 +228,8 @@ class Booster:
         step = val.step if val.step is not None else 1
         new = Booster.__new__(Booster)
         new.__dict__.update(self.__dict__)
-        old = self.gbm
-        gbm = GBTree(self.n_groups, num_parallel_tree=old.num_parallel_tree,
-                     multi_strategy=old.multi_strategy)
-        gbm.tree_param, gbm.hist_method = old.tree_param, old.hist_method
-        for it in range(begin, min(end, self.num_boosted_rounds()), step):
-            lo, hi = old.iteration_indptr[it], old.iteration_indptr[it + 1]
-            gbm.trees.extend(old.trees[lo:hi])
-            gbm.tree_info.extend(old.tree_info[lo:hi])
-            gbm.iteration_indptr.append(len(gbm.trees))
-        new.gbm = gbm
+        new.gbm = self.gbm.slice_rounds(
+            range(begin, min(end, self.num_boosted_rounds()), step))
         new._caches = {}
         new._packed = {}
         new._packed_lock = threading.Lock()
@@ -253,7 +252,7 @@ class Booster:
                 f"tree_method={tm!r} is not in the PyTorch port yet "
                 "(ROADMAP A.5.8); use 'hist'")
         booster = self.learner_params.get("booster", "gbtree")
-        if booster != "gbtree":
+        if booster not in ("gbtree", "dart"):
             raise NotImplementedError(
                 f"booster {booster!r} is not in the PyTorch port yet "
                 "(ROADMAP A.5.9)")
@@ -274,9 +273,12 @@ class Booster:
         if dtrain is not None and not self._num_features:
             self._num_features = dtrain.num_col()
         if self.gbm is None:
-            self.gbm = GBTree(
+            cls = Dart if booster == "dart" else GBTree
+            self.gbm = cls(
                 n_groups, num_parallel_tree=int(self.learner_params.get(
                     "num_parallel_tree", 1)))
+        if isinstance(self.gbm, Dart):
+            self.gbm.configure(self.learner_params, self.ctx.seed)
         self.gbm.tree_param = self.tree_param
         self.gbm.hist_method = str(self.learner_params.get("hist_method",
                                                            "auto"))
@@ -298,13 +300,14 @@ class Booster:
             self._eval_metrics = [get_metric(self.obj.default_metric)]
         if dtrain is not None and self.feature_names is None:
             self.feature_names = dtrain.info.feature_names
+            self.feature_types = dtrain.info.feature_types
         self._configured = True
 
     # ----------------------------------------------------------- margin caches
     def _state_of(self, dm: DMatrix, is_train: bool) -> Dict[str, Any]:
-        """The cache entry of one DMatrix: its device tensors and a margin
-        covering the first ``n_trees`` trees (``margin`` is None until the
-        base margin is known)."""
+        """The cache entry of one DMatrix: its device tensors, its base
+        margin ``base`` [n, G] and a margin covering the first
+        ``n_trees`` trees (both None until the base margin is known)."""
         st = self._caches.get(id(dm))
         if st is None or st["dm"] is not dm:
             dev = self.device
@@ -329,6 +332,7 @@ class Booster:
             else:
                 base = torch.from_numpy(self._base_np()).to(self.device)
                 st["margin"] = base[None, :].expand(n, -1).contiguous()
+            st["base"] = st["margin"]
         return st
 
     def _collapse_paged_if_fits(self, binned):
@@ -370,18 +374,20 @@ class Booster:
 
     def _walk_trees(self, st: Dict[str, Any], lo: int, hi: int
                     ) -> torch.Tensor:
-        """Margin contribution [n, G] of trees [lo, hi) on the cached
-        matrix: over its bins when it keeps no raw values (and has the
-        training cuts), else through the packed walk (kernel K1 on the
-        card)."""
+        """Margin contribution [n, G] of trees [lo, hi), each at its weight,
+        on the cached matrix: over its bins when it keeps no raw values
+        (and has the training cuts), else through the packed walk (kernel
+        K1 on the card)."""
         binned = self._binned_for_walk(st)
         if binned is not None:
             return self.gbm.margin_delta_binned(binned, lo, hi, self.device)
         if st["X"] is None:
             st["X"] = torch.from_numpy(np.ascontiguousarray(
                 st["dm"].values())).to(self.device)
+        w = self.gbm.tree_weights()
         pf = PackedForest.from_trees(self.gbm.trees[lo:hi],
-                                     self.gbm.tree_info[lo:hi], self.n_groups)
+                                     self.gbm.tree_info[lo:hi], self.n_groups,
+                                     None if w is None else w[lo:hi])
         zero = torch.zeros(self.n_groups, dtype=torch.float32,
                            device=self.device)
         return pf.margin(st["X"], zero)
@@ -389,13 +395,16 @@ class Booster:
     def _cached_margin(self, dm: DMatrix, is_train: bool = False
                        ) -> torch.Tensor:
         """The margin of every tree so far, brought up to date by walking
-        only the trees the cache has not seen."""
+        only the trees the cache has not seen (dart: recomputed when the
+        forest changed, ``Dart.compute_margin``)."""
         st = self._state_of(dm, is_train)
         total = self.gbm.version()
-        if st["n_trees"] < total:
+        if not self.gbm.supports_margin_cache:
+            st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
+        elif st["n_trees"] < total:
             st["margin"] = st["margin"] + self._walk_trees(
                 st, st["n_trees"], total)
-            st["n_trees"] = total
+        st["n_trees"] = total
         return st["margin"]
 
     # ---------------------------------------------------------------- training
@@ -405,12 +414,19 @@ class Booster:
             raise ValueError("training needs labels: DMatrix(X, label=y)")
         self._configure(dtrain)
         st = self._state_of(dtrain, is_train=True)
-        margin = self._cached_margin(dtrain, is_train=True)
-        gpair = self.obj.get_gradient(margin, st["labels"], st["weights"],
-                                      iteration)
         key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
-        delta = self.gbm.do_boost(st["binned"], gpair, key)
-        st["margin"] = margin + delta
+        if self.gbm.supports_margin_cache:
+            margin = self._cached_margin(dtrain, is_train=True)
+            gpair = self.obj.get_gradient(margin, st["labels"],
+                                          st["weights"], iteration)
+            st["margin"] = margin + self.gbm.do_boost(st["binned"], gpair,
+                                                      key)
+        else:
+            margin = self.gbm.training_margin(st, self._walk_trees)
+            gpair = self.obj.get_gradient(margin, st["labels"],
+                                          st["weights"], iteration)
+            self.gbm.do_boost(st["binned"], gpair, key, state=st)
+            st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
         st["n_trees"] = self.gbm.version()
         self._packed = {}
 
@@ -596,12 +612,12 @@ class Booster:
         n_groups = max(1, int(lmp.get("num_target", 1)))
         gb = learner.get("gradient_booster", {})
         booster = gb.get("name", "gbtree") if gb else "gbtree"
-        if booster != "gbtree":
+        if booster not in ("gbtree", "dart"):
             raise NotImplementedError(
                 f"booster {booster!r} is not in the PyTorch port yet "
-                "(gbtree only; ROADMAP A.5.9)")
+                "(gbtree and dart only; ROADMAP A.5.9)")
         self.learner_params["booster"] = booster
-        gbm = GBTree(n_groups)
+        gbm = (Dart if booster == "dart" else GBTree)(n_groups)
         if gb:
             gbm.from_json(gb)
         self.gbm = gbm

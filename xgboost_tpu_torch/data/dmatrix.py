@@ -14,6 +14,11 @@ iterator's ``cache_prefix``, a memmap at ``<cache_prefix>.bins`` that
 trains as a :class:`~.binned.PagedBinnedMatrix` (external memory) in
 pages of ``XTPU_PAGE_ROWS`` rows (default 1,000,000). Such a matrix is
 quantized once, at ``max_bin``; training asks for the same ``max_bin``.
+
+``feature_types`` marks categorical features with ``"c"`` (their values
+are category codes, NaN missing), which a matrix takes only with
+``enable_categorical=True``, as the JAX package's. An iterator-built
+categorical matrix waits with the paged growers (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -90,6 +95,15 @@ class DataIter:
         self.reset()
 
 
+def _refuse_iter_categorical(types: Optional[List[str]]) -> None:
+    if types is not None and "c" in types:
+        raise NotImplementedError(
+            "categorical features in a matrix built from a DataIter are not "
+            "in the PyTorch port yet (they wait with the paged growers, "
+            "ROADMAP A.7); pass the codes as a numpy DMatrix with "
+            "feature_types and enable_categorical=True")
+
+
 _UNPORTED_BATCH_KEYS = ("qid", "group", "label_lower_bound",
                         "label_upper_bound")
 
@@ -101,6 +115,8 @@ class DMatrix:
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
                  feature_names: Optional[List[str]] = None,
+                 feature_types: Optional[List[str]] = None,
+                 enable_categorical: bool = False,
                  max_bin: int = 256) -> None:
         self._binned: Dict[tuple, BinnedMatrix] = {}
         self._cuts: Dict[int, HistogramCuts] = {}
@@ -108,6 +124,7 @@ class DMatrix:
         self._quantized = None
         self._max_bin: Optional[int] = None
         if isinstance(data, DataIter):
+            _refuse_iter_categorical(feature_types)
             self._init_from_iter(data, max_bin, None, missing,
                                  data.cache_prefix)
             return
@@ -115,6 +132,11 @@ class DMatrix:
         self._n_rows = self.X.shape[0]
         self.info = MetaInfo()
         self.feature_names = feature_names
+        self.feature_types = feature_types
+        if not enable_categorical and feature_types is not None \
+                and "c" in self.feature_types:
+            raise ValueError(
+                "categorical features present; pass enable_categorical=True")
         n = self.num_row()
         if label is not None:
             self.info.labels = self._labels(label, n)
@@ -157,6 +179,24 @@ class DMatrix:
             if len(set(names)) != len(names):
                 raise ValueError("feature_names must be unique")
         self.info.feature_names = names
+
+    @property
+    def feature_types(self) -> Optional[List[str]]:
+        return self.info.feature_types
+
+    @feature_types.setter
+    def feature_types(self, types: Optional[List[str]]) -> None:
+        """One type a feature (``"c"`` categorical; a single string is
+        every feature's)."""
+        if types is not None:
+            if isinstance(types, str):
+                types = [types] * self.num_col()
+            types = list(types)
+            if len(types) != self.num_col():
+                raise ValueError(
+                    f"feature_types has {len(types)} entries, "
+                    f"expected {self.num_col()}")
+        self.info.feature_types = types
 
     @property
     def is_paged(self) -> bool:
@@ -230,11 +270,7 @@ class DMatrix:
                     raise NotImplementedError(
                         f"iterator batches with {key!r} are not in the "
                         "PyTorch port yet (ROADMAP A.5.11)")
-            types = batch.get("feature_types")
-            if types is not None and "c" in types:
-                raise NotImplementedError(
-                    "categorical features are not in the PyTorch port yet "
-                    "(ROADMAP A.5.5)")
+            _refuse_iter_categorical(batch.get("feature_types"))
             X = _dense(batch["data"], missing)
             n_rows += X.shape[0]
             n_feat = X.shape[1]
@@ -312,15 +348,20 @@ class QuantileDMatrix(DMatrix):
     def __init__(self, data: Any, label: Any = None, *, max_bin: int = 256,
                  ref: Optional[DMatrix] = None, missing: float = np.nan,
                  weight: Any = None, base_margin: Any = None,
-                 feature_names: Optional[List[str]] = None) -> None:
+                 feature_names: Optional[List[str]] = None,
+                 feature_types: Optional[List[str]] = None,
+                 enable_categorical: bool = False) -> None:
         self.max_bin = max_bin
         if isinstance(data, DataIter):
+            _refuse_iter_categorical(feature_types)
             self._binned, self._cuts = {}, {}
             self._quantized, self._max_bin = None, None
             self._init_from_iter(data, max_bin, ref, missing,
                                  data.cache_prefix)
             return
         super().__init__(data, label, weight=weight, base_margin=base_margin,
-                         missing=missing, feature_names=feature_names)
+                         missing=missing, feature_names=feature_names,
+                         feature_types=feature_types,
+                         enable_categorical=enable_categorical)
         if ref is not None:
             self._cuts[max_bin] = ref.cuts(max_bin)

@@ -13,7 +13,11 @@ numpy path.
 
 Cuts are ragged (``values``/``ptrs`` over REAL bins only, as in
 ``common::HistogramCuts``); ``data/binned.py`` pads every feature to a
-uniform slot count with a trailing missing slot.
+uniform slot count with a trailing missing slot. A categorical feature
+(``feature_types[f] == "c"``) gets one bin per category code, its cuts
+``arange(n_cat)`` with ``n_cat`` one above the largest code sketched,
+so that ``search_bin`` maps code c to bin c (codes above the last one
+clamp into it, as for a numeric feature).
 """
 
 from __future__ import annotations
@@ -164,16 +168,19 @@ def cuts_from_summaries(summaries: Sequence[FeatureSummary], max_bin: int,
                         ) -> HistogramCuts:
     """Cuts at evenly spaced weighted ranks (``HistogramCuts::Build``
     semantics: the last cut lies strictly above the max value, so every
-    observed value lands in a real bin). Categorical features are not in
-    the port yet (ROADMAP A.5.5)."""
-    if feature_types is not None and "c" in feature_types:
-        raise NotImplementedError(
-            "categorical features are not in the PyTorch port yet "
-            "(ROADMAP A.5.5)")
+    observed value lands in a real bin); a categorical feature's are
+    ``arange(n_cat)`` (module docstring)."""
     values: List[np.ndarray] = []
     ptrs = [0]
     min_vals = []
-    for s in summaries:
+    for f, s in enumerate(summaries):
+        if feature_types is not None and f < len(feature_types) \
+                and feature_types[f] == "c":
+            n_cat = int(s.values.max()) + 1 if s.values.size else 1
+            values.append(np.arange(n_cat, dtype=np.float32))
+            min_vals.append(-0.5)
+            ptrs.append(ptrs[-1] + n_cat)
+            continue
         if s.values.size == 0:
             cuts = np.asarray([np.inf], dtype=np.float32)
             min_vals.append(0.0)

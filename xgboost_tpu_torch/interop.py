@@ -14,8 +14,10 @@ them to the native model dict that ``Booster`` reads. Semantics bridged
   the observed category domain.
 - ``base_score`` is user-space in the reference file; native boosters
   hold the margin, so the objective's transform is inverted on load.
+- Dart: the trees sit under ``gradient_booster.gbtree`` and each tree's
+  weight in ``weight_drop``.
 
-The writer comes with the training slice.
+The writer waits with ROADMAP A.2.
 """
 
 from __future__ import annotations
@@ -116,10 +118,10 @@ def reference_to_native_json(ref: Dict[str, Any]) -> Dict[str, Any]:
     learner = ref["learner"]
     gb = learner["gradient_booster"]
     name = gb.get("name", "gbtree")
-    if name != "gbtree":
+    if name not in ("gbtree", "dart"):
         raise NotImplementedError(
             f"reference booster {name!r} is not in the PyTorch port yet "
-            "(gbtree only)")
+            "(gbtree and dart only; ROADMAP A.5.9)")
 
     objective = learner.get("objective", {})
     obj_name = objective.get("name", "reg:squarederror")
@@ -137,7 +139,12 @@ def reference_to_native_json(ref: Dict[str, Any]) -> Dict[str, Any]:
     ).reshape(-1)
     base = np.broadcast_to(margin.astype(np.float32), (n_groups,)) \
         if margin.size == 1 else margin.astype(np.float32)
-    booster = _gbtree_payload(gb)
+    if name == "dart":
+        booster = _gbtree_payload(gb["gbtree"])
+        booster["name"] = "dart"
+        booster["weight_drop"] = [float(w) for w in gb["weight_drop"]]
+    else:
+        booster = _gbtree_payload(gb)
 
     return {
         "version": [int(v) for v in ref.get("version", [2, 0, 0])],

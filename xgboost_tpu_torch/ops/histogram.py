@@ -46,9 +46,12 @@ kernels:
 ``auto`` takes the kernel that the TPU's ``auto`` runs at the same level,
 on every device: the sorted build (K4) where the JAX package promotes
 ``auto`` to its scan schedule (``tree/grow.py auto_selects_coarse``: at
-least 65,536 rows and 128 to 256 real bins) and the level has at most 128
-nodes; K2 at the other levels of at most 128 nodes; K3 above 128 nodes,
-where the TPU builds in f32 too. ``auto`` keeps the exact split search
+least 65,536 rows, 128 to 256 real bins and numeric features only) and
+the level has at most 128 nodes; K2 at the other levels of at most 128
+nodes; K3 above 128 nodes, where the TPU builds in f32 too. A matrix
+with a categorical feature never takes the sorted build: its ``auto``
+runs K2 and K3, and ``coarse``, ``fused`` and ``scan`` refuse it, as the
+JAX package's do. ``auto`` keeps the exact split search
 over every bin. The TPU's schedule also narrows the search to a
 coarse-then-refined window; in the port that search is opt-in, as the
 ``hist_method`` values ``coarse``, ``fused`` and ``scan``
@@ -113,18 +116,29 @@ def int8x2_fits(n_rows: int) -> bool:
     return n_rows * 128 < 2 ** 31
 
 
-def auto_selects_scan(n_rows: int, max_nbins: int,
-                      has_missing: bool) -> bool:
+def auto_selects_scan(n_rows: int, max_nbins: int, has_missing: bool,
+                      numeric: bool = True) -> bool:
     """True where the JAX package's ``auto`` runs the sorted build
-    (``tree/grow.py auto_selects_coarse`` for numeric row-split data,
-    without its backend test: the port follows the TPU's choice)."""
-    return (max_nbins <= 256 + int(has_missing)
+    (``tree/grow.py auto_selects_coarse`` for row-split data, without its
+    backend test: the port follows the TPU's choice). ``numeric``: no
+    feature is categorical."""
+    return (numeric and max_nbins <= 256 + int(has_missing)
             and max_nbins - int(has_missing) >= AUTO_SCAN_MIN_BINS
             and n_rows >= AUTO_SCAN_MIN_ROWS)
 
 
+def refuse_categorical_two_level(method: str) -> None:
+    """The two-level schedules take numeric features only: raise for
+    ``coarse`` / ``fused`` / ``scan`` (the JAX package's ``tree/grow.py``
+    raise for categorical features)."""
+    raise NotImplementedError(
+        f"hist_method={method!r} supports numeric features and max_bin <= "
+        "256; a matrix with categorical features trains with 'auto'")
+
+
 def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
-                        max_nbins: int, has_missing: bool = True) -> str:
+                        max_nbins: int, has_missing: bool = True,
+                        numeric: bool = True) -> str:
     """``hist_method`` -> ``"scan"`` (K4), ``"int8x2"`` (K2), ``"f32"``
     (K3), or ``"bf16x2"`` / ``"bf16"`` (K3 on rows rounded to bfloat16,
     at every level, as the JAX package's ``pallas:bf16x2`` /
@@ -136,14 +150,18 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     level's fine histogram with K4 at up to 128 nodes within the guard,
     with K3 elsewhere. ``prehot`` above the guard falls back to the f32
     build as the JAX package's does; ``pallas`` / ``pallas:int8x2`` there
-    refuse rather than wrap."""
+    refuse rather than wrap. ``numeric=False`` (a categorical feature):
+    ``auto`` never takes K4, and ``coarse``, ``fused`` and ``scan``
+    raise."""
     base = method[:-len("+nosub")] if method.endswith("+nosub") else method
+    if not numeric and base in ("coarse", "fused", "scan"):
+        refuse_categorical_two_level(method)
     if base == "scan":
         return "scan" if n_nodes <= 128 and int8x2_fits(n_rows) else "f32"
     if base in ("auto", "coarse", "fused"):
         if n_nodes > 128 or not int8x2_fits(n_rows):
             return "f32"
-        if auto_selects_scan(n_rows, max_nbins, has_missing):
+        if auto_selects_scan(n_rows, max_nbins, has_missing, numeric):
             return "scan"
         return "int8x2"
     if base == "prehot":
@@ -414,14 +432,16 @@ def build_hist_f32_u4_reference(packed: torch.Tensor, n_features: int,
 
 def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
                n_nodes: int, max_nbins: int, method: str = "auto",
-               has_missing: bool = True, packed_u4: int = 0) -> torch.Tensor:
+               has_missing: bool = True, packed_u4: int = 0,
+               numeric: bool = True) -> torch.Tensor:
     """bins [n, F] uint8/uint16/int32; gpair [n, 2] f32; rel_pos [n]
     int32 in [0, n_nodes] -> [n_nodes, F, max_nbins, 2] f32.
-    ``has_missing``: the last bin slot is the missing slot (it feeds
-    ``auto``'s choice only). ``packed_u4=F``: ``bins`` is a u4-packed
-    page [n, ceil(F/2)] uint8 of F features."""
+    ``has_missing``: the last bin slot is the missing slot; ``numeric``:
+    no feature is categorical (both feed ``auto``'s choice only).
+    ``packed_u4=F``: ``bins`` is a u4-packed page [n, ceil(F/2)] uint8
+    of F features."""
     kernel = resolve_hist_kernel(method, bins.shape[0], n_nodes, max_nbins,
-                                 has_missing)
+                                 has_missing, numeric)
     if packed_u4 and kernel == "scan":
         raise ValueError(
             f"hist_method={method!r} runs K4, which takes no u4-packed bins "

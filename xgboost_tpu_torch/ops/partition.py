@@ -6,13 +6,15 @@ The port of the JAX package's ``ops/partition.py update_positions``
 2i+1 / 2i+2); a row at a node that just split moves to
 ``2 * node + 1 + go_right``. The JAX package runs shallow levels through
 ``advance_positions_level``, a one-hot matmul shaped for the TPU's matrix
-unit; its integer result equals this gather's. Categorical splits wait
-with ROADMAP A.5.5.
+unit; its integer result equals this gather's. At a categorical split
+(bin == category code) a row goes right unless its code is in the
+node's left set, uint32 words held in int64 (:func:`cat_goes_right`);
+a missing value goes the default way.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,6 +30,9 @@ class LevelSplits(NamedTuple):
     thr: torch.Tensor
     dleft: torch.Tensor
     can_split: torch.Tensor
+    # categorical splits: [n] bool and the left sets [n, W]
+    is_cat: Optional[torch.Tensor] = None
+    cat_words: Optional[torch.Tensor] = None
 
 
 def gather_bins(bins: torch.Tensor, rows: torch.Tensor,
@@ -44,11 +49,27 @@ def gather_bins(bins: torch.Tensor, rows: torch.Tensor,
     return b & 0xFFFF if bins.dtype == torch.uint16 else b
 
 
+def cat_goes_right(b: torch.Tensor, words: torch.Tensor,
+                   node: torch.Tensor) -> torch.Tensor:
+    """b [n] int64 category codes (>= 0); words [N, W] int64 left sets;
+    node [n] each row's row of ``words`` -> True where the code is NOT in
+    the left set (the JAX package's ``cat_goes_right``)."""
+    W = words.shape[1]
+    word = words[node, torch.clamp(b >> 5, max=W - 1)]
+    return ((word >> (b & 31)) & 1) == 0
+
+
 def _route(bins, positions, feat, thr, dleft, splitting, missing_bin,
-           packed=False):
+           packed=False, is_cat=None, words=None, node=None):
+    """Advance the rows that are ``splitting``; a categorical split
+    (``is_cat`` [n]) tests the row's code against ``words[node]``."""
     rows = torch.arange(positions.shape[0], device=positions.device)
     b = gather_bins(bins, rows, torch.clamp(feat, min=0), packed)
-    go_right = torch.where(b == missing_bin, ~dleft, b > thr)
+    go_right = b > thr
+    if is_cat is not None:
+        go_right = torch.where(is_cat, cat_goes_right(b, words, node),
+                               go_right)
+    go_right = torch.where(b == missing_bin, ~dleft, go_right)
     return torch.where(splitting, 2 * positions + 1 + go_right.long(),
                        positions)
 
@@ -64,13 +85,21 @@ def level_rel(positions: torch.Tensor, lo: int, n_level: int) -> torch.Tensor:
 def update_positions(bins: torch.Tensor, positions: torch.Tensor,
                      split_feature: torch.Tensor, split_bin: torch.Tensor,
                      default_left: torch.Tensor, is_split: torch.Tensor,
-                     missing_bin: int) -> torch.Tensor:
+                     missing_bin: int,
+                     is_cat_split: Optional[torch.Tensor] = None,
+                     cat_words: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """bins [n, F]; positions [n] int64 heap ids; split_* / is_split
     [max_nodes] (is_split True where the node was just expanded) -> new
-    positions [n]. Rows at nodes that did not split stay put."""
+    positions [n]. Rows at nodes that did not split stay put.
+    ``is_cat_split`` [max_nodes] / ``cat_words`` [max_nodes, W]: the
+    categorical splits and their left sets."""
     return _route(bins, positions, split_feature[positions],
                   split_bin[positions], default_left[positions],
-                  is_split[positions], missing_bin)
+                  is_split[positions], missing_bin,
+                  is_cat=(None if is_cat_split is None
+                          else is_cat_split[positions]),
+                  words=cat_words, node=positions)
 
 
 def advance_level(bins: torch.Tensor, positions: torch.Tensor,
@@ -88,4 +117,6 @@ def advance_level(bins: torch.Tensor, positions: torch.Tensor,
                       torch.zeros_like(positions))
     return _route(bins, positions, prev.feat[rel], prev.thr[rel],
                   prev.dleft[rel], in_prev & prev.can_split[rel],
-                  missing_bin, packed)
+                  missing_bin, packed,
+                  is_cat=None if prev.is_cat is None else prev.is_cat[rel],
+                  words=prev.cat_words, node=rel)

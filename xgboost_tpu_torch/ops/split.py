@@ -9,8 +9,18 @@ each node is a flat argmax over (feature, direction, bin); ties go to the
 lowest flat index. The cumulative sum runs in another order than XLA's,
 so gains agree with the JAX package's to f32 rounding, not bit for bit.
 A feature mask (column sampling) takes features out of the search.
-Categorical features and monotone constraints wait with ROADMAP
-A.5.4-A.5.5.
+Monotone constraints wait with ROADMAP A.5.4.
+
+Categorical features (:class:`CatInfo`; bin == category code) take the
+same dense [node, feature, direction, bin] gain tensor with other left
+sums (reference ``EnumerateOneHot`` / ``EnumeratePart``): **one-hot**
+(at most ``max_cat_to_onehot`` categories) sends one category right and
+the rest left, missing with the default direction; **sorted partition**
+orders the categories by ``g / (h + lambda + 1e-10)`` (a stable sort,
+empty categories last) and scores every prefix of at most
+``max_cat_threshold`` categories as the left set. The winner's left set
+is packed into ``(nb - 1) // 32 + 1`` uint32 words, held as int64
+tensors (:func:`pack_mask`).
 
 Also the pieces of the two-level coarse -> refine search (the JAX
 package's ``ops/split.py:286-424``, ``hist_method`` ``coarse``, ``fused``
@@ -29,6 +39,14 @@ import torch
 from ..tree.param import TrainParam, _f32, calc_gain
 
 
+class CatInfo(NamedTuple):
+    """Categorical features: is_cat [F] bool, and is_onehot [F] bool for
+    those with at most ``max_cat_to_onehot`` categories."""
+
+    is_cat: torch.Tensor
+    is_onehot: torch.Tensor
+
+
 class SplitResult(NamedTuple):
     gain: torch.Tensor          # [N] loss_chg of the best split (-inf if none)
     feature: torch.Tensor       # [N] int64
@@ -36,17 +54,34 @@ class SplitResult(NamedTuple):
     default_left: torch.Tensor  # [N] bool, direction of missing values
     left_sum: torch.Tensor      # [N, 2]
     right_sum: torch.Tensor     # [N, 2]
+    # with a CatInfo only: a categorical split won, and its left set as
+    # [N, W] uint32 words held in int64
+    is_cat: Optional[torch.Tensor] = None
+    cat_words: Optional[torch.Tensor] = None
+
+
+def pack_mask(mask: torch.Tensor, n_words: int) -> torch.Tensor:
+    """[N, nb] bool -> [N, W] int64 holding little-endian uint32 words
+    (bit b of word w is entry 32 w + b)."""
+    N, nb = mask.shape
+    pad = n_words * 32 - nb
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    bits = mask.reshape(N, n_words, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    return (bits << shifts).sum(dim=2)
 
 
 def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
                     n_real_bins: torch.Tensor, param: TrainParam,
                     has_missing: bool = True,
-                    feature_mask: Optional[torch.Tensor] = None
-                    ) -> SplitResult:
+                    feature_mask: Optional[torch.Tensor] = None,
+                    cat: Optional[CatInfo] = None) -> SplitResult:
     """hist [N, F, B, 2] with the missing mass in slot B-1 when
     ``has_missing``; parent_sum [N, 2]; n_real_bins [F] int64;
     feature_mask [F] or [N, F] bool, True where a feature may split (the
-    sampled columns)."""
+    sampled columns); ``cat``: the categorical features (module
+    docstring)."""
     N, F, B, _ = hist.shape
     nb = B - 1 if has_missing else B                    # real-bin slots
     present = hist[:, :, :nb, :].movedim(3, 2)          # [N, F, 2, nb]
@@ -56,11 +91,16 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
         miss = hist[:, :, B - 1, :]                     # [N, F, 2]
         left = torch.stack([cum, cum + miss[:, :, :, None]], dim=2)
     else:
+        miss = torch.zeros_like(hist[:, :, 0, :])
         left = cum[:, :, None]                          # [N, F, dirs, 2, nb]
     parent5 = parent_sum[:, None, None, :, None]
-    right = parent5 - left
     bins_idx = torch.arange(nb, device=hist.device)
     base_valid = bins_idx[None, None, :] < n_real_bins[:, None, None]
+    if cat is not None:
+        left, base_valid, ranks = _categorical_left(
+            present, miss, parent5, left, base_valid, bins_idx, cat, param,
+            n_dirs)
+    right = parent5 - left
 
     lg, lh = left[:, :, :, 0, :], left[:, :, :, 1, :]   # [N, F, dirs, nb]
     rg, rh = right[:, :, :, 0, :], right[:, :, :, 1, :]
@@ -84,9 +124,61 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
     b_idx = rem % nb
     nn = torch.arange(N, device=hist.device)
     best_left = left[nn, f_idx, d_idx, :, b_idx]        # [N, 2]
-    return SplitResult(gain=best_gain, feature=f_idx, bin=b_idx,
-                       default_left=d_idx.bool(), left_sum=best_left,
-                       right_sum=parent_sum - best_left)
+    res = SplitResult(gain=best_gain, feature=f_idx, bin=b_idx,
+                      default_left=d_idx.bool(), left_sum=best_left,
+                      right_sum=parent_sum - best_left)
+    if cat is None:
+        return res
+    chosen_cat = cat.is_cat[f_idx]
+    # the left set over the winning feature's real bins: every category
+    # but the one sent right (one-hot), or the sorted prefix up to the
+    # winning bin (partition)
+    real = bins_idx[None, :] < n_real_bins[f_idx][:, None]        # [N, nb]
+    oh_mask = (bins_idx[None, :] != b_idx[:, None]) & real
+    sort_mask = (ranks[nn, f_idx] <= b_idx[:, None]) & real
+    mask = torch.where(cat.is_onehot[f_idx][:, None], oh_mask, sort_mask) \
+        & chosen_cat[:, None]
+    return res._replace(is_cat=chosen_cat,
+                        cat_words=pack_mask(mask, (nb - 1) // 32 + 1))
+
+
+def _categorical_left(present, miss, parent5, left, base_valid, bins_idx,
+                      cat: CatInfo, param: TrainParam, n_dirs: int):
+    """The left sums and validity of :func:`evaluate_splits` with the
+    categorical features' (one-hot and sorted partition) in place of the
+    numeric ones, and the partition ranks [N, F, nb] (each category's
+    place in its node's order)."""
+    g, h = present[:, :, 0], present[:, :, 1]           # [N, F, nb]
+    # the JAX package's f32 expression, in its order: g / ((h + lambda)
+    # + 1e-10); empty categories sort last, ties keep the category order
+    ratio = g / (h + _f32(param.reg_lambda) + _f32(1e-10))
+    ratio = torch.where(h <= 0.0, torch.full_like(ratio, float("inf")),
+                        ratio)
+    order = torch.argsort(ratio, dim=2, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        2, order, torch.arange(order.shape[2], device=order.device)
+        .expand_as(order).contiguous())
+    sorted_hist = torch.gather(present, 3, order[:, :, None, :].expand(
+        -1, -1, 2, -1))
+    cums = torch.cumsum(sorted_hist, dim=3)
+    left_sorted = torch.stack([cums, cums + miss[:, :, :, None]][:n_dirs],
+                              dim=2)
+    # one-hot: the category goes right; missing goes with the default
+    # direction (dir 0 right: parent - miss - present; dir 1 left)
+    present5 = present[:, :, None]
+    miss5 = miss[:, :, None, :, None]
+    left_oh = torch.cat([parent5 - miss5 - present5,
+                         parent5 - present5][:n_dirs], dim=2)
+    ic5 = cat.is_cat[None, :, None, None, None]
+    oh5 = cat.is_onehot[None, :, None, None, None]
+    left = torch.where(ic5, torch.where(oh5, left_oh, left_sorted), left)
+    # a sorted prefix holds at most max_cat_threshold categories
+    # (base_valid is [F, 1, nb])
+    cat_valid = torch.where(cat.is_onehot[:, None, None], base_valid,
+                            base_valid & (bins_idx < param.max_cat_threshold))
+    base_valid = torch.where(cat.is_cat[:, None, None], cat_valid,
+                             base_valid)
+    return left, base_valid, ranks
 
 
 # ---- two-level coarse -> refine search --------------------------------------

@@ -32,10 +32,17 @@ once on the device, before the trees grow; each level's split search
 takes its masks (``evaluate_splits(feature_mask=)``), on every
 schedule, as the JAX package's ``_grow`` does.
 
+Categorical features (``cuts.is_cat()``: bin == category code) split
+one-hot or by sorted partition (``ops/split.py CatInfo``); the heap
+keeps each node's ``is_cat_split`` and its left set as ``(nb - 1) // 32
++ 1`` uint32 words held in int64, and the advance routes by them. Their
+histograms go through ``auto``'s K2 and K3, never the sorted build, and
+the two-level schedules refuse them, as the JAX package's.
+
 Not ported here (each raises where it is asked for): the mega schedule
 and sibling subtraction (ROADMAP A.6), monotone and interaction
-constraints (A.5.4), categorical splits (A.5.5), ``max_leaves``
-truncation and lossguide (A.5.6), meshes and column split (A.8).
+constraints (A.5.4), ``max_leaves`` truncation and lossguide (A.5.6),
+meshes and column split (A.8).
 """
 
 from __future__ import annotations
@@ -47,11 +54,12 @@ import numpy as np
 import torch
 
 from ..ops.histogram import (build_hist, fused_advance_coarse,
+                             refuse_categorical_two_level,
                              resolve_hist_kernel, scan_advance_level,
                              scan_level_hists)
 from ..ops.partition import (LevelSplits, advance_level, level_rel,
                              update_positions)
-from ..ops.split import (COARSE_B, WINDOW, assemble_two_level,
+from ..ops.split import (COARSE_B, WINDOW, CatInfo, assemble_two_level,
                          choose_refine_window, coarse_bin_ids,
                          decode_two_level_bin, evaluate_splits,
                          refine_bin_ids, refine_from_fine)
@@ -76,6 +84,10 @@ class GrownTree(NamedTuple):
     positions: torch.Tensor      # [n_rows] int64 final heap node per row
     delta: torch.Tensor          # [n_rows] f32 leaf value per row
     base_weight: torch.Tensor    # [max_nodes] f32 node weight * eta
+    # categorical splits: [max_nodes] bool and the left sets [max_nodes, W]
+    # (uint32 words in int64); None without categorical features
+    is_cat_split: Optional[torch.Tensor] = None
+    cat_words: Optional[torch.Tensor] = None
 
 
 def sample_features(keys, base_mask: torch.Tensor,
@@ -145,14 +157,16 @@ def draw_feature_masks(tkeys: Sequence[xrandom.Key], base_mask: torch.Tensor,
 
 
 def two_level_schedule(hist_method: str, max_nbins: int,
-                       has_missing: bool):
+                       has_missing: bool, numeric: bool = True):
     """``"coarse"``, ``"fused"`` or ``"scan"`` when ``hist_method`` asks
     for a two-level schedule, else None. Like the JAX package's, they
-    take at most 256 real bins."""
+    take numeric features (``numeric``) and at most 256 real bins."""
     base = hist_method[:-len("+nosub")] if hist_method.endswith("+nosub") \
         else hist_method
     if base not in ("coarse", "fused", "scan"):
         return None
+    if not numeric:
+        refuse_categorical_two_level(hist_method)
     if max_nbins > 256 + int(has_missing):
         raise NotImplementedError(
             f"hist_method={hist_method!r} supports numeric features and "
@@ -168,7 +182,7 @@ class HeapTree:
     rows' final nodes into a :class:`GrownTree`."""
 
     def __init__(self, max_depth: int, root_sum: torch.Tensor,
-                 param: TrainParam) -> None:
+                 param: TrainParam, n_words: int = 0) -> None:
         dev = root_sum.device
         self.max_nodes = max_nodes = 2 ** (max_depth + 1) - 1
         self.param = param
@@ -186,6 +200,14 @@ class HeapTree:
                                     device=dev)
         self.node_sum[0] = root_sum
         self.min_gain = _f32(max(param.gamma, _EPS))
+        # ``n_words`` > 0: categorical splits, their left sets in that many
+        # words
+        self.is_cat_split = self.cat_words = None
+        if n_words:
+            self.is_cat_split = torch.zeros((max_nodes,), dtype=torch.bool,
+                                            device=dev)
+            self.cat_words = torch.zeros((max_nodes, n_words),
+                                         dtype=torch.int64, device=dev)
 
     def record(self, lo: int, n_level: int, res) -> torch.Tensor:
         """Record the split search ``res`` (``ops/split.py
@@ -204,6 +226,12 @@ class HeapTree:
         self.is_leaf[lo:hi] = ~can_split
         self.gain[lo:hi] = torch.where(can_split, res.gain,
                                        torch.zeros_like(res.gain))
+        if self.is_cat_split is not None:
+            cat = can_split & res.is_cat
+            self.is_cat_split[lo:hi] = cat
+            self.cat_words[lo:hi] = torch.where(
+                cat[:, None], res.cat_words,
+                torch.zeros_like(res.cat_words))
         children = slice(2 * lo + 1, 2 * hi + 1)    # [l0, r0, l1, r1, ...]
         self.active[children] = can_split.repeat_interleave(2)
         zero2 = torch.zeros_like(res.left_sum)
@@ -217,9 +245,12 @@ class HeapTree:
                      can_split: torch.Tensor) -> LevelSplits:
         """The splits of the recorded level, for the advance below it."""
         hi = lo + n_level
+        cat = self.is_cat_split is not None
         return LevelSplits(lo, self.split_feature[lo:hi],
                            self.split_bin[lo:hi], self.default_left[lo:hi],
-                           can_split)
+                           can_split,
+                           self.is_cat_split[lo:hi] if cat else None,
+                           self.cat_words[lo:hi] if cat else None)
 
     def finish(self, positions: torch.Tensor) -> GrownTree:
         """The grown tree, with ``positions`` [n] the rows' final heap
@@ -235,32 +266,38 @@ class HeapTree:
             active=self.active, leaf_value=leaf_value,
             node_sum=self.node_sum, gain=self.gain, positions=positions,
             delta=leaf_value[positions],
-            base_weight=torch.where(self.active, w, zero))
+            base_weight=torch.where(self.active, w, zero),
+            is_cat_split=self.is_cat_split, cat_words=self.cat_words)
 
 
 def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
               has_missing: bool = True,
-              feature_masks: Optional[List[torch.Tensor]] = None
-              ) -> GrownTree:
+              feature_masks: Optional[List[torch.Tensor]] = None,
+              cat: Optional[CatInfo] = None) -> GrownTree:
     """One tree from bins [n, F] and gpair [n, 2] f32 on one device;
     ``n_real_bins`` [F] int64 on the same device; ``feature_masks``: per
     level a [n_level or 1, F] bool mask of the features its nodes may
-    split on (:func:`draw_feature_masks`), or None."""
+    split on (:func:`draw_feature_masks`), or None; ``cat``: the
+    categorical features (on the same device), or None."""
     n, F = bins.shape
     dev = bins.device
     max_depth = param.max_depth
+    numeric = cat is None
     # out-of-range sentinel when the matrix carries no missing slot
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
         resolve_hist_kernel(hist_method, n, 2 ** depth, max_nbins,
-                            has_missing)
-    schedule = two_level_schedule(hist_method, max_nbins, has_missing)
+                            has_missing, numeric)
+    schedule = two_level_schedule(hist_method, max_nbins, has_missing,
+                                  numeric)
     cb = (coarse_bin_ids(bins, missing_bin)
           if schedule in ("coarse", "fused") else None)
+    n_real_slots = max_nbins - 1 if has_missing else max_nbins
 
-    tree = HeapTree(max_depth, gpair.sum(dim=0), param)
+    tree = HeapTree(max_depth, gpair.sum(dim=0), param,
+                    n_words=0 if numeric else (n_real_slots - 1) // 32 + 1)
     node_sum = tree.node_sum
     positions = torch.zeros((n,), dtype=torch.int64, device=dev)
     pending = None      # fused/scan: the splits whose advance is deferred
@@ -286,7 +323,8 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
         n_real_eval = n_real_bins
         if schedule is None:
             hist = build_hist(bins, gpair, rel, n_level, max_nbins,
-                              method=hist_method, has_missing=has_missing)
+                              method=hist_method, has_missing=has_missing,
+                              numeric=numeric)
         else:
             if schedule == "scan" and hist_f is None:
                 hist_f, hist_c = scan_level_hists(
@@ -311,7 +349,7 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
             hist, node_sum[lo:hi], n_real_eval, param,
             has_missing=has_missing,
             feature_mask=(None if feature_masks is None
-                          else feature_masks[depth]))
+                          else feature_masks[depth]), cat=cat)
         if schedule is not None:
             span_sel = torch.gather(span, 1,
                                     res.feature.clamp(min=0)[:, None])[:, 0]
@@ -325,7 +363,8 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
             is_split[lo:hi] = can_split
             positions = update_positions(bins, positions, tree.split_feature,
                                          tree.split_bin, tree.default_left,
-                                         is_split, missing_bin)
+                                         is_split, missing_bin,
+                                         tree.is_cat_split, tree.cat_words)
     if pending is not None:     # below the last level: the advance alone
         positions = advance_level(bins, positions, pending, missing_bin)
     return tree.finish(positions)
@@ -355,10 +394,6 @@ class TreeGrower:
             raise NotImplementedError(
                 "monotone and interaction constraints are not in the "
                 "PyTorch port yet (ROADMAP A.5.4)")
-        if cuts.is_cat().any():
-            raise NotImplementedError(
-                "categorical features are not in the PyTorch port yet "
-                "(ROADMAP A.5.5)")
         if param.max_depth < 1:
             raise ValueError("grow_policy=depthwise requires max_depth > 0")
         self.param = param
@@ -367,6 +402,7 @@ class TreeGrower:
         self.hist_method = hist_method
         self.has_missing = has_missing
         self._n_real = {}
+        self._cat = {}
 
     def _n_real_on(self, device: torch.device) -> torch.Tensor:
         key = str(device)
@@ -374,6 +410,21 @@ class TreeGrower:
             self._n_real[key] = torch.from_numpy(
                 self.cuts.n_real_bins().astype(np.int64)).to(device)
         return self._n_real[key]
+
+    def cat_on(self, device: torch.device) -> Optional[CatInfo]:
+        """The categorical features on ``device`` (one-hot with at most
+        ``max_cat_to_onehot`` categories), or None when every feature is
+        numeric."""
+        is_cat = self.cuts.is_cat()
+        if not is_cat.any():
+            return None
+        key = str(device)
+        if key not in self._cat:
+            onehot = is_cat & (self.cuts.n_real_bins()
+                               <= self.param.max_cat_to_onehot)
+            self._cat[key] = CatInfo(torch.from_numpy(is_cat).to(device),
+                                     torch.from_numpy(onehot).to(device))
+        return self._cat[key]
 
     def feature_masks(self, tkeys: Sequence[xrandom.Key],
                       device: torch.device):
@@ -390,12 +441,14 @@ class TreeGrower:
         return grow_tree(bins, gpair, self._n_real_on(bins.device),
                          param=self.param, max_nbins=self.max_nbins,
                          hist_method=self.hist_method,
-                         has_missing=self.has_missing, feature_masks=masks)
+                         has_missing=self.has_missing, feature_masks=masks,
+                         cat=self.cat_on(bins.device))
 
     def to_tree_model(self, g: GrownTree) -> TreeModel:
         """Pull the heap to the host, compact it, attach raw thresholds."""
         sf = g.split_feature.cpu().numpy()
         sb = g.split_bin.cpu().numpy()
+        cat = g.is_cat_split is not None
         return TreeModel.from_heap(
             split_feature=sf, split_bin=sb,
             split_value=self.cuts.split_values(sf, sb),
@@ -404,4 +457,7 @@ class TreeGrower:
             leaf_value=g.leaf_value.cpu().numpy(),
             sum_hess=g.node_sum[:, 1].cpu().numpy(),
             gain=g.gain.cpu().numpy(),
-            base_weight=g.base_weight.cpu().numpy())
+            base_weight=g.base_weight.cpu().numpy(),
+            is_cat_split=g.is_cat_split.cpu().numpy() if cat else None,
+            cat_words=(g.cat_words.cpu().numpy().astype(np.uint32) if cat
+                       else None))

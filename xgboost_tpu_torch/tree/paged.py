@@ -35,9 +35,9 @@ with no split; the port runs every level (a level without active nodes
 splits nothing, so the tree is the same).
 
 Not in the port yet (each raises): the paged two-level schedules
-(``coarse``, ``fused``, ``scan``, ``mega``: ROADMAP A.7), lossguide,
-multi-output, categorical and constraints (A.5.x, raised by
-``TreeGrower``), and the paged mesh tier (A.8).
+(``coarse``, ``fused``, ``scan``, ``mega``) and categorical features
+(ROADMAP A.7), lossguide, multi-output and constraints (A.5.x, raised
+by ``TreeGrower``), and the paged mesh tier (A.8).
 """
 
 from __future__ import annotations
@@ -144,6 +144,10 @@ class PagedGrower(TreeGrower):
                 f"hist_method={hist_method!r} on a paged (external-memory) "
                 "matrix is not in the PyTorch port yet (the paged two-level "
                 "schedules, ROADMAP A.7)")
+        if cuts.is_cat().any():
+            raise NotImplementedError(
+                "categorical features on a paged (external-memory) matrix "
+                "are not in the PyTorch port yet (ROADMAP A.7)")
         super().__init__(param, max_nbins, cuts, hist_method=hist_method,
                          has_missing=has_missing)
         self._pk = _PageKernels(max_nbins, hist_method, has_missing)

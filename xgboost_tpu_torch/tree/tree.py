@@ -1,5 +1,5 @@
 """Tree model container (host numpy; the JAX package's ``tree/tree.py``
-without categorical training and dumps).
+without dumps).
 
 Node ids are BFS order (root 0, every parent id smaller than its
 children); children are addressed through ``left_child`` /
@@ -65,7 +65,8 @@ class TreeModel:
     @classmethod
     def from_heap(cls, split_feature, split_bin, split_value, default_left,
                   is_leaf, active, leaf_value, sum_hess, gain,
-                  base_weight=None) -> "TreeModel":
+                  base_weight=None, is_cat_split=None,
+                  cat_words=None) -> "TreeModel":
         """Compact a heap-layout tree (node i has children 2i+1 / 2i+2,
         ``active`` marks the nodes that exist) into BFS order, as the JAX
         package's ``TreeModel.from_heap``; ``heap_map`` maps heap ids to
@@ -107,6 +108,10 @@ class TreeModel:
             leaf_value=np.asarray(leaf_value)[o].astype(np.float32),
             sum_hess=np.asarray(sum_hess)[o].astype(np.float32),
             gain=np.asarray(gain)[o].astype(np.float32),
+            is_cat_split=None if is_cat_split is None
+            else np.asarray(is_cat_split)[o].astype(bool),
+            cat_words=None if cat_words is None
+            else np.asarray(cat_words)[o].astype(np.uint32),
             base_weight=None if base_weight is None
             else np.asarray(base_weight)[o].astype(np.float32))
         t.heap_map = heap_map
