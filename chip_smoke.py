@@ -100,7 +100,26 @@ counts set to 0 just before and read just after:
   each through ``pallas:bf16x2`` / ``pallas:bf16`` on packed pages;
   ``Booster.predict`` on the paged matrix against the walk over its
   bins; and the default budget, which collapses the matrix to the
-  resident tier.
+  resident tier;
+- BASELINE config #3 in full (``mslr_ranking``): ``rank:ndcg``
+  LambdaMART at the MSLR-WEB30K Fold1 shape (``mslr_like``: 136 N(0, 1)
+  features, 18,919 training queries of log-normal sizes with MSLR's
+  mean, the longest 1,251 documents, 6,306 held-out queries; labels
+  0-4 from a hidden score's rank within the query, made from a seed):
+  ``lambdarank_pair_method`` ``mean`` with one rival a document,
+  exponential gains, depth 6, ``eta`` 0.3, ``max_bin`` 256, held-out
+  ``ndcg@10`` and ``map@10``, 30 rounds twice: K4 at every level (6
+  launches a round), K1 once a round, one sha256 in both runs,
+  held-out ``ndcg@10`` rising, ``Booster.predict`` agreeing with the
+  eval line; seconds a round, three profiled rounds, the LambdaRank
+  gradient's own device time and its padded layout's pad share; K2,
+  K3 and K4 over the training bins at 136 features against their plain
+  versions (1 to 32 nodes, uniform and skewed) and timed at 1 and 32
+  nodes; K1 on the ranking forest against its fold replica; and at
+  bench.py's 200,000 x 136 in 800 queries of 250, two rounds each of
+  ``topk`` (0 and 8 anchors), unbiased ``mean`` and ``topk`` (ti+ /
+  tj- printed), ``rank:pairwise`` and ``rank:map`` on binary labels,
+  and a save/load round trip of the unbiased model.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -1257,6 +1276,279 @@ def covertype_categorical_dart(xt, dev, Xc, yc, gbtree_quality):
 
 
 # the HIGGS-shape training of the main path (``main`` and ``model_digests``)
+# ---- BASELINE.json config #3: rank:ndcg LambdaMART at the MSLR-WEB30K shape --
+
+# MSLR-WEB30K: 3,771,125 documents x 136 features in 31,531 queries (the
+# longest 1,251 documents); Fold1 trains on 18,919 queries and holds out
+# 6,306 for validation and 6,306 for test. Labels 0-4, most 0 and 1.
+MSLR_FEATURES = 136
+MSLR_TRAIN_QUERIES = 18_919
+MSLR_TEST_QUERIES = 6_306
+MSLR_MEAN_DOCS = 3_771_125 / 31_531
+MSLR_MAX_DOCS = 1_251
+MSLR_LABEL_SHARE = (0.514, 0.325, 0.134, 0.019, 0.008)
+# the repo's MSLR-shape settings (bench.py bench_rank_unbiased, BASELINE.md
+# row #3) with the reference's pair defaults
+MSLR_PARAMS = {"objective": "rank:ndcg", "tree_method": "hist",
+               "max_bin": 256, "lambdarank_pair_method": "mean",
+               "lambdarank_num_pair_per_sample": 1, "ndcg_exp_gain": True,
+               "max_depth": 6, "eta": 0.3,
+               "eval_metric": ["ndcg@10", "map@10"]}
+MSLR_ROUNDS = 30
+MSLR_LEVELS = ((1, False), (2, False), (4, False), (8, False), (16, False),
+               (32, False), (16, True), (32, True))
+# bench.py's rank shape: 200,000 x 136 in 800 queries of 250
+RANK_BENCH_ROWS = 200_000
+RANK_BENCH_QUERIES = 800
+HIST_KERNEL_NAMES = ("scan_count", "scan_scatter", "level_plan", "hist_tiles",
+                     "combine_partials", "fold_partials")
+
+
+def mslr_like(seed):
+    """Features [n, 136] f32 N(0, 1), labels [n] and query sizes of
+    18,919 + 6,306 queries (MSLR-WEB30K Fold1's training and test
+    queries), made from ``seed``: sizes log-normal with MSLR's mean
+    (~119.6), at most 1,251, the longest training query exactly 1,251;
+    labels 0-4 in ``MSLR_LABEL_SHARE`` by the rank of a hidden linear
+    score plus noise within each query."""
+    rng = np.random.default_rng(seed)
+    G = MSLR_TRAIN_QUERIES + MSLR_TEST_QUERIES
+    sigma = 0.7
+    sizes = np.clip(np.rint(rng.lognormal(
+        np.log(MSLR_MEAN_DOCS) - sigma * sigma / 2, sigma, G)), 1,
+        MSLR_MAX_DOCS).astype(np.int64)
+    sizes[int(np.argmax(sizes[:MSLR_TRAIN_QUERIES]))] = MSLR_MAX_DOCS
+    n = int(sizes.sum())
+    X = rng.standard_normal((n, MSLR_FEATURES), dtype=np.float32)
+    w = rng.standard_normal(MSLR_FEATURES).astype(np.float32)
+    score = X @ w + 4.0 * rng.standard_normal(n).astype(np.float32)
+    qid = np.repeat(np.arange(G), sizes)
+    ptr = np.concatenate([[0], np.cumsum(sizes)])
+    order = np.lexsort((score, qid))        # by query, score ascending
+    frac = (np.arange(n) - ptr[qid] + 0.5) / sizes[qid]
+    y = np.empty(n, np.float32)
+    y[order] = np.searchsorted(np.cumsum(MSLR_LABEL_SHARE)[:-1], frac)
+    return X, y, sizes
+
+
+def rank_bench_like(seed):
+    """bench.py's rank inputs: [200,000, 136] f32 N(0, 1), labels 0-4 at
+    the 0.55 / 0.75 / 0.9 / 0.97 quantiles of a linear score, 800 queries
+    of 250 rows."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(RANK_BENCH_ROWS, MSLR_FEATURES).astype(np.float32)
+    score = X @ rng.randn(MSLR_FEATURES).astype(np.float32)
+    y = np.digitize(score, np.quantile(score, [0.55, 0.75, 0.9, 0.97]))
+    qid = np.repeat(np.arange(RANK_BENCH_QUERIES),
+                    RANK_BENCH_ROWS // RANK_BENCH_QUERIES)
+    return X, y.astype(np.float32), qid
+
+
+def mslr_ranking(xt, dev):
+    """The ``mslr_ranking`` phase (module docstring): returns (the
+    main-path runs' launch counts, {kernel: max |kernel - plain|}, K1's
+    errors, the histogram kernels' times at 136 features, a summary)."""
+    from xgboost_tpu_torch.metric import get_metric
+    from xgboost_tpu_torch.objective.ranking import MEAN_DRAWS
+    from xgboost_tpu_torch.serve.packed import PackedForest
+
+    t0 = time.perf_counter()
+    X, y, sizes = mslr_like(seed=5)
+    sz_tr = sizes[:MSLR_TRAIN_QUERIES]
+    n_tr = int(sz_tr.sum())
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr], group=sz_tr)
+    dte = xt.DMatrix(X[n_tr:], label=y[n_tr:],
+                     group=sizes[MSLR_TRAIN_QUERIES:])
+    if int(sz_tr.max()) != MSLR_MAX_DOCS or \
+            dtr.get_group().shape != (MSLR_TRAIN_QUERIES,):
+        raise AssertionError("the MSLR-shape queries miss Fold1's shape")
+    log(f"mslr_ranking: {n_tr} training rows x {MSLR_FEATURES} in "
+        f"{MSLR_TRAIN_QUERIES} queries (mean {sz_tr.mean():.2f}, median "
+        f"{np.median(sz_tr):.0f}, longest {sz_tr.max()}), {len(y) - n_tr} "
+        f"held out in {MSLR_TEST_QUERIES}; label counts "
+        f"{np.bincount(y.astype(np.int64)).tolist()}; made in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+
+    # K2, K3 and K4 over the training matrix's bins at 136 features: the
+    # levels of 1 to 32 nodes, uniform and skewed, bit for bit
+    t0 = time.perf_counter()
+    bins = dtr.binned(MSLR_PARAMS["max_bin"], dev).bins
+    if bins.shape != (n_tr, MSLR_FEATURES) or bins.dtype != torch.uint8:
+        raise AssertionError(f"MSLR bins {bins.shape} {bins.dtype}")
+    log(f"MSLR sketch and bins: {time.perf_counter() - t0:.2f} s (host "
+        f"clock)")
+    hist_errs = {}
+    for i, (N, skew) in enumerate(MSLR_LEVELS):
+        _, gpair, rel = hist_inputs(n_tr, 1, 256, N, dev, seed=200 + i,
+                                    skew=skew)
+        label = f"MSLR n={n_tr} N={N} F=136{' skewed' if skew else ''}"
+        for k, e in check_hist(bins, gpair, rel, N, 256, label).items():
+            hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+        del gpair, rel
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    hist_times = {}
+    for N in (1, 32):
+        _, gpair, rel = hist_inputs(n_tr, 1, 256, N, dev, seed=220 + N)
+        t, n_active = time_hist(bins, gpair, rel, N, 256, flush)
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            planes = 2 if name in k3_precisions() else 4
+            bound = hist_bound_ms(bins, N, 256, n_active, planes)
+            hist_times[(name, N)] = (ms, plain_ms, lib_ms, bound)
+            log(f"hist {name} n={n_tr} N={N} B=256 x 136 u8 (L2 flushed): "
+                f"{ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ "
+                f"{lib_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}), "
+                f"kernel at {bound[0] / ms * 100:.4f}% of it")
+        del gpair, rel
+    del bins, flush
+
+    # the main path, twice: 30 rounds with the held-out queries evaluated
+    # every round
+    runs, raws = [], []
+    for run in range(2):
+        res = {}
+        t0 = time.perf_counter()
+        bst, c = train_launches(f"train MSLR run {run}", lambda r=res:
+                                xt.train(MSLR_PARAMS, dtr, MSLR_ROUNDS,
+                                         evals=[(dte, "test")],
+                                         evals_result=r, verbose_eval=10))
+        t_run = time.perf_counter() - t0
+        depth = MSLR_PARAMS["max_depth"]
+        if c["hist_scan"] != depth * MSLR_ROUNDS or c["hist_int8x2"] != 0 \
+                or c["hist_f32"] != 0 or c["fused_advance_coarse"] != 0:
+            raise AssertionError(f"MSLR training launched {c}, expected K4 "
+                                 f"{depth} times a round")
+        if c["walk_packed"] != MSLR_ROUNDS or \
+                c["walk_staged"] != MSLR_ROUNDS:
+            raise AssertionError(f"MSLR's held-out walks launched {c}, "
+                                 "expected K1 staged once a round")
+        runs.append(c)
+        raws.append(saved_bytes(bst))
+        log(f"train MSLR run {run}: {MSLR_ROUNDS} rounds in {t_run:.3f} s "
+            f"(host clock, sketch and binning included on run 0); launches "
+            f"a round: K4 {c['hist_scan'] / MSLR_ROUNDS:g}, K2 "
+            f"{c['hist_int8x2'] / MSLR_ROUNDS:g}, K1 "
+            f"{c['walk_packed'] / MSLR_ROUNDS:g}")
+    digests = [hashlib.sha256(r).hexdigest() for r in raws]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two MSLR runs saved different models: "
+                             f"{digests}")
+    nd, mp = res["test"]["ndcg@10"], res["test"]["map@10"]
+    if not nd[-1] > nd[0]:
+        raise AssertionError(f"held-out ndcg@10 did not rise: {nd}")
+    p_te = bst.predict(dte)
+    if p_te.shape != (len(y) - n_tr,) or not np.isfinite(p_te).all() or \
+            abs(get_metric("ndcg@10")(p_te, dte.info) - nd[-1]) > 1e-6:
+        raise AssertionError("Booster.predict disagrees with the eval line")
+    log(f"MSLR held-out: ndcg@10 {nd[0]} (round 1) -> {nd[-1]} (round "
+        f"{MSLR_ROUNDS}), map@10 {mp[0]} -> {mp[-1]}; model sha256 (two "
+        f"runs) {digests[0]} {digests[1]}")
+
+    # seconds a round, three profiled rounds, and the gradient alone
+    timer, per, mslr_s = seconds_per_round(MSLR_PARAMS, dtr)
+    log(f"MSLR seconds per round (update + sync, host clock): "
+        f"{['%.6f' % t for t in per]}; median of rounds 1-5 {mslr_s:.6f} s")
+    busy, rows = profile_rounds("MSLR rank:ndcg", timer, dtr, top=16)
+    hist_ms = sum(e.self_device_time_total for e in rows
+                  if any(k in e.key for k in HIST_KERNEL_NAMES)) / 1e3
+    st = timer._state_of(dtr, is_train=True)
+    margin = timer._cached_margin(dtr, is_train=True)
+
+    def gradient(it):
+        return timer.obj.get_gradient(margin, st["labels"], st["weights"],
+                                      it, group_ptr=dtr.info.group_ptr)
+
+    host = []
+    for it in range(9, 15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gradient(it)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for it in range(15, 18):
+            gradient(it)
+        torch.cuda.synchronize()
+    grad_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 3e3
+    G, L = MSLR_TRAIN_QUERIES, MSLR_MAX_DOCS
+    chunk = max(1, min(G, MEAN_DRAWS // L))
+    slots = -(-G // chunk) * chunk * L
+    pad = 1.0 - n_tr / slots
+    host_ms = float(np.median(host[1:])) * 1e3
+    log(f"MSLR LambdaRank gradient: device {grad_ms:.3f} ms a round (3 "
+        f"calls under torch.profiler), host {host_ms:.3f} ms a call "
+        f"(median of 5, ending in a sync); [{-(-G // chunk)} x "
+        f"{chunk} queries, {L}] padded layout, {slots} slots for {n_tr} "
+        f"rows: pad share {pad:.4f}; histogram kernels {hist_ms / 3:.3f} ms "
+        f"a round; device busy {busy / 3:.3f} ms a round")
+
+    # K1 on the ranking forest, held to its fold replica
+    Xte = torch.from_numpy(np.ascontiguousarray(X[n_tr:])).to(dev)
+    pf = bst.packed_forest()
+    base = torch.tensor(bst._base_np(), device=dev)
+    k1_errs = [check_kernel(f"MSLR forest n={n}", pf, Xte[:n].contiguous(),
+                            base, sch)[0]
+               for n, sch in ((512, "spread"), (100_000, "staged"))]
+    del Xte, X, dtr, dte
+
+    # bench.py's rank shape: the other pair methods, unbiased, the other
+    # two objectives, two rounds each
+    Xb, yb, qid = rank_bench_like(seed=0)
+    db = xt.DMatrix(Xb, label=yb, qid=qid)
+    dbin = xt.DMatrix(Xb, label=(yb >= 2).astype(np.float32), qid=qid)
+    variants = (("topk k=0", {"lambdarank_pair_method": "topk",
+                              "lambdarank_num_pair_per_sample": 0}, db),
+                ("topk k=8", {"lambdarank_pair_method": "topk",
+                              "lambdarank_num_pair_per_sample": 8}, db),
+                ("unbiased mean", {"lambdarank_unbiased": True}, db),
+                ("unbiased topk k=8", {"lambdarank_pair_method": "topk",
+                                       "lambdarank_num_pair_per_sample": 8,
+                                       "lambdarank_unbiased": True}, db),
+                ("rank:pairwise", {"objective": "rank:pairwise"}, db),
+                ("rank:map", {"objective": "rank:map"}, dbin))
+    unbiased = None
+    for label, extra, dm in variants:
+        r = {}
+        b, c = train_launches(f"rank {label}", lambda e=extra, d=dm, r=r:
+                              xt.train(dict(MSLR_PARAMS, **e), d, 2,
+                                       evals=[(d, "train")], evals_result=r,
+                                       verbose_eval=False))
+        runs.append(c)
+        if c["hist_scan"] != 12:
+            raise AssertionError(f"rank {label} launched {c}")
+        nd2 = r["train"]["ndcg@10"]
+        if not (np.isfinite(nd2).all() and nd2[1] >= nd2[0] - 1e-3):
+            raise AssertionError(f"rank {label}: ndcg@10 {nd2}")
+        msg = f"rank {label} at 200,000 x 136, 800 queries: ndcg@10 {nd2}"
+        if extra.get("lambdarank_unbiased"):
+            ti, tj = b.obj.ti_plus, b.obj.tj_minus
+            if not (np.isfinite(ti).all() and np.isfinite(tj).all()
+                    and ti[0] == 1.0 and not np.allclose(ti, 1.0)):
+                raise AssertionError(f"rank {label}: ti+ {ti}")
+            msg += (f"; after round 2 ti+[:6] {np.round(ti[:6], 6).tolist()}"
+                    f" tj-[:6] {np.round(tj[:6], 6).tolist()} ({len(ti)} "
+                    f"positions)")
+            if unbiased is None:
+                unbiased = b
+        log(msg)
+    again = xt.Booster(model_file=unbiased.save_raw("ubj"))
+    if not (np.array_equal(again.predict(db), unbiased.predict(db))
+            and np.array_equal(again.obj.ti_plus, unbiased.obj.ti_plus)
+            and np.array_equal(again.obj.tj_minus, unbiased.obj.tj_minus)):
+        raise AssertionError("the unbiased model's save/load round trip "
+                             "differs")
+    log("the unbiased model's save_raw round trip predicts the same bits "
+        "and keeps ti+ / tj-")
+    summary = {"s_round": mslr_s, "busy_ms": busy, "grad_ms": grad_ms,
+               "pad": pad, "ndcg": (nd[0], nd[-1]), "hist_ms": hist_ms / 3}
+    return runs, hist_errs, k1_errs, hist_times, summary
+
+
 HIGGS_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "eta": 0.1,
                 "max_bin": 256}
 
@@ -2403,6 +2695,16 @@ def main() -> int:
         f"{cov_s:.6f} s a round, busy {cov_busy:.3f} ms")
     del Xc, dcov, dcte
 
+    # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
+    mslr_runs, mslr_errs, mslr_k1, mslr_hist, mslr = mslr_ranking(xt, dev)
+    errs += mslr_k1
+    for k, e in mslr_errs.items():
+        hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+    log(f"mslr_ranking: {mslr['s_round']:.6f} s a round, device busy "
+        f"{mslr['busy_ms'] / 3:.3f} ms a round (histograms "
+        f"{mslr['hist_ms']:.3f}, LambdaRank gradient {mslr['grad_ms']:.3f}); "
+        f"held-out ndcg@10 {mslr['ndcg'][0]} -> {mslr['ndcg'][1]}")
+
     # --------- main path: external memory at the HIGGS-11M shape (paged)
     with tempfile.TemporaryDirectory(prefix="xtt_ext_") as tmp:
         ext_runs, ext_busy, ext_s = external_memory(xt, dev, F, tmp)
@@ -2502,7 +2804,7 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs, *covdart_runs]
+            *ext_runs, *covdart_runs, *mslr_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

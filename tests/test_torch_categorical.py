@@ -449,3 +449,37 @@ def test_saved_models_load_both_ways(covtype, fmt, tmp_path):
     tb.save_model(path)
     again = xt.Booster({"device": "cpu"}, model_file=path)
     assert np.array_equal(again.predict(td), pt)
+
+
+def test_root_sum_gap_is_certified_at_min_child_weight_1(monkeypatch):
+    """ROADMAP C's input for the root's f32 sum: at ``min_child_weight`` 1
+    the node three right turns below the root of round 0's class-4 tree
+    (heap node 14, a cover of ~2.4) splits alike in both packages, with
+    gains 4e-4 apart, twice ``GAIN_RTOL`` of its scale: the two root
+    sums differ by ~6e-4 in H and the node, its sums its parents' less
+    the left children's, carries the whole of it. ``compare_tree``
+    certifies the tree with that gap taken through the gain formula."""
+    from test_torch_train import GAIN_RTOL, _parent_term, root_carry, \
+        root_gap
+
+    monkeypatch.setenv("XTPU_BATCH_ROUNDS", "1")
+    X, y = covtype_codes(3000, seed=0)
+    jd, td = dmatrices(X, y)
+    params = dict(PARAMS, min_child_weight=1)
+    jb = xgb.train(dict(params, hist_method="prehot"), jd, 1,
+                   verbose_eval=False)
+    tb = xt.train(dict(params, device="cpu"), td, 1, verbose_eval=False)
+    a, b = jb.gbm.trees[4], tb.gbm.trees[4]
+    gap = root_gap(a, b, PARAMS["eta"])
+    assert gap[1] > 1e-4                        # the two f32 root sums
+    i = j = 0
+    for _ in range(3):                          # heap nodes 2, 6, 14
+        i, j = a.right_child[i], b.right_child[j]
+    assert (a.split_feature[i], a.split_bin[i]) == \
+        (b.split_feature[j], b.split_bin[j])
+    scale = _parent_term(a, i, PARAMS["eta"], 1.0) + abs(float(a.gain[i]))
+    diff = abs(float(a.gain[i]) - float(b.gain[j]))
+    assert diff > GAIN_RTOL * scale             # the fault's field
+    assert diff <= GAIN_RTOL * scale + root_carry(a, i, PARAMS["eta"], 1.0,
+                                                  gap)
+    assert compare_tree(a, b, PARAMS["eta"])[0] == []

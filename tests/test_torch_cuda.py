@@ -785,3 +785,91 @@ def test_k1_over_a_trained_categorical_dart_forest_on_the_card():
     dm = xt.DMatrix(X, **kw)
     np.testing.assert_allclose(card.predict(dm), cpu.predict(dm), rtol=1e-6,
                                atol=1e-6)
+
+
+def _ranking_inputs(seed):
+    """Labels 0-4, scores and offsets of 60 queries of 1 to 300
+    documents."""
+    rng = np.random.RandomState(seed)
+    sizes = np.concatenate([[1, 300], rng.randint(2, 120, 58)])
+    ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    n = int(ptr[-1])
+    y = rng.choice(5, n, p=(0.42, 0.33, 0.15, 0.07, 0.03)).astype(np.float32)
+    return y, rng.randn(n).astype(np.float32), ptr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unbiased", [False, True])
+@pytest.mark.parametrize("method", ["mean", "topk"])
+def test_ranking_gradient_on_the_card_equals_the_cpu(method, unbiased):
+    """The LambdaRank gradient of two rounds on the card: the same bits in
+    two runs (the rivals' sums go through ``ordered_scatter_sum``), and
+    within rtol 1e-5 plus 4e-6 of the column's largest |value| of the
+    CPU's (the rivals are the same draws; the sums' order differs), ti+ /
+    tj- to rtol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.objective import get_objective
+
+    y, s, ptr = _ranking_inputs(21)
+    params = {"lambdarank_pair_method": method,
+              "lambdarank_unbiased": str(unbiased).lower()}
+    out = {}
+    for run, dev in (("cpu", "cpu"), ("card", "cuda"), ("again", "cuda")):
+        obj = get_objective("rank:ndcg", dict(params))
+        yt = torch.from_numpy(y).to(dev)
+        grads = []
+        for it in range(2):
+            st = torch.from_numpy(s + 0.5 * it).to(dev)[:, None]
+            grads.append(obj.get_gradient(st, yt, None, it,
+                                          group_ptr=ptr).cpu())
+        out[run] = (grads, obj.ti_plus, obj.tj_minus)
+    for a, b in zip(out["card"][0], out["again"][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(out["card"][0], out["cpu"][0]):
+        scale = b.abs().amax(dim=0, keepdim=True)
+        assert ((a - b).abs() <= 1e-5 * b.abs() + 4e-6 * scale).all()
+    if unbiased:
+        np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=1e-6)
+        np.testing.assert_allclose(out["card"][2], out["cpu"][2], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_ordered_scatter_sum_is_deterministic_on_the_card():
+    """Rows summed at repeated targets on the card: two calls the same
+    bits, and within f32 rounding of the CPU's sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.objective.ranking import ordered_scatter_sum
+
+    rng = np.random.RandomState(22)
+    idx = torch.from_numpy(rng.zipf(1.5, 2_000_000) % 50_000)
+    vals = torch.from_numpy(rng.randn(2_000_000, 4).astype(np.float32))
+    cpu = ordered_scatter_sum(idx, vals, 50_000)
+    a = ordered_scatter_sum(idx.cuda(), vals.cuda(), 50_000)
+    b = ordered_scatter_sum(idx.cuda(), vals.cuda(), 50_000)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), cpu, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ranking_training_on_the_card_equals_the_cpu():
+    """Three rounds of ``rank:ndcg`` on the card: one model in two runs,
+    predictions within 1e-5 plus 1e-4 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    y, _, ptr = _ranking_inputs(23)
+    X = np.random.RandomState(24).randn(len(y), 12).astype(np.float32)
+    X[:, 0] += y
+    params = {"objective": "rank:ndcg", "max_depth": 5,
+              "eval_metric": "ndcg@10"}
+    dm = xt.DMatrix(X, label=y, group=np.diff(ptr))
+    raws = [bytes(xt.train(params, dm, 3, verbose_eval=False).save_raw())
+            for _ in range(2)]
+    assert raws[0] == raws[1]
+    cpu = xt.train(dict(params, device="cpu"), dm, 3, verbose_eval=False)
+    card = xt.Booster(model_file=raws[0])
+    np.testing.assert_allclose(card.predict(dm), cpu.predict(dm), rtol=1e-5,
+                               atol=1e-4)

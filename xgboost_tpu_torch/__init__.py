@@ -1,10 +1,12 @@
 """xgboost_tpu_torch — the PyTorch/CUDA port of xgboost_tpu.
 
 ``train`` grows gbtree models (depthwise ``hist``; ``binary:logistic``,
-``reg:squarederror``, ``multi:softprob`` / ``multi:softmax``; row and
-column sampling, boosted random forests, early stopping and the stock
-``callback`` objects) with histograms built by CUDA kernels written by
-hand for Hopper (``csrc/hist.cu``); ``Booster.predict`` and
+``reg:squarederror``, ``multi:softprob`` / ``multi:softmax``, and over
+a matrix's query groups ``rank:ndcg`` / ``rank:pairwise`` /
+``rank:map``; row and column sampling, boosted random forests, early
+stopping and the stock ``callback`` objects) with histograms built by
+CUDA kernels written by hand for Hopper (``csrc/hist.cu``);
+``Booster.predict`` and
 ``serve.Server`` answer predictions through the forest walk kernel
 (``csrc/walk.cu``). A ``DMatrix`` or ``QuantileDMatrix`` built from a
 ``DataIter`` with a ``cache_prefix`` trains from host memory, its pages

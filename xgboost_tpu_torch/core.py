@@ -415,16 +415,19 @@ class Booster:
         self._configure(dtrain)
         st = self._state_of(dtrain, is_train=True)
         key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
+        # ranking objectives also take the matrix's query offsets
+        groups = ({"group_ptr": dtrain.info.group_ptr}
+                  if self.obj.takes_groups else {})
         if self.gbm.supports_margin_cache:
             margin = self._cached_margin(dtrain, is_train=True)
             gpair = self.obj.get_gradient(margin, st["labels"],
-                                          st["weights"], iteration)
+                                          st["weights"], iteration, **groups)
             st["margin"] = margin + self.gbm.do_boost(st["binned"], gpair,
                                                       key)
         else:
             margin = self.gbm.training_margin(st, self._walk_trees)
             gpair = self.obj.get_gradient(margin, st["labels"],
-                                          st["weights"], iteration)
+                                          st["weights"], iteration, **groups)
             self.gbm.do_boost(st["binned"], gpair, key, state=st)
             st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
         st["n_trees"] = self.gbm.version()

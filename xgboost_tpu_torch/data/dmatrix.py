@@ -19,6 +19,13 @@ quantized once, at ``max_bin``; training asks for the same ``max_bin``.
 are category codes, NaN missing), which a matrix takes only with
 ``enable_categorical=True``, as the JAX package's. An iterator-built
 categorical matrix waits with the paged growers (ROADMAP A.7).
+
+Query groups (ranking): ``group=`` (the size of each query, in row
+order) or ``qid=`` (each row's query id, sorted) set
+``MetaInfo.group_ptr``, the [G + 1] offsets of the queries' rows; so do
+``set_group`` / ``set_info(group=)`` / ``set_uint_info("group_ptr")`` and
+an iterator's ``qid`` or ``group`` batches. A ranking matrix may carry
+one weight a query (length G) instead of one a row.
 """
 
 from __future__ import annotations
@@ -40,10 +47,50 @@ from . import quantile
 @dataclass
 class MetaInfo:
     labels: Optional[np.ndarray] = None        # [n] f32
-    weights: Optional[np.ndarray] = None       # [n] f32
+    weights: Optional[np.ndarray] = None       # [n], or [G] a query, f32
     base_margin: Optional[np.ndarray] = None   # [n] or [n, n_groups]
+    group_ptr: Optional[np.ndarray] = None     # [G + 1] int64 query offsets
     feature_names: Optional[List[str]] = None
     feature_types: Optional[List[str]] = None
+
+    def set_group(self, sizes: Any) -> None:
+        """Query offsets from the size of each query, in row order."""
+        self.group_ptr = np.concatenate(
+            [[0], np.cumsum(np.asarray(sizes, dtype=np.int64))]).astype(
+                np.int64)
+
+    def set_qid(self, qid: Any) -> None:
+        """Query offsets from each row's query id (sorted ascending)."""
+        qid = np.asarray(qid)
+        if np.any(qid[1:] < qid[:-1]):
+            raise ValueError("qid must be sorted")
+        self.set_group(np.unique(qid, return_counts=True)[1])
+
+    def row_weights(self) -> Optional[np.ndarray]:
+        """The weights one a row: a query's weight repeated over its rows
+        when there is one weight a query."""
+        w = self.weights
+        ptr = self.group_ptr
+        if w is None or ptr is None or len(w) == int(ptr[-1]) \
+                or len(w) != len(ptr) - 1:
+            return w
+        return np.repeat(w, np.diff(ptr))
+
+    def validate(self, n: int) -> None:
+        if self.group_ptr is None:
+            if self.weights is not None and len(self.weights) != n:
+                raise ValueError(f"weight has {len(self.weights)} entries, "
+                                 f"expected {n}")
+            return
+        ptr = self.group_ptr
+        if ptr[0] != 0 or int(ptr[-1]) != n or np.any(np.diff(ptr) < 0):
+            raise ValueError(f"the query groups must cover all {n} rows in "
+                             f"order (group_ptr ends at {int(ptr[-1])})")
+        if self.weights is not None and \
+                len(self.weights) not in (n, len(ptr) - 1):
+            raise ValueError(
+                f"weight has {len(self.weights)} entries, expected {n} (one "
+                f"a row) or {len(ptr) - 1} (one a query)")
 
 
 def _rows(name: str, value: Any, n: int) -> np.ndarray:
@@ -104,8 +151,7 @@ def _refuse_iter_categorical(types: Optional[List[str]]) -> None:
             "feature_types and enable_categorical=True")
 
 
-_UNPORTED_BATCH_KEYS = ("qid", "group", "label_lower_bound",
-                        "label_upper_bound")
+_UNPORTED_BATCH_KEYS = ("label_lower_bound", "label_upper_bound")
 
 
 class DMatrix:
@@ -116,6 +162,7 @@ class DMatrix:
                  base_margin: Any = None, missing: float = np.nan,
                  feature_names: Optional[List[str]] = None,
                  feature_types: Optional[List[str]] = None,
+                 group: Any = None, qid: Any = None,
                  enable_categorical: bool = False,
                  max_bin: int = 256) -> None:
         self._binned: Dict[tuple, BinnedMatrix] = {}
@@ -141,9 +188,14 @@ class DMatrix:
         if label is not None:
             self.info.labels = self._labels(label, n)
         if weight is not None:
-            self.info.weights = _rows("weight", weight, n)
+            self.info.weights = np.array(weight, dtype=np.float32)
         if base_margin is not None:
             self.info.base_margin = _rows("base_margin", base_margin, n)
+        if group is not None:
+            self.info.set_group(group)
+        elif qid is not None:
+            self.info.set_qid(qid)
+        self.info.validate(n)
 
     @staticmethod
     def _labels(label: Any, n: int) -> np.ndarray:
@@ -198,6 +250,45 @@ class DMatrix:
                     f"expected {self.num_col()}")
         self.info.feature_types = types
 
+    # -- meta information (the JAX package's set_info / get_group / ...)
+    def set_info(self, **kwargs: Any) -> None:
+        """Set ``label``, ``weight``, ``base_margin`` or ``group``."""
+        n = self.num_row()
+        for k, v in kwargs.items():
+            if k == "group":
+                self.info.set_group(v)
+            elif k == "label":
+                self.info.labels = self._labels(v, n)
+            elif k == "weight":
+                self.info.weights = np.array(v, dtype=np.float32)
+            elif k == "base_margin":
+                self.info.base_margin = _rows("base_margin", v, n)
+            else:
+                raise ValueError(f"unknown meta field: {k}")
+        self.info.validate(n)
+
+    def set_group(self, group: Any) -> None:
+        self.set_info(group=group)
+
+    def get_group(self) -> np.ndarray:
+        """The size of each query (inverse of ``set_group``)."""
+        ptr = self.info.group_ptr
+        return (np.empty(0, np.int64) if ptr is None
+                else np.diff(np.asarray(ptr, np.int64)))
+
+    def get_uint_info(self, field: str) -> np.ndarray:
+        if field != "group_ptr":
+            raise ValueError(f"unknown uint field: {field}")
+        v = self.info.group_ptr
+        return np.empty(0, np.uint32) if v is None else np.asarray(
+            v, np.uint32)
+
+    def set_uint_info(self, field: str, data: Any) -> None:
+        if field != "group_ptr":
+            raise ValueError(f"unknown uint field: {field}")
+        self.info.group_ptr = np.asarray(data, np.int64)
+        self.info.validate(self.num_row())
+
     @property
     def is_paged(self) -> bool:
         """Built from an iterator with a ``cache_prefix``: the bins stay in
@@ -220,7 +311,8 @@ class DMatrix:
             self._require_max_bin(max_bin)
         elif max_bin not in self._cuts:
             self._cuts[max_bin] = sketch_matrix(
-                self.X, max_bin, self.info.weights, self.info.feature_types)
+                self.X, max_bin, self.info.row_weights(),
+                self.info.feature_types)
         return self._cuts[max_bin]
 
     def _require_max_bin(self, max_bin: int) -> None:
@@ -258,7 +350,7 @@ class DMatrix:
                         cache_prefix: Optional[str]) -> None:
         """The two passes over ``it`` (module docstring); ``ref``: take its
         cuts at ``max_bin`` instead of sketching."""
-        labels, weights, margins = [], [], []
+        labels, weights, margins, qids, groups = [], [], [], [], []
         summaries: Optional[List[FeatureSummary]] = None
         n_rows = n_feat = 0
         has_missing = False
@@ -281,6 +373,10 @@ class DMatrix:
                               ("base_margin", margins)):
                 if batch.get(key) is not None:
                     dest.append(np.asarray(batch[key], dtype=np.float32))
+            if batch.get("qid") is not None:
+                qids.append(np.asarray(batch["qid"]))
+            if batch.get("group") is not None:
+                groups.append(np.asarray(batch["group"], np.int64))
             if ref is None:
                 bw = batch.get("weight")
                 ws = None if bw is None else np.asarray(bw, np.float64)
@@ -303,6 +399,13 @@ class DMatrix:
         if margins:
             self.info.base_margin = _rows(
                 "base_margin", np.concatenate(margins), n_rows)
+        if qids and groups:
+            raise ValueError("the iterator gave both qid and group batches")
+        if qids:
+            self.info.set_qid(np.concatenate(qids))
+        elif groups:
+            self.info.set_group(np.concatenate(groups))
+        self.info.validate(n_rows)
         cuts = (ref.cuts(max_bin) if ref is not None
                 else cuts_from_summaries(summaries or [], max_bin))
 
@@ -350,6 +453,7 @@ class QuantileDMatrix(DMatrix):
                  weight: Any = None, base_margin: Any = None,
                  feature_names: Optional[List[str]] = None,
                  feature_types: Optional[List[str]] = None,
+                 group: Any = None, qid: Any = None,
                  enable_categorical: bool = False) -> None:
         self.max_bin = max_bin
         if isinstance(data, DataIter):
@@ -361,7 +465,7 @@ class QuantileDMatrix(DMatrix):
             return
         super().__init__(data, label, weight=weight, base_margin=base_margin,
                          missing=missing, feature_names=feature_names,
-                         feature_types=feature_types,
+                         feature_types=feature_types, group=group, qid=qid,
                          enable_categorical=enable_categorical)
         if ref is not None:
             self._cuts[max_bin] = ref.cuts(max_bin)

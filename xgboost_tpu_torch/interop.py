@@ -16,6 +16,8 @@ them to the native model dict that ``Booster`` reads. Semantics bridged
   hold the margin, so the objective's transform is inverted on load.
 - Dart: the trees sit under ``gradient_booster.gbtree`` and each tree's
   weight in ``weight_drop``.
+- Ranking objectives: ``lambdarank_param`` (or ``lambda_rank_param``)
+  and an unbiased model's ``ti+`` / ``tj-``.
 
 The writer waits with ROADMAP A.2.
 """
@@ -80,12 +82,24 @@ def _convert_tree(t: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+# a ranking objective's position-bias vectors: the reference's keys and the
+# native ones
+_BIAS_KEYS = (("ti+", "ti_plus"), ("tj-", "tj_minus"),
+              ("ti_plus", "ti_plus"), ("tj_minus", "tj_minus"))
+
+
 def _flatten_objective(objective: Dict[str, Any]) -> Dict[str, Any]:
-    """Reference nests objective params one level (e.g. ``reg_loss_param``)."""
+    """Reference nests objective params one level (e.g. ``reg_loss_param``;
+    a ranking objective's ``lambdarank_param``, which the JAX writer also
+    emits as ``lambda_rank_param``); an unbiased ranking objective keeps
+    ti+ / tj- beside them."""
     out: Dict[str, Any] = {}
     for v in objective.values():
         if isinstance(v, dict):
             out.update(v)
+    for src, dst in _BIAS_KEYS:
+        if src in objective:
+            out[dst] = [float(x) for x in objective[src]]
     return out
 
 

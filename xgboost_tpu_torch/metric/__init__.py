@@ -1,4 +1,4 @@
 from .base import METRICS, Metric, get_metric
-from . import elementwise, multiclass  # noqa: F401  (register metrics)
+from . import auc, elementwise, multiclass, rank_metric  # noqa: F401
 
 __all__ = ["METRICS", "Metric", "get_metric"]

@@ -8,6 +8,14 @@ from typing import Dict, Optional
 import numpy as np
 
 
+def global_mean(numerator: float, denominator: float, info) -> float:
+    """A weighted-mean metric's ratio (the JAX package's ``global_mean``
+    in one process: its collective sums wait with ROADMAP A.8); NaN when
+    the denominator is 0."""
+    return (float(np.float64(numerator) / np.float64(denominator))
+            if denominator != 0 else float("nan"))
+
+
 class Metric:
     name: str = ""
 
@@ -26,8 +34,11 @@ class Metric:
 
     @staticmethod
     def weights_of(info, n: int) -> np.ndarray:
-        if info.weights is not None:
-            return np.asarray(info.weights, dtype=np.float64)
+        """One weight a row (a query's weight on each of its rows)."""
+        w = info.row_weights() if hasattr(info, "row_weights") \
+            else info.weights
+        if w is not None:
+            return np.asarray(w, dtype=np.float64)
         return np.ones(n, dtype=np.float64)
 
 

@@ -1,4 +1,4 @@
-from . import multiclass, regression  # noqa: F401  (register objectives)
+from . import multiclass, ranking, regression  # noqa: F401  (register objectives)
 from .base import OBJECTIVES, Objective, get_objective
 
 __all__ = ["OBJECTIVES", "Objective", "get_objective"]

@@ -46,6 +46,9 @@ def guard_gradient(gpair: torch.Tensor, objective: str,
 class Objective:
     name: str = ""
     default_metric: str = "rmse"
+    # ranking objectives: ``get_gradient`` takes the query offsets
+    # (``group_ptr=``)
+    takes_groups: bool = False
 
     def __init__(self, params: Optional[Dict[str, Any]] = None) -> None:
         self.params: Dict[str, Any] = {}
