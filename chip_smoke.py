@@ -119,11 +119,28 @@ counts set to 0 just before and read just after:
   bench.py's 200,000 x 136 in 800 queries of 250, two rounds each of
   ``topk`` (0 and 8 anchors), unbiased ``mean`` and ``topk`` (ti+ /
   tj- printed), ``rank:pairwise`` and ``rank:map`` on binary labels,
-  and a save/load round trip of the unbiased model.
+  and a save/load round trip of the unbiased model;
+- BASELINE config #1 as XGBoost's agaricus demos run it
+  (``agaricus_walkthrough``): ``agaricus_like`` writes
+  ``agaricus.txt.train`` / ``.test`` (6,513 and 1,611 rows of 22 one-hot
+  attributes, 127 columns, column 0 never present) as libsvm, read back
+  through ``DMatrix(path)`` (timed, and the parse rate on a 200,000-row
+  file); K2 over their bins (F = 127, B = 2, N = 1 and 2) against its
+  plain version and timed; ``binary:logistic`` with ``error`` and
+  ``reg:squarederror`` with ``rmse`` (depth 2, ``eta`` 1, 2 rounds, both
+  eval sets) twice each (one sha256; K2 twice and K1 once a round); then
+  save/load, ``dump_model``, ``save_binary``, CSR / CSC / numpy input,
+  boost from prediction, ``iteration_range``, ``pred_leaf`` (against the
+  CPU), the demo's custom objective and metric, ``process_type=update``
+  (against the CPU) and the reference-schema writer; seconds a round,
+  three profiled rounds, and K1 on the trained forest at the 1,611 test
+  rows against its plain version and timed.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
-main paths' shapes: K2 at the categorical run's levels of 128 nodes; K1
+main paths' shapes: K2 at the categorical run's levels of 128 nodes and
+at the agaricus bins (6,513 x 127, two slots, N = 2); K1 on the agaricus
+forest at its 1,611 test rows; K1
 at 1, 512, 100,000 and 1,000,000 rows and the
 one-tree walk at 100,000, and both of its schedules from 1 to 100,000
 rows; K1 on the Covertype forest (7 groups) at 1, 512 and 100,000 rows
@@ -443,15 +460,17 @@ def hist_kernels(N):
     return out
 
 
-def check_hist(bins, gpair, rel, N, B, label):
-    """Each kernel against its plain version on the same card tensors:
-    equal bit for bit on two launches; totals against the row sums.
-    Returns {kernel: max |kernel - plain|}."""
+def check_hist(bins, gpair, rel, N, B, label, only=None):
+    """Each kernel (of ``only``, when given) against its plain version on
+    the same card tensors: equal bit for bit on two launches; totals
+    against the row sums. Returns {kernel: max |kernel - plain|}."""
     from xgboost_tpu_torch.ops.histogram import bf16_parts
 
     errs = {}
     ratios = []
     for name, kernel, plain, make in hist_kernels(N):
+        if only is not None and name not in only:
+            continue
         args = make(bins, gpair, rel)
         runs = [kernel(*args, N, B) for _ in range(2)]
         want = plain(*args, N, B)
@@ -492,13 +511,13 @@ def hist_bound_ms(bins, N, B, n_active, planes, coarse=False, F=None):
     return t_ops, "operations", ops
 
 
-def time_hist(bins, gpair, rel, N, B, flush):
+def time_hist(bins, gpair, rel, N, B, flush, only=None):
     """{kernel: (ms, plain_ms, library_ms)} for the kernels of a level of
-    N nodes: CUDA-event times of each kernel (L2 flushed), its plain
-    version, and the nearest single PyTorch call, one ``index_add_`` of
-    the four int32 planes (K2, K4) or of the f32 (g, h) pairs (K3), with
-    the (row, feature) cells and values prepared beforehand. Also the
-    active row count."""
+    N nodes (of ``only``, when given): CUDA-event times of each kernel
+    (L2 flushed), its plain version, and the nearest single PyTorch call,
+    one ``index_add_`` of the four int32 planes (K2, K4) or of the f32
+    (g, h) pairs (K3), with the (row, feature) cells and values prepared
+    beforehand. Also the active row count."""
     from xgboost_tpu_torch.ops import histogram as H
 
     F = bins.shape[1]
@@ -518,6 +537,8 @@ def time_hist(bins, gpair, rel, N, B, flush):
     del seg, gv, accf
     out = {}
     for name, kernel, plain, make in hist_kernels(N):
+        if only is not None and name not in only:
+            continue
         args = make(bins, gpair, rel)
         out[name] = (
             event_ms(lambda: kernel(*args, N, B), reps=20, flush=flush),
@@ -1547,6 +1568,358 @@ def mslr_ranking(xt, dev):
     summary = {"s_round": mslr_s, "busy_ms": busy, "grad_ms": grad_ms,
                "pad": pad, "ndcg": (nd[0], nd[-1]), "hist_ms": hist_ms / 3}
     return runs, hist_errs, k1_errs, hist_times, summary
+
+
+AGARICUS_TRAIN_ROWS = 6_513
+AGARICUS_TEST_ROWS = 1_611
+AGARICUS_PARSE_ROWS = 200_000
+# the agaricus demos' settings (demo/guide-python basic_walkthrough.py);
+# BASELINE config #1 is reg:squarederror with rmse
+AGARICUS_PARAMS = {"max_depth": 2, "eta": 1.0}
+AGARICUS_RUNS = (("binary:logistic", "error"), ("reg:squarederror", "rmse"))
+AGARICUS_ROUNDS = 2
+
+
+def agaricus_like(seed, directory):
+    """Writes ``agaricus.txt.train`` (6,513 rows) and ``agaricus.txt.test``
+    (1,611 rows) into ``directory`` as XGBoost's demo files have them: a
+    label and 22 sorted ``idx:1`` entries a line, one a UCI Mushroom
+    attribute (``testing.MUSHROOM_CARDINALITIES``: 6, 4, 10, 2, 9, 4, 3,
+    2, 12, 2, 7, 4, 4, 9, 9, 2, 4, 3, 8, 9, 6, 7, summing to 126), so
+    indices run 1-126 and column 0 is never present; labels from a hidden
+    rule on the odor and the spore-print color with 2% flipped
+    (``testing.agaricus_rows``), made from ``seed``. Returns the two
+    paths."""
+    from xgboost_tpu_torch.testing import agaricus_rows, write_libsvm
+
+    y, idx = agaricus_rows(AGARICUS_TRAIN_ROWS + AGARICUS_TEST_ROWS, seed)
+    paths = []
+    for name, rows in (("train", slice(0, AGARICUS_TRAIN_ROWS)),
+                       ("test", slice(AGARICUS_TRAIN_ROWS, None))):
+        path = os.path.join(directory, f"agaricus.txt.{name}")
+        write_libsvm(path, y[rows], idx[rows])
+        paths.append(path)
+    return paths
+
+
+def same_structure(a, b, label):
+    """The tests' ``compare_tree`` rule where no near tie is allowed: the
+    same nodes, splits (feature, bin, default direction), leaves within
+    rtol 1e-5 plus 1e-4 and gains within 2e-4 of their scale."""
+    if a.num_nodes() != b.num_nodes() or not (
+            np.array_equal(a.is_leaf, b.is_leaf)
+            and np.array_equal(a.split_feature, b.split_feature)
+            and np.array_equal(a.split_bin, b.split_bin)
+            and np.array_equal(a.default_left[~a.is_leaf],
+                               b.default_left[~b.is_leaf])):
+        raise AssertionError(f"{label}: the trees split differently")
+    if not (np.allclose(a.leaf_value, b.leaf_value, rtol=1e-5, atol=1e-4)
+            and np.allclose(a.gain, b.gain, rtol=2e-4, atol=2e-4)):
+        raise AssertionError(f"{label}: leaves or gains differ")
+
+
+def card_cpu_gap(card, cpu, label):
+    """The card's trees against the CPU port's from the same inputs: the
+    same structure (``same_structure``) and every float field within
+    rtol 1e-5 plus 1e-5 (the f32 sums over rows run in another order on
+    each device); returns {field: largest |difference|} of the fields
+    (and the base margin) that differ."""
+    gaps = {}
+    pairs = list(zip(card.gbm.trees, cpu.gbm.trees))
+    for r, (a, b) in enumerate(pairs):
+        same_structure(a, b, f"{label} tree {r}")
+    fields = [(f, [(getattr(a, f), getattr(b, f)) for a, b in pairs])
+              for f in ("leaf_value", "split_value", "sum_hess", "gain",
+                        "base_weight")]
+    fields.append(("base_score", [(card._base_np(), cpu._base_np())]))
+    for f, arrays in fields:
+        if not all(np.allclose(x, y, rtol=1e-5, atol=1e-5)
+                   for x, y in arrays):
+            raise AssertionError(f"{label}: {f} differs on the card")
+        g = max(float(np.max(np.abs(x.astype(np.float64) - y)))
+                for x, y in arrays)
+        if g > 0:
+            gaps[f] = g
+    return gaps
+
+
+def agaricus_walkthrough(xt, dev, tmp):
+    """The ``agaricus_walkthrough`` phase (BASELINE config #1 and the
+    agaricus demos, module docstring): returns (the main-path runs'
+    launch counts, K2's max |kernel - plain|, K1's errors, the K2 and K1
+    timings, a summary)."""
+    import scipy.sparse
+
+    train_path, test_path = agaricus_like(seed=6, directory=tmp)
+    t0 = time.perf_counter()
+    dtr = xt.DMatrix(train_path + "?format=libsvm")
+    load_s = time.perf_counter() - t0
+    dte = xt.DMatrix(test_path + "?format=libsvm")
+    if dtr.shape != (AGARICUS_TRAIN_ROWS, 127) or \
+            dte.shape != (AGARICUS_TEST_ROWS, 127) or \
+            not np.isnan(dtr.X[:, 0]).all() or \
+            dtr.num_nonmissing() != 22 * AGARICUS_TRAIN_ROWS:
+        raise AssertionError(f"agaricus shape: {dtr.shape} {dte.shape}")
+    # the parse rate on a 200,000-row file of the same widths
+    from xgboost_tpu_torch.testing import agaricus_rows, write_libsvm
+
+    big = os.path.join(tmp, "agaricus_200k.txt")
+    write_libsvm(big, *agaricus_rows(AGARICUS_PARSE_ROWS, seed=7))
+    t0 = time.perf_counter()
+    dbig = xt.DMatrix(big + "?format=libsvm")
+    parse_s = time.perf_counter() - t0
+    if dbig.shape != (AGARICUS_PARSE_ROWS, 127):
+        raise AssertionError(f"200k-row file: {dbig.shape}")
+    del dbig
+    log(f"agaricus_walkthrough: DMatrix(path) {load_s:.6f} s for the "
+        f"{AGARICUS_TRAIN_ROWS}-row file (host clock); {AGARICUS_PARSE_ROWS}"
+        f"-row file of the same widths in {parse_s:.6f} s = "
+        f"{AGARICUS_PARSE_ROWS / parse_s:.1f} rows/s; positive share "
+        f"{float(dtr.get_label().mean()):.4f} (train), "
+        f"{float(dte.get_label().mean()):.4f} (test)")
+
+    # K2 over the training bins at F = 127, B = 2 and the levels N = 1, 2
+    bins = dtr.binned(256, dev).bins
+    B = dtr.binned(256, dev).max_nbins
+    if bins.shape != (AGARICUS_TRAIN_ROWS, 127) or B != 2:
+        raise AssertionError(f"agaricus bins {bins.shape}, {B} slots")
+    k2_err = 0.0
+    for N in (1, 2):
+        _, gpair, rel = hist_inputs(AGARICUS_TRAIN_ROWS, 1, B, N, dev,
+                                    seed=300 + N)
+        errs = check_hist(bins, gpair, rel, N, B, f"agaricus n="
+                          f"{AGARICUS_TRAIN_ROWS} N={N} F=127",
+                          only=("hist_int8x2",))
+        k2_err = max(k2_err, errs["hist_int8x2"])
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    _, gpair, rel = hist_inputs(AGARICUS_TRAIN_ROWS, 1, B, 2, dev, seed=310)
+    t, n_active = time_hist(bins, gpair, rel, 2, B, flush,
+                            only=("hist_int8x2",))
+    ms, plain_ms, lib_ms = t["hist_int8x2"]
+    bound = hist_bound_ms(bins, 2, B, n_active, 4)
+    k2_time = (ms, plain_ms, lib_ms, bound)
+    log(f"hist hist_int8x2 n={AGARICUS_TRAIN_ROWS} N=2 B={B} x 127 u8 (L2 "
+        f"flushed): {ms:.6f} ms, plain {plain_ms:.6f} ms, index_add_ "
+        f"{lib_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}), kernel at "
+        f"{bound[0] / ms * 100:.4f}% of it")
+    del gpair, rel
+
+    # runs 1 and 2, twice each: the demo's settings, both eval sets
+    runs, models, results, digests = [], {}, {}, {}
+    for objective, metric in AGARICUS_RUNS:
+        p = dict(AGARICUS_PARAMS, objective=objective, eval_metric=metric)
+        raws = []
+        for run in range(2):
+            res = {}
+            bst, c = train_launches(
+                f"train agaricus {objective} run {run}", lambda r=res, p=p:
+                xt.train(p, dtr, AGARICUS_ROUNDS,
+                         evals=[(dtr, "train"), (dte, "eval")],
+                         evals_result=r, verbose_eval=False))
+            if c["hist_int8x2"] != 2 * AGARICUS_ROUNDS or \
+                    c["hist_scan"] != 0 or c["hist_f32"] != 0 or \
+                    c["walk_packed"] != AGARICUS_ROUNDS:
+                raise AssertionError(f"agaricus {objective} launched {c}, "
+                                     "expected K2 twice and K1 once a round")
+            runs.append(c)
+            raws.append(saved_bytes(bst))
+        digests[objective] = [hashlib.sha256(r).hexdigest() for r in raws]
+        if digests[objective][0] != digests[objective][1]:
+            raise AssertionError(f"two agaricus {objective} runs saved "
+                                 f"different models: {digests[objective]}")
+        ev = res["eval"][metric]
+        if not (np.isfinite(ev).all() and ev[-1] < ev[0]):
+            raise AssertionError(f"agaricus {objective}: held-out {metric} "
+                                 f"{ev}")
+        models[objective], results[objective] = bst, res
+        cpu = xt.train(dict(p, device="cpu"), dtr, AGARICUS_ROUNDS,
+                       verbose_eval=False)
+        gaps = card_cpu_gap(bst, cpu, f"agaricus {objective}")
+        cpu_sha = hashlib.sha256(saved_bytes(cpu)).hexdigest()
+        same = "equal" if cpu_sha == digests[objective][0] else "differ"
+        log(f"agaricus {objective}: the card's trees are the CPU port's "
+            f"node for node; fields that differ (largest |difference|): "
+            f"{gaps or 'none'}; CPU model sha256 {cpu_sha} (the card's "
+            f"bytes {same})")
+        log(f"agaricus {objective}: train-{metric} {res['train'][metric]}, "
+            f"eval-{metric} {ev}; model sha256 (two runs) "
+            f"{digests[objective][0]} {digests[objective][1]}")
+    bst = models["binary:logistic"]
+
+    # 3. predict, save_model and a Booster from the file
+    preds = bst.predict(dte)
+    model_path = os.path.join(tmp, "0001.model.json")
+    bst.save_model(model_path)
+    if preds.shape != (AGARICUS_TEST_ROWS,) or \
+            not np.isfinite(preds).all() or not np.array_equal(
+                xt.Booster(model_file=model_path).predict(dte), preds):
+        raise AssertionError("the saved agaricus model predicts otherwise")
+    err = float(np.mean((preds > 0.5) != dte.get_label()))
+    if abs(err - results["binary:logistic"]["eval"]["error"][-1]) > 1e-6:
+        raise AssertionError(f"predict's error {err} is not the eval line's")
+    # 4. dump_model, text and json
+    bst.dump_model(os.path.join(tmp, "dump.raw.txt"))
+    bst.dump_model(os.path.join(tmp, "dump.json"), dump_format="json",
+                   with_stats=True)
+    with open(os.path.join(tmp, "dump.raw.txt")) as fh:
+        text = fh.read()
+    with open(os.path.join(tmp, "dump.json")) as fh:
+        dumped = json.load(fh)
+    if text.count("booster[") != AGARICUS_ROUNDS or \
+            len(dumped) != AGARICUS_ROUNDS or "cover" not in dumped[0]:
+        raise AssertionError("agaricus dump_model")
+    # 5. the test matrix through save_binary
+    dte.save_binary(os.path.join(tmp, "dtest.buffer"))
+    if not np.array_equal(bst.predict(xt.DMatrix(
+            os.path.join(tmp, "dtest.buffer"))), preds):
+        raise AssertionError("DMatrix(binary) predicts otherwise")
+    # 6. scipy CSR, CSC and numpy
+    Xte = dte.X
+    csr = scipy.sparse.csr_matrix(np.nan_to_num(Xte))
+    csr.eliminate_zeros()
+    for label, data in (("CSR", csr), ("CSC", csr.tocsc()),
+                        ("numpy", Xte.copy())):
+        if not np.array_equal(bst.predict(xt.DMatrix(data)), preds):
+            raise AssertionError(f"agaricus from {label} predicts otherwise")
+    # 7. boost from prediction: one round from the 2-round margins, against
+    # the third round of a 3-round model
+    p1 = dict(AGARICUS_PARAMS, objective="binary:logistic",
+              eval_metric="error")
+    res3 = {}
+    xt.train(p1, dtr, 3, evals=[(dtr, "train"), (dte, "eval")],
+             evals_result=res3, verbose_eval=False)
+    dtr_m = xt.DMatrix(train_path + "?format=libsvm")
+    dte_m = xt.DMatrix(test_path + "?format=libsvm")
+    dtr_m.set_base_margin(bst.predict(dtr, output_margin=True))
+    dte_m.set_base_margin(bst.predict(dte, output_margin=True))
+    res1 = {}
+    xt.train(p1, dtr_m, 1, evals=[(dtr_m, "train"), (dte_m, "eval")],
+             evals_result=res1, verbose_eval=False)
+    for data in ("train", "eval"):
+        if abs(res1[data]["error"][0] - res3[data]["error"][2]) > 1e-6:
+            raise AssertionError(f"boost from prediction: {res1} vs {res3}")
+    # 8. the first round alone
+    first = bst.predict(dte, iteration_range=(0, 1))
+    if not np.array_equal(first, bst[0:1].predict(dte)) or \
+            np.array_equal(first, preds):
+        raise AssertionError("iteration_range=(0, 1)")
+    # 9. leaf indices, against the CPU port on the same model
+    leaf = bst.predict(dte, pred_leaf=True)
+    cpu_bst = xt.Booster({"device": "cpu"}, model_file=model_path)
+    if leaf.shape != (AGARICUS_TEST_ROWS, AGARICUS_ROUNDS) or \
+            leaf.dtype != np.int32 or not all(
+                bst.gbm.trees[t].is_leaf[leaf[:, t]].all()
+                for t in range(AGARICUS_ROUNDS)) or \
+            not np.array_equal(leaf, cpu_bst.predict(dte, pred_leaf=True)):
+        raise AssertionError("pred_leaf")
+
+    # 10. the demo's custom logistic objective and metric
+    def logregobj(margin, dm):
+        prob = 1.0 / (1.0 + np.exp(-margin))
+        return prob - dm.get_label(), prob * (1.0 - prob)
+
+    def evalerror(margin, dm):
+        return "my-error", float(np.mean((margin > 0.0) != dm.get_label()))
+
+    res_c = {}
+    custom, c = train_launches(
+        "train agaricus custom objective", lambda:
+        xt.train(dict(p1), dtr, AGARICUS_ROUNDS, obj=logregobj,
+                 custom_metric=evalerror,
+                 evals=[(dtr, "train"), (dte, "eval")], evals_result=res_c,
+                 verbose_eval=False))
+    runs.append(c)
+    for r, (a, b) in enumerate(zip(bst.gbm.trees, custom.gbm.trees)):
+        same_structure(a, b, f"custom objective round {r}")
+    if res_c["eval"]["my-error"] != results["binary:logistic"]["eval"][
+            "error"]:
+        raise AssertionError(f"custom metric {res_c}")
+    # 11. process_type=update: run 1's model refreshed and pruned against
+    # the CPU port's (host float64 sums of gradients from margins walked by
+    # K1 on the card, by the plain walk on the CPU), run 2's refreshed
+    refreshed = {}
+    for objective, updater in (("binary:logistic", "refresh,prune"),
+                               ("reg:squarederror", "refresh")):
+        raw = saved_bytes(models[objective])
+        p = dict(AGARICUS_PARAMS, objective=objective,
+                 process_type="update", updater=updater)
+        out = {}
+        for device in ("cuda", "cpu"):
+            start = xt.Booster({"device": device}, model_file=raw)
+            out[device] = xt.train(dict(p, device=device), dtr,
+                                   AGARICUS_ROUNDS, xgb_model=start,
+                                   verbose_eval=False)
+        a, b = out["cuda"], out["cpu"]
+        if a.num_boosted_rounds() != AGARICUS_ROUNDS:
+            raise AssertionError(f"update: {a.num_boosted_rounds()} rounds")
+        gap = max(float(np.max(np.abs(x.sum_hess - y.sum_hess)
+                               / np.maximum(np.abs(y.sum_hess), 1e-30)))
+                  for x, y in zip(a.gbm.trees, b.gbm.trees))
+        exact = objective == "reg:squarederror"
+        if (exact and saved_bytes(a) != saved_bytes(b)) or gap > 1e-6:
+            raise AssertionError(f"update {updater} on {objective}: sum_hess "
+                                 f"{gap} from the CPU's")
+        refreshed[objective] = gap
+    # 12. the reference-schema writer and reader
+    ref_path = os.path.join(tmp, "agaricus.ubj")
+    xt.save_xgboost_model(bst, ref_path)
+    if not np.allclose(xt.load_xgboost_model(ref_path).predict(dte), preds,
+                       rtol=1e-6, atol=1e-7):
+        raise AssertionError("save_xgboost_model / load_xgboost_model")
+    log(f"agaricus runs 3-12: save/load, dump_model ({len(text)} bytes of "
+        f"text), DMatrix(binary), CSR / CSC / numpy the same predictions; "
+        f"boost from prediction eval-error {res1['eval']['error'][0]} = the "
+        f"3-round model's {res3['eval']['error'][2]}; iteration_range (0, 1)"
+        f"; pred_leaf {leaf.shape} equal to the CPU's; the custom objective's"
+        f" trees are run 1's; process_type=update refresh,prune sum_hess "
+        f"within {refreshed['binary:logistic']:.3e} of the CPU's, refresh on"
+        f" the rmse model the CPU's bytes; the reference-schema file "
+        f"predicts the same")
+
+    # seconds a round and three profiled rounds (binary:logistic)
+    timer, per, s_round = seconds_per_round(
+        dict(AGARICUS_PARAMS, objective="binary:logistic"), dtr)
+    log(f"agaricus seconds per round (update + sync, host clock): "
+        f"{['%.6f' % t for t in per]}; median of rounds 1-5 {s_round:.6f} s")
+    busy, _ = profile_rounds("agaricus binary:logistic", timer, dtr)
+
+    # K1 on the agaricus forest at the 1,611 test rows
+    pf = bst.packed_forest()
+    base = torch.tensor(bst._base_np(), device=dev)
+    Xd = torch.from_numpy(np.ascontiguousarray(Xte)).to(dev)
+    k1_err, _, schedule = check_kernel(
+        f"agaricus forest n={AGARICUS_TEST_ROWS}", pf, Xd, base)
+    from xgboost_tpu_torch.ops.walk import walk_packed_reference
+    from xgboost_tpu_torch.serve.packed import tree_step
+
+    d = pf.device_arrays(dev)
+    _, leaves = pf.margin(Xd, base, leaf_index=True)
+    depth = torch.from_numpy(node_depths(pf)).to(dev)
+    k1_time = {
+        "ms": event_ms(lambda: pf.margin(Xd, base), reps=200),
+        "plain_ms": event_ms(lambda: walk_packed_reference(
+            d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+            d["group_onehot"], Xd, base, max_depth=pf.max_depth,
+            tree_chunk=tree_step(AGARICUS_TEST_ROWS)), reps=50),
+        "bound": walk_bound_ms(pf, AGARICUS_TEST_ROWS, 127, int(
+            depth[leaves.long()].sum())),
+        "schedule": schedule}
+    log(f"K1 agaricus forest {AGARICUS_TEST_ROWS} rows ({schedule}, L2 "
+        f"warm): {k1_time['ms']:.6f} ms, plain {k1_time['plain_ms']:.6f} "
+        f"ms, bound {k1_time['bound'][0]:.6f} ms ({k1_time['bound'][1]})")
+    per_round = {k: runs[0][k] / AGARICUS_ROUNDS
+                 for k in ("hist_int8x2", "walk_packed")}
+    summary = {"load_s": load_s, "parse_rows_per_s":
+               AGARICUS_PARSE_ROWS / parse_s, "s_round": s_round,
+               "busy_ms": busy, "error": results["binary:logistic"]["eval"][
+                   "error"][-1],
+               "rmse": results["reg:squarederror"]["eval"]["rmse"][-1],
+               "digests": digests, "per_round": per_round}
+    log(f"agaricus_walkthrough: held-out error {summary['error']} and rmse "
+        f"{summary['rmse']} at {AGARICUS_ROUNDS} rounds; K2 "
+        f"{per_round['hist_int8x2']:g} and K1 {per_round['walk_packed']:g} "
+        f"launches a round")
+    return runs, k2_err, k1_err, k2_time, k1_time, summary
 
 
 HIGGS_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "eta": 0.1,
@@ -2705,6 +3078,18 @@ def main() -> int:
         f"{mslr['hist_ms']:.3f}, LambdaRank gradient {mslr['grad_ms']:.3f}); "
         f"held-out ndcg@10 {mslr['ndcg'][0]} -> {mslr['ndcg'][1]}")
 
+    # ---- main path: BASELINE config #1, the agaricus demos from libsvm files
+    with tempfile.TemporaryDirectory(prefix="xtt_agaricus_") as tmp:
+        (ag_runs, ag_k2_err, ag_k1_err, ag_k2_time, ag_k1_time,
+         ag) = agaricus_walkthrough(xt, dev, tmp)
+    errs.append(ag_k1_err)
+    hist_errs["hist_int8x2"] = max(hist_errs.get("hist_int8x2", 0.0),
+                                   ag_k2_err)
+    log(f"agaricus_walkthrough: DMatrix(path) {ag['load_s']:.6f} s, parse "
+        f"{ag['parse_rows_per_s']:.1f} rows/s, {ag['s_round']:.6f} s a round, "
+        f"device busy {ag['busy_ms'] / 3:.3f} ms a round; held-out error "
+        f"{ag['error']}, rmse {ag['rmse']}; model sha256 {ag['digests']}")
+
     # --------- main path: external memory at the HIGGS-11M shape (paged)
     with tempfile.TemporaryDirectory(prefix="xtt_ext_") as tmp:
         ext_runs, ext_busy, ext_s = external_memory(xt, dev, F, tmp)
@@ -2804,7 +3189,7 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs, *covdart_runs, *mslr_runs]
+            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -2853,6 +3238,27 @@ def main() -> int:
             "launches": sum(c[name] for c in runs),
             "max_abs_err": hist_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
+    # the agaricus shapes: K2 at 6,513 x 127, B = 2 (N = 2, its deeper
+    # level), K1 on the agaricus forest at the 1,611 test rows
+    ms, plain_ms, lib_ms, bound = ag_k2_time
+    kernels.append({
+        "name": "hist_int8x2", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/hist.cu",
+        "replaces": "xgboost_tpu/ops/pallas/histogram.py:621",
+        "shape": "agaricus 6513 x 127, B=2, N=1/2",
+        "launches": sum(c["hist_int8x2"] for c in ag_runs),
+        "max_abs_err": ag_k2_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
+    kernels.append({
+        "name": "walk_packed", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/walk.cu",
+        "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
+        "shape": f"agaricus forest, {AGARICUS_TEST_ROWS} rows",
+        "launches": sum(c["walk_packed"] for c in ag_runs),
+        "max_abs_err": ag_k1_err, "ms": ag_k1_time["ms"],
+        "plain_ms": ag_k1_time["plain_ms"],
+        "bound_ms": ag_k1_time["bound"][0],
+        "bound_by": ag_k1_time["bound"][1], "library_ms": None})
     k5 = levels["fused_advance_coarse"][128]
     ms, plain_ms, bound = k5["ms"], k5["plain_ms"], k5["bound"]
     kernels.append({

@@ -873,3 +873,76 @@ def test_ranking_training_on_the_card_equals_the_cpu():
     card = xt.Booster(model_file=raws[0])
     np.testing.assert_allclose(card.predict(dm), cpu.predict(dm), rtol=1e-5,
                                atol=1e-4)
+
+
+def _agaricus_files(tmp_path):
+    from xgboost_tpu_torch.testing import agaricus_rows, write_libsvm
+
+    y, idx = agaricus_rows(6513 + 1611, seed=6)
+    paths = []
+    for name, s in (("train", slice(0, 6513)), ("test", slice(6513, None))):
+        p = str(tmp_path / f"agaricus.txt.{name}")
+        write_libsvm(p, y[s], idx[s])
+        paths.append(p + "?format=libsvm")
+    return paths
+
+
+@pytest.mark.cuda
+def test_agaricus_model_on_the_card_equals_the_cpu(tmp_path):
+    """BASELINE config #1 (``reg:squarederror``, depth 2, ``eta`` 1) and
+    the demo's ``binary:logistic`` from agaricus-shaped libsvm files: the
+    card's trees are the CPU port's node for node (splits, bins, default
+    directions), their float fields within rtol 1e-5 (the f32 sums over
+    rows run in another order on each device, so the bytes may differ),
+    the predictions within 1e-5; ``pred_leaf`` on the card equals the
+    CPU's on the same model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    train, test = _agaricus_files(tmp_path)
+    dtr, dte = xt.DMatrix(train), xt.DMatrix(test)
+    for objective in ("reg:squarederror", "binary:logistic"):
+        p = {"objective": objective, "max_depth": 2, "eta": 1.0}
+        card = xt.train(p, dtr, 2, verbose_eval=False)
+        cpu = xt.train(dict(p, device="cpu"), dtr, 2, verbose_eval=False)
+        for a, b in zip(card.gbm.trees, cpu.gbm.trees):
+            for f in ("is_leaf", "split_feature", "split_bin",
+                      "default_left", "left_child", "right_child"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            for f in ("leaf_value", "split_value", "sum_hess", "gain",
+                      "base_weight"):
+                np.testing.assert_allclose(getattr(a, f), getattr(b, f),
+                                           rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(card.predict(dte), cpu.predict(dte),
+                                   rtol=1e-5, atol=1e-6)
+        raw = card.save_raw("json")
+        on_cpu = xt.Booster({"device": "cpu"}, model_file=raw)
+        leaf = card.predict(dte, pred_leaf=True)
+        assert leaf.shape == (1611, 2) and leaf.dtype == np.int32
+        np.testing.assert_array_equal(leaf, on_cpu.predict(dte,
+                                                           pred_leaf=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2])
+def test_k2_at_the_agaricus_shape_on_the_card(tmp_path, N):
+    """K2 over agaricus-shaped bins (F = 127, two slots: the one value and
+    the missing slot) at the levels of a depth-2 tree: equal to
+    ``build_hist_int8x2_reference`` bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    dev = torch.device("cuda")
+    bm = xt.DMatrix(_agaricus_files(tmp_path)[0]).binned(256, dev)
+    assert bm.max_nbins == 2 and bm.bins.shape == (6513, 127)
+    _, g, rel = _hist_inputs(6513, 1, 2, N, dev, seed=40 + N)
+    q, inv = H.quantise_int8x2(g)
+    want = H.build_hist_int8x2_reference(bm.bins, q, rel, inv, N, 2)
+    for _ in range(2):
+        got = K.hist_int8x2_cuda(bm.bins, q, rel, inv, N, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -13,6 +13,12 @@ left set goes right), and the leaves, each times its tree's weight
 JAX package runs it as an XLA function, not a Pallas kernel. Trees are
 walked in chunks so that the [rows, trees] positions stay small; a
 paged matrix is walked page by page (``boosting/gbtree.py``).
+
+:func:`leaf_positions` is the same level walk over raw values (the JAX
+package's ``_predict_margin`` positions): ``x > split_value`` goes
+right, NaN the default way, and at a categorical node a code outside
+the left set right and a code out of range the default way. It gives
+``predict(pred_leaf=True)``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ class StackedForest(NamedTuple):
 
     split_feature: torch.Tensor
     split_bin: torch.Tensor
+    split_value: torch.Tensor
     default_left: torch.Tensor
     is_leaf: torch.Tensor
     left_child: torch.Tensor
@@ -76,6 +83,7 @@ def stack_trees(trees: Sequence[TreeModel], tree_info: Sequence[int],
     return StackedForest(
         split_feature=pad("split_feature", -1, np.int64),
         split_bin=pad("split_bin", 0, np.int64),
+        split_value=pad("split_value", 0.0, np.float32),
         default_left=pad("default_left", False, bool),
         is_leaf=pad("is_leaf", True, bool),
         left_child=pad("left_child", 0, np.int64),
@@ -124,3 +132,41 @@ def margin_binned(forest: StackedForest, bins: torch.Tensor,
             leaf = leaf * forest.tree_weight[None, t0:t1]
         margin = margin + leaf @ forest.group_onehot[t0:t1]
     return margin
+
+
+def leaf_positions(forest: StackedForest, X: torch.Tensor) -> torch.Tensor:
+    """The compact node id of the leaf each row of X [n, F] (f32, NaN
+    missing) reaches in each tree of ``forest``: int32 [n, T]."""
+    n = X.shape[0]
+    dev = X.device
+    M, T = forest.n_nodes, forest.group_onehot.shape[0]
+    chunk = max(1, min(T, WALK_CHUNK_ELEMENTS // max(n, 1)))
+    n_cats = 0 if forest.cat_words is None else forest.cat_words.shape[1] * 32
+    out = []
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        tofs = (torch.arange(t0, t1, device=dev) * M)[None, :]
+        pos = torch.zeros((n, t1 - t0), dtype=torch.int64, device=dev)
+        for _ in range(forest.max_depth):
+            gi = tofs + pos
+            x = torch.gather(X, 1, forest.split_feature[gi].clamp(min=0))
+            go_right = x > forest.split_value[gi]
+            missing = torch.isnan(x)
+            if forest.cat_words is not None:
+                code = torch.where(missing, torch.full_like(x, -1.0),
+                                   x).to(torch.int64)
+                in_range = (code >= 0) & (code < n_cats)
+                cc = code.clamp(0, n_cats - 1)
+                word = torch.gather(forest.cat_words[gi], 2,
+                                    (cc // 32)[..., None])[..., 0]
+                left = ((word >> (cc % 32)) & 1) == 1
+                cat = forest.is_cat_split[gi]
+                go_right = torch.where(cat, ~left, go_right)
+                missing = missing | (cat & ~in_range)
+            go_right = torch.where(missing, ~forest.default_left[gi],
+                                   go_right)
+            child = torch.where(go_right, forest.right_child[gi],
+                                forest.left_child[gi])
+            pos = torch.where(forest.is_leaf[gi], pos, child)
+        out.append(pos)
+    return torch.cat(out, dim=1).to(torch.int32)

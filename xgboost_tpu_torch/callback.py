@@ -49,8 +49,13 @@ def _parse_eval_str(msg: str):
 
 
 class CallbackContainer:
-    def __init__(self, callbacks: Sequence[TrainingCallback]) -> None:
+    """``metric``: a custom metric, ``metric(margin, dmatrix)`` -> (name,
+    value) or a list of them, scored beside the booster's metrics."""
+
+    def __init__(self, callbacks: Sequence[TrainingCallback],
+                 metric: Optional[Callable] = None) -> None:
         self.callbacks = list(callbacks)
+        self.metric = metric
         self.history: EvalsLog = collections.OrderedDict()
 
     def before_training(self, model):
@@ -70,7 +75,7 @@ class CallbackContainer:
     def after_iteration(self, model, epoch: int, evals) -> bool:
         if evals:
             for data_name, metric_name, score in _parse_eval_str(
-                    model.eval_set(evals, epoch)):
+                    model.eval_set(evals, epoch, feval=self.metric)):
                 self.history.setdefault(
                     data_name, collections.OrderedDict()).setdefault(
                         metric_name, []).append(score)

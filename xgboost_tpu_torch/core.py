@@ -26,6 +26,15 @@ the resident tier first (:meth:`Booster._collapse_paged_if_fits`).
 (``_model_to_json``), ``config`` block included, so a model trained
 here loads into ``xgboost_tpu`` and a model loaded here saves back to the
 bytes it was read from.
+
+``process_type="update"`` (:meth:`Booster._update_existing_trees`)
+re-processes a model's trees round by round with the ``updater`` list
+(``tree/updaters.py``: refresh, prune, sync) on the host. Custom
+objectives (``train(obj=)``, ``update(fobj=)``, :meth:`Booster.boost`)
+and metrics (``custom_metric=`` / ``feval=``) take and give numpy.
+``predict(pred_leaf=True)`` walks the trees as torch ops
+(``boosting/predict.py leaf_positions``); dumps, importances and the
+structural report are ``dump.py``'s.
 """
 
 from __future__ import annotations
@@ -34,13 +43,16 @@ import dataclasses
 import json
 import threading
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
+from . import dump
 from .boosting.dart import Dart
 from .boosting.gbtree import GBTree
+from .boosting.predict import leaf_positions, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
@@ -48,8 +60,10 @@ from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
 from .objective import get_objective
+from .objective.base import guard_gradient
 from .serve.packed import PackedForest
 from .tree.param import TrainParam
+from .tree.updaters import UPDATERS, prune_tree, refresh_tree, sync_trees
 from .utils import random as xrandom
 from .utils.ubjson import dumps_ubjson, loads_ubjson
 
@@ -74,6 +88,11 @@ _LEARNER_KEYS = {
 }
 _DEVICE_KEYS = ("device", "device_type")
 _HIST_TREE_METHODS = ("auto", "hist", "gpu_hist", "tpu_hist")
+
+
+def _squeeze(a: np.ndarray) -> np.ndarray:
+    """[n, 1] -> [n]; anything else as it is."""
+    return a[:, 0] if a.ndim == 2 and a.shape[1] == 1 else a
 
 
 def _jsonable(v: Any) -> bool:
@@ -408,46 +427,158 @@ class Booster:
         return st["margin"]
 
     # ---------------------------------------------------------------- training
-    def update(self, dtrain: DMatrix, iteration: int) -> None:
-        """One boosting round (reference ``XGBoosterUpdateOneIter``)."""
-        if dtrain.info.labels is None:
+    def update(self, dtrain: DMatrix, iteration: int,
+               fobj: Optional[Callable] = None) -> None:
+        """One boosting round (reference ``XGBoosterUpdateOneIter``);
+        ``fobj(margin, dtrain)`` -> (grad, hess): a custom objective."""
+        if dtrain.info.labels is None and fobj is None:
             raise ValueError("training needs labels: DMatrix(X, label=y)")
         self._configure(dtrain)
+        if self.tree_param.process_type == "update":
+            self._update_existing_trees(dtrain, fobj)
+            return
         st = self._state_of(dtrain, is_train=True)
-        key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
-        # ranking objectives also take the matrix's query offsets
-        groups = ({"group_ptr": dtrain.info.group_ptr}
-                  if self.obj.takes_groups else {})
         if self.gbm.supports_margin_cache:
             margin = self._cached_margin(dtrain, is_train=True)
-            gpair = self.obj.get_gradient(margin, st["labels"],
-                                          st["weights"], iteration, **groups)
+        else:
+            margin = self.gbm.training_margin(st, self._walk_trees)
+        gpair = self._gradient(margin, st, dtrain, iteration, fobj)
+        self._boost_round(st, margin, gpair, iteration)
+
+    def _gradient(self, margin: torch.Tensor, st: Dict[str, Any],
+                  dtrain: DMatrix, iteration: int,
+                  fobj: Optional[Callable]) -> torch.Tensor:
+        """The round's [n, K, 2] gradient: the objective's, or the custom
+        ``fobj``'s on the margin as numpy (squeezed), reshaped to the
+        margin's shape."""
+        if fobj is None:
+            # ranking objectives also take the matrix's query offsets
+            groups = ({"group_ptr": dtrain.info.group_ptr}
+                      if self.obj.takes_groups else {})
+            return self.obj.get_gradient(margin, st["labels"], st["weights"],
+                                         iteration, **groups)
+        grad, hess = fobj(margin.cpu().numpy().squeeze(), dtrain)
+        gpair = torch.stack([self._as_margin(grad, margin),
+                             self._as_margin(hess, margin)], dim=-1)
+        return guard_gradient(gpair, "custom objective", iteration)
+
+    @staticmethod
+    def _as_margin(v: Any, margin: torch.Tensor) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            v, np.float32).reshape(margin.shape)).to(margin.device)
+
+    def _boost_round(self, st: Dict[str, Any], margin: torch.Tensor,
+                     gpair: torch.Tensor, iteration: int) -> None:
+        """Grow round ``iteration``'s trees from ``gpair`` (its key
+        ``fold_in(make_key(it), it)``) and move the cache's margin."""
+        key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
+        if self.gbm.supports_margin_cache:
             st["margin"] = margin + self.gbm.do_boost(st["binned"], gpair,
                                                       key)
         else:
-            margin = self.gbm.training_margin(st, self._walk_trees)
-            gpair = self.obj.get_gradient(margin, st["labels"],
-                                          st["weights"], iteration, **groups)
             self.gbm.do_boost(st["binned"], gpair, key, state=st)
             st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
         st["n_trees"] = self.gbm.version()
         self._packed = {}
 
+    def boost(self, dtrain: DMatrix, grad: Any, hess: Any) -> None:
+        """One round from gradients the caller computed (reference
+        ``Booster.boost``), each [n] or [n, K], at round
+        ``num_boosted_rounds()``'s key."""
+        self._configure(dtrain)
+        st = self._state_of(dtrain, is_train=True)
+        if self.gbm.supports_margin_cache:
+            margin = self._cached_margin(dtrain, is_train=True)
+        else:
+            margin = st["margin"]
+        gpair = torch.stack([self._as_margin(grad, margin),
+                             self._as_margin(hess, margin)], dim=-1)
+        self._boost_round(st, margin, gpair, self.num_boosted_rounds())
+
+    def _update_existing_trees(self, dtrain: DMatrix,
+                               fobj: Optional[Callable]) -> None:
+        """``process_type="update"`` (reference ``src/gbm/gbtree.cc``): at
+        the first call the model's trees move to a queue and the model
+        starts empty, every cache back at its base margin; each call takes
+        the next round's trees from the queue, runs the ``updater`` list
+        (``refresh``, ``prune``, ``sync``) on each against the gradients
+        of the margin of the rounds updated so far, and appends them."""
+        if not hasattr(self, "_trees_to_update"):
+            gbm = self.gbm
+            self._trees_to_update = (list(gbm.trees), list(gbm.tree_info),
+                                     list(gbm.iteration_indptr))
+            gbm.trees, gbm.tree_info, gbm.iteration_indptr = [], [], [0]
+            for c in self._caches.values():
+                if c["margin"] is not None:
+                    c["margin"], c["n_trees"] = c["base"], 0
+        old_trees, old_info, old_indptr = self._trees_to_update
+        it = self.num_boosted_rounds()
+        if it >= len(old_indptr) - 1:
+            raise ValueError(
+                "process_type=update: no more trees to update "
+                f"(model has {len(old_indptr) - 1} iterations)")
+        updaters = [u.strip() for u in str(self.learner_params.get(
+            "updater", "refresh")).split(",") if u.strip()]
+        for up in updaters:
+            if up not in UPDATERS:
+                raise ValueError(f"unknown updater '{up}' for "
+                                 "process_type=update")
+        st = self._state_of(dtrain, is_train=True)
+        if self.gbm.supports_margin_cache:
+            margin = self._cached_margin(dtrain, is_train=True)
+        else:
+            margin = self.gbm.compute_margin(st, self._walk_trees)
+        gpair = self._gradient(margin, st, dtrain, it, fobj).cpu().numpy()
+        X = np.asarray(dtrain.values(), np.float32)
+        for t_idx in range(old_indptr[it], old_indptr[it + 1]):
+            tree, k = old_trees[t_idx], old_info[t_idx]
+            for up in updaters:
+                if up == "refresh":
+                    tree = refresh_tree(tree, X, gpair[:, k, :],
+                                        self.tree_param,
+                                        refresh_leaf=bool(
+                                            self.tree_param.refresh_leaf))
+                elif up == "prune":
+                    tree = prune_tree(tree, self.tree_param)
+                else:
+                    tree = sync_trees([tree])[0]
+            self.gbm.trees.append(tree)
+            self.gbm.tree_info.append(k)
+        self.gbm.iteration_indptr.append(len(self.gbm.trees))
+        # a refreshed tree keeps its index with new leaves: the caches that
+        # key on tree counts (dart's margin and round deltas) are stale
+        for c in self._caches.values():
+            c.pop("dart_margin", None)
+            c.pop("dart_deltas", None)
+        self._packed = {}
+
     def eval_set(self, evals: Sequence[Tuple[DMatrix, str]],
-                 iteration: int = 0) -> str:
-        """The reference-format line ``[i]\\tname-metric:value...``."""
+                 iteration: int = 0, feval: Optional[Callable] = None,
+                 output_margin: bool = True) -> str:
+        """The reference-format line ``[i]\\tname-metric:value...``.
+        ``feval(preds, dmatrix)`` -> (name, value) or a list of them: a
+        custom metric, given the margin (``output_margin``) or the
+        transformed predictions, as numpy."""
         self._configure(None)
         msg = f"[{iteration}]"
         for dm, name in evals:
             if dm.info.labels is None:
                 raise ValueError(f"eval set {name!r} has no labels")
             margin = self._cached_margin(dm)
-            preds = self.obj.pred_transform(margin).cpu().numpy()
-            if preds.ndim == 2 and preds.shape[1] == 1:
-                preds = preds[:, 0]
+            preds = _squeeze(self.obj.pred_transform(margin).cpu().numpy())
             for metric in self._eval_metrics:
                 msg += f"\t{name}-{metric.full_name}:{metric(preds, dm.info):.6f}"
+            if feval is not None:
+                res = feval(_squeeze(margin.cpu().numpy()) if output_margin
+                            else preds, dm)
+                for mname, val in (res if isinstance(res, list) else [res]):
+                    msg += f"\t{name}-{mname}:{val:.6f}"
         return msg
+
+    def eval(self, data: DMatrix, name: str = "eval",
+             iteration: int = 0) -> str:
+        """The eval line of one matrix (reference ``Booster.eval``)."""
+        return self.eval_set([(data, name)], iteration)
 
     # ------------------------------------------------------------- predict
     def _validate_features(self, data: DMatrix) -> None:
@@ -483,16 +614,26 @@ class Booster:
         return pf
 
     def predict(self, data: DMatrix, output_margin: bool = False,
+                pred_leaf: bool = False,
                 iteration_range: Optional[Tuple[int, int]] = None,
                 strict_shape: bool = False,
                 validate_features: bool = True) -> np.ndarray:
         """Predictions [n] (or [n, G]) through the packed walk on this
-        Booster's device."""
+        Booster's device; ``pred_leaf``: the leaf (compact BFS node id)
+        each row reaches in each selected tree, int32 [n, T]."""
         self._require_model()
         if validate_features:
             self._validate_features(data)
         dev = self.device
         X = torch.from_numpy(np.ascontiguousarray(data.values())).to(dev)
+        if pred_leaf:
+            lo, hi = self.gbm._tree_range(iteration_range)
+            if hi <= lo:
+                return np.zeros((data.num_row(), 0), dtype=np.int32)
+            forest = stack_trees(self.gbm.trees[lo:hi],
+                                 self.gbm.tree_info[lo:hi], self.n_groups,
+                                 dev)
+            return leaf_positions(forest, X).cpu().numpy()
         if data.info.base_margin is not None:
             base = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
             rows = torch.from_numpy(np.asarray(
@@ -510,9 +651,18 @@ class Booster:
             margin = margin + rows.reshape(margin.shape[0], -1)
         out = margin if output_margin else self.obj.pred_transform(margin)
         out = out.cpu().numpy()
-        if not strict_shape and out.ndim == 2 and out.shape[1] == 1:
-            out = out[:, 0]
-        return out
+        return out if strict_shape else _squeeze(out)
+
+    def inplace_predict(self, data: Any, iteration_range=None,
+                        predict_type: str = "value",
+                        missing: float = np.nan, base_margin: Any = None,
+                        strict_shape: bool = False) -> np.ndarray:
+        """``predict`` straight from an array (any input ``DMatrix``
+        takes); ``predict_type`` ``"margin"`` for the raw margin."""
+        dm = DMatrix(data, missing=missing, base_margin=base_margin)
+        return self.predict(dm, output_margin=(predict_type == "margin"),
+                            iteration_range=iteration_range,
+                            strict_shape=strict_shape)
 
     def __getstate__(self):
         return {"raw": bytes(self.save_raw("json")),
@@ -521,6 +671,130 @@ class Booster:
     def __setstate__(self, state):
         self.__init__({"device": state["device"]},
                       model_file=state["raw"])
+
+    def __copy__(self) -> "Booster":
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _: Any) -> "Booster":
+        out = Booster({"device": self.ctx.device},
+                      model_file=self.save_raw("json"))
+        out.set_param({k: v for k, v in self.learner_params.items()
+                       if _jsonable(v)})
+        return out
+
+    def copy(self) -> "Booster":
+        """A copy of the model on the same device (reference
+        ``Booster.copy``)."""
+        return self.__copy__()
+
+    # ------------------------------------------------------------------ config
+    def save_config(self) -> str:
+        """The training configuration as a JSON string (reference
+        ``XGBoosterSaveJsonConfig``): the learner's parameters and the
+        tree parameters."""
+        return json.dumps({
+            "version": [2, 0, 0],
+            "learner": {
+                "learner_train_param": {
+                    k: v for k, v in self.learner_params.items()
+                    if _jsonable(v)},
+                "gradient_booster": {
+                    "name": self.learner_params.get("booster", "gbtree"),
+                    "tree_train_param": self.tree_param.to_json(),
+                },
+            },
+        })
+
+    def load_config(self, config: str) -> None:
+        """Set the parameters of a :meth:`save_config` string."""
+        learner = json.loads(config).get("learner", {})
+        self.set_param(learner.get("learner_train_param", {}))
+        self.set_param(learner.get("gradient_booster", {}).get(
+            "tree_train_param", {}))
+
+    # ------------------------------------------------------------------ dumps
+    def get_dump(self, fmap: str = "", with_stats: bool = False,
+                 dump_format: str = "text") -> List[str]:
+        """One dump a tree, ``text``, ``json`` or ``dot`` (reference
+        ``XGBoosterDumpModelEx``); ``fmap`` is ignored, as in the JAX
+        package."""
+        self._require_model()
+        out = []
+        for tree in self.gbm.trees:
+            if dump_format == "json":
+                out.append(json.dumps(dump.dump_json(
+                    tree, self.feature_names, with_stats)))
+            elif dump_format == "dot":
+                out.append(dump.dump_dot(tree, self.feature_names,
+                                         with_stats))
+            else:
+                out.append(dump.dump_text(tree, self.feature_names,
+                                          with_stats))
+        return out
+
+    def dump_model(self, fout: str, fmap: str = "", with_stats: bool = False,
+                   dump_format: str = "text") -> None:
+        dumps = self.get_dump(fmap, with_stats, dump_format)
+        with open(fout, "w") as fh:
+            if dump_format == "json":
+                fh.write("[\n" + ",\n".join(dumps) + "\n]")
+            else:
+                for i, d in enumerate(dumps):
+                    fh.write(f"booster[{i}]:\n{d}")
+
+    def trees_to_dataframe(self, fmap: str = ""):
+        self._require_model()
+        return dump.trees_to_dataframe(self.gbm.trees, self.feature_names)
+
+    def get_score(self, fmap: str = "", importance_type: str = "weight"
+                  ) -> Dict[str, float]:
+        """Feature importances: ``weight``, ``gain``, ``total_gain``,
+        ``cover`` or ``total_cover`` (``dump.feature_scores``)."""
+        self._require_model()
+        return dump.feature_scores(self.gbm.trees, importance_type,
+                                   self.feature_names)
+
+    def get_fscore(self, fmap: str = "") -> Dict[str, float]:
+        """Split counts a feature (``get_score`` by ``weight``)."""
+        return self.get_score(fmap, importance_type="weight")
+
+    def inspect(self) -> Dict[str, Any]:
+        """The structural report of ``dump.model_inspect``."""
+        self._require_model()
+        return dump.model_inspect(self)
+
+    def get_split_value_histogram(self, feature: str, fmap: str = "",
+                                  bins: Optional[int] = None,
+                                  as_pandas: bool = True):
+        """Histogram of the thresholds the splits on ``feature`` use, read
+        from the text dump (reference ``get_split_value_histogram``)."""
+        import re
+
+        regexp = re.compile(r"\[{0}<([\d.Ee+-]+)\]".format(
+            re.escape(feature)))
+        values: List[float] = []
+        for d in self.get_dump(fmap=fmap):
+            values.extend(float(x) for x in re.findall(regexp, d))
+        n_unique = len(np.unique(values))
+        nbins = max(min(n_unique, bins) if bins is not None else n_unique, 1)
+        counts, edges = np.histogram(values, bins=nbins)
+        out = np.column_stack((edges[1:], counts))
+        out = out[out[:, 1] > 0]
+        if out.size == 0:
+            names = self.feature_names or [
+                f"f{i}" for i in range(self.num_features())]
+            types = self.feature_types or []
+            i = names.index(feature) if feature in names else len(types)
+            if i < len(types) and types[i] == "c":
+                raise ValueError("Split value histogram doesn't support "
+                                 "categorical split.")
+        if as_pandas:
+            try:
+                from pandas import DataFrame
+            except ImportError:
+                return out
+            return DataFrame(out, columns=["SplitValue", "Count"])
+        return out
 
     # ------------------------------------------------------------------ IO
     def save_raw(self, raw_format: str = "ubj") -> bytearray:
@@ -638,12 +912,15 @@ class Booster:
 def train(params: Dict[str, Any], dtrain: DMatrix,
           num_boost_round: int = 10, *,
           evals: Sequence[Tuple[DMatrix, str]] = (),
+          obj: Optional[Callable] = None,
+          feval: Optional[Callable] = None,
           maximize: Optional[bool] = None,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
           verbose_eval: Union[bool, int, None] = True,
           xgb_model: Optional[Union[str, bytes, Booster]] = None,
-          callbacks: Optional[Sequence] = None) -> Booster:
+          callbacks: Optional[Sequence] = None,
+          custom_metric: Optional[Callable] = None) -> Booster:
     """Train loop (reference ``python-package/xgboost/training.py``; the
     JAX package's ``train``): ``num_boost_round`` rounds of
     ``Booster.update``, each followed by an evaluation of ``evals`` into
@@ -655,7 +932,10 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     set has not improved for that many rounds (``EarlyStopping``, which
     records ``best_iteration`` and ``best_score`` on the booster);
     ``callbacks``: more ``callback.TrainingCallback`` objects, run in
-    order before those two."""
+    order before those two. ``obj(margin, dtrain)`` -> (grad, hess): a
+    custom objective; ``custom_metric`` (or, when it is None, ``feval``)
+    ``(margin, dmatrix)`` -> (name, value): a custom metric beside the
+    booster's, given the raw margin, as the JAX package gives it."""
     callbacks = list(callbacks) if callbacks else []
     if verbose_eval and get_config()["verbosity"] > 0:
         period = 1 if verbose_eval is True else int(verbose_eval)
@@ -663,7 +943,9 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     if early_stopping_rounds is not None:
         callbacks.append(EarlyStopping(rounds=early_stopping_rounds,
                                        maximize=maximize, save_best=False))
-    container = CallbackContainer(callbacks)
+    container = CallbackContainer(
+        callbacks, metric=custom_metric if custom_metric is not None
+        else feval)
     if isinstance(xgb_model, Booster):
         bst = xgb_model
         bst.set_param(params)
@@ -676,7 +958,7 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     for i in range(start, start + num_boost_round):
         if container.before_iteration(bst, i):
             break
-        bst.update(dtrain, i)
+        bst.update(dtrain, i, fobj=obj)
         if container.after_iteration(bst, i, list(evals)):
             break
     bst = container.after_training(bst)

@@ -26,6 +26,13 @@ order) or ``qid=`` (each row's query id, sorted) set
 ``set_group`` / ``set_info(group=)`` / ``set_uint_info("group_ptr")`` and
 an iterator's ``qid`` or ``group`` batches. A ranking matrix may carry
 one weight a query (length G) instead of one a row.
+
+Inputs go through ``data/adapters.py to_dense`` (numpy, lists, scipy
+sparse, pandas, pyarrow); a path or URI through ``data/fileio.py
+load_uri`` (libsvm, CSV/TSV, or a ``save_binary`` container, whose npz
+the JAX package reads and writes too). ``label_lower_bound`` /
+``label_upper_bound`` are carried (survival objectives wait with ROADMAP
+A.5.11).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .adapters import to_dense
 from .binned import (BinnedMatrix, PagedBinnedMatrix, np_dtype_for,
                      search_bin, values_of_bins)
 from .quantile import (FeatureSummary, HistogramCuts, cuts_from_summaries,
@@ -50,6 +58,8 @@ class MetaInfo:
     weights: Optional[np.ndarray] = None       # [n], or [G] a query, f32
     base_margin: Optional[np.ndarray] = None   # [n] or [n, n_groups]
     group_ptr: Optional[np.ndarray] = None     # [G + 1] int64 query offsets
+    label_lower_bound: Optional[np.ndarray] = None  # [n] f32 (survival)
+    label_upper_bound: Optional[np.ndarray] = None
     feature_names: Optional[List[str]] = None
     feature_types: Optional[List[str]] = None
 
@@ -77,6 +87,11 @@ class MetaInfo:
         return np.repeat(w, np.diff(ptr))
 
     def validate(self, n: int) -> None:
+        for name in ("label_lower_bound", "label_upper_bound"):
+            v = getattr(self, name)
+            if v is not None and v.shape[0] != n:
+                raise ValueError(f"{name} has {v.shape[0]} entries, "
+                                 f"expected {n}")
         if self.group_ptr is None:
             if self.weights is not None and len(self.weights) != n:
                 raise ValueError(f"weight has {len(self.weights)} entries, "
@@ -94,23 +109,41 @@ class MetaInfo:
 
 
 def _rows(name: str, value: Any, n: int) -> np.ndarray:
-    arr = np.asarray(value, dtype=np.float32)
+    arr = np.array(value, dtype=np.float32)     # owned, writable
     if arr.shape[0] != n:
         raise ValueError(f"{name} has {arr.shape[0]} entries, expected {n}")
     return arr
 
 
-def _dense(data: Any, missing: float) -> np.ndarray:
-    """[n, F] f32 with ``missing`` mapped to NaN."""
-    X = np.asarray(data, dtype=np.float32)
-    if X.ndim == 1:
-        X = X[:, None]
+def _dense(data: Any, missing: float, feature_names=None,
+           feature_types=None):
+    """``to_dense``: (X [n, F] f32 with NaN missing, feature_names,
+    feature_types)."""
+    X, names, types = to_dense(data, missing, feature_names, feature_types)
     if X.ndim != 2:
         raise ValueError(f"expected a 2-D matrix, got shape {X.shape}")
-    if missing is not None and not np.isnan(missing):
-        X = X.copy()
-        X[X == missing] = np.nan
-    return X
+    return X, names, types
+
+
+def _load_path(path: str, kw: Dict[str, Any]) -> np.ndarray:
+    """``DMatrix(path)``: the file's matrix; the keywords the caller left
+    None take what the file (or its side files) gives."""
+    from .fileio import load_uri
+
+    loaded = load_uri(path)
+    for key in ("label", "weight", "base_margin", "label_lower_bound",
+                "label_upper_bound", "feature_names"):
+        if kw[key] is None:
+            kw[key] = loaded.get(key)
+    if kw["group"] is None and kw["qid"] is None:
+        kw["group"] = loaded.get("group")
+        if kw["group"] is None:
+            kw["qid"] = loaded.get("qid")
+    if kw["feature_types"] is None:
+        kw["feature_types"] = loaded.get("feature_types")
+        if kw["feature_types"] is not None and "c" in kw["feature_types"]:
+            kw["enable_categorical"] = True
+    return loaded["X"]
 
 
 class DataIter:
@@ -152,17 +185,25 @@ def _refuse_iter_categorical(types: Optional[List[str]]) -> None:
 
 
 _UNPORTED_BATCH_KEYS = ("label_lower_bound", "label_upper_bound")
+# get_float_info / set_float_info fields -> MetaInfo attributes
+_FLOAT_FIELDS = {"label": "labels", "weight": "weights",
+                 "base_margin": "base_margin",
+                 "label_lower_bound": "label_lower_bound",
+                 "label_upper_bound": "label_upper_bound"}
 
 
 class DMatrix:
     """Dense float32 feature matrix with NaN for missing entries, or a
-    matrix built from a :class:`DataIter` (module docstring)."""
+    matrix built from a :class:`DataIter` (module docstring). ``data``
+    may be a path or URI (``data/fileio.py``)."""
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
                  feature_names: Optional[List[str]] = None,
                  feature_types: Optional[List[str]] = None,
                  group: Any = None, qid: Any = None,
+                 label_lower_bound: Any = None,
+                 label_upper_bound: Any = None,
                  enable_categorical: bool = False,
                  max_bin: int = 256) -> None:
         self._binned: Dict[tuple, BinnedMatrix] = {}
@@ -175,7 +216,20 @@ class DMatrix:
             self._init_from_iter(data, max_bin, None, missing,
                                  data.cache_prefix)
             return
-        self.X: Optional[np.ndarray] = _dense(data, missing)
+        if isinstance(data, (str, os.PathLike)):
+            kw = dict(label=label, weight=weight, base_margin=base_margin,
+                      group=group, qid=qid,
+                      label_lower_bound=label_lower_bound,
+                      label_upper_bound=label_upper_bound,
+                      feature_names=feature_names,
+                      feature_types=feature_types,
+                      enable_categorical=enable_categorical)
+            data = _load_path(str(data), kw)
+            (label, weight, base_margin, group, qid, label_lower_bound,
+             label_upper_bound, feature_names, feature_types,
+             enable_categorical) = kw.values()
+        self.X, feature_names, feature_types = _dense(
+            data, missing, feature_names, feature_types)
         self._n_rows = self.X.shape[0]
         self.info = MetaInfo()
         self.feature_names = feature_names
@@ -191,6 +245,10 @@ class DMatrix:
             self.info.weights = np.array(weight, dtype=np.float32)
         if base_margin is not None:
             self.info.base_margin = _rows("base_margin", base_margin, n)
+        for key, v in (("label_lower_bound", label_lower_bound),
+                       ("label_upper_bound", label_upper_bound)):
+            if v is not None:
+                setattr(self.info, key, np.asarray(v, np.float32))
         if group is not None:
             self.info.set_group(group)
         elif qid is not None:
@@ -250,9 +308,25 @@ class DMatrix:
                     f"expected {self.num_col()}")
         self.info.feature_types = types
 
+    def num_nonmissing(self) -> int:
+        """Present (non-NaN) entries; for an iterator-built matrix, the
+        bins other than the missing bin."""
+        if self.X is not None:
+            return int(np.count_nonzero(~np.isnan(self.X)))
+        if not self._has_missing:
+            return self.num_row() * self.num_col()
+        bins = (self._quantized.bins_host if self.is_paged
+                else self._quantized)
+        return int(np.count_nonzero(bins != self._max_nbins - 1))
+
+    @property
+    def shape(self):
+        return (self.num_row(), self.num_col())
+
     # -- meta information (the JAX package's set_info / get_group / ...)
     def set_info(self, **kwargs: Any) -> None:
-        """Set ``label``, ``weight``, ``base_margin`` or ``group``."""
+        """Set ``label``, ``weight``, ``base_margin``, ``group``,
+        ``label_lower_bound`` or ``label_upper_bound``."""
         n = self.num_row()
         for k, v in kwargs.items():
             if k == "group":
@@ -263,9 +337,42 @@ class DMatrix:
                 self.info.weights = np.array(v, dtype=np.float32)
             elif k == "base_margin":
                 self.info.base_margin = _rows("base_margin", v, n)
+            elif k in ("label_lower_bound", "label_upper_bound"):
+                setattr(self.info, k, np.array(v, dtype=np.float32))
             else:
                 raise ValueError(f"unknown meta field: {k}")
         self.info.validate(n)
+
+    def get_float_info(self, field: str) -> np.ndarray:
+        """A float field; an unset one as an empty array."""
+        if field not in _FLOAT_FIELDS:
+            raise ValueError(f"unknown float field: {field}")
+        v = getattr(self.info, _FLOAT_FIELDS[field])
+        return (np.empty(0, np.float32) if v is None
+                else np.asarray(v, np.float32))
+
+    def set_float_info(self, field: str, data: Any) -> None:
+        if field not in _FLOAT_FIELDS:
+            raise ValueError(f"unknown float field: {field}")
+        self.set_info(**{field: data})
+
+    def get_label(self) -> Optional[np.ndarray]:
+        return self.info.labels
+
+    def get_weight(self) -> np.ndarray:
+        return self.get_float_info("weight")
+
+    def get_base_margin(self) -> np.ndarray:
+        return self.get_float_info("base_margin")
+
+    def set_label(self, label: Any) -> None:
+        self.set_info(label=label)
+
+    def set_weight(self, weight: Any) -> None:
+        self.set_info(weight=weight)
+
+    def set_base_margin(self, margin: Any) -> None:
+        self.set_info(base_margin=margin)
 
     def set_group(self, group: Any) -> None:
         self.set_info(group=group)
@@ -288,6 +395,72 @@ class DMatrix:
             raise ValueError(f"unknown uint field: {field}")
         self.info.group_ptr = np.asarray(data, np.int64)
         self.info.validate(self.num_row())
+
+    def _require_raw(self, what: str) -> None:
+        if self.X is None:
+            raise ValueError(f"{what} needs raw data; a matrix built from an "
+                             "iterator holds only its bins")
+
+    def get_data(self):
+        """The features as a scipy CSR matrix, missing entries absent."""
+        import scipy.sparse
+
+        self._require_raw("get_data")
+        present = ~np.isnan(self.X)
+        indptr = np.concatenate(
+            [[0], np.cumsum(present.sum(axis=1))]).astype(np.int64)
+        indices = np.nonzero(present)[1].astype(np.int32)
+        return scipy.sparse.csr_matrix(
+            (self.X[present], indices, indptr), shape=self.X.shape)
+
+    def save_binary(self, fname: str, silent: bool = True) -> None:
+        """Write this matrix for ``DMatrix(fname)``: the JAX package's npz
+        container (``X`` and the meta fields under their MetaInfo
+        names)."""
+        self._require_raw("save_binary")
+        payload = {"X": self.X}
+        for attr in ("labels", "weights", "base_margin", "group_ptr",
+                     "label_lower_bound", "label_upper_bound"):
+            v = getattr(self.info, attr)
+            if v is not None:
+                payload[attr] = v
+        for attr in ("feature_names", "feature_types"):
+            v = getattr(self.info, attr)
+            if v is not None:
+                payload[attr] = np.asarray(v)
+        with open(fname, "wb") as fh:
+            np.savez(fh, **payload)
+
+    def get_quantile_cut(self, max_bin: int = 256):
+        """-> (ptrs [F + 1] int64, values f32): the cuts this matrix was
+        last binned with (those the trained trees' split bins index);
+        sketched at ``max_bin`` when it has none yet."""
+        if self._cuts:
+            cuts = list(self._cuts.values())[-1]
+        else:
+            cuts = self.cuts(max_bin)
+        return (np.asarray(cuts.ptrs, np.int64),
+                np.asarray(cuts.values, np.float32))
+
+    def slice(self, rindex: Any) -> "DMatrix":
+        """The rows ``rindex`` with their labels, weights, base margins
+        and bounds (query groups are not carried)."""
+        self._require_raw("slice")
+        rindex = np.asarray(rindex)
+        out = DMatrix(self.X[rindex])
+        info = self.info
+
+        def rows(v):
+            return None if v is None else v[rindex]
+
+        out.info = MetaInfo(
+            labels=rows(info.labels), weights=rows(info.weights),
+            base_margin=rows(info.base_margin),
+            label_lower_bound=rows(info.label_lower_bound),
+            label_upper_bound=rows(info.label_upper_bound),
+            feature_names=info.feature_names,
+            feature_types=info.feature_types)
+        return out
 
     @property
     def is_paged(self) -> bool:
@@ -362,13 +535,15 @@ class DMatrix:
                     raise NotImplementedError(
                         f"iterator batches with {key!r} are not in the "
                         "PyTorch port yet (ROADMAP A.5.11)")
-            _refuse_iter_categorical(batch.get("feature_types"))
-            X = _dense(batch["data"], missing)
+            X, names, types = _dense(batch["data"], missing,
+                                     batch.get("feature_names"),
+                                     batch.get("feature_types"))
+            _refuse_iter_categorical(types)
             n_rows += X.shape[0]
             n_feat = X.shape[1]
             has_missing = has_missing or bool(np.isnan(X).any())
-            if batch.get("feature_names") is not None:
-                feature_names = list(batch["feature_names"])
+            if names is not None:
+                feature_names = list(names)
             for key, dest in (("label", labels), ("weight", weights),
                               ("base_margin", margins)):
                 if batch.get(key) is not None:
@@ -419,7 +594,7 @@ class DMatrix:
             local = np.empty((n_rows, n_feat), dtype)
         row = 0
         for batch in it.collect():
-            X = _dense(batch["data"], missing)
+            X = _dense(batch["data"], missing)[0]
             local[row:row + X.shape[0]] = search_bin(
                 torch.from_numpy(np.ascontiguousarray(X)), cuts,
                 max_nbins - 1).numpy()

@@ -1,8 +1,11 @@
-"""Reference-format model reader.
+"""Reference-format model reader and writer.
 
 Loads models in the reference XGBoost JSON/UBJSON schema by converting
-them to the native model dict that ``Booster`` reads. Semantics bridged
-(the same as the JAX package's ``interop.py``):
+them to the native model dict that ``Booster`` reads, and writes a
+``gbtree`` or ``dart`` Booster in that schema
+(:func:`native_to_reference_json`, :func:`save_xgboost_model`) to the
+JAX package's bytes. Semantics bridged (the same as the JAX package's
+``interop.py``):
 
 - Split comparison: the reference routes ``x < split_condition`` left;
   this framework routes ``x <= split_value`` left. Conversion nudges
@@ -19,14 +22,17 @@ them to the native model dict that ``Booster`` reads. Semantics bridged
 - Ranking objectives: ``lambdarank_param`` (or ``lambda_rank_param``)
   and an unbiased model's ``ti+`` / ``tj-``.
 
-The writer waits with ROADMAP A.2.
+Multi-output (vector-leaf) trees wait with ROADMAP A.5.7 and gblinear
+with A.5.9, in both directions.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from .objective import get_objective
 
@@ -178,3 +184,160 @@ def reference_to_native_json(ref: Dict[str, Any]) -> Dict[str, Any]:
         "config": {"learner_params": {"objective": obj_name,
                                       "booster": booster["name"]}},
     }
+
+
+# --------------------------------------------------------------------- writer
+
+_REG_LOSS_OBJS = {"reg:squarederror", "reg:squaredlogerror", "reg:linear",
+                  "reg:logistic", "binary:logistic", "binary:logitraw",
+                  "reg:pseudohubererror"}
+
+
+def _objective_to_reference(obj, learner_params: Dict[str, Any],
+                            num_class: int) -> Dict[str, Any]:
+    """The objective's name and its parameter block, every value a
+    string, as the reference schema has it."""
+    name = obj.name
+    own = obj.to_json()
+
+    def s(key: str, default: Any) -> str:
+        return str(own.get(key, learner_params.get(key, default)))
+
+    if name in _REG_LOSS_OBJS:
+        return {"name": name, "reg_loss_param": {
+            "scale_pos_weight": s("scale_pos_weight", 1)}}
+    if name in ("multi:softprob", "multi:softmax"):
+        return {"name": name, "softmax_multiclass_param": {
+            "num_class": str(num_class)}}
+    if name in ("rank:ndcg", "rank:pairwise", "rank:map"):
+        lr = {"lambdarank_num_pair_per_sample":
+              s("lambdarank_num_pair_per_sample", 1),
+              "lambdarank_pair_method": s("lambdarank_pair_method", "mean")}
+        # the published schema names the block "lambda_rank_param" and
+        # requires "lambdarank_param": both are written
+        return {"name": name, "lambda_rank_param": lr,
+                "lambdarank_param": lr}
+    return {"name": name}
+
+
+def _tree_to_reference(t, num_feature: int) -> Dict[str, Any]:
+    """A native tree as reference arrays: thresholds nudged up one f32
+    ulp (``x <= v`` becomes ``x < cond``), leaves in ``split_conditions``,
+    each categorical node's RIGHT set."""
+    n = t.num_nodes()
+    conds = np.where(
+        t.is_leaf, t.leaf_value.astype(np.float64),
+        np.nextafter(t.split_value.astype(np.float32), np.float32("inf"))
+        .astype(np.float64))
+    cat_nodes = [int(c) for c in np.nonzero(t.is_cat_split)[0]]
+    categories: List[int] = []
+    segments: List[int] = []
+    sizes: List[int] = []
+    n_cats = t.cat_words.shape[1] * 32
+    for c in cat_nodes:
+        w = t.cat_words[c]
+        left = {b for b in range(n_cats) if (w[b // 32] >> (b % 32)) & 1}
+        right = sorted(set(range(n_cats)) - left)
+        segments.append(len(categories))
+        sizes.append(len(right))
+        categories.extend(right)
+    return {
+        "tree_param": {"num_nodes": str(n), "num_feature": str(num_feature),
+                       "size_leaf_vector": "1", "num_deleted": "0"},
+        "id": 0,
+        "left_children": t.left_child.tolist(),
+        "right_children": t.right_child.tolist(),
+        "parents": [int(p) if p >= 0 else 2147483647 for p in t.parent],
+        "split_indices": [int(max(f, 0)) for f in t.split_feature],
+        "split_conditions": conds.tolist(),
+        "split_type": [int(x) for x in t.is_cat_split],
+        "default_left": [int(d) for d in t.default_left],
+        "loss_changes": t.gain.astype(np.float64).tolist(),
+        "sum_hessian": t.sum_hess.astype(np.float64).tolist(),
+        "base_weights": t.base_weight.astype(np.float64).tolist(),
+        "categories": categories,
+        "categories_nodes": cat_nodes,
+        "categories_segments": segments,
+        "categories_sizes": sizes,
+    }
+
+
+def native_to_reference_json(booster) -> Dict[str, Any]:
+    """A ``gbtree`` or ``dart`` Booster as a reference-schema model dict;
+    ``base_score`` in the user's space (the transform of the base
+    margin), of target 0 when the targets' base margins differ."""
+    from .boosting.dart import Dart
+
+    booster._configure(None)
+    gbm, obj = booster.gbm, booster.obj
+    nf = booster.num_features()
+    trees = []
+    for i, t in enumerate(gbm.trees):
+        tj = _tree_to_reference(t, nf)
+        tj["id"] = i
+        trees.append(tj)
+    model = {
+        "gbtree_model_param": {
+            "num_trees": str(len(trees)),
+            "num_parallel_tree": str(gbm.num_parallel_tree)},
+        "trees": trees,
+        "tree_info": [int(x) for x in gbm.tree_info],
+        "iteration_indptr": [int(x) for x in gbm.iteration_indptr],
+    }
+    if isinstance(gbm, Dart):
+        gb_json = {"name": "dart", "gbtree": {"name": "gbtree",
+                                              "model": model},
+                   "weight_drop": [float(w) for w in gbm.weight_drop]}
+    else:
+        gb_json = {"name": "gbtree", "model": model}
+    margin = booster._base_np()
+    user = obj.pred_transform(torch.from_numpy(
+        np.asarray(margin, np.float32))[None, :]).numpy().reshape(-1)
+    if booster.n_groups > 1 and not np.allclose(margin, margin[0]):
+        import warnings
+
+        warnings.warn(
+            "exporting a model with per-target base scores to the "
+            "reference schema keeps only target 0's value; set an explicit "
+            "scalar base_score for exact round-trips", stacklevel=2)
+    num_class = int(booster.learner_params.get("num_class", 0))
+    return {
+        "version": [2, 0, 0],
+        "learner": {
+            "attributes": dict(booster.attributes_),
+            "feature_names": booster.feature_names or [],
+            "feature_types": booster.feature_types or [],
+            "learner_model_param": {
+                "base_score": f"{float(user[0]):.17g}",
+                "boost_from_average": "1",
+                "num_class": str(num_class),
+                "num_feature": str(nf),
+                "num_target": str(booster.n_groups),
+            },
+            "objective": _objective_to_reference(
+                obj, booster.learner_params, num_class),
+            "gradient_booster": gb_json,
+        },
+    }
+
+
+def load_xgboost_model(source, device: str = "cuda"):
+    """A Booster on ``device`` from a reference-format model (a path,
+    bytes or a native model)."""
+    from .core import Booster
+
+    return Booster({"device": device}, model_file=source)
+
+
+def save_xgboost_model(booster, fname: str) -> None:
+    """Write ``booster`` as a reference-schema model file: UBJSON when
+    ``fname`` ends in ``.ubj``, else JSON."""
+    from .utils.ubjson import dump_ubjson
+
+    obj = native_to_reference_json(booster)
+    if str(fname).endswith(".ubj"):
+        with open(fname, "wb") as fh:
+            dump_ubjson(obj, fh)
+    else:
+        with open(fname, "w") as fh:
+            json.dump(obj, fh)

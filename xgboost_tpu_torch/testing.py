@@ -1,10 +1,12 @@
-"""Synthetic forests for tests and the chip smoke run.
+"""Synthetic forests and data for tests and the chip smoke run.
 
 :func:`make_forest` grows random trees of a given shape from a numpy
 ``RandomState(seed)``; :func:`make_forest_model` wraps a one-group
 forest as a native-schema JSON model that both this package and the
 JAX package load. Inputs drawn from N(0, 1) reach every part of such a
 forest, since its thresholds are drawn from N(0, 1) as well.
+:func:`agaricus_rows` / :func:`write_libsvm` make files of the shape of
+XGBoost's agaricus demo data.
 """
 
 from __future__ import annotations
@@ -147,3 +149,35 @@ def make_forest_model(n_trees: int, max_depth: int, n_features: int,
                                       "booster": "gbtree"}},
     }
     return json.dumps(model).encode()
+
+
+# UCI Mushroom's 22 attributes and their numbers of values (cap-shape ...
+# habitat); one-hot, they are the 126 features of agaricus.txt.{train,test}
+MUSHROOM_CARDINALITIES = (6, 4, 10, 2, 9, 4, 3, 2, 12, 2, 7, 4, 4, 9, 9, 2,
+                          4, 3, 8, 9, 6, 7)
+ODOR, SPORE_PRINT_COLOR = 4, 19
+AGARICUS_FLIP = 0.02
+
+
+def agaricus_rows(n: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(labels [n] f32, indices [n, 22] int64): each row one value of
+    each attribute, as the 1-based libsvm index of its one-hot feature
+    (1-126, ascending along the row). A row is positive when its odor is
+    one of the first 4 of 9 values, or the fifth with a spore-print color
+    among the first 3 of 9 (48.1%), then 2% of the labels flip; made from
+    ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    card = np.asarray(MUSHROOM_CARDINALITIES)
+    codes = (rng.random((n, len(card))) * card).astype(np.int64)
+    pos = (codes[:, ODOR] < 4) | ((codes[:, ODOR] == 4)
+                                  & (codes[:, SPORE_PRINT_COLOR] < 3))
+    pos ^= rng.random(n) < AGARICUS_FLIP
+    offsets = np.concatenate([[1], 1 + np.cumsum(card)[:-1]])
+    return pos.astype(np.float32), codes + offsets
+
+
+def write_libsvm(path: str, labels: np.ndarray, indices: np.ndarray) -> None:
+    """Lines ``label idx:1 idx:1 ...``, as agaricus.txt has them."""
+    tail = [" ".join(f"{j}:1" for j in row) for row in indices.tolist()]
+    with open(path, "w") as fh:
+        fh.writelines(f"{int(y)} {t}\n" for y, t in zip(labels, tail))
