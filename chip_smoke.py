@@ -101,6 +101,30 @@ counts set to 0 just before and read just after:
   ``Booster.predict`` on the paged matrix against the walk over its
   bins; and the default budget, which collapses the matrix to the
   resident tier;
+- leaf-wise growth and the constraints (``lossguide_constraints``), on
+  the HIGGS-shape draws: ``grow_policy="lossguide"`` with
+  ``max_leaves`` 255 and ``max_depth`` 0 (XGBoost's LightGBM-style
+  setting), 10 rounds twice (one sha256; K4 once a pair of children
+  evaluated, K2 / K3 never, and no plain build: the plain versions raise
+  while it trains; held-out logloss falling every round and AUC beside
+  the depthwise run's at 10 rounds; each tree's leaves and depth); a
+  ``save_raw`` round trip and a ``Server`` predicting
+  ``Booster.predict``'s bits; K1 on the lossguide forest on both
+  schedules against its fold replica, and timed; seconds a round and
+  three profiled rounds; ``coarse`` / ``fused`` / ``scan`` lossguide, 3
+  rounds each, one set of bytes (K2 twice a pair, K2 twice, K4 once);
+  depthwise ``auto`` at depth 8 for 10 rounds and lossguide for 3 under
+  ``monotone_constraints`` (the sign of the rule's weight on its 8
+  largest, 0 elsewhere) and ``interaction_constraints`` (the tutorial's
+  ``[[0, 2], [1, 3, 4], [5, 6]]``): every path in one set, predictions
+  swept over 64 values of each constrained feature on 1,000 held-out
+  rows never moving against its sign, held-out AUC past 0.6; depthwise
+  ``max_leaves`` 64 at depth 8 and at depth 10 on 200,000 rows (K3 at
+  256 and 512 nodes); lossguide dart on the categorical Covertype matrix
+  (``max_leaves`` 63, 3 rounds: both split kinds, the drops); and K2 and
+  K4 at the pair shape (1,000,000 x 28, N = 2, 256 and 257 slots, 50%
+  and 2% of the rows in the pair) against their plain versions and
+  timed;
 - BASELINE config #3 in full (``mslr_ranking``): ``rank:ndcg``
   LambdaMART at the MSLR-WEB30K Fold1 shape (``mslr_like``: 136 N(0, 1)
   features, 18,919 training queries of log-normal sizes with MSLR's
@@ -138,7 +162,9 @@ counts set to 0 just before and read just after:
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
-main paths' shapes: K2 at the categorical run's levels of 128 nodes and
+main paths' shapes: K2 and K4 at the lossguide pair (N = 2, 50% and 2%
+of 1,000,000 rows active), K1 on the lossguide forest at 100,000 rows;
+K2 at the categorical run's levels of 128 nodes and
 at the agaricus bins (6,513 x 127, two slots, N = 2); K1 on the agaricus
 forest at its 1,611 test rows; K1
 at 1, 512, 100,000 and 1,000,000 rows and the
@@ -2002,13 +2028,16 @@ def profile_rounds(label, timer, dtr, top=12):
     return dev_ms, rows
 
 
-def higgs_like(n, F, seed):
+def higgs_like(n, F, seed, rule=False):
     """[n, F] f32 N(0, 1) features and 0/1 labels from a fixed linear rule
-    plus noise, made from ``seed``."""
+    plus noise, made from ``seed``; with ``rule`` also the rule's weights
+    [F] (the same draws)."""
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n, F), dtype=np.float32)
     w = rng.standard_normal(F).astype(np.float32)
     logit = X @ w + rng.standard_normal(n).astype(np.float32) * 1.5
+    if rule:
+        return X, (logit > 0).astype(np.float32), w
     return X, (logit > 0).astype(np.float32)
 
 
@@ -2418,6 +2447,390 @@ def external_memory(xt, dev, F, tmp):
     return runs, busy, s_round
 
 
+# ---- leaf-wise growth and constraints (``lossguide_constraints``) ----------
+
+LG_PARAMS = dict(HIGGS_PARAMS, grow_policy="lossguide", max_leaves=255,
+                 max_depth=0)
+LG_ROUNDS = 10
+LG_TWO_LEVEL_ROUNDS = 3
+# the interaction constraint tutorial's sets; the other features are
+# singleton sets
+LG_SETS = "[[0, 2], [1, 3, 4], [5, 6]]"
+LG_MONO_FEATURES = 8
+LG_SWEEP_ROWS = 1_000
+LG_DART_LEAVES = 63
+# (share of the rows in the pair, bin slots): K2 and K4 at the pair shape
+PAIR_CASES = ((0.5, 256), (0.02, 256), (0.5, 257), (0.02, 257))
+_PLAIN_BUILDS = ("build_hist_int8x2_reference", "build_hist_scan_reference",
+                 "scan_acc_reference", "build_hist_f32_reference",
+                 "fused_advance_coarse_reference")
+
+
+class NoPlainBuilds:
+    """Within the block every plain histogram build raises: the card's
+    training must launch the kernels and nothing else."""
+
+    def __enter__(self):
+        from xgboost_tpu_torch.ops import histogram as H
+
+        self.saved = {n: getattr(H, n) for n in _PLAIN_BUILDS}
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain histogram build ran on the card")
+
+        for n in _PLAIN_BUILDS:
+            setattr(H, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        from xgboost_tpu_torch.ops import histogram as H
+
+        for n, fn in self.saved.items():
+            setattr(H, n, fn)
+        return False
+
+
+def pair_inputs(n, F, B, share, dev, seed):
+    """``hist_inputs`` at N = 2 with only ``share`` of the rows in the
+    pair (rel 0 or 1), the rest inactive (rel 2), as a lossguide split
+    deep in a tree leaves them."""
+    bins, gpair, rel = hist_inputs(n, F, B, 2, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    keep = torch.rand(n, generator=g, device=dev) < share
+    rel = torch.where(keep, torch.randint(0, 2, (n,), generator=g,
+                                          device=dev, dtype=torch.int32),
+                      torch.full_like(rel, 2))
+    return bins, gpair, rel.contiguous()
+
+
+def tree_shapes(bst):
+    """(leaves, depth) of every tree."""
+    return [(t.num_leaves(), t.max_depth()) for t in bst.gbm.trees]
+
+
+def paths_in_one_set(bst, cons, label):
+    """Every root-to-leaf path's features lie in one constraint set."""
+    for k, t in enumerate(bst.gbm.trees):
+        stack = [(0, frozenset())]
+        while stack:
+            i, path = stack.pop()
+            if t.is_leaf[i]:
+                if not any(cons[s, sorted(path)].all()
+                           for s in range(cons.shape[0])):
+                    raise AssertionError(f"{label}: tree {k} path "
+                                         f"{sorted(path)} spans two sets")
+                continue
+            path = path | {int(t.split_feature[i])}
+            stack += [(t.left_child[i], path), (t.right_child[i], path)]
+
+
+def monotone_holds(xt, bst, X, signs, label):
+    """Sweep each constrained feature over 64 values on the rows of X:
+    the predictions never move against its sign (exactly: each tree is
+    monotone and the fixed-order f32 sum keeps it). Returns the count of
+    (row, step) pairs checked."""
+    n = X.shape[0]
+    checked = 0
+    for f, sign in enumerate(signs):
+        if not sign:
+            continue
+        grid = np.repeat(X, 64, axis=0)
+        grid[:, f] = np.tile(np.linspace(-3, 3, 64, dtype=np.float32), n)
+        p = bst.predict(xt.DMatrix(grid)).reshape(n, 64)
+        bad = int((sign * np.diff(p, axis=1) < 0).sum())
+        if bad:
+            raise AssertionError(f"{label}: feature {f} (sign {sign}) moves "
+                                 f"against its sign at {bad} steps")
+        checked += n * 63
+    return checked
+
+
+def serve_equal(raw, X, want, label):
+    """A ``Server`` answering 40 requests of 1/8/64/512 rows of X, each
+    answer equal to ``want`` (``Booster.predict``) bit for bit; returns
+    its launch counts."""
+    from xgboost_tpu_torch.serve import Server
+
+    sizes = (1, 8, 64, 512)
+    reset_counts()
+    with Server(models={label: raw}, max_batch=512) as srv:
+        srv.warmup()
+        for i in range(40):
+            n = sizes[i % len(sizes)]
+            lo = (i * 1237) % (X.shape[0] - n)
+            got = np.asarray(srv.predict(X[lo:lo + n]))
+            if not np.array_equal(got, want[lo:lo + n]):
+                raise AssertionError(f"{label}: a Server answer ({n} rows at "
+                                     f"{lo}) differs from Booster.predict")
+    counts = read_counts()
+    if counts["walk_packed"] < 1:
+        raise AssertionError(f"{label}: the Server launched {counts}")
+    return counts
+
+
+def lossguide_constraints(xt, dev, X, y, w, depthwise10, Xc, yc):
+    """The ``lossguide_constraints`` phase (module docstring): returns
+    (the main-path runs' launch counts, {kernel: max |kernel - plain|},
+    K1's errors, the pair-shape kernel times {(kernel, share, B): (ms,
+    plain_ms, library_ms, bound)}, K1's time on the lossguide forest, a
+    summary dict)."""
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.serve.packed import PackedForest
+    from xgboost_tpu_torch.tree.param import (parse_interaction_constraints,
+                                              parse_monotone_constraints)
+
+    F = X.shape[1]
+    n_tr = 1_000_000
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr])
+    dte = xt.DMatrix(X[n_tr:], label=y[n_tr:])
+    yte = y[n_tr:]
+    runs, errs, k1_errs, out = [], {}, [], {}
+
+    # -- leaf-wise HIGGS, twice
+    raws, results = [], []
+    for run in range(2):
+        res = {}
+        t0 = time.perf_counter()
+        with NoPlainBuilds():
+            bst, c = train_launches(f"lossguide run {run}", lambda r=res:
+                                    xt.train(LG_PARAMS, dtr, LG_ROUNDS,
+                                             evals=[(dte, "test")],
+                                             evals_result=r,
+                                             verbose_eval=False))
+        t_run = time.perf_counter() - t0
+        pairs = sum(t.num_leaves() for t in bst.gbm.trees)
+        if c["hist_scan"] != pairs or c["hist_int8x2"] or c["hist_f32"] \
+                or c["fused_advance_coarse"]:
+            raise AssertionError(f"lossguide launched {c}, expected K4 once "
+                                 f"a pair ({pairs} pairs) and nothing else")
+        if c["walk_packed"] != LG_ROUNDS:
+            raise AssertionError(f"lossguide's held-out walks: {c}")
+        ll = res["test"]["logloss"]
+        if not all(b < a for a, b in zip(ll, ll[1:])):
+            raise AssertionError(f"held-out logloss did not fall every "
+                                 f"round: {ll}")
+        runs.append(c)
+        raws.append(bytes(bst.save_raw("ubj")))
+        results.append(res)
+        log(f"lossguide run {run}: {LG_ROUNDS} rounds in {t_run:.3f} s "
+            f"(host clock); pairs a round {pairs / LG_ROUNDS:g}, K4 "
+            f"{c['hist_scan'] / LG_ROUNDS:g} a round, K1 "
+            f"{c['walk_packed'] / LG_ROUNDS:g}")
+    digests = [hashlib.sha256(r).hexdigest() for r in raws]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two lossguide runs saved different models: "
+                             f"{digests}")
+    shapes = tree_shapes(bst)
+    if max(lv for lv, _ in shapes) > 255:
+        raise AssertionError(f"a tree has more than 255 leaves: {shapes}")
+    p_te = bst.predict(dte)
+    auc_lg = auc(yte, p_te)
+    ll = results[0]["test"]["logloss"]
+    if not (np.isfinite(p_te).all() and auc_lg > 0.6):
+        raise AssertionError(f"lossguide held-out AUC {auc_lg}")
+    log(f"lossguide model sha256 (two runs): {digests[0]} {digests[1]}")
+    log(f"lossguide trees (leaves, depth): {shapes}")
+    log(f"lossguide held-out at {LG_ROUNDS} rounds: logloss {ll[0]} -> "
+        f"{ll[-1]}, AUC {auc_lg:.6f}; depthwise depth 8 at {LG_ROUNDS}: "
+        f"logloss {depthwise10[0]}, AUC {depthwise10[1]:.6f}")
+    again = xt.Booster(model_file=bst.save_raw("ubj"))
+    if not np.array_equal(again.predict(dte), p_te):
+        raise AssertionError("lossguide: save_raw round trip predicts other "
+                             "bits")
+    Xte = X[n_tr:]
+    serve_counts = serve_equal(raws[0], Xte, p_te, "lossguide")
+    log(f"lossguide: save_raw round trip and a Server (K1 launches "
+        f"{serve_counts['walk_packed']}) predict Booster.predict's bits")
+    # K1 on the lossguide forest, both schedules, and its time
+    pf = bst.packed_forest()
+    base = torch.tensor(bst._base_np(), device=dev)
+    Xd = torch.from_numpy(np.ascontiguousarray(Xte)).to(dev)
+    for n, sch in ((512, "spread"), (100_000, "staged"), (4096, "staged"),
+                   (100_000, "spread")):
+        k1_errs.append(check_kernel(f"lossguide forest n={n}", pf,
+                                    Xd[:n].contiguous(), base, sch)[0])
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    _, leaves = pf.margin(Xd, base, leaf_index=True)
+    visits = int(torch.from_numpy(node_depths(pf)).to(dev)[
+        leaves.long()].sum())
+    d = pf.device_arrays(dev)
+    from xgboost_tpu_torch.ops.walk import walk_packed_reference
+    from xgboost_tpu_torch.serve.packed import tree_step
+
+    k1 = {"ms": event_ms(lambda: pf.margin(Xd, base), reps=20, flush=flush),
+          "plain_ms": event_ms(lambda: walk_packed_reference(
+              d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+              d["group_onehot"], Xd, base, max_depth=pf.max_depth,
+              tree_chunk=tree_step(Xd.shape[0])), reps=3),
+          "bound": walk_bound_ms(pf, Xd.shape[0], F, visits),
+          "max_depth": pf.max_depth}
+    log(f"K1 lossguide forest (max_depth {pf.max_depth}, {pf.n_trees} "
+        f"trees) at 100,000 rows: {k1['ms']:.6f} ms, plain "
+        f"{k1['plain_ms']:.6f} ms, bound {k1['bound'][0]:.6f} ms "
+        f"({k1['bound'][1]})")
+    # seconds a round and three profiled rounds
+    timer, per, s_lg = seconds_per_round(LG_PARAMS, dtr)
+    log(f"lossguide seconds per round (update + sync, host clock): "
+        f"{['%.6f' % t for t in per]}; median of rounds 1-5 {s_lg:.6f} s")
+    busy_lg, _ = profile_rounds("lossguide", timer, dtr, top=16)
+    out.update(s_round=s_lg, busy_ms=busy_lg, digest=digests[0],
+               ll=(ll[0], ll[-1]), auc=auc_lg, shapes=shapes,
+               pairs=pairs / LG_ROUNDS)
+
+    # -- the two-level schedules, one set of bytes
+    per_pair = {"coarse": {"hist_int8x2": 2}, "fused": {"hist_int8x2": 2},
+                "scan": {"hist_scan": 1}}
+    two_raw = {}
+    for method, want in per_pair.items():
+        with NoPlainBuilds():
+            b2, c2 = train_launches(
+                f"lossguide {method}", lambda m=method: xt.train(
+                    dict(LG_PARAMS, hist_method=m), dtr,
+                    LG_TWO_LEVEL_ROUNDS, verbose_eval=False))
+        pairs2 = sum(t.num_leaves() for t in b2.gbm.trees)
+        want = {k: want.get(k, 0) * pairs2 for k in K.LAUNCHES}
+        if {k: c2[k] for k in K.LAUNCHES} != want:
+            raise AssertionError(f"lossguide {method} launched {c2}, "
+                                 f"expected {want}")
+        runs.append(c2)
+        two_raw[method] = saved_bytes(b2)
+    if not two_raw["coarse"] == two_raw["fused"] == two_raw["scan"]:
+        raise AssertionError("lossguide coarse, fused and scan saved "
+                             "different models")
+    log(f"lossguide coarse, fused and scan ({LG_TWO_LEVEL_ROUNDS} rounds) "
+        f"saved the same model bytes: sha256 "
+        f"{hashlib.sha256(two_raw['scan']).hexdigest()}")
+
+    # -- constraints at the HIGGS shape: depthwise auto, then lossguide
+    top = np.argsort(-np.abs(w))[:LG_MONO_FEATURES]
+    signs = [int(np.sign(w[f])) if f in top else 0 for f in range(F)]
+    mono = "(" + ",".join(str(v) for v in signs) + ")"
+    cons = parse_interaction_constraints(LG_SETS, F)
+    if parse_monotone_constraints(mono, F) != signs:
+        raise AssertionError("the monotone string does not parse back")
+    sweep = np.ascontiguousarray(Xte[:LG_SWEEP_ROWS])
+    constrained = {}
+    for label, params, rounds, k4_per_round in (
+            ("depthwise", dict(HIGGS_PARAMS), 10, 8),
+            ("lossguide", dict(LG_PARAMS), 3, None)):
+        params.update(monotone_constraints=mono,
+                      interaction_constraints=LG_SETS)
+        res = {}
+        t0 = time.perf_counter()
+        with NoPlainBuilds():
+            bc, cc = train_launches(
+                f"constrained {label}", lambda p=params, r=res, k=rounds:
+                xt.train(p, dtr, k, evals=[(dte, "test")], evals_result=r,
+                         verbose_eval=False))
+        t_c = time.perf_counter() - t0
+        want_k4 = (k4_per_round * rounds if k4_per_round
+                   else sum(t.num_leaves() for t in bc.gbm.trees))
+        if cc["hist_scan"] != want_k4 or cc["hist_int8x2"] or \
+                cc["hist_f32"]:
+            raise AssertionError(f"constrained {label} launched {cc}")
+        runs.append(cc)
+        paths_in_one_set(bc, cons, f"constrained {label}")
+        checked = monotone_holds(xt, bc, sweep, signs,
+                                 f"constrained {label}")
+        auc_c = auc(yte, bc.predict(dte))
+        if not auc_c > 0.6:
+            raise AssertionError(f"constrained {label}: AUC {auc_c}")
+        constrained[label] = (auc_c, res["test"]["logloss"][-1], t_c)
+        log(f"constrained {label} ({rounds} rounds, monotone {mono}, sets "
+            f"{LG_SETS}): every path in one set, {checked} sweep steps "
+            f"monotone, held-out logloss {res['test']['logloss'][-1]}, AUC "
+            f"{auc_c:.6f} (unconstrained depthwise at 10 rounds "
+            f"{depthwise10[1]:.6f}); {t_c:.3f} s")
+    out["constrained"] = constrained
+    out["mono"] = mono
+
+    # -- depthwise max_leaves: depth 8 on 1M rows, depth 10 on 200k (K3)
+    d200 = xt.DMatrix(X[:200_000], label=y[:200_000])
+    for label, dm, depth, want in (
+            ("depth 8", dtr, 8, {"hist_scan": 8}),
+            ("depth 10", d200, 10, {"hist_scan": 8, "hist_f32": 2})):
+        with NoPlainBuilds():
+            bm, cm = train_launches(
+                f"max_leaves 64 {label}", lambda d=dm, k=depth: xt.train(
+                    dict(HIGGS_PARAMS, max_depth=k, max_leaves=64), d, 3,
+                    verbose_eval=False))
+        want = {k: want.get(k, 0) * 3 for k in K.LAUNCHES}
+        if {k: cm[k] for k in K.LAUNCHES} != want:
+            raise AssertionError(f"max_leaves {label} launched {cm}, "
+                                 f"expected {want}")
+        leaves = [t.num_leaves() for t in bm.gbm.trees]
+        if max(leaves) > 64:
+            raise AssertionError(f"max_leaves 64 {label}: leaves {leaves}")
+        runs.append(cm)
+        log(f"max_leaves 64 {label}: leaves {leaves}, depths "
+            f"{[t.max_depth() for t in bm.gbm.trees]}")
+
+    # -- lossguide with dart on the categorical Covertype matrix
+    from xgboost_tpu_torch.boosting.dart import Dart
+
+    n_cov = sum(COVTYPE_CLASS_COUNTS)
+    kw = dict(feature_types=COVDART_TYPES, enable_categorical=True)
+    Xk = covtype_codes(Xc)
+    dcat = xt.DMatrix(Xk[:n_cov], label=yc[:n_cov], **kw)
+    dcat_te = xt.DMatrix(Xk[n_cov:], label=yc[n_cov:], **kw)
+    drops = []
+    select = Dart._select_drop
+
+    def counted(self):
+        got = select(self)
+        drops.append(len(got))
+        return got
+
+    Dart._select_drop = counted
+    try:
+        res = {}
+        with NoPlainBuilds():
+            bd, cd = train_launches("lossguide dart", lambda: xt.train(
+                dict(COVDART_PARAMS, grow_policy="lossguide",
+                     max_leaves=LG_DART_LEAVES, max_depth=0), dcat, 3,
+                evals=[(dcat_te, "test")], evals_result=res,
+                verbose_eval=False))
+    finally:
+        Dart._select_drop = select
+    pairs_d = sum(t.num_leaves() for t in bd.gbm.trees)
+    if cd["hist_int8x2"] != pairs_d or cd["hist_scan"] or cd["hist_f32"]:
+        raise AssertionError(f"lossguide dart launched {cd}, expected K2 "
+                             f"once a pair ({pairs_d})")
+    onehot, part = split_kinds(bd)
+    if not (onehot and part):
+        raise AssertionError(f"lossguide dart: split kinds {onehot}, {part}")
+    if max(t.num_leaves() for t in bd.gbm.trees) > LG_DART_LEAVES:
+        raise AssertionError("lossguide dart: a tree past its leaves")
+    runs.append(cd)
+    log(f"lossguide dart (Covertype codes, 7 classes, max_leaves "
+        f"{LG_DART_LEAVES}): drops a round {drops}, weight_drop "
+        f"{min(bd.gbm.weight_drop):.6f}..{max(bd.gbm.weight_drop):.6f}, "
+        f"one-hot splits {onehot}, partition splits {part}, held-out "
+        f"mlogloss {res['test']['mlogloss']}")
+    out["dart"] = (drops, onehot, part, res["test"]["mlogloss"])
+
+    # -- K2 and K4 at the pair shape, against their plain versions, timed
+    times = {}
+    for i, (share, B) in enumerate(PAIR_CASES):
+        bins, gpair, rel = pair_inputs(n_tr, F, B, share, dev, seed=150 + i)
+        label = f"pair n={n_tr} N=2 B={B} share={share}"
+        for k, e in check_hist(bins, gpair, rel, 2, B, label,
+                               only=("hist_int8x2", "hist_scan")).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        t, n_active = time_hist(bins, gpair, rel, 2, B, flush,
+                                only=("hist_int8x2", "hist_scan"))
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            bound = hist_bound_ms(bins, 2, B, n_active, 4)
+            times[(name, share, B)] = (ms, plain_ms, lib_ms, bound)
+            log(f"hist {name} {label} ({n_active} active rows; L2 "
+                f"flushed): {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                f"index_add_ {lib_ms:.6f} ms, bound {bound[0]:.6f} ms "
+                f"({bound[1]}), kernel at {bound[0] / ms * 100:.4f}% of it")
+        del bins, gpair, rel
+    return runs, errs, k1_errs, times, k1, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -2728,7 +3141,7 @@ def main() -> int:
             hist_errs[k] = max(hist_errs.get(k, 0.0), e)
 
     # -------------------------------------- main path: training, depth 8
-    X, y = higgs_like(1_100_000, F, seed=0)
+    X, y, w_rule = higgs_like(1_100_000, F, seed=0, rule=True)
     dtr = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
     dte = xt.DMatrix(X[1_000_000:], label=y[1_000_000:])
     params = dict(HIGGS_PARAMS)
@@ -3066,6 +3479,20 @@ def main() -> int:
     log(f"covertype_categorical_dart: {covdart_s:.6f} s a round, device busy "
         f"{covdart_busy:.3f} ms over 3 rounds; Covertype one-hot gbtree "
         f"{cov_s:.6f} s a round, busy {cov_busy:.3f} ms")
+
+    # ---- main path: leaf-wise growth, max_leaves and the constraints
+    (lg_runs, lg_errs, lg_k1, lg_pair, lg_k1_time,
+     lg) = lossguide_constraints(xt, dev, X, y, w_rule,
+                                 (auto_ll10, auto_auc10), Xc, yc)
+    errs += lg_k1
+    for k, e in lg_errs.items():
+        hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+    log(f"lossguide_constraints: {lg['s_round']:.6f} s a round, device busy "
+        f"{lg['busy_ms']:.3f} ms over 3 rounds, {lg['pairs']:g} pairs a "
+        f"round; held-out logloss {lg['ll'][0]} -> {lg['ll'][1]}, AUC "
+        f"{lg['auc']:.6f} (depthwise {auto_auc10:.6f}); constrained AUC "
+        f"{ {k: round(v[0], 6) for k, v in lg['constrained'].items()} }; "
+        f"model sha256 {lg['digest']}")
     del Xc, dcov, dcte
 
     # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
@@ -3189,7 +3616,7 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs]
+            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -3259,6 +3686,33 @@ def main() -> int:
         "plain_ms": ag_k1_time["plain_ms"],
         "bound_ms": ag_k1_time["bound"][0],
         "bound_by": ag_k1_time["bound"][1], "library_ms": None})
+    # the lossguide pair: K2 and K4 at N = 2 over 1M x 28 (the HIGGS run's
+    # 256 slots) with 50% and 2% of the rows in the pair; K1 on the
+    # lossguide forest at 100,000 rows
+    for name, replaces in (("hist_int8x2", ":621"), ("hist_scan", ":478")):
+        for share in (0.5, 0.02):
+            ms, plain_ms, lib_ms, bound = lg_pair[(name, share, 256)]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "xgboost_tpu_torch/csrc/hist.cu",
+                "replaces": "xgboost_tpu/ops/pallas/histogram.py" + replaces,
+                "shape": f"lossguide pair 1000000 x 28, B=256, N=2, "
+                         f"{share:.0%} of the rows in the pair",
+                "launches": sum(c[name] for c in lg_runs),
+                "max_abs_err": lg_errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": lib_ms})
+    kernels.append({
+        "name": "walk_packed", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/walk.cu",
+        "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
+        "shape": f"lossguide forest (max_depth {lg_k1_time['max_depth']}), "
+                 "100000 rows",
+        "launches": sum(c["walk_packed"] for c in lg_runs),
+        "max_abs_err": max(lg_k1), "ms": lg_k1_time["ms"],
+        "plain_ms": lg_k1_time["plain_ms"],
+        "bound_ms": lg_k1_time["bound"][0],
+        "bound_by": lg_k1_time["bound"][1], "library_ms": None})
     k5 = levels["fused_advance_coarse"][128]
     ms, plain_ms, bound = k5["ms"], k5["plain_ms"], k5["bound"]
     kernels.append({

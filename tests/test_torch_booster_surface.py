@@ -215,3 +215,35 @@ def test_no_port_file_imports_jax():
                 if IMPORT.match(line):
                     bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line}")
     assert not bad, bad
+
+
+def test_c3_params_follow_the_model_file():
+    """ROADMAP C.3: ``train(params, xgb_model=<bytes>)`` applies
+    ``params`` after the model's own, as upstream's ``Booster.__init__``
+    does, so ``process_type="update"`` refreshes the model's 3 rounds,
+    the trees a loaded Booster gives. The JAX package applies them first
+    and keeps the file's tree parameters: it grows 3 new rounds (6). The
+    port follows upstream (ROADMAP C, Decisions)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2000, 5)).astype(np.float32)
+    y = (X[:, 0] + 0.1 * rng.normal(size=2000) > 0).astype(np.float32)
+    p = {"objective": "binary:logistic", "max_depth": 3}
+    up = dict(p, process_type="update", updater="refresh", refresh_leaf=True)
+    tb = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y), 3,
+                  verbose_eval=False)
+    raw = tb.save_raw("json")
+    from_bytes = xt.train(dict(up, device="cpu"), xt.DMatrix(X, label=y), 3,
+                          xgb_model=raw, verbose_eval=False)
+    loaded = xt.train(dict(up, device="cpu"), xt.DMatrix(X, label=y), 3,
+                      xgb_model=xt.Booster({"device": "cpu"},
+                                           model_file=raw),
+                      verbose_eval=False)
+    assert from_bytes.num_boosted_rounds() == 3
+    assert from_bytes.tree_param.process_type == "update"
+    assert bytes(from_bytes.save_raw("ubj")) == bytes(loaded.save_raw("ubj"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("XTPU_BATCH_ROUNDS", "1")
+        jb = xgb.train(dict(up, hist_method="prehot"),
+                       xgb.DMatrix(X, label=y), 3, xgb_model=raw,
+                       verbose_eval=False)
+    assert jb.num_boosted_rounds() == 6

@@ -946,3 +946,91 @@ def test_k2_at_the_agaricus_shape_on_the_card(tmp_path, N):
         got = K.hist_int8x2_cuda(bm.bins, q, rel, inv, N, 2)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.5, 0.02])
+@pytest.mark.parametrize("B", [256, 257])
+def test_k2_k4_at_the_lossguide_pair_on_the_card(share, B):
+    """A lossguide split's build: N = 2 over every row, only ``share`` of
+    them in the pair (the rest inactive, rel 2). K2 and K4 equal their
+    plain version bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    dev = torch.device("cuda")
+    bins, g, rel = _hist_inputs(1_000_000, 28, B, 2, dev, seed=B)
+    keep = torch.rand(rel.shape[0], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    rel = torch.where(keep < share, rel % 2, torch.full_like(rel, 2))
+    q, inv = H.quantise_int8x2(g)
+    want = H.build_hist_int8x2_reference(bins, q, rel, inv, 2, B)
+    for _ in range(2):
+        a = K.hist_int8x2_cuda(bins, q, rel, inv, 2, B)
+        c = K.hist_scan_cuda(bins, q, rel, inv, 2, B)
+        torch.cuda.synchronize()
+        assert torch.equal(a, want)
+        assert torch.equal(c, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["spread", "staged"])
+def test_k1_on_a_deep_lossguide_forest_on_the_card(schedule):
+    """K1 walks a leaf-wise forest (no depth limit, chains deeper than a
+    heap of its leaves) bit for bit against the fold replica."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    rng = np.random.RandomState(11)
+    X = rng.randn(20_000, 12).astype(np.float32)
+    X[rng.rand(20_000, 12) < 0.05] = np.nan
+    y = (np.nan_to_num(X[:, 0]) ** 2 + np.nan_to_num(X[:, 1])
+         > 1).astype(np.float32)
+    bst = xt.train({"objective": "binary:logistic", "grow_policy":
+                    "lossguide", "max_leaves": 64, "max_depth": 0,
+                    "device": "cpu"}, xt.DMatrix(X, label=y), 8,
+                   verbose_eval=False)
+    assert max(t.max_depth() for t in bst.gbm.trees) > 8
+    dev = torch.device("cuda")
+    pf = bst.packed_forest()
+    base = torch.tensor(bst._base_np(), device=dev)
+    Xd = torch.from_numpy(X).to(dev)
+    for n in (1, 512, 20_000):
+        _k1_check(pf, Xd[:n].contiguous(), base, schedule)
+
+
+@pytest.mark.cuda
+def test_lossguide_and_constraints_on_the_card_equal_the_cpu():
+    """The first round's trees on the card equal the CPU's (equal
+    gradients, equal integer histograms): lossguide through K4 and K2,
+    and depthwise with both constraints."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    rng = np.random.RandomState(6)
+    X = rng.randn(70_000, 10).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] + X[:, 2] + rng.randn(70_000) > 0).astype(
+        np.float32)
+    for n, extra in ((70_000, {"grow_policy": "lossguide", "max_leaves": 31,
+                               "max_depth": 0}),
+                     (20_000, {"grow_policy": "lossguide", "max_leaves": 31,
+                               "max_depth": 0}),
+                     (70_000, {"max_depth": 5,
+                               "monotone_constraints": "(1,0,1)",
+                               "interaction_constraints": "[[0, 1], [2]]"})):
+        params = dict({"objective": "binary:logistic", "base_score": 0.5},
+                      **extra)
+        gpu = xt.train(params, xt.DMatrix(X[:n], label=y[:n]), 1,
+                       verbose_eval=False)
+        cpu = xt.train(dict(params, device="cpu"),
+                       xt.DMatrix(X[:n], label=y[:n]), 1, verbose_eval=False)
+        a, b = gpu.gbm.trees[0], cpu.gbm.trees[0]
+        np.testing.assert_array_equal(a.left_child, b.left_child)
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.split_bin, b.split_bin)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   atol=1e-6)

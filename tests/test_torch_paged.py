@@ -412,8 +412,8 @@ def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):
     ({"hist_method": "scan"}, "A.7"),
     ({"hist_method": "mega"}, "A.7"),
     ({"hist_method": "auto+sub"}, "A.6"),
-    ({"grow_policy": "lossguide"}, "A.5.6"),
-    ({"monotone_constraints": "(1,0,0,0,0,0,0)"}, "A.5.4"),
+    ({"grow_policy": "lossguide"}, "A.7"),
+    ({"monotone_constraints": "(1,0,0,0,0,0,0)"}, "A.7"),
     ({"multi_strategy": "multi_output_tree"}, "A.5.7"),
     ({"data_split_mode": "col"}, "A.8"),
 ])

@@ -281,14 +281,22 @@ def root_carry(t, i, eta, lam, gap):
                for sg in (-1.0, 1.0) for sh in (-1.0, 1.0))
 
 
-def compare_tree(a, b, eta, lam=1.0, r=0):
-    """Node-by-node from the root of JAX tree ``a`` and port tree ``b``;
-    returns (near-tie nodes, largest leaf drift). Asserts everything it
+def compare_tree(a, b, eta, lam=1.0, r=0, capped=False):
+    """Node-by-node from the root of JAX tree ``a`` and port tree ``b``
+    (nodes paired through their children, not their ids); returns
+    (near-tie nodes, largest leaf drift). Asserts everything it
     compares; a near tie skips the subtree below it. The certificate of a
     node's gain: ``GAIN_RTOL`` of its scale, and for a node on the
     right-hand path from the root what the root's measured sum gap moves
     its gain by (:func:`root_carry`; for a near tie the larger of the two
-    trees' splits)."""
+    trees' splits).
+
+    ``capped``: leaf-wise trees whose ``max_leaves`` bound. There a node
+    that one tree splits and the other leaves a leaf is a near tie of the
+    greedy order when its gain lies within ``GAIN_RTOL`` of its scale
+    (plus that of the other tree's gain) of the smallest gain the other
+    tree's loop popped: both loops stopped at the cap with the two
+    candidates that close."""
     drift = 0.0
     ties = []
     gap = root_gap(a, b, eta, lam)
@@ -301,6 +309,17 @@ def compare_tree(a, b, eta, lam=1.0, r=0):
                                        rtol=1e-5, atol=LEAF_ATOL)
             drift = max(drift, abs(float(b.leaf_value[j])
                                    - float(a.leaf_value[i])))
+            continue
+        if capped and a.is_leaf[i] != b.is_leaf[j]:
+            split, other, k = (a, b, i) if b.is_leaf[j] else (b, a, j)
+            g = float(split.gain[k])
+            m = float(other.gain[~other.is_leaf].min())
+            bound = GAIN_RTOL * (scale + abs(m))
+            print(f"round {r} node {i}: split in one tree only (gain {g}), "
+                  f"the other's smallest popped gain {m}: gap {abs(g - m)}, "
+                  f"bound {bound:.3e}")
+            assert abs(g - m) <= bound, "a capped split is no near tie"
+            ties.append(int(i))
             continue
         same = (not a.is_leaf[i] and not b.is_leaf[j]
                 and a.split_feature[i] == b.split_feature[j]
@@ -329,13 +348,13 @@ def compare_tree(a, b, eta, lam=1.0, r=0):
     return ties, drift
 
 
-def compare_forests(jtrees, ttrees, eta, lam=1.0):
+def compare_forests(jtrees, ttrees, eta, lam=1.0, capped=False):
     """Tree by tree until the first tree with a near tie (the margins
     differ after it); returns (trees compared in full, near ties of the
     tree that stopped the comparison, largest leaf drift)."""
     drift = 0.0
     for r, (a, b) in enumerate(zip(jtrees, ttrees)):
-        ties, d = compare_tree(a, b, eta, lam, r)
+        ties, d = compare_tree(a, b, eta, lam, r, capped)
         drift = max(drift, d)
         if ties:
             return r, ties, drift
@@ -527,11 +546,13 @@ def test_train_runs_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"interaction_constraints": "[[0, 1]]"}, "A.5.4"),
+    ({"grow_policy": "lossguide", "hist_method": "mega"}, "A.6"),
     ({"booster": "gblinear"}, "A.5.9"),
-    ({"grow_policy": "lossguide"}, "A.5.6"),
-    ({"max_leaves": 4}, "A.5.6"),
-    ({"monotone_constraints": "(1,0)"}, "A.5.4"),
+    ({"grow_policy": "lossguide", "multi_strategy": "multi_output_tree"},
+     "A.5.7"),
+    ({"max_leaves": 4, "hist_method": "scan+sub"}, "A.6"),
+    ({"monotone_constraints": "(1,0)", "multi_strategy":
+      "multi_output_tree"}, "A.5.7"),
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
     ({"tree_method": "exact"}, "A.5.8"),

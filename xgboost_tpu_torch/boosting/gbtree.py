@@ -9,7 +9,9 @@ snapshot in class order, each from its own key ``fold_in(key, k * npt +
 p)``, with the learning rate divided by ``num_parallel_tree`` (boosted
 random forests). Row sampling (:func:`sample_gradients`) and the
 trees' column samples come from that key. A paged (external-memory)
-matrix grows with ``tree/paged.py PagedGrower``, and its margins are
+matrix grows with ``tree/paged.py PagedGrower`` and
+``grow_policy="lossguide"`` with ``tree/lossguide.py LossguideGrower``;
+a paged matrix's margins are
 walked over its bins page by page (:meth:`GBTree.margin_delta_binned`,
 :meth:`GBTree.full_margin_binned`). ``boosting/dart.py`` derives dart
 from this class.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..tree.grow import TreeGrower
+from ..tree.lossguide import LossguideGrower
 from ..tree.paged import PagedGrower
 from ..tree.param import TrainParam, _f32
 from ..tree.tree import TreeModel
@@ -74,6 +77,9 @@ class GBTree:
         # set by the Booster before training
         self.tree_param = TrainParam()
         self.hist_method = "auto"
+        # the parsed constraints (``tree/param.py``), set with tree_param
+        self.monotone: Optional[List[int]] = None
+        self.constraint_sets: Optional[np.ndarray] = None
         self.trees: List[TreeModel] = []
         self.tree_info: List[int] = []
         self.iteration_indptr: List[int] = [0]
@@ -81,7 +87,17 @@ class GBTree:
 
     # -- training -------------------------------------------------------------
     def _grower_for(self, binned) -> TreeGrower:
-        cls = PagedGrower if binned.is_paged else TreeGrower
+        """The grower of this matrix (the JAX package's ``_grower_for``):
+        leaf-wise (``tree/lossguide.py``) for ``grow_policy="lossguide"``,
+        else depthwise, resident or paged."""
+        lossguide = self.tree_param.grow_policy == "lossguide"
+        if binned.is_paged and lossguide:
+            raise NotImplementedError(
+                "grow_policy=lossguide on a paged (external-memory) matrix "
+                "is not in the PyTorch port yet (paged lossguide, ROADMAP "
+                "A.7)")
+        cls = (LossguideGrower if lossguide
+               else PagedGrower if binned.is_paged else TreeGrower)
         if self._grower is None or self._grower.cuts is not binned.cuts \
                 or type(self._grower) is not cls:
             param = self.tree_param
@@ -91,7 +107,9 @@ class GBTree:
                 param.eta = param.eta / self.num_parallel_tree
             self._grower = cls(param, binned.max_nbins, binned.cuts,
                                hist_method=self.hist_method,
-                               has_missing=binned.has_missing)
+                               has_missing=binned.has_missing,
+                               monotone=self.monotone,
+                               constraint_sets=self.constraint_sets)
         return self._grower
 
     def do_boost(self, binned, gpair: torch.Tensor,

@@ -62,7 +62,8 @@ from .metric import get_metric
 from .objective import get_objective
 from .objective.base import guard_gradient
 from .serve.packed import PackedForest
-from .tree.param import TrainParam
+from .tree.param import (TrainParam, parse_interaction_constraints,
+                         parse_monotone_constraints)
 from .tree.updaters import UPDATERS, prune_tree, refresh_tree, sync_trees
 from .utils import random as xrandom
 from .utils.ubjson import dumps_ubjson, loads_ubjson
@@ -138,6 +139,10 @@ class Booster:
         self.device = self.ctx.torch_device()   # raises without CUDA
         if model_file is not None:
             self.load_model(model_file)
+            # upstream applies params after the model's own (the JAX
+            # package keeps the file's tree parameters; ROADMAP C.3)
+            if params:
+                self.set_param(params)
 
     # ------------------------------------------------------------------ params
     def set_param(self, params: Union[Dict[str, Any], str],
@@ -166,6 +171,7 @@ class Booster:
                 self._obj_params())
             if self.gbm is not None:
                 self.gbm.tree_param = self.tree_param
+                self._configure_constraints(None)
                 self.gbm._grower = None
                 if isinstance(self.gbm, Dart):
                     self.gbm.configure(self.learner_params, self.ctx.seed)
@@ -284,7 +290,13 @@ class Booster:
                 "one_output_per_tree":
             raise NotImplementedError(
                 "multi_strategy='multi_output_tree' is not in the PyTorch "
-                "port yet (ROADMAP A.5.7)")
+                "port yet (ROADMAP A.5.7; like the reference, it will refuse "
+                "monotone constraints and the dart booster for vector-leaf "
+                "trees)")
+        if self.tree_param.grow_policy not in ("depthwise", "lossguide"):
+            raise ValueError(
+                f"unknown grow_policy={self.tree_param.grow_policy}; use "
+                "'depthwise' or 'lossguide'")
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
@@ -299,6 +311,7 @@ class Booster:
         if isinstance(self.gbm, Dart):
             self.gbm.configure(self.learner_params, self.ctx.seed)
         self.gbm.tree_param = self.tree_param
+        self._configure_constraints(dtrain)
         self.gbm.hist_method = str(self.learner_params.get("hist_method",
                                                            "auto"))
         if self.base_margin_ is None:
@@ -321,6 +334,19 @@ class Booster:
             self.feature_names = dtrain.info.feature_names
             self.feature_types = dtrain.info.feature_types
         self._configured = True
+
+    def _configure_constraints(self, dtrain: Optional[DMatrix]) -> None:
+        """Parse the monotone and interaction constraints for the forest
+        (the JAX package's ``_make_gbm``): over the training matrix's
+        features, or the loaded model's when no matrix was seen; names in
+        the interaction sets are the feature names."""
+        names = self.feature_names or (
+            dtrain.info.feature_names if dtrain is not None else None)
+        nf = self._num_features or (len(names) if names else 0)
+        self.gbm.monotone = parse_monotone_constraints(
+            self.tree_param.monotone_constraints, nf)
+        self.gbm.constraint_sets = parse_interaction_constraints(
+            self.tree_param.interaction_constraints or None, nf, names)
 
     # ----------------------------------------------------------- margin caches
     def _state_of(self, dm: DMatrix, is_train: bool) -> Dict[str, Any]:

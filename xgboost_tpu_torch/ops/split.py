@@ -8,8 +8,10 @@ missing-right and ``left + missing`` for missing-left. The best split of
 each node is a flat argmax over (feature, direction, bin); ties go to the
 lowest flat index. The cumulative sum runs in another order than XLA's,
 so gains agree with the JAX package's to f32 rounding, not bit for bit.
-A feature mask (column sampling) takes features out of the search.
-Monotone constraints wait with ROADMAP A.5.4.
+A feature mask (column sampling, interaction constraints) takes
+features out of the search. Monotone constraints score a split by its
+children's weights clipped into the node's interval and refuse one whose
+weights break the feature's sign.
 
 Categorical features (:class:`CatInfo`; bin == category code) take the
 same dense [node, feature, direction, bin] gain tensor with other left
@@ -36,7 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..tree.param import TrainParam, _f32, calc_gain
+from ..tree.param import (TrainParam, _f32, calc_gain,
+                          calc_gain_given_weight, calc_weight)
 
 
 class CatInfo(NamedTuple):
@@ -76,12 +79,23 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
                     n_real_bins: torch.Tensor, param: TrainParam,
                     has_missing: bool = True,
                     feature_mask: Optional[torch.Tensor] = None,
-                    cat: Optional[CatInfo] = None) -> SplitResult:
+                    cat: Optional[CatInfo] = None,
+                    monotone: Optional[torch.Tensor] = None,
+                    node_lower: Optional[torch.Tensor] = None,
+                    node_upper: Optional[torch.Tensor] = None
+                    ) -> SplitResult:
     """hist [N, F, B, 2] with the missing mass in slot B-1 when
     ``has_missing``; parent_sum [N, 2]; n_real_bins [F] int64;
     feature_mask [F] or [N, F] bool, True where a feature may split (the
-    sampled columns); ``cat``: the categorical features (module
-    docstring)."""
+    sampled columns, and the interaction constraints); ``cat``: the
+    categorical features (module docstring).
+
+    ``monotone`` [F] int in {-1, 0, 1} with ``node_lower`` /
+    ``node_upper`` [N] f32, each node's weight interval: the children's
+    weights are clipped into their node's interval, the gains come from
+    ``calc_gain_given_weight`` of those weights, and a split whose
+    weights move against its feature's sign is invalid (reference
+    ``TreeEvaluator``, the JAX package's ``ops/split.py:138-162``)."""
     N, F, B, _ = hist.shape
     nb = B - 1 if has_missing else B                    # real-bin slots
     present = hist[:, :, :nb, :].movedim(3, 2)          # [N, F, 2, nb]
@@ -104,11 +118,26 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
 
     lg, lh = left[:, :, :, 0, :], left[:, :, :, 1, :]   # [N, F, dirs, nb]
     rg, rh = right[:, :, :, 0, :], right[:, :, :, 1, :]
-    pgain = calc_gain(parent_sum[:, 0], parent_sum[:, 1], param)
-    loss_chg = (calc_gain(lg, lh, param) + calc_gain(rg, rh, param)
-                - pgain[:, None, None, None])
     mcw = _f32(param.min_child_weight)
     valid = base_valid[None] & (lh >= mcw) & (rh >= mcw)
+    if monotone is None:
+        pgain = calc_gain(parent_sum[:, 0], parent_sum[:, 1], param)
+        loss_chg = (calc_gain(lg, lh, param) + calc_gain(rg, rh, param)
+                    - pgain[:, None, None, None])
+    else:
+        lo = node_lower[:, None, None, None]
+        hi = node_upper[:, None, None, None]
+        wl = torch.clamp(calc_weight(lg, lh, param), lo, hi)
+        wr = torch.clamp(calc_weight(rg, rh, param), lo, hi)
+        wp = torch.clamp(calc_weight(parent_sum[:, 0], parent_sum[:, 1],
+                                     param), node_lower, node_upper)
+        pgain = calc_gain_given_weight(parent_sum[:, 0], parent_sum[:, 1],
+                                       wp, param)
+        loss_chg = (calc_gain_given_weight(lg, lh, wl, param)
+                    + calc_gain_given_weight(rg, rh, wr, param)
+                    - pgain[:, None, None, None])
+        mc = monotone.to(torch.float32)[None, :, None, None]
+        valid = valid & ((mc == 0) | (mc * (wr - wl) >= 0))
     if feature_mask is not None:
         fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
         valid = valid & fm[:, :, None, None]

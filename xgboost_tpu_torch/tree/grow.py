@@ -39,15 +39,24 @@ keeps each node's ``is_cat_split`` and its left set as ``(nb - 1) // 32
 histograms go through ``auto``'s K2 and K3, never the sorted build, and
 the two-level schedules refuse them, as the JAX package's.
 
+Monotone constraints keep a weight interval per node (``node_lower`` /
+``node_upper``, f32 on the device): the split search clips children's
+weights into it, each split divides it at the midpoint of its children's
+clipped weights by the feature's sign, and the final weights are
+clipped into it. Interaction constraints keep each node's path (the
+features split on above it) and AND the union of the constraint sets
+that hold the path into the level's feature mask
+(:func:`interaction_allowed_dev`). ``max_leaves`` on depthwise growth
+truncates the grown heap as the reference's depth-wise driver would have
+stopped (:func:`select_max_leaves`, ``TreeGrower._truncate_max_leaves``).
+Leaf-wise growth is ``tree/lossguide.py``.
+
 Not ported here (each raises where it is asked for): the mega schedule
-and sibling subtraction (ROADMAP A.6), monotone and interaction
-constraints (A.5.4), ``max_leaves`` truncation and lossguide (A.5.6),
-meshes and column split (A.8).
+and sibling subtraction (ROADMAP A.6), meshes and column split (A.8).
 """
 
 from __future__ import annotations
 
-import re
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -174,6 +183,86 @@ def two_level_schedule(hist_method: str, max_nbins: int,
     return base
 
 
+def interaction_allowed_dev(path_level: torch.Tensor,
+                            cons: torch.Tensor) -> torch.Tensor:
+    """allowed(n) = the union of the constraint sets that hold path(n)
+    (reference ``FeatureInteractionConstraintHost``; the JAX package's
+    ``interaction_allowed_dev``). path_level [N, F] bool; cons [S, F]
+    bool -> [N, F] bool."""
+    compat = ~(path_level[:, None, :] & ~cons[None, :, :]).any(dim=2)
+    return (compat[:, :, None] & cons[None, :, :]).any(dim=1)
+
+
+def interaction_allowed_host(path_level: np.ndarray,
+                             cons: np.ndarray) -> np.ndarray:
+    """:func:`interaction_allowed_dev` in numpy, for the host loops."""
+    compat = ~np.any(path_level[:, None, :] & ~cons[None, :, :], axis=2)
+    return np.any(compat[:, :, None] & cons[None, :, :], axis=1)
+
+
+def monotone_child_bounds(ls: torch.Tensor, rs: torch.Tensor,
+                          mc: torch.Tensor, plo: torch.Tensor,
+                          phi: torch.Tensor, param: TrainParam):
+    """The children's weight intervals below N splits (reference
+    ``TreeEvaluator``): the children's weights, from their sums ls / rs
+    [N, 2], clipped into the parent's interval [plo, phi], and the
+    interval divided at their midpoint by the split feature's sign ``mc``
+    [N] (+1: left below, right above; -1 mirrored). f32, as the JAX
+    package's ``_grow`` computes them on the device. Returns
+    ((l_lo, l_hi), (r_lo, r_hi))."""
+    wl = torch.clamp(calc_weight(ls[:, 0], ls[:, 1], param), plo, phi)
+    wr = torch.clamp(calc_weight(rs[:, 0], rs[:, 1], param), plo, phi)
+    mid = (wl + wr) * 0.5
+    l_hi = torch.where(mc > 0, mid, phi)
+    r_lo = torch.where(mc > 0, mid, plo)
+    l_lo = torch.where(mc < 0, mid, plo)
+    r_hi = torch.where(mc < 0, mid, phi)
+    return (l_lo, l_hi), (r_lo, r_hi)
+
+
+def monotone_child_bounds_host(ls: np.ndarray, rs: np.ndarray,
+                               feat: np.ndarray, plo: np.ndarray,
+                               phi: np.ndarray, mono: np.ndarray,
+                               param: TrainParam):
+    """:func:`monotone_child_bounds` for host arrays (the JAX package's
+    ``monotone_child_bounds_host``): ls / rs [N, 2], feat [N], plo / phi
+    [N] f32 and the per-feature signs ``mono`` [F]; the weights in f32
+    through the same torch ops. Returns numpy ((l_lo, l_hi), (r_lo,
+    r_hi))."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    mc = torch.from_numpy(np.asarray(mono)[np.maximum(feat, 0)])
+    out = monotone_child_bounds(t(ls), t(rs), mc, t(plo), t(phi), param)
+    return tuple(tuple(x.numpy() for x in pair) for pair in out)
+
+
+def select_max_leaves(active: np.ndarray, is_leaf: np.ndarray,
+                      max_leaves: int):
+    """The reference driver's depth-wise schedule under a ``max_leaves``
+    cap (``CPUExpandEntry::IsValid``) over a fully grown heap: nodes are
+    popped in heap (breadth-first) order and split while the leaf count
+    is under the cap. A split does not depend on the order, so this
+    gives the tree that schedule grows. Returns (exists, selected,
+    changed): the surviving nodes, the kept splits, and whether the cap
+    bound."""
+    cap = len(is_leaf)
+    exists = np.zeros(cap, bool)
+    exists[0] = True
+    selected = np.zeros(cap, bool)
+    n_leaves = 1
+    for nid in range(cap):
+        if not exists[nid] or is_leaf[nid] or not active[nid]:
+            continue
+        if n_leaves >= max_leaves:
+            continue
+        selected[nid] = True
+        n_leaves += 1
+        exists[2 * nid + 1] = exists[2 * nid + 2] = True
+    was_split = active & ~is_leaf
+    return exists, selected, not (selected == was_split).all()
+
+
 class HeapTree:
     """The heap arrays of one growing tree (node i has children 2i+1 /
     2i+2) and the bookkeeping of a level, shared by :func:`grow_tree` and
@@ -182,7 +271,9 @@ class HeapTree:
     rows' final nodes into a :class:`GrownTree`."""
 
     def __init__(self, max_depth: int, root_sum: torch.Tensor,
-                 param: TrainParam, n_words: int = 0) -> None:
+                 param: TrainParam, n_words: int = 0,
+                 monotone: Optional[torch.Tensor] = None,
+                 constraint_sets: Optional[torch.Tensor] = None) -> None:
         dev = root_sum.device
         self.max_nodes = max_nodes = 2 ** (max_depth + 1) - 1
         self.param = param
@@ -208,6 +299,40 @@ class HeapTree:
                                             device=dev)
             self.cat_words = torch.zeros((max_nodes, n_words),
                                          dtype=torch.int64, device=dev)
+        # monotone constraints: each node's weight interval (reference
+        # TreeEvaluator lower / upper bounds)
+        self.monotone = monotone
+        self.node_lower = self.node_upper = None
+        if monotone is not None:
+            self.node_lower = torch.full((max_nodes,), float("-inf"),
+                                         dtype=torch.float32, device=dev)
+            self.node_upper = torch.full((max_nodes,), float("inf"),
+                                         dtype=torch.float32, device=dev)
+        # interaction constraints: the features on each node's path
+        self.constraint_sets = constraint_sets
+        self.node_path = None
+        if constraint_sets is not None:
+            self.node_path = torch.zeros(
+                (max_nodes, constraint_sets.shape[1]), dtype=torch.bool,
+                device=dev)
+
+    def constraint_args(self, lo: int, n_level: int, feature_mask):
+        """The split search's constraint arguments for the level of
+        ``n_level`` nodes from heap node ``lo``: ``feature_mask`` ANDed
+        with the interaction constraints' allowance, and the monotone
+        keywords of ``ops/split.py evaluate_splits``."""
+        hi = lo + n_level
+        if self.node_path is not None:
+            allowed = interaction_allowed_dev(self.node_path[lo:hi],
+                                              self.constraint_sets)
+            feature_mask = (allowed if feature_mask is None
+                            else feature_mask & allowed)
+        kw = {}
+        if self.monotone is not None:
+            kw = dict(monotone=self.monotone,
+                      node_lower=self.node_lower[lo:hi],
+                      node_upper=self.node_upper[lo:hi])
+        return feature_mask, kw
 
     def record(self, lo: int, n_level: int, res) -> torch.Tensor:
         """Record the split search ``res`` (``ops/split.py
@@ -239,6 +364,27 @@ class HeapTree:
             [torch.where(can_split[:, None], res.left_sum, zero2),
              torch.where(can_split[:, None], res.right_sum, zero2)],
             dim=1).reshape(-1, 2)
+        feat = res.feature.clamp(min=0)
+        if self.monotone is not None:
+            plo, phi = self.node_lower[lo:hi], self.node_upper[lo:hi]
+            (l_lo, l_hi), (r_lo, r_hi) = monotone_child_bounds(
+                res.left_sum, res.right_sum, self.monotone[feat], plo, phi,
+                self.param)
+            zero = torch.zeros_like(plo)
+
+            def pair(a, b):
+                return torch.stack([torch.where(can_split, a, zero),
+                                    torch.where(can_split, b, zero)],
+                                   dim=1).reshape(-1)
+
+            self.node_lower[children] = pair(l_lo, r_lo)
+            self.node_upper[children] = pair(l_hi, r_hi)
+        if self.node_path is not None:
+            fsel = (torch.arange(self.node_path.shape[1],
+                                 device=feat.device)[None, :]
+                    == feat[:, None]) & can_split[:, None]
+            self.node_path[children] = (self.node_path[lo:hi] | fsel
+                                        ).repeat_interleave(2, dim=0)
         return can_split
 
     def level_splits(self, lo: int, n_level: int,
@@ -256,8 +402,10 @@ class HeapTree:
         """The grown tree, with ``positions`` [n] the rows' final heap
         nodes: leaf weights ``calc_weight * eta`` and each row's delta, the
         leaf value at its node."""
-        w = (calc_weight(self.node_sum[:, 0], self.node_sum[:, 1], self.param)
-             * _f32(self.param.eta))
+        w = calc_weight(self.node_sum[:, 0], self.node_sum[:, 1], self.param)
+        if self.monotone is not None:
+            w = torch.clamp(w, self.node_lower, self.node_upper)
+        w = w * _f32(self.param.eta)
         zero = torch.zeros_like(w)
         leaf_value = torch.where(self.active & self.is_leaf, w, zero)
         return GrownTree(
@@ -270,17 +418,74 @@ class HeapTree:
             is_cat_split=self.is_cat_split, cat_words=self.cat_words)
 
 
+def search_splits(bins: torch.Tensor, gpair: torch.Tensor,
+                  rel: torch.Tensor, n_nodes: int, parent_sum: torch.Tensor,
+                  n_real_bins: torch.Tensor, *, param: TrainParam,
+                  max_nbins: int, hist_method: str, has_missing: bool,
+                  schedule: Optional[str], cb: Optional[torch.Tensor] = None,
+                  hist_c: Optional[torch.Tensor] = None,
+                  hist_f: Optional[torch.Tensor] = None,
+                  feature_mask: Optional[torch.Tensor] = None,
+                  cat: Optional[CatInfo] = None, **monotone_kw):
+    """The best split of each of ``n_nodes`` nodes (rows by ``rel``, the
+    inactive ones at ``n_nodes``): the histogram and ``evaluate_splits``,
+    exact over every bin (``schedule`` None), or the two-level search of
+    ``coarse`` / ``fused`` (the coarse ids ``cb``) and ``scan``, its
+    winning slot decoded to a fine bin. ``hist_c`` / ``hist_f``: the
+    coarse (and, under ``scan``, fine) histograms when a level boundary's
+    sweep already built them. ``monotone_kw``: ``evaluate_splits``'
+    monotone arguments. Shared by :func:`grow_tree`'s levels and
+    ``tree/lossguide.py``'s node pairs."""
+    missing_bin = max_nbins - 1 if has_missing else max_nbins
+    if schedule is None:
+        hist = build_hist(bins, gpair, rel, n_nodes, max_nbins,
+                          method=hist_method, has_missing=has_missing,
+                          numeric=cat is None)
+        return evaluate_splits(hist, parent_sum, n_real_bins, param,
+                               has_missing=has_missing,
+                               feature_mask=feature_mask, cat=cat,
+                               **monotone_kw)
+    if schedule == "scan" and hist_f is None:
+        hist_f, hist_c = scan_level_hists(bins, gpair, rel, n_nodes,
+                                          max_nbins, missing_bin)
+    if hist_c is None:
+        hist_c = build_hist(cb, gpair, rel, n_nodes, COARSE_B)
+    span = choose_refine_window(hist_c, parent_sum, n_real_bins, param,
+                                has_missing)
+    if schedule == "scan":
+        hist_r = refine_from_fine(hist_f, span, missing_bin)
+    else:
+        # each row's window is its node's (rows outside the nodes take
+        # window 0 and add nothing)
+        span_row = torch.cat([span, torch.zeros_like(span[:1])]).to(
+            torch.int32)[rel.long()]
+        rb = refine_bin_ids(bins, span_row, missing_bin)
+        hist_r = build_hist(rb, gpair, rel, n_nodes,
+                            WINDOW + 4)[:, :, :WINDOW]
+    hist, n_real_eval = assemble_two_level(hist_c, hist_r, span,
+                                           n_real_bins, has_missing)
+    res = evaluate_splits(hist, parent_sum, n_real_eval, param,
+                          has_missing=has_missing,
+                          feature_mask=feature_mask, **monotone_kw)
+    span_sel = torch.gather(span, 1, res.feature.clamp(min=0)[:, None])[:, 0]
+    return res._replace(bin=decode_two_level_bin(res.bin, span_sel))
+
+
 def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
               has_missing: bool = True,
               feature_masks: Optional[List[torch.Tensor]] = None,
-              cat: Optional[CatInfo] = None) -> GrownTree:
+              cat: Optional[CatInfo] = None,
+              monotone: Optional[torch.Tensor] = None,
+              constraint_sets: Optional[torch.Tensor] = None) -> GrownTree:
     """One tree from bins [n, F] and gpair [n, 2] f32 on one device;
     ``n_real_bins`` [F] int64 on the same device; ``feature_masks``: per
     level a [n_level or 1, F] bool mask of the features its nodes may
     split on (:func:`draw_feature_masks`), or None; ``cat``: the
-    categorical features (on the same device), or None."""
+    categorical features (on the same device), or None; ``monotone`` [F]
+    int64 signs and ``constraint_sets`` [S, F] bool (the parsed
+    constraints, on the same device), or None."""
     n, F = bins.shape
     dev = bins.device
     max_depth = param.max_depth
@@ -297,8 +502,8 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     n_real_slots = max_nbins - 1 if has_missing else max_nbins
 
     tree = HeapTree(max_depth, gpair.sum(dim=0), param,
-                    n_words=0 if numeric else (n_real_slots - 1) // 32 + 1)
-    node_sum = tree.node_sum
+                    n_words=0 if numeric else (n_real_slots - 1) // 32 + 1,
+                    monotone=monotone, constraint_sets=constraint_sets)
     positions = torch.zeros((n,), dtype=torch.int64, device=dev)
     pending = None      # fused/scan: the splits whose advance is deferred
 
@@ -320,40 +525,15 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
                     missing_bin)
             pending = None
         rel = level_rel(positions, lo, n_level)
-        n_real_eval = n_real_bins
-        if schedule is None:
-            hist = build_hist(bins, gpair, rel, n_level, max_nbins,
-                              method=hist_method, has_missing=has_missing,
-                              numeric=numeric)
-        else:
-            if schedule == "scan" and hist_f is None:
-                hist_f, hist_c = scan_level_hists(
-                    bins, gpair, rel, n_level, max_nbins, missing_bin)
-            if hist_c is None:
-                hist_c = build_hist(cb, gpair, rel, n_level, COARSE_B)
-            span = choose_refine_window(hist_c, node_sum[lo:hi],
-                                        n_real_bins, param, has_missing)
-            if schedule == "scan":
-                hist_r = refine_from_fine(hist_f, span, missing_bin)
-            else:
-                # each row's window is its node's (rows outside the level
-                # take window 0 and add nothing)
-                span_row = torch.cat([span, torch.zeros_like(span[:1])]).to(
-                    torch.int32)[rel.long()]
-                rb = refine_bin_ids(bins, span_row, missing_bin)
-                hist_r = build_hist(rb, gpair, rel, n_level,
-                                    WINDOW + 4)[:, :, :WINDOW]
-            hist, n_real_eval = assemble_two_level(
-                hist_c, hist_r, span, n_real_bins, has_missing)
-        res = evaluate_splits(
-            hist, node_sum[lo:hi], n_real_eval, param,
-            has_missing=has_missing,
-            feature_mask=(None if feature_masks is None
-                          else feature_masks[depth]), cat=cat)
-        if schedule is not None:
-            span_sel = torch.gather(span, 1,
-                                    res.feature.clamp(min=0)[:, None])[:, 0]
-            res = res._replace(bin=decode_two_level_bin(res.bin, span_sel))
+        fmask, mono_kw = tree.constraint_args(
+            lo, n_level, None if feature_masks is None
+            else feature_masks[depth])
+        res = search_splits(
+            bins, gpair, rel, n_level, tree.node_sum[lo:hi], n_real_bins,
+            param=param, max_nbins=max_nbins, hist_method=hist_method,
+            has_missing=has_missing, schedule=schedule, cb=cb,
+            hist_c=hist_c, hist_f=hist_f, feature_mask=fmask, cat=cat,
+            **mono_kw)
         can_split = tree.record(lo, n_level, res)
         if schedule in ("fused", "scan"):
             pending = tree.level_splits(lo, n_level, can_split)
@@ -371,45 +551,59 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
 
 
 class TreeGrower:
-    """Host-side wrapper: checks what this slice can grow, runs
-    :func:`grow_tree` and turns its heap into a :class:`TreeModel`."""
+    """Host-side wrapper of depthwise growth: runs :func:`grow_tree`,
+    truncates its heap under ``max_leaves`` and turns it into a
+    :class:`TreeModel`. ``monotone`` (one sign a feature) and
+    ``constraint_sets`` (bool [S, F]): the parsed constraints
+    (``tree/param.py``), or None."""
 
     def __init__(self, param: TrainParam, max_nbins: int, cuts,
-                 hist_method: str = "auto", has_missing: bool = True) -> None:
-        if param.grow_policy != "depthwise":
-            raise NotImplementedError(
-                f"grow_policy={param.grow_policy!r} is not in the PyTorch "
-                "port yet (ROADMAP A.5.6)")
-        if param.max_leaves > 0:
-            raise NotImplementedError(
-                "max_leaves > 0 is not in the PyTorch port yet "
-                "(ROADMAP A.5.6)")
+                 hist_method: str = "auto", has_missing: bool = True,
+                 monotone: Optional[Sequence[int]] = None,
+                 constraint_sets: Optional[np.ndarray] = None) -> None:
         if param.sampling_method not in ("uniform", "gradient_based"):
             raise ValueError(
                 f"unknown sampling_method {param.sampling_method!r}; use "
                 "'uniform' or 'gradient_based'")
-        if any(int(c) for c in re.findall(r"-?\d+",
-                                          param.monotone_constraints)) \
-                or param.interaction_constraints.strip():
-            raise NotImplementedError(
-                "monotone and interaction constraints are not in the "
-                "PyTorch port yet (ROADMAP A.5.4)")
-        if param.max_depth < 1:
-            raise ValueError("grow_policy=depthwise requires max_depth > 0")
+        self.check_depth(param)
         self.param = param
         self.max_nbins = max_nbins
         self.cuts = cuts
         self.hist_method = hist_method
         self.has_missing = has_missing
-        self._n_real = {}
-        self._cat = {}
+        self.monotone = (None if monotone is None
+                         else np.asarray(monotone, np.int64))
+        self.constraint_sets = (None if constraint_sets is None
+                                else np.asarray(constraint_sets, bool))
+        self._on = {}
+
+    @staticmethod
+    def check_depth(param: TrainParam) -> None:
+        if param.max_depth < 1:
+            raise ValueError("grow_policy=depthwise requires max_depth > 0")
+
+    def _host_on(self, name: str, device: torch.device, make):
+        """``make()``'s tensor on ``device``, made once per device."""
+        key = (name, str(device))
+        if key not in self._on:
+            self._on[key] = make()
+            if self._on[key] is not None:
+                self._on[key] = self._on[key].to(device)
+        return self._on[key]
 
     def _n_real_on(self, device: torch.device) -> torch.Tensor:
-        key = str(device)
-        if key not in self._n_real:
-            self._n_real[key] = torch.from_numpy(
-                self.cuts.n_real_bins().astype(np.int64)).to(device)
-        return self._n_real[key]
+        return self._host_on("n_real", device, lambda: torch.from_numpy(
+            self.cuts.n_real_bins().astype(np.int64)))
+
+    def constraints_on(self, device: torch.device):
+        """(monotone [F] int64, constraint_sets [S, F] bool) on
+        ``device``, each None when unconstrained."""
+        return (self._host_on("monotone", device, lambda: None
+                              if self.monotone is None
+                              else torch.from_numpy(self.monotone)),
+                self._host_on("sets", device, lambda: None
+                              if self.constraint_sets is None
+                              else torch.from_numpy(self.constraint_sets)))
 
     def cat_on(self, device: torch.device) -> Optional[CatInfo]:
         """The categorical features on ``device`` (one-hot with at most
@@ -418,13 +612,13 @@ class TreeGrower:
         is_cat = self.cuts.is_cat()
         if not is_cat.any():
             return None
-        key = str(device)
-        if key not in self._cat:
-            onehot = is_cat & (self.cuts.n_real_bins()
-                               <= self.param.max_cat_to_onehot)
-            self._cat[key] = CatInfo(torch.from_numpy(is_cat).to(device),
-                                     torch.from_numpy(onehot).to(device))
-        return self._cat[key]
+        onehot = is_cat & (self.cuts.n_real_bins()
+                           <= self.param.max_cat_to_onehot)
+        return CatInfo(
+            self._host_on("is_cat", device,
+                          lambda: torch.from_numpy(is_cat)),
+            self._host_on("is_onehot", device,
+                          lambda: torch.from_numpy(onehot)))
 
     def feature_masks(self, tkeys: Sequence[xrandom.Key],
                       device: torch.device):
@@ -438,11 +632,52 @@ class TreeGrower:
              masks: Optional[List[torch.Tensor]]) -> GrownTree:
         """One tree; ``masks``: its column samples from
         :meth:`feature_masks`, or None when no column is sampled."""
-        return grow_tree(bins, gpair, self._n_real_on(bins.device),
-                         param=self.param, max_nbins=self.max_nbins,
-                         hist_method=self.hist_method,
-                         has_missing=self.has_missing, feature_masks=masks,
-                         cat=self.cat_on(bins.device))
+        monotone, sets = self.constraints_on(bins.device)
+        g = grow_tree(bins, gpair, self._n_real_on(bins.device),
+                      param=self.param, max_nbins=self.max_nbins,
+                      hist_method=self.hist_method,
+                      has_missing=self.has_missing, feature_masks=masks,
+                      cat=self.cat_on(bins.device), monotone=monotone,
+                      constraint_sets=sets)
+        if self.param.max_leaves > 0:
+            g = self._truncate_max_leaves(g)
+        return g
+
+    def _truncate_max_leaves(self, g: GrownTree) -> GrownTree:
+        """Depth-wise growth under a ``max_leaves`` cap
+        (:func:`select_max_leaves` over the grown heap, the JAX package's
+        ``_truncate_max_leaves``): the splits past the cap go, and the
+        rows of a truncated subtree are re-parked on its deepest
+        surviving ancestor, whose weight becomes their delta."""
+        exists, selected, changed = select_max_leaves(
+            g.active.cpu().numpy(), g.is_leaf.cpu().numpy(),
+            self.param.max_leaves)
+        if not changed:
+            return g
+        dev = g.active.device
+        exists_t = torch.from_numpy(exists).to(dev)
+        sel = torch.from_numpy(selected).to(dev)
+        new_is_leaf = exists_t & ~sel
+        zero = torch.zeros_like(g.base_weight)
+        leaf_value = torch.where(new_is_leaf, g.base_weight, zero)
+        pos = g.positions
+        for _ in range(self.param.max_depth):
+            pos = torch.where(exists_t[pos], pos, (pos - 1) // 2)
+        cat = g.is_cat_split is not None
+        return GrownTree(
+            split_feature=torch.where(sel, g.split_feature,
+                                      torch.full_like(g.split_feature, -1)),
+            split_bin=torch.where(sel, g.split_bin,
+                                  torch.zeros_like(g.split_bin)),
+            default_left=g.default_left & sel, is_leaf=new_is_leaf,
+            active=exists_t, leaf_value=leaf_value, node_sum=g.node_sum,
+            gain=torch.where(sel, g.gain, torch.zeros_like(g.gain)),
+            positions=pos, delta=leaf_value[pos],
+            base_weight=torch.where(exists_t, g.base_weight, zero),
+            is_cat_split=g.is_cat_split & sel if cat else None,
+            cat_words=(torch.where(sel[:, None], g.cat_words,
+                                   torch.zeros_like(g.cat_words))
+                       if cat else None))
 
     def to_tree_model(self, g: GrownTree) -> TreeModel:
         """Pull the heap to the host, compact it, attach raw thresholds."""

@@ -35,9 +35,9 @@ with no split; the port runs every level (a level without active nodes
 splits nothing, so the tree is the same).
 
 Not in the port yet (each raises): the paged two-level schedules
-(``coarse``, ``fused``, ``scan``, ``mega``) and categorical features
-(ROADMAP A.7), lossguide, multi-output and constraints (A.5.x, raised
-by ``TreeGrower``), and the paged mesh tier (A.8).
+(``coarse``, ``fused``, ``scan``, ``mega``), categorical features,
+lossguide, ``max_leaves`` and constraints (ROADMAP A.7), multi-output
+(A.5.7), and the paged mesh tier (A.8).
 """
 
 from __future__ import annotations
@@ -136,7 +136,20 @@ class PagedGrower(TreeGrower):
     """Grows one tree from a ``PagedBinnedMatrix`` (module docstring)."""
 
     def __init__(self, param, max_nbins: int, cuts, hist_method: str = "auto",
-                 has_missing: bool = True) -> None:
+                 has_missing: bool = True, monotone=None,
+                 constraint_sets=None) -> None:
+        # the resident grower takes these; the paged tier does not yet, and
+        # must not inherit them and grow unconstrained trees
+        for asked, what in (
+                (param.grow_policy == "lossguide", "grow_policy=lossguide"),
+                (param.max_leaves > 0, "max_leaves > 0"),
+                (monotone is not None or constraint_sets is not None,
+                 "monotone and interaction constraints")):
+            if asked:
+                raise NotImplementedError(
+                    f"{what} on a paged (external-memory) matrix is not in "
+                    "the PyTorch port yet (paged lossguide, constraints "
+                    "and max_leaves, ROADMAP A.7)")
         base = hist_method[:-len("+nosub")] if hist_method.endswith(
             "+nosub") else hist_method
         if base in _PAGED_UNPORTED:

@@ -1,15 +1,18 @@
 """Tree training hyper-parameters and the split-gain math.
 
 The port of the JAX package's ``tree/param.py``: the reference's
-``TrainParam`` field set (``src/tree/param.h``) and its ``CalcGain`` /
-``CalcWeight`` / ``ThresholdL1`` formulas as torch ops. Scalars are
-rounded to f32 before they meet a tensor, so every op runs in f32 as
-it does in the JAX package.
+``TrainParam`` field set (``src/tree/param.h``), its ``CalcGain`` /
+``CalcWeight`` / ``ThresholdL1`` formulas as torch ops, and the parsers
+of the monotone and interaction constraints. Scalars are rounded to f32
+before they meet a tensor, so every op runs in f32 as it does in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -86,3 +89,66 @@ def calc_gain(g: torch.Tensor, h: torch.Tensor, p: TrainParam) -> torch.Tensor:
     else:
         gain = calc_gain_given_weight(g, h, calc_weight(g, h, p), p)
     return torch.where(h <= 0.0, torch.zeros_like(gain), gain)
+
+
+# --- constraints (the JAX package's ``tree/param.py:89-147``) ----------------
+
+def parse_interaction_constraints(spec: Any, n_features: int,
+                                  feature_names: Optional[list] = None
+                                  ) -> Optional[np.ndarray]:
+    """``'[[0,1],[2,3]]'`` or a list of lists (feature indices, or names
+    in ``feature_names``) -> bool [S, F], one row a set, with a singleton
+    set appended for every feature no set mentions (a lone feature can
+    start a path, and nothing may join it); None when unconstrained."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        s = spec.strip()
+        if not s:
+            return None
+        sets = json.loads(s.replace("'", '"'))
+    else:
+        sets = list(spec)
+    if not sets:
+        return None
+
+    def to_idx(x):
+        if isinstance(x, str) and feature_names:
+            return feature_names.index(x)
+        return int(x)
+
+    rows = []
+    mentioned = set()
+    for group in sets:
+        row = np.zeros(n_features, dtype=bool)
+        for x in group:
+            i = to_idx(x)
+            row[i] = True
+            mentioned.add(i)
+        rows.append(row)
+    for f in range(n_features):
+        if f not in mentioned:
+            row = np.zeros(n_features, dtype=bool)
+            row[f] = True
+            rows.append(row)
+    return np.stack(rows)
+
+
+def parse_monotone_constraints(spec: Any, n_features: int
+                               ) -> Optional[List[int]]:
+    """``'(1,-1,0,...)'`` or a list -> one int a feature (padded with 0,
+    cut at ``n_features``); None when no feature is constrained."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        s = spec.strip().strip("()")
+        if not s:
+            return None
+        vals = [int(x) for x in s.split(",") if x.strip()]
+    else:
+        vals = [int(x) for x in spec]
+    if not any(vals):
+        return None
+    if len(vals) < n_features:
+        vals = vals + [0] * (n_features - len(vals))
+    return vals[:n_features]

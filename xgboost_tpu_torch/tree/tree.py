@@ -1,8 +1,9 @@
 """Tree model container (host numpy; the JAX package's ``tree/tree.py``
 without dumps).
 
-Node ids are BFS order (root 0, every parent id smaller than its
-children); children are addressed through ``left_child`` /
+Node ids are BFS order for depthwise trees and allocation order for
+leaf-wise ones (root 0, every parent id smaller than its children in
+both); children are addressed through ``left_child`` /
 ``right_child``. ``to_json`` / ``from_json`` write and read the same
 per-tree arrays as the JAX package, so a model saved by either package
 loads into the other and saves back to the same bytes.
@@ -18,7 +19,7 @@ import numpy as np
 
 @dataclass
 class TreeModel:
-    """One regression tree in compact BFS layout.
+    """One regression tree in compact layout.
 
     Invariant: node 0 is the root and ``parent[i] < i`` for every non-root
     node.
@@ -51,6 +52,9 @@ class TreeModel:
 
     def num_nodes(self) -> int:
         return len(self.is_leaf)
+
+    def num_leaves(self) -> int:
+        return int(self.is_leaf.sum())
 
     def depths(self) -> np.ndarray:
         """Per-node depth (root 0); one forward pass via the BFS invariant."""
@@ -115,6 +119,15 @@ class TreeModel:
             base_weight=None if base_weight is None
             else np.asarray(base_weight)[o].astype(np.float32))
         t.heap_map = heap_map
+        return t
+
+    @classmethod
+    def from_compact(cls, **arrays) -> "TreeModel":
+        """A tree already compact, its nodes in allocation order (every
+        parent before its children, as leaf-wise growth allocates them):
+        the arrays as they are, ``heap_map`` the identity."""
+        t = cls(**arrays)
+        t.heap_map = np.arange(t.num_nodes(), dtype=np.int32)
         return t
 
     @staticmethod
