@@ -125,6 +125,29 @@ counts set to 0 just before and read just after:
   K4 at the pair shape (1,000,000 x 28, N = 2, 256 and 257 slots, 50%
   and 2% of the rows in the pair) against their plain versions and
   timed;
+- multi-target training at the MediaMill shape (``multi_target``):
+  ``mediamill_like`` (30,993 training and 12,914 held-out rows of 120
+  N(0, 1) features, a 101-column 0/1 label matrix with 4.376 positives
+  a row and label rates falling off as 1 / (k + 2), each label from a
+  sparse rule over a shared pool of features plus noise, made from a
+  seed), ``binary:logistic``, depth 6, ``eta`` 0.3:
+  ``one_output_per_tree`` (101 trees a round) and ``multi_output_tree``
+  (one vector-leaf tree a round) 10 rounds each and lossguide vector
+  leaves (``max_leaves`` 64) 2 rounds, each twice (one sha256; K2 at
+  every level of every tree or once a label and pair, K1 once a round
+  for the first's held-out walk, no plain build), with seconds a round,
+  three profiled rounds, held-out logloss falling, mean per-label AUC
+  past 0.6 and ``max_memory_allocated``; ``save_raw`` and
+  reference-schema round trips of all three predicting the same bits
+  (with each row's base margin: the schema's scalar ``base_score``
+  keeps target 0's intercept); ``Booster.predict`` through K1 for the
+  101-group forest; one vector-leaf round at depths 8 and 10 (K2 at
+  levels of up to 128 nodes, K3 above; the peak memory); a 3-target
+  regression with vector leaves at the HIGGS shape (1,000,000 x 28,
+  depth 8, 5 rounds; K4 once a target and level,
+  held-out rmse falling); K2 at 30,993 x 120 (N = 1 and 32, 256 and
+  257 slots) and K1 on the 101-group forest at 12,914 rows (both
+  schedules) against their plain versions, and timed;
 - BASELINE config #3 in full (``mslr_ranking``): ``rank:ndcg``
   LambdaMART at the MSLR-WEB30K Fold1 shape (``mslr_like``: 136 N(0, 1)
   features, 18,919 training queries of log-normal sizes with MSLR's
@@ -164,6 +187,7 @@ It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
 main paths' shapes: K2 and K4 at the lossguide pair (N = 2, 50% and 2%
 of 1,000,000 rows active), K1 on the lossguide forest at 100,000 rows;
+K2 at the MediaMill levels and K1 on the 101-group forest;
 K2 at the categorical run's levels of 128 nodes and
 at the agaricus bins (6,513 x 127, two slots, N = 2); K1 on the agaricus
 forest at its 1,611 test rows; K1
@@ -1511,7 +1535,6 @@ def mslr_ranking(xt, dev):
         gradient(it)
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1519,9 +1542,8 @@ def mslr_ranking(xt, dev):
         for it in range(15, 18):
             gradient(it)
         torch.cuda.synchronize()
-    grad_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)) / 3e3
+    grad_ms = sum(e.self_device_time_total
+                  for e in device_event_rows(prof)) / 3e3
     G, L = MSLR_TRAIN_QUERIES, MSLR_MAX_DOCS
     chunk = max(1, min(G, MEAN_DRAWS // L))
     slots = -(-G // chunk) * chunk * L
@@ -1998,9 +2020,8 @@ def seconds_per_round(params, dtr):
 def profile_rounds(label, timer, dtr, top=12):
     """Three more ``update`` rounds of ``timer`` (after its six timed ones)
     under ``torch.profiler``, timed on the host clock: the device's busy
-    time from the kernel rows (an operator's row counts the kernels it
-    launched a second time), its idle share, and the top kernels."""
-    from torch.autograd import DeviceType
+    time summed from the profiler's device events
+    (:func:`device_event_rows`), its idle share, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2011,10 +2032,7 @@ def profile_rounds(label, timer, dtr, top=12):
             timer.update(dtr, i)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)),
-                  key=lambda e: -e.self_device_time_total)
+    rows = device_event_rows(prof)
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if dev_ms <= 0:
         raise AssertionError("torch.profiler saw no device time")
@@ -2026,6 +2044,31 @@ def profile_rounds(label, timer, dtr, top=12):
         log(f"  {e.key[:70]:70s} n={e.count:5d} device "
             f"{e.self_device_time_total / 1e3:.3f} ms")
     return dev_ms, rows
+
+
+class DeviceRow:
+    """One kernel's line of :func:`device_event_rows`: its name, launches
+    and device time in microseconds."""
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_event_rows(prof):
+    """The device's events of a profile summed by name, longest first,
+    from the profiler's raw events (microseconds). Summing them directly
+    takes seconds where ``key_averages`` takes minutes over the hundreds
+    of thousands of launches of a multi-target round."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        r = rows.setdefault(e.name(), DeviceRow(e.name()))
+        r.count += 1
+        r.self_device_time_total += e.duration_ns() / 1e3
+    return sorted(rows.values(), key=lambda r: -r.self_device_time_total)
 
 
 def higgs_like(n, F, seed, rule=False):
@@ -2831,6 +2874,388 @@ def lossguide_constraints(xt, dev, X, y, w, depthwise10, Xc, yc):
     return runs, errs, k1_errs, times, k1, out
 
 
+# ---- multi-target training: MediaMill's shape, both strategies ---------------
+
+# the Mulan split of MediaMill (Snoek et al., 2006): 43,907 rows of 120
+# features, 30,993 train and 12,914 test, 101 labels, 4.376 a row
+MM_TRAIN_ROWS = 30_993
+MM_TEST_ROWS = 12_914
+MM_FEATURES = 120
+MM_LABELS = 101
+MM_CARDINALITY = 4.376
+MM_RULE_POOL = 24           # features the labels' rules draw from
+MM_PARAMS = {"objective": "binary:logistic", "max_depth": 6, "eta": 0.3,
+             "max_bin": 256}
+MM_ROUNDS = 10
+MM_LG_LEAVES = 64
+MM_LG_ROUNDS = 2
+# one vector-leaf round at each of these depths: the split search's peak
+# memory at levels of 128 and 512 nodes (K3 above 128 nodes)
+MM_DEEP = (8, 10)
+# the vector-leaf path at the main path's rows: three regression targets
+MT_HIGGS_TARGETS = 3
+MT_HIGGS_DEPTH = 8
+MT_HIGGS_ROUNDS = 5
+MT_HIGGS_TRAIN = 1_000_000
+MT_HIGGS_TEST = 100_000
+
+
+def mediamill_like(seed):
+    """MediaMill's shape made from ``seed``: [43,907, 120] f32 N(0, 1)
+    features and a [43,907, 101] 0/1 label matrix. Label k's rate falls
+    off as 1 / (k + 2), scaled to 4.376 positives a row; label k is 1
+    where a fixed sparse rule (5 features, N(0, 1) weights) plus N(0, 1)
+    noise lies in its top rate share. The rules draw their features from
+    one pool of 24, so that labels co-occur, as MediaMill's concepts do.
+    Rows 0-30,992 train, the rest are held out."""
+    rng = np.random.default_rng(seed)
+    n = MM_TRAIN_ROWS + MM_TEST_ROWS
+    X = rng.standard_normal((n, MM_FEATURES), dtype=np.float32)
+    W = np.zeros((MM_FEATURES, MM_LABELS), np.float32)
+    pool = rng.choice(MM_FEATURES, MM_RULE_POOL, replace=False)
+    for k in range(MM_LABELS):
+        W[rng.choice(pool, 5, replace=False), k] = rng.standard_normal(5)
+    score = X @ W + rng.standard_normal((n, MM_LABELS), dtype=np.float32)
+    rate = 1.0 / (np.arange(MM_LABELS) + 2.0)
+    rate *= MM_CARDINALITY / rate.sum()
+    cut = np.asarray([np.quantile(score[:, k], 1.0 - rate[k])
+                      for k in range(MM_LABELS)], np.float32)
+    return X, (score > cut[None, :]).astype(np.float32)
+
+
+class RoundClock:
+    """A training callback that takes the host clock after a device sync
+    at the start of every round; ``seconds()``: each round's span."""
+
+    def __init__(self):
+        from xgboost_tpu_torch.callback import TrainingCallback
+
+        clock = self
+
+        class _Cb(TrainingCallback):
+            def before_iteration(self, model, epoch, evals_log):
+                torch.cuda.synchronize()
+                clock.stamps.append(time.perf_counter())
+                return False
+
+            def after_training(self, model):
+                torch.cuda.synchronize()
+                clock.stamps.append(time.perf_counter())
+                return model
+
+        self.stamps = []
+        self.callback = _Cb()
+
+    def seconds(self):
+        return [b - a for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+def mean_label_auc(Y, P):
+    """Mean AUC over the labels with both classes in ``Y``, and their
+    count."""
+    both = [k for k in range(Y.shape[1]) if 0 < Y[:, k].sum() < len(Y)]
+    return float(np.mean([auc(Y[:, k], P[:, k]) for k in both])), len(both)
+
+
+def multi_target(xt, dev):
+    """The ``multi_target`` phase (module docstring): returns (the
+    main-path runs' launch counts, {kernel: max |kernel - plain|}, K1's
+    errors, {entry: (ms, plain_ms, library_ms, bound)}, a summary
+    dict)."""
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.walk import walk_packed_reference
+    from xgboost_tpu_torch.serve.packed import tree_step
+
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"[phase +{time.perf_counter() - t_phase:.1f} s] "
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    X, Y = mediamill_like(13)
+    n_tr = MM_TRAIN_ROWS
+    dtr = xt.DMatrix(X[:n_tr], label=Y[:n_tr])
+    dte = xt.DMatrix(X[n_tr:], label=Y[n_tr:])
+    Yte = Y[n_tr:]
+    log(f"{at()}mediamill_like: {X.shape[0]} x {X.shape[1]} ({n_tr} train, "
+        f"{len(Yte)} held out), {Y.shape[1]} labels, "
+        f"{Y.sum(axis=1).mean():.4f} positives a row, label rates "
+        f"{Y[:, 0].mean():.4f} .. {Y[:, -1].mean():.4f}")
+    runs, errs, k1_errs, times, out = [], {}, [], {}, {}
+    nodes = 2 ** MM_PARAMS["max_depth"] - 1
+
+    def train_twice(label, params, rounds, want_k2):
+        """Run 0 with the held-out evaluation, run 1 timed by its rounds;
+        both under ``NoPlainBuilds``, one sha256. ``want_k2(bst)``: the K2
+        launches the run must make."""
+        res, clock, digests = {}, RoundClock(), []
+        for run in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            kw = (dict(evals=[(dte, "test")], evals_result=res) if run == 0
+                  else dict(callbacks=[clock.callback]))
+            with NoPlainBuilds():
+                bst, c = train_launches(f"{label} run {run}", lambda k=kw:
+                                        xt.train(params, dtr, rounds,
+                                                 verbose_eval=False, **k))
+            peak = torch.cuda.max_memory_allocated()
+            if c["hist_int8x2"] != want_k2(bst) or c["hist_scan"] or \
+                    c["hist_f32"] or c["fused_advance_coarse"]:
+                raise AssertionError(f"{label} launched {c}, expected K2 "
+                                     f"{want_k2(bst)} times and no other "
+                                     "histogram kernel")
+            runs.append(c)
+            digests.append(hashlib.sha256(bytes(bst.save_raw("ubj")))
+                           .hexdigest())
+            if run == 0:
+                counts0, bst0, peak0 = c, bst, peak
+        if digests[0] != digests[1]:
+            raise AssertionError(f"{label}: two runs saved different models "
+                                 f"{digests}")
+        ll = res["test"]["logloss"]
+        p = bst0.predict(dte)
+        mauc, n_auc = mean_label_auc(Yte, p)
+        if not (p.shape == Yte.shape and np.isfinite(p).all()
+                and ll[-1] < ll[0] and mauc > 0.6):
+            raise AssertionError(f"{label}: held-out logloss {ll[0]} -> "
+                                 f"{ll[-1]}, mean label AUC {mauc}")
+        per = clock.seconds()
+        s_round = float(np.median(per[1:]))
+        # three more rounds of run 1's booster under the profiler
+        busy, _ = profile_rounds(label, bst, dtr, top=10)
+        r = dict(s_round=s_round, busy_ms=busy, ll=(ll[0], ll[-1]),
+                 mauc=mauc, n_auc=n_auc, digest=digests[0],
+                 peak_gb=peak0 / 1e9, counts=counts0)
+        log(f"{at()}{label}: {rounds} rounds twice, one model sha256 {digests[0]}; "
+            f"launches a round K2 {counts0['hist_int8x2'] / rounds:g}, K4 "
+            f"{counts0['hist_scan'] / rounds:g}, K1 "
+            f"{counts0['walk_packed'] / rounds:g}; seconds a round "
+            f"{['%.6f' % t for t in per]}, median of rounds 1 on "
+            f"{s_round:.6f} s; held-out logloss {ll[0]} -> {ll[-1]}, mean "
+            f"per-label AUC {mauc:.6f} over {n_auc} labels; "
+            f"max_memory_allocated {peak0 / 1e9:.3f} GB")
+        return bst0, r
+
+    def round_trips(label, bst):
+        """save_raw, and the reference schema with each row's base margin
+        given (its scalar base_score keeps one target's intercept),
+        predict the model's bits."""
+        p = bst.predict(dte)
+        if not np.array_equal(
+                xt.Booster(model_file=bst.save_raw("ubj")).predict(dte), p):
+            raise AssertionError(f"{label}: save_raw round trip predicts "
+                                 "other bits")
+        with tempfile.TemporaryDirectory(prefix="xtt_mt_") as tmp:
+            path = os.path.join(tmp, "ref.json")
+            import warnings
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                xt.save_xgboost_model(bst, path)
+            ref = xt.load_xgboost_model(path)
+        rows = np.broadcast_to(bst._base_np(), Yte.shape).astype(np.float32)
+        dm = xt.DMatrix(X[n_tr:], base_margin=rows)
+        if not np.array_equal(ref.predict(dm), bst.predict(dm)):
+            raise AssertionError(f"{label}: the reference-schema round trip "
+                                 "predicts other bits")
+        log(f"{at()}{label}: save_raw and reference-schema round trips predict "
+            f"the same bits (the schema keeps target 0's intercept; "
+            f"{len(caught)} warning(s))")
+
+    # (a) one tree a label and round: K2 at every level of each of the
+    # 101 trees, K1 for the held-out walk once a round
+    bst_a, out["one_output_per_tree"] = train_twice(
+        "mediamill one_output_per_tree", MM_PARAMS, MM_ROUNDS,
+        lambda b: MM_PARAMS["max_depth"] * len(b.gbm.trees))
+    round_trips("mediamill one_output_per_tree", bst_a)
+    reset_counts()
+    p_a = bst_a.predict(dte)
+    torch.cuda.synchronize()
+    pc = read_counts()
+    if pc["walk_packed"] != 1:
+        raise AssertionError(f"one_output_per_tree predict launched {pc}")
+    runs.append(pc)
+    if out["one_output_per_tree"]["counts"]["walk_packed"] != MM_ROUNDS:
+        raise AssertionError("one_output_per_tree: K1 did not walk the "
+                             "held-out rows once a round")
+
+    # (b) one vector-leaf tree a round: K2 once a label and level
+    bst_b, out["multi_output_tree"] = train_twice(
+        "mediamill multi_output_tree", dict(MM_PARAMS,
+                                            multi_strategy="multi_output_tree"),
+        MM_ROUNDS, lambda b: MM_PARAMS["max_depth"] * MM_LABELS
+        * len(b.gbm.trees))
+    round_trips("mediamill multi_output_tree", bst_b)
+    if out["multi_output_tree"]["counts"]["walk_packed"]:
+        raise AssertionError("vector leaves went through the packed walk")
+    leaves_b = [t.num_leaves() for t in bst_b.gbm.trees]
+
+    # (c) leaf-wise vector leaves: K2 once a label and evaluated pair
+    bst_c, out["multi_output_lossguide"] = train_twice(
+        "mediamill multi_output_tree lossguide",
+        dict(MM_PARAMS, multi_strategy="multi_output_tree",
+             grow_policy="lossguide", max_leaves=MM_LG_LEAVES, max_depth=0),
+        MM_LG_ROUNDS, lambda b: MM_LABELS * sum(t.num_leaves()
+                                                for t in b.gbm.trees))
+    round_trips("mediamill multi_output_tree lossguide", bst_c)
+    leaves_c = [t.num_leaves() for t in bst_c.gbm.trees]
+    log(f"{at()}mediamill vector-leaf trees: depthwise leaves {leaves_b}, "
+        f"lossguide leaves {leaves_c}; K3 is not reached here (its levels "
+        f"hold at most {2 ** (MM_PARAMS['max_depth'] - 1)} nodes and "
+        f"{MM_TRAIN_ROWS} rows, inside K2's int8x2 row guard)")
+
+    # deeper vector-leaf trees: one round at each of MM_DEEP, K2 once a
+    # label at the levels of up to 128 nodes and K3 above, and the peak
+    # memory the level's histogram and the chunked split search hold
+    out["deep"] = {}
+    for depth in MM_DEEP:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with NoPlainBuilds():
+            bd, cd = train_launches(
+                f"mediamill multi_output_tree depth {depth}",
+                lambda d=depth: xt.train(
+                    dict(MM_PARAMS, max_depth=d,
+                         multi_strategy="multi_output_tree"),
+                    dtr, 1, verbose_eval=False))
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want_k2 = MM_LABELS * min(depth, 8)
+        want_k3 = MM_LABELS * max(0, depth - 8)
+        if cd["hist_int8x2"] != want_k2 or cd["hist_f32"] != want_k3 or \
+                cd["hist_scan"] or cd["fused_advance_coarse"]:
+            raise AssertionError(f"depth {depth} vector leaves launched "
+                                 f"{cd}, expected K2 {want_k2} and K3 "
+                                 f"{want_k3} times")
+        if bd.gbm.trees[0].max_depth() > depth or not np.isfinite(
+                bd.predict(dte)).all():
+            raise AssertionError(f"depth {depth} vector leaves: bad tree")
+        runs.append(cd)
+        out["deep"][depth] = dict(peak_gb=peak, s=took)
+        log(f"{at()}mediamill multi_output_tree depth {depth}, one round: "
+            f"{took:.6f} s (host clock, build and first-call costs "
+            f"included), K2 {cd['hist_int8x2']}, K3 {cd['hist_f32']}, "
+            f"max_memory_allocated {peak:.3f} GB, tree depth "
+            f"{bd.gbm.trees[0].max_depth()}")
+        del bd
+
+    # the vector-leaf path at the main path's rows: K4 once a target and
+    # level
+    Xh, _ = higgs_like(MT_HIGGS_TRAIN + MT_HIGGS_TEST, 28, seed=0)
+    rng = np.random.default_rng(7)
+    Wh = rng.standard_normal((28, MT_HIGGS_TARGETS)).astype(np.float32)
+    Yh = Xh @ Wh + rng.standard_normal(
+        (len(Xh), MT_HIGGS_TARGETS)).astype(np.float32)
+    dh = xt.DMatrix(Xh[:MT_HIGGS_TRAIN], label=Yh[:MT_HIGGS_TRAIN])
+    dh_te = xt.DMatrix(Xh[MT_HIGGS_TRAIN:], label=Yh[MT_HIGGS_TRAIN:])
+    res, clock = {}, RoundClock()
+    torch.cuda.reset_peak_memory_stats()
+    with NoPlainBuilds():
+        bh, ch = train_launches("HIGGS-shape multi_output_tree", lambda:
+                                xt.train({"objective": "reg:squarederror",
+                                          "max_depth": MT_HIGGS_DEPTH,
+                                          "eta": 0.3, "max_bin": 256,
+                                          "multi_strategy":
+                                          "multi_output_tree"},
+                                         dh, MT_HIGGS_ROUNDS,
+                                         evals=[(dh_te, "test")],
+                                         evals_result=res,
+                                         callbacks=[clock.callback],
+                                         verbose_eval=False))
+    want = MT_HIGGS_DEPTH * MT_HIGGS_TARGETS * MT_HIGGS_ROUNDS
+    if ch["hist_scan"] != want or ch["hist_int8x2"] or ch["hist_f32"]:
+        raise AssertionError(f"HIGGS-shape vector leaves launched {ch}, "
+                             f"expected K4 {want} times")
+    runs.append(ch)
+    rmse = res["test"]["rmse"]
+    if not (rmse[-1] < rmse[0] and np.isfinite(rmse).all()):
+        raise AssertionError(f"HIGGS-shape vector leaves: rmse {rmse}")
+    per_h = clock.seconds()
+    out["higgs"] = dict(s_round=float(np.median(per_h[1:])),
+                        rmse=(rmse[0], rmse[-1]),
+                        digest=hashlib.sha256(bytes(bh.save_raw("ubj")))
+                        .hexdigest(),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{at()}HIGGS-shape multi_output_tree ({MT_HIGGS_TRAIN} x 28, "
+        f"{MT_HIGGS_TARGETS} targets, depth {MT_HIGGS_DEPTH}): K4 {ch['hist_scan'] / MT_HIGGS_ROUNDS:g} a "
+        f"round; seconds a round (round and held-out eval) "
+        f"{['%.6f' % t for t in per_h]}, median of rounds 1 on "
+        f"{out['higgs']['s_round']:.6f} s; held-out rmse {rmse[0]} -> "
+        f"{rmse[-1]}; model sha256 {out['higgs']['digest']}; "
+        f"max_memory_allocated {out['higgs']['peak_gb']:.3f} GB")
+    del Xh, Yh, dh, dh_te
+
+    # K2 at the MediaMill levels: the training bins (256 slots) with one
+    # label's quantised gradient, N = 1 and 32; and 257 slots (5% missing)
+    bins = dtr.binned(MM_PARAMS["max_bin"], dev).bins
+    yk = torch.from_numpy(Y[:n_tr, 0]).to(dev)
+    margin = torch.full_like(yk, float(bst_b._base_np()[0]))
+    p0 = torch.sigmoid(margin)
+    gpair = torch.stack([p0 - yk, p0 * (1 - p0)], dim=1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(21)
+    for B, N in ((256, 1), (256, 32), (257, 1), (257, 32)):
+        if B == 256:
+            b_in, gp = bins, gpair
+            rel = torch.randint(0, N, (n_tr,), generator=g, device=dev,
+                                dtype=torch.int32)
+        else:
+            b_in, gp, rel = hist_inputs(n_tr, MM_FEATURES, B, N, dev,
+                                        seed=170 + N)
+        label = f"mediamill n={n_tr} F={MM_FEATURES} N={N} B={B}"
+        for k, e in check_hist(b_in, gp, rel, N, B, label,
+                               only=("hist_int8x2",)).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        t, n_active = time_hist(b_in, gp, rel, N, B, flush,
+                                only=("hist_int8x2",))
+        ms, plain_ms, lib_ms = t["hist_int8x2"]
+        bound = hist_bound_ms(b_in, N, B, n_active, 4)
+        times[("hist_int8x2", N, B)] = (ms, plain_ms, lib_ms, bound)
+        log(f"hist hist_int8x2 {label} (L2 flushed): {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, index_add_ {lib_ms:.6f} ms, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}), kernel at "
+            f"{bound[0] / ms * 100:.4f}% of it")
+
+    # K1 on the 101-group forest at the held-out rows, both schedules
+    pf = bst_a.packed_forest()
+    base = torch.tensor(bst_a._base_np(), device=dev)
+    Xd = torch.from_numpy(np.ascontiguousarray(X[n_tr:])).to(dev)
+    plan = None
+    for sch in (None, "spread", "staged"):
+        e, m, took = check_kernel(f"101-group forest n={MM_TEST_ROWS}", pf,
+                                  Xd, base, sch)
+        k1_errs.append(e)
+        plan = plan or took
+    if not np.array_equal(m.cpu().numpy(), bst_a.predict(
+            dte, output_margin=True)):
+        raise AssertionError("K1's 101-group margins differ from predict")
+    _, leaves = pf.margin(Xd, base, leaf_index=True)
+    visits = int(torch.from_numpy(node_depths(pf)).to(dev)[
+        leaves.long()].sum())
+    d = pf.device_arrays(dev)
+    k1 = {"ms": event_ms(lambda: pf.margin(Xd, base), reps=20, flush=flush),
+          "plain_ms": event_ms(lambda: walk_packed_reference(
+              d["words"], d["values"], d["tree_offsets"], d["tree_weight"],
+              d["group_onehot"], Xd, base, max_depth=pf.max_depth,
+              tree_chunk=tree_step(Xd.shape[0])), reps=3),
+          "bound": walk_bound_ms(pf, Xd.shape[0], MM_FEATURES, visits),
+          "plan": plan}
+    for sch in ("spread", "staged"):
+        k1[f"{sch}_ms"] = event_ms(lambda s=sch: pf.margin(Xd, base,
+                                                           schedule=s),
+                                   reps=10, flush=flush)
+    times["walk_packed"] = k1
+    log(f"{at()}K1 101-group forest ({pf.n_trees} trees, max_depth "
+        f"{pf.max_depth}) at {MM_TEST_ROWS} rows: plan {plan}; "
+        f"{k1['ms']:.6f} ms (spread {k1['spread_ms']:.6f}, staged "
+        f"{k1['staged_ms']:.6f}), plain {k1['plain_ms']:.6f} ms, bound "
+        f"{k1['bound'][0]:.6f} ms ({k1['bound'][1]})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multi_target phase: {out['phase_s']:.1f} s")
+    return runs, errs, k1_errs, times, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -3495,6 +3920,19 @@ def main() -> int:
         f"model sha256 {lg['digest']}")
     del Xc, dcov, dcte
 
+    # ---- main path: multi-target training at the MediaMill shape
+    mt_runs, mt_errs, mt_k1, mt_times, mt = multi_target(xt, dev)
+    errs += mt_k1
+    for k, e in mt_errs.items():
+        hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+    log("multi_target: " + "; ".join(
+        f"{k} {v['s_round']:.6f} s a round, busy {v['busy_ms']:.3f} ms over "
+        f"3 rounds, held-out logloss {v['ll'][0]} -> {v['ll'][1]}, mean "
+        f"label AUC {v['mauc']:.6f}" for k, v in mt.items()
+        if isinstance(v, dict) and "ll" in v)
+        + f"; HIGGS-shape vector leaves {mt['higgs']['s_round']:.6f} s a "
+        f"round, rmse {mt['higgs']['rmse'][0]} -> {mt['higgs']['rmse'][1]}")
+
     # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
     mslr_runs, mslr_errs, mslr_k1, mslr_hist, mslr = mslr_ranking(xt, dev)
     errs += mslr_k1
@@ -3616,7 +4054,8 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs]
+            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
+            *mt_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -3713,6 +4152,31 @@ def main() -> int:
         "plain_ms": lg_k1_time["plain_ms"],
         "bound_ms": lg_k1_time["bound"][0],
         "bound_by": lg_k1_time["bound"][1], "library_ms": None})
+    # the multi-target shapes: K2 at the MediaMill levels (30,993 x 120,
+    # the training bins' 256 slots, N = 32), K1 on the 101-group forest at
+    # the 12,914 held-out rows
+    ms, plain_ms, lib_ms, bound = mt_times[("hist_int8x2", 32, 256)]
+    kernels.append({
+        "name": "hist_int8x2", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/hist.cu",
+        "replaces": "xgboost_tpu/ops/pallas/histogram.py:621",
+        "shape": f"mediamill {MM_TRAIN_ROWS} x {MM_FEATURES}, B=256, N=32, "
+                 "one label's gradient",
+        "launches": sum(c["hist_int8x2"] for c in mt_runs),
+        "max_abs_err": mt_errs["hist_int8x2"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": lib_ms})
+    k1 = mt_times["walk_packed"]
+    kernels.append({
+        "name": "walk_packed", "route": "cuda",
+        "source": "xgboost_tpu_torch/csrc/walk.cu",
+        "replaces": "xgboost_tpu/ops/pallas/walk.py:86",
+        "shape": f"101-group forest ({MM_ROUNDS} rounds), {MM_TEST_ROWS} "
+                 f"rows, {k1['plan']} plan",
+        "launches": sum(c["walk_packed"] for c in mt_runs),
+        "max_abs_err": max(mt_k1), "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound"][0],
+        "bound_by": k1["bound"][1], "library_ms": None})
     k5 = levels["fused_advance_coarse"][128]
     ms, plain_ms, bound = k5["ms"], k5["plain_ms"], k5["bound"]
     kernels.append({

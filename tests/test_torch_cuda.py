@@ -1034,3 +1034,80 @@ def test_lossguide_and_constraints_on_the_card_equal_the_cpu():
         np.testing.assert_array_equal(a.split_bin, b.split_bin)
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 32])
+@pytest.mark.parametrize("B", [256, 257])
+def test_k2_at_the_mediamill_shape_on_the_card(N, B):
+    """K2 at a MediaMill level (30,993 x 120; N = 32 is depth 6's last
+    level) equals its plain version bit for bit on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+
+    bins, g, rel = _hist_inputs(30_993, 120, B, N, torch.device("cuda"),
+                                seed=N + B)
+    q, inv = H.quantise_int8x2(g)
+    want = H.build_hist_int8x2_reference(bins, q, rel, inv, N, B)
+    for _ in range(2):
+        got = K.hist_int8x2_cuda(bins, q, rel, inv, N, B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["spread", "staged"])
+def test_k1_at_101_groups_on_the_card(schedule):
+    """K1 over a 101-group forest (one tree a label and round) at the
+    12,914 MediaMill held-out rows, on both schedules, bit for bit
+    against the fold replica."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    trees, info = make_forest(303, 6, 120, n_groups=101, seed=13)
+    pf = PackedForest.from_trees(trees, info, 101)
+    X = np.random.RandomState(14).randn(12_914, 120).astype(np.float32)
+    Xd = torch.from_numpy(X).to(dev)
+    base = torch.linspace(-2.0, 0.0, 101, device=dev)
+    for n in (1, 512, 12_914):
+        _k1_check(pf, Xd[:n].contiguous(), base, schedule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"multi_strategy": "multi_output_tree", "max_depth": 5},
+    {"multi_strategy": "multi_output_tree", "grow_policy": "lossguide",
+     "max_leaves": 16, "max_depth": 0},
+    {"max_depth": 5}])
+def test_multi_target_training_on_the_card_equals_the_cpu(extra):
+    """A label matrix's first round on the card equals the CPU's (equal
+    gradients, equal integer histograms): vector-leaf trees depthwise
+    (K2 below 65,536 rows, K4 above) and leaf-wise, node for node with
+    each target's weight, and one tree a target; the card's predictions
+    [n, K] walk as the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    rng = np.random.RandomState(8)
+    X = rng.randn(70_000, 10).astype(np.float32)
+    Y = (X[:, :4] + rng.randn(70_000, 4) > 0.5).astype(np.float32)
+    for n in (70_000, 20_000):
+        params = dict({"objective": "binary:logistic", "base_score": 0.5},
+                      **extra)
+        gpu = xt.train(params, xt.DMatrix(X[:n], label=Y[:n]), 1,
+                       verbose_eval=False)
+        cpu = xt.train(dict(params, device="cpu"),
+                       xt.DMatrix(X[:n], label=Y[:n]), 1, verbose_eval=False)
+        assert len(gpu.gbm.trees) == len(cpu.gbm.trees)
+        for a, b in zip(gpu.gbm.trees, cpu.gbm.trees):
+            np.testing.assert_array_equal(a.left_child, b.left_child)
+            np.testing.assert_array_equal(a.split_feature, b.split_feature)
+            np.testing.assert_array_equal(a.split_bin, b.split_bin)
+            np.testing.assert_allclose(a.leaf_value, b.leaf_value,
+                                       rtol=1e-5, atol=1e-6)
+        dm = xt.DMatrix(X[:2000])
+        np.testing.assert_allclose(gpu.predict(dm), cpu.predict(dm),
+                                   rtol=1e-5, atol=1e-6)

@@ -414,7 +414,7 @@ def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):
     ({"hist_method": "auto+sub"}, "A.6"),
     ({"grow_policy": "lossguide"}, "A.7"),
     ({"monotone_constraints": "(1,0,0,0,0,0,0)"}, "A.7"),
-    ({"multi_strategy": "multi_output_tree"}, "A.5.7"),
+    ({"multi_strategy": "multi_output_tree"}, "A.7"),
     ({"data_split_mode": "col"}, "A.8"),
 ])
 def test_unported_paged_configurations_raise(params, item, tmp_path,
@@ -450,10 +450,21 @@ def test_unported_paged_methods_raise(tmp_path, monkeypatch):
 
 
 def test_multi_output_tree_raises_on_resident_data():
-    """``multi_strategy='multi_output_tree'`` was taken silently as one
-    tree per output; it raises, naming its ROADMAP item."""
+    """``multi_strategy='multi_output_tree'`` over a one-column label on a
+    resident matrix grows scalar trees, the JAX package's (a vector leaf
+    needs K > 1 outputs; a paged matrix raises naming A.7, above); and
+    without a card, training that does not ask for the CPU raises."""
     X, y = _data(52, n=200)
-    with pytest.raises(NotImplementedError, match=r"A\.5\.7"):
-        xt.train({"objective": "binary:logistic", "device": "cpu",
-                  "multi_strategy": "multi_output_tree"},
-                 xt.DMatrix(X, label=y), 1)
+    p = {"objective": "binary:logistic", "max_depth": 3, "eta": 0.3,
+         "base_score": 0.5, "multi_strategy": "multi_output_tree"}
+    jb = xgb.train(dict(p, hist_method="prehot"), xgb.DMatrix(X, label=y),
+                   2, verbose_eval=False)
+    tb = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y), 2,
+                  verbose_eval=False)
+    assert tb.gbm.trees[0].leaf_value.ndim == 1
+    assert compare_forests(jb.gbm.trees, tb.gbm.trees, 0.3)[0] == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            xt.train({"objective": "binary:logistic",
+                      "multi_strategy": "multi_output_tree"},
+                     xt.DMatrix(X, label=y), 1)

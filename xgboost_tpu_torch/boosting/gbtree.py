@@ -10,8 +10,12 @@ p)``, with the learning rate divided by ``num_parallel_tree`` (boosted
 random forests). Row sampling (:func:`sample_gradients`) and the
 trees' column samples come from that key. A paged (external-memory)
 matrix grows with ``tree/paged.py PagedGrower`` and
-``grow_policy="lossguide"`` with ``tree/lossguide.py LossguideGrower``;
-a paged matrix's margins are
+``grow_policy="lossguide"`` with ``tree/lossguide.py LossguideGrower``.
+``multi_strategy="multi_output_tree"`` with K > 1 outputs (a label
+matrix, or ``multi:softprob``'s classes) grows one vector-leaf tree a
+round and parallel tree for all K (``tree/multi.py``; the JAX package's
+``_do_boost_multi``), each from ``fold_in(key, p)``. A paged matrix's
+margins are
 walked over its bins page by page (:meth:`GBTree.margin_delta_binned`,
 :meth:`GBTree.full_margin_binned`). ``boosting/dart.py`` derives dart
 from this class.
@@ -26,6 +30,8 @@ import torch
 
 from ..tree.grow import TreeGrower
 from ..tree.lossguide import LossguideGrower
+from ..tree.multi import (MultiLossguideGrower, MultiTargetGrower,
+                          MultiTargetTreeModel, is_vector_leaf)
 from ..tree.paged import PagedGrower
 from ..tree.param import TrainParam, _f32
 from ..tree.tree import TreeModel
@@ -86,18 +92,38 @@ class GBTree:
         self._grower: Optional[TreeGrower] = None
 
     # -- training -------------------------------------------------------------
+    @property
+    def vector_leaf(self) -> bool:
+        """This forest grows, or holds, vector-leaf trees."""
+        return (is_vector_leaf(self.trees)
+                or (self.multi_strategy == "multi_output_tree"
+                    and self.n_groups > 1))
+
     def _grower_for(self, binned) -> TreeGrower:
         """The grower of this matrix (the JAX package's ``_grower_for``):
         leaf-wise (``tree/lossguide.py``) for ``grow_policy="lossguide"``,
-        else depthwise, resident or paged."""
+        else depthwise, resident or paged; vector-leaf trees
+        (``tree/multi.py``) under ``multi_output_tree``."""
         lossguide = self.tree_param.grow_policy == "lossguide"
+        if binned.is_paged and self.multi_strategy == "multi_output_tree":
+            raise NotImplementedError(
+                "multi_strategy='multi_output_tree' on a paged "
+                "(external-memory) matrix is not in the PyTorch port yet "
+                "(the paged vector-leaf growers, ROADMAP A.7)")
         if binned.is_paged and lossguide:
             raise NotImplementedError(
                 "grow_policy=lossguide on a paged (external-memory) matrix "
                 "is not in the PyTorch port yet (paged lossguide, ROADMAP "
                 "A.7)")
-        cls = (LossguideGrower if lossguide
-               else PagedGrower if binned.is_paged else TreeGrower)
+        kw = dict(hist_method=self.hist_method,
+                  has_missing=binned.has_missing,
+                  constraint_sets=self.constraint_sets)
+        if self.vector_leaf:
+            cls = MultiLossguideGrower if lossguide else MultiTargetGrower
+        else:
+            cls = (LossguideGrower if lossguide
+                   else PagedGrower if binned.is_paged else TreeGrower)
+            kw["monotone"] = self.monotone
         if self._grower is None or self._grower.cuts is not binned.cuts \
                 or type(self._grower) is not cls:
             param = self.tree_param
@@ -105,11 +131,7 @@ class GBTree:
                 # reference BoostNewTrees: lr /= num_parallel_tree
                 param = param.clone()
                 param.eta = param.eta / self.num_parallel_tree
-            self._grower = cls(param, binned.max_nbins, binned.cuts,
-                               hist_method=self.hist_method,
-                               has_missing=binned.has_missing,
-                               monotone=self.monotone,
-                               constraint_sets=self.constraint_sets)
+            self._grower = cls(param, binned.max_nbins, binned.cuts, **kw)
         return self._grower
 
     def do_boost(self, binned, gpair: torch.Tensor,
@@ -123,6 +145,8 @@ class GBTree:
                              f"{self.n_groups} output groups")
         npt = max(self.num_parallel_tree, 1)
         grower = self._grower_for(binned)
+        if self.vector_leaf:
+            return self._do_boost_multi(binned, grower, gpair, key)
         tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
         masks = grower.feature_masks(tkeys, gpair.device)
         deltas = []
@@ -141,6 +165,33 @@ class GBTree:
             deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
         return torch.stack(deltas, dim=1)
+
+    def _do_boost_multi(self, binned, grower, gpair: torch.Tensor,
+                        key: xrandom.Key) -> torch.Tensor:
+        """One vector-leaf tree a parallel tree for all K outputs (the
+        JAX package's ``_do_boost_multi``): tree p from ``fold_in(key,
+        p)``, tagged 0 in ``tree_info`` -> margin delta [n, K]. Rows are
+        kept with probability ``subsample`` under ``fold_in(tkey,
+        0x5AB)``, uniformly whatever ``sampling_method`` says, as the JAX
+        package's vector-leaf round draws them."""
+        npt = max(self.num_parallel_tree, 1)
+        tkeys = [xrandom.fold_in(key, p) for p in range(npt)]
+        masks = grower.feature_masks(tkeys, gpair.device)
+        sub = self.tree_param.subsample
+        delta = None
+        for p in range(npt):
+            gp = gpair
+            if sub < 1.0:
+                keep = xrandom.bernoulli(xrandom.fold_in(tkeys[p], 0x5AB),
+                                         sub, (gp.shape[0],), gp.device)
+                gp = gp * keep[:, None, None].to(gp.dtype)
+            grown = grower.grow(binned.bins, gp,
+                                None if masks is None else masks[p])
+            self.trees.append(grower.to_tree_model(grown))
+            self.tree_info.append(0)
+            delta = grown.delta if delta is None else delta + grown.delta
+        self.iteration_indptr.append(len(self.trees))
+        return delta
 
     # -- margins over bins ---------------------------------------------------
     def _margin_binned_paged(self, forest, binned, base: torch.Tensor
@@ -230,13 +281,10 @@ class GBTree:
         }
 
     def from_json(self, obj: dict) -> None:
-        if any("n_targets" in t for t in obj["trees"]):
-            raise NotImplementedError(
-                "multi_output_tree (vector-leaf) models are not in the "
-                "PyTorch port yet")
         self.num_parallel_tree = int(obj.get("num_parallel_tree", 1))
         self.multi_strategy = obj.get("multi_strategy",
                                       "one_output_per_tree")
-        self.trees = [TreeModel.from_json(t) for t in obj["trees"]]
+        self.trees = [MultiTargetTreeModel.from_json(t) if "n_targets" in t
+                      else TreeModel.from_json(t) for t in obj["trees"]]
         self.tree_info = [int(x) for x in obj["tree_info"]]
         self.iteration_indptr = [int(x) for x in obj["iteration_indptr"]]

@@ -35,6 +35,11 @@ and metrics (``custom_metric=`` / ``feval=``) take and give numpy.
 ``predict(pred_leaf=True)`` walks the trees as torch ops
 (``boosting/predict.py leaf_positions``); dumps, importances and the
 structural report are ``dump.py``'s.
+
+A label matrix [n, K] trains K outputs: one tree a target and round
+(``multi_strategy="one_output_per_tree"``, the default), or one
+vector-leaf tree a round for all K (``"multi_output_tree"``,
+``tree/multi.py``), whose margins walk as torch ops.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 from . import dump
 from .boosting.dart import Dart
 from .boosting.gbtree import GBTree
-from .boosting.predict import leaf_positions, stack_trees
+from .boosting.predict import leaf_positions, margin_raw, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
@@ -62,6 +67,7 @@ from .metric import get_metric
 from .objective import get_objective
 from .objective.base import guard_gradient
 from .serve.packed import PackedForest
+from .tree.multi import is_vector_leaf
 from .tree.param import (TrainParam, parse_interaction_constraints,
                          parse_monotone_constraints)
 from .tree.updaters import UPDATERS, prune_tree, refresh_tree, sync_trees
@@ -285,14 +291,9 @@ class Booster:
             raise NotImplementedError(
                 "column-split training is not in the PyTorch port yet "
                 "(ROADMAP A.8)")
-        if self.learner_params.get("multi_strategy",
-                                   "one_output_per_tree") != \
-                "one_output_per_tree":
-            raise NotImplementedError(
-                "multi_strategy='multi_output_tree' is not in the PyTorch "
-                "port yet (ROADMAP A.5.7; like the reference, it will refuse "
-                "monotone constraints and the dart booster for vector-leaf "
-                "trees)")
+        ms = self.learner_params.get("multi_strategy", "one_output_per_tree")
+        if ms not in ("one_output_per_tree", "multi_output_tree"):
+            raise ValueError(f"unknown multi_strategy: {ms}")
         if self.tree_param.grow_policy not in ("depthwise", "lossguide"):
             raise ValueError(
                 f"unknown grow_policy={self.tree_param.grow_policy}; use "
@@ -300,18 +301,21 @@ class Booster:
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
-        n_groups = max(1, self.obj.n_targets())
+        n_groups = max(1, self.obj.n_targets(
+            dtrain.info if dtrain is not None else None))
         if dtrain is not None and not self._num_features:
             self._num_features = dtrain.num_col()
         if self.gbm is None:
             cls = Dart if booster == "dart" else GBTree
             self.gbm = cls(
                 n_groups, num_parallel_tree=int(self.learner_params.get(
-                    "num_parallel_tree", 1)))
+                    "num_parallel_tree", 1)), multi_strategy=ms)
         if isinstance(self.gbm, Dart):
             self.gbm.configure(self.learner_params, self.ctx.seed)
         self.gbm.tree_param = self.tree_param
         self._configure_constraints(dtrain)
+        if "multi_output_tree" in (ms, self.gbm.multi_strategy):
+            self._refuse_for_vector_leaves(booster)
         self.gbm.hist_method = str(self.learner_params.get("hist_method",
                                                            "auto"))
         if self.base_margin_ is None:
@@ -334,6 +338,22 @@ class Booster:
             self.feature_names = dtrain.info.feature_names
             self.feature_types = dtrain.info.feature_types
         self._configured = True
+
+    def _refuse_for_vector_leaves(self, booster: str) -> None:
+        """What ``multi_output_tree`` does not take, refused as the JAX
+        package refuses it (the reference rejects monotone constraints
+        and dart for vector-leaf trees)."""
+        if self.gbm.monotone is not None or booster == "dart":
+            raise NotImplementedError(
+                "multi_output_tree does not support monotone constraints "
+                "or the dart booster (the reference rejects both for "
+                "vector-leaf trees)")
+        if self.learner_params.get("hist_method") in ("coarse", "fused",
+                                                      "scan", "mega"):
+            raise NotImplementedError(
+                "hist_method='coarse'/'fused'/'scan'/'mega' supports the "
+                "hist updaters (depthwise or lossguide, resident or "
+                "external-memory depthwise) with scalar trees only")
 
     def _configure_constraints(self, dtrain: Optional[DMatrix]) -> None:
         """Parse the monotone and interaction constraints for the forest
@@ -429,12 +449,16 @@ class Booster:
         if st["X"] is None:
             st["X"] = torch.from_numpy(np.ascontiguousarray(
                 st["dm"].values())).to(self.device)
+        zero = torch.zeros(self.n_groups, dtype=torch.float32,
+                           device=self.device)
+        if is_vector_leaf(self.gbm.trees):
+            return margin_raw(stack_trees(
+                self.gbm.trees[lo:hi], self.gbm.tree_info[lo:hi],
+                self.n_groups, self.device), st["X"], zero)
         w = self.gbm.tree_weights()
         pf = PackedForest.from_trees(self.gbm.trees[lo:hi],
                                      self.gbm.tree_info[lo:hi], self.n_groups,
                                      None if w is None else w[lo:hi])
-        zero = torch.zeros(self.n_groups, dtype=torch.float32,
-                           device=self.device)
         return pf.margin(st["X"], zero)
 
     def _cached_margin(self, dm: DMatrix, is_train: bool = False
@@ -538,6 +562,10 @@ class Booster:
                 if c["margin"] is not None:
                     c["margin"], c["n_trees"] = c["base"], 0
         old_trees, old_info, old_indptr = self._trees_to_update
+        if is_vector_leaf(old_trees):
+            raise NotImplementedError(
+                "process_type=update does not support multi_output_tree "
+                "models")
         it = self.num_boosted_rounds()
         if it >= len(old_indptr) - 1:
             raise ValueError(
@@ -644,9 +672,12 @@ class Booster:
                 iteration_range: Optional[Tuple[int, int]] = None,
                 strict_shape: bool = False,
                 validate_features: bool = True) -> np.ndarray:
-        """Predictions [n] (or [n, G]) through the packed walk on this
-        Booster's device; ``pred_leaf``: the leaf (compact BFS node id)
-        each row reaches in each selected tree, int32 [n, T]."""
+        """Predictions [n] (or [n, G]; ``strict_shape`` keeps [n, 1])
+        through the packed walk on this Booster's device, or, for
+        vector-leaf trees, through their torch walk
+        (``boosting/predict.py margin_raw``); ``pred_leaf``: the leaf
+        (compact BFS node id) each row reaches in each selected tree,
+        int32 [n, T]."""
         self._require_model()
         if validate_features:
             self._validate_features(data)
@@ -668,11 +699,15 @@ class Booster:
             base = torch.tensor(np.broadcast_to(self._base_np(),
                                                 (self.n_groups,)), device=dev)
             rows = None
-        pf = self.packed_forest(iteration_range)
-        if pf is None:
+        lo, hi = self.gbm._tree_range(iteration_range)
+        if hi <= lo:
             margin = base[None, :].expand(X.shape[0], -1).clone()
+        elif is_vector_leaf(self.gbm.trees):
+            margin = margin_raw(stack_trees(
+                self.gbm.trees[lo:hi], self.gbm.tree_info[lo:hi],
+                self.n_groups, dev), X, base)
         else:
-            margin = pf.margin(X, base)
+            margin = self.packed_forest(iteration_range).margin(X, base)
         if rows is not None:
             margin = margin + rows.reshape(margin.shape[0], -1)
         out = margin if output_margin else self.obj.pred_transform(margin)

@@ -54,7 +54,7 @@ from . import quantile
 
 @dataclass
 class MetaInfo:
-    labels: Optional[np.ndarray] = None        # [n] f32
+    labels: Optional[np.ndarray] = None        # [n] or [n, n_targets] f32
     weights: Optional[np.ndarray] = None       # [n], or [G] a query, f32
     base_margin: Optional[np.ndarray] = None   # [n] or [n, n_groups]
     group_ptr: Optional[np.ndarray] = None     # [G + 1] int64 query offsets
@@ -257,13 +257,14 @@ class DMatrix:
 
     @staticmethod
     def _labels(label: Any, n: int) -> np.ndarray:
+        """[n] labels, or [n, K] for K targets (a one-column matrix
+        stays [n])."""
         lab = _rows("label", label, n)
         if lab.ndim == 2 and lab.shape[1] == 1:
             lab = lab[:, 0]
-        if lab.ndim != 1:
-            raise NotImplementedError(
-                "multi-target labels are not in the PyTorch port yet "
-                "(ROADMAP A.5.7)")
+        if lab.ndim not in (1, 2):
+            raise ValueError(f"label must be [n] or [n, n_targets], got "
+                             f"shape {lab.shape}")
         return lab
 
     def num_row(self) -> int:

@@ -5,7 +5,8 @@ package's ``dump.py`` and ``obs/insight.py model_inspect``; reference
 
 Node ids are the trees' compact BFS ids. A split prints as ``x <
 value`` going left ("yes") with the value at ``:.9g``, so two dumps are
-equal where the trees are equal bit for bit. Feature maps (``fmap``) are
+equal where the trees are equal bit for bit. A vector leaf prints as
+``[a,b,c]`` (a list in JSON). Feature maps (``fmap``) are
 accepted and ignored, as in the JAX package.
 """
 
@@ -31,6 +32,13 @@ def _left_set(tree: TreeModel, c: int) -> List[int]:
     return [b for b in range(len(w) * 32) if (w[b // 32] >> (b % 32)) & 1]
 
 
+def _fmt_leaf(v) -> str:
+    """A scalar leaf as ``0.5``; a vector leaf as ``[a,b,c]``."""
+    if np.ndim(v) == 0:
+        return f"{v:.9g}"
+    return "[" + ",".join(f"{x:.9g}" for x in np.asarray(v)) + "]"
+
+
 def _node_condition(tree: TreeModel, c: int,
                     feature_names: Optional[List[str]]) -> str:
     name = _fname(feature_names, int(tree.split_feature[c]))
@@ -48,7 +56,8 @@ def dump_text(tree: TreeModel, feature_names: Optional[List[str]] = None,
         indent = "\t" * depth
         if tree.is_leaf[c]:
             stats = f",cover={tree.sum_hess[c]:.9g}" if with_stats else ""
-            lines.append(f"{indent}{c}:leaf={tree.leaf_value[c]:.9g}{stats}")
+            lines.append(
+                f"{indent}{c}:leaf={_fmt_leaf(tree.leaf_value[c])}{stats}")
             continue
         yes, no = int(tree.left_child[c]), int(tree.right_child[c])
         miss = yes if tree.default_left[c] else no
@@ -65,7 +74,9 @@ def dump_json(tree: TreeModel, feature_names: Optional[List[str]] = None,
               with_stats: bool = False) -> dict:
     def node(c: int, depth: int) -> dict:
         if tree.is_leaf[c]:
-            out = {"nodeid": c, "leaf": float(tree.leaf_value[c])}
+            lv = tree.leaf_value[c]
+            out = {"nodeid": c, "leaf": (float(lv) if np.ndim(lv) == 0
+                                         else [float(x) for x in lv])}
             if with_stats:
                 out["cover"] = float(tree.sum_hess[c])
             return out
@@ -94,8 +105,8 @@ def dump_dot(tree: TreeModel, feature_names: Optional[List[str]] = None,
     while stack:
         c = stack.pop()
         if tree.is_leaf[c]:
-            lines.append(f'    {c} [label="leaf={tree.leaf_value[c]:.9g}" '
-                         f"shape=box]")
+            lines.append(f'    {c} [label="leaf='
+                         f'{_fmt_leaf(tree.leaf_value[c])}" shape=box]')
             continue
         lines.append(f'    {c} [label="'
                      f'{_node_condition(tree, c, feature_names)}"]')
@@ -130,11 +141,14 @@ def trees_to_dataframe(trees: List[TreeModel],
         for n in sorted(nodes, key=lambda d: d["nodeid"]):
             c = int(n["nodeid"])
             if "leaf" in n:
+                lv = n["leaf"]      # a vector leaf's Gain: its weights' sum
                 rows.append({
                     "Tree": t_i, "Node": c, "ID": f"{t_i}-{c}",
                     "Feature": "Leaf", "Split": np.nan, "Yes": np.nan,
                     "No": np.nan, "Missing": np.nan,
-                    "Gain": float(n["leaf"]), "Cover": float(n["cover"]),
+                    "Gain": (float(np.sum(lv)) if isinstance(lv, list)
+                             else float(lv)),
+                    "Cover": float(n["cover"]),
                     "Category": np.nan,
                 })
                 continue

@@ -21,9 +21,12 @@ JAX package's bytes. Semantics bridged (the same as the JAX package's
   weight in ``weight_drop``.
 - Ranking objectives: ``lambdarank_param`` (or ``lambda_rank_param``)
   and an unbiased model's ``ti+`` / ``tj-``.
+- Vector-leaf trees (``size_leaf_vector`` K > 1): thresholds in
+  ``split_conditions`` on every node and the node weights flat [n * K]
+  in ``base_weights``; the schema's scalar ``base_score`` keeps target
+  0's intercept, with a warning where the targets' differ.
 
-Multi-output (vector-leaf) trees wait with ROADMAP A.5.7 and gblinear
-with A.5.9, in both directions.
+gblinear waits with ROADMAP A.5.9, in both directions.
 """
 
 from __future__ import annotations
@@ -109,14 +112,29 @@ def _flatten_objective(objective: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _convert_tree_multi(t: Dict[str, Any], n_targets: int
+                        ) -> Dict[str, Any]:
+    """A reference vector-leaf tree (``MultiTargetTree::SaveModel``:
+    thresholds in ``split_conditions`` on every node, node weights flat
+    [n_nodes * K] in ``base_weights``) -> the native
+    ``MultiTargetTreeModel`` JSON."""
+    out = _convert_tree(t)
+    n = len(out["left_children"])
+    bw = np.asarray([float(x) for x in t["base_weights"]],
+                    np.float64).reshape(n, n_targets)
+    out["n_targets"] = n_targets
+    out["base_weights"] = bw.tolist()
+    out["leaf_values"] = bw.tolist()  # a leaf's row is its node weight
+    return out
+
+
 def _gbtree_payload(gb: Dict[str, Any]) -> Dict[str, Any]:
     model = gb["model"]
+    trees = []
     for ref in model["trees"]:
-        if int(ref.get("tree_param", {}).get("size_leaf_vector", 1) or 1) > 1:
-            raise NotImplementedError(
-                "vector-leaf (multi_output_tree) reference models are not "
-                "in the PyTorch port yet")
-    trees = [_convert_tree(ref) for ref in model["trees"]]
+        slv = int(ref.get("tree_param", {}).get("size_leaf_vector", 1) or 1)
+        trees.append(_convert_tree_multi(ref, slv) if slv > 1
+                     else _convert_tree(ref))
     mp = model.get("gbtree_model_param", {})
     n_trees = len(trees)
     indptr = [int(x) for x in model.get("iteration_indptr", [])]
@@ -126,7 +144,9 @@ def _gbtree_payload(gb: Dict[str, Any]) -> Dict[str, Any]:
     return {
         "name": "gbtree",
         "num_parallel_tree": int(mp.get("num_parallel_tree", 1) or 1),
-        "multi_strategy": "one_output_per_tree",
+        "multi_strategy": ("multi_output_tree"
+                           if any("n_targets" in t for t in trees)
+                           else "one_output_per_tree"),
         "trees": trees,
         "tree_info": [int(x) for x in model.get("tree_info", [0] * n_trees)],
         "iteration_indptr": indptr,
@@ -262,18 +282,55 @@ def _tree_to_reference(t, num_feature: int) -> Dict[str, Any]:
     }
 
 
+def _multi_tree_to_reference(t, num_feature: int) -> Dict[str, Any]:
+    """A ``MultiTargetTreeModel`` as reference arrays
+    (``MultiTargetTree::SaveModel``): thresholds for every node in
+    ``split_conditions``, node weights flat [n * K] in ``base_weights``,
+    and the stats arrays the published schema requires."""
+    n = t.num_nodes()
+    conds = np.where(
+        t.is_leaf, 0.0,
+        np.nextafter(t.split_value.astype(np.float32), np.float32("inf"))
+        .astype(np.float64))
+    bw = np.where(t.is_leaf[:, None], t.leaf_value,
+                  t.base_weight).astype(np.float64)
+    return {
+        "tree_param": {"num_nodes": str(n), "num_feature": str(num_feature),
+                       "size_leaf_vector": str(t.n_targets),
+                       "num_deleted": "0"},
+        "id": 0,
+        "left_children": t.left_child.tolist(),
+        "right_children": t.right_child.tolist(),
+        "parents": [int(p) if p >= 0 else 2147483647 for p in t.parent],
+        "split_indices": [int(max(f, 0)) for f in t.split_feature],
+        "split_conditions": conds.tolist(),
+        "split_type": [0] * n,
+        "default_left": [int(d) for d in t.default_left],
+        "base_weights": bw.reshape(-1).tolist(),
+        "loss_changes": t.gain.astype(np.float64).tolist(),
+        "sum_hessian": t.sum_hess.astype(np.float64).tolist(),
+        "categories": [],
+        "categories_nodes": [],
+        "categories_segments": [],
+        "categories_sizes": [],
+    }
+
+
 def native_to_reference_json(booster) -> Dict[str, Any]:
     """A ``gbtree`` or ``dart`` Booster as a reference-schema model dict;
     ``base_score`` in the user's space (the transform of the base
     margin), of target 0 when the targets' base margins differ."""
     from .boosting.dart import Dart
+    from .tree.multi import MultiTargetTreeModel
 
     booster._configure(None)
     gbm, obj = booster.gbm, booster.obj
     nf = booster.num_features()
     trees = []
     for i, t in enumerate(gbm.trees):
-        tj = _tree_to_reference(t, nf)
+        tj = (_multi_tree_to_reference(t, nf)
+              if isinstance(t, MultiTargetTreeModel)
+              else _tree_to_reference(t, nf))
         tj["id"] = i
         trees.append(tj)
     model = {

@@ -2,7 +2,9 @@
 ``src/metric/elementwise_metric.cu``; the JAX package's
 ``metric/elementwise.py``): weighted means of a per-row loss, and
 ``error@t``, the weighted share of rows with ``pred > t`` (t = 0.5 by
-default) other than ``label > 0.5``."""
+default) other than ``label > 0.5``. With a label matrix [n, K] the
+rows are weighted and the targets averaged: a row's weight stands for
+each of its K entries (:func:`_weights`)."""
 
 from __future__ import annotations
 
@@ -12,8 +14,17 @@ from .base import Metric, global_mean, register
 
 
 def _labels_preds(preds, info):
-    y = np.asarray(info.labels, dtype=np.float64).reshape(-1)
+    """(labels [n] or [n, K], predictions of the same shape), float64."""
+    y = np.asarray(info.labels, dtype=np.float64)
+    if y.ndim == 2 and y.shape[1] == 1:
+        y = y[:, 0]
     return y, np.asarray(preds, dtype=np.float64).reshape(y.shape)
+
+
+def _weights(metric, info, y: np.ndarray) -> np.ndarray:
+    """One weight an entry of ``y``: a row's weight over its targets."""
+    w = metric.weights_of(info, len(y))
+    return np.broadcast_to(w[:, None], y.shape) if y.ndim == 2 else w
 
 
 class _WeightedMean(Metric):
@@ -25,7 +36,7 @@ class _WeightedMean(Metric):
 
     def __call__(self, preds, info) -> float:
         y, p = _labels_preds(preds, info)
-        w = self.weights_of(info, len(y))
+        w = _weights(self, info, y)
         return float(self.finalize(
             global_mean(np.sum(self.per_row(p, y) * w), np.sum(w), info)))
 
@@ -93,7 +104,7 @@ class BinaryError(Metric):
     def __call__(self, preds, info) -> float:
         t = float(self.param) if self.param is not None else 0.5
         y, p = _labels_preds(preds, info)
-        w = self.weights_of(info, len(y))
+        w = _weights(self, info, y)
         wrong = (p > t).astype(np.float64) != (y > 0.5)
         return float(global_mean(np.sum(wrong * w), np.sum(w), info))
 
@@ -144,7 +155,7 @@ class TweedieNLL(Metric):
         rho = float(self.param) if self.param is not None else 1.5
         y, p = _labels_preds(preds, info)
         p = np.maximum(p, 1e-16)
-        w = self.weights_of(info, len(y))
+        w = _weights(self, info, y)
         loss = (-y * np.power(p, 1.0 - rho) / (1.0 - rho)
                 + np.power(p, 2.0 - rho) / (2.0 - rho))
         return float(global_mean(np.sum(loss * w), np.sum(w), info))

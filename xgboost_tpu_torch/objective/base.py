@@ -2,8 +2,10 @@
 base-score stump, the prediction transform and JSON.
 
 Shapes follow the JAX package: margins are [n, k] (k = ``n_targets()``:
-1, or ``num_class`` for the multiclass objectives), gradients
-[n, k, 2] packing (grad, hess).
+1, the label matrix's columns for multi-target labels [n, k], or
+``num_class`` for the multiclass objectives), gradients [n, k, 2]
+packing (grad, hess). The elementwise objectives take a label matrix
+column by column, and a row's weight applies to each of its targets.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..ops.xla_order import stump_sums
 
 
 class NumericalDivergence(RuntimeError):
@@ -58,8 +62,12 @@ class Objective:
     def configure(self, params: Dict[str, Any]) -> None:
         self.params.update(params)
 
-    def n_targets(self) -> int:
-        """Output groups of the model: one margin column each."""
+    def n_targets(self, info=None) -> int:
+        """Output groups of the model: one margin column each; the
+        columns of ``info``'s label matrix (a ``MetaInfo``), else 1."""
+        labels = None if info is None else info.labels
+        if labels is not None and np.ndim(labels) == 2:
+            return int(labels.shape[1])
         return 1
 
     def gradient(self, preds: torch.Tensor, labels: torch.Tensor,
@@ -85,12 +93,14 @@ class Objective:
                         weights: Optional[torch.Tensor] = None
                         ) -> np.ndarray:
         """One Newton step from margin 0 (reference ``fit_stump``,
-        ``src/tree/fit_stump.cc``) -> [k] f32 base margin."""
-        zero = torch.zeros((labels.shape[0], 1), dtype=torch.float32,
+        ``src/tree/fit_stump.cc``) -> [k] f32 base margin, one a target
+        of a label matrix [n, k]. A label matrix's gradient sums add in
+        the JAX package's order and one column in the port's own
+        (``ops/xla_order.py stump_sums``)."""
+        k = labels.shape[1] if labels.dim() == 2 else 1
+        zero = torch.zeros((labels.shape[0], k), dtype=torch.float32,
                            device=labels.device)
-        gpair = self.get_gradient(zero, labels, weights)
-        g = gpair[..., 0].sum(dim=0)
-        h = gpair[..., 1].sum(dim=0)
+        g, h = stump_sums(self.get_gradient(zero, labels, weights)).unbind(-1)
         est = torch.where(h <= 0, torch.zeros_like(g),
                           -g / torch.clamp(h, min=1e-10))
         return est.to(torch.float32).cpu().numpy()

@@ -31,7 +31,7 @@ def softmax(margin: torch.Tensor) -> torch.Tensor:
 class _SoftmaxBase(Objective):
     default_metric = "mlogloss"
 
-    def n_targets(self) -> int:
+    def n_targets(self, info=None) -> int:
         nc = int(self.params.get("num_class", 0) or 0)
         if nc < 2:
             raise ValueError("num_class must be set (>=2) for "

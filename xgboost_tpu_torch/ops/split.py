@@ -40,6 +40,7 @@ import torch
 
 from ..tree.param import (TrainParam, _f32, calc_gain,
                           calc_gain_given_weight, calc_weight)
+from .xla_order import cumsum_in_xla_order, sum_in_xla_order
 
 
 class CatInfo(NamedTuple):
@@ -208,6 +209,112 @@ def _categorical_left(present, miss, parent5, left, base_valid, bins_idx,
     base_valid = torch.where(cat.is_cat[:, None, None], cat_valid,
                              base_valid)
     return left, base_valid, ranks
+
+
+class MultiSplitResult(NamedTuple):
+    """The best split of each node of a vector-leaf tree: one split for
+    all K targets."""
+
+    gain: torch.Tensor          # [N] loss_chg summed over the targets
+    feature: torch.Tensor       # [N] int64
+    bin: torch.Tensor           # [N] int64
+    default_left: torch.Tensor  # [N] bool
+    left_sum: torch.Tensor      # [N, K, 2]
+    right_sum: torch.Tensor     # [N, K, 2]
+
+
+# the working set of one chunk of the vector-leaf split search: the
+# nodes of a level are searched in chunks whose gain and hessian planes
+# [4, n, F, 2, K, nb] f32 stay under this many bytes
+MULTI_SPLIT_CHUNK_BYTES = 1 << 30
+
+
+def evaluate_splits_multi(hist: torch.Tensor, parent_sum: torch.Tensor,
+                          n_real_bins: torch.Tensor, param: TrainParam,
+                          has_missing: bool = True,
+                          feature_mask: Optional[torch.Tensor] = None
+                          ) -> MultiSplitResult:
+    """Split search for vector-leaf trees (the JAX package's
+    ``evaluate_splits_multi``; reference ``HistMultiEvaluator``): one
+    split is shared by the K targets and scored by the sum of their
+    gains, and ``min_child_weight`` holds the children's hessians summed
+    over the targets. hist [N, F, B, K, 2]; parent_sum [N, K, 2];
+    feature_mask [F] or [N, F] bool (column samples, interaction
+    constraints; there are no categorical splits or monotone
+    constraints with vector leaves).
+
+    The prefix sums over the bins and the sums over the targets add in
+    the order the JAX package's compiled CPU program adds them
+    (:func:`cumsum_in_xla_order`, :func:`sum_in_xla_order`), and each
+    target's gain is its arithmetic, so that on the same histogram the
+    search gives the JAX package's bits and near ties break alike.
+
+    Each node's search is its own, so the nodes go through in chunks of
+    ``MULTI_SPLIT_CHUNK_BYTES`` (the same bits as one pass): the
+    working set stays bounded while a level's node count doubles."""
+    N, F, B, K, _ = hist.shape
+    nb = B - 1 if has_missing else B
+    n_dirs = 2 if has_missing else 1
+    per_node = 4 * F * n_dirs * K * nb * 4
+    step = max(1, MULTI_SPLIT_CHUNK_BYTES // per_node)
+    if feature_mask is not None and feature_mask.dim() == 1:
+        feature_mask = feature_mask[None].expand(N, -1)
+    parts = [_splits_multi(hist[lo:lo + step], parent_sum[lo:lo + step],
+                           n_real_bins, param, has_missing,
+                           None if feature_mask is None
+                           else feature_mask[lo:lo + step])
+             for lo in range(0, N, step)]
+    if len(parts) == 1:
+        return parts[0]
+    return MultiSplitResult(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _splits_multi(hist, parent_sum, n_real_bins, param, has_missing,
+                  feature_mask) -> MultiSplitResult:
+    """:func:`evaluate_splits_multi` over one chunk of nodes."""
+    N, F, B, K, _ = hist.shape
+    nb = B - 1 if has_missing else B
+    cum = cumsum_in_xla_order(hist[:, :, :nb].permute(0, 1, 3, 4, 2))
+    if has_missing:
+        miss = hist[:, :, B - 1]                            # [N, F, K, 2]
+        left = torch.stack([cum, cum + miss[..., None]], dim=2)
+    else:
+        left = cum[:, :, None]                              # [N,F,d,K,2,nb]
+    del cum
+    n_dirs = left.shape[2]
+    sides = torch.stack([left, parent_sum[:, None, None, :, :, None]
+                         - left])                           # left, right
+    # [4, N, F, d, K, nb]: the left and right gains, then their hessians
+    terms = torch.cat([calc_gain(sides[..., 0, :], sides[..., 1, :], param),
+                       sides[..., 1, :]])
+    del sides
+    gl, gr, hl, hr = sum_in_xla_order(terms, dim=4)
+    del terms
+    pgain = sum_in_xla_order(calc_gain(parent_sum[..., 0],
+                                       parent_sum[..., 1], param),
+                             dim=1)                         # [N]
+    loss_chg = gl + gr - pgain[:, None, None, None]
+    bins_idx = torch.arange(nb, device=hist.device)
+    base_valid = bins_idx[None, None, :] < n_real_bins[:, None, None]
+    mcw = _f32(param.min_child_weight)
+    valid = base_valid[None] & (hl >= mcw) & (hr >= mcw)
+    if feature_mask is not None:
+        valid = valid & feature_mask[:, :, None, None]
+    loss_chg = torch.where(valid, loss_chg,
+                           torch.full_like(loss_chg, float("-inf")))
+
+    flat = loss_chg.reshape(N, -1)
+    best = torch.argmax(flat, dim=1)                        # first maximum
+    best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
+    f_idx = torch.div(best, nb * n_dirs, rounding_mode="floor")
+    rem = best % (nb * n_dirs)
+    d_idx = torch.div(rem, nb, rounding_mode="floor")
+    b_idx = rem % nb
+    nn = torch.arange(N, device=hist.device)
+    best_left = left[nn, f_idx, d_idx, :, :, b_idx]         # [N, K, 2]
+    return MultiSplitResult(gain=best_gain, feature=f_idx, bin=b_idx,
+                            default_left=d_idx.bool(), left_sum=best_left,
+                            right_sum=parent_sum - best_left)
 
 
 # ---- two-level coarse -> refine search --------------------------------------

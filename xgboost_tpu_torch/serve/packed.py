@@ -149,6 +149,9 @@ class PackedForest:
                    ) -> "PackedForest":
         if not trees:
             raise PackError("cannot pack an empty forest")
+        if trees[0].leaf_value.ndim == 2:
+            raise PackError("vector-leaf (multi_output_tree) trees have no "
+                            "packed form; they walk as torch ops")
         lay = _field_layout()
         T = len(trees)
         has_cat = any(t.is_cat_split.any() for t in trees)

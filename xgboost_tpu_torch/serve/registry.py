@@ -3,9 +3,12 @@
 A :class:`ServedModel` is the device-resident form of a Booster: its
 forest is packed and uploaded ONCE at load, the objective's transform
 and base margin are resolved up front, and the padded-batch margin
-entry point works on bucketed device tensors. A forest that cannot be
-packed is refused with ``PackError``: on the card the packed walk is
-the only walk, so there is no slow path to fall back to.
+entry point works on bucketed device tensors. A scalar forest that
+cannot be packed is refused with ``PackError``: on the card the packed
+walk is its only walk, so there is no slow path to fall back to. A
+vector-leaf forest (``multi_output_tree``) has no packed form in either
+package; it is stacked once at load and serves through its torch walk
+(``boosting/predict.py margin_raw``), as ``Booster.predict`` walks it.
 
 The :class:`ModelRegistry` maps ``name -> ServedModel`` under a lock
 with ATOMIC replacement: a hot swap fully constructs (and the server
@@ -24,6 +27,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..boosting.predict import margin_raw, stack_trees
+from ..tree.multi import is_vector_leaf
 from .errors import ModelLoadError, UnknownModel
 from .packed import PackError
 
@@ -59,12 +64,22 @@ class ServedModel:
         self.base = torch.tensor(base, device=device)
         self.n_features = int(booster.num_features())
         self._obj = booster.obj
-        self.packed = booster.packed_forest()
-        if self.packed is None:
-            raise PackError(f"model '{name}' has no trees to serve")
-        self.packed.device_arrays(device)        # pin now, not per batch
+        self.packed = self.stacked = None
+        gbm = booster.gbm
+        if gbm is not None and is_vector_leaf(gbm.trees):
+            self.stacked = stack_trees(gbm.trees, gbm.tree_info,
+                                       self.n_groups, device)
+            self.n_trees = len(gbm.trees)
+            max_feature = max(int(t.split_feature.max()) for t in gbm.trees)
+        else:
+            self.packed = booster.packed_forest()
+            if self.packed is None:
+                raise PackError(f"model '{name}' has no trees to serve")
+            self.packed.device_arrays(device)    # pin now, not per batch
+            self.n_trees = self.packed.n_trees
+            max_feature = self.packed.max_feature
         # the walk reads X[row, feature]: refuse batches narrower than this
-        self.min_columns = max(self.n_features, self.packed.max_feature + 1)
+        self.min_columns = max(self.n_features, max_feature + 1)
 
     def key(self) -> str:
         return f"{self.name}@v{self.version}"
@@ -77,6 +92,8 @@ class ServedModel:
             raise ValueError(
                 f"model {self.key()} needs {self.min_columns} feature "
                 f"columns, the batch has {X_dev.shape[1]}")
+        if self.packed is None:
+            return margin_raw(self.stacked, X_dev, self.base)
         return self.packed.margin(X_dev, self.base)
 
     def transform(self, margin: torch.Tensor) -> torch.Tensor:
@@ -160,5 +177,5 @@ class ModelRegistry:
         with self._lock:
             return [{"name": m.name, "version": m.version,
                      "n_features": m.n_features, "n_groups": m.n_groups,
-                     "n_trees": m.packed.n_trees}
+                     "n_trees": m.n_trees}
                     for m in self._models.values()]

@@ -87,6 +87,8 @@ class GrownTree(NamedTuple):
     default_left: torch.Tensor   # [max_nodes] bool
     is_leaf: torch.Tensor        # [max_nodes] bool
     active: torch.Tensor         # [max_nodes] bool
+    # vector-leaf trees (``tree/multi.py``) carry a trailing target axis K
+    # on leaf_value, base_weight and delta, and node_sum is [max_nodes, K, 2]
     leaf_value: torch.Tensor     # [max_nodes] f32 (eta applied)
     node_sum: torch.Tensor       # [max_nodes, 2] f32
     gain: torch.Tensor           # [max_nodes] f32
@@ -263,12 +265,21 @@ def select_max_leaves(active: np.ndarray, is_leaf: np.ndarray,
     return exists, selected, not (selected == was_split).all()
 
 
+def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-node mask [N] shaped to broadcast over ``like``'s trailing
+    axes ([N], [N, 2], [N, K], [N, K, 2])."""
+    return mask.view((-1,) + (1,) * (like.dim() - 1))
+
+
 class HeapTree:
     """The heap arrays of one growing tree (node i has children 2i+1 /
-    2i+2) and the bookkeeping of a level, shared by :func:`grow_tree` and
-    ``tree/paged.py PagedGrower``: each level's split results go in
-    through :meth:`record`, and :meth:`finish` turns the heap and the
-    rows' final nodes into a :class:`GrownTree`."""
+    2i+2) and the bookkeeping of a level, shared by :func:`grow_tree`,
+    ``tree/paged.py PagedGrower`` and the vector-leaf grower of
+    ``tree/multi.py``: each level's split results go in through
+    :meth:`record`, and :meth:`finish` turns the heap and the rows' final
+    nodes into a :class:`GrownTree`. ``root_sum`` is the root's (g, h)
+    [2], or [K, 2] for a vector-leaf tree, whose nodes then hold K
+    sums and K weights."""
 
     def __init__(self, max_depth: int, root_sum: torch.Tensor,
                  param: TrainParam, n_words: int = 0,
@@ -287,8 +298,8 @@ class HeapTree:
         self.active = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
         self.active[0] = True
         self.gain = torch.zeros((max_nodes,), dtype=torch.float32, device=dev)
-        self.node_sum = torch.zeros((max_nodes, 2), dtype=torch.float32,
-                                    device=dev)
+        self.node_sum = torch.zeros((max_nodes,) + tuple(root_sum.shape),
+                                    dtype=torch.float32, device=dev)
         self.node_sum[0] = root_sum
         self.min_gain = _f32(max(param.gamma, _EPS))
         # ``n_words`` > 0: categorical splits, their left sets in that many
@@ -360,10 +371,11 @@ class HeapTree:
         children = slice(2 * lo + 1, 2 * hi + 1)    # [l0, r0, l1, r1, ...]
         self.active[children] = can_split.repeat_interleave(2)
         zero2 = torch.zeros_like(res.left_sum)
+        cs = _rows(can_split, res.left_sum)
         self.node_sum[children] = torch.stack(
-            [torch.where(can_split[:, None], res.left_sum, zero2),
-             torch.where(can_split[:, None], res.right_sum, zero2)],
-            dim=1).reshape(-1, 2)
+            [torch.where(cs, res.left_sum, zero2),
+             torch.where(cs, res.right_sum, zero2)],
+            dim=1).reshape((-1,) + tuple(res.left_sum.shape[1:]))
         feat = res.feature.clamp(min=0)
         if self.monotone is not None:
             plo, phi = self.node_lower[lo:hi], self.node_upper[lo:hi]
@@ -402,19 +414,21 @@ class HeapTree:
         """The grown tree, with ``positions`` [n] the rows' final heap
         nodes: leaf weights ``calc_weight * eta`` and each row's delta, the
         leaf value at its node."""
-        w = calc_weight(self.node_sum[:, 0], self.node_sum[:, 1], self.param)
+        w = calc_weight(self.node_sum[..., 0], self.node_sum[..., 1],
+                        self.param)
         if self.monotone is not None:
             w = torch.clamp(w, self.node_lower, self.node_upper)
         w = w * _f32(self.param.eta)
         zero = torch.zeros_like(w)
-        leaf_value = torch.where(self.active & self.is_leaf, w, zero)
+        leaf_value = torch.where(_rows(self.active & self.is_leaf, w), w,
+                                 zero)
         return GrownTree(
             split_feature=self.split_feature, split_bin=self.split_bin,
             default_left=self.default_left, is_leaf=self.is_leaf,
             active=self.active, leaf_value=leaf_value,
             node_sum=self.node_sum, gain=self.gain, positions=positions,
             delta=leaf_value[positions],
-            base_weight=torch.where(self.active, w, zero),
+            base_weight=torch.where(_rows(self.active, w), w, zero),
             is_cat_split=self.is_cat_split, cat_words=self.cat_words)
 
 
@@ -659,7 +673,8 @@ class TreeGrower:
         sel = torch.from_numpy(selected).to(dev)
         new_is_leaf = exists_t & ~sel
         zero = torch.zeros_like(g.base_weight)
-        leaf_value = torch.where(new_is_leaf, g.base_weight, zero)
+        leaf_value = torch.where(_rows(new_is_leaf, zero), g.base_weight,
+                                 zero)
         pos = g.positions
         for _ in range(self.param.max_depth):
             pos = torch.where(exists_t[pos], pos, (pos - 1) // 2)
@@ -673,7 +688,8 @@ class TreeGrower:
             active=exists_t, leaf_value=leaf_value, node_sum=g.node_sum,
             gain=torch.where(sel, g.gain, torch.zeros_like(g.gain)),
             positions=pos, delta=leaf_value[pos],
-            base_weight=torch.where(exists_t, g.base_weight, zero),
+            base_weight=torch.where(_rows(exists_t, zero), g.base_weight,
+                                    zero),
             is_cat_split=g.is_cat_split & sel if cat else None,
             cat_words=(torch.where(sel[:, None], g.cat_words,
                                    torch.zeros_like(g.cat_words))
