@@ -148,6 +148,36 @@ counts set to 0 just before and read just after:
   held-out rmse falling); K2 at 30,993 x 120 (N = 1 and 32, 256 and
   257 slots) and K1 on the 101-group forest at 12,914 rows (both
   schedules) against their plain versions, and timed;
+- the rest of the objectives, in three phases. ``quantile_regression``
+  (XGBoost 2.0's quantile regression demo at the HIGGS shape: the
+  1,000,000 + 100,000 HIGGS-shape rows with a linear signal under a
+  noise whose spread grows with two features; ``reg:quantileerror`` at
+  alphas 0.05 / 0.5 / 0.95, ``learning_rate`` 0.04, depth 5, up to 32
+  rounds with early stopping after 2 on the held-out rows), twice (one
+  sha256; K4 at every level of the three trees a round, K1 once a
+  round): held-out pinball loss per alpha falling, the coverage of
+  [q0.05, q0.95], seconds a round and three profiled rounds, the leaf
+  refresh's device time on 1,000,000 rows, ``reg:absoluteerror`` for 10
+  rounds (held-out MAE falling), and ``reg:pseudohubererror``,
+  ``reg:squaredlogerror`` and ``binary:hinge`` 3 rounds each.
+  ``survival`` (XGBoost's AFT demo settings: ``normal``, scale 1.2,
+  ``learning_rate`` 0.05, depth 6, ``lambda`` 0.01, ``alpha`` 0.02, on
+  the HIGGS-shape rows with log-normal times, half uncensored and the
+  rest right-, left- and interval-censored): AFT 10 rounds twice with
+  held-out ``aft-nloglik`` and ``interval-regression-accuracy``,
+  ``logistic`` and ``extreme`` 2 rounds each, ``survival:cox`` 10 rounds
+  twice on the same times (a negative label for a right-censored one)
+  with held-out ``cox-nloglik``. ``insurance_claims`` (the freMTPL2freq
+  shape of scikit-learn's Poisson and Tweedie examples, ``fremtpl2_like``:
+  678,013 policies x 9 features with VehBrand, Area and Region as
+  category codes, Exposure as the weight, about 5% claiming; 10% held
+  out): ``count:poisson`` on the claim frequency and ``reg:tweedie``
+  (power 1.5) on the pure premium, 10 rounds twice each, and
+  ``reg:gamma`` on the claiming policies' mean claim (weight: the claim
+  count) with ``gamma-deviance`` (K2 at every level, K1 once a round,
+  K4 never). In every phase the card's trees are held node for node
+  against the CPU port's on the first 20,000 rows (``card_against_cpu``)
+  and each cell prints seconds a round and three profiled rounds;
 - BASELINE config #3 in full (``mslr_ranking``): ``rank:ndcg``
   LambdaMART at the MSLR-WEB30K Fold1 shape (``mslr_like``: 136 N(0, 1)
   features, 18,919 training queries of log-normal sizes with MSLR's
@@ -3256,6 +3286,562 @@ def multi_target(xt, dev):
     return runs, errs, k1_errs, times, out
 
 
+# the objectives phases (``quantile_regression``, ``survival``,
+# ``insurance_claims``): XGBoost 2.0's quantile regression demo
+# (demo/guide-python/quantile_regression.py) and AFT survival demo
+# (demo/aft_survival/aft_survival_demo.py) at the HIGGS shape, and the
+# freMTPL2freq shape of scikit-learn's Poisson / Tweedie examples
+QR_PARAMS = {"objective": "reg:quantileerror",
+             "quantile_alpha": [0.05, 0.5, 0.95], "tree_method": "hist",
+             "learning_rate": 0.04, "max_depth": 5, "max_bin": 256}
+QR_ROUNDS = 32
+QR_EARLY_STOP = 2
+MAE_ROUNDS = 10
+AFT_PARAMS = {"objective": "survival:aft",
+              "eval_metric": ["aft-nloglik", "interval-regression-accuracy"],
+              "aft_loss_distribution": "normal",
+              "aft_loss_distribution_scale": 1.20, "tree_method": "hist",
+              "learning_rate": 0.05, "max_depth": 6, "lambda": 0.01,
+              "alpha": 0.02, "max_bin": 256}
+SURV_ROUNDS = 10
+OTHER_ROUNDS = 2
+# uncensored, right-, left- and interval-censored shares of the rows
+SURV_CENSORING = (0.5, 0.25, 0.1, 0.15)
+HIGGS_TRAIN = 1_000_000
+# three objectives the other phases do not reach, at the HIGGS shape
+EXTRA_OBJECTIVES = ("reg:pseudohubererror", "reg:squaredlogerror",
+                    "binary:hinge")
+EXTRA_ROUNDS = 3
+# freMTPL2freq: 678,013 policies; 10% held out
+MTPL_ROWS = 678_013
+MTPL_TEST = 67_801
+MTPL_TYPES = ["q", "q", "q", "q", "c", "q", "c", "q", "c"]
+MTPL_PARAMS = {"max_depth": 6, "eta": 0.1, "max_bin": 256}
+MTPL_ROUNDS = 10
+CLAIM_SHARE = 0.05
+# rows of the card-against-CPU comparisons
+GAP_ROWS = 20_000
+GAP_ROUNDS = 2
+
+
+def quantile_labels(X, seed):
+    """A linear signal plus noise whose spread grows with |x1| and |x2|:
+    the quantiles fan out across the features."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(X.shape[1]).astype(np.float32) / 4
+    spread = 0.5 + np.abs(X[:, 1]) + 0.5 * np.abs(X[:, 2])
+    return (X @ w + spread * rng.standard_normal(len(X)).astype(np.float32)
+            ).astype(np.float32)
+
+
+def survival_times(X, seed):
+    """(times, lower, upper, cox labels): log-normal times from a linear
+    rule, censored in the ``SURV_CENSORING`` mix (right: upper +inf, left:
+    lower 0, interval: a window around the time); the Cox label is the
+    time, negative when the row is right-censored."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(X.shape[1]).astype(np.float32) / 8
+    t = np.exp(2.0 + X @ w + 0.5 * rng.standard_normal(len(X))).astype(
+        np.float32)
+    kind = rng.choice(4, len(X), p=SURV_CENSORING)
+    lo, hi = t.copy(), t.copy()
+    hi[kind == 1] = np.inf
+    lo[kind == 2] = 0.0
+    lo[kind == 3] = t[kind == 3] * rng.uniform(0.5, 0.9, (kind == 3).sum())
+    hi[kind == 3] = t[kind == 3] * rng.uniform(1.1, 2.0, (kind == 3).sum())
+    cox = np.where(kind == 1, -t, t).astype(np.float32)
+    return t, lo.astype(np.float32), hi.astype(np.float32), cox
+
+
+def fremtpl2_like(seed):
+    """The freMTPL2freq shape, made from ``seed``: 678,013 policies x 9
+    features (VehPower, VehAge, DrivAge, BonusMalus, VehBrand (11 codes),
+    VehGas, Area (6 codes), log Density, Region (22 codes)), Exposure in
+    (0, 1], ClaimNb ~ Poisson(Exposure x frequency) with about 5% of the
+    policies claiming (0.1 claims a policy-year, as in the published
+    table), and ClaimAmount a gamma severity per claim whose mean moves
+    with VehGas, DrivAge and VehBrand.
+    Returns (X, exposure, claim counts, claim amounts)."""
+    rng = np.random.default_rng(seed)
+    n = MTPL_ROWS
+    veh_power = rng.integers(4, 16, n)
+    veh_age = np.minimum(rng.exponential(7.0, n), 100).astype(np.int64)
+    drv_age = rng.integers(18, 91, n)
+    bonus = np.where(rng.random(n) < 0.6, 50,
+                     rng.integers(50, 231, n))
+    brand = rng.choice(11, n, p=np.arange(11, 0, -1) / 66)
+    gas = rng.integers(0, 2, n)
+    area = rng.choice(6, n, p=[0.15, 0.11, 0.28, 0.22, 0.2, 0.04])
+    log_density = rng.uniform(0, 10.2, n)
+    region = rng.choice(22, n, p=np.arange(22, 0, -1) / 253)
+    X = np.stack([veh_power, veh_age, drv_age, bonus, brand, gas, area,
+                  log_density, region], axis=1).astype(np.float32)
+    exposure = np.where(rng.random(n) < 0.2, 1.0,
+                        rng.uniform(0.003, 0.9, n)).astype(np.float32)
+    brand_fx = rng.normal(0, 0.2, 11)
+    region_fx = rng.normal(0, 0.2, 22)
+    freq = 0.045 * np.exp(0.012 * (bonus - 50) - 0.004 * (drv_age - 45)
+                          + 0.05 * area + brand_fx[brand]
+                          + region_fx[region])
+    counts = rng.poisson(exposure * freq).astype(np.float32)
+    severity = 1800.0 * np.exp(0.3 * gas - 0.01 * (drv_age - 45)
+                               + rng.normal(0, 0.3, 11)[brand])
+    amounts = np.where(counts > 0, rng.gamma(1.2 * np.maximum(counts, 1),
+                                             severity), 0.0).astype(
+        np.float32)
+    return X, exposure, counts, amounts
+
+
+def pinball(y, q, alpha):
+    err = y.astype(np.float64) - q
+    return float(np.mean(np.where(err >= 0, alpha * err, (alpha - 1) * err)))
+
+
+def train_model_twice(xt, label, params, dtr, rounds, evals, want,
+                      **kw):
+    """Two runs of ``train`` on the card with the launch counts set to 0
+    before each, every plain histogram build refused; one sha256 in both.
+    ``want(bst, counts)`` -> None or the reason the launches are wrong.
+    Returns (run 0's booster, its evals_result, its counts, the sha256,
+    the two runs' counts)."""
+    digests, runs = [], []
+    for run in range(2):
+        res = {}
+        with NoPlainBuilds():
+            bst, c = train_launches(f"{label} run {run}", lambda r=res:
+                                    xt.train(params, dtr, rounds,
+                                             evals=evals, evals_result=r,
+                                             verbose_eval=False, **kw))
+        bad = want(bst, c)
+        if bad:
+            raise AssertionError(f"{label}: {bad} ({c})")
+        runs.append(c)
+        digests.append(hashlib.sha256(bytes(bst.save_raw("ubj")))
+                       .hexdigest())
+        if run == 0:
+            out = (bst, res, c)
+    if digests[0] != digests[1]:
+        raise AssertionError(f"{label}: two runs saved different models "
+                             f"{digests}")
+    log(f"{label}: model sha256 {digests[0]} (both runs)")
+    return (*out, digests[0], runs)
+
+
+def launches_per_round(c, rounds):
+    return {k: c[k] / rounds for k in ("hist_scan", "hist_int8x2",
+                                       "hist_f32", "walk_packed")}
+
+
+def cell_profile(xt, label, params, dtr):
+    """Seconds a round (median of rounds 1-5, host clock) and device busy
+    and idle over three profiled rounds (:func:`profile_rounds`)."""
+    timer, per, s = seconds_per_round(params, dtr)
+    busy, _ = profile_rounds(label, timer, dtr, top=8)
+    log(f"{label}: seconds a round {['%.6f' % t for t in per]}, median of "
+        f"rounds 1-5 {s:.6f} s")
+    return s, busy
+
+
+# int8x2 quanta of a leaf's sums that may round the other way on the
+# card, beside those its rows' gradients move: with both devices at one
+# margin a row's gradient differs by a few ulps (``exp`` / ``erf`` /
+# the order of float64 scans), which moves its quantised value across a
+# rounding boundary with probability below 2^-22 * 32512 (2 ulps of the
+# largest gradient over its quantum)
+FLIP_QUANTA = 8
+FLIP_PER_ROW = 2.0 ** -22 * 32512
+
+
+def certified_trees(a, b, label, eta, lam, quanta, rows):
+    """The card's tree ``a`` against the CPU port's ``b``, grown from the
+    same margin, with the tests' near-tie certificate
+    (``tests/test_torch_train.py compare_tree``): nodes are paired from
+    the root; where the trees split differently, or one splits a node the
+    other leaves, the two gains must lie within 2e-4 of the node's scale
+    (its term G^2 / (H + lambda), or the larger gain; a near tie) and
+    the subtrees below are skipped. A leaf may differ by rtol 1e-5 plus what ``k = FLIP_QUANTA
+    + FLIP_PER_ROW * rows[leaf]`` of the round's int8x2 quanta
+    ``quanta`` = (q_g, q_h) in its sums move it:
+    ``eta * k * (q_g + |w| q_h) / (H + lambda)``. Returns (near-tie
+    nodes, largest leaf gap, largest gap over its bound)."""
+    ties, gap, worst = [], 0.0, 0.0
+    q_g, q_h = quanta
+
+    def scale(t, n):
+        """The node's own term G^2 / (H + lambda), from its weight."""
+        h = float(t.sum_hess[n]) + lam
+        return (float(t.base_weight[n]) / eta) ** 2 * h
+
+    stack = [(0, 0)]
+    while stack:
+        i, j = stack.pop()
+        if a.is_leaf[i] != b.is_leaf[j]:
+            # one device's best gain rounds to at most 0, the other's
+            # above: a near tie with not splitting
+            t, n = (b, j) if a.is_leaf[i] else (a, i)
+            if abs(float(t.gain[n])) > 2e-4 * scale(t, n) + 1e-6:
+                raise AssertionError(f"{label}: node {i} is a leaf in one "
+                                     f"tree only, its gain {t.gain[n]} not "
+                                     "at a near tie with 0")
+            ties.append(int(i))
+            continue
+        if a.is_leaf[i]:
+            va, vb = float(a.leaf_value[i]), float(b.leaf_value[j])
+            k = FLIP_QUANTA + FLIP_PER_ROW * rows.get(int(j), 0)
+            bound = 1e-5 * abs(vb) + 1e-7 + eta * k * (
+                q_g + abs(vb) / eta * q_h) / (float(b.sum_hess[j]) + lam)
+            if abs(va - vb) > bound:
+                raise AssertionError(f"{label}: leaf {i} {va} on the card, "
+                                     f"{vb} on the CPU (bound {bound})")
+            gap = max(gap, abs(va - vb))
+            worst = max(worst, abs(va - vb) / bound)
+            continue
+        if (a.split_feature[i], a.split_bin[i], a.default_left[i]) != \
+                (b.split_feature[j], b.split_bin[j], b.default_left[j]):
+            size = max(abs(float(a.gain[i])), abs(float(b.gain[j])),
+                       scale(b, j))
+            if abs(float(a.gain[i]) - float(b.gain[j])) > 2e-4 * size \
+                    + 1e-6:
+                raise AssertionError(f"{label}: node {i} splits "
+                                     "differently, not at a near tie")
+            ties.append(int(i))
+            continue
+        stack.append((a.left_child[i], b.left_child[j]))
+        stack.append((a.right_child[i], b.right_child[j]))
+    return ties, gap, worst
+
+
+def card_against_cpu(xt, name, params, X, rounds=GAP_ROUNDS, **dm_kw):
+    """The first ``GAP_ROWS`` rows on the card and on the CPU port, round
+    by round: round r grows on both devices from the CPU model's margin
+    before it (``base_margin``), so that only the devices' arithmetic
+    differs, and its trees are held to :func:`certified_trees` (the
+    int8x2 quanta of the CPU's gradient at that margin, each leaf's rows
+    from ``pred_leaf``). Returns (trees the same in full, near-tie nodes
+    by tree, the largest leaf gap, the largest gap over its bound)."""
+    rows = {k: (v[:GAP_ROWS] if isinstance(v, np.ndarray) else v)
+            for k, v in dm_kw.items()}
+    Xg = X[:GAP_ROWS]
+    cpu_p = dict(params, device="cpu")
+    ref = xt.train(cpu_p, xt.DMatrix(Xg, **rows), rounds, verbose_eval=False)
+    full, ties, gap, worst = 0, {}, 0.0, 0.0
+    for r in range(rounds):
+        kw = dict(rows)
+        if r:
+            kw["base_margin"] = ref.predict(
+                xt.DMatrix(Xg, **rows), output_margin=True,
+                strict_shape=True, iteration_range=(0, r))
+        card = xt.train(params, xt.DMatrix(Xg, **kw), 1, verbose_eval=False)
+        dm = xt.DMatrix(Xg, **kw)
+        cpu = xt.train(cpu_p, dm, 1, verbose_eval=False)
+        if r == 0 and not np.allclose(card._base_np(), cpu._base_np(),
+                                      rtol=1e-6):
+            raise AssertionError(f"{name}: the intercepts differ on the card")
+        st = cpu._state_of(dm, True)
+        q = (cpu._gradient(st["base"], st, dm, 0, None).abs().amax(dim=0)
+             / 32512.0).numpy()
+        leaves = cpu.predict(dm, pred_leaf=True)
+        tp = cpu.tree_param
+        for t, (a, b) in enumerate(zip(card.gbm.trees, cpu.gbm.trees)):
+            idx, n = np.unique(leaves[:, t], return_counts=True)
+            tie, g, w = certified_trees(
+                a, b, f"{name} round {r} tree {t}", tp.eta, tp.reg_lambda,
+                tuple(float(v) for v in q[cpu.gbm.tree_info[t]]),
+                dict(zip(idx.tolist(), n.tolist())))
+            gap, worst = max(gap, g), max(worst, w)
+            if tie:
+                ties[f"{r}.{t}"] = tie
+            else:
+                full += 1
+    log(f"{name}: card vs CPU at {GAP_ROWS} rows, round by round from one "
+        f"margin, {rounds} rounds: {full} of {len(ref.gbm.trees)} trees the "
+        f"same in full" + (f", near ties at {ties}" if ties else "")
+        + f"; largest leaf gap {gap:.3e} ({worst:.3f} of its bound)")
+    if not full:
+        raise AssertionError(f"{name}: no tree compared in full")
+    return full, ties, gap, worst
+
+
+def quantile_regression(xt, dev, X):
+    """The ``quantile_regression`` phase (module docstring): returns (the
+    main-path runs' launch counts, a summary)."""
+    from xgboost_tpu_torch.objective.adaptive import segment_quantiles
+
+    t_phase = time.perf_counter()
+    n_tr = HIGGS_TRAIN
+    y = quantile_labels(X, seed=21)
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr])
+    dte = xt.DMatrix(X[n_tr:], label=y[n_tr:])
+    yte = y[n_tr:]
+    alphas = QR_PARAMS["quantile_alpha"]
+    depth = QR_PARAMS["max_depth"]
+    runs, out = [], {}
+
+    def want(bst, c):
+        r = bst.num_boosted_rounds()
+        if c["hist_scan"] != depth * len(alphas) * r or c["hist_int8x2"] \
+                or c["hist_f32"]:
+            return f"expected K4 {depth * len(alphas)} a round only"
+        if c["walk_packed"] != r:
+            return "expected K1 once a round (the held-out walk)"
+        return None
+
+    bst, res, c, digest_q, rr = train_model_twice(
+        xt, "quantile_regression", QR_PARAMS, dtr, QR_ROUNDS,
+        [(dte, "test")], want, early_stopping_rounds=QR_EARLY_STOP)
+    runs += rr
+    r_end = bst.num_boosted_rounds()
+    first = bst.predict(dte, iteration_range=(0, 1))
+    last = bst.predict(dte)
+    if first.shape != (len(yte), 3) or not np.isfinite(last).all():
+        raise AssertionError(f"quantile predictions of shape {last.shape}")
+    loss0 = [pinball(yte, first[:, k], a) for k, a in enumerate(alphas)]
+    loss1 = [pinball(yte, last[:, k], a) for k, a in enumerate(alphas)]
+    if not all(b < a for a, b in zip(loss0, loss1)):
+        raise AssertionError(f"held-out pinball loss did not fall: {loss0} "
+                             f"-> {loss1}")
+    cover = float(np.mean((yte >= last[:, 0]) & (yte <= last[:, 2])))
+    qm = res["test"]["quantile"]
+    out["quantile"] = dict(rounds=r_end, best=bst.best_iteration,
+                           loss=(loss0, loss1), cover=cover, digest=digest_q,
+                           per_round=launches_per_round(c, r_end))
+    log(f"quantile_regression: {r_end} rounds (early stopping at "
+        f"{QR_EARLY_STOP}: best_iteration {bst.best_iteration}, held-out "
+        f"quantile metric {qm[0]} -> {qm[-1]}); launches a round "
+        f"{out['quantile']['per_round']}; held-out pinball loss per alpha "
+        f"{dict(zip(alphas, [f'{a:.6f} -> {b:.6f}' for a, b in zip(loss0, loss1)]))}; "
+        f"coverage of [q0.05, q0.95] {cover:.6f} (nominal 0.90)")
+    out["quantile"]["s_round"], out["quantile"]["busy"] = cell_profile(
+        xt, "quantile_regression", QR_PARAMS, dtr)
+    # the leaf refresh alone: one tree's quantile over the 1M training
+    # rows (device-only: the host queues it behind a device sleep)
+    tree = bst.gbm.trees[-1]
+    leaves = torch.from_numpy(np.nonzero(tree.is_leaf)[0]).to(dev)
+    pos = leaves[torch.randint(0, len(leaves), (n_tr,), device=dev)]
+    res64 = torch.randn(n_tr, dtype=torch.float64, device=dev)
+    refresh_ms = queued_ms(lambda: segment_quantiles(pos, res64, None,
+                                                     leaves, 0.5), 10, None)
+    out["quantile"]["refresh_ms"] = refresh_ms
+    log(f"quantile_regression: leaf refresh (float64 sort by leaf and "
+        f"residual, one gather a leaf) {refresh_ms:.6f} ms a tree on "
+        f"{n_tr} rows and {len(leaves)} leaves (device-only), "
+        f"{refresh_ms * len(alphas):.6f} ms a round")
+    out["quantile"]["gap"] = card_against_cpu(
+        xt, "quantile_regression", QR_PARAMS, X, label=y)
+
+    # reg:absoluteerror on the same rows
+    res_m = {}
+    with NoPlainBuilds():
+        bm, cm = train_launches("reg:absoluteerror", lambda: xt.train(
+            dict(QR_PARAMS, objective="reg:absoluteerror"), dtr, MAE_ROUNDS,
+            evals=[(dte, "test")], evals_result=res_m, verbose_eval=False))
+    if cm["hist_scan"] != depth * MAE_ROUNDS or \
+            cm["walk_packed"] != MAE_ROUNDS:
+        raise AssertionError(f"reg:absoluteerror launched {cm}")
+    runs.append(cm)
+    mae = res_m["test"]["mae"]
+    if not mae[-1] < mae[0]:
+        raise AssertionError(f"held-out MAE did not fall: {mae}")
+    out["mae"] = dict(mae=(mae[0], mae[-1]),
+                      digest=digest(bm))
+    log(f"reg:absoluteerror: {MAE_ROUNDS} rounds, held-out MAE {mae[0]} -> "
+        f"{mae[-1]}; model sha256 {out['mae']['digest']}")
+    card_against_cpu(xt, "reg:absoluteerror",
+                     dict(QR_PARAMS, objective="reg:absoluteerror"), X,
+                     label=y)
+
+    # three objectives the other phases do not reach, 3 rounds each
+    labels = {"reg:pseudohubererror": y,
+              "reg:squaredlogerror": np.exp(0.3 * y).astype(np.float32),
+              "binary:hinge": (y > np.median(y)).astype(np.float32)}
+    out["extra"] = {}
+    for obj in EXTRA_OBJECTIVES:
+        dtr.set_label(labels[obj][:n_tr])
+        dte.set_label(labels[obj][n_tr:])
+        r = {}
+        with NoPlainBuilds():
+            b, ce = train_launches(obj, lambda o=obj, r=r: xt.train(
+                dict(QR_PARAMS, objective=o), dtr, EXTRA_ROUNDS,
+                evals=[(dte, "test")], evals_result=r, verbose_eval=False))
+        if ce["hist_scan"] != depth * EXTRA_ROUNDS:
+            raise AssertionError(f"{obj} launched {ce}")
+        runs.append(ce)
+        metric = list(r["test"])[0]
+        m = r["test"][metric]
+        p = b.predict(dte)
+        if not (np.isfinite(p).all() and m[-1] <= m[0]):
+            raise AssertionError(f"{obj}: held-out {metric} {m}")
+        if obj == "binary:hinge" and not set(np.unique(p)) <= {0.0, 1.0}:
+            raise AssertionError("binary:hinge predicted other than 0/1")
+        out["extra"][obj] = (metric, m[0], m[-1])
+        log(f"{obj}: {EXTRA_ROUNDS} rounds, held-out {metric} {m[0]} -> "
+            f"{m[-1]}; K4 {ce['hist_scan']}; model sha256 {digest(b)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"quantile_regression phase: {out['phase_s']:.1f} s")
+    return runs, out
+
+
+def survival(xt, dev, X):
+    """The ``survival`` phase (module docstring): returns (the main-path
+    runs' launch counts, a summary)."""
+    t_phase = time.perf_counter()
+    n_tr = HIGGS_TRAIN
+    t, lo, hi, cox = survival_times(X, seed=31)
+    kw_tr = dict(label_lower_bound=lo[:n_tr], label_upper_bound=hi[:n_tr])
+    kw_te = dict(label_lower_bound=lo[n_tr:], label_upper_bound=hi[n_tr:])
+    dtr = xt.DMatrix(X[:n_tr], label=t[:n_tr], **kw_tr)
+    dte = xt.DMatrix(X[n_tr:], label=t[n_tr:], **kw_te)
+    depth = AFT_PARAMS["max_depth"]
+    runs, out = [], {}
+
+    def want(rounds):
+        def check(bst, c):
+            if c["hist_scan"] != depth * rounds or c["hist_int8x2"] \
+                    or c["hist_f32"]:
+                return f"expected K4 {depth} a round only"
+            if c["walk_packed"] != rounds:
+                return "expected K1 once a round (the held-out walk)"
+            return None
+        return check
+
+    bst, res, c, d_aft, rr = train_model_twice(
+        xt, "survival:aft normal", AFT_PARAMS, dtr, SURV_ROUNDS,
+        [(dte, "test")], want(SURV_ROUNDS))
+    runs += rr
+    nll = res["test"]["aft-nloglik"]
+    acc = res["test"]["interval-regression-accuracy"]
+    if not (nll[-1] < nll[0] and acc[-1] >= acc[0]
+            and np.isfinite(bst.predict(dte)).all()):
+        raise AssertionError(f"AFT held-out aft-nloglik {nll}, accuracy "
+                             f"{acc}")
+    out["aft"] = dict(nll=(nll[0], nll[-1]), acc=(acc[0], acc[-1]),
+                      digest=d_aft)
+    log(f"survival:aft normal (scale 1.2): {SURV_ROUNDS} rounds, held-out "
+        f"aft-nloglik {nll[0]} -> {nll[-1]}, interval-regression-accuracy "
+        f"{acc[0]} -> {acc[-1]}; launches a round "
+        f"{launches_per_round(c, SURV_ROUNDS)}")
+    out["aft"]["s_round"], out["aft"]["busy"] = cell_profile(
+        xt, "survival:aft", AFT_PARAMS, dtr)
+    out["aft"]["gap"] = card_against_cpu(xt, "survival:aft", AFT_PARAMS, X,
+                                         label=t, label_lower_bound=lo,
+                                         label_upper_bound=hi)
+    for dist in ("logistic", "extreme"):
+        p = dict(AFT_PARAMS, aft_loss_distribution=dist)
+        r = {}
+        with NoPlainBuilds():
+            b, cd = train_launches(f"survival:aft {dist}", lambda p=p, r=r:
+                                   xt.train(p, dtr, OTHER_ROUNDS,
+                                            evals=[(dte, "test")],
+                                            evals_result=r,
+                                            verbose_eval=False))
+        bad = want(OTHER_ROUNDS)(b, cd)
+        if bad:
+            raise AssertionError(f"survival:aft {dist}: {bad} ({cd})")
+        runs.append(cd)
+        acc_d = r["test"]["interval-regression-accuracy"]
+        out[f"aft_{dist}"] = (acc_d[0], acc_d[-1])
+        log(f"survival:aft {dist}: {OTHER_ROUNDS} rounds, held-out "
+            f"aft-nloglik {r['test']['aft-nloglik']}, accuracy {acc_d}; "
+            f"model sha256 {digest(b)}")
+    # Cox on the same rows: a negative label is a right-censored time
+    dtr_c = xt.DMatrix(X[:n_tr], label=cox[:n_tr])
+    dte_c = xt.DMatrix(X[n_tr:], label=cox[n_tr:])
+    cox_p = dict(AFT_PARAMS, objective="survival:cox",
+                 eval_metric="cox-nloglik")
+    bc, res_c, cc, d_cox, rr = train_model_twice(
+        xt, "survival:cox", cox_p, dtr_c, SURV_ROUNDS, [(dte_c, "test")],
+        want(SURV_ROUNDS))
+    runs += rr
+    cn = res_c["test"]["cox-nloglik"]
+    if not cn[-1] < cn[0]:
+        raise AssertionError(f"held-out cox-nloglik did not fall: {cn}")
+    out["cox"] = dict(nll=(cn[0], cn[-1]), digest=d_cox)
+    log(f"survival:cox: {SURV_ROUNDS} rounds, held-out cox-nloglik {cn[0]} "
+        f"-> {cn[-1]}; launches a round {launches_per_round(cc, SURV_ROUNDS)}")
+    out["cox"]["s_round"], out["cox"]["busy"] = cell_profile(
+        xt, "survival:cox", cox_p, dtr_c)
+    out["cox"]["gap"] = card_against_cpu(xt, "survival:cox", cox_p, X,
+                                         label=cox)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"survival phase: {out['phase_s']:.1f} s")
+    return runs, out
+
+
+def insurance_claims(xt, dev):
+    """The ``insurance_claims`` phase (module docstring): returns (the
+    main-path runs' launch counts, a summary)."""
+    t_phase = time.perf_counter()
+    X, expo, counts, amounts = fremtpl2_like(seed=41)
+    n_tr = MTPL_ROWS - MTPL_TEST
+    claimed = counts > 0
+    log(f"fremtpl2_like: {MTPL_ROWS} x {X.shape[1]} ({n_tr} train, "
+        f"{MTPL_TEST} held out), {claimed.mean() * 100:.3f}% of policies "
+        f"with a claim, mean exposure {expo.mean():.4f}, categories "
+        f"{[int(X[:, j].max()) + 1 for j in (4, 6, 8)]}")
+    cat = dict(feature_types=MTPL_TYPES, enable_categorical=True)
+    freq = counts / expo
+    pure = amounts / expo
+    depth = MTPL_PARAMS["max_depth"]
+    runs, out = [], {}
+
+    def want(rounds):
+        def check(bst, c):
+            if c["hist_int8x2"] != depth * rounds or c["hist_scan"] \
+                    or c["hist_f32"]:
+                return f"expected K2 {depth} a round only"
+            if c["walk_packed"] != rounds:
+                return "expected K1 once a round (the held-out walk)"
+            return None
+        return check
+
+    cells = (("count:poisson", {"objective": "count:poisson",
+                                "eval_metric": "poisson-nloglik"},
+              freq, expo, None),
+             ("reg:tweedie", {"objective": "reg:tweedie",
+                              "tweedie_variance_power": 1.5},
+              pure, expo, None),
+             ("reg:gamma", {"objective": "reg:gamma",
+                            "eval_metric": "gamma-deviance"},
+              np.where(claimed, amounts / np.maximum(counts, 1), 0),
+              counts, claimed))
+    for name, extra, label, weight, rows in cells:
+        idx = np.arange(MTPL_ROWS) if rows is None else np.nonzero(rows)[0]
+        tr, te = idx[idx < n_tr], idx[idx >= n_tr]
+        label = label.astype(np.float32)
+        dtr = xt.DMatrix(X[tr], label=label[tr], weight=weight[tr], **cat)
+        dte = xt.DMatrix(X[te], label=label[te], weight=weight[te], **cat)
+        # the intercept starts at the weighted mean of the training labels,
+        # as scikit-learn's GLM examples fit it (one Newton step from 0
+        # leaves the log link at ~1 against euro amounts in the thousands)
+        p = dict(MTPL_PARAMS, base_score=float(np.average(
+            label[tr], weights=weight[tr])), **extra)
+        b, res, c, d, rr = train_model_twice(
+            xt, f"insurance {name}", p, dtr, MTPL_ROUNDS, [(dte, "test")],
+            want(MTPL_ROUNDS))
+        runs += rr
+        metric = list(res["test"])[0]
+        m = res["test"][metric]
+        pred = b.predict(dte)
+        if not (m[-1] < m[0] and np.isfinite(pred).all()
+                and (pred > 0).all()):
+            raise AssertionError(f"insurance {name}: held-out {metric} {m}")
+        s, busy = cell_profile(xt, f"insurance {name}", p, dtr)
+        gap = card_against_cpu(xt, f"insurance {name}", p, X[tr],
+                               label=label[tr], weight=weight[tr], **cat)
+        out[name] = dict(metric=metric, m=(m[0], m[-1]), digest=d,
+                         rows=(len(tr), len(te)), s_round=s, busy=busy,
+                         gap=gap, per_round=launches_per_round(
+                             c, MTPL_ROUNDS))
+        log(f"insurance {name}: {len(tr)} + {len(te)} rows, {MTPL_ROUNDS} "
+            f"rounds, held-out {metric} {m[0]} -> {m[-1]}, mean prediction "
+            f"{float(np.mean(pred)):.6f} (label mean "
+            f"{float(np.mean(label[te])):.6f}); launches a round "
+            f"{out[name]['per_round']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"insurance_claims phase: {out['phase_s']:.1f} s")
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -3933,6 +4519,26 @@ def main() -> int:
         + f"; HIGGS-shape vector leaves {mt['higgs']['s_round']:.6f} s a "
         f"round, rmse {mt['higgs']['rmse'][0]} -> {mt['higgs']['rmse'][1]}")
 
+    # ---- main path: the rest of the objectives (quantile regression,
+    # survival, insurance claims)
+    qr_runs, qr = quantile_regression(xt, dev, X)
+    q = qr["quantile"]
+    log(f"quantile_regression: {q['s_round']:.6f} s a round, device busy "
+        f"{q['busy']:.3f} ms over 3 rounds, {q['rounds']} rounds, coverage "
+        f"{q['cover']:.6f}, leaf refresh {q['refresh_ms']:.6f} ms a tree; "
+        f"MAE {qr['mae']['mae']}")
+    surv_runs, surv = survival(xt, dev, X)
+    log(f"survival: AFT {surv['aft']['s_round']:.6f} s a round, busy "
+        f"{surv['aft']['busy']:.3f} ms over 3 rounds, aft-nloglik "
+        f"{surv['aft']['nll']}, accuracy {surv['aft']['acc']}; Cox "
+        f"{surv['cox']['s_round']:.6f} s a round, busy "
+        f"{surv['cox']['busy']:.3f} ms, cox-nloglik {surv['cox']['nll']}")
+    ins_runs, ins = insurance_claims(xt, dev)
+    log("insurance_claims: " + "; ".join(
+        f"{k} {v['s_round']:.6f} s a round, busy {v['busy']:.3f} ms over 3 "
+        f"rounds, held-out {v['metric']} {v['m'][0]} -> {v['m'][1]}"
+        for k, v in ins.items() if isinstance(v, dict)))
+
     # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
     mslr_runs, mslr_errs, mslr_k1, mslr_hist, mslr = mslr_ranking(xt, dev)
     errs += mslr_k1
@@ -4055,7 +4661,7 @@ def main() -> int:
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
-            *mt_runs]
+            *mt_runs, *qr_runs, *surv_runs, *ins_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

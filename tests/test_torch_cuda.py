@@ -1111,3 +1111,99 @@ def test_multi_target_training_on_the_card_equals_the_cpu(extra):
         dm = xt.DMatrix(X[:2000])
         np.testing.assert_allclose(gpu.predict(dm), cpu.predict(dm),
                                    rtol=1e-5, atol=1e-6)
+
+
+def _quantile_rows(n, weighted, seed=0):
+    """Heteroscedastic regression rows (tests/test_torch_adaptive.py's
+    shape): X [n, 6], y, weights or None."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    y = (X[:, 0] + (0.5 + np.abs(X[:, 1])) * rng.normal(size=n)).astype(
+        np.float32)
+    w = (0.5 + rng.random(n)).astype(np.float32) if weighted else None
+    return X, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_leaf_refresh_on_the_card(weighted):
+    """The adaptive leaf refresh on the card against the CPU port: the
+    unweighted quantiles are the same float64 bits (every step its own
+    op); the weighted running sums add in a scan's order on the card, so
+    the f32 leaves are held within 1 ulp. Then a 3-alpha quantile model
+    on both devices: the same trees, leaves within rtol 1e-5 plus
+    1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.objective.adaptive import segment_quantiles
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n = 3000
+    pos = rng.choice(np.asarray([1, 3, 4, 8, 11, 12]), n)
+    res = rng.normal(size=n)
+    w = rng.choice(np.asarray([0.1, 0.5, 1.0, 2.0, 0.3]), n) \
+        if weighted else None
+    args = [torch.from_numpy(pos), torch.from_numpy(res),
+            None if w is None else torch.from_numpy(w),
+            torch.from_numpy(np.asarray([1, 3, 4, 7, 8, 11, 12]))]
+    for alpha in (0.05, 0.5, 0.95):
+        cpu = segment_quantiles(*args, alpha)
+        card = segment_quantiles(*[None if a is None else a.to(dev)
+                                   for a in args], alpha).cpu()
+        if weighted:
+            np.testing.assert_array_max_ulp(card.float().numpy(),
+                                            cpu.float().numpy(), maxulp=1)
+        else:
+            assert torch.equal(card, cpu)
+    X, y, wt = _quantile_rows(3000, weighted)
+    p = {"objective": "reg:quantileerror",
+         "quantile_alpha": [0.05, 0.5, 0.95], "max_depth": 3, "eta": 0.3}
+    bc = xt.train(p, xt.DMatrix(X, label=y, weight=wt), 3,
+                  verbose_eval=False)
+    bp = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y, weight=wt),
+                  3, verbose_eval=False)
+    for a, b in zip(bc.gbm.trees, bp.gbm.trees):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_survival_gradients_on_the_card():
+    """AFT (three distributions, the four kinds of censoring) and Cox
+    gradients on the card against the CPU port: AFT at rtol 1e-5 plus
+    1e-6 (the card's f32 ``erf`` / ``exp``; left-censored rows far in
+    the tail cancel, so an absolute floor of 1e-4 of the column's
+    scale), Cox at rtol 1e-6 (float64 sums in a scan's order, cast to
+    f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.objective import get_objective
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n = 4000
+    t = np.exp(0.4 * rng.normal(size=n)).astype(np.float32)
+    kind = np.arange(n) % 4
+    lo, hi = t.copy(), t.copy()
+    hi[kind == 1] = np.inf
+    lo[kind == 2] = 0.0
+    lo[kind == 3] *= 0.7
+    hi[kind == 3] *= 1.6
+    m = torch.from_numpy(rng.uniform(-1, 1, (n, 1)).astype(np.float32))
+    b = (torch.from_numpy(lo), torch.from_numpy(hi))
+    for dist in ("normal", "logistic", "extreme"):
+        obj = get_objective("survival:aft", {"aft_loss_distribution": dist})
+        cpu = obj.get_gradient(m, None, bounds=b)
+        card = obj.get_gradient(m.to(dev), None,
+                                bounds=tuple(x.to(dev) for x in b)).cpu()
+        for c in range(2):
+            scale = float(cpu[..., c].abs().max())
+            torch.testing.assert_close(card[..., c], cpu[..., c], rtol=1e-5,
+                                       atol=1e-4 * scale)
+    y = torch.from_numpy(np.where(kind == 1, -t, t).astype(np.float32))
+    cox = get_objective("survival:cox")
+    torch.testing.assert_close(cox.get_gradient(m.to(dev), y.to(dev)).cpu(),
+                               cox.get_gradient(m, y), rtol=1e-6, atol=1e-7)

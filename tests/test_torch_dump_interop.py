@@ -11,7 +11,11 @@ type, ``inspect`` and ``save_xgboost_model``'s bytes (JSON and UBJSON)
 must be equal, and ``pred_leaf`` equal exactly. Cases: an agaricus-shape
 ``binary:logistic`` model with feature names, a 3-class model with
 ``num_parallel_tree`` 2 (the leaf ids in ``iteration_indptr``'s tree
-order), and a dart model with categorical splits.
+order), a dart model with categorical splits, and a model of each
+objective with a parameter block or transform of its own (Poisson,
+Gamma, Tweedie, pseudo-Huber, squared-log, hinge, MAE, three quantiles,
+AFT, Cox); for those the JAX package's own save of the model also loads
+into the port and predicts the same.
 """
 
 import numpy as np
@@ -21,6 +25,10 @@ import xgboost_tpu as xgb
 import xgboost_tpu_torch as xt
 from xgboost_tpu import interop as jax_interop
 from xgboost_tpu_torch.testing import agaricus_rows
+
+from test_torch_adaptive import _data as adaptive_data
+from test_torch_objectives import objective_data
+from test_torch_survival import survival_data
 
 IMPORTANCE = ("weight", "gain", "cover", "total_gain", "total_cover")
 
@@ -50,6 +58,24 @@ def _case(name):
         p = {"objective": "multi:softprob", "num_class": 3, "max_depth": 3,
              "num_parallel_tree": 2, "subsample": 0.8}
         rounds = 2
+    elif name in OBJECTIVE_CASES:
+        objective, extra = OBJECTIVE_CASES[name]
+        kw = {}
+        if objective.startswith("survival"):
+            X, t, lo, hi = survival_data(n=900, seed=3)
+            y = np.where(np.arange(900) % 4 == 1, -t, t) \
+                if objective == "survival:cox" else t
+            if objective == "survival:aft":
+                kw = {"label_lower_bound": lo, "label_upper_bound": hi}
+        elif objective in ("reg:absoluteerror", "reg:quantileerror"):
+            X, y, _ = adaptive_data(n=900, seed=3)
+        else:
+            X, y = objective_data(objective, n=900, seed=3)
+        p = dict({"objective": objective, "max_depth": 3}, **extra)
+        rounds = 3
+        b = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y, **kw),
+                     rounds, verbose_eval=False)
+        return bytes(b.save_raw("json")), X, {}
     else:
         X = rng.randn(900, 4).astype(np.float32)
         X[:, 3] = rng.randint(0, 12, 900)
@@ -64,8 +90,26 @@ def _case(name):
     return bytes(b.save_raw("json")), X, kw
 
 
+# the objectives with their own parameter blocks or transforms
+OBJECTIVE_CASES = {
+    "poisson": ("count:poisson", {"max_delta_step": 0.5}),
+    "gamma": ("reg:gamma", {}),
+    "tweedie": ("reg:tweedie", {"tweedie_variance_power": 1.3}),
+    "pseudohuber": ("reg:pseudohubererror", {"huber_slope": 2.0}),
+    "squaredlog": ("reg:squaredlogerror", {}),
+    "hinge": ("binary:hinge", {}),
+    "mae": ("reg:absoluteerror", {}),
+    "quantile3": ("reg:quantileerror",
+                  {"quantile_alpha": [0.05, 0.5, 0.95]}),
+    "aft": ("survival:aft", {"aft_loss_distribution": "logistic",
+                             "aft_loss_distribution_scale": 1.2}),
+    "cox": ("survival:cox", {}),
+}
+
+
 @pytest.fixture(scope="module", params=["agaricus", "multiclass_npt2",
-                                        "dart_categorical"])
+                                        "dart_categorical",
+                                        *OBJECTIVE_CASES])
 def shared(request):
     raw, X, kw = _case(request.param)
     jb = xgb.Booster(model_file=raw)
@@ -117,6 +161,12 @@ def test_writer_bytes_equal_and_load_both_ways(shared, tmp_path, ext):
         assert a.read() == b.read()
     back = xt.load_xgboost_model(tp, device="cpu")
     jback = jax_interop.load_xgboost_model(tp)
+    base = tb._base_np()
+    if not np.all(base == base[0]):
+        # the schema's scalar base_score keeps target 0's intercept (with
+        # both writers' warning): each row's base margin is given instead
+        kw = dict(kw, base_margin=np.broadcast_to(
+            base, (len(X), len(base))).astype(np.float32))
     dt, dj = xt.DMatrix(X, **kw), xgb.DMatrix(X, **kw)
     # the file's base_score is in the user's space: its transform and
     # inverse move the base margin by an f32 rounding or so
@@ -139,3 +189,17 @@ def test_pred_leaf_equal(shared, iteration_range):
     assert got.shape == (len(X), hi - lo)
     for t in range(hi - lo):
         assert tb.gbm.trees[lo + t].is_leaf[got[:, t]].all()
+
+
+def test_jax_saved_model_loads_into_the_port(shared):
+    """The JAX package's native save of the model loads into the port with
+    the objective's parameters, and both predict the same (rtol 1e-6:
+    the two walks add the leaves in their own orders)."""
+    name, jb, tb, X, kw = shared
+    back = xt.Booster({"device": "cpu"}, model_file=jb.save_raw("json"))
+    assert back.obj.name == tb.obj.name
+    assert {k: str(v) for k, v in back.obj.params.items()} == \
+        {k: str(v) for k, v in tb.obj.params.items()}
+    np.testing.assert_allclose(back.predict(xt.DMatrix(X, **kw)),
+                               jb.predict(xgb.DMatrix(X, **kw)), rtol=1e-6,
+                               atol=1e-7)

@@ -167,9 +167,9 @@ def test_load_refusals(trained):
         port.predict(xt.DMatrix(X[:, :4]))
     with pytest.raises(ValueError, match="no model loaded"):
         xt.Booster(CPU).predict(xt.DMatrix(X))
-    with pytest.raises(NotImplementedError, match="survival:cox"):
+    with pytest.raises(ValueError, match="reg:no-such"):
         obj = json.loads(bytes(bst.save_raw("json")))
-        obj["learner"]["objective"] = {"name": "survival:cox"}
+        obj["learner"]["objective"] = {"name": "reg:no-such"}
         xt.Booster(CPU, model_file=json.dumps(obj).encode())
 
 

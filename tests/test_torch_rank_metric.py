@@ -96,8 +96,8 @@ def test_degenerate_inputs_match_jax():
 
 def test_eval_lines_use_the_port_metrics():
     """``train``'s eval lines over a grouped matrix: each metric as the
-    metric class computes it on ``Booster.predict``; unknown metrics name
-    ROADMAP A.5.11."""
+    metric class computes it on ``Booster.predict``; an unknown metric
+    raises."""
     rng = np.random.RandomState(3)
     y, _, _, ptr = _case("grouped", seed=3)
     X = rng.randn(len(y), 5).astype(np.float32)
@@ -113,5 +113,5 @@ def test_eval_lines_use_the_port_metrics():
     assert get_metric("map").__class__ is \
         get_metric(xt.Booster({"device": "cpu"}, model_file=b.save_raw())
                    .obj.default_metric).__class__
-    with pytest.raises(NotImplementedError, match=r"A\.5\.11"):
-        get_metric("cox-nloglik")
+    with pytest.raises(ValueError, match="unknown metric"):
+        get_metric("ndcg-no-such")

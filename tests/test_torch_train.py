@@ -580,12 +580,12 @@ def test_train_runs_on_the_card_unless_asked():
     ({"booster": "gblinear"}, "A.5.9"),
     ({"tree_method": "approx"}, "A.5.8"),
     ({"max_leaves": 4, "hist_method": "scan+sub"}, "A.6"),
-    ({"objective": "reg:absoluteerror"}, "A.5.11"),
+    ({"data_split_mode": "col"}, "A.8"),
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
     ({"tree_method": "exact"}, "A.5.8"),
     ({"booster": "gblinear", "updater": "coord_descent"}, "A.5.9"),
-    ({"objective": "survival:cox"}, "A.5.11"),
+    ({"objective": "survival:cox", "tree_method": "approx"}, "A.5.8"),
 ])
 def test_unported_options_name_their_roadmap_item(params, item):
     rng = np.random.RandomState(4)

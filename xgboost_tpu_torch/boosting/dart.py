@@ -225,17 +225,18 @@ class Dart(GBTree):
 
     # -- one round --------------------------------------------------------------
     def do_boost(self, binned, gpair: torch.Tensor, key,
-                 state: Optional[dict] = None) -> torch.Tensor:
+                 state: Optional[dict] = None, **adaptive) -> torch.Tensor:
         """:meth:`GBTree.do_boost` from the gradients of
-        :meth:`training_margin`, then the weights of the new and the
-        dropped trees, and the training margin rolled forward in
-        ``state``."""
+        :meth:`training_margin` (``adaptive``: its objective, that margin,
+        labels and weights, for an adaptive-leaf objective's refresh),
+        then the weights of the new and the dropped trees, and the
+        training margin rolled forward in ``state``."""
         if state is None:
             raise ValueError("dart boosts with the Booster's cache entry of "
                              "the training matrix (state=)")
         start = len(self.trees)
         w_pre = np.asarray(self.weight_drop, np.float64).copy()
-        delta = super().do_boost(binned, gpair, key)
+        delta = super().do_boost(binned, gpair, key, **adaptive)
         n_new = len(self.trees) - start
         self._cache_round_delta(state, delta, start, n_new)
         k = len(self._dropped)

@@ -134,21 +134,37 @@ class GBTree:
             self._grower = cls(param, binned.max_nbins, binned.cuts, **kw)
         return self._grower
 
-    def do_boost(self, binned, gpair: torch.Tensor,
-                 key: xrandom.Key) -> torch.Tensor:
+    def do_boost(self, binned, gpair: torch.Tensor, key: xrandom.Key,
+                 obj=None, margin: Optional[torch.Tensor] = None,
+                 labels: Optional[torch.Tensor] = None,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """gpair [n, K, 2] on the device of ``binned`` and the round's key
         -> margin delta [n, K]; appends the round's K * num_parallel_tree
-        trees (class k's trees tagged k in ``tree_info``)."""
+        trees (class k's trees tagged k in ``tree_info``). With an
+        adaptive-leaf ``obj`` (``info.zero_hess``), ``margin`` [n, K] from
+        before the round, ``labels`` [n] and ``weights`` [n] or None, each
+        tree's leaves are refreshed as it is grown (the JAX package's
+        ``update_tree_leaf`` hook): ``eta / num_parallel_tree`` times the
+        quantile at target k's alpha of the residuals in each leaf, and
+        the round's delta is taken from those leaves."""
         K = gpair.shape[1]
         if K != self.n_groups:
             raise ValueError(f"{K} gradient columns for a forest of "
                              f"{self.n_groups} output groups")
         npt = max(self.num_parallel_tree, 1)
+        adaptive = obj is not None and obj.info.zero_hess
+        if adaptive and self.vector_leaf:
+            raise NotImplementedError(
+                "multi_output_tree does not support adaptive-leaf "
+                "objectives")
         grower = self._grower_for(binned)
         if self.vector_leaf:
             return self._do_boost_multi(binned, grower, gpair, key)
         tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
         masks = grower.feature_masks(tkeys, gpair.device)
+        if adaptive:
+            eta = self.tree_param.eta / npt
+            alphas = obj.alphas()
         deltas = []
         for k in range(K):
             delta = None
@@ -159,9 +175,18 @@ class GBTree:
                 grown = grower.grow(
                     binned if binned.is_paged else binned.bins, gp,
                     None if masks is None else masks[i])
-                self.trees.append(grower.to_tree_model(grown))
+                tree = grower.to_tree_model(grown)
+                d = grown.delta
+                if adaptive:
+                    # grower positions -> the compact tree's node ids
+                    pos = torch.from_numpy(tree.heap_map.astype(
+                        np.int64)).to(gp.device)[grown.positions]
+                    d = obj.refresh_leaves(
+                        tree, pos, margin[:, k], labels, weights, eta,
+                        alphas[min(k, len(alphas) - 1)])[pos]
+                self.trees.append(tree)
                 self.tree_info.append(k)
-                delta = grown.delta if delta is None else delta + grown.delta
+                delta = d if delta is None else delta + d
             deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
         return torch.stack(deltas, dim=1)

@@ -65,7 +65,9 @@ from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
 from .objective import get_objective
+from .objective.adaptive import label_matrix_refusal
 from .objective.base import guard_gradient
+from .objective.survival import sort_by_time
 from .serve.packed import PackedForest
 from .tree.multi import is_vector_leaf
 from .tree.param import (TrainParam, parse_interaction_constraints,
@@ -301,6 +303,10 @@ class Booster:
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
+        if dtrain is not None and self.obj.info.zero_hess \
+                and np.ndim(dtrain.info.labels) == 2 \
+                and dtrain.info.labels.shape[1] > 1:
+            raise ValueError(label_matrix_refusal(self.obj.name))
         n_groups = max(1, self.obj.n_targets(
             dtrain.info if dtrain is not None else None))
         if dtrain is not None and not self._num_features:
@@ -328,7 +334,8 @@ class Booster:
             elif dtrain is not None and dtrain.info.labels is not None:
                 st = self._state_of(dtrain, is_train=True)
                 self.base_margin_ = self.obj.init_estimation(
-                    st["labels"], st["weights"]).reshape(-1)
+                    st["labels"], st["weights"],
+                    **self._obj_inputs(st)).reshape(-1)
             else:
                 self.base_margin_ = np.zeros(n_groups, np.float32)
         if not self._eval_metrics and not bool(self.learner_params.get(
@@ -399,6 +406,28 @@ class Booster:
                 st["margin"] = base[None, :].expand(n, -1).contiguous()
             st["base"] = st["margin"]
         return st
+
+    def _obj_inputs(self, st: Dict[str, Any]) -> Dict[str, Any]:
+        """The matrix's inputs the objective takes besides labels and
+        weights (``Objective.takes``): the query offsets, the label bounds
+        [n] f32 on this Booster's device, or the rows sorted by |label|,
+        the last two made once a cache entry."""
+        out: Dict[str, Any] = {}
+        info = st["dm"].info
+        for name in self.obj.takes:
+            if name == "group_ptr":
+                out[name] = info.group_ptr
+                continue
+            if name not in st:
+                if name == "bounds":
+                    lo, hi = info.label_lower_bound, info.label_upper_bound
+                    st[name] = None if lo is None or hi is None else tuple(
+                        torch.from_numpy(np.ascontiguousarray(
+                            b, np.float32)).to(self.device) for b in (lo, hi))
+                else:
+                    st[name] = sort_by_time(st["labels"])
+            out[name] = st[name]
+        return out
 
     def _collapse_paged_if_fits(self, binned):
         """A paged matrix that fits the page-cache budget, as a resident
@@ -493,7 +522,7 @@ class Booster:
         else:
             margin = self.gbm.training_margin(st, self._walk_trees)
         gpair = self._gradient(margin, st, dtrain, iteration, fobj)
-        self._boost_round(st, margin, gpair, iteration)
+        self._boost_round(st, margin, gpair, iteration, refresh=True)
 
     def _gradient(self, margin: torch.Tensor, st: Dict[str, Any],
                   dtrain: DMatrix, iteration: int,
@@ -502,11 +531,8 @@ class Booster:
         ``fobj``'s on the margin as numpy (squeezed), reshaped to the
         margin's shape."""
         if fobj is None:
-            # ranking objectives also take the matrix's query offsets
-            groups = ({"group_ptr": dtrain.info.group_ptr}
-                      if self.obj.takes_groups else {})
             return self.obj.get_gradient(margin, st["labels"], st["weights"],
-                                         iteration, **groups)
+                                         iteration, **self._obj_inputs(st))
         grad, hess = fobj(margin.cpu().numpy().squeeze(), dtrain)
         gpair = torch.stack([self._as_margin(grad, margin),
                              self._as_margin(hess, margin)], dim=-1)
@@ -518,15 +544,23 @@ class Booster:
             v, np.float32).reshape(margin.shape)).to(margin.device)
 
     def _boost_round(self, st: Dict[str, Any], margin: torch.Tensor,
-                     gpair: torch.Tensor, iteration: int) -> None:
+                     gpair: torch.Tensor, iteration: int,
+                     refresh: bool = False) -> None:
         """Grow round ``iteration``'s trees from ``gpair`` (its key
-        ``fold_in(make_key(it), it)``) and move the cache's margin."""
+        ``fold_in(make_key(it), it)``) and move the cache's margin;
+        ``refresh``: an adaptive-leaf objective's leaves are refreshed
+        from ``margin`` and the labels (``update``'s rounds; ``boost``'s
+        gradients are the caller's, as in the JAX package)."""
         key = xrandom.fold_in(self.ctx.make_key(iteration), iteration)
+        adaptive = {}
+        if refresh and self.obj.info.zero_hess:
+            adaptive = dict(obj=self.obj, margin=margin,
+                            labels=st["labels"], weights=st["weights"])
         if self.gbm.supports_margin_cache:
             st["margin"] = margin + self.gbm.do_boost(st["binned"], gpair,
-                                                      key)
+                                                      key, **adaptive)
         else:
-            self.gbm.do_boost(st["binned"], gpair, key, state=st)
+            self.gbm.do_boost(st["binned"], gpair, key, state=st, **adaptive)
             st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
         st["n_trees"] = self.gbm.version()
         self._packed = {}

@@ -31,8 +31,9 @@ Inputs go through ``data/adapters.py to_dense`` (numpy, lists, scipy
 sparse, pandas, pyarrow); a path or URI through ``data/fileio.py
 load_uri`` (libsvm, CSV/TSV, or a ``save_binary`` container, whose npz
 the JAX package reads and writes too). ``label_lower_bound`` /
-``label_upper_bound`` are carried (survival objectives wait with ROADMAP
-A.5.11).
+``label_upper_bound`` (``survival:aft``'s intervals) come through the
+constructor, a file, ``set_info`` / ``set_float_info``, an iterator's
+batches, ``slice`` and ``save_binary``.
 """
 
 from __future__ import annotations
@@ -184,7 +185,6 @@ def _refuse_iter_categorical(types: Optional[List[str]]) -> None:
             "feature_types and enable_categorical=True")
 
 
-_UNPORTED_BATCH_KEYS = ("label_lower_bound", "label_upper_bound")
 # get_float_info / set_float_info fields -> MetaInfo attributes
 _FLOAT_FIELDS = {"label": "labels", "weight": "weights",
                  "base_margin": "base_margin",
@@ -525,17 +525,13 @@ class DMatrix:
         """The two passes over ``it`` (module docstring); ``ref``: take its
         cuts at ``max_bin`` instead of sketching."""
         labels, weights, margins, qids, groups = [], [], [], [], []
+        lbound, ubound = [], []
         summaries: Optional[List[FeatureSummary]] = None
         n_rows = n_feat = 0
         has_missing = False
         feature_names = None
         cap = quantile.SKETCH_SAMPLE_ROWS // 4
         for batch in it.collect():
-            for key in _UNPORTED_BATCH_KEYS:
-                if batch.get(key) is not None:
-                    raise NotImplementedError(
-                        f"iterator batches with {key!r} are not in the "
-                        "PyTorch port yet (ROADMAP A.5.11)")
             X, names, types = _dense(batch["data"], missing,
                                      batch.get("feature_names"),
                                      batch.get("feature_types"))
@@ -546,7 +542,9 @@ class DMatrix:
             if names is not None:
                 feature_names = list(names)
             for key, dest in (("label", labels), ("weight", weights),
-                              ("base_margin", margins)):
+                              ("base_margin", margins),
+                              ("label_lower_bound", lbound),
+                              ("label_upper_bound", ubound)):
                 if batch.get(key) is not None:
                     dest.append(np.asarray(batch[key], dtype=np.float32))
             if batch.get("qid") is not None:
@@ -575,6 +573,10 @@ class DMatrix:
         if margins:
             self.info.base_margin = _rows(
                 "base_margin", np.concatenate(margins), n_rows)
+        for key, parts in (("label_lower_bound", lbound),
+                           ("label_upper_bound", ubound)):
+            if parts:
+                setattr(self.info, key, np.concatenate(parts))
         if qids and groups:
             raise ValueError("the iterator gave both qid and group batches")
         if qids:

@@ -19,8 +19,13 @@ JAX package's bytes. Semantics bridged (the same as the JAX package's
   hold the margin, so the objective's transform is inverted on load.
 - Dart: the trees sit under ``gradient_booster.gbtree`` and each tree's
   weight in ``weight_drop``.
-- Ranking objectives: ``lambdarank_param`` (or ``lambda_rank_param``)
-  and an unbiased model's ``ti+`` / ``tj-``.
+- Objective parameter blocks: ``reg_loss_param``,
+  ``poisson_regression_param``, ``tweedie_regression_param``,
+  ``quantile_loss_param`` (the alpha list as its string),
+  ``aft_loss_param``, ``softmax_multiclass_param``, and ranking's
+  ``lambdarank_param`` (or ``lambda_rank_param``) with an unbiased
+  model's ``ti+`` / ``tj-``; the reader flattens each block into the
+  objective's parameters.
 - Vector-leaf trees (``size_leaf_vector`` K > 1): thresholds in
   ``split_conditions`` on every node and the node weights flat [n * K]
   in ``base_weights``; the schema's scalar ``base_score`` keeps target
@@ -226,6 +231,15 @@ def _objective_to_reference(obj, learner_params: Dict[str, Any],
     if name in _REG_LOSS_OBJS:
         return {"name": name, "reg_loss_param": {
             "scale_pos_weight": s("scale_pos_weight", 1)}}
+    if name == "count:poisson":
+        return {"name": name, "poisson_regression_param": {
+            "max_delta_step": s("max_delta_step", 0.7)}}
+    if name == "reg:tweedie":
+        return {"name": name, "tweedie_regression_param": {
+            "tweedie_variance_power": s("tweedie_variance_power", 1.5)}}
+    if name == "reg:quantileerror":
+        return {"name": name, "quantile_loss_param": {
+            "quantile_alpha": s("quantile_alpha", 0.5)}}
     if name in ("multi:softprob", "multi:softmax"):
         return {"name": name, "softmax_multiclass_param": {
             "num_class": str(num_class)}}
@@ -237,6 +251,11 @@ def _objective_to_reference(obj, learner_params: Dict[str, Any],
         # requires "lambdarank_param": both are written
         return {"name": name, "lambda_rank_param": lr,
                 "lambdarank_param": lr}
+    if name == "survival:aft":
+        return {"name": name, "aft_loss_param": {
+            "aft_loss_distribution": s("aft_loss_distribution", "normal"),
+            "aft_loss_distribution_scale":
+                s("aft_loss_distribution_scale", 1.0)}}
     return {"name": name}
 
 

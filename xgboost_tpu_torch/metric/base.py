@@ -43,9 +43,6 @@ class Metric:
 
 
 METRICS: Dict[str, type] = {}
-# the JAX package's metrics that wait with their objectives
-UNPORTED = ("aft-nloglik", "cox-nloglik", "interval-regression-accuracy",
-            "quantile")
 
 
 def register(*names: str):
@@ -60,8 +57,6 @@ def get_metric(name: str) -> Metric:
     base, _, param = name.partition("@")
     cls = METRICS.get(base)
     if cls is None:
-        raise NotImplementedError(
-            f"metric {name!r} is not in the PyTorch port yet (supported: "
-            f"{sorted(METRICS)}; {', '.join(UNPORTED)} wait with ROADMAP "
-            "A.5.11)")
+        raise ValueError(f"unknown metric {name!r} (supported: "
+                         f"{sorted(METRICS)})")
     return cls(param or None)

@@ -10,7 +10,8 @@ column by column, and a row's weight applies to each of its targets.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +48,28 @@ def guard_gradient(gpair: torch.Tensor, objective: str,
         bad_rows=bad_rows)
 
 
+@dataclass(frozen=True)
+class ObjInfo:
+    """Task descriptor (the JAX package's ``ObjInfo``; reference
+    ``include/xgboost/task.h``): ``zero_hess`` marks the adaptive-leaf
+    objectives, whose leaves are refreshed after each tree is grown
+    (``objective/adaptive.py``)."""
+
+    task: str = "regression"   # regression | binary | classification |
+    #                            ranking | survival
+    zero_hess: bool = False
+
+
 class Objective:
     name: str = ""
     default_metric: str = "rmse"
-    # ranking objectives: ``get_gradient`` takes the query offsets
-    # (``group_ptr=``)
-    takes_groups: bool = False
+    info = ObjInfo()
+    # the matrix's inputs that ``get_gradient`` and ``init_estimation``
+    # take as keywords besides labels and weights, each cached with the
+    # Booster's entry of the matrix: ``group_ptr`` (the query offsets,
+    # ranking), ``bounds`` (the [n] f32 label bounds, AFT) and
+    # ``time_order`` (the rows sorted by |label|, Cox)
+    takes: Tuple[str, ...] = ()
 
     def __init__(self, params: Optional[Dict[str, Any]] = None) -> None:
         self.params: Dict[str, Any] = {}
@@ -74,8 +91,7 @@ class Objective:
                  iteration: int = 0) -> torch.Tensor:
         """preds/labels [n, k] -> [n, k, 2]."""
         raise NotImplementedError(
-            f"objective {self.name!r} has no gradient in the PyTorch port "
-            "yet (ROADMAP A.5.11)")
+            f"objective {self.name!r} has no elementwise gradient")
 
     def get_gradient(self, preds: torch.Tensor, labels: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
@@ -90,8 +106,8 @@ class Objective:
         return guard_gradient(gpair, self.name, iteration)
 
     def init_estimation(self, labels: torch.Tensor,
-                        weights: Optional[torch.Tensor] = None
-                        ) -> np.ndarray:
+                        weights: Optional[torch.Tensor] = None,
+                        **inputs: Any) -> np.ndarray:
         """One Newton step from margin 0 (reference ``fit_stump``,
         ``src/tree/fit_stump.cc``) -> [k] f32 base margin, one a target
         of a label matrix [n, k]. A label matrix's gradient sums add in
@@ -100,7 +116,8 @@ class Objective:
         k = labels.shape[1] if labels.dim() == 2 else 1
         zero = torch.zeros((labels.shape[0], k), dtype=torch.float32,
                            device=labels.device)
-        g, h = stump_sums(self.get_gradient(zero, labels, weights)).unbind(-1)
+        g, h = stump_sums(self.get_gradient(zero, labels, weights,
+                                            **inputs)).unbind(-1)
         est = torch.where(h <= 0, torch.zeros_like(g),
                           -g / torch.clamp(h, min=1e-10))
         return est.to(torch.float32).cpu().numpy()
@@ -131,8 +148,6 @@ def get_objective(name: str,
                   params: Optional[Dict[str, Any]] = None) -> Objective:
     cls = OBJECTIVES.get(name)
     if cls is None:
-        raise NotImplementedError(
-            f"objective {name!r} is not in the PyTorch port yet "
-            f"(supported: {sorted(OBJECTIVES)}; the rest wait with "
-            "ROADMAP A.5.11)")
+        raise ValueError(f"unknown objective {name!r} (supported: "
+                         f"{sorted(OBJECTIVES)})")
     return cls(params)

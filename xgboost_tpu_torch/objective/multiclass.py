@@ -49,7 +49,7 @@ class _SoftmaxBase(Objective):
         h = torch.clamp(2.0 * p * (1.0 - p), min=1e-16)
         return torch.stack([g, h], dim=-1)
 
-    def init_estimation(self, labels, weights=None) -> np.ndarray:
+    def init_estimation(self, labels, weights=None, **inputs) -> np.ndarray:
         return np.zeros(self.n_targets(), dtype=np.float32)
 
 

@@ -345,7 +345,7 @@ def lambda_grad_mean(s, lay, key, *, k, exp_gain, objective, chunk, kpos=0,
 
 class _LambdaRankBase(Objective):
     default_metric = "ndcg"
-    takes_groups = True
+    takes = ("group_ptr",)
 
     def __init__(self, params: Optional[Dict[str, Any]] = None) -> None:
         self._layout_cache = None
@@ -456,7 +456,7 @@ class _LambdaRankBase(Objective):
             self._pending_bias = torch.stack([li, lj])
         return guard_gradient(gpair, self.name, iteration)
 
-    def init_estimation(self, labels, weights=None) -> np.ndarray:
+    def init_estimation(self, labels, weights=None, **inputs) -> np.ndarray:
         return np.zeros(1, dtype=np.float32)
 
     # ---------------------------------------------- position-bias state

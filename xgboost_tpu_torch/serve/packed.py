@@ -205,8 +205,11 @@ class PackedForest:
             values[off:off + n] = np.where(leaf, tree.leaf_value[order],
                                            tree.split_value[order])
             hess[off:off + n] = tree.sum_hess[order]
-            cat[off:off + n, :tree.cat_words.shape[1]] = \
-                tree.cat_words[order]
+            if has_cat:
+                # (a tree grown on categorical data keeps zero words at
+                # every node when none of the forest's splits is one)
+                cat[off:off + n, :tree.cat_words.shape[1]] = \
+                    tree.cat_words[order]
             offsets[t_i] = off
             off += n
         # shared inert leaf for pow2 pad trees
