@@ -178,6 +178,30 @@ counts set to 0 just before and read just after:
   K4 never). In every phase the card's trees are held node for node
   against the CPU port's on the first 20,000 rows (``card_against_cpu``)
   and each cell prints seconds a round and three profiled rounds;
+- ``tree_method="approx"`` (``approx_higgs``) on the HIGGS-shape draws
+  (depth 8, ``max_bin`` 256, ``eta`` 0.1): ``hist`` 10 rounds, then
+  ``approx`` 10 rounds twice (one sha256; K4 8 and K1 1 a round, no
+  plain build), every round re-sketched on the card with the hessian as
+  the weights (``WeightedSketch``) and re-binned there, each timed with
+  CUDA events; the device cuts of rounds 1 and 10 equal to the host
+  sketch's on the same hessian bit for bit (the first difference's
+  feature and rank printed otherwise); round 1's tree equal to
+  ``hist``'s (uniform hessians give ``hist``'s cuts); held-out AUC and
+  logloss at 10 rounds and the peak memory of both; seconds a round and
+  three profiled rounds of each, with no sort kernel in a steady
+  ``approx`` round; and ``approx`` binary and with 3 classes at depth 6
+  against the CPU port at 20,000 rows;
+- XGBoost's ``demo/kaggle-higgs/speedtest.py`` (``kaggle_higgs_speedtest``):
+  ``kaggle_higgs_like`` (the Higgs challenge's 250,000 training events x
+  30 features, ``-999.0`` where a quantity is undefined, read with
+  ``missing=-999.0``; 50,000 held-out events; made from a seed), the
+  weights rescaled as the demo rescales them and ``scale_pos_weight =
+  sum_wneg / sum_wpos``, ``binary:logitraw``, ``eta`` 0.1, depth 6, 10
+  rounds with held-out ``auc`` and ``ams@0.15``: ``hist`` and ``approx``
+  (K4 6 a round) and ``exact`` (no histogram kernel; K1 1 a round), each
+  with its peak memory, seconds a round and three profiled rounds;
+  ``exact``'s time a level, and ``exact`` against the CPU port at
+  20,000 rows;
 - BASELINE config #3 in full (``mslr_ranking``): ``rank:ndcg``
   LambdaMART at the MSLR-WEB30K Fold1 shape (``mslr_like``: 136 N(0, 1)
   features, 18,919 training queries of log-normal sizes with MSLR's
@@ -3462,8 +3486,21 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
     the subtrees below are skipped. A leaf may differ by rtol 1e-5 plus what ``k = FLIP_QUANTA
     + FLIP_PER_ROW * rows[leaf]`` of the round's int8x2 quanta
     ``quanta`` = (q_g, q_h) in its sums move it:
-    ``eta * k * (q_g + |w| q_h) / (H + lambda)``. Returns (near-tie
-    nodes, largest leaf gap, largest gap over its bound)."""
+    ``eta * k * (q_g + |w| q_h) / (H + lambda)``. Each node also
+    carries a gap (dG, dH) in its f32 sums, as in the tests' certificate
+    (its root carry): the root's is the two devices' root sums apart
+    (each sums the root in its own order); a child's sums come from its
+    parent's histogram through the split search's f32 cumulative sum,
+    which the card and the CPU take in other orders, so a left child
+    carries two ulps of the parent's partial sums, ``4 U (max|g| n, H)``
+    over the parent's n rows, and a right child, its parent's sums less
+    the left one's, that and its parent's gap (measured on the card: at
+    depth 8 on 20,000 HIGGS-shape rows the root's gap doubled at the
+    first right step, and a leaf of six rows off that path moved by
+    3.9e-4 in H). A node's gain may move by what its gap moves it (the
+    gain formula at the corners of the gap's box), and a leaf by
+    ``eta * (dG + |w| dH) / (H + lambda)``. Returns (near-tie nodes,
+    largest leaf gap, largest gap over its bound)."""
     ties, gap, worst = [], 0.0, 0.0
     q_g, q_h = quanta
 
@@ -3472,14 +3509,45 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
         h = float(t.sum_hess[n]) + lam
         return (float(t.base_weight[n]) / eta) ** 2 * h
 
-    stack = [(0, 0)]
+    def sums(t, n):
+        """(G, H) of node n in float64, G from its weight."""
+        h = float(t.sum_hess[n])
+        return -float(t.base_weight[n]) / eta * (h + lam), h
+
+    (ga, ha), (gb, hb) = sums(a, 0), sums(b, 0)
+    max_g = q_g * 32512.0
+    count = {}
+
+    def n_rows(n):
+        """Rows of the CPU tree's node n (its leaves' ``rows``)."""
+        if n not in count:
+            count[n] = (rows.get(int(n), 0) if b.is_leaf[n] else
+                        n_rows(b.left_child[n]) + n_rows(b.right_child[n]))
+        return count[n]
+
+    def carry(t, n, d):
+        """How far node n's gain moves when its sums move by d = (dG,
+        dH)."""
+        g, h = sums(t, n)
+        gl, hl = sums(t, t.left_child[n])
+
+        def gain(g, h):
+            return (gl * gl / (hl + lam) + (g - gl) ** 2 / (h - hl + lam)
+                    - g * g / (h + lam))
+
+        return max(abs(gain(g + sg * d[0], h + sh * d[1]) - gain(g, h))
+                   for sg in (-1.0, 1.0) for sh in (-1.0, 1.0))
+
+    # (card node, CPU node, the gap its sums carry)
+    stack = [(0, 0, (abs(ga - gb), abs(ha - hb)))]
     while stack:
-        i, j = stack.pop()
+        i, j, d = stack.pop()
         if a.is_leaf[i] != b.is_leaf[j]:
             # one device's best gain rounds to at most 0, the other's
             # above: a near tie with not splitting
             t, n = (b, j) if a.is_leaf[i] else (a, i)
-            if abs(float(t.gain[n])) > 2e-4 * scale(t, n) + 1e-6:
+            if abs(float(t.gain[n])) > 2e-4 * scale(t, n) + 1e-6 + carry(
+                    t, n, d):
                 raise AssertionError(f"{label}: node {i} is a leaf in one "
                                      f"tree only, its gain {t.gain[n]} not "
                                      "at a near tie with 0")
@@ -3488,8 +3556,9 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
         if a.is_leaf[i]:
             va, vb = float(a.leaf_value[i]), float(b.leaf_value[j])
             k = FLIP_QUANTA + FLIP_PER_ROW * rows.get(int(j), 0)
-            bound = 1e-5 * abs(vb) + 1e-7 + eta * k * (
-                q_g + abs(vb) / eta * q_h) / (float(b.sum_hess[j]) + lam)
+            bound = 1e-5 * abs(vb) + 1e-7 + eta * (
+                k * (q_g + abs(vb) / eta * q_h)
+                + d[0] + abs(vb) / eta * d[1]) / (float(b.sum_hess[j]) + lam)
             if abs(va - vb) > bound:
                 raise AssertionError(f"{label}: leaf {i} {va} on the card, "
                                      f"{vb} on the CPU (bound {bound})")
@@ -3500,14 +3569,21 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
                 (b.split_feature[j], b.split_bin[j], b.default_left[j]):
             size = max(abs(float(a.gain[i])), abs(float(b.gain[j])),
                        scale(b, j))
+            moved = max(carry(a, i, d), carry(b, j, d))
             if abs(float(a.gain[i]) - float(b.gain[j])) > 2e-4 * size \
-                    + 1e-6:
+                    + 1e-6 + moved:
                 raise AssertionError(f"{label}: node {i} splits "
                                      "differently, not at a near tie")
+            log(f"{label}: node {i} near tie, card (f{a.split_feature[i]}"
+                f", bin {a.split_bin[i]}, gain {a.gain[i]}) vs CPU "
+                f"(f{b.split_feature[j]}, bin {b.split_bin[j]}, gain "
+                f"{b.gain[j]}), certificate {2e-4 * size + 1e-6 + moved:.3e}")
             ties.append(int(i))
             continue
-        stack.append((a.left_child[i], b.left_child[j]))
-        stack.append((a.right_child[i], b.right_child[j]))
+        step = (4 * U * max_g * n_rows(j), 4 * U * float(b.sum_hess[j]))
+        stack.append((a.left_child[i], b.left_child[j], step))
+        stack.append((a.right_child[i], b.right_child[j],
+                      (d[0] + step[0], d[1] + step[1])))
     return ties, gap, worst
 
 
@@ -3839,6 +3915,377 @@ def insurance_claims(xt, dev):
             f"{out[name]['per_round']}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"insurance_claims phase: {out['phase_s']:.1f} s")
+    return runs, out
+
+
+# the approx_higgs phase: ``tree_method="approx"`` on the main path's HIGGS
+# draws (its re-sketch on the card every round), beside ``hist``
+APPROX_ROUNDS = 10
+APPROX_CHECK_ROUNDS = (1, 10)   # device cuts held against the host sketch
+APPROX_GAP_DEPTH = 6            # the card-against-CPU trees' depth
+# the kaggle_higgs_speedtest phase: XGBoost's demo/kaggle-higgs/speedtest.py
+# (250,000 training events x 30 features, -999.0 missing, binary:logitraw,
+# eta 0.1, depth 6, 10 rounds, auc and ams@0.15), the three tree methods
+KAGGLE_TRAIN = 250_000
+KAGGLE_TEST = 50_000
+KAGGLE_TEST_SIZE = 550_000      # the demo's weight rescaling: test events
+KAGGLE_PARAMS = {"objective": "binary:logitraw", "eta": 0.1, "max_depth": 6,
+                 "eval_metric": ["auc", "ams@0.15"]}
+KAGGLE_ROUNDS = 10
+# PRI_jet_num's column, and the columns that are -999.0 when it is 0 / <= 1
+KAGGLE_JETS = 22
+KAGGLE_NO_JET = (4, 5, 6, 12, 23, 24, 25, 26, 27, 28, 29)
+KAGGLE_ONE_JET = (4, 5, 6, 12, 26, 27, 28)
+
+
+class SketchClock:
+    """Within the block every ``WeightedSketch.cuts`` and every re-binning
+    (``data/binned.py search_bin_t``) of an ``approx`` round is timed with
+    CUDA events; the weights of the calls in ``keep`` (0-based) are kept
+    with their cuts. :meth:`ms` -> (sketch ms, re-binning ms) a call."""
+
+    def __init__(self, keep=()):
+        self.keep, self.kept = set(keep), {}
+        self.events = {"sketch": [], "rebin": []}
+
+    def _timed(self, kind, fn):
+        def run(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.events[kind].append((s, e))
+            return out
+        return run
+
+    def __enter__(self):
+        from xgboost_tpu_torch.data import binned as B
+        from xgboost_tpu_torch.data.quantile import WeightedSketch
+
+        self.saved = (WeightedSketch.cuts, B.search_bin_t)
+        cuts = self._timed("sketch", self.saved[0])
+        clock = self
+
+        def kept_cuts(sketch, w):
+            out = cuts(sketch, w)
+            i = len(clock.events["sketch"]) - 1
+            if i in clock.keep:
+                clock.kept[i] = (w.detach().cpu().numpy(), out[0])
+            return out
+
+        WeightedSketch.cuts = kept_cuts
+        B.search_bin_t = self._timed("rebin", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from xgboost_tpu_torch.data import binned as B
+        from xgboost_tpu_torch.data.quantile import WeightedSketch
+
+        WeightedSketch.cuts, B.search_bin_t = self.saved
+        return False
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return tuple([s.elapsed_time(e) for s, e in self.events[k]]
+                     for k in ("sketch", "rebin"))
+
+
+def first_cut_difference(want, got):
+    """None, or (feature, rank, host cut, device cut) of the first cut
+    where two ``HistogramCuts`` differ."""
+    for f in range(want.n_features):
+        a = want.values[want.ptrs[f]:want.ptrs[f + 1]]
+        b = got.values[got.ptrs[f]:got.ptrs[f + 1]]
+        if a.shape != b.shape or not np.array_equal(
+                a.view(np.uint32), b.view(np.uint32)) or \
+                want.min_vals[f] != got.min_vals[f]:
+            r = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                     min(len(a), len(b)))
+            return (f, r, a[r] if r < len(a) else None,
+                    b[r] if r < len(b) else None)
+    return None
+
+
+def sort_kernels(rows):
+    """The profile's rows of sort kernels (cub's and torch's; not
+    ``searchsorted``, and the histogram kernels' own count and scatter
+    are named otherwise)."""
+    return [r for r in rows
+            if "sort" in r.key.lower().replace("searchsorted", "")]
+
+
+def host_sketch(X, max_bin, weights):
+    """``data/quantile.py sketch_matrix(X, max_bin, weights)`` with its
+    per-feature summaries made on 8 threads (numpy's sorts release the
+    interpreter lock): the same function, the same cuts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from xgboost_tpu_torch.data.quantile import (FeatureSummary,
+                                                 cuts_from_summaries)
+
+    with ThreadPoolExecutor(8) as ex:
+        summaries = list(ex.map(
+            lambda f: FeatureSummary.from_data(X[:, f], weights),
+            range(X.shape[1])))
+    return cuts_from_summaries(summaries, max_bin)
+
+
+def method_run(xt, label, params, dtr, dte, rounds, want):
+    """One ``train`` of ``rounds`` on the card with held-out evaluation,
+    the launch counts set to 0 before and the peak memory reset: returns
+    (booster, evals_result, counts, peak GB). ``want(counts)`` -> None or
+    the reason the launches are wrong."""
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with NoPlainBuilds():
+        bst, c = train_launches(label, lambda: xt.train(
+            params, dtr, rounds, evals=[(dte, "test")], evals_result=res,
+            verbose_eval=False))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = want(c)
+    if bad:
+        raise AssertionError(f"{label}: {bad} ({c})")
+    return bst, res, c, peak
+
+
+def k4_per_round(depth, rounds):
+    def check(c):
+        if c["hist_scan"] != depth * rounds or c["hist_int8x2"] \
+                or c["hist_f32"]:
+            return f"expected K4 {depth} a round only"
+        if c["walk_packed"] != rounds:
+            return "expected K1 once a round (the held-out walk)"
+        return None
+    return check
+
+
+def approx_higgs(xt, dev, X, y, n_tr=1_000_000):
+    """The ``approx_higgs`` phase (module docstring) on the first ``n_tr``
+    rows, the rest held out: returns (the main-path runs' launch counts,
+    a summary)."""
+    t_phase = time.perf_counter()
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr])
+    dte = xt.DMatrix(X[n_tr:], label=y[n_tr:])
+    depth = HIGGS_PARAMS["max_depth"]
+    want = k4_per_round(depth, APPROX_ROUNDS)
+    out, runs = {}, []
+    hist, hres, hc, hpeak = method_run(xt, "approx_higgs hist", HIGGS_PARAMS,
+                                       dtr, dte, APPROX_ROUNDS, want)
+    runs.append(hc)
+    p = dict(HIGGS_PARAMS, tree_method="approx")
+    digests = []
+    for run in range(2):
+        clock = SketchClock(keep=[r - 1 for r in APPROX_CHECK_ROUNDS])
+        with clock:
+            bst, res, c, peak = method_run(xt, f"approx_higgs approx run "
+                                           f"{run}", p, dtr, dte,
+                                           APPROX_ROUNDS, want)
+        runs.append(c)
+        digests.append(digest(bst))
+        if run == 0:
+            approx, ares, apeak, aclock = bst, res, peak, clock
+    if digests[0] != digests[1]:
+        raise AssertionError(f"approx_higgs: two runs saved different "
+                             f"models {digests}")
+    sk_ms, rb_ms = aclock.ms()
+    if len(sk_ms) != APPROX_ROUNDS or len(rb_ms) != APPROX_ROUNDS:
+        raise AssertionError(f"approx_higgs: {len(sk_ms)} sketches and "
+                             f"{len(rb_ms)} re-binnings in "
+                             f"{APPROX_ROUNDS} rounds")
+    # the device sketch against the host sketch on the same hessian
+    for r in APPROX_CHECK_ROUNDS:
+        w, got = aclock.kept[r - 1]
+        t0 = time.perf_counter()
+        host = host_sketch(X[:n_tr], HIGGS_PARAMS["max_bin"],
+                           w.astype(np.float64))
+        diff = first_cut_difference(host, got)
+        if diff is not None:
+            raise AssertionError(f"approx_higgs round {r}: the device "
+                                 f"sketch differs from the host's at "
+                                 f"feature {diff[0]}, rank {diff[1]} "
+                                 f"(host {diff[2]}, device {diff[3]})")
+        log(f"approx_higgs round {r}: device cuts equal the host sketch's "
+            f"({len(got.values)} cuts over {got.n_features} features; host "
+            f"sketch {time.perf_counter() - t0:.3f} s)")
+    # the first round's weights are uniform (0.25 at base_score 0.5 ...
+    # any constant): its cuts are hist's, so its tree is hist's
+    if not np.array_equal(saved_tree(hist, 0), saved_tree(approx, 0)):
+        raise AssertionError("approx_higgs: round 1's tree (uniform "
+                             "hessians) differs from hist's")
+    aucs = {}
+    for name, b in (("hist", hist), ("approx", approx)):
+        aucs[name] = auc(y[n_tr:], b.predict(dte))
+    ll = {"hist": hres["test"]["logloss"], "approx": ares["test"]["logloss"]}
+    if not ll["approx"][-1] < ll["approx"][0]:
+        raise AssertionError(f"approx_higgs: held-out logloss {ll['approx']}")
+    if abs(aucs["approx"] - aucs["hist"]) > 0.01:
+        raise AssertionError(f"approx_higgs: held-out AUC {aucs}")
+    cells = {}
+    for name, params in (("hist", HIGGS_PARAMS), ("approx", p)):
+        timer, per, s = seconds_per_round(params, dtr)
+        busy, rows = profile_rounds(f"approx_higgs {name}", timer, dtr,
+                                    top=12)
+        cells[name] = {"s_round": s, "busy": busy,
+                       "sorts": sum(r.count for r in sort_kernels(rows))}
+        log(f"approx_higgs {name}: seconds a round "
+            f"{['%.6f' % t for t in per]}, median of rounds 1-5 {s:.6f} s")
+    if cells["approx"]["sorts"]:
+        raise AssertionError(
+            "approx_higgs: sort kernels ran in steady approx rounds: "
+            f"{[(r.key, r.count) for r in sort_kernels(rows)]}")
+    # card against CPU at depth 6: at depth 8 on 20,000 rows the leaves
+    # hold a few rows, and hist's and approx's first trees (the same
+    # trees) had near ties in both rounds on the H100
+    gaps = {}
+    p6 = dict(p, max_depth=APPROX_GAP_DEPTH)
+    gaps["approx binary"] = card_against_cpu(xt, "approx binary", p6, X,
+                                             label=y)
+    y3 = np.digitize(X @ np.linspace(-1.0, 1.0, X.shape[1],
+                                     dtype=np.float32),
+                     [-1.0, 1.0]).astype(np.float32)
+    gaps["approx 3 classes"] = card_against_cpu(
+        xt, "approx 3 classes", dict(p6, objective="multi:softprob",
+                                     num_class=3), X, label=y3)
+    out = dict(
+        s_round={k: v["s_round"] for k, v in cells.items()},
+        busy={k: v["busy"] for k, v in cells.items()},
+        sketch_ms=float(np.median(sk_ms[1:])),
+        rebin_ms=float(np.median(rb_ms[1:])),
+        first_sketch_ms=sk_ms[0],
+        peak_gb={"hist": hpeak, "approx": apeak}, auc=aucs,
+        ll={k: (v[0], v[-1]) for k, v in ll.items()},
+        digest=digests[0], gaps=gaps,
+        per_round=launches_per_round(runs[1], APPROX_ROUNDS))
+    log(f"approx_higgs: sketch {['%.6f' % t for t in sk_ms]} ms, "
+        f"re-binning {['%.6f' % t for t in rb_ms]} ms a round (CUDA "
+        f"events); launches a round {out['per_round']}; peak memory "
+        f"{out['peak_gb']} GB; held-out AUC at {APPROX_ROUNDS} {aucs}, "
+        f"logloss {out['ll']}; model sha256 {digests[0]} (both runs)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"approx_higgs phase: {out['phase_s']:.1f} s")
+    return runs, out
+
+
+def saved_tree(bst, i):
+    """Tree ``i`` of ``bst`` as its saved JSON bytes."""
+    return np.frombuffer(json.dumps(bst.gbm.trees[i].to_json()).encode(),
+                         np.uint8)
+
+
+def kaggle_higgs_like(seed):
+    """The Kaggle Higgs challenge's training file's shape (250,000 + the
+    held-out events x 30 features): ``PRI_jet_num`` (column 22) in 0..3
+    with the file's shares, the jet columns -999.0 where the event has
+    too few jets and ``DER_mass_MMC`` (column 0) -999.0 in 15% of the
+    events; 34% signal; weights as in the file (signal small, background
+    large). Returns (X [n, 30] f32, y, raw weights), made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = KAGGLE_TRAIN + KAGGLE_TEST
+    X = rng.standard_normal((n, 30), dtype=np.float32)
+    X = np.abs(X) * 40 + 20 * rng.standard_normal((1, 30)).astype(np.float32)
+    jets = rng.choice(4, n, p=[0.40, 0.31, 0.20, 0.09])
+    X[:, KAGGLE_JETS] = jets
+    w_rule = rng.standard_normal(30).astype(np.float32)
+    z = (X - X.mean(0)) / (X.std(0) + 1e-6)
+    logit = z @ w_rule * 0.6 + 0.8 * (jets >= 2) + rng.standard_normal(n)
+    y = (logit > np.quantile(logit, 0.66)).astype(np.float32)
+    X[np.ix_(jets == 0, KAGGLE_NO_JET)] = -999.0
+    X[np.ix_(jets == 1, KAGGLE_ONE_JET)] = -999.0
+    X[rng.random(n) < 0.15, 0] = -999.0
+    w = np.where(y > 0, rng.uniform(0.001, 0.02, n),
+                 rng.uniform(0.5, 5.0, n)).astype(np.float32)
+    return X, y, w
+
+
+def exact_levels(xt, params, dtr):
+    """Each level's time on the device's clock (CUDA events between level
+    ends) of one ``exact`` tree, grown by one more ``update`` round."""
+    from xgboost_tpu_torch.tree import exact as E
+
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    advance, grow = E.update_positions, E.grow_exact
+
+    def timed_advance(*a, **k):
+        out = advance(*a, **k)
+        mark()
+        return out
+
+    def timed_grow(*a, **k):
+        mark()
+        return grow(*a, **k)
+
+    bst = xt.Booster(params)
+    E.update_positions, E.grow_exact = timed_advance, timed_grow
+    try:
+        bst.update(dtr, 0)
+    finally:
+        E.update_positions, E.grow_exact = advance, grow
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def kaggle_higgs_speedtest(xt, dev):
+    """The ``kaggle_higgs_speedtest`` phase (module docstring): returns
+    (the main-path runs' launch counts, a summary)."""
+    t_phase = time.perf_counter()
+    X, y, w_raw = kaggle_higgs_like(seed=53)
+    # the demo's rescaling, so the weights sum as over the test events
+    w = w_raw * np.float32(KAGGLE_TEST_SIZE / len(y))
+    tr = slice(0, KAGGLE_TRAIN)
+    te = slice(KAGGLE_TRAIN, None)
+    sum_wpos = float(w[tr][y[tr] == 1].sum())
+    sum_wneg = float(w[tr][y[tr] == 0].sum())
+    log(f"kaggle_higgs_like: {KAGGLE_TRAIN} + {KAGGLE_TEST} x {X.shape[1]}, "
+        f"{(X == -999.0).mean() * 100:.2f}% of the values -999.0, signal "
+        f"{y.mean() * 100:.2f}%, weight sums s {sum_wpos:.3f} b "
+        f"{sum_wneg:.3f}")
+    dtr = xt.DMatrix(X[tr], label=y[tr], weight=w[tr], missing=-999.0)
+    dte = xt.DMatrix(X[te], label=y[te], weight=w[te], missing=-999.0)
+    base = dict(KAGGLE_PARAMS, scale_pos_weight=sum_wneg / sum_wpos)
+    depth = base["max_depth"]
+    runs, out = [], {}
+
+    def no_hist(c):
+        if c["hist_scan"] or c["hist_int8x2"] or c["hist_f32"]:
+            return "expected no histogram kernel"
+        if c["walk_packed"] != KAGGLE_ROUNDS:
+            return "expected K1 once a round (the held-out walk)"
+        return None
+
+    for tm, want in (("hist", k4_per_round(depth, KAGGLE_ROUNDS)),
+                     ("approx", k4_per_round(depth, KAGGLE_ROUNDS)),
+                     ("exact", no_hist)):
+        p = dict(base, tree_method=tm)
+        bst, res, c, peak = method_run(xt, f"kaggle {tm}", p, dtr, dte,
+                                       KAGGLE_ROUNDS, want)
+        runs.append(c)
+        a, ams = res["test"]["auc"], res["test"]["ams@0.15"]
+        if not (a[-1] > 0.6 and np.isfinite(bst.predict(dte)).all()):
+            raise AssertionError(f"kaggle {tm}: held-out auc {a}")
+        s, busy = cell_profile(xt, f"kaggle {tm}", p, dtr)
+        out[tm] = dict(s_round=s, busy=busy, peak_gb=peak, auc=(a[0], a[-1]),
+                       ams=(ams[0], ams[-1]), digest=digest(bst),
+                       per_round=launches_per_round(c, KAGGLE_ROUNDS))
+        log(f"kaggle {tm}: held-out auc {a[0]} -> {a[-1]}, ams@0.15 "
+            f"{ams[0]} -> {ams[-1]}, peak memory {peak:.3f} GB, model "
+            f"sha256 {out[tm]['digest']}; launches a round "
+            f"{out[tm]['per_round']}")
+    lv = exact_levels(xt, dict(base, tree_method="exact"), dtr)
+    out["exact"]["level_ms"] = lv
+    log(f"kaggle exact: level times {['%.3f' % t for t in lv]} ms (CUDA "
+        f"events between level ends, one tree)")
+    out["gap"] = card_against_cpu(xt, "kaggle exact", dict(
+        base, tree_method="exact"), X[tr], label=y[tr], weight=w[tr],
+        missing=-999.0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"kaggle_higgs_speedtest phase: {out['phase_s']:.1f} s")
     return runs, out
 
 
@@ -4539,6 +4986,21 @@ def main() -> int:
         f"rounds, held-out {v['metric']} {v['m'][0]} -> {v['m'][1]}"
         for k, v in ins.items() if isinstance(v, dict)))
 
+    # ---- main path: tree_method approx at the HIGGS shape, and the three
+    # tree methods at XGBoost's Kaggle Higgs speed test
+    ax_runs, ax = approx_higgs(xt, dev, X, y)
+    log(f"approx_higgs: seconds a round {ax['s_round']}, device busy over 3 "
+        f"rounds {ax['busy']} ms; sketch {ax['sketch_ms']:.6f} ms and "
+        f"re-binning {ax['rebin_ms']:.6f} ms a round (first sketch "
+        f"{ax['first_sketch_ms']:.6f} ms); peak {ax['peak_gb']} GB; "
+        f"held-out AUC {ax['auc']}")
+    kg_runs, kg = kaggle_higgs_speedtest(xt, dev)
+    log("kaggle_higgs_speedtest: " + "; ".join(
+        f"{k} {kg[k]['s_round']:.6f} s a round, busy {kg[k]['busy']:.3f} ms "
+        f"over 3 rounds, peak {kg[k]['peak_gb']:.3f} GB, held-out auc "
+        f"{kg[k]['auc'][1]}, ams@0.15 {kg[k]['ams'][1]}"
+        for k in ("hist", "approx", "exact")))
+
     # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
     mslr_runs, mslr_errs, mslr_k1, mslr_hist, mslr = mslr_ranking(xt, dev)
     errs += mslr_k1
@@ -4661,7 +5123,8 @@ def main() -> int:
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
-            *mt_runs, *qr_runs, *surv_runs, *ins_runs]
+            *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
+            *kg_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

@@ -1207,3 +1207,71 @@ def test_survival_gradients_on_the_card():
     cox = get_objective("survival:cox")
     torch.testing.assert_close(cox.get_gradient(m.to(dev), y.to(dev)).cpu(),
                                cox.get_gradient(m, y), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["logistic", "integer"])
+def test_device_sketch_equals_the_host_sketch_on_the_card(kind):
+    """``WeightedSketch`` on the card (one sort when built, none a call)
+    gives the host sketch's cuts bit for bit, on 200,000 rows with ties,
+    NaNs, a constant and a categorical column; re-binning on the card
+    equals ``BinnedMatrix.from_dense``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgboost_tpu_torch.data.binned import ApproxSource, BinnedMatrix
+    from xgboost_tpu_torch.data.quantile import WeightedSketch, sketch_matrix
+
+    rng = np.random.RandomState(12)
+    n = 200_000
+    X = rng.randn(n, 6).astype(np.float32)
+    X[:, 1] = rng.randint(0, 40, n)
+    X[rng.rand(n) < 0.2, 2] = np.nan
+    X[:, 3] = 1.5
+    X[:, 4] = rng.randint(0, 9, n)
+    types = ["q"] * 4 + ["c", "q"]
+    if kind == "logistic":
+        p = 1.0 / (1.0 + np.exp(-2 * rng.randn(n)))
+        w = (p * (1 - p)).astype(np.float32)
+    else:
+        w = rng.randint(0, 4, n).astype(np.float32)
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(X).to(dev)
+    wd = torch.from_numpy(w).to(dev)
+    for max_bin in (16, 256):
+        want = sketch_matrix(X, max_bin, w.astype(np.float64), types)
+        got = WeightedSketch(Xd, max_bin, types).cuts(wd)[0]
+        for k in ("values", "ptrs", "min_vals"):
+            assert np.array_equal(getattr(got, k), getattr(want, k)), k
+        bm = ApproxSource(Xd, max_bin, types).binned(wd)
+        ref = BinnedMatrix.from_dense(X, bm.cuts, dev)
+        assert bm.bins.dtype == ref.bins.dtype
+        assert torch.equal(bm.bins, ref.bins)
+
+
+@pytest.mark.cuda
+def test_approx_and_exact_on_the_card_equal_the_cpu():
+    """The first round's trees of ``approx`` (K4 over the re-binned
+    matrix) and of ``exact`` on the card equal the CPU port's: the same
+    cuts and splits, leaves at the f32 reassociation of their sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    rng = np.random.RandomState(13)
+    X = rng.randn(70_000, 8).astype(np.float32)
+    X[rng.rand(70_000, 8) < 0.05] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + rng.randn(70_000) > 0).astype(np.float32)
+    for n, tm, depth in ((70_000, "approx", 6), (20_000, "approx", 6),
+                         (5_000, "exact", 4)):
+        params = {"objective": "binary:logistic", "base_score": 0.5,
+                  "tree_method": tm, "max_depth": depth}
+        gpu = xt.train(params, xt.DMatrix(X[:n], label=y[:n]), 1,
+                       verbose_eval=False)
+        cpu = xt.train(dict(params, device="cpu"),
+                       xt.DMatrix(X[:n], label=y[:n]), 1, verbose_eval=False)
+        a, b = gpu.gbm.trees[0], cpu.gbm.trees[0]
+        np.testing.assert_array_equal(a.left_child, b.left_child)
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.split_value, b.split_value)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   atol=1e-6)

@@ -416,6 +416,7 @@ def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):
     ({"monotone_constraints": "(1,0,0,0,0,0,0)"}, "A.7"),
     ({"multi_strategy": "multi_output_tree"}, "A.7"),
     ({"data_split_mode": "col"}, "A.8"),
+    ({"tree_method": "approx"}, "A.7"),
 ])
 def test_unported_paged_configurations_raise(params, item, tmp_path,
                                              monkeypatch):
@@ -430,7 +431,7 @@ def test_unported_paged_configurations_raise(params, item, tmp_path,
 
 
 def test_unported_paged_methods_raise(tmp_path, monkeypatch):
-    """The paged mesh tier (A.8), approx's resketch (A.5.8) and appending
+    """The paged mesh tier (A.8), approx's resketch (A.7) and appending
     rows (A.7) raise; a paged matrix trains only at its own max_bin."""
     _set(monkeypatch)
     X, y = _data(51, n=1000)
@@ -439,7 +440,7 @@ def test_unported_paged_methods_raise(tmp_path, monkeypatch):
     paged = tq.binned(16, CPU)
     for fn, item in ((lambda: paged.mesh_layout(2), "A.8"),
                      (lambda: paged.pages_sharded(None, "data"), "A.8"),
-                     (lambda: paged.resketch(16, None), "A.5.8"),
+                     (lambda: paged.resketch(16, None), "A.7"),
                      (lambda: paged.append_rows(X), "A.7")):
         with pytest.raises(NotImplementedError, match=item.replace(".",
                                                                    r"\.")):

@@ -578,14 +578,11 @@ def test_train_runs_on_the_card_unless_asked():
 @pytest.mark.parametrize("params,item", [
     ({"grow_policy": "lossguide", "hist_method": "mega"}, "A.6"),
     ({"booster": "gblinear"}, "A.5.9"),
-    ({"tree_method": "approx"}, "A.5.8"),
     ({"max_leaves": 4, "hist_method": "scan+sub"}, "A.6"),
     ({"data_split_mode": "col"}, "A.8"),
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
-    ({"tree_method": "exact"}, "A.5.8"),
     ({"booster": "gblinear", "updater": "coord_descent"}, "A.5.9"),
-    ({"objective": "survival:cox", "tree_method": "approx"}, "A.5.8"),
 ])
 def test_unported_options_name_their_roadmap_item(params, item):
     rng = np.random.RandomState(4)

@@ -27,7 +27,9 @@ a ring of per-round unit deltas [R, n, K] on the device
 one ``torch.einsum`` with the dropped (round, class) slots' weights; a
 tree the ring does not hold (a loaded model's, or ``num_parallel_tree``
 above 1) is walked over the bins (``boosting/predict.py
-margin_binned``). An evaluation set recomputes its margin over the whole
+margin_binned``), or, under ``tree_method="approx"`` / ``"exact"``,
+whose training matrix keeps no bins, over its raw values (kernel K1).
+An evaluation set recomputes its margin over the whole
 weighted forest whenever the forest changes (kernel K1).
 """
 
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..serve.packed import PackedForest
 from ..tree.param import _f32
 from .gbtree import GBTree
 from .predict import margin_binned, stack_trees
@@ -140,7 +143,7 @@ class Dart(GBTree):
         base = state["base"]
         if not self.trees:
             m = base
-        elif state["is_train"]:
+        elif state["is_train"] and state["binned"] is not None:
             m = base + self.margin_delta_binned(
                 state["binned"], 0, len(self.trees), base.device)
         else:
@@ -214,11 +217,15 @@ class Dart(GBTree):
             return cached
         binned = state["binned"]
         dev = state["base"].device
+        w = np.asarray(self.weight_drop, np.float32)[idx]
+        zero = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
+        if binned is None:      # approx / exact: the raw values through K1
+            return PackedForest.from_trees(
+                [self.trees[i] for i in idx], [self.tree_info[i] for i in idx],
+                self.n_groups, w).margin(state["X"], zero)
         forest = stack_trees([self.trees[i] for i in idx],
                              [self.tree_info[i] for i in idx], self.n_groups,
-                             dev, np.asarray(self.weight_drop,
-                                             np.float32)[idx])
-        zero = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
+                             dev, w)
         if binned.is_paged:
             return self._margin_binned_paged(forest, binned, zero)
         return margin_binned(forest, binned.bins, binned.missing_bin, zero)

@@ -19,6 +19,17 @@ margins are
 walked over its bins page by page (:meth:`GBTree.margin_delta_binned`,
 :meth:`GBTree.full_margin_binned`). ``boosting/dart.py`` derives dart
 from this class.
+
+``tree_method="approx"`` (the reference's ``GlobalApproxUpdater``,
+``src/tree/updater_approx.cc:55``) re-sketches the cuts before each
+class's trees with that class's hessian as the weights, after the
+objective has folded in the row weights and before row sampling
+(``data/binned.py ApproxSource``), re-bins the matrix on the device and
+grows from it; each tree takes its thresholds from its own round's cuts.
+The grower is kept, its cuts swapped, while the bin slots are unchanged
+and no feature is categorical (the JAX package's rule), else rebuilt.
+``tree_method="exact"`` grows with ``tree/exact.py`` over the matrix's
+rank encoding, without column sampling, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..tree.exact import ExactGrower
 from ..tree.grow import TreeGrower
 from ..tree.lossguide import LossguideGrower
 from ..tree.multi import (MultiLossguideGrower, MultiTargetGrower,
@@ -90,6 +102,8 @@ class GBTree:
         self.tree_info: List[int] = []
         self.iteration_indptr: List[int] = [0]
         self._grower: Optional[TreeGrower] = None
+        # "hist", "approx" or "exact", set by the Booster
+        self.tree_method = "hist"
 
     # -- training -------------------------------------------------------------
     @property
@@ -103,7 +117,9 @@ class GBTree:
         """The grower of this matrix (the JAX package's ``_grower_for``):
         leaf-wise (``tree/lossguide.py``) for ``grow_policy="lossguide"``,
         else depthwise, resident or paged; vector-leaf trees
-        (``tree/multi.py``) under ``multi_output_tree``."""
+        (``tree/multi.py``) under ``multi_output_tree``. Under ``approx``
+        the grower of the previous cuts takes the new ones when its bin
+        slots fit them (:meth:`TreeGrower.set_cuts`)."""
         lossguide = self.tree_param.grow_policy == "lossguide"
         if binned.is_paged and self.multi_strategy == "multi_output_tree":
             raise NotImplementedError(
@@ -124,8 +140,13 @@ class GBTree:
             cls = (LossguideGrower if lossguide
                    else PagedGrower if binned.is_paged else TreeGrower)
             kw["monotone"] = self.monotone
-        if self._grower is None or self._grower.cuts is not binned.cuts \
-                or type(self._grower) is not cls:
+        g = self._grower
+        if (self.tree_method == "approx" and type(g) is cls
+                and g.max_nbins == binned.max_nbins
+                and g.has_missing == binned.has_missing
+                and not binned.cuts.is_cat().any()):
+            g.set_cuts(binned.cuts)      # a new round's cuts, same shapes
+        if g is None or g.cuts is not binned.cuts or type(g) is not cls:
             param = self.tree_param
             if self.num_parallel_tree > 1:
                 # reference BoostNewTrees: lr /= num_parallel_tree
@@ -140,7 +161,10 @@ class GBTree:
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """gpair [n, K, 2] on the device of ``binned`` and the round's key
         -> margin delta [n, K]; appends the round's K * num_parallel_tree
-        trees (class k's trees tagged k in ``tree_info``). With an
+        trees (class k's trees tagged k in ``tree_info``). ``binned``: the
+        training matrix's bins, its ``ApproxSource`` under
+        ``tree_method="approx"``, or its ``ExactQuantization`` under
+        ``"exact"``. With an
         adaptive-leaf ``obj`` (``info.zero_hess``), ``margin`` [n, K] from
         before the round, ``labels`` [n] and ``weights`` [n] or None, each
         tree's leaves are refreshed as it is grown (the JAX package's
@@ -157,24 +181,43 @@ class GBTree:
             raise NotImplementedError(
                 "multi_output_tree does not support adaptive-leaf "
                 "objectives")
-        grower = self._grower_for(binned)
+        method = self.tree_method
         if self.vector_leaf:
-            return self._do_boost_multi(binned, grower, gpair, key)
+            if method in ("approx", "exact"):
+                raise NotImplementedError(
+                    "multi_output_tree requires tree_method=hist")
+            return self._do_boost_multi(binned, self._grower_for(binned),
+                                        gpair, key)
         tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
-        masks = grower.feature_masks(tkeys, gpair.device)
+        masks = None
+        if method == "exact":
+            grower = ExactGrower(self.tree_param, binned)
+        elif method == "hist":
+            grower = self._grower_for(binned)
+            masks = grower.feature_masks(tkeys, gpair.device)
         if adaptive:
             eta = self.tree_param.eta / npt
             alphas = obj.alphas()
         deltas = []
         for k in range(K):
+            keys = tkeys[k * npt:(k + 1) * npt]
+            if method == "approx":
+                src = binned.binned(gpair[:, k, 1])
+                grower = self._grower_for(src)
+                masks_k = grower.feature_masks(keys, gpair.device)
+            else:
+                src = binned
+                masks_k = None if masks is None else masks[k * npt:]
             delta = None
             for p in range(npt):
-                i = k * npt + p
-                gp = sample_gradients(gpair[:, k, :].contiguous(), tkeys[i],
+                gp = sample_gradients(gpair[:, k, :].contiguous(), keys[p],
                                       self.tree_param)
-                grown = grower.grow(
-                    binned if binned.is_paged else binned.bins, gp,
-                    None if masks is None else masks[i])
+                if method == "exact":
+                    grown = grower.grow(gp)
+                else:
+                    grown = grower.grow(
+                        src if src.is_paged else src.bins, gp,
+                        None if masks_k is None else masks_k[p])
                 tree = grower.to_tree_model(grown)
                 d = grown.delta
                 if adaptive:

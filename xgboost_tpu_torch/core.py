@@ -36,6 +36,12 @@ and metrics (``custom_metric=`` / ``feval=``) take and give numpy.
 (``boosting/predict.py leaf_positions``); dumps, importances and the
 structural report are ``dump.py``'s.
 
+Under ``tree_method="approx"`` or ``"exact"`` the training matrix's
+cache entry keeps no bins: it keeps what the method grows from
+(:meth:`Booster._method_source`), its margin moves by the grown trees'
+deltas, and every other matrix walks raw values through K1, as in the
+JAX package, so none is binned with one round's cuts.
+
 A label matrix [n, K] trains K outputs: one tree a target and round
 (``multi_strategy="one_output_per_tree"``, the default), or one
 vector-leaf tree a round for all K (``"multi_output_tree"``,
@@ -61,6 +67,7 @@ from .boosting.predict import leaf_positions, margin_raw, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
+from .data.binned import ApproxSource
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
@@ -69,6 +76,7 @@ from .objective.adaptive import label_matrix_refusal
 from .objective.base import guard_gradient
 from .objective.survival import sort_by_time
 from .serve.packed import PackedForest
+from .tree.exact import ExactQuantization
 from .tree.multi import is_vector_leaf
 from .tree.param import (TrainParam, parse_interaction_constraints,
                          parse_monotone_constraints)
@@ -279,11 +287,7 @@ class Booster:
     def _configure(self, dtrain: Optional[DMatrix]) -> None:
         if self._configured:
             return
-        tm = self.learner_params.get("tree_method", "auto")
-        if tm not in _HIST_TREE_METHODS:
-            raise NotImplementedError(
-                f"tree_method={tm!r} is not in the PyTorch port yet "
-                "(ROADMAP A.5.8); use 'hist'")
+        tm = self._tree_method()
         booster = self.learner_params.get("booster", "gbtree")
         if booster not in ("gbtree", "dart"):
             raise NotImplementedError(
@@ -300,6 +304,7 @@ class Booster:
             raise ValueError(
                 f"unknown grow_policy={self.tree_param.grow_policy}; use "
                 "'depthwise' or 'lossguide'")
+        self._check_tree_method(tm, dtrain)
         obj_name = self.learner_params.get("objective", "reg:squarederror")
         if self.obj is None or self.obj.name != obj_name:
             self.obj = get_objective(obj_name, self._obj_params())
@@ -319,6 +324,7 @@ class Booster:
         if isinstance(self.gbm, Dart):
             self.gbm.configure(self.learner_params, self.ctx.seed)
         self.gbm.tree_param = self.tree_param
+        self.gbm.tree_method = tm
         self._configure_constraints(dtrain)
         if "multi_output_tree" in (ms, self.gbm.multi_strategy):
             self._refuse_for_vector_leaves(booster)
@@ -345,6 +351,43 @@ class Booster:
             self.feature_names = dtrain.info.feature_names
             self.feature_types = dtrain.info.feature_types
         self._configured = True
+
+    def _tree_method(self) -> str:
+        """``"hist"`` (any of its names), ``"approx"`` or ``"exact"``."""
+        tm = self.learner_params.get("tree_method", "auto")
+        if tm in _HIST_TREE_METHODS:
+            return "hist"
+        if tm not in ("approx", "exact"):
+            raise NotImplementedError(
+                f"tree_method={tm} is not implemented; use "
+                "hist/approx/exact")
+        return tm
+
+    def _check_tree_method(self, tm: str,
+                           dtrain: Optional[DMatrix]) -> None:
+        """What ``approx`` and ``exact`` do not take, refused with the JAX
+        package's exceptions and words (``exact``'s as upstream's
+        ``ColMaker``); categorical data under ``exact`` is refused as
+        upstream refuses it, where the JAX package trains the codes as
+        numbers (ROADMAP C)."""
+        if tm == "hist":
+            return
+        if tm == "exact" and self.tree_param.grow_policy == "lossguide":
+            raise ValueError("tree_method=exact only supports "
+                             "grow_policy=depthwise (reference ColMaker)")
+        if tm == "exact" and self.tree_param.max_leaves > 0:
+            raise NotImplementedError(
+                "tree_method=exact does not support max_leaves")
+        if self.learner_params.get("hist_method") in ("coarse", "fused",
+                                                      "scan", "mega"):
+            raise NotImplementedError(
+                "hist_method='coarse'/'fused'/'scan'/'mega' supports the "
+                "hist updaters (depthwise or lossguide, resident or "
+                "external-memory depthwise) with scalar trees only")
+        if tm == "exact" and dtrain is not None and "c" in (
+                dtrain.info.feature_types or ()):
+            raise ValueError("Updater `grow_colmaker` or `exact` tree "
+                             "method doesn't support categorical data.")
 
     def _refuse_for_vector_leaves(self, booster: str) -> None:
         """What ``multi_output_tree`` does not take, refused as the JAX
@@ -392,8 +435,11 @@ class Booster:
                   torch.from_numpy(info.weights).to(dev)}
             self._caches[id(dm)] = st
         if is_train and not st["is_train"]:
-            st["binned"] = self._collapse_paged_if_fits(
-                dm.binned(self.tree_param.max_bin, self.device))
+            if self._tree_method() == "hist":
+                st["binned"] = self._collapse_paged_if_fits(
+                    dm.binned(self.tree_param.max_bin, self.device))
+            else:
+                st["source"] = self._method_source(st)
             st["is_train"] = True
         if st["margin"] is None and self.base_margin_ is not None:
             n = dm.num_row()
@@ -406,6 +452,36 @@ class Booster:
                 st["margin"] = base[None, :].expand(n, -1).contiguous()
             st["base"] = st["margin"]
         return st
+
+    def _raw_on_device(self, st: Dict[str, Any]) -> torch.Tensor:
+        """The cached matrix's raw values [n, F] f32 on this Booster's
+        device (an iterator-built matrix's bin values), copied once."""
+        if st["X"] is None:
+            st["X"] = torch.from_numpy(np.ascontiguousarray(
+                st["dm"].values())).to(self.device)
+        return st["X"]
+
+    def _method_source(self, st: Dict[str, Any]):
+        """What ``approx`` or ``exact`` grows from, in place of a shared
+        binned matrix (the training entry keeps none, as in the JAX
+        package, so no other matrix is ever binned with one round's cuts
+        and evaluation sets walk raw values through K1): the raw values
+        and their device sketch (``data/binned.py ApproxSource``), or the
+        rank encoding (``tree/exact.py ExactQuantization``). A paged
+        matrix raises."""
+        dm = st["dm"]
+        exact = self._tree_method() == "exact"
+        if dm.is_paged and exact:
+            raise NotImplementedError(
+                "tree_method=exact rank-encodes the raw matrix and does "
+                "not support external-memory (paged) matrices; use "
+                "tree_method=hist")
+        if dm.is_paged:
+            dm.binned(self.tree_param.max_bin, self.device).resketch()
+        X = self._raw_on_device(st)     # dart walks its dropped trees on it
+        if exact:
+            return ExactQuantization(np.asarray(dm.values(), np.float32))
+        return ApproxSource(X, self.tree_param.max_bin, dm.info.feature_types)
 
     def _obj_inputs(self, st: Dict[str, Any]) -> Dict[str, Any]:
         """The matrix's inputs the objective takes besides labels and
@@ -475,20 +551,18 @@ class Booster:
         binned = self._binned_for_walk(st)
         if binned is not None:
             return self.gbm.margin_delta_binned(binned, lo, hi, self.device)
-        if st["X"] is None:
-            st["X"] = torch.from_numpy(np.ascontiguousarray(
-                st["dm"].values())).to(self.device)
+        X = self._raw_on_device(st)
         zero = torch.zeros(self.n_groups, dtype=torch.float32,
                            device=self.device)
         if is_vector_leaf(self.gbm.trees):
             return margin_raw(stack_trees(
                 self.gbm.trees[lo:hi], self.gbm.tree_info[lo:hi],
-                self.n_groups, self.device), st["X"], zero)
+                self.n_groups, self.device), X, zero)
         w = self.gbm.tree_weights()
         pf = PackedForest.from_trees(self.gbm.trees[lo:hi],
                                      self.gbm.tree_info[lo:hi], self.n_groups,
                                      None if w is None else w[lo:hi])
-        return pf.margin(st["X"], zero)
+        return pf.margin(X, zero)
 
     def _cached_margin(self, dm: DMatrix, is_train: bool = False
                        ) -> torch.Tensor:
@@ -556,11 +630,12 @@ class Booster:
         if refresh and self.obj.info.zero_hess:
             adaptive = dict(obj=self.obj, margin=margin,
                             labels=st["labels"], weights=st["weights"])
+        src = st["binned"] if st["binned"] is not None else st["source"]
         if self.gbm.supports_margin_cache:
-            st["margin"] = margin + self.gbm.do_boost(st["binned"], gpair,
-                                                      key, **adaptive)
+            st["margin"] = margin + self.gbm.do_boost(src, gpair, key,
+                                                      **adaptive)
         else:
-            self.gbm.do_boost(st["binned"], gpair, key, state=st, **adaptive)
+            self.gbm.do_boost(src, gpair, key, state=st, **adaptive)
             st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
         st["n_trees"] = self.gbm.version()
         self._packed = {}

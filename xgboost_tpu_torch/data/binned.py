@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .quantile import HistogramCuts
+from .quantile import HistogramCuts, WeightedSketch
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.uint16): torch.uint16,
@@ -70,13 +70,19 @@ def search_bin(X: torch.Tensor, cuts: HistogramCuts,
     ``missing_bin``. Equal to ``HistogramCuts.search_bin`` (numpy) with the
     missing value mapped, on the device of ``X``."""
     table = torch.from_numpy(padded_cuts(cuts)).to(X.device)
-    Xt = X.t().contiguous()                                  # [F, n]
-    b = torch.searchsorted(table, Xt, side="left")           # [F, n]
-    last = torch.from_numpy(cuts.n_real_bins().astype(np.int64) - 1).to(
+    n_real = torch.from_numpy(cuts.n_real_bins().astype(np.int64)).to(
         X.device)
-    b = torch.minimum(b, last[:, None])
-    b = torch.where(torch.isnan(Xt), torch.full_like(b, missing_bin), b)
-    return b.t()
+    return search_bin_t(X.t().contiguous(), table, n_real, missing_bin).t()
+
+
+def search_bin_t(Xt: torch.Tensor, table: torch.Tensor,
+                 n_real: torch.Tensor, missing_bin: int) -> torch.Tensor:
+    """:func:`search_bin` over the transposed matrix Xt [F, n] against a
+    cut table [F, W] (+inf padded) and the real-bin counts [F], all on
+    one device -> [F, n] int64 bin ids."""
+    b = torch.searchsorted(table, Xt, side="left")           # [F, n]
+    b = torch.minimum(b, (n_real - 1)[:, None])
+    return torch.where(torch.isnan(Xt), torch.full_like(b, missing_bin), b)
 
 
 def values_of_bins(local: np.ndarray, cuts: HistogramCuts) -> np.ndarray:
@@ -126,13 +132,20 @@ class BinnedMatrix:
             device)
         has_missing = bool(torch.isnan(Xd).any())
         max_nbins = int(cuts.n_real_bins().max(initial=0)) + int(has_missing)
-        missing = max(max_nbins - 1, 0)
-        b = search_bin(Xd, cuts, missing)
+        b = search_bin(Xd, cuts, max(max_nbins - 1, 0))
+        return BinnedMatrix.from_bin_ids(b, cuts, has_missing)
+
+    is_paged = False
+
+    @staticmethod
+    def from_bin_ids(b: torch.Tensor, cuts: HistogramCuts,
+                     has_missing: bool) -> "BinnedMatrix":
+        """Bin ids [n, F] int64 from :func:`search_bin` (missing at
+        ``max_nbins - 1`` of ``cuts``' layout) in the layout's dtype."""
+        max_nbins = int(cuts.n_real_bins().max(initial=0)) + int(has_missing)
         bins = b.to(_dtype_for(max(max_nbins - 1, 0))).contiguous()
         return BinnedMatrix(bins=bins, cuts=cuts, max_nbins=max_nbins,
                             has_missing=has_missing)
-
-    is_paged = False
 
     @staticmethod
     def from_local_bins(local: np.ndarray, cuts: HistogramCuts,
@@ -494,10 +507,35 @@ class PagedBinnedMatrix:
 
     def resketch(self, *args, **kwargs):
         raise NotImplementedError(
-            "tree_method='approx' (resketching a paged matrix) is not in "
-            "the PyTorch port yet (ROADMAP A.5.8)")
+            "tree_method='approx' on a paged (external-memory) matrix "
+            "(resketching its pages every round) is not in the PyTorch "
+            "port yet (paged approx, ROADMAP A.7)")
 
     def append_rows(self, X: np.ndarray) -> None:
         raise NotImplementedError(
             "appending rows to a paged matrix is not in the PyTorch port "
             "yet (ROADMAP A.7)")
+
+
+class ApproxSource:
+    """The training matrix of ``tree_method="approx"``: its raw values on
+    the device (for a matrix built from an iterator, the values of its
+    bins, :func:`values_of_bins`, as the JAX package sketches them) and
+    their :class:`~.quantile.WeightedSketch`, built once.
+    :meth:`binned` re-sketches with new weights and re-bins the resident
+    values against the new cut table on the device."""
+
+    def __init__(self, X: torch.Tensor, max_bin: int,
+                 feature_types: Optional[List[str]] = None) -> None:
+        self.Xt = X.t().contiguous()                              # [F, n]
+        self.has_missing = bool(torch.isnan(self.Xt).any())
+        self.sketch = WeightedSketch(X, max_bin, feature_types)
+
+    def binned(self, weights: torch.Tensor) -> BinnedMatrix:
+        """A :class:`BinnedMatrix` of the values under the cuts sketched
+        with ``weights`` [n] (its ``max_nbins`` and dtype follow them)."""
+        cuts, table, n_real = self.sketch.cuts(weights)
+        max_nbins = int(cuts.n_real_bins().max(initial=0)) + int(
+            self.has_missing)
+        b = search_bin_t(self.Xt, table, n_real, max(max_nbins - 1, 0))
+        return BinnedMatrix.from_bin_ids(b.t(), cuts, self.has_missing)

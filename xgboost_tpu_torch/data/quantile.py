@@ -1,15 +1,30 @@
-"""Weighted quantile sketch -> histogram cuts (host numpy).
+"""Weighted quantile sketch -> histogram cuts, on the host and on the
+device.
 
-The port of the JAX package's ``data/quantile.py`` numpy path (reference
+The port of the JAX package's ``data/quantile.py`` (reference
 ``src/common/quantile.h``, ``src/common/hist_util.cc:32-69``): per-feature
 weighted summaries (sorted unique values and their total weight) cut at
 evenly spaced weighted ranks into at most ``max_bin`` real bins. An
 iterator-built matrix sketches batch by batch and merges the summaries,
 each merge pruned to ``8 * max_bin`` entries (``FeatureSummary.merge`` /
-``prune``, reference ``WQSummary::Prune``). The JAX
-package may route the same computation through its native C++ sketch,
-which it documents as giving the same cuts; the port keeps only the
-numpy path.
+``prune``, reference ``WQSummary::Prune``).
+
+With weights the host summary follows the JAX package's native C++
+sketch (``native/sketch.cc``), which that package takes whenever its
+library loads: -0.0 counts as +0.0 (the unweighted summary keeps the
+numpy path's order, so the hist models' bytes stay as they were), ties
+keep row order (a stable sort),
+each value's weight is summed in that order from 0.0 and the cumulative
+weight runs value by value, all in f64. Where those sums are exact
+(integer weights, or f32 weights of similar size over up to about 2^20
+rows) every order gives the same bits, and the cuts equal both of the
+JAX package's sketches.
+
+:class:`WeightedSketch` is the same cut rule as torch ops on the
+matrix's device, for ``tree_method="approx"``, which re-sketches with
+the hessian as the weights every round: the sort happens once, when the
+sketch is built; each call gathers the weights in sorted order and cuts
+without sorting.
 
 Cuts are ragged (``values``/``ptrs`` over REAL bins only, as in
 ``common::HistogramCuts``); ``data/binned.py`` pads every feature to a
@@ -27,6 +42,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _sorted_unique_sums(v: np.ndarray, w: Optional[np.ndarray]):
@@ -40,6 +56,30 @@ def _sorted_unique_sums(v: np.ndarray, w: Optional[np.ndarray]):
         wsum = np.diff(np.append(start, len(v))).astype(np.float64)
     else:
         wsum = np.add.reduceat(w, start)
+    return v[start], wsum
+
+
+# runs at most this long are summed one position at a time over all runs
+# at once; a longer run takes its own sequential ``np.cumsum``
+_SHORT_RUN = 32
+
+
+def _run_sums_in_order(v: np.ndarray, w: np.ndarray):
+    """Sorted values and their f64 weights (ties in row order) -> (unique
+    values, per-unique weight sums), each sum taken in row order from 0.0
+    as ``native/sketch.cc`` takes it (``np.add.reduceat`` would sum a long
+    run pairwise)."""
+    new = np.empty(len(v), bool)
+    new[0] = True
+    np.not_equal(v[1:], v[:-1], out=new[1:])
+    start = np.flatnonzero(new)
+    length = np.diff(np.append(start, len(v)))
+    wsum = 0.0 + w[start]
+    for j in range(1, min(int(length.max()), _SHORT_RUN)):
+        sel = length > j
+        wsum[sel] += w[start[sel] + j]
+    for r in np.flatnonzero(length > _SHORT_RUN):
+        wsum[r] = np.cumsum(w[start[r]:start[r] + length[r]])[-1]
     return v[start], wsum
 
 
@@ -61,8 +101,9 @@ class FeatureSummary:
         if weights is None:
             uniq, wsum = _sorted_unique_sums(np.sort(v), None)
         else:
-            order = np.argsort(v)
-            uniq, wsum = _sorted_unique_sums(
+            v = v + 0.0                 # -0.0 and +0.0 are one value
+            order = np.argsort(v, kind="stable")
+            uniq, wsum = _run_sums_in_order(
                 v[order], weights[mask].astype(np.float64)[order])
         return FeatureSummary(uniq, wsum)
 
@@ -195,10 +236,9 @@ def cuts_from_summaries(summaries: Sequence[FeatureSummary], max_bin: int,
                 idx = np.searchsorted(cum, ranks, side="left")
                 idx = np.unique(np.clip(idx, 0, s.values.size - 1))
                 pts = s.values[idx].astype(np.float64)
-            last = vmax + (abs(vmax) * 1e-5 + 1e-5)
-            cuts = np.unique(np.concatenate([pts[:-1], [last]])).astype(
-                np.float32)
-            min_vals.append(vmin - (abs(vmin) * 1e-5 + 1e-5))
+            cuts = np.unique(np.concatenate(
+                [pts[:-1], [_last_cut(vmax)]])).astype(np.float32)
+            min_vals.append(_min_val(vmin))
         values.append(cuts)
         ptrs.append(ptrs[-1] + len(cuts))
     out = (np.concatenate(values) if values
@@ -230,3 +270,124 @@ def sketch_matrix(X: np.ndarray, max_bin: int,
     summaries = [FeatureSummary.from_data(X[:, f], weights)
                  for f in range(X.shape[1])]
     return cuts_from_summaries(summaries, max_bin, feature_types)
+
+
+def _last_cut(vmax: float) -> float:
+    """The last cut, strictly above the largest value (f64)."""
+    return vmax + (abs(vmax) * 1e-5 + 1e-5)
+
+
+def _min_val(vmin: float) -> float:
+    return vmin - (abs(vmin) * 1e-5 + 1e-5)
+
+
+class WeightedSketch:
+    """The weighted cut rule of :func:`sketch_matrix` as torch ops on the
+    device of a raw matrix X [n, F] f32 (NaN missing), for a new weight
+    vector every call (``tree_method="approx"``'s hessian).
+
+    Built once: one stable sort of every column (-0.0 as +0.0, NaN at
+    the end), recording each column's order, the end of each run of equal
+    values and its value in f64. :meth:`cuts`: the weights gathered in
+    sorted order as f64, their running sum read at each run's end (the
+    cumulative weight of each distinct value), the ranks ``(i / max_bin)
+    * total`` for i = 1..max_bin found with ``searchsorted`` on the left,
+    clamped and their repeats dropped, the last point replaced by the
+    ``last`` cut; no sort. A feature with at most ``max_bin`` distinct
+    values keeps them all, a categorical one ``arange(n_cat)``, an empty
+    one ``[inf]``. The running sum is taken over the positions rather
+    than value by value; where the sums are exact (module docstring) that
+    gives the host sketch's bits."""
+
+    def __init__(self, X: torch.Tensor, max_bin: int,
+                 feature_types: Optional[List[str]] = None) -> None:
+        n, F = X.shape
+        dev = X.device
+        self.max_bin = max_bin
+        self.feature_types = feature_types
+        self.n_features = F
+        vals, order = torch.sort(X.t() + 0.0, dim=1, stable=True)  # [F, n]
+        self.order = order
+        n_valid = (~torch.isnan(vals)).sum(dim=1)                   # [F]
+        pos = torch.arange(n, device=dev)
+        self.valid = pos[None, :] < n_valid[:, None]
+        end = self.valid.clone()
+        if n > 1:
+            end[:, :-1] &= (vals[:, 1:] != vals[:, :-1]) | ~self.valid[:, 1:]
+        k = end.sum(dim=1)                                          # [F]
+        R = max(int(k.max()) if n else 0, 1)
+        f_idx, p_idx = end.nonzero(as_tuple=True)
+        slot = torch.cumsum(end.to(torch.int64), dim=1)[f_idx, p_idx] - 1
+        self.ends = torch.zeros((F, R), dtype=torch.int64, device=dev)
+        self.ends[f_idx, slot] = p_idx
+        self.uniq = torch.full((F, R), float("inf"), dtype=torch.float64,
+                               device=dev)
+        self.uniq[f_idx, slot] = vals[f_idx, p_idx].double()
+        self.k = k
+        self.pad = torch.arange(R, device=dev)[None, :] >= k[:, None]
+        k_h = k.cpu().numpy()
+        first = self.uniq[:, 0].cpu().numpy()
+        last = self.uniq.gather(
+            1, (k - 1).clamp(min=0)[:, None])[:, 0].cpu().numpy()
+        self.last = torch.tensor(
+            [_last_cut(float(last[f])) if k_h[f] else float("inf")
+             for f in range(F)], dtype=torch.float32, device=dev)
+        self.min_vals = np.asarray(
+            [_min_val(float(first[f])) if k_h[f] else 0.0
+             for f in range(F)], np.float32)
+        # categorical features: cuts arange(n_cat) whatever the weights
+        is_cat = np.asarray([feature_types is not None
+                             and f < len(feature_types)
+                             and feature_types[f] == "c" for f in range(F)])
+        cat = np.flatnonzero(is_cat)
+        n_cat = np.asarray([int(last[f]) + 1 if k_h[f] else 1 for f in cat],
+                           np.int64)
+        self.min_vals[cat] = -0.5
+        self.width = int(max([max_bin] + n_cat.tolist()))
+        cat_table = np.full((len(cat), self.width), np.inf, np.float32)
+        for i, c in enumerate(n_cat):
+            cat_table[i, :c] = np.arange(c, dtype=np.float32)
+        self.cat = torch.from_numpy(cat).to(dev)
+        self.cat_table = torch.from_numpy(cat_table).to(dev)
+        self.cat_count = torch.from_numpy(n_cat).to(dev)
+
+    def cuts(self, weights: torch.Tensor):
+        """Weights [n] (any float dtype, on the sketch's device) ->
+        (``HistogramCuts`` on the host, the cut table [F, W] f32 padded
+        with +inf and the real-bin counts [F] int64, both on the
+        device)."""
+        F, dev, mb = self.n_features, self.order.device, self.max_bin
+        w = weights.to(torch.float64)[self.order]                   # [F, n]
+        w = torch.where(self.valid, w, torch.zeros_like(w))
+        cum = torch.cumsum(w, dim=1).gather(1, self.ends)           # [F, R]
+        cum = torch.where(self.pad, torch.full_like(cum, float("inf")), cum)
+        total = cum.gather(1, (self.k - 1).clamp(min=0)[:, None])
+        ranks = (torch.arange(1, mb + 1, dtype=torch.float64, device=dev)
+                 / mb)[None, :] * total                             # [F, mb]
+        idx = torch.searchsorted(cum, ranks, side="left")
+        top = (self.k - 1).clamp(min=0)[:, None]
+        every = torch.arange(mb, device=dev)[None, :]
+        idx = torch.where((self.k <= mb)[:, None], every, idx)
+        idx = torch.minimum(idx, top)
+        keep = torch.ones_like(idx, dtype=torch.bool)
+        keep[:, 1:] = idx[:, 1:] != idx[:, :-1]
+        count = keep.sum(dim=1)
+        slot = torch.where(keep, torch.cumsum(keep.to(torch.int64), 1) - 1,
+                           torch.full_like(idx, self.width))
+        table = torch.full((F, self.width + 1), float("inf"),
+                           dtype=torch.float32, device=dev)
+        table.scatter_(1, slot, self.uniq.gather(1, idx).float())
+        table = table[:, :self.width].contiguous()
+        table.scatter_(1, (count - 1)[:, None], self.last[:, None])
+        if len(self.cat):
+            table[self.cat] = self.cat_table
+            count[self.cat] = self.cat_count
+        table_h, count_h = table.cpu().numpy(), count.cpu().numpy()
+        ptrs = np.zeros(F + 1, np.int32)
+        ptrs[1:] = np.cumsum(count_h)
+        values = (np.concatenate([table_h[f, :count_h[f]] for f in range(F)])
+                  if F else np.empty(0, np.float32))
+        cuts = HistogramCuts(values=values.astype(np.float32), ptrs=ptrs,
+                             min_vals=self.min_vals.copy(), max_bin=mb,
+                             feature_types=self.feature_types)
+        return cuts, table, count

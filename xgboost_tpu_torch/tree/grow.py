@@ -564,6 +564,10 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
     return tree.finish(positions)
 
 
+# the device tensors of TreeGrower._on that are made from the cuts
+_CUTS_KEYS = ("n_real", "is_cat", "is_onehot")
+
+
 class TreeGrower:
     """Host-side wrapper of depthwise growth: runs :func:`grow_tree`,
     truncates its heap under ``max_leaves`` and turns it into a
@@ -604,6 +608,15 @@ class TreeGrower:
             if self._on[key] is not None:
                 self._on[key] = self._on[key].to(device)
         return self._on[key]
+
+    def set_cuts(self, cuts) -> None:
+        """Grow from new cuts of the same bin slots and with no
+        categorical feature (``tree_method="approx"``'s next sketch): the
+        device copies made from the old ones are dropped, so every tree
+        reads its own cuts' real-bin counts."""
+        self.cuts = cuts
+        for key in [k for k in self._on if k[0] in _CUTS_KEYS]:
+            del self._on[key]
 
     def _n_real_on(self, device: torch.device) -> torch.Tensor:
         return self._host_on("n_real", device, lambda: torch.from_numpy(
