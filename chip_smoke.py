@@ -235,7 +235,33 @@ counts set to 0 just before and read just after:
   CPU), the demo's custom objective and metric, ``process_type=update``
   (against the CPU) and the reference-schema writer; seconds a round,
   three profiled rounds, and K1 on the trained forest at the 1,611 test
-  rows against its plain version and timed.
+  rows against its plain version and timed;
+- the linear booster (``gblinear_higgs``): XGBoost's
+  ``demo/guide-python/generalized_linear_model.py`` settings (``alpha``
+  0.0001, ``lambda`` 1) on the HIGGS-shape draws, ``shotgun`` and
+  ``coord_descent`` 20 rounds each, twice (one sha256; no kernel of K1
+  to K5: the round is two products and an update), held-out AUC and
+  logloss, seconds a round and three profiled rounds, the card's
+  weights against the CPU's at 20,000 rows, the reference schema written
+  and read back, ``pred_contribs`` summing to the margin; then the
+  demo's 4 rounds on ``agaricus_like``'s files;
+- SHAP on the card (``shap_higgs``): a 100-tree depth-8 forest trained
+  at the HIGGS shape (K4), its contributions on 10,000 held-out rows,
+  interactions on 1,000 and Saabas contributions on 100,000, each timed
+  (host clock and CUDA events) with its peak memory, its rows summed
+  against K1's margins (interactions against the contributions), and
+  the card's float64 values on the first rows against the host
+  recursion; the same at 1,000 rows for the Covertype categorical dart
+  forest (7 groups);
+- the wrappers, ``cv`` and the CLI (``sklearn_cv_cli``, with no
+  scikit-learn installed on the card's machine): ``XGBClassifier`` on
+  the Covertype shape with an eval set and early stopping, one sha256
+  with ``xt.train`` from the parameters it maps; ``XGBRegressor(booster=
+  "gblinear")``'s ``coef_`` / ``intercept_``; ``xt.cv`` 5 folds at the
+  HIGGS shape, 10 rounds; the CLI with the mushroom demo's config
+  (``demo/CLI/binary_classification/mushroom.conf``) on the agaricus
+  files: train in this process and as ``python -m xgboost_tpu_torch``
+  (the two models and ``xt.train``'s one set of bytes), dump and pred.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -1397,7 +1423,8 @@ def covertype_categorical_dart(xt, dev, Xc, yc, gbtree_quality):
             errs[k] = max(errs.get(k, 0.0), e)
     log(f"Covertype categorical dart depth 10 on {COVDART_DEEP_ROWS} rows: "
         f"launches {c10}; {sum(split_kinds(deep))} categorical splits")
-    return runs + [c10], errs, k1_errs, k2, s_round, busy
+    return (runs + [c10], errs, k1_errs, k2, s_round, busy,
+            (raws[1], Xk[n_cov:n_cov + SHAP_COV_ROWS]))
 
 
 # the HIGGS-shape training of the main path (``main`` and ``model_digests``)
@@ -4289,6 +4316,392 @@ def kaggle_higgs_speedtest(xt, dev):
     return runs, out
 
 
+# ---- the linear booster, SHAP, the wrappers, cv and the CLI -----------------
+
+# XGBoost's demo/guide-python/generalized_linear_model.py: its settings
+# (eta left at its default, as the demo leaves it) and its 4 rounds on the
+# agaricus files; 20 rounds of each updater at the HIGGS shape
+LINEAR_PARAMS = {"objective": "binary:logistic", "booster": "gblinear",
+                 "alpha": 0.0001, "lambda": 1}
+LINEAR_ROUNDS = 20
+LINEAR_DEMO_ROUNDS = 4
+LINEAR_GAP_ROWS = 20_000
+LINEAR_TOL = 5e-6              # tests/test_torch_gblinear.py W_TOL
+CONTRIB_SUM_ATOL = 1e-4        # a row's f32 contributions against K1
+SHAP_HOST_TOL = 1e-9           # the card's float64 values against the host
+SHAP_ROUNDS = 100              # the explained forest: HIGGS depth 8
+SHAP_ROWS = {"contribs": 10_000, "interactions": 1_000, "approx": 100_000}
+# rows (and, for interactions, trees) held against the host recursion,
+# as few as keep those checks near 15 s of host time
+SHAP_HOST = {"contribs": (3, None), "approx": (500, None),
+             "interactions": (1, 4)}
+SHAP_COV_ROWS = 1_000
+SHAP_COV_HOST = {"contribs": (1, None), "approx": (100, None),
+                 "interactions": (1, 7)}
+SHAP_FLAGS = {"contribs": {"pred_contribs": True},
+              "approx": {"pred_contribs": True, "approx_contribs": True},
+              "interactions": {"pred_interactions": True}}
+SK_ROUNDS = 10
+SK_EARLY_STOP = 3
+CV_FOLDS = 5
+CV_ROUNDS = 10
+
+
+def logloss(y, p):
+    p = np.clip(p.astype(np.float64), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def gblinear_higgs(xt, dev, X, y, tmp):
+    """The ``gblinear_higgs`` phase: each updater 20 rounds at 1M x 28
+    twice (one sha256; no histogram or walk kernel: the round is two
+    products and an update, the margins X W + b), held-out AUC and
+    logloss, seconds a round and three profiled rounds, the card's
+    weights against the CPU's at 20,000 rows, a reference-schema round
+    trip and ``pred_contribs`` summing to the margin; then the demo's 4
+    rounds on ``agaricus_like``'s files. Returns (launch counts, results
+    by updater)."""
+    card = gpu_line()
+    n_tr = 1_000_000
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr])
+    dte = xt.DMatrix(X[n_tr:], label=y[n_tr:])
+    yte = y[n_tr:]
+    runs, out = [], {}
+    for upd in ("shotgun", "coord_descent"):
+        p = dict(LINEAR_PARAMS, updater=upd)
+        raws = []
+        for run in range(2):
+            res = {}
+            bst, c = train_launches(
+                f"gblinear {upd} run {run}", lambda r=res: xt.train(
+                    p, dtr, LINEAR_ROUNDS, evals=[(dte, "test")],
+                    evals_result=r, verbose_eval=False))
+            runs.append(c)
+            raws.append(bytes(bst.save_raw("ubj")))
+        digests = [hashlib.sha256(r).hexdigest() for r in raws]
+        if digests[0] != digests[1] or bst.gbm.W.device.type != dev.type:
+            raise AssertionError(f"gblinear {upd}: sha256 {digests}, "
+                                 f"weights on {bst.gbm.W.device}")
+        hist = res["test"]["logloss"]
+        pte = bst.predict(dte)
+        a, ll = auc(yte, pte), logloss(yte, pte)
+        if not (hist[-1] < hist[0] and a > 0.8 and np.isfinite(pte).all()):
+            raise AssertionError(f"gblinear {upd}: logloss {hist}, AUC {a}")
+        timer, per_round, s_round = seconds_per_round(p, dtr)
+        busy, _ = profile_rounds(f"gblinear {upd}", timer, dtr, top=8)
+        del timer
+        # the card's weights against the CPU's
+        Xs, ys = X[:LINEAR_GAP_ROWS], y[:LINEAR_GAP_ROWS]
+        g = xt.train(p, xt.DMatrix(Xs, label=ys), LINEAR_ROUNDS,
+                     verbose_eval=False)
+        cpu = xt.train(dict(p, device="cpu"), xt.DMatrix(Xs, label=ys),
+                       LINEAR_ROUNDS, verbose_eval=False)
+        Wg = torch.cat([g.gbm.W.cpu(), g.gbm.bias.cpu()[None]]).numpy()
+        Wc = torch.cat([cpu.gbm.W, cpu.gbm.bias[None]]).numpy()
+        gap = float(np.abs(Wg - Wc).max())
+        if (np.abs(Wg - Wc) > LINEAR_TOL * (1 + np.abs(Wc))).any():
+            raise AssertionError(f"gblinear {upd}: card and CPU weights "
+                                 f"{gap} apart")
+        # the reference schema, written and read back
+        path = os.path.join(tmp, f"gblinear_{upd}.json")
+        xt.save_xgboost_model(bst, path)
+        back = xt.load_xgboost_model(path, device=dev.type)
+        m0 = bst.predict(dte, output_margin=True)
+        ref_err = float(np.abs(back.predict(dte, output_margin=True)
+                               - m0).max())
+        if ref_err > 1e-5:
+            raise AssertionError(f"gblinear {upd}: the reference-schema "
+                                 f"round trip moved margins by {ref_err}")
+        sub = xt.DMatrix(X[n_tr:n_tr + SHAP_ROWS["contribs"]])
+        contribs = bst.predict(sub, pred_contribs=True)
+        sum_err = float(np.abs(contribs.sum(-1) - bst.predict(
+            sub, output_margin=True)).max())
+        if contribs.shape != (SHAP_ROWS["contribs"], 29) or \
+                sum_err > CONTRIB_SUM_ATOL:
+            raise AssertionError(f"gblinear {upd} contribs: "
+                                 f"{contribs.shape}, sum error {sum_err}")
+        out[upd] = dict(auc=a, logloss=ll, hist=(hist[0], hist[-1]),
+                        s_round=s_round, busy=busy, gap=gap,
+                        digest=digests[0], ref_err=ref_err, sum_err=sum_err)
+        log(f"gblinear {upd} ({card}): {LINEAR_ROUNDS} rounds twice, one "
+            f"sha256 {digests[0]}; held-out AUC {a:.6f}, logloss {ll:.6f} "
+            f"(eval {hist[0]} -> {hist[-1]}); {s_round:.6f} s a round "
+            f"(rounds {['%.6f' % t for t in per_round]}), device busy "
+            f"{busy:.3f} ms over 3 rounds; card - CPU weights at "
+            f"{LINEAR_GAP_ROWS} rows {gap:.3e}; reference-schema round "
+            f"trip {ref_err:.3e}; contribs sum - margin {sum_err:.3e}")
+    # the demo's 4 rounds on the agaricus files
+    train, test = agaricus_like(seed=16, directory=tmp)
+    dtrain = xt.DMatrix(train + "?format=libsvm")
+    dtest = xt.DMatrix(test + "?format=libsvm")
+    demo, c = train_launches("gblinear demo", lambda: xt.train(
+        LINEAR_PARAMS, dtrain, LINEAR_DEMO_ROUNDS,
+        evals=[(dtest, "eval"), (dtrain, "train")], verbose_eval=True))
+    runs.append(c)
+    err = float(np.mean((demo.predict(dtest) > 0.5) != dtest.get_label()))
+    if not err < 0.2:
+        raise AssertionError(f"gblinear demo: held-out error {err}")
+    out["demo_error"] = err
+    log(f"gblinear demo ({card}): {LINEAR_DEMO_ROUNDS} rounds on "
+        f"{AGARICUS_TRAIN_ROWS} x 127, held-out error {err:.6f}")
+    return runs, out
+
+
+def shap_forest(xt, label, bst, Xq, rows, host, dm_kw=None):
+    """``Booster.predict``'s three kinds of contributions of one forest on
+    the card: each timed (host clock around the call, and CUDA events
+    around a second run of the float64 computation alone), its peak
+    memory, its rows summed against K1's margins (interactions against
+    the contributions), and the card's float64 values of its first rows
+    held against the host recursion (``boosting/shap.py``) to
+    ``SHAP_HOST_TOL``. Returns (K1's launches, results by kind)."""
+    from xgboost_tpu_torch.boosting import shap as plain
+    from xgboost_tpu_torch.ops import shap as shap_ops
+
+    card = gpu_line()
+    t0 = time.perf_counter()
+    pack = bst._shap_pack(None)
+    pack_s = time.perf_counter() - t0
+    log(f"shap {label}: path tables T {pack.T} L {pack.L} D {pack.D} K "
+        f"{pack.K}, {pack.nbytes / 1e6:.3f} MB, built in {pack_s:.3f} s "
+        f"(host)")
+    trees, info, weights = bst.gbm.forest_slice(None)
+    base = bst._base_np()
+    reset_counts()
+    out = {"pack_s": pack_s}
+    dm_kw = dm_kw or {}
+    for kind, n in rows.items():
+        dm = xt.DMatrix(Xq[:n], **dm_kw)
+        Xv = np.ascontiguousarray(dm.values(), np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = bst.predict(dm, **SHAP_FLAGS[kind])
+        host_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not np.isfinite(got).all():
+            raise AssertionError(f"shap {label} {kind}: non-finite values")
+        if not any(k.startswith("cuda") for k in pack._dev):
+            raise AssertionError(f"shap {label}: no tables on the card "
+                                 f"({list(pack._dev)})")
+        fn = {"contribs": shap_ops.contribs, "approx": shap_ops.saabas,
+              "interactions": shap_ops.interactions}[kind]
+        Xd = torch.from_numpy(Xv).to("cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(pack, Xd, base)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if kind == "interactions":
+            ref = bst.predict(dm, pred_contribs=True)
+        else:
+            ref = bst.predict(dm, output_margin=True)
+        sum_err = float(np.abs(got.sum(-1) - ref).max())
+        if sum_err > CONTRIB_SUM_ATOL:
+            raise AssertionError(f"shap {label} {kind}: rows sum "
+                                 f"{sum_err} off")
+        # the card's float64 values against the host recursion's on the
+        # first rows (interactions: of the first trees)
+        hn, ht = host[kind]
+        lo, hi = bst.gbm._tree_range((0, ht) if ht else None)
+        t0 = time.perf_counter()
+        want = {"contribs": plain.tree_shap, "approx": plain.approx_contribs,
+                "interactions": plain.shap_interactions}[kind](
+            Xv[:hn], trees[lo:hi], info[lo:hi], bst.n_groups, base,
+            None if weights is None else weights[lo:hi])
+        plain_s = time.perf_counter() - t0
+        have = fn(bst._shap_pack((0, ht) if ht else None), Xd[:hn],
+                  base).cpu().numpy()
+        host_err = float(np.abs(have - want).max())
+        if not np.allclose(have, want, rtol=SHAP_HOST_TOL,
+                           atol=SHAP_HOST_TOL):
+            raise AssertionError(f"shap {label} {kind}: card - host "
+                                 f"{host_err}")
+        out[kind] = dict(rows=n, host_s=host_s, ms=ms, peak_gb=peak,
+                         sum_err=sum_err, host_err=host_err,
+                         host_rows=hn, plain_s=plain_s)
+        log(f"shap {label} {kind} ({card}): {n} rows, shape {got.shape}; "
+            f"predict {host_s:.6f} s (host clock), float64 computation "
+            f"{ms:.3f} ms (CUDA events), peak {peak:.3f} GB; rows sum "
+            f"within {sum_err:.3e} of "
+            + ("the contributions" if kind == "interactions" else
+               "K1's margins")
+            + f"; {hn} row(s) against the host recursion "
+            + (f"(first {ht} trees) " if ht else "")
+            + f"{host_err:.3e} apart ({plain_s:.2f} s of host)")
+    out["k1"] = read_counts()
+    return out["k1"], out
+
+
+def shap_higgs(xt, dev, X, y, cov_raw, cov_rows):
+    """The ``shap_higgs`` phase: a 100-tree depth-8 forest trained at the
+    HIGGS shape, explained on held-out rows (contributions 10,000,
+    interactions 1,000, Saabas 100,000) through ``shap_forest``, then
+    the Covertype categorical dart forest (7 groups) at 1,000 rows.
+    Returns (launch counts, results)."""
+    n_tr = 1_000_000
+    dtr = xt.DMatrix(X[:n_tr], label=y[:n_tr])
+    bst, c = train_launches("shap forest", lambda: xt.train(
+        HIGGS_PARAMS, dtr, SHAP_ROUNDS, verbose_eval=False))
+    runs = [c]
+    k1, higgs = shap_forest(xt, f"HIGGS {SHAP_ROUNDS} trees depth 8", bst,
+                            X[n_tr:], SHAP_ROWS, SHAP_HOST)
+    runs.append(k1)
+    cov = xt.Booster(model_file=cov_raw)
+    rows = {k: SHAP_COV_ROWS for k in SHAP_ROWS}
+    k1, covdart = shap_forest(
+        xt, f"Covertype dart ({len(cov.gbm.trees)} trees, 7 groups)", cov,
+        cov_rows, rows, SHAP_COV_HOST,
+        dict(feature_types=COVDART_TYPES, enable_categorical=True))
+    runs.append(k1)
+    return runs, {"higgs": higgs, "covdart": covdart}
+
+
+def sklearn_cv_cli(xt, dev, X, y, Xc, yc, tmp):
+    """The ``sklearn_cv_cli`` phase: ``XGBClassifier`` on the Covertype
+    shape with an eval set and early stopping against ``xt.train`` from
+    the parameters it maps (one sha256), ``XGBRegressor(booster=
+    "gblinear")``'s ``coef_`` / ``intercept_``, ``xt.cv`` 5 folds at the
+    HIGGS shape, and the CLI with the mushroom demo's settings on
+    ``agaricus_like``'s files (train in this process and as ``python -m
+    xgboost_tpu_torch``, the two models and ``xt.train``'s the same
+    bytes; dump; pred). Returns (launch counts, results)."""
+    from xgboost_tpu_torch import sklearn as xsk
+    from xgboost_tpu_torch.cli import main as cli_main
+    from xgboost_tpu_torch.cli import parse_config_file
+    from xgboost_tpu_torch.testing import write_mushroom_conf
+
+    card = gpu_line()
+    log(f"sklearn_cv_cli ({card}): scikit-learn importable: "
+        f"{xsk._SKLEARN}")
+    runs, out = [], {}
+    n_cov = sum(COVTYPE_CLASS_COUNTS)
+    Xtr, ytr = Xc[:n_cov], yc[:n_cov].astype(np.int64)
+    Xte, yte = Xc[n_cov:], yc[n_cov:].astype(np.int64)
+    params = {k: v for k, v in COVTYPE_PARAMS.items()
+              if k not in ("objective", "num_class", "eval_metric")}
+    clf = xt.XGBClassifier(n_estimators=SK_ROUNDS,
+                           early_stopping_rounds=SK_EARLY_STOP,
+                           eval_metric="mlogloss", **params)
+    _, c = train_launches("XGBClassifier Covertype", lambda: clf.fit(
+        Xtr, ytr, eval_set=[(Xte, yte)], verbose=False))
+    runs.append(c)
+    mapped = dict(clf.get_xgb_params(), eval_metric="mlogloss")
+    dtr = xt.DMatrix(Xtr, label=ytr.astype(np.float32))
+    dte = xt.DMatrix(Xte, label=yte.astype(np.float32))
+    bst, c = train_launches("xt.train as XGBClassifier maps it", lambda:
+                            xt.train(mapped, dtr, SK_ROUNDS,
+                                     evals=[(dte, "validation_0")],
+                                     early_stopping_rounds=SK_EARLY_STOP,
+                                     verbose_eval=False))
+    runs.append(c)
+    d_clf = hashlib.sha256(bytes(clf.get_booster().save_raw(
+        "ubj"))).hexdigest()
+    d_train = hashlib.sha256(bytes(bst.save_raw("ubj"))).hexdigest()
+    if d_clf != d_train or mapped.get("num_class") != 7:
+        raise AssertionError(f"XGBClassifier {d_clf} != xt.train "
+                             f"{d_train} ({mapped})")
+    acc = clf.score(Xte, yte)
+    proba = clf.predict_proba(Xte[:1000])
+    if proba.shape != (1000, 7) or not np.allclose(proba.sum(1), 1,
+                                                   atol=1e-5):
+        raise AssertionError(f"predict_proba {proba.shape}")
+    out["classifier"] = dict(digest=d_clf, acc=acc,
+                             best=clf.best_iteration)
+    log(f"XGBClassifier Covertype ({card}): sha256 {d_clf} equal to "
+        f"xt.train's; best iteration {clf.best_iteration}, held-out "
+        f"accuracy {acc:.6f}, K4 {c['hist_scan']} in {SK_ROUNDS} rounds")
+    # a linear regressor's coefficients
+    target = X[:1_000_000] @ np.linspace(-1, 1, 28).astype(np.float32)
+    reg = xt.XGBRegressor(booster="gblinear", n_estimators=10,
+                          reg_lambda=1.0)
+    reg.fit(X[:1_000_000], target)
+    coef, icpt = reg.coef_, reg.intercept_
+    if coef.shape != (28,) or icpt.shape != (1,) or \
+            not np.array_equal(coef, reg.get_booster().gbm.W.cpu().numpy()
+                               [:, 0]):
+        raise AssertionError(f"XGBRegressor gblinear coef_ {coef.shape}")
+    out["regressor"] = dict(coef0=float(coef[0]), coef27=float(coef[-1]),
+                            intercept=float(icpt[0]))
+    log(f"XGBRegressor(booster='gblinear') ({card}): coef_[0] "
+        f"{coef[0]:.6f}, coef_[27] {coef[-1]:.6f} (rule -1 and 1), "
+        f"intercept_ {icpt[0]:.6f}")
+    # 5-fold cross-validation at the HIGGS shape
+    dall = xt.DMatrix(X[:1_000_000], label=y[:1_000_000])
+    t0 = time.perf_counter()
+    hist, c = train_launches("cv 5 folds", lambda: xt.cv(
+        HIGGS_PARAMS, dall, CV_ROUNDS, nfold=CV_FOLDS,
+        metrics=["auc", "logloss"], seed=0, as_pandas=False))
+    cv_s = time.perf_counter() - t0
+    runs.append(c)
+    if c["hist_scan"] != 8 * CV_ROUNDS * CV_FOLDS or \
+            len(hist["test-auc-mean"]) != CV_ROUNDS or \
+            not hist["test-auc-mean"][-1] > 0.8:
+        raise AssertionError(f"cv: {c}, {hist.get('test-auc-mean')}")
+    out["cv"] = dict(auc=hist["test-auc-mean"][-1],
+                     std=hist["test-auc-std"][-1], s=cv_s)
+    log(f"cv ({card}): {CV_FOLDS} folds of 1,000,000 rows, "
+        f"{CV_ROUNDS} rounds in {cv_s:.3f} s (host clock); test AUC mean "
+        f"{hist['test-auc-mean'][-1]:.6f} std {hist['test-auc-std'][-1]:.6f}"
+        f", logloss mean {hist['test-logloss-mean'][-1]:.6f}; K4 "
+        f"{c['hist_scan']}")
+    del dall
+    # the CLI with the mushroom demo's settings
+    train, test = agaricus_like(seed=16, directory=tmp)
+    conf = os.path.join(tmp, "mushroom.conf")
+    write_mushroom_conf(conf, train, test)
+    model = os.path.join(tmp, "cli.model")
+    _, c = train_launches("CLI train", lambda: cli_main(
+        [conf, f"model_out={model}"]))
+    runs.append(c)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "xgboost_tpu_torch", conf,
+                        f"model_out={model}.sub", "silent=1"],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    sub_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"python -m xgboost_tpu_torch: {r.stderr}")
+    params = {k: v for k, v in parse_config_file(conf)
+              if k in ("booster", "objective", "eta", "gamma",
+                       "min_child_weight", "max_depth")}
+    ref = xt.train(params, xt.DMatrix(train + "?format=libsvm"), 2,
+                   verbose_eval=False)
+    with open(model, "rb") as fh:
+        in_proc = fh.read()
+    with open(model + ".sub", "rb") as fh:
+        sub = fh.read()
+    if not in_proc == sub == bytes(ref.save_raw("json")):
+        raise AssertionError("the CLI's models differ from xt.train's")
+    dump = os.path.join(tmp, "dump.txt")
+    pred = os.path.join(tmp, "pred.txt")
+    cli_main([conf, "task=dump", f"model_in={model}", f"name_dump={dump}",
+              "dump_stats=1"])
+    _, c = train_launches("CLI pred", lambda: cli_main(
+        [conf, "task=pred", f"model_in={model}", f"name_pred={pred}"]))
+    runs.append(c)
+    with open(dump) as fh:
+        dumped = fh.read()
+    preds = np.loadtxt(pred)
+    want = ref.predict(xt.DMatrix(test + "?format=libsvm"))
+    if dumped.count("booster[") != 2 or preds.shape != want.shape or \
+            np.abs(preds - want).max() > 1e-6 or c["walk_packed"] != 1:
+        raise AssertionError(f"CLI dump / pred: {dumped[:80]!r}, "
+                             f"{preds.shape}, {c}")
+    err = float(np.mean((preds > 0.5) != xt.DMatrix(
+        test + "?format=libsvm").get_label()))
+    out["cli"] = dict(digest=hashlib.sha256(in_proc).hexdigest(),
+                      error=err, sub_s=sub_s)
+    log(f"CLI ({card}): mushroom.conf settings on {AGARICUS_TRAIN_ROWS} + "
+        f"{AGARICUS_TEST_ROWS} rows; train in this process and as python "
+        f"-m xgboost_tpu_torch ({sub_s:.2f} s), model sha256 "
+        f"{out['cli']['digest']} equal to xt.train's; dump 2 trees; pred "
+        f"held-out error {err:.6f} (K1 once)")
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -4929,8 +5342,8 @@ def main() -> int:
 
     # ---- main path: BASELINE config #4 in full (categorical codes, dart)
     (covdart_runs, covdart_errs, covdart_k1, covdart_k2, covdart_s,
-     covdart_busy) = covertype_categorical_dart(xt, dev, Xc, yc,
-                                                (mll, (me0, me1)))
+     covdart_busy, covdart_model) = covertype_categorical_dart(
+         xt, dev, Xc, yc, (mll, (me0, me1)))
     errs += covdart_k1
     for k, e in covdart_errs.items():
         hist_errs[k] = max(hist_errs.get(k, 0.0), e)
@@ -4951,7 +5364,30 @@ def main() -> int:
         f"{lg['auc']:.6f} (depthwise {auto_auc10:.6f}); constrained AUC "
         f"{ {k: round(v[0], 6) for k, v in lg['constrained'].items()} }; "
         f"model sha256 {lg['digest']}")
-    del Xc, dcov, dcte
+
+    # ---- main path: the linear booster, SHAP on the card, the wrappers,
+    # cv and the CLI
+    with tempfile.TemporaryDirectory(prefix="xtt_pr16_") as tmp:
+        t0 = time.perf_counter()
+        gl_runs, gl = gblinear_higgs(xt, dev, X, y, tmp)
+        t_gl = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sh_runs, sh = shap_higgs(xt, dev, X, y, *covdart_model)
+        t_sh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sk_runs, sk = sklearn_cv_cli(xt, dev, X, y, Xc, yc, tmp)
+        t_sk = time.perf_counter() - t0
+    log(f"gblinear_higgs {t_gl:.1f} s, shap_higgs {t_sh:.1f} s, "
+        f"sklearn_cv_cli {t_sk:.1f} s; gblinear shotgun / coord_descent "
+        f"{gl['shotgun']['s_round']:.6f} / "
+        f"{gl['coord_descent']['s_round']:.6f} s a round, held-out AUC "
+        f"{gl['shotgun']['auc']:.6f} / {gl['coord_descent']['auc']:.6f}; "
+        f"SHAP contributions of 10,000 rows "
+        f"{sh['higgs']['contribs']['ms']:.3f} ms, interactions of 1,000 "
+        f"{sh['higgs']['interactions']['ms']:.3f} ms, Saabas of 100,000 "
+        f"{sh['higgs']['approx']['ms']:.3f} ms (CUDA events); cv test AUC "
+        f"{sk['cv']['auc']:.6f} +- {sk['cv']['std']:.6f}")
+    del Xc, dcov, dcte, covdart_model
 
     # ---- main path: multi-target training at the MediaMill shape
     mt_runs, mt_errs, mt_k1, mt_times, mt = multi_target(xt, dev)
@@ -5124,7 +5560,7 @@ def main() -> int:
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
             *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
-            *kg_runs]
+            *kg_runs, *gl_runs, *sh_runs, *sk_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

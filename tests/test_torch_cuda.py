@@ -1275,3 +1275,84 @@ def test_approx_and_exact_on_the_card_equal_the_cpu():
         np.testing.assert_array_equal(a.split_value, b.split_value)
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["binary", "multiclass", "categorical",
+                                  "dart", "lossguide"])
+def test_shap_on_the_card_equals_the_cpu(name):
+    """``Booster.predict``'s contributions, Saabas contributions and
+    interactions computed on the card (``ops/shap.py`` in float64 there)
+    against the same functions on the CPU: float64 sums in another
+    order (cuBLAS's), so 1e-10 apart at most; f32 outputs within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops import shap as shap_ops
+
+    rng = np.random.RandomState(15)
+    X = rng.randn(1500, 7).astype(np.float32)
+    X[:, 6] = rng.randint(0, 30, 1500)
+    y = X[:, 0] * X[:, 1] + X[:, 2] + rng.randn(30)[X[:, 6].astype(int)]
+    X[rng.rand(1500, 7) < 0.08] = np.nan
+    params = {"objective": "binary:logistic", "max_depth": 4,
+              "device": "cpu"}
+    kw = {}
+    if name == "multiclass":
+        y = np.digitize(y, [-1.0, 1.0])
+        params.update(objective="multi:softprob", num_class=3)
+    elif name == "categorical":
+        kw = {"feature_types": ["q"] * 6 + ["c"], "enable_categorical": True}
+    elif name == "dart":
+        params.update(booster="dart", rate_drop=0.5)
+    elif name == "lossguide":
+        params.update(grow_policy="lossguide", max_leaves=24, max_depth=0)
+    if name != "multiclass":
+        y = y > 0
+    cpu = xt.train(params, xt.DMatrix(X, label=y.astype(np.float32), **kw),
+                   4, verbose_eval=False)
+    X = X[:200]
+    gpu = xt.Booster(model_file=cpu.save_raw("json"))
+    assert gpu.device.type == "cuda"
+    for flags in ({"pred_contribs": True},
+                  {"pred_contribs": True, "approx_contribs": True},
+                  {"pred_interactions": True}):
+        got = gpu.predict(xt.DMatrix(X, **kw), **flags)
+        want = cpu.predict(xt.DMatrix(X, **kw), **flags)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    pack = gpu._shap_pack(None)
+    Xv = np.asarray(xt.DMatrix(X, **kw).values(), np.float32)
+    base = gpu._base_np()
+    for fn in (shap_ops.contribs, shap_ops.saabas, shap_ops.interactions):
+        d = fn(pack, torch.from_numpy(Xv).cuda(), base)
+        assert d.device.type == "cuda" and d.dtype == torch.float64
+        h = fn(pack, torch.from_numpy(Xv), base)
+        np.testing.assert_allclose(d.cpu().numpy(), h.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater", ["shotgun", "coord_descent"])
+def test_gblinear_on_the_card_equals_the_cpu(updater):
+    """Ten rounds of each linear updater on the card (f32 products, no
+    TF32) against the CPU: weights within 5e-6, relative and absolute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import xgboost_tpu_torch as xt
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.RandomState(14)
+    X = rng.randn(20_000, 28).astype(np.float32)
+    X[rng.rand(20_000, 28) < 0.05] = np.nan
+    y = (np.nan_to_num(X) @ rng.randn(28) > 0).astype(np.float32)
+    p = {"booster": "gblinear", "objective": "binary:logistic",
+         "updater": updater, "lambda": 1.0, "alpha": 0.0001, "eta": 0.5}
+    gpu = xt.train(p, xt.DMatrix(X, label=y), 10, verbose_eval=False)
+    cpu = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y), 10,
+                   verbose_eval=False)
+    assert gpu.gbm.W.device.type == "cuda"
+    np.testing.assert_allclose(gpu.gbm.W.cpu().numpy(), cpu.gbm.W.numpy(),
+                               rtol=5e-6, atol=5e-6)
+    np.testing.assert_allclose(gpu.predict(xt.DMatrix(X)),
+                               cpu.predict(xt.DMatrix(X)), rtol=5e-6,
+                               atol=5e-6)

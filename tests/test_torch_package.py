@@ -22,7 +22,8 @@ TRAINING_MODULES = (
     "objective/base.py", "objective/regression.py", "ops/histogram.py",
     "ops/split.py", "ops/partition.py", "ops/cuda/hist.py",
     "boosting/gbtree.py", "core.py", "metric/base.py",
-    "metric/elementwise.py")
+    "metric/elementwise.py", "boosting/gblinear.py", "boosting/shap.py",
+    "ops/shap.py", "training.py", "sklearn.py", "cli.py", "__main__.py")
 
 
 def _port_sources():

@@ -577,12 +577,12 @@ def test_train_runs_on_the_card_unless_asked():
 
 @pytest.mark.parametrize("params,item", [
     ({"grow_policy": "lossguide", "hist_method": "mega"}, "A.6"),
-    ({"booster": "gblinear"}, "A.5.9"),
+    ({"booster": "gblinear", "data_split_mode": "col"}, "A.8"),
     ({"max_leaves": 4, "hist_method": "scan+sub"}, "A.6"),
     ({"data_split_mode": "col"}, "A.8"),
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
-    ({"booster": "gblinear", "updater": "coord_descent"}, "A.5.9"),
+    ({"grow_policy": "lossguide", "hist_method": "scan+sub"}, "A.6"),
 ])
 def test_unported_options_name_their_roadmap_item(params, item):
     rng = np.random.RandomState(4)

@@ -62,6 +62,7 @@ import torch
 
 from . import dump
 from .boosting.dart import Dart
+from .boosting.gblinear import GBLinear
 from .boosting.gbtree import GBTree
 from .boosting.predict import leaf_positions, margin_raw, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
@@ -75,6 +76,8 @@ from .objective import get_objective
 from .objective.adaptive import label_matrix_refusal
 from .objective.base import guard_gradient
 from .objective.survival import sort_by_time
+from .ops import shap as shap_ops
+from .ops.shap import ShapPack, build_shap_pack
 from .serve.packed import PackedForest
 from .tree.exact import ExactQuantization
 from .tree.multi import is_vector_leaf
@@ -141,14 +144,19 @@ class Booster:
         self.feature_names: Optional[List[str]] = None
         self.feature_types: Optional[List[str]] = None
         self.obj = None
-        self.gbm: Optional[GBTree] = None
+        self.gbm: Optional[Union[GBTree, GBLinear]] = None
+        # every key a caller set (gblinear's lambda and alpha are 0 unless
+        # set, the JAX package's rule)
+        self._explicit_params: set = set()
         self.base_margin_: Optional[np.ndarray] = None
         self._num_features = 0
         self._version: List[int] = [0, 1, 0]
         self._configured = False
         self._caches: Dict[int, Dict[str, Any]] = {}
         self._eval_metrics: List = []
-        self._packed: Dict[Tuple[int, int], PackedForest] = {}
+        # packed forests by tree range, and SHAP path tables by ("shap",
+        # range)
+        self._packed: Dict[tuple, Union[PackedForest, ShapPack]] = {}
         self._packed_lock = threading.Lock()
         if params:
             self.set_param(params)
@@ -166,6 +174,7 @@ class Booster:
         if isinstance(params, str):
             params = {params: value}
         params = dict(params)
+        self._explicit_params.update(params)
         for k in _DEVICE_KEYS:
             if k in params:
                 self.ctx = dataclasses.replace(self.ctx,
@@ -185,12 +194,14 @@ class Booster:
             self.obj = get_objective(
                 self.learner_params.get("objective", self.obj.name),
                 self._obj_params())
-            if self.gbm is not None:
+            if isinstance(self.gbm, GBTree):
                 self.gbm.tree_param = self.tree_param
                 self._configure_constraints(None)
                 self.gbm._grower = None
                 if isinstance(self.gbm, Dart):
                     self.gbm.configure(self.learner_params, self.ctx.seed)
+            elif self.gbm is not None:
+                self._configure_linear()
         self._packed = {}
 
     def _seed_from_params(self) -> None:
@@ -264,6 +275,8 @@ class Booster:
         if not isinstance(val, slice):
             raise TypeError("Booster slicing requires a slice of iterations")
         self._require_model()
+        if isinstance(self.gbm, GBLinear):
+            raise NotImplementedError("only tree boosters support slicing")
         begin = val.start or 0
         end = val.stop if val.stop is not None else self.num_boosted_rounds()
         step = val.step if val.step is not None else 1
@@ -289,10 +302,8 @@ class Booster:
             return
         tm = self._tree_method()
         booster = self.learner_params.get("booster", "gbtree")
-        if booster not in ("gbtree", "dart"):
-            raise NotImplementedError(
-                f"booster {booster!r} is not in the PyTorch port yet "
-                "(ROADMAP A.5.9)")
+        if booster not in ("gbtree", "dart", "gblinear"):
+            raise ValueError(f"unknown booster: {booster}")
         if self.learner_params.get("data_split_mode", "row") != "row":
             raise NotImplementedError(
                 "column-split training is not in the PyTorch port yet "
@@ -316,20 +327,17 @@ class Booster:
             dtrain.info if dtrain is not None else None))
         if dtrain is not None and not self._num_features:
             self._num_features = dtrain.num_col()
-        if self.gbm is None:
+        if self.gbm is None and booster == "gblinear":
+            self.gbm = GBLinear(n_groups)
+        elif self.gbm is None:
             cls = Dart if booster == "dart" else GBTree
             self.gbm = cls(
                 n_groups, num_parallel_tree=int(self.learner_params.get(
                     "num_parallel_tree", 1)), multi_strategy=ms)
-        if isinstance(self.gbm, Dart):
-            self.gbm.configure(self.learner_params, self.ctx.seed)
-        self.gbm.tree_param = self.tree_param
-        self.gbm.tree_method = tm
-        self._configure_constraints(dtrain)
-        if "multi_output_tree" in (ms, self.gbm.multi_strategy):
-            self._refuse_for_vector_leaves(booster)
-        self.gbm.hist_method = str(self.learner_params.get("hist_method",
-                                                           "auto"))
+        if isinstance(self.gbm, GBLinear):
+            self._configure_linear()
+        else:
+            self._configure_trees(dtrain, booster, tm, ms)
         if self.base_margin_ is None:
             bs = self.learner_params.get("base_score")
             if bs is not None:
@@ -351,6 +359,34 @@ class Booster:
             self.feature_names = dtrain.info.feature_names
             self.feature_types = dtrain.info.feature_types
         self._configured = True
+
+    def _configure_trees(self, dtrain: Optional[DMatrix], booster: str,
+                         tm: str, ms: str) -> None:
+        if isinstance(self.gbm, Dart):
+            self.gbm.configure(self.learner_params, self.ctx.seed)
+        self.gbm.tree_param = self.tree_param
+        self.gbm.tree_method = tm
+        self._configure_constraints(dtrain)
+        if "multi_output_tree" in (ms, self.gbm.multi_strategy):
+            self._refuse_for_vector_leaves(booster)
+        self.gbm.hist_method = str(self.learner_params.get("hist_method",
+                                                           "auto"))
+
+    def _configure_linear(self) -> None:
+        """The linear booster's parameters (the JAX package's
+        ``_make_booster``): ``lambda`` and ``alpha`` are 0 unless a caller
+        set them, ``eta`` is the tree parameters'; applied again after
+        ``set_param``, so the latest parameters rule, as upstream's."""
+        explicit = self._explicit_params
+        tp, gbm = self.tree_param, self.gbm
+        gbm.reg_lambda = tp.reg_lambda if {"lambda", "reg_lambda"} \
+            & explicit else 0.0
+        gbm.reg_alpha = tp.reg_alpha if {"alpha", "reg_alpha"} \
+            & explicit else 0.0
+        gbm.eta = tp.eta
+        gbm.updater = self.learner_params.get("updater", gbm.updater)
+        gbm.feature_selector = self.learner_params.get("feature_selector",
+                                                       "cyclic")
 
     def _tree_method(self) -> str:
         """``"hist"`` (any of its names), ``"approx"`` or ``"exact"``."""
@@ -435,7 +471,9 @@ class Booster:
                   torch.from_numpy(info.weights).to(dev)}
             self._caches[id(dm)] = st
         if is_train and not st["is_train"]:
-            if self._tree_method() == "hist":
+            if isinstance(self.gbm, GBLinear):
+                pass        # trains on the values (``linear_features``)
+            elif self._tree_method() == "hist":
                 st["binned"] = self._collapse_paged_if_fits(
                     dm.binned(self.tree_param.max_bin, self.device))
             else:
@@ -630,7 +668,7 @@ class Booster:
         if refresh and self.obj.info.zero_hess:
             adaptive = dict(obj=self.obj, margin=margin,
                             labels=st["labels"], weights=st["weights"])
-        src = st["binned"] if st["binned"] is not None else st["source"]
+        src = st["binned"] if st["binned"] is not None else st.get("source")
         if self.gbm.supports_margin_cache:
             st["margin"] = margin + self.gbm.do_boost(src, gpair, key,
                                                       **adaptive)
@@ -777,21 +815,47 @@ class Booster:
         return pf
 
     def predict(self, data: DMatrix, output_margin: bool = False,
-                pred_leaf: bool = False,
+                pred_leaf: bool = False, pred_contribs: bool = False,
+                approx_contribs: bool = False,
+                pred_interactions: bool = False,
                 iteration_range: Optional[Tuple[int, int]] = None,
-                strict_shape: bool = False,
+                strict_shape: bool = False, training: bool = False,
                 validate_features: bool = True) -> np.ndarray:
         """Predictions [n] (or [n, G]; ``strict_shape`` keeps [n, 1])
         through the packed walk on this Booster's device, or, for
         vector-leaf trees, through their torch walk
-        (``boosting/predict.py margin_raw``); ``pred_leaf``: the leaf
-        (compact BFS node id) each row reaches in each selected tree,
-        int32 [n, T]."""
+        (``boosting/predict.py margin_raw``); a linear model's X W + b;
+        ``pred_leaf``: the leaf (compact BFS node id) each row reaches in
+        each selected tree, int32 [n, T]; ``pred_contribs`` /
+        ``pred_interactions`` (``approx_contribs``: Saabas's): feature
+        contributions (:meth:`_predict_contribs`)."""
         self._require_model()
         if validate_features:
             self._validate_features(data)
+        if pred_contribs or pred_interactions:
+            if is_vector_leaf(self.gbm.trees):
+                raise NotImplementedError(
+                    "SHAP contributions are not supported for "
+                    "multi_output_tree models")
+            return self._predict_contribs(data, approx_contribs,
+                                          pred_interactions, iteration_range,
+                                          strict_shape)
         dev = self.device
         X = torch.from_numpy(np.ascontiguousarray(data.values())).to(dev)
+        if isinstance(self.gbm, GBLinear):
+            if pred_leaf:
+                return np.zeros((data.num_row(), 0), dtype=np.int32)
+            base = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
+            margin = self.gbm.predict_margin(X, base)
+            if data.info.base_margin is not None:
+                margin = margin + torch.from_numpy(np.asarray(
+                    data.info.base_margin, np.float32)).to(dev).reshape(
+                        margin.shape[0], -1)
+            else:
+                margin = margin + torch.from_numpy(self._base_np()).to(dev)
+            out = margin if output_margin else self.obj.pred_transform(margin)
+            out = out.cpu().numpy()
+            return out if strict_shape else _squeeze(out)
         if pred_leaf:
             lo, hi = self.gbm._tree_range(iteration_range)
             if hi <= lo:
@@ -822,6 +886,68 @@ class Booster:
         out = margin if output_margin else self.obj.pred_transform(margin)
         out = out.cpu().numpy()
         return out if strict_shape else _squeeze(out)
+
+    def _shap_pack(self, iteration_range) -> ShapPack:
+        """The per-leaf path tables of the selected rounds (built once,
+        cached beside the packed forests)."""
+        key = ("shap",) + tuple(self.gbm._tree_range(iteration_range))
+        pack = self._packed.get(key)
+        if pack is None:
+            trees, info, weights = self.gbm.forest_slice(iteration_range)
+            pack = build_shap_pack(trees, info, weights, self.n_groups)
+            self._packed[key] = pack
+        return pack
+
+    def _predict_contribs(self, data: DMatrix, approx: bool,
+                          interactions: bool, iteration_range,
+                          strict_shape: bool) -> np.ndarray:
+        """SHAP / Saabas contributions [n, G, F + 1] or interactions
+        [n, G, F + 1, F + 1] (the group axis squeezed at one group unless
+        ``strict_shape``), f32, on this Booster's device: a linear model's
+        x W and bias (interactions undefined), a forest's through
+        ``ops/shap.py`` in float64. The bias column is the expected
+        output plus the base score (a matrix's ``base_margin`` is not
+        added, as in the JAX package)."""
+        dev = self.device
+        X = torch.from_numpy(np.ascontiguousarray(data.values(),
+                                                  np.float32)).to(dev)
+        n, F = X.shape
+        base = self._base_np()
+        if isinstance(self.gbm, GBLinear):
+            if interactions:
+                raise ValueError(
+                    "pred_interactions is not defined for gblinear")
+            out = torch.zeros((n, self.n_groups, F + 1), dtype=torch.float32,
+                              device=dev)
+            if self.gbm.W is not None:
+                self.gbm._to(dev)
+                out[:, :, :F] = torch.nan_to_num(X, nan=0.0)[:, None, :] \
+                    * self.gbm.W.T[None, :, :]
+                out[:, :, F] = (self.gbm.bias + torch.from_numpy(base).to(
+                    dev))[None, :]
+            else:
+                out[:, :, F] = torch.from_numpy(base).to(dev)[None, :]
+        elif interactions and approx:
+            raise NotImplementedError(
+                "approx_contribs with pred_interactions is not supported; "
+                "use exact interactions")
+        else:
+            lo, hi = self.gbm._tree_range(iteration_range)
+            if hi <= lo:            # no trees: the base score alone
+                width = (F + 1,) * (2 if interactions else 1)
+                out = torch.zeros((n, self.n_groups) + width,
+                                  dtype=torch.float64, device=dev)
+                out[(slice(None), slice(None)) + (F,) * len(width)] = \
+                    torch.from_numpy(base.astype(np.float64)).to(dev)
+            else:
+                pack = self._shap_pack(iteration_range)
+                fn = (shap_ops.interactions if interactions else
+                      shap_ops.saabas if approx else shap_ops.contribs)
+                out = fn(pack, X, base)
+        out = out.cpu().numpy()
+        if not strict_shape and self.n_groups == 1:
+            out = out[:, 0]
+        return out.astype(np.float32)
 
     def inplace_predict(self, data: Any, iteration_range=None,
                         predict_type: str = "value",
@@ -921,6 +1047,12 @@ class Booster:
         """Feature importances: ``weight``, ``gain``, ``total_gain``,
         ``cover`` or ``total_cover`` (``dump.feature_scores``)."""
         self._require_model()
+        if isinstance(self.gbm, GBLinear):
+            names = self.feature_names
+            return {(names[f] if names and f < len(names) else f"f{f}"):
+                    float(v)
+                    for f, v in enumerate(self.gbm.feature_scores())
+                    if v != 0.0}
         return dump.feature_scores(self.gbm.trees, importance_type,
                                    self.feature_names)
 
@@ -1059,15 +1191,16 @@ class Booster:
         n_groups = max(1, int(lmp.get("num_target", 1)))
         gb = learner.get("gradient_booster", {})
         booster = gb.get("name", "gbtree") if gb else "gbtree"
-        if booster not in ("gbtree", "dart"):
-            raise NotImplementedError(
-                f"booster {booster!r} is not in the PyTorch port yet "
-                "(gbtree and dart only; ROADMAP A.5.9)")
+        if booster not in ("gbtree", "dart", "gblinear"):
+            raise ValueError(f"unknown booster: {booster}")
         self.learner_params["booster"] = booster
-        gbm = (Dart if booster == "dart" else GBTree)(n_groups)
+        gbm = {"dart": Dart, "gblinear": GBLinear}.get(booster,
+                                                        GBTree)(n_groups)
         if gb:
             gbm.from_json(gb)
         self.gbm = gbm
+        if isinstance(gbm, GBLinear):
+            self._configure_linear()
         em = self.learner_params.get("eval_metric")
         if em:
             names = em if isinstance(em, (list, tuple)) else [em]

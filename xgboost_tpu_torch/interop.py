@@ -2,7 +2,7 @@
 
 Loads models in the reference XGBoost JSON/UBJSON schema by converting
 them to the native model dict that ``Booster`` reads, and writes a
-``gbtree`` or ``dart`` Booster in that schema
+``gbtree``, ``dart`` or ``gblinear`` Booster in that schema
 (:func:`native_to_reference_json`, :func:`save_xgboost_model`) to the
 JAX package's bytes. Semantics bridged (the same as the JAX package's
 ``interop.py``):
@@ -31,7 +31,8 @@ JAX package's bytes. Semantics bridged (the same as the JAX package's
   in ``base_weights``; the schema's scalar ``base_score`` keeps target
   0's intercept, with a warning where the targets' differ.
 
-gblinear waits with ROADMAP A.5.9, in both directions.
+- gblinear: the weights flat [(num_feature + 1) x num_group], the bias
+  row last (reference ``src/gbm/gblinear_model.h``).
 """
 
 from __future__ import annotations
@@ -163,10 +164,8 @@ def reference_to_native_json(ref: Dict[str, Any]) -> Dict[str, Any]:
     learner = ref["learner"]
     gb = learner["gradient_booster"]
     name = gb.get("name", "gbtree")
-    if name not in ("gbtree", "dart"):
-        raise NotImplementedError(
-            f"reference booster {name!r} is not in the PyTorch port yet "
-            "(gbtree and dart only; ROADMAP A.5.9)")
+    if name not in ("gbtree", "dart", "gblinear"):
+        raise ValueError(f"unknown reference booster: {name}")
 
     objective = learner.get("objective", {})
     obj_name = objective.get("name", "reg:squarederror")
@@ -188,6 +187,12 @@ def reference_to_native_json(ref: Dict[str, Any]) -> Dict[str, Any]:
         booster = _gbtree_payload(gb["gbtree"])
         booster["name"] = "dart"
         booster["weight_drop"] = [float(w) for w in gb["weight_drop"]]
+    elif name == "gblinear":
+        W = np.asarray([float(w) for w in gb["model"]["weights"]],
+                       np.float32).reshape(-1, n_groups)
+        booster = {"name": "gblinear", "updater": "shotgun",
+                   "weights": W[:-1].tolist(), "bias": W[-1].tolist(),
+                   "rounds": 0}
     else:
         booster = _gbtree_payload(gb)
 
@@ -335,16 +340,22 @@ def _multi_tree_to_reference(t, num_feature: int) -> Dict[str, Any]:
     }
 
 
-def native_to_reference_json(booster) -> Dict[str, Any]:
-    """A ``gbtree`` or ``dart`` Booster as a reference-schema model dict;
-    ``base_score`` in the user's space (the transform of the base
-    margin), of target 0 when the targets' base margins differ."""
+def _linear_to_reference(gbm, nf: int, n_groups: int) -> Dict[str, Any]:
+    """The gblinear payload: weights flat [(F + 1) x K], bias row last."""
+    W = gbm.W.cpu().numpy() if gbm.W is not None \
+        else np.zeros((nf, n_groups), np.float32)
+    b = gbm.bias.cpu().numpy() if gbm.bias is not None \
+        else np.zeros((n_groups,), np.float32)
+    flat = np.concatenate([W, b[None, :]], axis=0).reshape(-1)
+    return {"name": "gblinear",
+            "model": {"weights": flat.astype(np.float64).tolist()}}
+
+
+def _trees_to_reference(gbm, nf: int) -> Dict[str, Any]:
+    """The gbtree (or dart) payload."""
     from .boosting.dart import Dart
     from .tree.multi import MultiTargetTreeModel
 
-    booster._configure(None)
-    gbm, obj = booster.gbm, booster.obj
-    nf = booster.num_features()
     trees = []
     for i, t in enumerate(gbm.trees):
         tj = (_multi_tree_to_reference(t, nf)
@@ -361,11 +372,23 @@ def native_to_reference_json(booster) -> Dict[str, Any]:
         "iteration_indptr": [int(x) for x in gbm.iteration_indptr],
     }
     if isinstance(gbm, Dart):
-        gb_json = {"name": "dart", "gbtree": {"name": "gbtree",
-                                              "model": model},
-                   "weight_drop": [float(w) for w in gbm.weight_drop]}
-    else:
-        gb_json = {"name": "gbtree", "model": model}
+        return {"name": "dart", "gbtree": {"name": "gbtree", "model": model},
+                "weight_drop": [float(w) for w in gbm.weight_drop]}
+    return {"name": "gbtree", "model": model}
+
+
+def native_to_reference_json(booster) -> Dict[str, Any]:
+    """A ``gbtree``, ``dart`` or ``gblinear`` Booster as a
+    reference-schema model dict; ``base_score`` in the user's space (the
+    transform of the base margin), of target 0 when the targets' base
+    margins differ."""
+    from .boosting.gblinear import GBLinear
+
+    booster._configure(None)
+    gbm, obj = booster.gbm, booster.obj
+    nf = booster.num_features()
+    gb_json = (_linear_to_reference(gbm, nf, booster.n_groups)
+               if isinstance(gbm, GBLinear) else _trees_to_reference(gbm, nf))
     margin = booster._base_np()
     user = obj.pred_transform(torch.from_numpy(
         np.asarray(margin, np.float32))[None, :]).numpy().reshape(-1)

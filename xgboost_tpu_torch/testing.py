@@ -181,3 +181,31 @@ def write_libsvm(path: str, labels: np.ndarray, indices: np.ndarray) -> None:
     tail = [" ".join(f"{j}:1" for j in row) for row in indices.tolist()]
     with open(path, "w") as fh:
         fh.writelines(f"{int(y)} {t}\n" for y, t in zip(labels, tail))
+
+
+# the settings of XGBoost's demo/CLI/binary_classification/mushroom.conf
+MUSHROOM_CONF = """\
+# General Parameters
+booster = gbtree
+objective = binary:logistic
+
+# Tree Booster Parameters
+eta = 1.0
+gamma = 1.0
+min_child_weight = 1
+max_depth = 3
+
+# Task Parameters
+num_round = 2
+save_period = 0
+data = "{train}?format=libsvm"
+eval[test] = "{test}?format=libsvm"
+test:data = "{test}?format=libsvm"
+"""
+
+
+def write_mushroom_conf(path: str, train: str, test: str) -> None:
+    """A CLI config file with the mushroom demo's settings over the
+    libsvm files ``train`` and ``test``."""
+    with open(path, "w") as fh:
+        fh.write(MUSHROOM_CONF.format(train=train, test=test))
