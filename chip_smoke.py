@@ -261,7 +261,28 @@ counts set to 0 just before and read just after:
   HIGGS shape, 10 rounds; the CLI with the mushroom demo's config
   (``demo/CLI/binary_classification/mushroom.conf``) on the agaricus
   files: train in this process and as ``python -m xgboost_tpu_torch``
-  (the two models and ``xt.train``'s one set of bytes), dump and pred.
+  (the two models and ``xt.train``'s one set of bytes), dump and pred;
+- the serving stack (``serving_stack``) on the serving forest above: the
+  HTTP front end over a 2-replica ``FleetRouter`` on the card answering
+  200 ``POST /v1/predict`` of 1/8/64/512 rows from 4 client processes
+  (K1 on the spread schedule; every answer ``Booster.predict``'s bits;
+  client latency p50 / p99 a size), the same load through one ``Server``
+  behind the same front end in turn with the fleet (req/s and latency of
+  both), ``POST /v1/model/higgs/contribs`` on 1,000
+  rows against ``Booster.predict(pred_contribs=True)`` (1e-12, rows
+  summing to the margin within 1e-5, rows/s of both), a swap to a
+  second forest, a rollback and a drained ``remove_replica`` under load
+  from 4 threads (no request failing, each answer its version's bits),
+  ``/healthz``, ``/v1/metrics``, ``/metrics`` and ``/v1/models`` parsed
+  and their counters against the requests sent, the jsonl loop as
+  ``python -m xgboost_tpu_torch serve`` over 50 lines (each equal to its
+  HTTP twin); ``XTPU_NAN_POLICY`` at the HIGGS shape with 1% NaN labels
+  (``raise`` names the rows with no tree committed, ``zero`` trains 3
+  rounds with finite predictions, ``off`` trains unchecked);
+  ``update_batch`` of 8 rounds against 8 ``update`` calls (one set of
+  bytes); and the native text parser against the Python one on a
+  1,000,000-row libsvm file of the agaricus widths (the same arrays,
+  rows/s of both).
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -4702,6 +4723,485 @@ def sklearn_cv_cli(xt, dev, X, y, Xc, yc, tmp):
     return runs, out
 
 
+SS_SIZES = (1, 8, 64, 512)      # the serving phase's request sizes
+SS_REQUESTS = 200
+SS_ALONE = 25            # requests of 1 and of 512 rows from one client
+SS_THREADS = 4
+SS_CONTRIB_ROWS = 1_000
+SS_JSONL_LINES = 50
+SS_NAN_SHARE = 0.01
+SS_NAN_ROUNDS = 3
+SS_BATCH_ROUNDS = 8
+SS_PARSE_ROWS = 1_000_000
+SS_SHAP_TOL = 1e-12      # tests/test_torch_shap.py F64_TOL
+SS_SUM_TOL = 1e-5        # tests/test_torch_shap.py SUM_TOL
+
+
+def http_call(port, path, obj=None):
+    """One call to the HTTP front end on 127.0.0.1 -> (status, the JSON
+    or text answer, seconds on the host clock)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    dt = time.perf_counter() - t0
+    try:
+        return code, json.loads(body), dt
+    except json.JSONDecodeError:
+        return code, body, dt
+
+
+def prometheus_samples(text):
+    """{(name, labels): value} of a Prometheus text exposition; raises on
+    a line that is neither a comment nor a sample."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)",
+                         line)
+        if m is None:
+            raise AssertionError(f"not a Prometheus sample: {line!r}")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def http_client(port, jobs, start_at):
+    """One client process's share of the HTTP requests (its own
+    interpreter, so the load does not share the server's GIL): waits for
+    ``start_at`` (``time.time()``), then sends ``jobs`` [(id, rows)] in
+    order -> ([(id, status, answer, seconds)], the time it finished)."""
+    time.sleep(max(0.0, start_at - time.time()))
+    out = [(i, *http_call(port, "/v1/predict",
+                          {"data": rows, "model": "higgs", "id": i}))
+           for i, rows in jobs]
+    return out, time.time()
+
+
+def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
+    """The ``serving_stack`` phase: the HTTP front end over a 2-replica
+    ``FleetRouter`` on the card (``POST /v1/predict`` from 4 threads, each
+    answer equal to ``Booster.predict`` bit for bit; the contribs route
+    against ``Booster.predict(pred_contribs=True)``; a swap, a rollback
+    and a drained removal under load with no request failing; the GET
+    routes parsed and their counters against the requests sent), the
+    jsonl loop as ``python -m xgboost_tpu_torch serve`` (each answer equal
+    to its HTTP twin), ``XTPU_NAN_POLICY`` at the HIGGS shape,
+    ``update_batch`` against sequential ``update`` calls, and the native
+    text parser against the Python one on a 1,000,000-row libsvm file.
+    Returns (the main-path runs' launch counts, a summary)."""
+    from xgboost_tpu_torch.data import fileio
+    from xgboost_tpu_torch.ops.cuda import build
+    from xgboost_tpu_torch.serve import (FleetConfig, FleetRouter,
+                                         ServeConfig, Server)
+    from xgboost_tpu_torch.serve.frontend import make_http_server
+    from xgboost_tpu_torch.testing import (agaricus_rows, make_forest_model,
+                                           write_libsvm)
+
+    card = gpu_line()
+    runs, out = [], {}
+    n_big = Xbig.shape[0]
+
+    def place(i):
+        """Request i's rows: (first row, rows)."""
+        n = SS_SIZES[i % len(SS_SIZES)]
+        return (i * 977) % (n_big - n), n
+
+    def request(i):
+        lo, n = place(i)
+        return lo, n, http_call(port, "/v1/predict", {
+            "data": Xbig[lo:lo + n].tolist(), "model": "higgs", "id": i})
+
+    def check(answers, oracles, label):
+        for k, a in enumerate(answers):
+            if a is None:
+                raise AssertionError(f"{label}: request {k} got no answer")
+            lo, n, (code, body, _) = a
+            if code != 200:
+                raise AssertionError(f"{label}: request {k} failed with "
+                                     f"{code}: {body}")
+            want = oracles[body["version"]][lo:lo + n]
+            got = np.asarray(body["predictions"], np.float32)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{label}: request {k} ({n} rows at {lo}, version "
+                    f"{body['version']}) differs from Booster.predict")
+
+    raw2 = make_forest_model(500, 8, 28, seed=1)
+    pred2 = xt.Booster(model_file=raw2).predict(xt.DMatrix(Xbig))
+    oracles = {1: pred, 2: pred2}
+    fl = FleetRouter(models={"higgs": raw}, device="cuda", config=FleetConfig(
+        replicas=2, min_replicas=1, max_replicas=2, replication=2,
+        autoscale_interval_s=0, serve=ServeConfig(max_batch=512)))
+    fl.warmup()
+    httpd = make_http_server(fl, 0)
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever,
+                                     daemon=True)
+    server_thread.start()
+    sent = {"predict": 0, "contribs": 0}
+    try:
+        # -- 1. POST /v1/predict: 200 requests of 1/8/64/512 rows from 4
+        # client processes, then 25 of 1 and of 512 rows from one, in turn
+        import multiprocessing
+
+        def jobs(ids):
+            return [(i, Xbig[lo:lo + n].tolist())
+                    for i, (lo, n) in ((i, place(i)) for i in ids)]
+
+        shares = [jobs(range(t, SS_REQUESTS, SS_THREADS))
+                  for t in range(SS_THREADS)]
+        alone = jobs([SS_REQUESTS + 4 * k + s for k in range(SS_ALONE)
+                      for s in (0, 3)])        # 1 and 512 rows in turn
+        def run_load(pool, port_, label):
+            """The 200 requests from 4 client processes against the front
+            end on ``port_``, each answer checked -> (req/s, {rows: (p50,
+            p99) ms})."""
+            start = time.time() + 1.0
+            done = pool.starmap(http_client, [(port_, share, start)
+                                              for share in shares])
+            wall = max(t for _, t in done) - start
+            answers = [None] * SS_REQUESTS
+            for got, _ in done:
+                for i, code, body, dt in got:
+                    answers[i] = (*place(i), (code, body, dt))
+            check(answers, oracles, label)
+            lat = {}
+            for n in SS_SIZES:
+                ts = np.array([a[2][2] for a in answers if a[1] == n]) * 1e3
+                lat[n] = (float(np.percentile(ts, 50)),
+                          float(np.percentile(ts, 99)))
+            return SS_REQUESTS / wall, lat
+
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(SS_THREADS) as pool:
+            pool.starmap(http_client, [(port, [], 0.0)] * SS_THREADS)
+            reset_counts()
+            rate, lat = run_load(pool, port, "HTTP predict")
+            torch.cuda.synchronize()
+            c_http = read_counts()
+            (lone, _), = pool.starmap(http_client, [(port, alone, 0.0)])
+            # the same load through one Server behind the same front end,
+            # in turn with the fleet: what the second replica buys
+            one = Server(models={"higgs": raw}, device="cuda",
+                         config=ServeConfig(max_batch=512))
+            one.warmup()
+            httpd1 = make_http_server(one, 0)
+            thread1 = threading.Thread(target=httpd1.serve_forever,
+                                       daemon=True)
+            thread1.start()
+            versus = {"fleet": [(rate, dict(lat))], "one": []}
+            try:
+                for who in ("one", "fleet", "one"):
+                    p_ = httpd1.server_address[1] if who == "one" else port
+                    versus[who].append(run_load(
+                        pool, p_, f"HTTP predict ({who})"))
+            finally:
+                httpd1.shutdown()
+                httpd1.server_close()
+                thread1.join(timeout=60)
+                one.close()
+        runs.append(c_http)
+        sent["predict"] += 2 * SS_REQUESTS + len(alone)
+        if c_http["walk_packed"] < 1 or \
+                c_http["walk_spread"] != c_http["walk_packed"] or \
+                any(v for k, v in c_http.items() if not k.startswith("walk")):
+            raise AssertionError(f"the HTTP front end launched {c_http}, "
+                                 "expected K1 on the spread schedule only")
+        check([(*place(i), (code, body, dt)) for i, code, body, dt in lone],
+              oracles, "HTTP predict, one client")
+        for n in (1, 512):
+            ts = np.array([dt for i, _, _, dt in lone
+                           if place(i)[1] == n]) * 1e3
+            lat[f"{n} alone"] = (float(np.percentile(ts, 50)),
+                                 float(np.percentile(ts, 99)))
+        out["latency_ms"] = lat
+        out["http_req_per_s"] = rate
+        out["fleet_vs_one"] = versus
+        log(f"serving_stack: {SS_REQUESTS} POST /v1/predict of {SS_SIZES} "
+            f"rows from {SS_THREADS} client processes through a 2-replica "
+            f"fleet at {rate:.1f} req/s, then "
+            f"{len(alone)} from one client (1 and 512 rows in turn); K1 "
+            f"launches {c_http['walk_packed']} (all spread); every answer "
+            f"equal to Booster.predict bit for bit; client latency (host "
+            f"clock, HTTP and JSON included) p50 / p99: "
+            + ", ".join(f"{n} rows {v[0]:.3f} / {v[1]:.3f} ms"
+                        for n, v in lat.items()) + f" [{card}]")
+        names = {"fleet": "2-replica fleet", "one": "one Server"}
+        log("serving_stack: the same load through a 2-replica fleet and "
+            "through one Server behind the same front end, in turn "
+            "(fleet, one, fleet, one): " + "; ".join(
+                f"{names[who]} run {k + 1}: {r:.1f} req/s, p50 / p99 "
+                f"1 row {v[1][0]:.3f} / {v[1][1]:.3f} ms, 512 rows "
+                f"{v[512][0]:.3f} / {v[512][1]:.3f} ms"
+                for who in ("fleet", "one")
+                for k, (r, v) in enumerate(versus[who])) + f" [{card}]")
+
+        # -- 2. POST /v1/model/higgs/contribs on 1,000 rows
+        Xc = Xbig[:SS_CONTRIB_ROWS]
+        fl.warmup_contribs()               # each replica's path tables
+        dmc = xt.DMatrix(Xc)
+        booster.predict(xt.DMatrix(Xc[:1]), pred_contribs=True)
+        torch.cuda.synchronize()
+        code, body, t_route = http_call(port, "/v1/model/higgs/contribs",
+                                        {"data": Xc.tolist()})
+        sent["contribs"] += 1
+        if code != 200:
+            raise AssertionError(f"contribs route failed: {code} {body}")
+        phi = np.asarray(body["contribs"], np.float32)
+        t0 = time.perf_counter()
+        want = booster.predict(dmc, pred_contribs=True)
+        torch.cuda.synchronize()
+        t_pred = time.perf_counter() - t0
+        margin = booster.predict(dmc, output_margin=True)
+        if phi.shape != want.shape or phi.shape != (SS_CONTRIB_ROWS, 29):
+            raise AssertionError(f"contribs shape {phi.shape} / "
+                                 f"{want.shape}")
+        err = float(np.abs(phi.astype(np.float64) - want).max())
+        sum_err = float(np.abs(phi.astype(np.float64).sum(axis=1)
+                               - margin).max())
+        if err > SS_SHAP_TOL or sum_err > SS_SUM_TOL:
+            raise AssertionError(f"contribs route: {err} from "
+                                 f"Booster.predict, rows {sum_err} from "
+                                 "their margins")
+        out["contribs_rows_per_s"] = (SS_CONTRIB_ROWS / t_route,
+                                      SS_CONTRIB_ROWS / t_pred)
+        log(f"serving_stack: contribs route on {SS_CONTRIB_ROWS} rows in "
+            f"{t_route:.4f} s = {SS_CONTRIB_ROWS / t_route:.1f} rows/s "
+            f"(HTTP and JSON included) against Booster.predict("
+            f"pred_contribs=True) {t_pred:.4f} s = "
+            f"{SS_CONTRIB_ROWS / t_pred:.1f} rows/s (host clock); max "
+            f"|route - predict| {err}, rows - margin {sum_err} [{card}]")
+
+        # -- 3. swap to version 2, roll back, remove a replica: under load
+        load = []
+        stop = threading.Event()
+
+        def loader(tid):
+            i = 1000 + tid
+            while not stop.is_set():
+                load.append(request(i))
+                i += SS_THREADS
+
+        victim = fl.placement("higgs")[0]
+        victim_srv = dict(zip(fl.replica_names(), fl.replicas()))[victim]
+        reset_counts()
+        threads = [threading.Thread(target=loader, args=(t,))
+                   for t in range(SS_THREADS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        fl.swap_model("higgs", raw2)
+        v2 = fl.predict(Xbig[:4], "higgs")
+        sent["predict"] += 1
+        time.sleep(0.3)
+        back = fl.rollback_model("higgs")
+        time.sleep(0.3)
+        fl.remove_replica(victim, drain=True)
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        c_load = read_counts()
+        runs.append(c_load)
+        sent["predict"] += len(load)
+        if v2.version != 2 or not np.array_equal(v2, pred2[:4]) or \
+                back.version != 1:
+            raise AssertionError("the swap or the rollback did not take")
+        check(load, oracles, "under load")
+        versions = sorted({a[2][1]["version"] for a in load})
+        if fl.n_replicas != 1 or victim in fl.replica_names():
+            raise AssertionError("the replica was not removed")
+        log(f"serving_stack: {len(load)} requests under a swap to version "
+            f"2, a rollback and a drained removal of replica {victim}: none "
+            f"failed, versions answered {versions}, each equal to its "
+            f"version's Booster.predict bit for bit; K1 launches "
+            f"{c_load['walk_packed']}")
+
+        # -- 4. the GET routes and their counters
+        code_h, health, _ = http_call(port, "/healthz")
+        code_m, snap, _ = http_call(port, "/v1/metrics")
+        code_p, text, _ = http_call(port, "/metrics")
+        code_l, models, _ = http_call(port, "/v1/models")
+        code_r, report, _ = http_call(port, "/v1/model/higgs/report")
+        if (code_h, code_m, code_p, code_l, code_r) != \
+                (200, 200, 200, 200, 501) or health["status"] != "ok" \
+                or health["n_replicas"] != 1 \
+                or models != [{"name": "higgs", "version": 1,
+                               "n_features": 28, "n_groups": 1,
+                               "n_trees": len(booster.gbm.trees)}] \
+                or "ROADMAP A.10" not in report["error"]:
+            raise AssertionError(f"GET routes: {code_h} {health}; {code_m}; "
+                                 f"{code_p}; {code_l} {models}; {code_r} "
+                                 f"{report}")
+        samples = prometheus_samples(text)
+        routed = snap["fleet"]["routed"]
+        gone = victim_srv.metrics.get_many(("requests",))["requests"]
+        served = snap["counters"]["requests"] + gone
+        prom_req = sum(v for (k, lab), v in samples.items()
+                       if k == "xtpu_serve_requests_total"
+                       and 'replica="' in lab)   # the fleet's servers
+        prom_routed = samples[("xtpu_fleet_routed_total", "")]
+        total = sent["predict"] + sent["contribs"]
+        if not (routed == prom_routed == total
+                and served == prom_req == sent["predict"]
+                and snap["counters"].get("errors", 0) == 0):
+            raise AssertionError(
+                f"counters: routed {routed} / {prom_routed}, served "
+                f"{served} / {prom_req}, sent {sent}, errors "
+                f"{snap['counters'].get('errors')}")
+        log(f"serving_stack: /healthz, /v1/metrics, /metrics ("
+            f"{len(samples)} samples), /v1/models parse; /report 501 naming "
+            f"A.10; routed {routed} = sent {total}, serve requests "
+            f"{served} = predict requests sent {sent['predict']}")
+
+        # -- 5. the jsonl loop as python -m xgboost_tpu_torch serve
+        path = os.path.join(tmp, "higgs.json")
+        with open(path, "wb") as fh:
+            fh.write(bytes(raw))
+        reqs = [(i, SS_SIZES[i % len(SS_SIZES)], (i * 131) % (n_big - 512))
+                for i in range(SS_JSONL_LINES)]
+        lines = "".join(json.dumps({"data": Xbig[lo:lo + n].tolist(),
+                                    "id": i}) + "\n" for i, n, lo in reqs)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "xgboost_tpu_torch", "serve",
+             f"model={path}"], input=lines, capture_output=True, text=True,
+            timeout=600, env=env, cwd=repo)
+        t_jsonl = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"serve subprocess exit "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        got = [json.loads(x) for x in proc.stdout.splitlines()]
+        twins = [http_call(port, "/v1/predict", {
+            "data": Xbig[lo:lo + n].tolist(), "id": i}) for i, n, lo in reqs]
+        sent["predict"] += len(reqs)
+        for (i, n, lo), g, (code, tw, _) in zip(reqs, got, twins):
+            if code != 200 or g["id"] != i or g["version"] != tw["version"] \
+                    or g["predictions"] != tw["predictions"] \
+                    or not np.array_equal(np.asarray(g["predictions"],
+                                                     np.float32),
+                                          pred[lo:lo + n]):
+                raise AssertionError(f"jsonl line {i} differs from its "
+                                     "HTTP twin")
+        if len(got) != SS_JSONL_LINES:
+            raise AssertionError(f"jsonl: {len(got)} answers")
+        log(f"serving_stack: python -m xgboost_tpu_torch serve answered "
+            f"{SS_JSONL_LINES} jsonl lines in {t_jsonl:.2f} s (process "
+            f"start, model load and warmup included), each equal to its "
+            f"HTTP twin")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server_thread.join(timeout=60)
+        fl.close()
+
+    # -- 6. XTPU_NAN_POLICY at the HIGGS shape, 1% NaN labels
+    rng = np.random.RandomState(17)
+    y_nan = y[:HIGGS_TRAIN].copy()
+    bad = rng.rand(len(y_nan)) < SS_NAN_SHARE
+    y_nan[bad] = np.nan
+    dnan = xt.DMatrix(X[:HIGGS_TRAIN], label=y_nan)
+    p = dict(HIGGS_PARAMS, base_score=0.5)
+    kept = os.environ.get("XTPU_NAN_POLICY")
+    try:
+        os.environ["XTPU_NAN_POLICY"] = "raise"
+        bst = xt.Booster(p)
+        try:
+            bst.update(dnan, 0)
+        except xt.NumericalDivergence as e:
+            if e.bad_rows != int(bad.sum()) or bst.num_boosted_rounds():
+                raise AssertionError(f"raise: {e.bad_rows} rows, "
+                                     f"{bst.num_boosted_rounds()} rounds")
+            raised = e.bad_rows
+        else:
+            raise AssertionError("XTPU_NAN_POLICY=raise did not raise")
+        res = {}
+        for pol in ("zero", "off"):
+            os.environ["XTPU_NAN_POLICY"] = pol
+            t0 = time.perf_counter()
+            b, c = train_launches(f"nan policy {pol}", lambda: xt.train(
+                p, dnan, SS_NAN_ROUNDS, verbose_eval=False))
+            res[pol] = (time.perf_counter() - t0, b)
+            runs.append(c)
+            if b.num_boosted_rounds() != SS_NAN_ROUNDS or \
+                    c["hist_scan"] != 8 * SS_NAN_ROUNDS:
+                raise AssertionError(f"{pol}: {b.num_boosted_rounds()} "
+                                     f"rounds, launches {c}")
+        zero_pred = res["zero"][1].predict(xt.DMatrix(X[HIGGS_TRAIN:]))
+        if not np.isfinite(zero_pred).all():
+            raise AssertionError("zero: the model predicts non-finite")
+        off_pred = res["off"][1].predict(xt.DMatrix(X[HIGGS_TRAIN:HIGGS_TRAIN + 100]))
+    finally:
+        if kept is None:
+            os.environ.pop("XTPU_NAN_POLICY", None)
+        else:
+            os.environ["XTPU_NAN_POLICY"] = kept
+    out["nan"] = {"raised_rows": raised,
+                  "zero_s": res["zero"][0], "off_s": res["off"][0]}
+    log(f"serving_stack: XTPU_NAN_POLICY on {HIGGS_TRAIN} x 28 with "
+        f"{int(bad.sum())} NaN labels: raise named {raised} rows at round "
+        f"0 with no tree committed; zero trained {SS_NAN_ROUNDS} rounds in "
+        f"{res['zero'][0]:.3f} s, held-out predictions finite; off trained "
+        f"{SS_NAN_ROUNDS} rounds in {res['off'][0]:.3f} s (predictions "
+        f"finite: {bool(np.isfinite(off_pred).all())})")
+
+    # -- 7. update_batch against sequential update at the HIGGS shape
+    dtr = xt.DMatrix(X[:HIGGS_TRAIN], label=y[:HIGGS_TRAIN])
+    a = xt.Booster(dict(HIGGS_PARAMS))
+    ok, c_batch = train_launches("update_batch", lambda: a.update_batch(
+        dtr, range(SS_BATCH_ROUNDS)))
+    b = xt.Booster(dict(HIGGS_PARAMS))
+    _, c_seq = train_launches("update x 8", lambda: [
+        b.update(dtr, i) for i in range(SS_BATCH_ROUNDS)])
+    runs += [c_batch, c_seq]
+    if not ok or saved_bytes(a) != saved_bytes(b) or \
+            c_batch["hist_scan"] != 8 * SS_BATCH_ROUNDS:
+        raise AssertionError(f"update_batch: {ok}, launches {c_batch}, "
+                             f"bytes equal {saved_bytes(a) == saved_bytes(b)}")
+    log(f"serving_stack: update_batch of {SS_BATCH_ROUNDS} rounds saved "
+        f"the bytes of {SS_BATCH_ROUNDS} update calls (sha256 "
+        f"{hashlib.sha256(saved_bytes(a)).hexdigest()[:16]}...; K4 "
+        f"{c_batch['hist_scan']})")
+
+    # -- 8. the native text parser on a 1,000,000-row libsvm file
+    big = os.path.join(tmp, "agaricus_1m.txt")
+    write_libsvm(big, *agaricus_rows(SS_PARSE_ROWS, seed=8))
+    build.load_host("text_parser")
+    t0 = time.perf_counter()
+    nat = fileio._parse_native(big, False, ",")
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = fileio._parse_python(big, False, ",")
+    t_py = time.perf_counter() - t0
+    for k, (u, v) in enumerate(zip(nat[:5], ref[:5])):
+        if (u is None) != (v is None) or (
+                u is not None and not np.array_equal(u, v)):
+            raise AssertionError(f"native parse differs in array {k}")
+    if nat[5] != ref[5] or len(nat[0]) != SS_PARSE_ROWS + 1:
+        raise AssertionError("native parse: columns or rows differ")
+    out["parse_rows_per_s"] = (SS_PARSE_ROWS / t_nat, SS_PARSE_ROWS / t_py)
+    log(f"serving_stack: {SS_PARSE_ROWS}-row libsvm file "
+        f"({os.path.getsize(big) / 1e6:.1f} MB, agaricus widths): native "
+        f"parser {t_nat:.4f} s = {SS_PARSE_ROWS / t_nat:.1f} rows/s, "
+        f"Python parser {t_py:.4f} s = {SS_PARSE_ROWS / t_py:.1f} rows/s "
+        f"(host clock), the same arrays [{card}]")
+    os.remove(big)
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -5389,6 +5889,24 @@ def main() -> int:
         f"{sk['cv']['auc']:.6f} +- {sk['cv']['std']:.6f}")
     del Xc, dcov, dcte, covdart_model
 
+    # ---- main path: the serving stack (HTTP / jsonl front ends, fleet,
+    # contribs route), the NaN policies, update_batch, the native parser
+    with tempfile.TemporaryDirectory(prefix="xtt_serving_") as tmp:
+        t0 = time.perf_counter()
+        ss_runs, ss = serving_stack(xt, dev, raw, booster, Xbig, pred, X, y,
+                                    tmp)
+        t_ss = time.perf_counter() - t0
+    lat = ss["latency_ms"]
+    log(f"serving_stack {t_ss:.1f} s: 1-row p50 / p99 {lat[1][0]:.3f} / "
+        f"{lat[1][1]:.3f} ms under 4 clients, {lat['1 alone'][0]:.3f} / "
+        f"{lat['1 alone'][1]:.3f} ms from one; 512-row {lat[512][0]:.3f} / "
+        f"{lat[512][1]:.3f} ms, {lat['512 alone'][0]:.3f} / "
+        f"{lat['512 alone'][1]:.3f} ms; contribs route / "
+        f"Booster.predict {ss['contribs_rows_per_s'][0]:.1f} / "
+        f"{ss['contribs_rows_per_s'][1]:.1f} rows/s; parser native / "
+        f"Python {ss['parse_rows_per_s'][0]:.1f} / "
+        f"{ss['parse_rows_per_s'][1]:.1f} rows/s [{card}]")
+
     # ---- main path: multi-target training at the MediaMill shape
     mt_runs, mt_errs, mt_k1, mt_times, mt = multi_target(xt, dev)
     errs += mt_k1
@@ -5560,7 +6078,7 @@ def main() -> int:
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
             *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
-            *kg_runs, *gl_runs, *sh_runs, *sk_runs]
+            *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

@@ -85,6 +85,15 @@ def test_early_stopping_stops_where_jax_stops(params, K, monkeypatch):
           f"({tb.best_score})")
 
 
+@pytest.mark.parametrize("rounds", [1, 10])
+def test_early_stopping_without_evals_raises(rounds):
+    X, y = _data(n=200)
+    with pytest.raises(ValueError, match="at least 1 validation dataset"):
+        xt.train({"objective": "binary:logistic", "device": "cpu"},
+                 xt.DMatrix(X, label=y), rounds, early_stopping_rounds=3,
+                 verbose_eval=False)
+
+
 def test_save_best_keeps_the_same_rounds(monkeypatch):
     monkeypatch.setenv("XTPU_BATCH_ROUNDS", "1")
     X, y = _data(3)

@@ -24,6 +24,7 @@ import xgboost_tpu_torch as xt
 from xgboost_tpu.cli import main as jax_main
 from xgboost_tpu.cli import parse_config_file as jax_parse
 from xgboost_tpu_torch.cli import main, parse_config_file
+from xgboost_tpu_torch.serve import ModelLoadError
 from xgboost_tpu_torch.testing import (agaricus_rows, write_libsvm,
                                        write_mushroom_conf)
 
@@ -123,7 +124,7 @@ def test_continuation_and_save_period(files):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["serve", "model=m.json"], NotImplementedError, "A.9"),
+    (["serve", "model={d}/absent.json"], ModelLoadError, "cannot load"),
     (["pipeline", "workdir=w"], NotImplementedError, "A.10"),
     (["{conf}", "checkpoint_dir={d}/ck2"], NotImplementedError, "A.7"),
     (["{conf}", "task=cook"], ValueError, "unknown task"),

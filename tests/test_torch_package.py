@@ -23,7 +23,10 @@ TRAINING_MODULES = (
     "ops/split.py", "ops/partition.py", "ops/cuda/hist.py",
     "boosting/gbtree.py", "core.py", "metric/base.py",
     "metric/elementwise.py", "boosting/gblinear.py", "boosting/shap.py",
-    "ops/shap.py", "training.py", "sklearn.py", "cli.py", "__main__.py")
+    "ops/shap.py", "training.py", "sklearn.py", "cli.py", "__main__.py",
+    "logging_utils.py", "obs/metrics.py", "parallel/resilience.py",
+    "data/fileio.py", "serve/server.py", "serve/registry.py",
+    "serve/client.py", "serve/frontend.py", "serve/fleet.py")
 
 
 def _port_sources():

@@ -138,3 +138,135 @@ def test_swap_publishes_a_new_version(model):
         assert sm.version == 2 and got.version == 2
         assert srv.health_snapshot()["swaps"] == 1
         assert srv.metrics_snapshot()["models"][0]["version"] == 2
+
+
+def test_rollback_unload_and_drain(model):
+    raw, X = model
+    bst = xt.Booster({"device": "cpu"}, model_file=raw)
+    short = bytes(bst[:4].save_raw("json"))
+    with _server(raw, max_batch=8) as srv:
+        with pytest.raises(UnknownModel, match="no prior version"):
+            srv.rollback_model("m")
+        srv.swap_model("m", short)
+        assert srv.registry.previous("m").version == 1
+        assert srv.predict(X[:3]).version == 2
+        back = srv.rollback_model("m")
+        got = srv.predict(X[:3])
+        assert back.version == got.version == 1
+        np.testing.assert_allclose(got, bst.predict(xt.DMatrix(X[:3])),
+                                   rtol=RTOL)
+        # the version counter keeps its high-water mark
+        assert srv.swap_model("m", short).version == 3
+        h = srv.health_snapshot()
+        assert (h["swaps"], h["rollbacks"]) == (2, 1)
+        srv.unload_model("m")
+        with pytest.raises(UnknownModel):
+            srv.predict(X[:3], model="m")
+        with pytest.raises(UnknownModel):
+            srv.unload_model("m")
+        assert srv.metrics_snapshot()["counters"]["evictions"] == 1
+    srv = _server(raw, max_batch=64, max_delay_ms=10_000)
+    futs = [srv.submit(X[i:i + 2]) for i in range(0, 40, 2)]
+    srv.drain()
+    assert all(f.done() for f in futs)
+    assert srv.health_snapshot()["status"] == "closed"
+    from xgboost_tpu_torch.serve import ServerClosed
+    with pytest.raises(ServerClosed):
+        srv.submit(X[:2])
+
+
+@pytest.mark.parametrize("max_batch,rows", [(64, 150), (8, 5)])
+def test_contribs_against_jax_server(model, max_batch, rows):
+    raw, X = model
+    jsrv = JaxServer(models={"m": raw}, max_batch=max_batch)
+    try:
+        want = np.asarray(jsrv.contribs(X[:rows]))
+    finally:
+        jsrv.close()
+    with _server(raw, max_batch=max_batch) as srv:
+        srv.warmup_contribs()
+        phi = srv.contribs(X[:rows])
+        assert phi.shape == want.shape == (rows, X.shape[1] + 1)
+        assert (phi.model, phi.version) == ("m", 1)
+        np.testing.assert_allclose(phi, want, rtol=1e-6, atol=1e-6)
+        bst = xt.Booster({"device": "cpu"}, model_file=raw)
+        np.testing.assert_array_equal(
+            phi, bst.predict(xt.DMatrix(X[:rows]), pred_contribs=True))
+        margin = bst.predict(xt.DMatrix(X[:rows]), output_margin=True)
+        np.testing.assert_allclose(phi.sum(axis=1), margin, atol=1e-5)
+        snap = srv.metrics_snapshot()
+        assert snap["counters"]["contrib_rows"] == rows
+        assert snap["stages"]["shap"]["count"] == 1
+        with pytest.raises(ValueError, match="feature columns"):
+            srv.contribs(X[:2, :3])
+
+
+def test_contribs_multiclass_shape_and_deadline(model):
+    _, X = model
+    rng = np.random.RandomState(2)
+    y = rng.randint(0, 3, len(X)).astype(np.float32)
+    bst = xt.train({"objective": "multi:softprob", "num_class": 3,
+                    "max_depth": 3, "device": "cpu"},
+                   xt.DMatrix(X, label=y), 3, verbose_eval=False)
+    raw = bytes(bst.save_raw("json"))
+    with _server(raw, max_batch=16, shap_buckets=[1, 4]) as srv:
+        phi = srv.contribs(X[:9])
+        assert phi.shape == (9, 3, X.shape[1] + 1)
+        np.testing.assert_array_equal(
+            phi, bst.predict(xt.DMatrix(X[:9]), pred_contribs=True))
+        with pytest.raises(DeadlineExceeded):
+            srv.contribs(X[:40], timeout_ms=0)
+
+
+def test_client_retry_against_a_shedding_server(model):
+    from xgboost_tpu_torch.parallel.resilience import RetryPolicy
+    from xgboost_tpu_torch.serve import ServeClient
+
+    raw, X = model
+    with _server(raw, max_batch=64) as srv:
+        calls = {"n": 0}
+        orig = srv.submit
+
+        def flaky(*a, **k):
+            calls["n"] += 1
+            if calls["n"] <= 3:
+                raise ServerOverloaded("transient")
+            return orig(*a, **k)
+
+        srv.submit = flaky
+        cli = ServeClient(srv, "m", retry=RetryPolicy(
+            max_retries=3, base_delay_s=0.001), retry_seed=7)
+        got = cli.predict_many([X[:3], X[3:9]])
+        assert calls["n"] == 5
+        np.testing.assert_allclose(np.concatenate(got),
+                                   srv.predict(X[:9]), rtol=RTOL)
+        calls["n"] = -10
+        np.testing.assert_array_equal(cli.contribs(X[:2]),
+                                      srv.contribs(X[:2]))
+        assert cli.metrics()["counters"]["contrib_requests"] == 2
+        # the jitter is seeded: two clients of one seed wait alike
+        import random
+        policy = RetryPolicy()
+        a, b = random.Random(7), random.Random(7)
+        assert [policy.delay(i, a) for i in range(4)] == \
+            [policy.delay(i, b) for i in range(4)]
+
+
+def test_config_keys_ladders_and_log_line(model, caplog):
+    import logging
+    import time
+
+    raw, X = model
+    with _server(raw, max_batch=48, buckets=[1, 16],
+                 shap_max_batch=8, log_every_s=0.01) as srv:
+        assert srv.ladder.sizes == (1, 16, 48)     # max_batch on top
+        assert srv.shap_ladder.sizes == (1, 2, 4, 8)
+        srv.warmup()
+        with caplog.at_level(logging.INFO, logger="xgboost_tpu_torch"):
+            got = srv.predict(X[:5])               # padded to 16
+            time.sleep(0.2)                        # the batcher's ticks
+        assert srv.metrics_snapshot()["bucket_hits"] == {"16": 1}
+    with _server(raw) as plain:
+        np.testing.assert_allclose(got, plain.predict(X[:5]), rtol=RTOL)
+    assert "serve: req=1 rows=5 batches=1" in caplog.text
+    assert "queue_rows=0 models=1" in caplog.text

@@ -23,8 +23,11 @@ written in the reference XGBoost schema (``save_xgboost_model``).
 ``XGBClassifier`` / ``XGBRegressor`` / ``XGBRanker`` / ``XGBRF*`` wrap
 training for scikit-learn (which is optional), ``cv`` cross-validates,
 and ``python -m xgboost_tpu_torch <config> [key=value ...]`` is the
-command line (train / dump / pred). Entry points run on the card unless
-the caller asks for ``device="cpu"``.
+command line (train / dump / pred / serve: ``serve.frontend``, the HTTP
+and jsonl front ends over one ``serve.Server`` or a ``serve.FleetRouter``
+of several). A gradient with NaN or Inf raises ``NumericalDivergence``
+unless ``XTPU_NAN_POLICY`` says ``zero`` or ``off``. Entry points run on
+the card unless the caller asks for ``device="cpu"``.
 """
 
 from . import callback
@@ -33,6 +36,7 @@ from .config import config_context, get_config, set_config
 from .core import Booster, train
 from .data.dmatrix import DataIter, DMatrix, QuantileDMatrix
 from .interop import load_xgboost_model, save_xgboost_model
+from .objective.base import NumericalDivergence
 from .sklearn import (XGBClassifier, XGBModel, XGBRanker, XGBRegressor,
                       XGBRFClassifier, XGBRFRegressor)
 from .training import cv
@@ -41,6 +45,6 @@ __version__ = "0.1.0"
 
 __all__ = ["Booster", "Context", "DataIter", "DMatrix", "QuantileDMatrix",
            "XGBClassifier", "XGBModel", "XGBRanker", "XGBRegressor",
-           "XGBRFClassifier", "XGBRFRegressor", "callback",
+           "NumericalDivergence", "XGBRFClassifier", "XGBRFRegressor", "callback",
            "config_context", "cv", "get_config", "load_xgboost_model",
            "resolve_device", "save_xgboost_model", "set_config", "train"]

@@ -13,10 +13,15 @@ Keys the CLI takes itself (every other key is a booster parameter):
 ``iteration_end``, ``silent``. Training runs on the card unless the
 config says ``device = cpu``.
 
-The JAX package's ``serve`` and ``pipeline`` modes and its checkpoint
-keys (``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
-``resume``) are not in the port yet: they raise naming ROADMAP A.9,
-A.10 and A.7.
+``python -m xgboost_tpu_torch serve model=PATH [http_port=8080]
+[--fleet N] [key=value ...]`` serves models (no config file; the keys
+are ``serve/frontend.py``'s): the jsonl loop on stdin / stdout, or the
+HTTP front end with ``http_port``.
+
+The JAX package's ``pipeline`` mode and its checkpoint keys
+(``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
+``resume``) are not in the port yet: they raise naming ROADMAP A.10 and
+A.7.
 """
 
 from __future__ import annotations
@@ -153,9 +158,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__)
         return 0 if argv else 1
     if argv[0] == "serve":
-        raise NotImplementedError(
-            "the CLI's serve mode is not in the PyTorch port yet (the HTTP "
-            "front end, ROADMAP A.9)")
+        from .serve.frontend import serve_main
+
+        return serve_main(argv[1:])
     if argv[0] == "pipeline":
         raise NotImplementedError(
             "the CLI's pipeline mode is not in the PyTorch port yet "

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 import warnings
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
@@ -74,7 +75,8 @@ from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
 from .objective import get_objective
 from .objective.adaptive import label_matrix_refusal
-from .objective.base import guard_gradient
+from .objective.base import (NumericalDivergence, Objective,
+                             guard_gradient)
 from .objective.survival import sort_by_time
 from .ops import shap as shap_ops
 from .ops.shap import ShapPack, build_shap_pack
@@ -635,6 +637,64 @@ class Booster:
             margin = self.gbm.training_margin(st, self._walk_trees)
         gpair = self._gradient(margin, st, dtrain, iteration, fobj)
         self._boost_round(st, margin, gpair, iteration, refresh=True)
+
+    def update_batch(self, dtrain: DMatrix,
+                     iterations: Sequence[int]) -> bool:
+        """Run the rounds ``iterations`` as one batch, the JAX package's
+        ``update_batch``: True when this configuration batches (the one
+        its fused round program takes, :meth:`_batchable`), the model
+        then equal to as many ``update`` calls bit for bit; False, with
+        nothing run, for ``process_type="update"``, for a continuation's
+        first round (the cache has not walked the loaded trees yet) and
+        for a configuration the JAX package runs round by round. A batch
+        is its rounds run one by one: it does the same work, so ``train``
+        does not batch (a CUDA graph of the round is ROADMAP A.4(c)). A
+        round whose gradient diverges raises, and none of the batch's
+        trees is kept, as in the JAX package."""
+        self._configure(dtrain)
+        if self.tree_param.process_type == "update":
+            return False
+        st = self._state_of(dtrain, is_train=True)
+        if st["n_trees"] < self.gbm.version() or not self._batchable(st):
+            return False
+        gbm = self.gbm
+        kept = (len(gbm.trees), len(gbm.tree_info),
+                len(gbm.iteration_indptr), st["margin"], st["n_trees"])
+        try:
+            for it in iterations:
+                self.update(dtrain, int(it))
+        except NumericalDivergence:
+            del gbm.trees[kept[0]:], gbm.tree_info[kept[1]:]
+            del gbm.iteration_indptr[kept[2]:]
+            st["margin"], st["n_trees"] = kept[3], kept[4]
+            self._packed = {}
+            raise
+        return True
+
+    def _batchable(self, st: Dict[str, Any]) -> bool:
+        """The JAX package's ``_fused_binding`` test: a plain ``gbtree``
+        (no dart, one tree a group and round, depthwise with no
+        ``max_leaves``) growing scalar trees by ``hist`` from resident
+        bins, an objective with the stock gradient and no leaf refresh,
+        and scalar objective parameters. ``XTPU_SCAN_CLASSES=0`` takes
+        the JAX package's multi-class binding away, so the answer is its
+        answer there too."""
+        gbm = self.gbm
+        binned = st.get("binned")
+        if (type(gbm) is not GBTree or gbm.tree_method != "hist"
+                or gbm.num_parallel_tree != 1
+                or gbm.multi_strategy != "one_output_per_tree"
+                or self.tree_param.grow_policy != "depthwise"
+                or self.tree_param.max_leaves > 0
+                or self.obj.info.zero_hess
+                or binned is None or binned.is_paged
+                or (gbm.n_groups > 1 and os.environ.get(
+                    "XTPU_SCAN_CLASSES", "1") == "0")):
+            return False
+        if type(self.obj).get_gradient is not Objective.get_gradient:
+            return False        # ranking and survival: their own gradient
+        return all(isinstance(v, (int, float, str, bool))
+                   for k, v in self.obj.params.items() if k != "eval_metric")
 
     def _gradient(self, margin: torch.Tensor, st: Dict[str, Any],
                   dtrain: DMatrix, iteration: int,

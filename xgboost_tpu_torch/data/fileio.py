@@ -12,12 +12,16 @@ query sizes, weights and base margins. A file that begins with the zip
 magic ``PK`` is a ``save_binary`` npz and loads as such, whatever its
 name.
 
-The parser is host Python, the JAX package's reference parser; its
-optional native parser (``native/text_parser.cc``) is not ported.
+Text is parsed by the port's copy of the JAX package's multi-threaded
+C++ parser (``csrc/text_parser.cc``, built for the host with ``g++`` at
+first use, :func:`_parse_native`); a failed build raises with the
+compiler's log. :func:`_parse_python` is its plain version, which the
+tests hold it against.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Any, Dict, Tuple
 from urllib.parse import parse_qs
@@ -39,6 +43,49 @@ def parse_uri(uri: str) -> Tuple[str, str, int]:
         ext = os.path.splitext(rest)[1].lower()
         fmt = "csv" if ext in (".csv", ".tsv") else "libsvm"
     return rest, fmt, label_column
+
+
+_C_ARRAYS = (np.int64, np.int32, np.float32, np.float32, np.float32)
+
+
+def _parse_native(path: str, csv: bool, sep: str):
+    """:func:`_parse_python`'s result from ``csrc/text_parser.cc``: the
+    file split at newlines into one chunk a thread (one thread below
+    1 MiB), each chunk's CSR pieces stitched in file order."""
+    from ..ops.cuda.build import load_host
+
+    lib = load_host("text_parser")
+    lib.xtpu_parse_text.restype = ctypes.c_void_p
+    lib.xtpu_parse_text.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                    ctypes.c_char, ctypes.c_int]
+    h = lib.xtpu_parse_text(os.fsencode(path), int(csv), sep.encode(), 0)
+    if not h:
+        raise FileNotFoundError(path)
+    try:
+        for fn, res in ((lib.xtpu_parsed_rows, ctypes.c_int64),
+                        (lib.xtpu_parsed_nnz, ctypes.c_int64),
+                        (lib.xtpu_parsed_cols, ctypes.c_int32),
+                        (lib.xtpu_parsed_has_qid, ctypes.c_int32)):
+            fn.restype = res
+            fn.argtypes = [ctypes.c_void_p]
+        rows = lib.xtpu_parsed_rows(h)
+        nnz = lib.xtpu_parsed_nnz(h)
+        cols = lib.xtpu_parsed_cols(h)
+        has_qid = bool(lib.xtpu_parsed_has_qid(h))
+        out = [np.empty(n, d) for n, d in zip(
+            (rows + 1, nnz, nnz, rows, rows), _C_ARRAYS)]
+        lib.xtpu_parsed_fill.restype = None
+        lib.xtpu_parsed_fill.argtypes = [ctypes.c_void_p] + [
+            np.ctypeslib.ndpointer(dtype=d, flags="C_CONTIGUOUS")
+            for d in _C_ARRAYS]
+        lib.xtpu_parsed_fill(h, *out)
+    finally:
+        lib.xtpu_parsed_free.restype = None
+        lib.xtpu_parsed_free.argtypes = [ctypes.c_void_p]
+        lib.xtpu_parsed_free(h)
+    indptr, indices, values, labels, qids = out
+    return (indptr, indices, values, labels, qids if has_qid else None,
+            int(cols))
 
 
 def _parse_python(path: str, csv: bool, sep: str):
@@ -123,7 +170,7 @@ def load_uri(uri: str) -> Dict[str, Any]:
         raise ValueError(f"unsupported data format: {fmt}")
     csv = fmt == "csv"
     sep = "\t" if path.endswith(".tsv") else ","
-    indptr, indices, values, labels, qids, cols = _parse_python(path, csv,
+    indptr, indices, values, labels, qids, cols = _parse_native(path, csv,
                                                                 sep)
     n = len(indptr) - 1
     X = np.full((n, cols), np.nan, np.float32)

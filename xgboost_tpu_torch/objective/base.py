@@ -10,19 +10,23 @@ column by column, and a row's weight applies to each of its targets.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..logging_utils import logger
 from ..ops.xla_order import stump_sums
 
 
 class NumericalDivergence(RuntimeError):
     """Non-finite gradients: raised before the round's tree is committed,
-    so the model on the booster stays clean (the JAX package's default
-    ``raise`` policy; its ``zero`` and ``off`` policies are not ported)."""
+    so the model on the booster stays clean (``XTPU_NAN_POLICY=raise``,
+    the default). ``XTPU_NAN_POLICY=zero`` zeroes the offending (grad,
+    hess) pairs with a warning instead, so their rows stop contributing,
+    as zero-weight rows do; ``off`` skips the check."""
 
     def __init__(self, message: str, *, iteration: Optional[int] = None,
                  objective: Optional[str] = None,
@@ -33,19 +37,43 @@ class NumericalDivergence(RuntimeError):
         self.bad_rows = bad_rows
 
 
+def _nan_policy() -> str:
+    """``XTPU_NAN_POLICY``, read at each call (once a round), so a change
+    between two ``train`` calls takes effect."""
+    p = os.environ.get("XTPU_NAN_POLICY", "raise").strip().lower()
+    if p not in ("raise", "zero", "off"):
+        raise ValueError(
+            f"XTPU_NAN_POLICY must be raise|zero|off, got {p!r}")
+    return p
+
+
 def guard_gradient(gpair: torch.Tensor, objective: str,
                    iteration: int) -> torch.Tensor:
-    """Raise :class:`NumericalDivergence` when any (grad, hess) pair of
-    the [n, k, 2] gradient is non-finite; else return it unchanged."""
-    pair_ok = torch.isfinite(gpair).all(dim=-1)                  # [n, k]
+    """Finite-check one [n, k, 2] gradient under ``XTPU_NAN_POLICY``: a
+    (grad, hess) pair offends when either half is non-finite. ``raise``
+    raises :class:`NumericalDivergence` naming the rows with an
+    offending pair; ``zero`` zeroes those pairs with a warning (one host
+    sync, as ``raise``); ``off`` returns the gradient unchecked, with no
+    sync."""
+    policy = _nan_policy()
+    if policy == "off":
+        return gpair
+    pair_ok = torch.isfinite(gpair).all(dim=-1, keepdim=True)   # [n, k, 1]
     bad_rows = int((~pair_ok.all(dim=1)).sum())
     if bad_rows == 0:
         return gpair
+    if policy == "zero":
+        logger.warning(
+            "objective %r produced non-finite gradients for %d rows at "
+            "round %d; XTPU_NAN_POLICY=zero drops their contribution",
+            objective, bad_rows, iteration)
+        return torch.where(pair_ok, gpair, torch.zeros_like(gpair))
     raise NumericalDivergence(
         f"objective {objective!r} produced non-finite gradients for "
         f"{bad_rows} row(s) at round {iteration} — check labels/weights "
-        "for NaN/Inf.", iteration=iteration, objective=objective,
-        bad_rows=bad_rows)
+        "for NaN/Inf (or a diverging custom objective). Set "
+        "XTPU_NAN_POLICY=zero to drop the offending rows and continue.",
+        iteration=iteration, objective=objective, bad_rows=bad_rows)
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use and is keyed by a hash of the sources and
 the flags, under ``build/torch_kernels/`` at the repository root.
 :func:`build_all` starts one ``nvcc`` per source at once.
+``csrc/<name>.cc`` is host C++ (the text parser), built by ``g++`` the
+same way (:func:`build_host`, :func:`load_host`).
 
 No ``--use_fast_math``: it lets the compiler fold away ``isnan``, and
 the walk's NaN routing is part of its contract.
@@ -25,6 +27,13 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
+
+# the host library's flags, then the extra flag sets tried in order until
+# one builds: -march=native and -fopenmp where the compiler and the CPU
+# take them (the JAX package's native build tries the same)
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+GXX_EXTRAS = (["-march=native", "-fopenmp"], ["-fopenmp"],
+              ["-march=native"], [])
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,4 +106,56 @@ def load(name: str) -> ctypes.CDLL:
                 build_all([name])
                 lib = ctypes.CDLL(str(_target(name)))
                 _libs[name] = lib
+    return lib
+
+
+def _host_target(name: str) -> Path:
+    src = CSRC / f"{name}.cc"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    h = hashlib.sha256()
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(repr(GXX_EXTRAS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> str:
+    """Build ``csrc/<name>.cc`` for the host with ``g++`` unless it is
+    built; returns the compiler's log ("" when cached). Raises with every
+    attempt's log when no flag set builds."""
+    out = _host_target(name)
+    if out.exists():
+        return ""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH; csrc/{name}.cc is "
+                           "built for the host at first use")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    logs = []
+    for extra in GXX_EXTRAS:
+        cmd = [gxx, *GXX_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{name}.cc")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode == 0:
+            os.replace(tmp, out)   # atomic, as the CUDA builds
+            return logs[-1]
+    raise RuntimeError(f"g++ failed for csrc/{name}.cc with every flag "
+                       "set:\n" + "\n".join(logs))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cc``, built on first
+    use."""
+    key = f"host:{name}"
+    lib = _libs.get(key)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(key)
+            if lib is None:
+                build_host(name)
+                lib = ctypes.CDLL(str(_host_target(name)))
+                _libs[key] = lib
     return lib

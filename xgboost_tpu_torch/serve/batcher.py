@@ -55,11 +55,13 @@ class MicroBatcher:
     def __init__(self, *, max_batch: int, max_delay_s: float,
                  max_queue_rows: int,
                  dispatch: Callable[[str, List[PredictRequest]], None],
+                 on_tick: Optional[Callable[[], None]] = None,
                  on_expire: Optional[Callable[[int], None]] = None) -> None:
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_s)
         self.max_queue_rows = int(max_queue_rows)
         self._dispatch = dispatch
+        self._on_tick = on_tick      # periodic hook (metrics log line)
         self._on_expire = on_expire  # deadline-drop accounting
         self._cond = threading.Condition()
         self._queue: deque = deque()
@@ -172,7 +174,9 @@ class MicroBatcher:
         while True:
             with self._cond:
                 while not self._queue and not self._closed:
-                    self._cond.wait()
+                    self._cond.wait(0.05 if self._on_tick else None)
+                    if self._on_tick:
+                        self._on_tick()
                 if self._closed and not self._queue:
                     return
                 batch = self._form_batch_locked()
@@ -183,3 +187,5 @@ class MicroBatcher:
                     for r in batch:
                         if not r.future.done():
                             r.future.set_exception(exc)
+            if self._on_tick:
+                self._on_tick()

@@ -3,7 +3,8 @@
 Every device batch is padded to one of a small fixed set of row counts,
 so the set of batch shapes the walk sees is ``len(ladder)`` per model:
 the shapes a future CUDA-graph capture per bucket would need, and the
-shapes ``Server.warmup`` runs once up front.
+shapes ``Server.warmup`` runs once up front. The contribs route has a
+ladder of its own (``ServeConfig.shap_ladder``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ The :class:`ModelRegistry` maps ``name -> ServedModel`` under a lock
 with ATOMIC replacement: a hot swap fully constructs (and the server
 warms) the incoming model before the one dict assignment that makes it
 visible. In-flight batches keep serving the ServedModel they resolved.
+The versions a swap displaced stay built (forest on the device), up to
+``HISTORY_DEPTH`` a name, so a rollback is one assignment too.
+
+A packed forest also answers SHAP contributions: its per-leaf path
+tables (the Booster's, ``ops/shap.py build_shap_pack``) are built on
+first use, once, under a lock, and the contribs run as float64 torch
+ops on the device.
 
 Model sources: an in-process ``Booster``, a path to a model file (JSON
 / UBJ, native or reference schema), or raw model ``bytes``.
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from ..boosting.predict import margin_raw, stack_trees
+from ..ops.shap import contribs
 from ..tree.multi import is_vector_leaf
 from .errors import ModelLoadError, UnknownModel
 from .packed import PackError
@@ -62,6 +70,7 @@ class ServedModel:
         base = np.broadcast_to(np.asarray(booster._base_np(), np.float32),
                                (self.n_groups,))
         self.base = torch.tensor(base, device=device)
+        self.base_np = np.array(base)
         self.n_features = int(booster.num_features())
         self._obj = booster.obj
         self.packed = self.stacked = None
@@ -80,6 +89,8 @@ class ServedModel:
             max_feature = self.packed.max_feature
         # the walk reads X[row, feature]: refuse batches narrower than this
         self.min_columns = max(self.n_features, max_feature + 1)
+        self._shap_pack = None
+        self._shap_lock = threading.Lock()
 
     def key(self) -> str:
         return f"{self.name}@v{self.version}"
@@ -96,6 +107,34 @@ class ServedModel:
             return margin_raw(self.stacked, X_dev, self.base)
         return self.packed.margin(X_dev, self.base)
 
+    # ------------------------------------------------------------- contribs
+    @property
+    def supports_contribs(self) -> bool:
+        return self.packed is not None
+
+    def shap_pack(self):
+        """The per-leaf path tables for device TreeSHAP, built on first
+        use (host work proportional to the leaves) and pinned on the
+        device, once, for the model's lifetime."""
+        if self._shap_pack is None:
+            if self.packed is None:
+                raise ModelLoadError(
+                    f"model {self.key()} has no packed forest; device "
+                    "contribs need the packed walk's scalar trees")
+            with self._shap_lock:
+                if self._shap_pack is None:
+                    pack = self.booster._shap_pack(None)
+                    pack.device_arrays(self.device)
+                    self._shap_pack = pack
+        return self._shap_pack
+
+    def contribs_padded(self, X_dev: torch.Tensor) -> torch.Tensor:
+        """SHAP values [R, n_groups, F + 1] f64 of a bucket-padded device
+        batch (rows independent, as in the walk); the bias column holds
+        the cover-weighted forest mean plus the base score, so every row
+        sums to its margin."""
+        return contribs(self.shap_pack(), X_dev, self.base_np)
+
     def transform(self, margin: torch.Tensor) -> torch.Tensor:
         """Objective prediction transform — elementwise, so it commutes
         with row slicing."""
@@ -111,11 +150,17 @@ class ServedModel:
 
 
 class ModelRegistry:
+    # displaced ServedModels kept a name for rollback — still fully built
+    # (forest on the device), so a rollback is as atomic as the swap that
+    # displaced them
+    HISTORY_DEPTH = 4
+
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self._lock = threading.RLock()
         self._models: Dict[str, ServedModel] = {}
         self._versions: Dict[str, int] = {}
+        self._history: Dict[str, List[ServedModel]] = {}
 
     def _build(self, name: str, source, version: int) -> ServedModel:
         booster = _load_booster(source)
@@ -150,10 +195,41 @@ class ModelRegistry:
 
     def publish(self, sm: ServedModel) -> ServedModel:
         with self._lock:
+            prev = self._models.get(sm.name)
+            if prev is not None and prev is not sm:
+                hist = self._history.setdefault(sm.name, [])
+                hist.append(prev)
+                del hist[:-self.HISTORY_DEPTH]
             self._models[sm.name] = sm  # one assignment = the atomic swap
             self._versions[sm.name] = max(
                 self._versions.get(sm.name, 0), sm.version)
         return sm
+
+    def previous(self, name: str) -> Optional[ServedModel]:
+        """The version a :meth:`rollback` would restore (None if none)."""
+        with self._lock:
+            hist = self._history.get(name)
+            return hist[-1] if hist else None
+
+    def rollback(self, name: str) -> ServedModel:
+        """Atomically restore the version the last swap displaced: the
+        same ServedModel object, still on the device, so the restore is
+        one dict assignment. The version counter keeps its high-water
+        mark: the next swap takes a fresh number, never the rolled-back
+        one."""
+        with self._lock:
+            hist = self._history.get(name)
+            if not hist:
+                raise UnknownModel(
+                    f"no prior version to roll back to for model '{name}'")
+            prev = hist.pop()
+            self._models[name] = prev
+            return prev
+
+    def unload(self, name: str) -> None:
+        with self._lock:
+            if self._models.pop(name, None) is None:
+                raise UnknownModel(f"no served model named '{name}'")
 
     def get(self, name: Optional[str] = None) -> ServedModel:
         with self._lock:
@@ -168,6 +244,9 @@ class ModelRegistry:
             if sm is None:
                 raise UnknownModel(f"no served model named '{name}'")
             return sm
+
+    def resolve_name(self, name: Optional[str]) -> str:
+        return self.get(name).name
 
     def models(self) -> List[ServedModel]:
         with self._lock:
