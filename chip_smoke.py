@@ -101,6 +101,35 @@ counts set to 0 just before and read just after:
   ``Booster.predict`` on the paged matrix against the walk over its
   bins; and the default budget, which collapses the matrix to the
   resident tier;
+- the external-memory tier's other paths (``paged_left_outs``), on the
+  same matrix with 4 pages cached: ``coarse``, ``fused``, ``scan`` and
+  ``mega`` on pages, 3 rounds each, and ``coarse`` under budgets of 0
+  and 11 pages, one set of model bytes (every round under every budget:
+  K2 for each page's coarse build and K4 for its fine partial, every
+  level; each uploaded page read ``depth + 1`` times); a two-level
+  pass's device memory under budget 0 the same at 4 pages and at 11 (one
+  fine accumulator, not one a page);
+  on the first 4 pages, 2 of them cached (the ring uploads the others on
+  every pass), lossguide at ``max_leaves`` 255 and ``max_depth`` 0, 2
+  rounds, and again with all 4 cached (one sha256; K4 on each page a
+  pair) and depthwise under
+  ``lossguide_constraints``' monotone and interaction constraints (every
+  path in one set, the sweep monotone);
+  ``tree_method="approx"`` 3 rounds on the first 2 pages (the host
+  re-sketch's seconds a round; held-out logloss falling); Covertype's
+  codes (BASELINE config #4, 581,012 x 12) from a ``DataIter`` in pages
+  of 100,000 rows, 3 rounds, both split kinds and one sha256 under
+  budgets of 0 and all pages; vector leaves at MediaMill's shape in
+  pages of 8,192 rows, depthwise and lossguide, 2 rounds each (K2 a
+  target, page and level or pair); ``gblinear`` ``shotgun`` over the 11
+  pages, 5 rounds; 10 rounds straight against 5 and a resume of 5 from a
+  training snapshot, resident and paged (2 of 4 pages cached), the same
+  bytes; the append of a 12th page followed by a round; and each paged
+  grower on the card against the CPU port on the same pages, one round
+  on two pages, one cached (``coarse`` and lossguide at 63 leaves on
+  200,000 HIGGS rows, Covertype's codes on 100,000 rows, depthwise
+  vector leaves at depth 3 on 4,096 MediaMill rows), under the near-tie
+  certificate;
 - leaf-wise growth and the constraints (``lossguide_constraints``), on
   the HIGGS-shape draws: ``grow_policy="lossguide"`` with
   ``max_leaves`` 255 and ``max_depth`` 0 (XGBoost's LightGBM-style
@@ -2267,6 +2296,33 @@ def paged_rounds(xt, params, dm, paged, rounds=6):
     return timer, per, total
 
 
+def pass_peak_bytes(xt, params, dm):
+    """One round of ``params`` on the paged matrix ``dm``: the largest
+    peak of the card's allocated memory during one pass over the pages
+    (``tree/paged.py _PageKernels._drive``), over what was allocated when
+    that pass began."""
+    from xgboost_tpu_torch.tree import paged as P
+
+    drive, peak = P._PageKernels._drive, [0]
+
+    def measured(*a, **k):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = drive(*a, **k)
+        torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated() - start)
+        return out
+
+    P._PageKernels._drive = staticmethod(measured)
+    try:
+        with NoPlainBuilds():
+            xt.train(params, dm, 1, verbose_eval=False)
+    finally:
+        P._PageKernels._drive = staticmethod(drive)
+    return peak[0]
+
+
 def u4_inputs(n, F, N, dev, seed, skew=False):
     """``hist_inputs``' 16-slot ids, u4-packed as the paged tier packs them
     (``PagedBinnedMatrix._pack_host``) -> (packed, ids, gpair, rel)."""
@@ -2589,7 +2645,404 @@ def external_memory(xt, dev, F, tmp):
         f"{llr[0]} -> {llr[-1]}, AUC {auc_r0:.6f} -> "
         f"{auc(yte, bres.predict(dte)):.6f} (paged: {ll[0]} -> {ll[-1]}, "
         f"AUC {auc_first:.6f} -> {auc_paged:.6f})")
-    return runs, busy, s_round
+    return runs, busy, s_round, dm
+
+
+# ---- the external-memory tier's left-outs (``paged_left_outs``) -------------
+
+PLO_ROUNDS = 3              # each two-level method, and the categorical run
+PLO_LG_PAGES = 4            # lossguide, constraints, approx and resume rows
+PLO_LG_ROUNDS = 2
+PLO_APPROX_PAGES = 2
+PLO_LINEAR_ROUNDS = 5
+PLO_COV_PAGE_ROWS = 100_000
+PLO_MM_PAGE_ROWS = 8_192
+PLO_MM_LG_LEAVES = 16
+PLO_RESUME_ROUNDS = 10
+PLO_LG_CACHED = 2           # of the 4 pages: the ring uploads the others
+# card against the CPU port: (rows, page rows) of HIGGS, Covertype and
+# MediaMill; one page of two cached
+PLO_GAP_HIGGS = (200_000, 100_000)
+PLO_GAP_COV = (100_000, 50_000)
+PLO_GAP_MM = (4_096, 2_048)
+PLO_GAP_MM_DEPTH = 3        # of MM_PARAMS' 6: the CPU's 101 builds a level
+PLO_GAP_LG_LEAVES = 63
+
+
+def typed_batches(xt, X, y, rows, types, cache_prefix):
+    """A ``DataIter`` over the rows of X in batches of ``rows``, each batch
+    announcing ``types`` (``feature_types``)."""
+
+    class Batches(xt.DataIter):
+        def __init__(self):
+            super().__init__(cache_prefix)
+            self.i = 0
+
+        def next(self, input_data):
+            s = self.i * rows
+            if s >= len(X):
+                return 0
+            input_data(data=X[s:s + rows], label=y[s:s + rows],
+                       feature_types=types)
+            self.i += 1
+            return 1
+
+        def reset(self):
+            self.i = 0
+
+    return Batches()
+
+
+def paged_left_outs(xt, dev, F, tmp, dm, Xk, yk):
+    """The ``paged_left_outs`` phase (module docstring), on the external
+    memory phase's HIGGS-11M matrix ``dm`` (11 pages of 1,000,000 rows, 4
+    in the page cache), with Covertype's codes ``Xk`` (``covtype_codes``
+    of its training rows) and their labels ``yk``: returns (the
+    main-path launch counts of every run, the figures it logs)."""
+    from xgboost_tpu_torch.tree.param import (parse_interaction_constraints,
+                                              parse_monotone_constraints)
+    from xgboost_tpu_torch.utils.checkpoint import CheckpointConfig
+
+    t_phase = time.perf_counter()
+    page = EXT_BATCH_ROWS * F
+    os.environ.update({"XTPU_PAGED_COLLAPSE": "0",
+                       "XTPU_PAGE_ROWS": str(EXT_BATCH_ROWS),
+                       "XTPU_PAGE_CACHE_BYTES": str(EXT_CACHED_PAGES * page)})
+    paged = dm.binned(256, dev)
+    n_pages = paged.n_pages()
+    depth = HIGGS_PARAMS["max_depth"]
+    Xte, yte = higgs_batch(EXT_SEED, 10_000, EXT_TEST_ROWS, F)
+    dte = xt.DMatrix(Xte, label=yte)
+    runs, out = [], {}
+
+    def run(label, fn):
+        with NoPlainBuilds():
+            b, c = train_launches(label, fn)
+        runs.append(c)
+        return b, c
+
+    # -- the two-level schedules on pages: four names, three budgets
+    digests, rounds_of = {}, {}
+    for method, cached in (("coarse", EXT_CACHED_PAGES),
+                           ("fused", EXT_CACHED_PAGES),
+                           ("scan", EXT_CACHED_PAGES),
+                           ("mega", EXT_CACHED_PAGES),
+                           ("coarse", 0), ("coarse", n_pages)):
+        paged.set_cache_budget(cached * page)
+        streamed = n_pages - cached
+        with NoPlainBuilds():
+            timer, per, total = paged_rounds(
+                xt, dict(HIGGS_PARAMS, hist_method=method), dm, paged,
+                rounds=PLO_ROUNDS)
+        runs.append(total)
+        label = f"{method}, {cached} pages cached"
+        digests[label] = digest(timer)
+        for i, (dt, ups, nbytes, ov, cnt) in enumerate(per):
+            log(f"paged two-level {label} round {i}: {dt:.6f} s (update + "
+                f"sync, host clock), ring uploads {ups}, H2D {nbytes} B, "
+                f"launches {cnt}")
+        # every page builds its coarse (K2) and its fine histogram (K4)
+        # at every level, cached or uploaded
+        want = {"hist_int8x2": depth * n_pages, "hist_scan": depth * n_pages}
+        for dt, ups, nbytes, ov, cnt in per[1:]:
+            if cnt != want or ups != (depth + 1) * streamed:
+                raise AssertionError(
+                    f"paged {label}: a warm round launched {cnt} and "
+                    f"uploaded {ups} pages, expected {want} and "
+                    f"{(depth + 1) * streamed} uploads")
+        rounds_of[label] = float(np.median([p[0] for p in per[1:]]))
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"the paged two-level runs saved different "
+                             f"models: {digests}")
+    log(f"paged two-level: one model sha256 {set(digests.values())} over "
+        f"{sorted(digests)}; seconds a round (median of rounds 1-"
+        f"{PLO_ROUNDS - 1}) {rounds_of}; a warm round uploads each streamed "
+        f"page {depth + 1} times (depth + 1 matrix-equivalents of the "
+        f"streamed pages, where a refine re-read would make "
+        f"{2 * depth + 1})")
+    out["two_level_s"] = rounds_of
+
+    # -- the device memory of a two-level pass under budget 0: the same at
+    # 4 pages and at 11 (one coarse and one fine accumulator, whatever the
+    # number of pages), where a fine partial held a page would add 7
+    n4 = PLO_LG_PAGES * EXT_BATCH_ROWS
+    dm4 = xt.QuantileDMatrix(higgs_batches(xt, n4, F, f"{tmp}/lo4"),
+                             max_bin=256, ref=dm)
+    p4 = dm4.binned(256, dev)
+    if not (dm4.is_paged and p4.n_pages() == PLO_LG_PAGES):
+        raise AssertionError("the 4-page matrix is not paged")
+    peaks = {}
+    for d, pd in ((dm, paged), (dm4, p4)):
+        pd.set_cache_budget(0)
+        peaks[pd.n_pages()] = pass_peak_bytes(
+            xt, dict(HIGGS_PARAMS, hist_method="coarse"), d)
+    fine_acc = 2 ** (depth - 1) * F * 257 * 2 * 4
+    log(f"paged two-level pass's device memory under budget 0 (the peak "
+        f"over the pass's start, bytes, by pages): {peaks}; a fine "
+        f"partial at {2 ** (depth - 1)} nodes: {fine_acc} B")
+    if peaks[n_pages] - peaks[PLO_LG_PAGES] > fine_acc:
+        raise AssertionError("the paged two-level pass's device memory "
+                             "grows with the number of pages")
+    out["pass_peak_bytes"] = peaks
+    paged.set_cache_budget(EXT_CACHED_PAGES * page)
+
+    # -- the first 4 pages, 2 of them cached: lossguide (and all 4),
+    # constraints and resume (the ring uploads the other 2 on every pass)
+    def ring_used(label):
+        if not (p4.ring_stats["uploads"] and
+                p4.cached_pages(dev) == PLO_LG_CACHED):
+            raise AssertionError(f"{label}: {p4.ring_stats['uploads']} "
+                                 f"uploads, {p4.cached_pages(dev)} pages "
+                                 "cached")
+        return p4.ring_stats["uploads"]
+
+    lg = dict(HIGGS_PARAMS, grow_policy="lossguide", max_leaves=255,
+              max_depth=0)
+    # two runs: 2 of the 4 pages cached, then all 4
+    lg_digests, lg_s = [], []
+    for i, cached in enumerate((PLO_LG_CACHED, PLO_LG_PAGES)):
+        p4.set_cache_budget(cached * page)
+        p4.reset_ring_stats()
+        t0 = time.perf_counter()
+        b, c = run(f"paged lossguide run {i + 1}", lambda: xt.train(
+            lg, dm4, PLO_LG_ROUNDS, verbose_eval=False))
+        lg_s.append(time.perf_counter() - t0)
+        if i == 0:
+            lg_up = ring_used("paged lossguide")
+        pairs = sum(t.num_leaves() for t in b.gbm.trees)
+        want = {k: 0 for k in c if k.startswith(("hist", "fused"))}
+        want["hist_scan"] = PLO_LG_PAGES * pairs
+        if {k: c[k] for k in want} != want:
+            raise AssertionError(f"paged lossguide launched {c}, expected K4 "
+                                 f"{PLO_LG_PAGES} times a pair")
+        lg_digests.append(digest(b))
+    if len(set(lg_digests)) != 1:
+        raise AssertionError("paged lossguide: the two budgets saved "
+                             "different models")
+    p4.set_cache_budget(PLO_LG_CACHED * page)
+    log(f"paged lossguide (max_leaves 255, max_depth 0, {PLO_LG_ROUNDS} "
+        f"rounds on {n4} rows in {PLO_LG_PAGES} pages): leaves "
+        f"{[t.num_leaves() for t in b.gbm.trees]}, one sha256 "
+        f"{lg_digests[0]} with {PLO_LG_CACHED} pages cached ({lg_up} "
+        f"uploads) and with all {PLO_LG_PAGES}; {lg_s[0]:.3f} / "
+        f"{lg_s[1]:.3f} s")
+    out["lossguide_s"] = lg_s
+
+    # depthwise under the lossguide_constraints phase's constraints
+    w = np.random.default_rng(EXT_SEED).standard_normal(F).astype(np.float32)
+    top = np.argsort(-np.abs(w))[:LG_MONO_FEATURES]
+    signs = [int(np.sign(w[f])) if f in top else 0 for f in range(F)]
+    mono = "(" + ",".join(str(v) for v in signs) + ")"
+    cons = parse_interaction_constraints(LG_SETS, F)
+    if parse_monotone_constraints(mono, F) != signs:
+        raise AssertionError("the monotone string does not parse back")
+    res = {}
+    p4.reset_ring_stats()
+    t0 = time.perf_counter()
+    bc, cc = run("paged constrained depthwise", lambda: xt.train(
+        dict(HIGGS_PARAMS, monotone_constraints=mono,
+             interaction_constraints=LG_SETS), dm4, PLO_LG_ROUNDS,
+        evals=[(dte, "test")], evals_result=res, verbose_eval=False))
+    t_c = time.perf_counter() - t0
+    c_up = ring_used("paged constrained depthwise")
+    if cc["hist_scan"] != PLO_LG_PAGES * depth * PLO_LG_ROUNDS:
+        raise AssertionError(f"paged constrained launched {cc}")
+    paths_in_one_set(bc, cons, "paged constrained depthwise")
+    checked = monotone_holds(xt, bc, np.ascontiguousarray(
+        Xte[:LG_SWEEP_ROWS]), signs, "paged constrained depthwise")
+    log(f"paged constrained depthwise ({PLO_LG_ROUNDS} rounds, monotone "
+        f"{mono}, sets {LG_SETS}): every path in one set, {checked} sweep "
+        f"steps monotone, held-out logloss {res['test']['logloss']}; "
+        f"{c_up} uploads; {t_c:.3f} s")
+
+    # -- approx: the host re-sketch of the first 2 pages each round
+    n2 = PLO_APPROX_PAGES * EXT_BATCH_ROWS
+    dm2 = xt.QuantileDMatrix(higgs_batches(xt, n2, F, f"{tmp}/lo2"),
+                             max_bin=256, ref=dm)
+    res = {}
+    t0 = time.perf_counter()
+    ba, ca = run("paged approx", lambda: xt.train(
+        dict(HIGGS_PARAMS, tree_method="approx"), dm2, PLO_ROUNDS,
+        evals=[(dte, "test")], evals_result=res, verbose_eval=False))
+    t_a = time.perf_counter() - t0
+    resketch_s = ba._caches[id(dm2)]["source"].seconds
+    ll = res["test"]["logloss"]
+    if len(resketch_s) != PLO_ROUNDS or not all(
+            b < a for a, b in zip(ll, ll[1:])):
+        raise AssertionError(f"paged approx: re-sketches {resketch_s}, "
+                             f"held-out logloss {ll}")
+    if ca["hist_scan"] != PLO_APPROX_PAGES * depth * PLO_ROUNDS:
+        raise AssertionError(f"paged approx launched {ca}")
+    log(f"paged approx ({PLO_ROUNDS} rounds on {n2} rows): host re-sketch "
+        f"{['%.6f' % s for s in resketch_s]} s a round, {t_a:.3f} s in all; "
+        f"held-out logloss {ll}")
+    out["resketch_s"] = resketch_s
+
+    # -- categorical pages: Covertype's codes in pages of 100,000 rows
+    n_cov = len(Xk)
+    os.environ["XTPU_PAGE_ROWS"] = str(PLO_COV_PAGE_ROWS)
+    cov_digests = {}
+    cat_p = dict(COVTYPE_PARAMS, max_cat_to_onehot=4, max_cat_threshold=64)
+    for cached in (0, -(-n_cov // PLO_COV_PAGE_ROWS)):
+        os.environ["XTPU_PAGE_CACHE_BYTES"] = str(
+            cached * PLO_COV_PAGE_ROWS * Xk.shape[1])
+        dcat = xt.QuantileDMatrix(typed_batches(
+            xt, Xk, yk, PLO_COV_PAGE_ROWS, COVDART_TYPES,
+            f"{tmp}/cov{cached}"), max_bin=256)
+        pc = dcat.binned(256, dev)
+        cov_pages = -(-n_cov // PLO_COV_PAGE_ROWS)
+        if not (pc.n_pages() == cov_pages and pc.cuts.is_cat().sum() == 2):
+            raise AssertionError("the Covertype pages are not categorical")
+        t0 = time.perf_counter()
+        bk, ck = run(f"paged categorical, {cached} pages cached",
+                     lambda d=dcat: xt.train(cat_p, d, PLO_ROUNDS,
+                                             verbose_eval=False))
+        t_k = time.perf_counter() - t0
+        if ck["hist_scan"] or \
+                ck["hist_int8x2"] != 7 * depth * cov_pages * PLO_ROUNDS:
+            raise AssertionError(f"paged categorical launched {ck}")
+        if pc.cached_pages(dev) != cached:
+            raise AssertionError(f"{pc.cached_pages(dev)} Covertype pages "
+                                 "cached")
+        cov_digests[cached] = digest(bk)
+    os.environ["XTPU_PAGE_ROWS"] = str(EXT_BATCH_ROWS)
+    onehot, part = split_kinds(bk)
+    if not (onehot and part) or len(set(cov_digests.values())) != 1:
+        raise AssertionError(f"paged categorical: split kinds {onehot} / "
+                             f"{part}, sha256 {cov_digests}")
+    log(f"paged categorical ({n_cov} x 12 codes in {cov_pages} pages, "
+        f"{PLO_ROUNDS} rounds): {onehot} one-hot and {part} partition "
+        f"splits, one sha256 under budgets of 0 and {cov_pages} pages; "
+        f"{t_k:.3f} s")
+
+    # -- vector leaves: MediaMill's shape in pages of 8,192 rows
+    Xm, Ym = mediamill_like(EXT_SEED)
+    Xm, Ym = Xm[:MM_TRAIN_ROWS], Ym[:MM_TRAIN_ROWS]
+    os.environ["XTPU_PAGE_ROWS"] = str(PLO_MM_PAGE_ROWS)
+    os.environ["XTPU_PAGE_CACHE_BYTES"] = str(2 * PLO_MM_PAGE_ROWS
+                                              * MM_FEATURES)
+    dmm = xt.QuantileDMatrix(typed_batches(
+        xt, Xm, Ym, PLO_MM_PAGE_ROWS, None, f"{tmp}/mm"), max_bin=256)
+    os.environ["XTPU_PAGE_ROWS"] = str(EXT_BATCH_ROWS)
+    pm = dmm.binned(256, dev)
+    mm_pages = pm.n_pages()
+    for label, extra in (("depthwise", {}),
+                         ("lossguide", {"grow_policy": "lossguide",
+                                        "max_leaves": PLO_MM_LG_LEAVES,
+                                        "max_depth": 0})):
+        t0 = time.perf_counter()
+        bm, cm = run(f"paged vector leaves {label}", lambda e=extra: xt.train(
+            dict(MM_PARAMS, multi_strategy="multi_output_tree", **e), dmm,
+            PLO_LG_ROUNDS, verbose_eval=False))
+        t_m = time.perf_counter() - t0
+        # K2 a target and page, at each level or pair
+        builds = (MM_PARAMS["max_depth"] * PLO_LG_ROUNDS if label ==
+                  "depthwise" else sum(t.num_leaves() for t in bm.gbm.trees))
+        want_k2 = MM_LABELS * mm_pages * builds
+        if cm["hist_int8x2"] != want_k2 or cm["hist_scan"]:
+            raise AssertionError(f"paged vector leaves {label} launched {cm}")
+        if bm.gbm.trees[0].leaf_value.shape[1] != MM_LABELS:
+            raise AssertionError("the paged trees have no vector leaves")
+        log(f"paged vector leaves {label} ({MM_TRAIN_ROWS} x {MM_FEATURES}, "
+            f"{MM_LABELS} labels, {mm_pages} pages of {PLO_MM_PAGE_ROWS}, 2 "
+            f"cached, {PLO_LG_ROUNDS} rounds): K2 {want_k2} in all; "
+            f"{t_m:.3f} s")
+    os.environ["XTPU_PAGE_CACHE_BYTES"] = str(EXT_CACHED_PAGES * page)
+
+    # -- gblinear shotgun over the 11 pages
+    res = {}
+    t0 = time.perf_counter()
+    bl, cl = run("paged gblinear", lambda: xt.train(
+        {"booster": "gblinear", "objective": "binary:logistic",
+         "max_bin": 256}, dm, PLO_LINEAR_ROUNDS, evals=[(dte, "test")],
+        evals_result=res, verbose_eval=False))
+    t_l = time.perf_counter() - t0
+    ll = res["test"]["logloss"]
+    if not all(b < a for a, b in zip(ll, ll[1:])):
+        raise AssertionError(f"paged gblinear: held-out logloss {ll}")
+    log(f"paged gblinear shotgun ({PLO_LINEAR_ROUNDS} rounds on "
+        f"{EXT_ROWS} rows): {t_l / PLO_LINEAR_ROUNDS:.6f} s a round with "
+        f"the held-out eval; held-out logloss {ll}")
+    out["gblinear_s"] = t_l / PLO_LINEAR_ROUNDS
+
+    # -- resume: 10 rounds straight against 5, a kill, and a resume of 5
+    Xr, yr = higgs_batch(EXT_SEED, 20_000, EXT_BATCH_ROWS, F)
+    resumed = {}
+    for label, make in (("resident", lambda: xt.DMatrix(Xr, label=yr)),
+                        ("paged", lambda: dm4)):
+        p = dict(HIGGS_PARAMS, subsample=0.8, colsample_bynode=0.8)
+        straight = xt.train(p, make(), PLO_RESUME_ROUNDS, verbose_eval=False)
+        ck = CheckpointConfig(directory=f"{tmp}/ck_{label}",
+                              every_n_rounds=5)
+        xt.train(p, make(), PLO_RESUME_ROUNDS // 2, verbose_eval=False,
+                 checkpoint=ck)
+        p4.reset_ring_stats()
+        b, c = run(f"resume {label}", lambda: xt.train(
+            p, make(), PLO_RESUME_ROUNDS, verbose_eval=False, checkpoint=ck))
+        if label == "paged":
+            ring_used("paged resume")
+        if b.num_boosted_rounds() != PLO_RESUME_ROUNDS or \
+                digest(b) != digest(straight) or not c["hist_scan"]:
+            raise AssertionError(f"resume {label}: the resumed model differs "
+                                 "from the straight run")
+        resumed[label] = digest(b)
+    log(f"resume: 10 rounds straight and 5 + a resume of 5 saved the same "
+        f"bytes, resident and paged: {resumed}")
+    paged_raw = bytes(b.save_raw("ubj"))     # the paged run's, on dm4's cuts
+
+    # -- append a 12th page to the 11M matrix, then a round
+    Xa, ya = higgs_batch(EXT_SEED, n_pages, EXT_BATCH_ROWS, F)
+    t0 = time.perf_counter()
+    dm.append(Xa, label=ya)
+    t_ap = time.perf_counter() - t0
+    if paged.n_pages() != n_pages + 1 or dm.num_row() != EXT_ROWS + len(ya):
+        raise AssertionError("the append did not grow the paged matrix")
+    # (``digest`` recorded ``scan`` in the saved model: ask for ``auto``)
+    ba, ca = run("paged round after append", lambda: xt.train(
+        dict(HIGGS_PARAMS, hist_method="auto"), dm, 1, verbose_eval=False,
+        xgb_model=paged_raw))
+    if ca["hist_scan"] != (n_pages + 1) * depth or ca["hist_int8x2"] or \
+            ba.num_boosted_rounds() != PLO_RESUME_ROUNDS + 1:
+        raise AssertionError(f"the round after the append launched {ca}")
+    log(f"append: {len(ya)} rows binned against the frozen cuts in "
+        f"{t_ap:.3f} s, {paged.n_pages()} pages; a round on from the "
+        f"resumed paged model launched K4 {ca['hist_scan']} times")
+
+    # -- each paged grower on the card against the CPU port
+    n_h, rows_h = PLO_GAP_HIGGS
+    n_c, rows_c = PLO_GAP_COV
+    n_m, rows_m = PLO_GAP_MM
+    gaps = {}
+    for label, params, make, rows, width in (
+            ("coarse", dict(HIGGS_PARAMS, hist_method="coarse"),
+             lambda: higgs_batches(xt, n_h, F, f"{tmp}/gap_h"), rows_h, F),
+            ("lossguide", dict(lg, max_leaves=PLO_GAP_LG_LEAVES),
+             lambda: higgs_batches(xt, n_h, F, f"{tmp}/gap_l"), rows_h, F),
+            ("categorical", cat_p,
+             lambda: typed_batches(xt, Xk[:n_c], yk[:n_c], rows_c,
+                                   COVDART_TYPES, f"{tmp}/gap_c"),
+             rows_c, Xk.shape[1]),
+            ("vector leaves", dict(MM_PARAMS, max_depth=PLO_GAP_MM_DEPTH,
+                                   multi_strategy="multi_output_tree"),
+             lambda: typed_batches(xt, Xm[:n_m], Ym[:n_m], rows_m, None,
+                                   f"{tmp}/gap_m"),
+             rows_m, MM_FEATURES)):
+        os.environ.update({"XTPU_PAGE_ROWS": str(rows),
+                           "XTPU_PAGE_CACHE_BYTES": str(rows * width)})
+        dg = xt.QuantileDMatrix(make(), max_bin=256)
+        if dg.binned(256, dev).n_pages() != 2:
+            raise AssertionError(f"paged {label}: not two pages")
+        gaps[label] = paged_card_against_cpu(
+            xt, f"paged {label} card vs CPU", params, dg, dev,
+            capped=label == "lossguide")
+    os.environ["XTPU_PAGE_ROWS"] = str(EXT_BATCH_ROWS)
+    out["card_cpu"] = gaps
+    for k in ("XTPU_PAGE_ROWS", "XTPU_PAGED_COLLAPSE",
+              "XTPU_PAGE_CACHE_BYTES"):
+        del os.environ[k]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"paged_left_outs phase: {out['phase_s']:.1f} s")
+    return runs, out
 
 
 # ---- leaf-wise growth and constraints (``lossguide_constraints``) ----------
@@ -3524,7 +3977,7 @@ FLIP_QUANTA = 8
 FLIP_PER_ROW = 2.0 ** -22 * 32512
 
 
-def certified_trees(a, b, label, eta, lam, quanta, rows):
+def certified_trees(a, b, label, eta, lam, quanta, rows, capped=False):
     """The card's tree ``a`` against the CPU port's ``b``, grown from the
     same margin, with the tests' near-tie certificate
     (``tests/test_torch_train.py compare_tree``): nodes are paired from
@@ -3547,8 +4000,13 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
     first right step, and a leaf of six rows off that path moved by
     3.9e-4 in H). A node's gain may move by what its gap moves it (the
     gain formula at the corners of the gap's box), and a leaf by
-    ``eta * (dG + |w| dH) / (H + lambda)``. Returns (near-tie nodes,
-    largest leaf gap, largest gap over its bound)."""
+    ``eta * (dG + |w| dH) / (H + lambda)``. A categorical split also
+    keeps its left set (``cat_words``). ``capped``: leaf-wise trees that
+    ``max_leaves`` bounds, where a node split in one tree only may also
+    be a near tie of the greedy order: its gain within 2e-4 of its scale
+    (plus the other's) of the smallest gain the other tree popped, both
+    loops stopping at the cap (the tests' ``compare_tree``). Returns
+    (near-tie nodes, largest leaf gap, largest gap over its bound)."""
     ties, gap, worst = [], 0.0, 0.0
     q_g, q_h = quanta
 
@@ -3594,8 +4052,12 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
             # one device's best gain rounds to at most 0, the other's
             # above: a near tie with not splitting
             t, n = (b, j) if a.is_leaf[i] else (a, i)
-            if abs(float(t.gain[n])) > 2e-4 * scale(t, n) + 1e-6 + carry(
-                    t, n, d):
+            bound = 2e-4 * scale(t, n) + 1e-6 + carry(t, n, d)
+            popped = a if t is b else b
+            m = float(popped.gain[~popped.is_leaf].min(initial=np.inf))
+            if abs(float(t.gain[n])) > bound and not (
+                    capped and abs(float(t.gain[n]) - m)
+                    <= bound + 2e-4 * abs(m)):
                 raise AssertionError(f"{label}: node {i} is a leaf in one "
                                      f"tree only, its gain {t.gain[n]} not "
                                      "at a near tie with 0")
@@ -3613,8 +4075,11 @@ def certified_trees(a, b, label, eta, lam, quanta, rows):
             gap = max(gap, abs(va - vb))
             worst = max(worst, abs(va - vb) / bound)
             continue
-        if (a.split_feature[i], a.split_bin[i], a.default_left[i]) != \
-                (b.split_feature[j], b.split_bin[j], b.default_left[j]):
+        if (a.split_feature[i], a.split_bin[i], a.default_left[i],
+                a.is_cat_split[i]) != (b.split_feature[j], b.split_bin[j],
+                                       b.default_left[j], b.is_cat_split[j]) \
+                or (a.is_cat_split[i] and not np.array_equal(
+                    a.cat_words[i], b.cat_words[j])):
             size = max(abs(float(a.gain[i])), abs(float(b.gain[j])),
                        scale(b, j))
             moved = max(carry(a, i, d), carry(b, j, d))
@@ -3684,6 +4149,103 @@ def card_against_cpu(xt, name, params, X, rounds=GAP_ROUNDS, **dm_kw):
     if not full:
         raise AssertionError(f"{name}: no tree compared in full")
     return full, ties, gap, worst
+
+
+def vector_trees_agree(a, b, label, eta, lam):
+    """The card's vector-leaf tree ``a`` against the CPU port's ``b``, the
+    tests' rule for vector leaves (``tests/test_torch_train.py
+    compare_tree``): nodes paired from the root; each target's leaf
+    weight within rtol 1e-5 plus 1e-4; a node's gain (summed over the
+    targets) within 2e-4 of its scale, the targets' parent terms summed
+    (at an even share of the node's hessian, the model keeps no
+    per-target sums) plus its gain; a node that splits differently, or in
+    one tree only, is a near tie under the same bound and its subtree is
+    skipped. Returns (near-tie nodes, largest leaf gap)."""
+    ties, gap, stack = [], 0.0, [(0, 0)]
+    while stack:
+        i, j = stack.pop()
+        w = np.asarray(a.base_weight[i], np.float64) / eta
+        scale = float(np.sum(w * w) * (float(a.sum_hess[i]) / w.size + lam)
+                      + abs(float(a.gain[i])))
+        if a.is_leaf[i] and b.is_leaf[j]:
+            if not np.allclose(a.leaf_value[i], b.leaf_value[j], rtol=1e-5,
+                               atol=1e-4):
+                raise AssertionError(f"{label}: leaf {i} differs on the card")
+            gap = max(gap, float(np.max(np.abs(
+                np.asarray(a.leaf_value[i], np.float64) - b.leaf_value[j]))))
+            continue
+        if abs(float(a.gain[i]) - float(b.gain[j])) > 2e-4 * scale:
+            raise AssertionError(f"{label}: node {i}'s gain {a.gain[i]} on "
+                                 f"the card, {b.gain[j]} on the CPU, not at a "
+                                 "near tie")
+        if a.is_leaf[i] or b.is_leaf[j] or (
+                a.split_feature[i], a.split_bin[i], a.default_left[i]) != (
+                b.split_feature[j], b.split_bin[j], b.default_left[j]):
+            ties.append(int(i))
+            continue
+        stack += [(a.left_child[i], b.left_child[j]),
+                  (a.right_child[i], b.right_child[j])]
+    return ties, gap
+
+
+def paged_card_against_cpu(xt, label, params, dm, dev, capped=False):
+    """One round of ``params`` on the paged matrix ``dm`` on the card and
+    on the CPU port, each device streaming the same pages under the same
+    page-cache budget (its own cache), from the same intercept. Scalar
+    trees are held to :func:`certified_trees` (the int8x2 quanta of the
+    CPU's gradient over all rows, which bound each page's own; each
+    leaf's rows from the CPU's ``pred_leaf``), vector-leaf trees to
+    :func:`vector_trees_agree`. Returns {"full": trees the same in full,
+    "trees", "ties": near-tie nodes by tree, "leaf_gap", "s": the card's
+    and the CPU's seconds}."""
+    t0 = time.perf_counter()
+    with NoPlainBuilds():
+        card = xt.train(params, dm, 1, verbose_eval=False)
+    t_card = time.perf_counter() - t0
+    cpu_p = dict(params, device="cpu")
+    t0 = time.perf_counter()
+    cpu = xt.train(cpu_p, dm, 1, verbose_eval=False)
+    t_cpu = time.perf_counter() - t0
+    if not np.allclose(card._base_np(), cpu._base_np(), rtol=1e-6):
+        raise AssertionError(f"{label}: the intercepts differ")
+    tp = cpu.tree_param
+    full, ties, gap = 0, {}, 0.0
+    if cpu.gbm.trees[0].leaf_value.ndim == 2:
+        for t, (a, b) in enumerate(zip(card.gbm.trees, cpu.gbm.trees)):
+            tie, g = vector_trees_agree(a, b, f"{label} tree {t}", tp.eta,
+                                        tp.reg_lambda)
+            gap = max(gap, g)
+            if tie:
+                ties[t] = tie
+            else:
+                full += 1
+    else:
+        st = cpu._state_of(dm, True)
+        q = (cpu._gradient(st["base"], st, dm, 0, None).abs().amax(dim=0)
+             / 32512.0).numpy()
+        leaves = cpu.predict(dm, pred_leaf=True)
+        for t, (a, b) in enumerate(zip(card.gbm.trees, cpu.gbm.trees)):
+            idx, n = np.unique(leaves[:, t], return_counts=True)
+            tie, g, _ = certified_trees(
+                a, b, f"{label} tree {t}", tp.eta, tp.reg_lambda,
+                tuple(float(v) for v in q[cpu.gbm.tree_info[t]]),
+                dict(zip(idx.tolist(), n.tolist())), capped=capped)
+            gap = max(gap, g)
+            if tie:
+                ties[t] = tie
+            else:
+                full += 1
+    n_trees = len(cpu.gbm.trees)
+    if len(card.gbm.trees) != n_trees or not full:
+        raise AssertionError(f"{label}: {full} of {n_trees} trees compared "
+                             "in full")
+    log(f"{label}: {dm.num_row()} rows in 2 pages, 1 cached, one round: "
+        f"{full} of {n_trees} trees the same in full"
+        + (f", near ties at {ties}" if ties else "")
+        + f"; largest leaf gap {gap:.3e}; card {t_card:.3f} s, CPU "
+        f"{t_cpu:.3f} s")
+    return {"full": full, "trees": n_trees, "ties": ties, "leaf_gap": gap,
+            "s": (t_card, t_cpu)}
 
 
 def quantile_regression(xt, dev, X):
@@ -5887,6 +6449,9 @@ def main() -> int:
         f"{sh['higgs']['interactions']['ms']:.3f} ms, Saabas of 100,000 "
         f"{sh['higgs']['approx']['ms']:.3f} ms (CUDA events); cv test AUC "
         f"{sk['cv']['auc']:.6f} +- {sk['cv']['std']:.6f}")
+    # the paged phase's Covertype codes (the training rows)
+    cov_codes = covtype_codes(Xc[:sum(COVTYPE_CLASS_COUNTS)])
+    cov_labels = yc[:sum(COVTYPE_CLASS_COUNTS)]
     del Xc, dcov, dcte, covdart_model
 
     # ---- main path: the serving stack (HTTP / jsonl front ends, fleet,
@@ -5979,7 +6544,15 @@ def main() -> int:
 
     # --------- main path: external memory at the HIGGS-11M shape (paged)
     with tempfile.TemporaryDirectory(prefix="xtt_ext_") as tmp:
-        ext_runs, ext_busy, ext_s = external_memory(xt, dev, F, tmp)
+        ext_runs, ext_busy, ext_s, ext_dm = external_memory(xt, dev, F, tmp)
+        # ---- main path: the paged tier's left-outs on the same matrix
+        plo_runs, plo = paged_left_outs(xt, dev, F, tmp, ext_dm,
+                                        cov_codes, cov_labels)
+        del ext_dm
+    log(f"paged_left_outs: {plo['phase_s']:.1f} s; two-level seconds a "
+        f"round {plo['two_level_s']}, lossguide runs {plo['lossguide_s']} s, "
+        f"re-sketch {plo['resketch_s']} s a round, gblinear "
+        f"{plo['gblinear_s']:.6f} s a round [{card}]")
 
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -6076,8 +6649,8 @@ def main() -> int:
     runs = [train_counts, deep_counts, small_counts,
             *two_counts.values(), *(c for c, _ in deep2.values()),
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
-            *ext_runs, *covdart_runs, *mslr_runs, *ag_runs, *lg_runs,
-            *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
+            *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
+            *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
             *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs]
     kernels = [{
         "name": "walk_packed",

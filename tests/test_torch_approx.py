@@ -168,6 +168,29 @@ def _data(seed, n=2000, F=8, classes=0, cat=False):
     return X, y.astype(np.float32)
 
 
+def relabel(kind, X, y):
+    """The labels and matrix keywords of the objective families of
+    ROADMAP C.5 on the same rows: ``rank`` (graded labels, queries of 20
+    rows), ``adaptive`` (a continuous target for MAE), ``survival``
+    (Cox's signed times, a third censored) and ``targets`` (a [n, 3]
+    label matrix); None keeps ``y``."""
+    rng = np.random.RandomState(len(X))
+    Z = np.nan_to_num(X)
+    t = Z[:, 0] + Z[:, 1] * Z[:, 2]
+    if kind == "rank":
+        g = np.clip(np.round(t + 0.5 * rng.randn(len(X)) + 1), 0, 4)
+        return g.astype(np.float32), {"qid": np.arange(len(X)) // 20}
+    if kind == "adaptive":
+        return (t + 0.3 * rng.standard_t(3, len(X))).astype(np.float32), {}
+    if kind == "survival":
+        time = np.exp(0.5 * t + 0.3 * rng.randn(len(X))).astype(np.float32)
+        return np.where(rng.rand(len(X)) < 0.3, -time, time), {}
+    if kind == "targets":
+        W = rng.randn(X.shape[1], 3)
+        return (Z @ W + 0.3 * rng.randn(len(X), 3)).astype(np.float32), {}
+    return y, {}
+
+
 def _recorded_cuts(monkeypatch):
     """Record every sketch either package makes while training: the JAX
     package's ``sketch_matrix`` and the port's ``WeightedSketch.cuts``."""
@@ -252,6 +275,14 @@ APPROX_CASES = [
                     "max_leaves": 7}, {}, False, False, 4, 4),
     ("iterator", {"objective": "binary:logistic", "max_depth": 4,
                   "max_bin": 64}, {}, False, True, 4, None),
+    ("ranking", {"objective": "rank:ndcg", "max_depth": 4},
+     {"kind": "rank"}, False, False, 4, None),
+    ("adaptive", {"objective": "reg:absoluteerror", "max_depth": 4},
+     {"kind": "adaptive"}, False, False, 4, None),
+    ("survival", {"objective": "survival:cox", "max_depth": 4},
+     {"kind": "survival"}, False, False, 4, None),
+    ("label_matrix", {"objective": "reg:squarederror", "max_depth": 4},
+     {"kind": "targets"}, False, False, 12, None),
 ]
 
 
@@ -260,16 +291,18 @@ APPROX_CASES = [
     APPROX_CASES, ids=[c[0] for c in APPROX_CASES])
 def test_approx_trees_match_jax(name, params, data_kw, weighted, iterator,
                                 full_min, clean_min, monkeypatch):
-    X, y = _data(11, **data_kw)
+    kind = data_kw.get("kind")
+    X, y = _data(11, **{k: v for k, v in data_kw.items() if k != "kind"})
+    y, kw = relabel(kind, X, y)
     w = (np.random.RandomState(12).uniform(0.2, 3.0, len(X))
          .astype(np.float32) if weighted else None)
-    kw = {}
     if data_kw.get("cat"):
         kw = {"feature_types": ["q"] * 6 + ["c", "c"],
               "enable_categorical": True}
-    p = dict({"eta": 0.3, "base_score": 0.5, "tree_method": "approx"},
-             **params)
-    K = params.get("num_class", 1)
+    p = dict({"eta": 0.3, "tree_method": "approx"}, **params)
+    if kind is None:
+        p["base_score"] = 0.5
+    K = params.get("num_class", y.shape[1] if y.ndim == 2 else 1)
     jax_cuts, port_cuts = _recorded_cuts(monkeypatch)
     if iterator:
         jd = xgb.QuantileDMatrix(BatchIter(X, y, 3), max_bin=64)
@@ -298,8 +331,8 @@ def test_approx_trees_match_jax(name, params, data_kw, weighted, iterator,
         want = cuts.values[cuts.ptrs[f] + b]
         assert np.array_equal(_bits(tree.split_value[split]), _bits(want))
     if full == len(jb.gbm.trees):
-        pred = td if iterator else xt.DMatrix(X, **kw)
-        jpred = jd if iterator else xgb.DMatrix(X, **kw)
+        pred = td if iterator else td if kind else xt.DMatrix(X, **kw)
+        jpred = jd if iterator else jd if kind else xgb.DMatrix(X, **kw)
         np.testing.assert_allclose(tb.predict(pred), jb.predict(jpred),
                                    rtol=1e-5, atol=LEAF_ATOL)
     if clean_min is None:

@@ -141,31 +141,6 @@ def test_categorical_matrices_need_enable_categorical():
             pkg.DMatrix(X, label=y, feature_types=TYPES)
 
 
-def test_iterator_built_categorical_matrices_wait_with_a7(tmp_path):
-    X, y = covtype_codes(400, seed=3)
-
-    class It(xt.DataIter):
-        def __init__(self, prefix):
-            super().__init__(prefix)
-            self.i = 0
-
-        def next(self, input_data):
-            if self.i:
-                return 0
-            input_data(data=X, label=y, feature_types=TYPES)
-            self.i = 1
-            return 1
-
-        def reset(self):
-            self.i = 0
-
-    for prefix in (None, str(tmp_path / "c")):
-        with pytest.raises(NotImplementedError, match=r"A\.7"):
-            xt.DMatrix(It(prefix))
-        with pytest.raises(NotImplementedError, match=r"A\.7"):
-            xt.QuantileDMatrix(It(prefix), feature_types=TYPES)
-
-
 # ---- cuts, bins, splits, positions ---------------------------------------------
 
 @pytest.mark.parametrize("missing", [0.0, 0.05])

@@ -126,7 +126,6 @@ def test_continuation_and_save_period(files):
 @pytest.mark.parametrize("argv,exc,match", [
     (["serve", "model={d}/absent.json"], ModelLoadError, "cannot load"),
     (["pipeline", "workdir=w"], NotImplementedError, "A.10"),
-    (["{conf}", "checkpoint_dir={d}/ck2"], NotImplementedError, "A.7"),
     (["{conf}", "task=cook"], ValueError, "unknown task"),
     (["{conf}", "oops"], ValueError, "key=value"),
 ])

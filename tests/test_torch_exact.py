@@ -27,7 +27,7 @@ from xgboost_tpu.tree.exact import ExactQuantization as JaxQuant
 from xgboost_tpu_torch.ops.partition import update_positions
 from xgboost_tpu_torch.tree.exact import ExactQuantization
 
-from test_torch_approx import round_by_round
+from test_torch_approx import relabel, round_by_round
 from test_torch_paged import PortIter
 from test_torch_train import LEAF_ATOL, compare_forests
 
@@ -74,21 +74,33 @@ EXACT_CASES = [
     ("dart", {"objective": "binary:logistic", "max_depth": 3,
               "booster": "dart", "rate_drop": 0.5}, {}, 4, None),
     ("weights", {"objective": "binary:logistic", "max_depth": 4}, {}, 0, 1),
+    ("ranking", {"objective": "rank:ndcg", "max_depth": 4},
+     {"kind": "rank"}, 4, None),
+    ("adaptive", {"objective": "reg:absoluteerror", "max_depth": 4},
+     {"kind": "adaptive"}, 4, None),
+    ("survival", {"objective": "survival:cox", "max_depth": 4},
+     {"kind": "survival"}, 0, None),
+    ("label_matrix", {"objective": "reg:squarederror", "max_depth": 4},
+     {"kind": "targets"}, 4, None),
 ]
 
 
 @pytest.mark.parametrize("name,params,data_kw,full_min,clean_min",
                          EXACT_CASES, ids=[c[0] for c in EXACT_CASES])
 def test_exact_trees_match_jax(name, params, data_kw, full_min, clean_min):
-    X, y = _data(2, **data_kw)
+    kind = data_kw.get("kind")
+    X, y = _data(2, **{k: v for k, v in data_kw.items() if k != "kind"})
+    y, kw = relabel(kind, X, y)
     w = (np.random.RandomState(3).uniform(0.2, 3.0, len(X))
          .astype(np.float32) if name == "weights" else None)
-    p = dict({"eta": 0.3, "base_score": 0.5, "tree_method": "exact"},
-             **params)
-    jd = xgb.DMatrix(X, label=y, weight=w)
+    p = dict({"eta": 0.3, "tree_method": "exact"}, **params)
+    if kind is None:
+        p["base_score"] = 0.5
+    jd = xgb.DMatrix(X, label=y, weight=w, **kw)
     jb = xgb.train(p, jd, ROUNDS, verbose_eval=False)
-    tb = xt.train(dict(p, device="cpu"), xt.DMatrix(X, label=y, weight=w),
-                  ROUNDS, verbose_eval=False)
+    tb = xt.train(dict(p, device="cpu"),
+                  xt.DMatrix(X, label=y, weight=w, **kw), ROUNDS,
+                  verbose_eval=False)
     full, ties, drift = compare_forests(jb.gbm.trees, tb.gbm.trees, 0.3)
     print(name, "end to end: trees equal in full:", full, "near ties:",
           ties, "leaf drift:", drift)
@@ -99,7 +111,7 @@ def test_exact_trees_match_jax(name, params, data_kw, full_min, clean_min):
         # every threshold lies strictly between two of its feature's values
         assert np.all(np.nanmin(vals, 0) < t.split_value[split])
         assert np.all(t.split_value[split] < np.nanmax(vals, 0))
-    K = params.get("num_class", 1)
+    K = params.get("num_class", y.shape[1] if y.ndim == 2 else 1)
     np.testing.assert_allclose(
         tb.predict(xt.DMatrix(X), iteration_range=(0, full // K)),
         jb.predict(xgb.DMatrix(X), iteration_range=(0, full // K)),

@@ -14,7 +14,6 @@ compared bit for bit.
 
 import json
 import os
-import tempfile
 
 import numpy as np
 import pytest
@@ -188,16 +187,6 @@ def test_iterator_built_matrix_trains_on_its_bin_values():
     jb = xgb.train(p, jd, 5, verbose_eval=False)
     tb = xt.train(dict(p, device="cpu"), td, 5, verbose_eval=False)
     _assert_same_model(jb, tb, X)
-
-
-def test_paged_matrix_raises_a7():
-    X, y = _data(seed=8, n=1000)
-    with tempfile.TemporaryDirectory() as d:
-        dm = xt.QuantileDMatrix(PortIter(X, y, 2, cache_prefix=d + "/c"),
-                                max_bin=16)
-        with pytest.raises(NotImplementedError, match="A.7"):
-            xt.train({"booster": "gblinear", "device": "cpu",
-                      "max_bin": 16}, dm, 1)
 
 
 def test_eval_sets_and_continuation_match_jax():

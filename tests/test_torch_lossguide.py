@@ -24,8 +24,9 @@ counts asserted are the trees equal in full.
 - models saved by either package load into the other and predict the
   same bits; dumps and ``pred_leaf`` equal; refresh and prune over
   lossguide trees;
-- uncapped lossguide equals depthwise; the refusals (paged: A.7;
-  ``mega``: A.6) and the two-level fall-back's warning.
+- uncapped lossguide equals depthwise; the refusal of ``mega`` (A.6)
+  and the two-level fall-back's warning (paged lossguide is
+  ``tests/test_torch_paged_growers.py``).
 """
 
 import json
@@ -359,40 +360,6 @@ def test_refresh_and_prune_over_lossguide_trees(lg_models, updater):
     if "prune" in updater:
         assert sum(t.num_nodes() for t in tr.gbm.trees) < \
             sum(t.num_nodes() for t in jb.gbm.trees)
-
-
-class _Iter(xt.DataIter):
-    def __init__(self, X, y, prefix):
-        super().__init__(prefix)
-        self.X, self.y, self.i = X, y, 0
-
-    def next(self, input_data):
-        if self.i == 2:
-            return 0
-        s = slice(self.i * 500, (self.i + 1) * 500)
-        input_data(data=self.X[s], label=self.y[s])
-        self.i += 1
-        return 1
-
-    def reset(self):
-        self.i = 0
-
-
-@pytest.mark.parametrize("params,item", [
-    ({"grow_policy": "lossguide", "max_leaves": 4}, "A.7"),
-    ({"monotone_constraints": "(1,0,0)"}, "A.7"),
-    ({"interaction_constraints": "[[0, 1]]"}, "A.7"),
-    ({"max_leaves": 4}, "A.7"),
-])
-def test_paged_refuses_the_resident_growers_features(params, item, tmp_path,
-                                                     monkeypatch):
-    monkeypatch.setenv("XTPU_PAGED_COLLAPSE", "0")
-    monkeypatch.setenv("XTPU_PAGE_ROWS", "500")
-    X, y = _data(n=1000, f=3, seed=9)
-    dm = xt.QuantileDMatrix(_Iter(X, y, str(tmp_path / "c")), max_bin=16)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        xt.train(dict({"objective": "binary:logistic", "max_bin": 16},
-                      **params, **CPU), dm, 1, verbose_eval=False)
 
 
 def test_lossguide_refusals_and_fall_back(binary):

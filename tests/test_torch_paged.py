@@ -21,7 +21,10 @@ PagedBinnedMatrix``, ``tree/paged.py``). Held against the JAX package:
   transport;
 - evaluation, continuation and ``predict`` on a paged matrix; the
   collapse to the resident tier and its budget; the ring's page counts;
-  the configurations the port does not run yet.
+  the configurations the port does not run yet (the paged two-level
+  schedules, growers, approx, gblinear and appends are
+  ``tests/test_torch_paged_two_level.py`` and
+  ``tests/test_torch_paged_growers.py``).
 
 Small sizes (6,000 rows, pages of 500, depth 3-4, 3 rounds); the JAX
 package trains each configuration once.
@@ -407,16 +410,8 @@ def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"hist_method": "coarse"}, "A.7"),
-    ({"hist_method": "fused"}, "A.7"),
-    ({"hist_method": "scan"}, "A.7"),
-    ({"hist_method": "mega"}, "A.7"),
     ({"hist_method": "auto+sub"}, "A.6"),
-    ({"grow_policy": "lossguide"}, "A.7"),
-    ({"monotone_constraints": "(1,0,0,0,0,0,0)"}, "A.7"),
-    ({"multi_strategy": "multi_output_tree"}, "A.7"),
     ({"data_split_mode": "col"}, "A.8"),
-    ({"tree_method": "approx"}, "A.7"),
 ])
 def test_unported_paged_configurations_raise(params, item, tmp_path,
                                              monkeypatch):
@@ -431,17 +426,15 @@ def test_unported_paged_configurations_raise(params, item, tmp_path,
 
 
 def test_unported_paged_methods_raise(tmp_path, monkeypatch):
-    """The paged mesh tier (A.8), approx's resketch (A.7) and appending
-    rows (A.7) raise; a paged matrix trains only at its own max_bin."""
+    """The paged mesh tier (A.8) raises; a paged matrix trains only at its
+    own max_bin."""
     _set(monkeypatch)
     X, y = _data(51, n=1000)
     tq = xt.QuantileDMatrix(PortIter(X, y, 2, cache_prefix=str(
         tmp_path / "m")), max_bin=16)
     paged = tq.binned(16, CPU)
     for fn, item in ((lambda: paged.mesh_layout(2), "A.8"),
-                     (lambda: paged.pages_sharded(None, "data"), "A.8"),
-                     (lambda: paged.resketch(16, None), "A.7"),
-                     (lambda: paged.append_rows(X), "A.7")):
+                     (lambda: paged.pages_sharded(None, "data"), "A.8")):
         with pytest.raises(NotImplementedError, match=item.replace(".",
                                                                    r"\.")):
             fn()
@@ -453,8 +446,7 @@ def test_unported_paged_methods_raise(tmp_path, monkeypatch):
 def test_multi_output_tree_raises_on_resident_data():
     """``multi_strategy='multi_output_tree'`` over a one-column label on a
     resident matrix grows scalar trees, the JAX package's (a vector leaf
-    needs K > 1 outputs; a paged matrix raises naming A.7, above); and
-    without a card, training that does not ask for the CPU raises."""
+    needs K > 1 outputs); and without a card, training that does not ask for the CPU raises."""
     X, y = _data(52, n=200)
     p = {"objective": "binary:logistic", "max_depth": 3, "eta": 0.3,
          "base_score": 0.5, "multi_strategy": "multi_output_tree"}

@@ -40,11 +40,12 @@ from .objective.base import NumericalDivergence
 from .sklearn import (XGBClassifier, XGBModel, XGBRanker, XGBRegressor,
                       XGBRFClassifier, XGBRFRegressor)
 from .training import cv
+from .utils.checkpoint import CheckpointConfig, TrainingSnapshot
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Context", "DataIter", "DMatrix", "QuantileDMatrix",
-           "XGBClassifier", "XGBModel", "XGBRanker", "XGBRegressor",
+__all__ = ["Booster", "CheckpointConfig", "Context", "DataIter", "DMatrix",
+           "QuantileDMatrix", "TrainingSnapshot", "XGBClassifier", "XGBModel", "XGBRanker", "XGBRegressor",
            "NumericalDivergence", "XGBRFClassifier", "XGBRFRegressor", "callback",
            "config_context", "cv", "get_config", "load_xgboost_model",
            "resolve_device", "save_xgboost_model", "set_config", "train"]

@@ -230,6 +230,34 @@ class Dart(GBTree):
             return self._margin_binned_paged(forest, binned, zero)
         return margin_binned(forest, binned.bins, binned.missing_bin, zero)
 
+    def on_resume(self, state: dict) -> None:
+        """A training snapshot's resume (``core.Booster._prime_resume``):
+        its margin is the cached margin of the forest at its weights, and
+        the ring of the rounds' unit deltas is rebuilt by walking each
+        round's trees at weight 1 over the training bins, which gives the
+        grown deltas bit for bit (one leaf a row and group), so that the
+        resumed rounds take the straight run's drop sums (the JAX
+        package's ``on_resume``)."""
+        self._store(state, state["margin"])
+        binned = state.get("binned")
+        if self._ring_off or binned is None:
+            return
+        dev = state["base"].device
+        zero = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
+        for it in range(len(self.iteration_indptr) - 1):
+            lo, hi = self.iteration_indptr[it], self.iteration_indptr[it + 1]
+            if hi - lo != self.n_groups or self.num_parallel_tree != 1:
+                state.pop("dart_deltas", None)
+                return
+            forest = stack_trees(self.trees[lo:hi], self.tree_info[lo:hi],
+                                 self.n_groups, dev)
+            if binned.is_paged:
+                delta = self._margin_binned_paged(forest, binned, zero)
+            else:
+                delta = margin_binned(forest, binned.bins, binned.missing_bin,
+                                      zero)
+            self._cache_round_delta(state, delta, lo, hi - lo)
+
     # -- one round --------------------------------------------------------------
     def do_boost(self, binned, gpair: torch.Tensor, key,
                  state: Optional[dict] = None, **adaptive) -> torch.Tensor:

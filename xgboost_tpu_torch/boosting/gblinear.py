@@ -17,7 +17,12 @@ the JAX package runs them at ``Precision.HIGHEST``; torch sums in
 another order than XLA's einsum, so the weights agree to a rounding
 gap, not bit for bit. Missing values count as 0. An iterator-built
 resident matrix trains on its bins' representative values (missing ->
-0), the JAX package's rule; a paged matrix raises naming ROADMAP A.7.
+0), the JAX package's rule. A paged (external-memory) matrix streams
+``shotgun`` over its pages (the JAX package's ``_do_boost_paged``): the
+bias step from the gradient's sums, one pass adding each page's G and H
+(its bins decoded to those values on the device,
+:func:`page_features`), the weight move, and the margin recomputed in a
+second pass; ``coord_descent`` there raises, as in the JAX package.
 ``feature_selector`` and ``top_k`` are accepted and not used, as in the
 JAX package.
 """
@@ -89,16 +94,34 @@ UPDATERS = {"shotgun": shotgun, "coord_descent": coord_descent}
 
 
 def linear_features(dm, device: torch.device) -> torch.Tensor:
-    """The [n, F] f32 operand of a matrix on ``device``: its raw values,
-    or an iterator-built matrix's representative bin values, with
+    """The [n, F] f32 operand of a resident matrix on ``device``: its raw
+    values, or an iterator-built matrix's representative bin values, with
     missing as 0 (the JAX package's ``np.nan_to_num`` and
-    ``_page_features``). A paged matrix raises."""
-    if dm.is_paged:
-        raise NotImplementedError(
-            "booster=gblinear over an external-memory (paged) matrix is "
-            "not in the PyTorch port yet (paged gblinear, ROADMAP A.7)")
+    ``_page_features``)."""
     X = torch.from_numpy(np.ascontiguousarray(dm.values(), np.float32))
     return torch.nan_to_num(X.to(device), nan=0.0)
+
+
+def cut_arrays(paged, device: torch.device):
+    """(first cut of each feature [F], cut values, real bins [F]) on
+    ``device``: the operands of :func:`page_features`."""
+    cuts = paged.cuts
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        np.asarray(cuts.ptrs[:-1], np.int64),
+        np.asarray(cuts.values, np.float32),
+        np.asarray(paged.n_real_bins(), np.int64)))
+
+
+def page_features(page: torch.Tensor, ptrs: torch.Tensor, vals: torch.Tensor,
+                  n_real: torch.Tensor) -> torch.Tensor:
+    """[p, F] bin ids -> each bin's representative value (its upper cut),
+    missing -> 0 (the JAX package's ``_page_features``; equal to
+    ``data/binned.py values_of_bins`` with NaN as 0)."""
+    local = page.long()
+    gb = torch.clamp(ptrs[None, :] + torch.minimum(local, n_real[None, :] - 1),
+                     0, vals.shape[0] - 1)
+    return torch.where(local >= n_real[None, :], torch.zeros_like(vals[:1]),
+                       vals[gb])
 
 
 class GBLinear:
@@ -140,10 +163,54 @@ class GBLinear:
         if self.W is not None and self.W.device != device:
             self.W, self.bias = self.W.to(device), self.bias.to(device)
 
+    def _paged(self, state: dict):
+        """The state's paged matrix to stream, or None; ``coord_descent``
+        on pages raises, as in the JAX package."""
+        paged = state["dm"].paged
+        if paged is not None and self.updater == "coord_descent":
+            raise NotImplementedError(
+                "external-memory gblinear streams updater=shotgun only "
+                "(the reference shotgun iterates GetBatches the same "
+                "way); coord_descent's in-scan gradient refresh needs "
+                "the resident matrix")
+        if paged is not None and "linear_cuts" not in state:
+            state["linear_cuts"] = cut_arrays(paged, state["base"].device)
+        return paged
+
+    def _page_X(self, paged, page, state: dict) -> torch.Tensor:
+        return page_features(paged.decode_page(page), *state["linear_cuts"])
+
+    def _do_boost_paged(self, paged, gpair: torch.Tensor,
+                        state: dict) -> None:
+        """One ``shotgun`` round streamed over the pages (module
+        docstring)."""
+        dev = gpair.device
+        F, K = paged.n_features, gpair.shape[1]
+        self._to(dev)
+        if self.W is None:
+            self.W = torch.zeros((F, K), dtype=torch.float32, device=dev)
+            self.bias = torch.zeros(K, dtype=torch.float32, device=dev)
+        dbias, _, _ = _bias_step(gpair, self.eta)
+        G = torch.zeros((F, K), dtype=torch.float32, device=dev)
+        H = torch.zeros_like(G)
+        for s, e, page in paged.pages(dev):
+            X = self._page_X(paged, page, state)
+            gp = gpair[s:e]
+            G += X.T @ (gp[..., 0] + gp[..., 1] * dbias[None, :])
+            H += torch.square(X).T @ gp[..., 1]
+        W_star = (_soft_threshold(H * self.W - G, self.reg_alpha)
+                  / torch.clamp(H + self.reg_lambda, min=1e-10))
+        self.W = self.W + (W_star - self.W) * self.eta
+        self.bias = self.bias + dbias
+        self.rounds += 1
+
     def do_boost(self, src, gpair: torch.Tensor, key=None, *, state: dict,
                  **_) -> None:
         """One round on the state's matrix; the caller recomputes the
         margin with :meth:`compute_margin`, as the JAX package does."""
+        paged = self._paged(state)
+        if paged is not None:
+            return self._do_boost_paged(paged, gpair, state)
         X = self._X_of(state)
         self._to(X.device)
         if self.W is None:
@@ -163,10 +230,18 @@ class GBLinear:
 
     def compute_margin(self, state: dict, walk=None) -> torch.Tensor:
         """base + X W + bias on the state's matrix (its margin after
-        every round, recomputed, not moved by a delta)."""
-        X = self._X_of(state)
+        every round, recomputed, not moved by a delta); over a paged
+        matrix page by page."""
         if self.W is None:
             return state["base"]
+        paged = self._paged(state)
+        if paged is not None:
+            dev = state["base"].device
+            self._to(dev)
+            return state["base"] + torch.cat([
+                self._page_X(paged, page, state) @ self.W
+                + self.bias[None, :] for _, _, page in paged.pages(dev)])
+        X = self._X_of(state)
         self._to(X.device)
         return state["base"] + X @ self.W + self.bias[None, :]
 

@@ -8,9 +8,10 @@ and ``do_boost``: one tree per output group and parallel tree a round
 snapshot in class order, each from its own key ``fold_in(key, k * npt +
 p)``, with the learning rate divided by ``num_parallel_tree`` (boosted
 random forests). Row sampling (:func:`sample_gradients`) and the
-trees' column samples come from that key. A paged (external-memory)
-matrix grows with ``tree/paged.py PagedGrower`` and
-``grow_policy="lossguide"`` with ``tree/lossguide.py LossguideGrower``.
+trees' column samples come from that key. ``grow_policy="lossguide"``
+grows with ``tree/lossguide.py LossguideGrower``; a paged
+(external-memory) matrix with the paged growers of ``tree/paged.py``
+(depthwise and leaf-wise, scalar and vector leaves).
 ``multi_strategy="multi_output_tree"`` with K > 1 outputs (a label
 matrix, or ``multi:softprob``'s classes) grows one vector-leaf tree a
 round and parallel tree for all K (``tree/multi.py``; the JAX package's
@@ -24,8 +25,9 @@ from this class.
 ``src/tree/updater_approx.cc:55``) re-sketches the cuts before each
 class's trees with that class's hessian as the weights, after the
 objective has folded in the row weights and before row sampling
-(``data/binned.py ApproxSource``), re-bins the matrix on the device and
-grows from it; each tree takes its thresholds from its own round's cuts.
+(``data/binned.py ApproxSource``; a paged matrix re-sketches its pages
+on the host, ``PagedApproxSource``), re-bins the matrix and grows from
+it; each tree takes its thresholds from its own round's cuts.
 The grower is kept, its cuts swapped, while the bin slots are unchanged
 and no feature is categorical (the JAX package's rule), else rebuilt.
 ``tree_method="exact"`` grows with ``tree/exact.py`` over the matrix's
@@ -44,7 +46,8 @@ from ..tree.grow import TreeGrower
 from ..tree.lossguide import LossguideGrower
 from ..tree.multi import (MultiLossguideGrower, MultiTargetGrower,
                           MultiTargetTreeModel, is_vector_leaf)
-from ..tree.paged import PagedGrower
+from ..tree.paged import (PagedGrower, PagedLossguideGrower,
+                          PagedMultiLossguideGrower, PagedMultiTargetGrower)
 from ..tree.param import TrainParam, _f32
 from ..tree.tree import TreeModel
 from ..utils import random as xrandom
@@ -79,6 +82,19 @@ def sample_gradients(gp: torch.Tensor, tkey: xrandom.Key,
         return gp * scale[:, None]
     mask = xrandom.bernoulli(skey, param.subsample, (n,), gp.device)
     return gp * mask[:, None].to(gp.dtype)
+
+
+# (vector leaves, lossguide, paged) -> the grower class
+_GROWERS = {
+    (False, False, False): TreeGrower,
+    (False, False, True): PagedGrower,
+    (False, True, False): LossguideGrower,
+    (False, True, True): PagedLossguideGrower,
+    (True, False, False): MultiTargetGrower,
+    (True, False, True): PagedMultiTargetGrower,
+    (True, True, False): MultiLossguideGrower,
+    (True, True, True): PagedMultiLossguideGrower,
+}
 
 
 class GBTree:
@@ -121,24 +137,13 @@ class GBTree:
         the grower of the previous cuts takes the new ones when its bin
         slots fit them (:meth:`TreeGrower.set_cuts`)."""
         lossguide = self.tree_param.grow_policy == "lossguide"
-        if binned.is_paged and self.multi_strategy == "multi_output_tree":
-            raise NotImplementedError(
-                "multi_strategy='multi_output_tree' on a paged "
-                "(external-memory) matrix is not in the PyTorch port yet "
-                "(the paged vector-leaf growers, ROADMAP A.7)")
-        if binned.is_paged and lossguide:
-            raise NotImplementedError(
-                "grow_policy=lossguide on a paged (external-memory) matrix "
-                "is not in the PyTorch port yet (paged lossguide, ROADMAP "
-                "A.7)")
         kw = dict(hist_method=self.hist_method,
                   has_missing=binned.has_missing,
                   constraint_sets=self.constraint_sets)
         if self.vector_leaf:
-            cls = MultiLossguideGrower if lossguide else MultiTargetGrower
+            cls = _GROWERS[(True, lossguide, binned.is_paged)]
         else:
-            cls = (LossguideGrower if lossguide
-                   else PagedGrower if binned.is_paged else TreeGrower)
+            cls = _GROWERS[(False, lossguide, binned.is_paged)]
             kw["monotone"] = self.monotone
         g = self._grower
         if (self.tree_method == "approx" and type(g) is cls
@@ -253,8 +258,8 @@ class GBTree:
                 keep = xrandom.bernoulli(xrandom.fold_in(tkeys[p], 0x5AB),
                                          sub, (gp.shape[0],), gp.device)
                 gp = gp * keep[:, None, None].to(gp.dtype)
-            grown = grower.grow(binned.bins, gp,
-                                None if masks is None else masks[p])
+            grown = grower.grow(binned if binned.is_paged else binned.bins,
+                                gp, None if masks is None else masks[p])
             self.trees.append(grower.to_tree_model(grown))
             self.tree_info.append(0)
             delta = grown.delta if delta is None else delta + grown.delta

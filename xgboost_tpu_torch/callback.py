@@ -3,8 +3,9 @@
 
 ``train`` drives a :class:`CallbackContainer`: before each round every
 callback's ``before_iteration`` may stop training; after it the eval
-sets are scored into the container's ``history`` ({data: {metric:
-[scores]}}, each score parsed from the 6-digit eval line) and every
+sets are scored into the container's ``history`` (a ``TrainingLog``,
+{data: {metric: [scores]}}, each score parsed from the 6-digit eval
+line, which a training snapshot carries across a resume) and every
 callback's ``after_iteration`` may stop it. The stock callbacks:
 :class:`EvaluationMonitor` (prints the last scores), :class:`EarlyStopping`
 (patience on the last metric of the last eval set, ``best_iteration`` /
@@ -17,9 +18,10 @@ stops; ``save_best`` slices the model to the best round),
 
 from __future__ import annotations
 
-import collections
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Union
+
+from .obs.training_log import TrainingLog
 
 EvalsLog = Dict[str, Dict[str, List[float]]]
 
@@ -56,7 +58,8 @@ class CallbackContainer:
                  metric: Optional[Callable] = None) -> None:
         self.callbacks = list(callbacks)
         self.metric = metric
-        self.history: EvalsLog = collections.OrderedDict()
+        # the booster's TrainingLog: a training snapshot carries it
+        self.history: EvalsLog = TrainingLog()
 
     def before_training(self, model):
         for cb in self.callbacks:
@@ -76,9 +79,7 @@ class CallbackContainer:
         if evals:
             for data_name, metric_name, score in _parse_eval_str(
                     model.eval_set(evals, epoch, feval=self.metric)):
-                self.history.setdefault(
-                    data_name, collections.OrderedDict()).setdefault(
-                        metric_name, []).append(score)
+                self.history.log_eval(data_name, metric_name, score)
         return any(cb.after_iteration(model, epoch, self.history)
                    for cb in self.callbacks)
 

@@ -18,10 +18,11 @@ config says ``device = cpu``.
 are ``serve/frontend.py``'s): the jsonl loop on stdin / stdout, or the
 HTTP front end with ``http_port``.
 
-The JAX package's ``pipeline`` mode and its checkpoint keys
-(``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
-``resume``) are not in the port yet: they raise naming ROADMAP A.10 and
-A.7.
+Training snapshots: ``checkpoint_dir`` (a snapshot every
+``checkpoint_every`` rounds, default 10, the newest ``checkpoint_keep``
+kept, default 3; ``resume``, default ``auto``, takes the newest valid one
+up; ``utils/checkpoint.py``). The JAX package's ``pipeline`` mode is not
+in the port yet: it raises naming ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -67,11 +68,6 @@ def _train(cfg: Dict[str, str], evals: List[Tuple[str, str]],
     from . import core
     from .data.dmatrix import DMatrix
 
-    ck_dir = cfg.get("checkpoint_dir")
-    if ck_dir and ck_dir.lower() != "null":
-        raise NotImplementedError(
-            "the CLI's checkpoint keys (checkpoint_dir ... resume) are not "
-            "in the PyTorch port yet (training snapshots, ROADMAP A.7)")
     dtrain = DMatrix(cfg["data"])
     watch = [(dtrain, "train")] + [(DMatrix(uri), name)
                                    for name, uri in evals]
@@ -88,9 +84,20 @@ def _train(cfg: Dict[str, str], evals: List[Tuple[str, str]],
 
         callbacks.append(TrainingCheckPoint(
             directory=model_dir or ".", name="model", interval=save_period))
+    checkpoint = None
+    ck_dir = cfg.get("checkpoint_dir")
+    if ck_dir and ck_dir.lower() != "null":
+        from .utils.checkpoint import CheckpointConfig
+
+        checkpoint = CheckpointConfig(
+            directory=ck_dir,
+            every_n_rounds=int(cfg.get("checkpoint_every", "10")),
+            keep=int(cfg.get("checkpoint_keep", "3")),
+            resume=(cfg.get("resume", "auto").lower()
+                    not in ("0", "false", "none")) and "auto")
     bst = core.train(params, dtrain, num_round, evals=watch,
                      xgb_model=xgb_model, verbose_eval=not _silent(cfg),
-                     callbacks=callbacks)
+                     callbacks=callbacks, checkpoint=checkpoint)
     model_out = cfg.get("model_out", "")
     if not model_out or model_out.lower() == "null":
         model_out = os.path.join(model_dir or ".", f"{num_round:04d}.model")

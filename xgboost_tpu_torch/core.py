@@ -69,7 +69,7 @@ from .boosting.predict import leaf_positions, margin_raw, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
-from .data.binned import ApproxSource
+from .data.binned import ApproxSource, PagedApproxSource
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
@@ -78,6 +78,7 @@ from .objective.adaptive import label_matrix_refusal
 from .objective.base import (NumericalDivergence, Objective,
                              guard_gradient)
 from .objective.survival import sort_by_time
+from .obs.training_log import TrainingLog
 from .ops import shap as shap_ops
 from .ops.shap import ShapPack, build_shap_pack
 from .serve.packed import PackedForest
@@ -156,6 +157,9 @@ class Booster:
         self._configured = False
         self._caches: Dict[int, Dict[str, Any]] = {}
         self._eval_metrics: List = []
+        # the eval history of ``train`` (``obs/training_log.py``), which a
+        # training snapshot carries
+        self.training_log: Optional[TrainingLog] = None
         # packed forests by tree range, and SHAP path tables by ("shap",
         # range)
         self._packed: Dict[tuple, Union[PackedForest, ShapPack]] = {}
@@ -462,10 +466,13 @@ class Booster:
         margin ``base`` [n, G] and a margin covering the first
         ``n_trees`` trees (both None until the base margin is known)."""
         st = self._caches.get(id(dm))
-        if st is None or st["dm"] is not dm:
+        # a matrix that grew (``DMatrix.append``) starts a new entry, its
+        # margin walked anew
+        if st is None or st["dm"] is not dm or st["n"] != dm.num_row():
             dev = self.device
             info = dm.info
-            st = {"dm": dm, "margin": None, "n_trees": 0, "binned": None,
+            st = {"dm": dm, "n": dm.num_row(), "margin": None, "n_trees": 0,
+                  "binned": None,
                   "X": None, "is_train": False,
                   "labels": None if info.labels is None else
                   torch.from_numpy(info.labels).to(dev),
@@ -506,9 +513,10 @@ class Booster:
         binned matrix (the training entry keeps none, as in the JAX
         package, so no other matrix is ever binned with one round's cuts
         and evaluation sets walk raw values through K1): the raw values
-        and their device sketch (``data/binned.py ApproxSource``), or the
-        rank encoding (``tree/exact.py ExactQuantization``). A paged
-        matrix raises."""
+        and their device sketch (``data/binned.py ApproxSource``; a paged
+        matrix re-sketches its pages, ``PagedApproxSource``), or the
+        rank encoding (``tree/exact.py ExactQuantization``, which a paged
+        matrix refuses)."""
         dm = st["dm"]
         exact = self._tree_method() == "exact"
         if dm.is_paged and exact:
@@ -516,9 +524,13 @@ class Booster:
                 "tree_method=exact rank-encodes the raw matrix and does "
                 "not support external-memory (paged) matrices; use "
                 "tree_method=hist")
+        if isinstance(self.gbm, Dart):
+            self._raw_on_device(st)     # dart walks its dropped trees on it
         if dm.is_paged:
-            dm.binned(self.tree_param.max_bin, self.device).resketch()
-        X = self._raw_on_device(st)     # dart walks its dropped trees on it
+            return PagedApproxSource(
+                dm.binned(self.tree_param.max_bin, self.device),
+                self.tree_param.max_bin, dm.info.feature_types)
+        X = self._raw_on_device(st)
         if exact:
             return ExactQuantization(np.asarray(dm.values(), np.float32))
         return ApproxSource(X, self.tree_param.max_bin, dm.info.feature_types)
@@ -1020,6 +1032,69 @@ class Booster:
                             iteration_range=iteration_range,
                             strict_shape=strict_shape)
 
+    # ------------------------------------------------------------- snapshots
+    def make_snapshot(self, dtrain: Optional[DMatrix] = None,
+                      fingerprint: Optional[Dict[str, Any]] = None,
+                      round_: Optional[int] = None):
+        """The training state (``utils/checkpoint.py``, the JAX package's
+        ``make_snapshot``): the model, the round counter, the training
+        margin [n, K] f32 as the cache holds it, a stateful booster's
+        ``RandomState`` (dart's drops) and the eval history."""
+        from .utils.checkpoint import TrainingSnapshot
+
+        margin = None
+        st = self._caches.get(id(dtrain)) if dtrain is not None else None
+        if st is not None and st["is_train"] and st["margin"] is not None:
+            margin = st["margin"].detach().cpu().numpy().astype(np.float32)
+        extra: Dict[str, Any] = {}
+        brng = getattr(self.gbm, "_rng", None)
+        if brng is not None:
+            alg, keys, pos, has_gauss, cached = brng.get_state()
+            extra["booster_rng"] = {
+                "alg": str(alg), "keys": np.asarray(keys, np.int64),
+                "pos": int(pos), "has_gauss": int(has_gauss),
+                "cached": float(cached)}
+        tl = self.training_log
+        if tl is not None and (len(tl) or tl.records):
+            extra["training_log"] = tl.to_obj()
+        return TrainingSnapshot(
+            round=int(round_ if round_ is not None
+                      else self.num_boosted_rounds()),
+            model=bytes(self.save_raw("ubj")), margin=margin,
+            fingerprint=dict(fingerprint or {}),
+            rng={"seed": int(self.ctx.seed),
+                 "seed_per_iteration": bool(self.ctx.seed_per_iteration)},
+            extra=extra)
+
+    def _prime_resume(self, dtrain: DMatrix, snap) -> None:
+        """Install a snapshot's state (the JAX package's
+        ``_prime_resume``): the booster's ``RandomState``, the eval
+        history, and its margin as the training cache's, so that the next
+        ``update`` goes on from the interrupted state's bits. Without a
+        margin the cache walks the trees, as a continuation does."""
+        self._configure(dtrain)
+        st = self._state_of(dtrain, is_train=True)
+        rng = snap.extra.get("booster_rng") if snap.extra else None
+        if rng is not None and hasattr(self.gbm, "_rng"):
+            brng = self.gbm._rng or np.random.RandomState()
+            brng.set_state((rng["alg"],
+                            np.asarray(rng["keys"]).astype(np.uint32),
+                            int(rng["pos"]), int(rng["has_gauss"]),
+                            float(rng["cached"])))
+            self.gbm._rng = brng
+        tl = snap.extra.get("training_log") if snap.extra else None
+        if tl is not None:
+            self.training_log = TrainingLog.from_obj(tl)
+        if snap.margin is None:
+            return
+        m = np.asarray(snap.margin, np.float32)
+        st["margin"] = torch.from_numpy(
+            m.reshape(m.shape[0], -1).copy()).to(self.device)
+        st["n_trees"] = self.gbm.version()
+        hook = getattr(self.gbm, "on_resume", None)
+        if hook is not None:
+            hook(st)
+
     def __getstate__(self):
         return {"raw": bytes(self.save_raw("json")),
                 "device": self.ctx.device}
@@ -1283,7 +1358,8 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
           verbose_eval: Union[bool, int, None] = True,
           xgb_model: Optional[Union[str, bytes, Booster]] = None,
           callbacks: Optional[Sequence] = None,
-          custom_metric: Optional[Callable] = None) -> Booster:
+          custom_metric: Optional[Callable] = None,
+          checkpoint: Optional[Any] = None) -> Booster:
     """Train loop (reference ``python-package/xgboost/training.py``; the
     JAX package's ``train``): ``num_boost_round`` rounds of
     ``Booster.update``, each followed by an evaluation of ``evals`` into
@@ -1298,7 +1374,15 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     order before those two. ``obj(margin, dtrain)`` -> (grad, hess): a
     custom objective; ``custom_metric`` (or, when it is None, ``feval``)
     ``(margin, dmatrix)`` -> (name, value): a custom metric beside the
-    booster's, given the raw margin, as the JAX package gives it."""
+    booster's, given the raw margin, as the JAX package gives it.
+
+    ``checkpoint``: a ``utils.checkpoint.CheckpointConfig``: a training
+    snapshot every ``every_n_rounds`` rounds and at the end, and, with
+    ``resume``, the newest valid snapshot of this matrix taken up at the
+    start (the JAX package's ``train(checkpoint=)``). A resumed run
+    counts ``num_boost_round`` as the total, so that the same command
+    run again after a crash ends at the straight run's model, byte for
+    byte."""
     callbacks = list(callbacks) if callbacks else []
     if verbose_eval and get_config()["verbosity"] > 0:
         period = 1 if verbose_eval is True else int(verbose_eval)
@@ -1309,21 +1393,53 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     container = CallbackContainer(
         callbacks, metric=custom_metric if custom_metric is not None
         else feval)
-    if isinstance(xgb_model, Booster):
+    ck = resumed = None
+    if checkpoint is not None:
+        from .utils.checkpoint import CheckpointManager
+
+        ck = CheckpointManager(checkpoint)
+        ck.ensure_fingerprint(dtrain)
+        if xgb_model is None:
+            resumed = ck.find_resume(dtrain)
+    if resumed is not None:
+        bst = Booster(params, model_file=resumed.model)
+    elif isinstance(xgb_model, Booster):
         bst = xgb_model
         bst.set_param(params)
     elif xgb_model is not None:
         bst = Booster(params, model_file=xgb_model)
     else:
         bst = Booster(params)
+    if resumed is not None:
+        bst._prime_resume(dtrain, resumed)
+        if bst.training_log is not None:
+            # evals_result and early stopping's patience go on from the
+            # snapshot's history
+            container.history = bst.training_log
+    bst.training_log = container.history
     bst = container.before_training(bst)
     start = bst.num_boosted_rounds()
-    for i in range(start, start + num_boost_round):
-        if container.before_iteration(bst, i):
-            break
-        bst.update(dtrain, i, fobj=obj)
-        if container.after_iteration(bst, i, list(evals)):
-            break
+    end = (max(start, num_boost_round) if resumed is not None
+           else start + num_boost_round)
+    try:
+        for i in range(start, end):
+            if container.before_iteration(bst, i):
+                break
+            bst.update(dtrain, i, fobj=obj)
+            stop = container.after_iteration(bst, i, list(evals))
+            if ck is not None:
+                ck.maybe_save(bst, dtrain, i + 1,
+                              force=stop or i + 1 == end)
+            if stop:
+                break
+    except BaseException:
+        # the background writer is joined, and a second failure there
+        # does not hide the first
+        if ck is not None:
+            ck.close()
+        raise
+    if ck is not None:
+        ck.close(raise_errors=True)
     bst = container.after_training(bst)
     if evals_result is not None:
         evals_result.update(container.history)

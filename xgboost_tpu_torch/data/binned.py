@@ -32,7 +32,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .quantile import HistogramCuts, WeightedSketch
+from .quantile import (FeatureSummary, HistogramCuts, WeightedSketch,
+                       cuts_from_summaries)
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.uint16): torch.uint16,
@@ -497,6 +498,99 @@ class PagedBinnedMatrix:
             out[s:s + page.shape[0]] = page
         return out
 
+    # -- approx and appends ---------------------------------------------------
+    def resketch(self, max_bin: int, hess: np.ndarray,
+                 feature_types=None) -> "PagedBinnedMatrix":
+        """A new quantization weighted by ``hess`` [n] (the JAX package's
+        ``resketch``; ``tree_method="approx"`` over pages, reference
+        ``GlobalApproxUpdater``): per page the representative values of
+        the current bins (:meth:`_values_page`) are summarised per feature
+        with the hessian as weights, the summaries merged and pruned to
+        ``max_bin * 8`` as the iterator's are, the cuts made from them, and
+        the pages re-binned one at a time into a new host matrix. Host
+        work, and the JAX package's cuts and bins bit for bit: a value is
+        its bin's, so a page's summary of a feature is its bins' weight
+        sums (``np.bincount``, in row order from 0.0 as
+        ``FeatureSummary.from_data`` sums ties) at the bins' values, and a
+        page re-bins through a table of each old bin's new bin
+        (:func:`search_bin` of the bins' values)."""
+        F, n = self.n_features, self.n_rows
+        n_real = self.n_real_bins().astype(np.int64)
+        B = self.max_nbins + 1
+        # [B, F]: each bin's value (NaN at the missing slot and past the
+        # real bins), the values of ``values_of_bins``
+        table = values_of_bins(np.tile(np.arange(B)[:, None], (1, F)),
+                               self.cuts)
+        summaries = None
+        for s in range(0, n, self.page_rows):
+            page = np.asarray(self.bins_host[s:s + self.page_rows], np.int64)
+            if not page.shape[0]:
+                continue
+            w = np.asarray(hess[s:s + page.shape[0]], np.float64)
+            batch = []
+            for f in range(F):
+                ids = page[:, f]
+                ok = ids < n_real[f]
+                cnt = np.bincount(ids[ok], minlength=n_real[f])
+                wsum = np.bincount(ids[ok], weights=w[ok],
+                                   minlength=n_real[f])
+                seen = cnt > 0
+                batch.append(FeatureSummary(
+                    table[:n_real[f], f][seen].astype(np.float64) + 0.0,
+                    wsum[seen]))
+            summaries = batch if summaries is None else [
+                a.merge(b).prune(max_bin * 8)
+                for a, b in zip(summaries, batch)]
+        cuts = cuts_from_summaries(summaries or [], max_bin, feature_types)
+        max_nbins = (int(cuts.n_real_bins().max(initial=0))
+                     + int(self.has_missing))
+        dtype = np_dtype_for(max(max_nbins - 1, 0))
+        new_ids = search_bin(torch.from_numpy(table), cuts,
+                             max_nbins - 1).numpy().astype(dtype)    # [B, F]
+        out = np.empty((n, F), dtype)
+        cols = np.arange(F)[None, :]
+        for s in range(0, n, self.page_rows):
+            page = np.asarray(self.bins_host[s:s + self.page_rows], np.int64)
+            out[s:s + page.shape[0]] = new_ids[page, cols]
+        return PagedBinnedMatrix(
+            bins_host=out, cuts=cuts, max_nbins=max_nbins,
+            has_missing=self.has_missing, page_rows=self.page_rows,
+            cache_budget_bytes=self.cache_budget_bytes)
+
+    def append_rows(self, X: np.ndarray) -> None:
+        """Bin raw rows X [m, F] against the frozen cuts and append them
+        (the JAX package's ``append_rows``): the trees' split bins keep
+        their meaning. A memmap grows its file and is mapped anew; the
+        device page cache and a resident collapse are dropped."""
+        X = np.ascontiguousarray(X, np.float32)
+        if X.ndim != 2 or X.shape[1] != self.n_features:
+            raise ValueError(
+                f"append_rows expects [n, {self.n_features}] features, "
+                f"got {X.shape}")
+        if not self.has_missing and np.isnan(X).any():
+            raise ValueError(
+                "appended rows contain missing values but this matrix was "
+                "quantized without a missing slot; rebuild it from data "
+                "that includes missing values (or impute the new rows)")
+        old_n, F = self.bins_host.shape
+        new_n = old_n + X.shape[0]
+        host = self.bins_host
+        if isinstance(host, np.memmap):
+            path, dtype = host.filename, host.dtype
+            host.flush()
+            with open(path, "r+b") as fh:
+                fh.truncate(new_n * F * dtype.itemsize)
+            grown = np.memmap(path, mode="r+", dtype=dtype,
+                              shape=(new_n, F))
+        else:
+            grown = np.empty((new_n, F), host.dtype)
+            grown[:old_n] = host
+        grown[old_n:] = search_bin(torch.from_numpy(X), self.cuts,
+                                   self.max_nbins - 1).numpy()
+        self.bins_host = grown
+        self._device_cache.clear()
+        self._resident = None
+
     # -- not in the port yet --------------------------------------------------
     def mesh_layout(self, *args, **kwargs):
         raise NotImplementedError(
@@ -505,16 +599,28 @@ class PagedBinnedMatrix:
 
     pages_sharded = stream_pages_sharded = cached_split_mesh = mesh_layout
 
-    def resketch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "tree_method='approx' on a paged (external-memory) matrix "
-            "(resketching its pages every round) is not in the PyTorch "
-            "port yet (paged approx, ROADMAP A.7)")
 
-    def append_rows(self, X: np.ndarray) -> None:
-        raise NotImplementedError(
-            "appending rows to a paged matrix is not in the PyTorch port "
-            "yet (ROADMAP A.7)")
+class PagedApproxSource:
+    """``tree_method="approx"`` over a paged matrix: :meth:`binned`
+    re-sketches the pages with each class's hessian
+    (:meth:`PagedBinnedMatrix.resketch`, host work) and hands the new
+    paged matrix to the paged grower. ``seconds``: each re-sketch's wall
+    time."""
+
+    def __init__(self, paged: PagedBinnedMatrix, max_bin: int,
+                 feature_types: Optional[List[str]] = None) -> None:
+        self.paged = paged
+        self.max_bin = max_bin
+        self.feature_types = feature_types
+        self.seconds: List[float] = []
+
+    def binned(self, weights: torch.Tensor) -> PagedBinnedMatrix:
+        t0 = time.perf_counter()
+        out = self.paged.resketch(
+            self.max_bin, weights.detach().cpu().numpy().astype(np.float64),
+            self.feature_types)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
 
 
 class ApproxSource:

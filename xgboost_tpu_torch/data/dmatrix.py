@@ -17,8 +17,14 @@ quantized once, at ``max_bin``; training asks for the same ``max_bin``.
 
 ``feature_types`` marks categorical features with ``"c"`` (their values
 are category codes, NaN missing), which a matrix takes only with
-``enable_categorical=True``, as the JAX package's. An iterator-built
-categorical matrix waits with the paged growers (ROADMAP A.7).
+``enable_categorical=True``, as the JAX package's; an iterator's
+batches announce them with ``feature_types`` (on any batch: the cuts
+cover every batch's largest code).
+
+:meth:`DMatrix.append` adds rows in place, binned against the frozen
+cuts when the matrix is quantized (a paged matrix's memmap grows), and
+chains a CRC over each append that ``utils/checkpoint.py
+dmatrix_fingerprint`` reads.
 
 Query groups (ranking): ``group=`` (the size of each query, in row
 order) or ``qid=`` (each row's query id, sorted) set
@@ -39,6 +45,7 @@ batches, ``slice`` and ``save_binary``.
 from __future__ import annotations
 
 import os
+import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -176,15 +183,6 @@ class DataIter:
         self.reset()
 
 
-def _refuse_iter_categorical(types: Optional[List[str]]) -> None:
-    if types is not None and "c" in types:
-        raise NotImplementedError(
-            "categorical features in a matrix built from a DataIter are not "
-            "in the PyTorch port yet (they wait with the paged growers, "
-            "ROADMAP A.7); pass the codes as a numpy DMatrix with "
-            "feature_types and enable_categorical=True")
-
-
 # get_float_info / set_float_info fields -> MetaInfo attributes
 _FLOAT_FIELDS = {"label": "labels", "weight": "weights",
                  "base_margin": "base_margin",
@@ -212,7 +210,6 @@ class DMatrix:
         self._quantized = None
         self._max_bin: Optional[int] = None
         if isinstance(data, DataIter):
-            _refuse_iter_categorical(feature_types)
             self._init_from_iter(data, max_bin, None, missing,
                                  data.cache_prefix)
             return
@@ -443,6 +440,90 @@ class DMatrix:
         return (np.asarray(cuts.ptrs, np.int64),
                 np.asarray(cuts.values, np.float32))
 
+    def append(self, data: Any, label: Any = None, *, weight: Any = None,
+               missing: float = np.nan) -> int:
+        """Append rows in place (the JAX package's ``append``): a quantized
+        form already made grows against its cuts, which stay frozen so
+        that the trees' split bins keep their meaning (a paged matrix's
+        memmap grows, ``PagedBinnedMatrix.append_rows``); labels and
+        weights are replaced by new arrays; the append chain, a CRC over
+        each append's features and labels chained over the appends, moves
+        (``utils/checkpoint.py dmatrix_fingerprint``). Returns the new row
+        count."""
+        X = np.ascontiguousarray(to_dense(data, missing, None, None)[0],
+                                 np.float32)
+        if X.shape[1] != self.num_col():
+            raise ValueError(
+                f"append expects {self.num_col()} features, got {X.shape[1]}")
+        info = self.info
+        for name in ("base_margin", "group_ptr", "label_lower_bound",
+                     "label_upper_bound"):
+            if getattr(info, name) is not None:
+                raise ValueError(
+                    f"append does not support matrices carrying {name}")
+        n_new = X.shape[0]
+        y = w = None
+        if label is not None:
+            y = np.asarray(label, np.float32)
+            if y.shape[0] != n_new:
+                raise ValueError(
+                    f"label has {y.shape[0]} entries, expected {n_new}")
+        elif info.labels is not None:
+            raise ValueError(
+                "matrix has labels; append needs label= for the new rows")
+        if weight is not None:
+            w = np.asarray(weight, np.float32)
+        elif info.weights is not None:
+            raise ValueError(
+                "matrix has weights; append needs weight= for the new rows")
+        # the quantized form first: it may refuse the rows (NaN into a
+        # layout without a missing slot) before anything has changed
+        if self.is_paged:
+            self._quantized.append_rows(X)
+        elif self._quantized is not None:
+            self._quantized = np.concatenate(
+                [self._quantized, self._bin_rows(
+                    X, self._cuts[self._max_bin], self._max_nbins,
+                    self._has_missing, self._quantized.dtype)])
+            self._binned.clear()
+        else:
+            for key, bm in list(self._binned.items()):
+                self._binned[key] = BinnedMatrix(
+                    bins=torch.cat([bm.bins, torch.from_numpy(self._bin_rows(
+                        X, bm.cuts, bm.max_nbins, bm.has_missing,
+                        np_dtype_for(max(bm.max_nbins - 1, 0)))).to(
+                            bm.bins.device)]),
+                    cuts=bm.cuts, max_nbins=bm.max_nbins,
+                    has_missing=bm.has_missing)
+        if self.X is not None:
+            self.X = np.concatenate([self.X, X], axis=0)
+        self._n_rows += n_new
+        if y is not None:
+            info.labels = (self._labels(y, n_new) if info.labels is None
+                           else np.concatenate([info.labels, y], axis=0))
+        if w is not None:
+            info.weights = (np.array(w) if info.weights is None
+                            else np.concatenate([info.weights, w]))
+        crc = zlib.crc32(X.tobytes(), getattr(self, "_append_chain", 0))
+        if y is not None:
+            crc = zlib.crc32(np.ascontiguousarray(y).tobytes(), crc)
+        self._append_chain = crc
+        self._n_appends = getattr(self, "_n_appends", 0) + 1
+        info.validate(self.num_row())
+        return self.num_row()
+
+    @staticmethod
+    def _bin_rows(X: np.ndarray, cuts: HistogramCuts, max_nbins: int,
+                  has_missing: bool, dtype) -> np.ndarray:
+        """Host bin ids of new rows against frozen cuts."""
+        if not has_missing and np.isnan(X).any():
+            raise ValueError(
+                "appended rows contain missing values but the quantized "
+                "matrix has no missing slot; rebuild from data that "
+                "includes missing values")
+        return search_bin(torch.from_numpy(X), cuts,
+                          max_nbins - 1).numpy().astype(dtype)
+
     def slice(self, rindex: Any) -> "DMatrix":
         """The rows ``rindex`` with their labels, weights, base margins
         and bounds (query groups are not carried)."""
@@ -462,6 +543,11 @@ class DMatrix:
             feature_names=info.feature_names,
             feature_types=info.feature_types)
         return out
+
+    @property
+    def paged(self) -> Optional[PagedBinnedMatrix]:
+        """The host bins of an external-memory matrix, else None."""
+        return self._quantized if self.is_paged else None
 
     @property
     def is_paged(self) -> bool:
@@ -529,18 +615,25 @@ class DMatrix:
         summaries: Optional[List[FeatureSummary]] = None
         n_rows = n_feat = 0
         has_missing = False
-        feature_names = None
+        feature_names = feature_types = None
+        cat_max: Optional[np.ndarray] = None    # each feature's largest code
         cap = quantile.SKETCH_SAMPLE_ROWS // 4
         for batch in it.collect():
             X, names, types = _dense(batch["data"], missing,
                                      batch.get("feature_names"),
                                      batch.get("feature_types"))
-            _refuse_iter_categorical(types)
             n_rows += X.shape[0]
             n_feat = X.shape[1]
             has_missing = has_missing or bool(np.isnan(X).any())
             if names is not None:
                 feature_names = list(names)
+            if types is not None:
+                feature_types = list(types)
+            if ref is None:
+                # the codes of every batch, the ones before the types were
+                # announced too (the sketch's sample may skip the largest)
+                top = np.fmax.reduce(X, axis=0, initial=-np.inf)
+                cat_max = top if cat_max is None else np.fmax(cat_max, top)
             for key, dest in (("label", labels), ("weight", weights),
                               ("base_margin", margins),
                               ("label_lower_bound", lbound),
@@ -584,8 +677,17 @@ class DMatrix:
         elif groups:
             self.info.set_group(np.concatenate(groups))
         self.info.validate(n_rows)
-        cuts = (ref.cuts(max_bin) if ref is not None
-                else cuts_from_summaries(summaries or [], max_bin))
+        if ref is not None:
+            cuts = ref.cuts(max_bin)
+        else:
+            if feature_types is not None and summaries is not None:
+                # a categorical feature's cuts read only its largest code
+                for f, t in enumerate(feature_types):
+                    if t == "c" and f < len(summaries):
+                        summaries[f] = FeatureSummary.from_data(np.asarray(
+                            [0.0, max(float(cat_max[f]), 0.0)], np.float32))
+            cuts = cuts_from_summaries(summaries or [], max_bin,
+                                       feature_types)
 
         # pass 2: bin each batch into one preallocated host matrix
         max_nbins = int(cuts.n_real_bins().max(initial=0)) + int(has_missing)
@@ -618,6 +720,7 @@ class DMatrix:
         else:
             self._quantized = local
         self.feature_names = feature_names
+        self.feature_types = feature_types
 
 
 class QuantileDMatrix(DMatrix):
@@ -635,7 +738,6 @@ class QuantileDMatrix(DMatrix):
                  enable_categorical: bool = False) -> None:
         self.max_bin = max_bin
         if isinstance(data, DataIter):
-            _refuse_iter_categorical(feature_types)
             self._binned, self._cuts = {}, {}
             self._quantized, self._max_bin = None, None
             self._init_from_iter(data, max_bin, ref, missing,

@@ -479,22 +479,24 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
 
 def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
                      rel_pos: torch.Tensor, n_nodes: int, max_nbins: int,
-                     method: str = "auto",
-                     has_missing: bool = True) -> torch.Tensor:
+                     method: str = "auto", has_missing: bool = True,
+                     packed_u4: int = 0) -> torch.Tensor:
     """The K-target histogram [n_nodes, F, max_nbins, K, 2] of gpair
     [n, K, 2] (vector-leaf trees; the JAX package's
     ``build_hist_multi``): K passes of :func:`build_hist`, one a target,
     each through the kernel ``method`` gives a scalar build and each
     quantised with its own target's scale. (A K-channel pass that reads
-    the bins once for every target is not in either package.)"""
+    the bins once for every target is not in either package.)
+    ``packed_u4=F``: a u4-packed page, as :func:`build_hist` takes it."""
     K = gpair.shape[1]
-    n, F = bins.shape
+    F = packed_u4 or bins.shape[1]
     out = torch.empty((n_nodes, F, max_nbins, K, 2), dtype=torch.float32,
                       device=bins.device)
     for k in range(K):
         out[:, :, :, k] = build_hist(bins, gpair[:, k].contiguous(), rel_pos,
                                      n_nodes, max_nbins, method=method,
-                                     has_missing=has_missing)
+                                     has_missing=has_missing,
+                                     packed_u4=packed_u4)
     return out
 
 

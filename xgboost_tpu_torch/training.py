@@ -16,6 +16,8 @@ from .callback import (CallbackContainer, EarlyStopping, EvaluationMonitor,
                        TrainingCallback)
 from .core import Booster, train  # noqa: F401  (re-export train)
 from .data.dmatrix import DMatrix
+from .utils.checkpoint import (CheckpointConfig,  # noqa: F401  (re-export:
+                               TrainingSnapshot)  # train(checkpoint=...))
 
 
 class CVPack:

@@ -86,13 +86,15 @@ def eval2(bins, gpair, positions, id0: int, id1: int, parent_sums, fmask,
 
 def apply1(bins, positions, nid: int, feat: int, sbin: int, dleft: bool,
            is_cat: bool, words: Optional[torch.Tensor], left_id: int,
-           right_id: int, missing_bin: int) -> torch.Tensor:
+           right_id: int, missing_bin: int, packed: bool = False
+           ) -> torch.Tensor:
     """The rows at node ``nid`` moved to its children ``left_id`` /
     ``right_id`` (the JAX package's ``_apply1``): right where the bin is
     above ``sbin`` (a categorical split: where the code is not in the
-    left set ``words`` [W]), missing values the default way."""
+    left set ``words`` [W]), missing values the default way. ``packed``:
+    ``bins`` is a u4-packed page."""
     rows = torch.arange(positions.shape[0], device=positions.device)
-    b = gather_bins(bins, rows, torch.full_like(rows, max(feat, 0)))
+    b = gather_bins(bins, rows, torch.full_like(rows, max(feat, 0)), packed)
     if is_cat:
         go_right = cat_goes_right(b, words[None, :], torch.zeros_like(rows))
     else:
@@ -230,13 +232,24 @@ class LossguideGrower(TreeGrower):
         base = self.cuts.n_real_bins() > 0
         return [col_masks(self.param, k[1], len(base), base) for k in tkeys]
 
+    def _eval2(self, bins, *args, **kwargs) -> SplitResult:
+        """:func:`eval2` over resident bins (the paged grower's pass over
+        the pages, ``tree/paged.py``)."""
+        return eval2(bins, *args, **kwargs)
+
+    def _apply1(self, bins, positions, *args) -> torch.Tensor:
+        """:func:`apply1` over resident bins (the paged grower's pass)."""
+        return apply1(bins, positions, *args)
+
     def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
              node_mask: Callable[[int], np.ndarray]) -> LossguideGrown:
-        """One tree from bins [n, F] and gpair [n, 2] f32 on one device;
-        ``node_mask``: its column sampler from :meth:`feature_masks`."""
+        """One tree from bins [n, F] (or a paged matrix, through
+        :meth:`_eval2` / :meth:`_apply1`) and gpair [n, 2] f32 on one
+        device; ``node_mask``: its column sampler from
+        :meth:`feature_masks`."""
         param = self.param
         n, F = bins.shape
-        dev = bins.device
+        dev = gpair.device
         max_leaves = param.max_leaves if param.max_leaves > 0 else (
             2 ** max(param.max_depth, 1))
         cap = 2 * max_leaves - 1
@@ -287,7 +300,7 @@ class LossguideGrower(TreeGrower):
                 ids = [i for i in ids if depth_of[i] < param.max_depth]
             if not ids:
                 if apply_args is not None:
-                    positions = apply1(bins, positions, *apply_args)
+                    positions = self._apply1(bins, positions, *apply_args)
                 return
             i0 = ids[0]
             i1 = ids[1] if len(ids) > 1 else -1
@@ -315,9 +328,9 @@ class LossguideGrower(TreeGrower):
                     node_upper=torch.from_numpy(np.asarray(
                         [upper[i0], upper[j1]], np.float32)).to(dev))
             if apply_args is not None:
-                positions = apply1(bins, positions, *apply_args)
-            res = eval2(bins, gpair, positions, i0, i1, psums, fm_t, n_real,
-                        **kw, **mono_kw)
+                positions = self._apply1(bins, positions, *apply_args)
+            res = self._eval2(bins, gpair, positions, i0, i1, psums, fm_t,
+                              n_real, **kw, **mono_kw)
             host = pack_result(res, self.n_words).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
                 if nid < 0:

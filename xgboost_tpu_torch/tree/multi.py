@@ -30,8 +30,8 @@ targets), with its JSON. Prediction walks the trees as torch ops
 (``boosting/predict.py``); the packed walk (K1) takes scalar trees only,
 in both packages.
 
-Not ported here: the paged vector-leaf growers (ROADMAP A.7) and the
-mesh and column-split branches (A.8).
+The paged vector-leaf growers are ``tree/paged.py``'s. Not ported
+here: the mesh and column-split branches (A.8).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from ..ops.split import MultiSplitResult, evaluate_splits_multi
 from ..ops.xla_order import sum_in_xla_order
 from .grow import (GrownTree, HeapTree, TreeGrower, draw_feature_masks,
                    interaction_allowed_host)
-from .lossguide import LossguideGrower, LossguideGrown, apply1
+from .lossguide import LossguideGrower, LossguideGrown
 from .param import TrainParam, _f32, calc_weight
 from .tree import TreeModel
 
@@ -234,14 +234,18 @@ class MultiLossguideGrower(LossguideGrower):
     ``2 * max_leaves - 1``; column samples from the scalar lossguide's
     host sampler (``col_masks``)."""
 
+    def _eval2(self, bins, *args, **kwargs) -> MultiSplitResult:
+        return eval2_multi(bins, *args, **kwargs)
+
     def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
              node_mask: Callable[[int], np.ndarray]) -> LossguideGrown:
-        """One tree from bins [n, F] and gpair [n, K, 2] f32 on one
+        """One tree from bins [n, F] (or a paged matrix, through
+        :meth:`_eval2` / :meth:`_apply1`) and gpair [n, K, 2] f32 on one
         device; ``node_mask``: its column sampler."""
         param = self.param
         n, F = bins.shape
         K = gpair.shape[1]
-        dev = bins.device
+        dev = gpair.device
         max_leaves = param.max_leaves if param.max_leaves > 0 else (
             2 ** max(param.max_depth, 1))
         cap = 2 * max_leaves - 1
@@ -289,7 +293,7 @@ class MultiLossguideGrower(LossguideGrower):
             psums = torch.from_numpy(np.stack(
                 [gh[i0], gh[i1] if i1 >= 0 else np.zeros((K, 2))]).astype(
                     np.float32)).to(dev)
-            res = eval2_multi(bins, gpair, positions, i0, i1, psums,
+            res = self._eval2(bins, gpair, positions, i0, i1, psums,
                               torch.from_numpy(fm).to(dev), n_real, **kw)
             host = pack_multi_result(res).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
@@ -318,8 +322,8 @@ class MultiLossguideGrower(LossguideGrower):
             if paths is not None:
                 paths[li] = paths[ri] = paths[nid]
                 paths[li, feat] = paths[ri, feat] = True
-            positions = apply1(bins, positions, nid, feat, rbin, rdl, False,
-                               None, li, ri, mb)
+            positions = self._apply1(bins, positions, nid, feat, rbin, rdl,
+                                     False, None, li, ri, mb)
             eval_nodes(li, ri)
 
         # the weights: f32 from the f32 sums, times eta
