@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --levels-of DIR
+    python3 chip_smoke.py --rounds-of DIR
 
 Builds the CUDA kernels from ``xgboost_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, all at once) and holds each kernel against its plain
@@ -311,7 +312,29 @@ counts set to 0 just before and read just after:
   ``update_batch`` of 8 rounds against 8 ``update`` calls (one set of
   bytes); and the native text parser against the Python one on a
   1,000,000-row libsvm file of the agaricus widths (the same arrays,
-  rows/s of both).
+  rows/s of both);
+- row-split distributed training (``distributed``) at the HIGGS shape
+  (1,000,000 x 28 of ``higgs_like``, ``max_bin`` 256, depth 8,
+  ``binary:logistic``): first K4, K2, K5 and K3 (at 256 and 512 nodes)
+  at one level of one 250,000-row shard of the mesh, through the
+  wrappers with the quantiser scale reduced over the 4 shards
+  (``RowShards.scale``), bit for bit against their plain versions and
+  timed (``mesh_shard_kernels``); then on a data mesh of 4 shards of this
+  card (``context.Mesh``; each shard's histograms on its 250,000 rows, the
+  partials summed in shard order) ``auto`` (K4 a shard and level),
+  ``pallas`` (K2), ``fused`` (K5 + K2) and depth 10 (K4, and K3 above
+  128 nodes), 3 rounds each, every launch count 4 times one device's,
+  each model held against one device's under ``certified_trees`` and
+  predictions within rtol 1e-5 + atol 1e-5, two mesh runs one sha256;
+  lossguide at 255 leaves (2 rounds); vector leaves at the MediaMill
+  shape (101 labels, 2 rounds) on 2 shards; ``approx`` on 4 shards
+  (held-out logloss falling); ``parallel.launch.train_per_host`` in two
+  OS processes on this card over ``gloo``, each with half the rows (one
+  sha256, held against the in-process 2-shard mesh over the ranks'
+  merged cuts; seconds a round and the collective's host time); and two
+  ``InMemoryCommunicator`` thread ranks, each training 2 of the first 4
+  pages of ``higgs_batches`` (one sha256, held against one rank over all
+  4 pages). Every run prints its seconds a round beside one device's.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -334,6 +357,10 @@ and the device's idle share of the same rounds under ``torch.profiler``.
 and K1's main-path shapes with the ``xgboost_tpu_torch`` package found in
 DIR, through the calls every version of the port has, so that two trees
 compare in one run; it prints them as a JSON line and exits.
+``--rounds-of DIR`` does the same for seconds a round: one device's
+HIGGS runs (``auto``, ``coarse``, ``fused``, ``scan``) and the
+external-memory runs (11 pages of 1,000,000 rows, 4 cached, and the u4
+run), to compare the seconds a round of two trees in one run.
 
 Prints the card (``nvidia-smi`` name and power limit) and a JSON line
 of kernel numbers before the last line, and as the last line
@@ -360,8 +387,12 @@ U = 2.0 ** -24                 # f32 unit roundoff
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's log, after the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
 
 
 def gpu_line() -> str:
@@ -610,20 +641,25 @@ def k3_precisions():
     return {name: prec for prec, name in K3_KERNELS.items()}
 
 
-def hist_kernels(N):
+def hist_kernels(N, scale=None):
     """The kernels that run at a level of N nodes, with their plain
     versions: (name, kernel(args), plain(args), maker of the args). K3
     in its three precisions at every level (``pallas:bf16x2`` /
-    ``pallas:bf16`` build every level with it)."""
+    ``pallas:bf16`` build every level with it). ``scale``: a mesh's
+    quantiser keywords (``tree/shards.py RowShards.scale``) for the
+    args, as the growers pass them to the wrappers."""
     from xgboost_tpu_torch.ops import histogram as H
     from xgboost_tpu_torch.ops.cuda import hist as K
 
+    scale = scale or {}
+
     def int8x2_args(bins, gpair, rel):
-        q, inv = H.quantise_int8x2(gpair)
+        q, inv = H.quantise_int8x2(gpair, scale.get("max_abs"))
         return bins, q, rel, inv
 
     def f32_args(bins, gpair, rel):
-        qs, inv = H.fixed_point_scale(gpair)
+        qs, inv = H.fixed_point_scale(gpair, scale.get("max_abs"),
+                                      scale.get("total_rows"))
         return bins, gpair, rel, qs, inv
 
     def k3(prec):
@@ -640,15 +676,16 @@ def hist_kernels(N):
     return out
 
 
-def check_hist(bins, gpair, rel, N, B, label, only=None):
+def check_hist(bins, gpair, rel, N, B, label, only=None, scale=None):
     """Each kernel (of ``only``, when given) against its plain version on
     the same card tensors: equal bit for bit on two launches; totals
-    against the row sums. Returns {kernel: max |kernel - plain|}."""
+    against the row sums. ``scale``: a mesh's quantiser keywords
+    (:func:`hist_kernels`). Returns {kernel: max |kernel - plain|}."""
     from xgboost_tpu_torch.ops.histogram import bf16_parts
 
     errs = {}
     ratios = []
-    for name, kernel, plain, make in hist_kernels(N):
+    for name, kernel, plain, make in hist_kernels(N, scale):
         if only is not None and name not in only:
             continue
         args = make(bins, gpair, rel)
@@ -691,13 +728,14 @@ def hist_bound_ms(bins, N, B, n_active, planes, coarse=False, F=None):
     return t_ops, "operations", ops
 
 
-def time_hist(bins, gpair, rel, N, B, flush, only=None):
+def time_hist(bins, gpair, rel, N, B, flush, only=None, scale=None):
     """{kernel: (ms, plain_ms, library_ms)} for the kernels of a level of
     N nodes (of ``only``, when given): CUDA-event times of each kernel
     (L2 flushed), its plain version, and the nearest single PyTorch call,
     one ``index_add_`` of the four int32 planes (K2, K4) or of the f32
     (g, h) pairs (K3), with the (row, feature) cells and values prepared
-    beforehand. Also the active row count."""
+    beforehand. Also the active row count. ``scale``: a mesh's quantiser
+    keywords (:func:`hist_kernels`)."""
     from xgboost_tpu_torch.ops import histogram as H
 
     F = bins.shape[1]
@@ -716,7 +754,7 @@ def time_hist(bins, gpair, rel, N, B, flush, only=None):
                        flush=flush)
     del seg, gv, accf
     out = {}
-    for name, kernel, plain, make in hist_kernels(N):
+    for name, kernel, plain, make in hist_kernels(N, scale):
         if only is not None and name not in only:
             continue
         args = make(bins, gpair, rel)
@@ -744,10 +782,17 @@ def level_inputs(n, F, B, N, dev, seed, skew=False):
     nodes, 10% of them strays above it; that level's splits, 20% of its
     nodes not splitting. ``skew``: every node splits, 55% of the rows sit
     at its node 1 and its nodes 0 and 2 hold none."""
+    bins, gpair, _ = hist_inputs(n, F, B, 1, dev, seed)
+    return (bins, gpair) + level_state(bins, B, N, dev, seed + 1, skew)
+
+
+def level_state(bins, B, N, dev, seed, skew=False):
+    """:func:`level_inputs`' positions and splits over ``bins`` [n, F]
+    (B bin slots), made from ``seed`` -> (positions, prev)."""
     from xgboost_tpu_torch.ops.partition import LevelSplits
 
-    bins, gpair, _ = hist_inputs(n, F, B, 1, dev, seed)
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n, F = bins.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
     n_prev = N // 2
     lo_prev = n_prev - 1
     pos = lo_prev + torch.randint(0, n_prev, (n,), generator=g, device=dev)
@@ -767,7 +812,7 @@ def level_inputs(n, F, B, N, dev, seed, skew=False):
     dleft = torch.rand(n_prev, generator=g, device=dev) < 0.5
     prev = LevelSplits(lo_prev, torch.where(cs, feat, -1),
                        torch.where(cs, thr, 0), cs & dleft, cs)
-    return bins, gpair, pos.contiguous(), prev
+    return pos.contiguous(), prev
 
 
 def check_fused(n_rows, N, B, skew, dev, seed):
@@ -5764,6 +5809,662 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
     return runs, out
 
 
+# ---- row-split distributed training (ROADMAP A.8, first half) --------------
+
+DIST_ROWS = 1_000_000
+DIST_TEST_ROWS = 100_000
+DIST_SHARDS = 4
+DIST_ROUNDS = 3
+DIST_LG_ROUNDS = 2
+DIST_MM_SHARDS = 2
+DIST_MM_ROUNDS = 2
+DIST_PAGES = 4               # the first pages of ``higgs_batches``' stream
+DIST_PAGED_ROUNDS = 2
+# a logistic gradient's |g| <= 1 and h <= 1/4: the int8x2 quanta (q_g, q_h)
+# of any round bound those of the round's own scale
+LOGISTIC_QUANTA = (1.0 / 32512.0, 0.25 / 32512.0)
+
+DIST_WORKER = r'''
+import hashlib, json, os, sys, time
+root, rank, world, init, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import chip_smoke as c
+import xgboost_tpu_torch as xt
+from xgboost_tpu_torch.parallel import launch
+launch.init_distributed(init, world, rank, backend="gloo")
+X, y = c.higgs_like(c.DIST_ROWS + c.DIST_TEST_ROWS, 28, seed=0)
+m = c.DIST_ROWS // world
+sl = slice(rank * m, (rank + 1) * m)
+params = dict(c.HIGGS_PARAMS, base_score=0.5)
+from xgboost_tpu_torch.callback import TrainingCallback
+marks = []
+
+
+class Marks(TrainingCallback):
+    """The collective's host seconds so far at every round boundary."""
+
+    def before_iteration(self, model, epoch, evals_log):
+        marks.append(comm.seconds)
+        return False
+
+    def after_training(self, model):
+        marks.append(comm.seconds)
+        return model
+
+
+with launch.CommunicatorContext() as comm:
+    c.reset_counts()
+    clock = c.RoundClock()
+    t0 = time.perf_counter()
+    bst = launch.train_per_host(params, X[sl], y[sl], c.DIST_ROUNDS,
+                                verbose_eval=False,
+                                callbacks=[clock.callback, Marks()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = c.read_counts()
+    raw = bytes(bst.save_raw("ubj"))
+with open(out + ".ubj", "wb") as fh:
+    fh.write(raw)
+json.dump({"rank": rank, "sha": hashlib.sha256(raw).hexdigest(),
+           "s_round": clock.seconds(), "wall": wall,
+           "collective_s": comm.seconds, "setup_collective_s": marks[0],
+           "round_collective_s": [b - a for a, b in zip(marks, marks[1:])],
+           "counts": counts}, open(out, "w"))
+torch.distributed.destroy_process_group()
+'''
+
+
+def round_by_round(xt, label, params, mesh_params, one, X, y, rounds,
+                   capped=False, vector=False):
+    """Each round grown twice from ``one``'s margin before it
+    (``base_margin``; round 0 from the intercept): with ``params`` on one
+    device and with ``mesh_params`` on the mesh, so that the two trees
+    grow from the same gradients and only their histograms' f32 sums
+    differ (as :func:`card_against_cpu` holds the card against the CPU);
+    held under :func:`certified_trees` (vector leaves:
+    :func:`vector_trees_agree`), and each round's predictions from that
+    margin at rtol 1e-5 + atol 1e-5 (vector leaves: atol 1e-4, their
+    leaves' rule) where no near tie moved rows. Returns
+    (trees the same in full, near-tie nodes by tree, largest leaf gap,
+    largest prediction gap)."""
+    full, ties, gap, pred_gap = 0, {}, 0.0, 0.0
+    per = len(one.gbm.trees) // rounds
+    tp = one.tree_param
+    dm = xt.DMatrix(X, label=y)
+    for r in range(rounds):
+        if r:
+            dm.set_base_margin(one.predict(
+                xt.DMatrix(X), output_margin=True, strict_shape=True,
+                iteration_range=(0, r)))
+        ref = xt.train(params, dm, 1, verbose_eval=False)
+        again = xt.train(mesh_params, dm, 1, verbose_eval=False)
+        rows = None if vector else leaf_rows(ref, X)
+        tied = False
+        for k in range(per):
+            a, b = again.gbm.trees[k], ref.gbm.trees[k]
+            name = f"{label} round {r} tree {k}"
+            if vector:
+                tie, g = vector_trees_agree(a, b, name, tp.eta,
+                                            tp.reg_lambda)
+            else:
+                tie, g, _ = certified_trees(a, b, name, tp.eta,
+                                            tp.reg_lambda, LOGISTIC_QUANTA,
+                                            rows[k], capped=capped)
+            gap = max(gap, g)
+            if tie:
+                ties[r * per + k] = tie
+                tied = True
+            else:
+                full += 1
+        if not tied:
+            # vector leaves: the leaves' own rule, atol 1e-4
+            pa, pb = again.predict(dm), ref.predict(dm)
+            if not np.allclose(pa, pb, rtol=1e-5,
+                               atol=1e-4 if vector else 1e-5):
+                raise AssertionError(f"{label} round {r}: predictions from "
+                                     f"one margin differ by "
+                                     f"{np.abs(pa - pb).max()}")
+            pred_gap = max(pred_gap, float(np.abs(pa - pb).max()))
+    return full, ties, gap, pred_gap
+
+
+def leaf_rows(bst, X):
+    """Each tree's {leaf: rows} of ``X`` under ``bst`` (``pred_leaf``)."""
+    import xgboost_tpu_torch as xt
+
+    leaves = bst.predict(xt.DMatrix(X), pred_leaf=True)
+    out = []
+    for t in range(leaves.shape[1]):
+        idx, n = np.unique(leaves[:, t], return_counts=True)
+        out.append(dict(zip(idx.tolist(), n.tolist())))
+    return out
+
+
+def certify_forest(a, b, label, rows, capped=False):
+    """Every tree of ``a`` against ``b``'s under :func:`certified_trees`
+    (``rows``: :func:`leaf_rows` of ``b``; the logistic quanta bound).
+    Returns (trees the same in full, near-tie nodes by tree, largest leaf
+    gap)."""
+    tp = b.tree_param
+    if len(a.gbm.trees) != len(b.gbm.trees):
+        raise AssertionError(f"{label}: {len(a.gbm.trees)} trees against "
+                             f"{len(b.gbm.trees)}")
+    full, ties, gap = 0, {}, 0.0
+    for t, (ta, tb) in enumerate(zip(a.gbm.trees, b.gbm.trees)):
+        tie, g, _ = certified_trees(ta, tb, f"{label} tree {t}", tp.eta,
+                                    tp.reg_lambda, LOGISTIC_QUANTA, rows[t],
+                                    capped=capped)
+        gap = max(gap, g)
+        if tie:
+            ties[t] = tie
+        else:
+            full += 1
+    return full, ties, gap
+
+
+def timed_train(xt, label, params, dtr, rounds, **kw):
+    """``train`` under the launch counts (:func:`train_launches`) with a
+    :class:`RoundClock`: (booster, counts, seconds of each round)."""
+    clock = RoundClock()
+    bst, counts = train_launches(label, lambda: xt.train(
+        params, dtr, rounds, verbose_eval=False, callbacks=[clock.callback],
+        **kw))
+    return bst, counts, clock.seconds()
+
+
+# one level of one shard of the phase's 4-shard mesh for each kernel its
+# runs launch: K4 under ``auto`` and ``scan``, K2 under ``pallas``, K5
+# under ``fused`` (levels of 128 nodes), K3 at depth 10's 256 and 512
+MESH_SHARD_LEVELS = (("hist_scan", 128), ("hist_int8x2", 128),
+                     ("fused_advance_coarse", 128), ("hist_f32", 256),
+                     ("hist_f32", 512))
+
+
+def mesh_shard_kernels(dev, dtr, mesh):
+    """Each kernel of the ``distributed`` phase at one level of one shard
+    of ``mesh``, at its real shape: ``dtr``'s bins cut into the mesh's
+    shards as the trainer cuts them (``data/binned.py shard_binned``),
+    logistic gradients at a seeded margin, and the quantiser keywords the
+    growers hand every shard (``RowShards.scale`` over all the shards'
+    gradients: the int8x2 ``max_abs`` and K3's ``total_rows``), on the
+    shard whose own max |g| is furthest below the mesh's. Each wrapper is
+    called with those keywords as the growers call it (``build_hist``
+    under ``auto``, ``pallas`` and at depth 10's levels,
+    ``scan_level_hists``, ``fused_advance_coarse``), must launch its
+    kernel, and is held bit for bit against the plain version on the same
+    card tensors; each kernel also on two launches with the totals
+    against the row sums (:func:`check_hist`), then timed at that shape.
+    Returns ({kernel: max |kernel - plain|}, {(kernel, N): (ms, plain_ms,
+    library_ms, bound)})."""
+    from xgboost_tpu_torch.data.binned import shard_binned
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.ops.partition import level_rel
+
+    bm = dtr.binned(HIGGS_PARAMS["max_bin"], dev)
+    B, hm = bm.max_nbins, bm.has_missing
+    missing = B - 1 if hm else B
+    shards = shard_binned(bm, mesh).bins
+    y = torch.from_numpy(dtr.get_label()).to(dev)
+    if shards.bounds[-1] != y.shape[0]:
+        raise AssertionError("the mesh's shards pad rows; pick a row count "
+                             "that the shard count divides")
+    g = torch.Generator(device=dev).manual_seed(150)
+    p = torch.sigmoid(torch.randn(y.shape[0], generator=g, device=dev))
+    gps = shards.split(torch.stack([p - y, p * (1 - p)], 1).contiguous())
+    scale = shards.scale(gps)
+    own = [H.abs_max(gp) for gp in gps]
+    d = min(range(len(gps)), key=lambda k: float(own[k][0]))
+    b, gp = shards.parts[d], gps[d]
+    m = b.shape[0]
+    if torch.equal(own[d], scale["max_abs"]) or scale["total_rows"] == m:
+        raise AssertionError("the mesh's scale is shard "
+                             f"{d}'s own: the check would not tell them "
+                             "apart")
+    q, inv = H.quantise_int8x2(gp, scale["max_abs"])
+    qs, inv3 = H.fixed_point_scale(gp, scale["max_abs"], scale["total_rows"])
+    qs_own, _ = H.fixed_point_scale(gp)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def same(label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"mesh shard {label}: the wrapper with the mesh's scale "
+                f"differs from the plain version (max "
+                f"{float((got.double() - want.double()).abs().max())})")
+        return float((got - want).abs().max())
+
+    def launched(name, call, times=1):
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        if read_counts()[name] != times:
+            raise AssertionError(f"mesh shard: the wrapper did not launch "
+                                 f"{name}")
+        return out
+
+    errs, timed = {}, {}
+    for i, (name, N) in enumerate(MESH_SHARD_LEVELS):
+        label = f"{name} shard {d} of {mesh.size}, {m} x {b.shape[1]} N={N}"
+        gg = torch.Generator(device=dev).manual_seed(160 + i)
+        if name == "fused_advance_coarse":
+            pos, prev = level_state(b, B, N, dev, 160 + i)
+            lo = 2 * prev.lo + 1
+            runs = launched(name, lambda: [H.fused_advance_coarse(
+                b, gp, pos, prev, lo, N, missing, **scale)
+                for _ in range(2)], times=2)
+            want_pos, want = H.fused_advance_coarse_reference(
+                b, q, inv, pos, prev, lo, N, missing)
+            errs[name] = max(max(same(f"{label} positions", rp, want_pos),
+                                 same(label, rh, want)) for rp, rh in runs)
+            n_active = int((level_rel(want_pos, lo, N) < N).sum())
+            timed[(name, N)] = (
+                event_ms(lambda: K.fused_advance_coarse_cuda(
+                    b, q, inv, pos, prev, lo, N, missing), reps=20,
+                    flush=flush),
+                event_ms(lambda: H.fused_advance_coarse_reference(
+                    b, q, inv, pos, prev, lo, N, missing), reps=5),
+                None, fused_bound_ms(b, N, n_active))
+            continue
+        rel = torch.randint(0, N, (m,), generator=gg, device=dev,
+                            dtype=torch.int32)
+        rel = torch.where(torch.rand(m, generator=gg, device=dev) < 0.1,
+                          torch.full_like(rel, N), rel).contiguous()
+        method = "pallas" if name == "hist_int8x2" else "auto"
+        got = launched(name, lambda: H.build_hist(
+            b, gp, rel, N, B, method=method, has_missing=hm, **scale))
+        if name == "hist_f32":
+            want = H.build_hist_f32_reference(b, gp, rel, qs, inv3, N, B)
+        elif name == "hist_scan":
+            want = H.build_hist_scan_reference(b, q, rel, inv, N, B)
+        else:
+            want = H.build_hist_int8x2_reference(b, q, rel, inv, N, B)
+        errs[name] = max(errs.get(name, 0.0), same(label, got, want))
+        if name == "hist_scan":
+            fine, coarse = launched(name, lambda: H.scan_level_hists(
+                b, gp, rel, N, B, missing, **scale))
+            acc = H.scan_acc_reference(b, q, rel, N, B)
+            same(f"{label} scan fine", fine, H.dequant_int8x2(acc, inv))
+            same(f"{label} scan coarse", coarse, H.dequant_int8x2(
+                H.coarse_fold(acc, missing), inv))
+        errs[name] = max(errs[name], check_hist(
+            b, gp, rel, N, B, f"mesh {label}", only=(name,),
+            scale=scale)[name])
+        t, n_active = time_hist(b, gp, rel, N, B, flush, only=(name,),
+                                scale=scale)
+        ms, plain_ms, lib_ms = t[name]
+        timed[(name, N)] = (ms, plain_ms, lib_ms, hist_bound_ms(
+            b, N, B, n_active, 2 if name in k3_precisions() else 4))
+    del flush
+    log(f"distributed kernels at one level of shard {d} ({m} x "
+        f"{b.shape[1]}, {B} slots) with the mesh's scale (max |g|, |h| "
+        f"{scale['max_abs'].tolist()} over {mesh.size} shards against the "
+        f"shard's own {own[d].tolist()}; K3's fixed point over "
+        f"{scale['total_rows']} rows {qs.tolist()} against the shard's own "
+        f"{qs_own.tolist()}): every wrapper launched its kernel and equals "
+        f"the plain version bit for bit; "
+        + "; ".join(f"{k} N={N} {ms:.6f} ms (plain {pm:.6f}, bound "
+                    f"{bd[0]:.6f} {bd[1]})"
+                    for (k, N), (ms, pm, _, bd) in timed.items()))
+    return errs, timed
+
+
+def distributed(xt, dev, tmp):
+    """The ``distributed`` phase (module docstring): returns (the main-path
+    runs' launch counts, a summary dict)."""
+    from xgboost_tpu_torch.context import Mesh
+    from xgboost_tpu_torch.parallel import collective
+    from xgboost_tpu_torch.parallel.collective import (
+        InMemoryCommunicator, set_thread_local_communicator)
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    runs, summary = [], {"s_round": {}}
+    X, y = higgs_like(DIST_ROWS + DIST_TEST_ROWS, 28, seed=0)
+    Xtr, ytr = X[:DIST_ROWS], y[:DIST_ROWS]
+    dtr = xt.DMatrix(Xtr, label=ytr)
+    dte = xt.DMatrix(X[DIST_ROWS:], label=y[DIST_ROWS:])
+    mesh = Mesh([dev] * DIST_SHARDS)
+    summary["shard_kernels"] = mesh_shard_kernels(dev, dtr, mesh)
+
+    def pair(label, params, rounds, levels, kernels, shards=DIST_SHARDS,
+             data=dtr, rows_x=Xtr, labels=ytr, capped=False,
+             per_level=None):
+        """``params`` on one device and on the mesh of ``shards`` shards
+        of ``dev``: launches, each round held under the certificate
+        (:func:`round_by_round`), predictions at rtol 1e-5 + atol 1e-5,
+        seconds a round."""
+        m = Mesh([dev] * shards)
+        one, c1, s1 = timed_train(xt, f"{label} one device", params, data,
+                                  rounds)
+        msh, cm, sm = timed_train(xt, f"{label} {shards}-shard mesh",
+                                  dict(params, mesh=m), data, rounds)
+        runs.extend([c1, cm])
+        for k in kernels:
+            want = shards * (per_level[k] if per_level else levels) * rounds
+            if cm[k] != want or c1[k] * shards != cm[k]:
+                raise AssertionError(
+                    f"{label}: {k} launched {cm[k]} times on the mesh and "
+                    f"{c1[k]} on one device, want {want} = {shards} shards "
+                    f"x {per_level[k] if per_level else levels} x {rounds} "
+                    "rounds")
+        full, ties, gap, pgap = round_by_round(
+            xt, label, params, dict(params, mesh=m), one, rows_x, labels,
+            rounds, capped)
+        # end to end the two runs' margins part by the leaf gaps and feed
+        # them to the next round's gradients: reported, with a gross bound
+        pa = msh.predict(xt.DMatrix(rows_x))
+        pb = one.predict(xt.DMatrix(rows_x))
+        if not np.abs(pa - pb).max() < 1e-3:
+            raise AssertionError(f"{label}: mesh predictions differ by "
+                                 f"{np.abs(pa - pb).max()} end to end")
+        summary["s_round"][label] = {"one": s1, "mesh": sm}
+        log(f"distributed {label}: {shards} shards of {dev}, {full} of "
+            f"{len(one.gbm.trees)} trees the same in full"
+            + (f", near ties at {ties}" if ties else "")
+            + f", largest leaf gap {gap:.3e}, predictions from one margin "
+            f"within {pgap:.3e} (end to end {np.abs(pa - pb).max():.3e}); "
+            f"seconds a round one device "
+            f"{s1}, mesh {sm}; launches mesh "
+            f"{ {k: cm[k] for k in kernels} } = {shards} x one device's "
+            f"{ {k: c1[k] for k in kernels} } [{card}]")
+        return msh, one
+
+    # -- the mesh against one device: auto (K4 a shard), pallas (K2),
+    # fused (K5 + K2), depth 10 (K4 and K3 above 128 nodes)
+    p = dict(HIGGS_PARAMS)
+    msh, one = pair("auto", p, DIST_ROUNDS, 8, ("hist_scan",))
+    again, c2, _ = timed_train(xt, "auto mesh again", dict(p, mesh=mesh),
+                               dtr, DIST_ROUNDS)
+    runs.append(c2)
+    if digest(again) != digest(msh):
+        raise AssertionError("two runs of the mesh gave two models")
+    summary["mesh_sha"] = digest(msh)
+    pair("pallas", dict(p, hist_method="pallas"), DIST_ROUNDS, 8,
+         ("hist_int8x2",))
+    pair("fused", dict(p, hist_method="fused"), DIST_ROUNDS, 8,
+         ("fused_advance_coarse", "hist_int8x2"),
+         per_level={"fused_advance_coarse": 7, "hist_int8x2": 9})
+    pair("depth 10", dict(p, max_depth=10), DIST_ROUNDS, 8,
+         ("hist_scan", "hist_f32"),
+         per_level={"hist_scan": 8, "hist_f32": 2})
+
+    # -- lossguide at 255 leaves: K4 a shard for each pair
+    lg = dict(p, grow_policy="lossguide", max_leaves=255)
+    one, c1, s1 = timed_train(xt, "lossguide one device", lg, dtr,
+                              DIST_LG_ROUNDS)
+    msh, cm, sm = timed_train(xt, "lossguide mesh", dict(lg, mesh=mesh),
+                              dtr, DIST_LG_ROUNDS)
+    runs.extend([c1, cm])
+    full, ties, gap, _ = round_by_round(xt, "lossguide", lg,
+                                        dict(lg, mesh=mesh), one, Xtr, ytr,
+                                        DIST_LG_ROUNDS, capped=True)
+    if cm["hist_scan"] % DIST_SHARDS or not cm["hist_scan"] or (
+            not ties and cm["hist_scan"] != DIST_SHARDS * c1["hist_scan"]):
+        raise AssertionError(f"lossguide: K4 launched {cm['hist_scan']} "
+                             f"times on the mesh, {c1['hist_scan']} on one "
+                             "device")
+    summary["s_round"]["lossguide"] = {"one": s1, "mesh": sm}
+    log(f"distributed lossguide 255 leaves: {full} of {len(one.gbm.trees)} "
+        f"trees the same in full" + (f", near ties at {ties}" if ties
+                                     else "")
+        + f", largest leaf gap {gap:.3e}; K4 {cm['hist_scan']} on the mesh, "
+        f"{c1['hist_scan']} on one device; seconds a round {s1} / {sm} "
+        f"[{card}]")
+
+    # -- vector leaves at the MediaMill shape on a 2-shard mesh
+    Xm, Ym = mediamill_like(seed=7)
+    dmm = xt.DMatrix(Xm[:MM_TRAIN_ROWS], label=Ym[:MM_TRAIN_ROWS])
+    mp = dict(MM_PARAMS, multi_strategy="multi_output_tree")
+    one, c1, s1 = timed_train(xt, "vector leaves one device", mp, dmm,
+                              DIST_MM_ROUNDS)
+    m2 = Mesh([dev] * DIST_MM_SHARDS)
+    msh, cm, sm = timed_train(xt, "vector leaves mesh", dict(mp, mesh=m2),
+                              dmm, DIST_MM_ROUNDS)
+    runs.extend([c1, cm])
+    want = DIST_MM_SHARDS * MM_LABELS * MM_PARAMS["max_depth"] \
+        * DIST_MM_ROUNDS
+    if cm["hist_int8x2"] != want:
+        raise AssertionError(f"vector leaves: K2 launched "
+                             f"{cm['hist_int8x2']} times on the mesh, want "
+                             f"{want}")
+    _, ties, gap, _ = round_by_round(xt, "vector leaves", mp,
+                                  dict(mp, mesh=m2), one, Xm[:MM_TRAIN_ROWS],
+                                  Ym[:MM_TRAIN_ROWS], DIST_MM_ROUNDS,
+                                  vector=True)
+    summary["s_round"]["vector leaves"] = {"one": s1, "mesh": sm}
+    log(f"distributed vector leaves ({MM_LABELS} labels, "
+        f"{DIST_MM_SHARDS} shards): K2 {cm['hist_int8x2']} on the mesh, "
+        f"{c1['hist_int8x2']} on one device"
+        + (f", near ties at {ties}" if ties else "")
+        + f", largest leaf gap {gap:.3e}; seconds a round {s1} / {sm} "
+        f"[{card}]")
+
+    # -- approx on the 4-shard mesh: the sketch over every shard's rows
+    ap = dict(p, tree_method="approx")
+    res = {}
+    one, c1, s1 = timed_train(xt, "approx one device", ap, dtr, DIST_ROUNDS)
+    msh, cm, sm = timed_train(xt, "approx mesh", dict(ap, mesh=mesh), dtr,
+                              DIST_ROUNDS, evals=[(dte, "test")],
+                              evals_result=res)
+    runs.extend([c1, cm])
+    ll = res["test"]["logloss"]
+    if not ll[-1] < ll[0]:
+        raise AssertionError(f"approx mesh: held-out logloss {ll} did not "
+                             "fall")
+    full, ties, gap, _ = round_by_round(xt, "approx", ap,
+                                        dict(ap, mesh=mesh), one, Xtr, ytr,
+                                        DIST_ROUNDS)
+    summary["s_round"]["approx"] = {"one": s1, "mesh": sm}
+    log(f"distributed approx: held-out logloss {ll}; {full} of "
+        f"{len(one.gbm.trees)} trees the same in full"
+        + (f", near ties at {ties}" if ties else "")
+        + f", largest leaf gap {gap:.3e}; seconds a round {s1} / {sm} "
+        f"[{card}]")
+
+    # -- two OS processes on this card over gloo, each with half the rows
+    world = 2
+    rdv = os.path.join(tmp, "rdv")
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "dist_worker.py")
+    with open(script, "w") as fh:
+        fh.write(DIST_WORKER)
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, root, str(r), str(world),
+         "file://" + rdv, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        logs = [pr.communicate(timeout=600)[0].decode(errors="replace")
+                for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    t_procs = time.perf_counter() - t0
+    for r, pr in enumerate(procs):
+        if pr.returncode != 0:
+            raise AssertionError(f"rank {r} failed:\n{logs[r][-4000:]}")
+    ranks = [json.load(open(o)) for o in outs]
+    if ranks[0]["sha"] != ranks[1]["sha"]:
+        raise AssertionError(f"the two processes gave two models: "
+                             f"{[r['sha'] for r in ranks]}")
+    for r in ranks:
+        want = (DIST_ROUNDS * 8, 0)
+        got = (r["counts"]["hist_scan"], r["counts"]["hist_int8x2"])
+        if got != want:
+            raise AssertionError(f"rank {r['rank']} launched K4/K2 {got}, "
+                                 f"want {want}")
+        runs.append(r["counts"])
+    # the in-process 2-shard mesh with the two ranks' merged cuts
+    merged = [None] * world
+    comms = InMemoryCommunicator.make_world(world)
+    m = DIST_ROWS // world
+
+    def sketch(r):
+        merged[r] = collective.distributed_sketch(
+            Xtr[r * m:(r + 1) * m], HIGGS_PARAMS["max_bin"], comm=comms[r])
+
+    threads = [threading.Thread(target=sketch, args=(r,))
+               for r in range(world)]
+    [t.start() for t in threads]
+    [t.join() for t in threads]
+
+    class Cuts:
+        def cuts(self, max_bin):
+            return merged[0]
+
+    dq = xt.QuantileDMatrix(Xtr, label=ytr, max_bin=HIGGS_PARAMS["max_bin"],
+                            ref=Cuts())
+    ref2, c_ref, s_ref = timed_train(xt, "2-shard mesh", dict(
+        p, base_score=0.5, mesh=Mesh([dev] * world)), dq, DIST_ROUNDS)
+    runs.append(c_ref)
+    proc_bst = xt.Booster({"device": str(dev)},
+                          model_file=open(outs[0] + ".ubj", "rb").read())
+    full, ties, gap = certify_forest(proc_bst, ref2, "two processes",
+                                     leaf_rows(ref2, Xtr))
+    summary.update(procs_s_round=[r["s_round"] for r in ranks],
+                   procs_collective_s=[r["collective_s"] for r in ranks],
+                   procs_round_collective_s=[r["round_collective_s"]
+                                             for r in ranks],
+                   procs_setup_collective_s=[r["setup_collective_s"]
+                                             for r in ranks],
+                   procs_wall=t_procs, mesh2_s_round=s_ref,
+                   procs_sha=ranks[0]["sha"])
+    same = hashlib.sha256(bytes(ref2.save_raw("ubj"))).hexdigest() \
+        == ranks[0]["sha"]
+    log(f"distributed two processes (gloo, {dev} each, {m} rows each): one "
+        f"sha256 {ranks[0]['sha'][:16]}... ({'the' if same else 'not the'} "
+        f"in-process mesh's bytes), against the in-process 2-shard "
+        f"mesh on the merged cuts: {full} of {len(ref2.gbm.trees)} trees "
+        f"the same in full" + (f", near ties at {ties}" if ties else "")
+        + f", largest leaf gap {gap:.3e}; seconds a round "
+        f"{[r['s_round'] for r in ranks]} (2-shard mesh {s_ref}); the "
+        f"collective's host time a round "
+        f"{[r['round_collective_s'] for r in ranks]} s, before the first "
+        f"round (the sketch merge) {[r['setup_collective_s'] for r in ranks]}"
+        f" s, in all {[r['collective_s'] for r in ranks]} s of "
+        f"train_per_host's {[r['wall'] for r in ranks]} s; both processes "
+        f"{t_procs:.3f} s with imports [{card}]")
+
+    # -- paged ranks: two thread ranks, each 2 of the first 4 pages
+    env_keep = {k: os.environ.get(k) for k in ("XTPU_PAGED_COLLAPSE",
+                                               "XTPU_PAGE_ROWS")}
+    os.environ.update(XTPU_PAGED_COLLAPSE="0",
+                      XTPU_PAGE_ROWS=str(EXT_BATCH_ROWS))
+    try:
+        n_all = DIST_PAGES * EXT_BATCH_ROWS
+        full_dm = xt.QuantileDMatrix(higgs_batches(
+            xt, n_all, 28, os.path.join(tmp, "all")), max_bin=256)
+        paged_p = dict(HIGGS_PARAMS, base_score=0.5)
+        one, c1, s1 = timed_train(xt, "paged one rank", paged_p, full_dm,
+                                  DIST_PAGED_ROUNDS)
+        runs.append(c1)
+        rank_dms = []
+        for r in range(world):
+            class Half(xt.DataIter):
+                def __init__(self, r=r):
+                    super().__init__(os.path.join(tmp, f"rank{r}"))
+                    self.r, self.i = r, 0
+
+                def next(self, input_data):
+                    if self.i == DIST_PAGES // world:
+                        return 0
+                    X_, y_ = higgs_batch(EXT_SEED, self.r * (DIST_PAGES //
+                                         world) + self.i, EXT_BATCH_ROWS, 28)
+                    input_data(data=X_, label=y_)
+                    self.i += 1
+                    return 1
+
+                def reset(self):
+                    self.i = 0
+
+            # the one rank's cuts: the ranks' allreduced histograms are
+            # then compared with one rank's over the same bins
+            rank_dms.append(xt.QuantileDMatrix(Half(), max_bin=256,
+                                               ref=full_dm))
+        # each rank round: from the one rank's model before it (a
+        # continuation walks its trees to the same margins), so that the
+        # ranks and the one rank grow from one margin
+        shas, c_ranks, out = [], [], [None] * world
+        ties, gap = {}, 0.0
+        for r in range(DIST_PAGED_ROUNDS):
+            before = bytes(one[0:r].save_raw("ubj")) if r else None
+            comms = InMemoryCommunicator.make_world(world)
+            errs_t = []
+
+            def paged_rank(k, before=before, comms=comms, errs_t=errs_t):
+                set_thread_local_communicator(comms[k])
+                try:
+                    clock = RoundClock()
+                    b = xt.train(paged_p, rank_dms[k], 1, xgb_model=before,
+                                 verbose_eval=False,
+                                 callbacks=[clock.callback])
+                    out[k] = (b, clock.seconds())
+                except BaseException as e:  # noqa: BLE001 - re-raised below
+                    errs_t.append(e)
+                finally:
+                    set_thread_local_communicator(None)
+
+            reset_counts()
+            threads = [threading.Thread(target=paged_rank, args=(k,))
+                       for k in range(world)]
+            [t.start() for t in threads]
+            [t.join() for t in threads]
+            torch.cuda.synchronize()
+            c_ranks.append(read_counts())
+            if errs_t:
+                raise errs_t[0]
+            got = [digest(b) for b, _ in out]
+            if got[0] != got[1]:
+                raise AssertionError(f"paged ranks gave two models in round "
+                                     f"{r}: {got}")
+            shas.append(got[0])
+            if r == 0:
+                Xp = np.concatenate([higgs_batch(EXT_SEED, i, EXT_BATCH_ROWS,
+                                                 28)[0]
+                                     for i in range(DIST_PAGES)])
+                rows = leaf_rows(one, Xp)
+                del Xp
+            tie, g, _ = certified_trees(
+                out[0][0].gbm.trees[r], one.gbm.trees[r],
+                f"paged ranks round {r}", one.tree_param.eta,
+                one.tree_param.reg_lambda, LOGISTIC_QUANTA, rows[r])
+            gap = max(gap, g)
+            if tie:
+                ties[r] = tie
+        runs.extend(c_ranks)
+        k4 = sum(c["hist_scan"] for c in c_ranks)
+        if k4 != c1["hist_scan"]:
+            raise AssertionError(f"paged ranks launched K4 {k4} times, one "
+                                 f"rank {c1['hist_scan']}")
+        full = sum(1 for r in range(DIST_PAGED_ROUNDS) if r not in ties)
+        summary["s_round"]["paged"] = {"one": s1,
+                                       "ranks": [s for _, s in out]}
+        log(f"distributed paged ranks ({world} thread ranks x "
+            f"{DIST_PAGES // world} pages of {EXT_BATCH_ROWS}): one sha256 "
+            f"a round {[h[:16] for h in shas]}, against one rank over "
+            f"{DIST_PAGES} pages round by round: "
+            f"{full} of {len(one.gbm.trees)} trees the same in full"
+            + (f", near ties at {ties}" if ties else "")
+            + f", largest leaf gap {gap:.3e}; K4 {k4} "
+            f"across the ranks, {c1['hist_scan']} one rank; seconds a round "
+            f"one rank {s1}, ranks {[s for _, s in out]} [{card}]")
+    finally:
+        for k, v in env_keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return runs, summary
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -5822,6 +6523,60 @@ def levels_of(root: str) -> int:
     return 0
 
 
+def rounds_of(root: str) -> int:
+    """``--rounds-of``: seconds a round with the port in ``root``, through
+    the calls every version has: :func:`seconds_per_round` of ``auto``,
+    ``coarse``, ``fused`` and ``scan`` on 1,000,000 x 28 of
+    ``higgs_like`` at depth 8 (the main path's runs), and
+    :func:`paged_rounds` of the external-memory phase's matrices (11
+    pages of 1,000,000 rows, 4 of them cached: ``auto``, 6 rounds; its
+    u4 run at ``max_bin`` 16, 4 rounds). Prints one JSON line with every
+    round's seconds and the medians after the first."""
+    sys.path.insert(0, os.path.abspath(root))
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops.cuda import build
+
+    if not xt.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"imported {xt.__file__}, not the port in "
+                             f"{root}")
+    card = gpu_line()
+    log(f"gpu: {card}; port from {os.path.abspath(root)}")
+    build.build_all(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    dev = torch.device("cuda")
+    X, y = higgs_like(1_000_000, 28, seed=0)
+    dtr = xt.DMatrix(X, label=y)
+    out = {}
+    for method in ("auto", "coarse", "fused", "scan"):
+        _, per, med = seconds_per_round(dict(HIGGS_PARAMS,
+                                             hist_method=method), dtr)
+        out[method] = {"rounds": per, "median": med}
+        log(f"rounds of {method}: {per}, median of rounds 1-5 {med:.6f} s")
+    page = EXT_BATCH_ROWS * 28
+    os.environ.update({"XTPU_PAGED_COLLAPSE": "0",
+                       "XTPU_PAGE_CACHE_BYTES": str(EXT_CACHED_PAGES * page)})
+    with tempfile.TemporaryDirectory(prefix="xtt_rounds_") as tmp:
+        for label, max_bin, rounds in (("external memory", 256, 6),
+                                       ("external memory u4", 16, 4)):
+            dm = xt.QuantileDMatrix(higgs_batches(
+                xt, EXT_ROWS, 28, f"{tmp}/b{max_bin}"), max_bin=max_bin)
+            paged = dm.binned(max_bin, dev)
+            _, per, _ = paged_rounds(xt, dict(HIGGS_PARAMS, max_bin=max_bin),
+                                     dm, paged, rounds=rounds)
+            secs = [r[0] for r in per]
+            out[label] = {"rounds": secs,
+                          "median": float(np.median(secs[1:])),
+                          "uploads": [r[1] for r in per],
+                          "overlap": [r[3] for r in per]}
+            log(f"rounds of {label}: {secs}, median after the first "
+                f"{out[label]['median']:.6f} s, uploads "
+                f"{out[label]['uploads']}, overlap {out[label]['overlap']}")
+            del dm, paged
+    print(json.dumps({"rounds_of": os.path.abspath(root), "card": card,
+                      **out}))
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5829,8 +6584,11 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--levels-of":
         return levels_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--rounds-of":
+        return rounds_of(sys.argv[2])
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--levels-of DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--levels-of DIR | --rounds-of DIR]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import xgboost_tpu_torch as xt
@@ -6554,6 +7312,15 @@ def main() -> int:
         f"re-sketch {plo['resketch_s']} s a round, gblinear "
         f"{plo['gblinear_s']:.6f} s a round [{card}]")
 
+    # ---- main path: row-split distributed training (a data mesh of shards
+    # on this card, two gloo processes, paged ranks)
+    with tempfile.TemporaryDirectory(prefix="xtt_dist_") as tmp:
+        dist_runs, dist = distributed(xt, dev, tmp)
+    log(f"distributed: {dist['phase_s']:.1f} s; seconds a round "
+        f"{dist['s_round']}; two processes {dist['procs_s_round']} s a "
+        f"round, collective host time {dist['procs_collective_s']} s; mesh "
+        f"sha256 {dist['mesh_sha']} [{card}]")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -6651,7 +7418,7 @@ def main() -> int:
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
             *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
-            *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs]
+            *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -6783,6 +7550,22 @@ def main() -> int:
         "max_abs_err": hist_errs["fused_advance_coarse"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None})
+    # the distributed phase's kernels at one level of one mesh shard, with
+    # the scale reduced over the shards (``mesh_shard_kernels``)
+    sk_errs, sk_times = dist["shard_kernels"]
+    where = {"hist_scan": ":478", "hist_int8x2": ":621", "hist_f32": ":634",
+             "fused_advance_coarse": ":344"}
+    for (name, N), (ms, plain_ms, lib_ms, bound) in sk_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/hist.cu",
+            "replaces": "xgboost_tpu/ops/pallas/histogram.py" + where[name],
+            "shape": f"mesh shard {DIST_ROWS // DIST_SHARDS} x 28 of "
+                     f"{DIST_SHARDS}, scale over the shards, N={N}",
+            "launches": sum(c[name] for c in dist_runs),
+            "max_abs_err": sk_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ PagedBinnedMatrix``, ``tree/paged.py``). Held against the JAX package:
   budgets of 0, 2 pages and all pages and under packed and unpacked
   transport;
 - evaluation, continuation and ``predict`` on a paged matrix; the
-  collapse to the resident tier and its budget; the ring's page counts;
+  collapse to the resident tier and its budget; the ring's page counts,
+  its lead and the streamed pages it keeps alive;
   the configurations the port does not run yet (the paged two-level
   schedules, growers, approx, gblinear and appends are
   ``tests/test_torch_paged_two_level.py`` and
@@ -29,6 +30,9 @@ PagedBinnedMatrix``, ``tree/paged.py``). Held against the JAX package:
 Small sizes (6,000 rows, pages of 500, depth 3-4, 3 rounds); the JAX
 package trains each configuration once.
 """
+
+import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -370,6 +374,61 @@ def test_ring_uploads_streamed_pages_once_a_pass(tmp_path, monkeypatch):
     paged.reset_ring_stats()
     assert paged.ring_stats["uploads"] == 0
     assert paged.streaming_overlap() is None
+
+
+def test_ring_keeps_its_lead_and_at_most_depth_plus_one_pages(
+        tmp_path, monkeypatch):
+    """A pass over 12 streamed pages with a ring of 3 (``tree/paged.py
+    _PageKernels._drive``): the upload of page i + 3 has begun while the
+    pass works on page i, and when it is asked for (where the ring takes
+    its device memory) only pages i .. i + 2 are alive: the pass and the
+    ring let go of page i - 1 before they take page i, so at most 4
+    streamed pages live at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from xgboost_tpu_torch.data import binned as binned_mod
+    from xgboost_tpu_torch.tree.paged import _PageKernels
+
+    _set(monkeypatch, XTPU_PAGE_CACHE_BYTES=0, XTPU_PAGE_RING=3)
+    X, y = _data(31, nan=0.0)
+    tq = xt.QuantileDMatrix(PortIter(X, y, 5, cache_prefix=str(
+        tmp_path / "lead")), max_bin=64)
+    paged = tq.binned(64, CPU)
+    depth = paged.ring_depth
+    starts = list(range(0, ROWS, PAGE))
+    started = {s: threading.Event() for s in starts}
+    live, alive_at_ask = [], []
+    fetch = paged._fetch
+
+    def counted(s, slot, device, raw=None):
+        started[s].set()
+        out = fetch(s, slot, device, raw)
+        live.append(weakref.ref(out[1][1]))
+        return out
+
+    class Asked(ThreadPoolExecutor):
+        """Counts the live pages as each upload is asked for (on the
+        pass's thread)."""
+
+        def submit(self, fn, *args, **kwargs):
+            alive_at_ask.append(sum(r() is not None for r in live))
+            return super().submit(fn, *args, **kwargs)
+
+    monkeypatch.setattr(paged, "_fetch", counted)
+    monkeypatch.setattr(binned_mod, "ThreadPoolExecutor", Asked)
+    lead = []
+
+    def body(carry, page, s, e, uploaded):
+        i = s // PAGE
+        if i + depth < len(starts):
+            lead.append(started[starts[i + depth]].wait(timeout=10))
+        return carry + int(uploaded)
+
+    assert depth == 3
+    assert _PageKernels._drive(paged, CPU, body, 0) == len(starts)
+    assert lead == [True] * (len(starts) - depth)
+    assert len(alive_at_ask) == len(starts)
+    assert 1 <= min(alive_at_ask[depth:]) and max(alive_at_ask) <= depth
 
 
 def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):

@@ -26,17 +26,22 @@ and ``python -m xgboost_tpu_torch <config> [key=value ...]`` is the
 command line (train / dump / pred / serve: ``serve.frontend``, the HTTP
 and jsonl front ends over one ``serve.Server`` or a ``serve.FleetRouter``
 of several). A gradient with NaN or Inf raises ``NumericalDivergence``
-unless ``XTPU_NAN_POLICY`` says ``zero`` or ``off``. Entry points run on
-the card unless the caller asks for ``device="cpu"``.
+unless ``XTPU_NAN_POLICY`` says ``zero`` or ``off``. Row-split
+training runs over a data mesh of row shards (``params["mesh"] =
+make_data_mesh()``; a device may repeat) and across processes
+(``parallel.launch.train_per_host`` over ``torch.distributed``, the host
+communicators of ``parallel.collective``). Entry points run on the card
+unless the caller asks for ``device="cpu"``.
 """
 
 from . import callback
-from .context import Context, resolve_device
+from .context import Context, Mesh, make_data_mesh, resolve_device
 from .config import config_context, get_config, set_config
 from .core import Booster, train
 from .data.dmatrix import DataIter, DMatrix, QuantileDMatrix
 from .interop import load_xgboost_model, save_xgboost_model
 from .objective.base import NumericalDivergence
+from .parallel import collective
 from .sklearn import (XGBClassifier, XGBModel, XGBRanker, XGBRegressor,
                       XGBRFClassifier, XGBRFRegressor)
 from .training import cv
@@ -45,6 +50,7 @@ from .utils.checkpoint import CheckpointConfig, TrainingSnapshot
 __version__ = "0.1.0"
 
 __all__ = ["Booster", "CheckpointConfig", "Context", "DataIter", "DMatrix",
+           "Mesh", "collective", "make_data_mesh",
            "QuantileDMatrix", "TrainingSnapshot", "XGBClassifier", "XGBModel", "XGBRanker", "XGBRegressor",
            "NumericalDivergence", "XGBRFClassifier", "XGBRFRegressor", "callback",
            "config_context", "cv", "get_config", "load_xgboost_model",

@@ -32,6 +32,15 @@ The grower is kept, its cuts swapped, while the bin slots are unchanged
 and no feature is categorical (the JAX package's rule), else rebuilt.
 ``tree_method="exact"`` grows with ``tree/exact.py`` over the matrix's
 rank encoding, without column sampling, as the JAX package does.
+
+Under a data mesh the Booster hands ``do_boost`` the matrix cut into the
+mesh's shards (``data/binned.py shard_binned``: ``bins`` is a
+``tree/shards.py RowShards``, or ``MeshApproxSource`` under ``approx``)
+and gradients over the padded rows, whose pad rows are zero: row
+sampling draws over the padded row count, as the JAX package's mesh
+draws (``gbtree.py:505-508``); the threefry stream is counter-based, so
+the real rows draw one device's bits. ``n_rows`` trims the round's
+delta to the real rows.
 """
 
 from __future__ import annotations
@@ -163,7 +172,8 @@ class GBTree:
     def do_boost(self, binned, gpair: torch.Tensor, key: xrandom.Key,
                  obj=None, margin: Optional[torch.Tensor] = None,
                  labels: Optional[torch.Tensor] = None,
-                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 weights: Optional[torch.Tensor] = None,
+                 n_rows: Optional[int] = None) -> torch.Tensor:
         """gpair [n, K, 2] on the device of ``binned`` and the round's key
         -> margin delta [n, K]; appends the round's K * num_parallel_tree
         trees (class k's trees tagged k in ``tree_info``). ``binned``: the
@@ -175,7 +185,9 @@ class GBTree:
         tree's leaves are refreshed as it is grown (the JAX package's
         ``update_tree_leaf`` hook): ``eta / num_parallel_tree`` times the
         quantile at target k's alpha of the residuals in each leaf, and
-        the round's delta is taken from those leaves."""
+        the round's delta is taken from those leaves. ``n_rows``: the real
+        rows of a mesh's padded gradients (module docstring); the delta
+        covers those."""
         K = gpair.shape[1]
         if K != self.n_groups:
             raise ValueError(f"{K} gradient columns for a forest of "
@@ -192,7 +204,7 @@ class GBTree:
                 raise NotImplementedError(
                     "multi_output_tree requires tree_method=hist")
             return self._do_boost_multi(binned, self._grower_for(binned),
-                                        gpair, key)
+                                        gpair, key)[:n_rows]
         tkeys = [xrandom.fold_in(key, i) for i in range(K * npt)]
         masks = None
         if method == "exact":
@@ -226,9 +238,11 @@ class GBTree:
                 tree = grower.to_tree_model(grown)
                 d = grown.delta
                 if adaptive:
-                    # grower positions -> the compact tree's node ids
+                    # grower positions -> the compact tree's node ids (of
+                    # the real rows under a mesh)
                     pos = torch.from_numpy(tree.heap_map.astype(
-                        np.int64)).to(gp.device)[grown.positions]
+                        np.int64)).to(gp.device)[
+                            grown.positions[:margin.shape[0]]]
                     d = obj.refresh_leaves(
                         tree, pos, margin[:, k], labels, weights, eta,
                         alphas[min(k, len(alphas) - 1)])[pos]
@@ -237,7 +251,7 @@ class GBTree:
                 delta = d if delta is None else delta + d
             deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
-        return torch.stack(deltas, dim=1)
+        return torch.stack(deltas, dim=1)[:n_rows]
 
     def _do_boost_multi(self, binned, grower, gpair: torch.Tensor,
                         key: xrandom.Key) -> torch.Tensor:

@@ -46,6 +46,19 @@ A label matrix [n, K] trains K outputs: one tree a target and round
 (``multi_strategy="one_output_per_tree"``, the default), or one
 vector-leaf tree a round for all K (``"multi_output_tree"``,
 ``tree/multi.py``), whose margins walk as torch ops.
+
+Row-split training (``params["mesh"]``, a ``context.Mesh``; the JAX
+package's ``_make_sharded_train_state``): the growers take the training
+matrix's rows padded to a multiple of the mesh's size and cut into its
+shards (:meth:`Booster._grow_source`), and the round's gradients padded
+with zero rows; the margin caches, labels, evals, predictions and
+snapshots keep the real rows, so they are what one device gives. A
+mesh whose communicator spans processes (``parallel/launch.py``) sums
+its shards' histograms across the ranks too; without one, a resident
+matrix under a multi-rank communicator is refused
+(:meth:`Booster._check_row_comm_sync`), and the paged tier syncs each
+level through the communicator. ``tree_method="exact"`` and
+``gblinear`` refuse a mesh.
 """
 
 from __future__ import annotations
@@ -69,7 +82,8 @@ from .boosting.predict import leaf_positions, margin_raw, stack_trees
 from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
-from .data.binned import ApproxSource, PagedApproxSource
+from .data.binned import (ApproxSource, BinnedMatrix, MeshApproxSource,
+                          PagedApproxSource, shard_binned)
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
@@ -78,6 +92,7 @@ from .objective.adaptive import label_matrix_refusal
 from .objective.base import (NumericalDivergence, Objective,
                              guard_gradient)
 from .objective.survival import sort_by_time
+from .parallel import collective
 from .obs.training_log import TrainingLog
 from .ops import shap as shap_ops
 from .ops.shap import ShapPack, build_shap_pack
@@ -185,6 +200,14 @@ class Booster:
             if k in params:
                 self.ctx = dataclasses.replace(self.ctx,
                                                device=str(params.pop(k)))
+        if "mesh" in params:
+            # a data mesh (``context.Mesh``): row-split training over its
+            # shards; the model's state lives on its first device
+            mesh = params.pop("mesh")
+            if mesh is not None:
+                self.ctx = self.ctx.with_mesh(mesh)
+                if hasattr(self, "device"):
+                    self.device = self.ctx.torch_device()
         if "eval_metric" in params:
             em = params.pop("eval_metric")
             names = em if isinstance(em, (list, tuple)) else [em]
@@ -314,6 +337,10 @@ class Booster:
             raise NotImplementedError(
                 "column-split training is not in the PyTorch port yet "
                 "(ROADMAP A.8)")
+        if booster == "gblinear" and self.ctx.mesh is not None:
+            raise NotImplementedError(
+                "booster=gblinear does not support a device mesh; train "
+                "mesh configs with booster=gbtree or dart")
         ms = self.learner_params.get("multi_strategy", "one_output_per_tree")
         if ms not in ("one_output_per_tree", "multi_output_tree"):
             raise ValueError(f"unknown multi_strategy: {ms}")
@@ -414,6 +441,10 @@ class Booster:
         numbers (ROADMAP C)."""
         if tm == "hist":
             return
+        if tm == "exact" and self.ctx.mesh is not None:
+            raise ValueError("tree_method=exact does not support "
+                             "distributed training (reference ColMaker "
+                             "limitation)")
         if tm == "exact" and self.tree_param.grow_policy == "lossguide":
             raise ValueError("tree_method=exact only supports "
                              "grow_policy=depthwise (reference ColMaker)")
@@ -488,6 +519,13 @@ class Booster:
             else:
                 st["source"] = self._method_source(st)
             st["is_train"] = True
+        if is_train and not getattr(dm, "presharded", False):
+            # checked on every training call: a communicator may come
+            # after the entry (a continuation on a persistent booster),
+            # and a paged matrix the collapse made resident is resident
+            self._check_row_comm_sync(paged=(
+                getattr(st["binned"], "is_paged", False)
+                or isinstance(st.get("source"), PagedApproxSource)))
         if st["margin"] is None and self.base_margin_ is not None:
             n = dm.num_row()
             if dm.info.base_margin is not None:
@@ -519,6 +557,15 @@ class Booster:
         matrix refuses)."""
         dm = st["dm"]
         exact = self._tree_method() == "exact"
+        if getattr(dm, "presharded", False):
+            # sharded ingestion (``parallel/launch.py``): the local X is a
+            # 1/N shard, so exact would silently fit it alone; approx
+            # re-sketches through the merge across ranks every round
+            if exact:
+                raise NotImplementedError(
+                    "tree_method=exact is not supported with sharded "
+                    "multi-process ingestion; use hist or approx")
+            return dm.approx_source(self.tree_param.max_bin, self.device)
         if dm.is_paged and exact:
             raise NotImplementedError(
                 "tree_method=exact rank-encodes the raw matrix and does "
@@ -561,11 +608,60 @@ class Booster:
         """A paged matrix that fits the page-cache budget, as a resident
         ``BinnedMatrix`` on this Booster's device (``PagedBinnedMatrix.
         resident_binned``; ``XTPU_PAGED_COLLAPSE=0`` keeps it paged);
-        anything else as it is."""
-        if not binned.is_paged:
+        anything else as it is. Multi-rank row split keeps the paged
+        tier: its per-level histogram allreduce is the cross-rank sync
+        (:meth:`_check_row_comm_sync`), as in the JAX package."""
+        if not binned.is_paged or collective.get_world_size() > 1:
             return binned
         res = binned.resident_binned(self.device)
         return binned if res is None else res
+
+    def _check_row_comm_sync(self, paged: bool) -> None:
+        """Refuse silently-local training (the JAX package's
+        ``_check_row_comm_sync``, its words): with an active world > 1
+        communicator, row-split training syncs on the external-memory
+        tier (per-level histogram allreduce, ``tree/paged.py``) and on
+        sharded ingestion (``parallel/launch.py``, whose mesh carries the
+        communicator); a resident matrix would fit only its local rows
+        on each rank and diverge without any error."""
+        if paged or self.learner_params.get(
+                "data_split_mode", "row") != "row":
+            return
+        if self.tree_param.process_type == "update":
+            # prune/refresh/sync are rank-local ops on replicated trees
+            # (no histogram build): safe under a communicator
+            return
+        comm = collective.get_communicator()
+        if comm.is_distributed() and comm.get_world_size() > 1:
+            raise NotImplementedError(
+                "row-split training of a RESIDENT matrix under a "
+                "multi-rank communicator is not synchronized (each rank "
+                "would silently fit only its local rows); use "
+                "parallel.launch.train_per_host (sharded ingestion over "
+                "the global mesh) or an external-memory DMatrix (pages "
+                "sync through the communicator)")
+
+    def _grow_source(self, st: Dict[str, Any]):
+        """What the round's trees grow from: the training matrix's bins
+        (or its ``approx`` / ``exact`` source), or, under a data mesh,
+        its rows padded to a multiple of the mesh's size with weight-0
+        rows and cut into the mesh's shards (the JAX package's
+        ``_make_sharded_train_state``; ``data/binned.py shard_binned``,
+        ``MeshApproxSource``), made once a cache entry."""
+        mesh = self.ctx.mesh
+        src = st["binned"] if st["binned"] is not None else st.get("source")
+        if mesh is None:
+            return src
+        if "mesh_source" not in st:
+            if getattr(src, "is_paged", False) or isinstance(
+                    src, PagedApproxSource):
+                raise NotImplementedError(
+                    "paged matrices over a device mesh are not in the "
+                    "PyTorch port yet (ROADMAP A.8)")
+            st["mesh_source"] = (shard_binned(src, mesh)
+                                 if isinstance(src, BinnedMatrix)
+                                 else MeshApproxSource(src, mesh))
+        return st["mesh_source"]
 
     def _binned_for_walk(self, st: Dict[str, Any]):
         """The bins a matrix without raw values (built from an iterator)
@@ -740,7 +836,15 @@ class Booster:
         if refresh and self.obj.info.zero_hess:
             adaptive = dict(obj=self.obj, margin=margin,
                             labels=st["labels"], weights=st["weights"])
-        src = st["binned"] if st["binned"] is not None else st.get("source")
+        src = self._grow_source(st)
+        if self.ctx.mesh is not None:
+            # the mesh's pad rows carry zero gradient (weight 0 in the JAX
+            # package's padded state); row sampling draws over them too
+            n_pad = (src.bins.shape[0] if isinstance(src, BinnedMatrix)
+                     else src.n_pad)
+            gpair = torch.cat([gpair, gpair.new_zeros(
+                (n_pad - gpair.shape[0],) + tuple(gpair.shape[1:]))])
+            adaptive["n_rows"] = st["n"]
         if self.gbm.supports_margin_cache:
             st["margin"] = margin + self.gbm.do_boost(src, gpair, key,
                                                       **adaptive)
@@ -1423,6 +1527,8 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
            else start + num_boost_round)
     try:
         for i in range(start, end):
+            # round-aware communicators (fault schedules keyed on rounds)
+            collective.notify_round(i)
             if container.before_iteration(bst, i):
                 break
             bst.update(dtrain, i, fobj=obj)

@@ -342,9 +342,23 @@ class PagedBinnedMatrix:
             return None
         return max(0.0, 1.0 - self.ring_stats["blocked_s"] / up)
 
-    def _fetch(self, s: int, slot: int, device: torch.device):
+    def _staging_of(self, device: torch.device) -> _Staging:
+        st = self._staging.get(self._key(device))
+        if st is None:
+            st = self._staging[self._key(device)] = _Staging(
+                self.ring_depth, self.page_nbytes(), device)
+        return st
+
+    def _page_bytes_at(self, s: int) -> int:
+        return ((min(s + self.page_rows, self.n_rows) - s) * self.page_width()
+                * self.bins_host.dtype.itemsize)
+
+    def _fetch(self, s: int, slot: int, device: torch.device,
+               raw: Optional[torch.Tensor] = None):
         """(start, (end, page), uploaded, bytes) of the page at ``s``: the
-        cached page, or an upload through staging buffer ``slot``."""
+        cached page, or an upload through staging buffer ``slot`` into
+        ``raw``, the page's device memory (uint8, allocated by the ring's
+        consumer thread; new memory when None)."""
         e = min(s + self.page_rows, self.n_rows)
         hit = self._cache(device).get(s)
         if hit is not None:
@@ -353,11 +367,8 @@ class PagedBinnedMatrix:
         if device.type != "cuda":
             page = torch.from_numpy(self._host_page(s, e))
             return s, (e, page), True, page.numel() * page.element_size()
-        st = self._staging.get(self._key(device))
-        if st is None:
-            st = self._staging[self._key(device)] = _Staging(
-                self.ring_depth, self.page_nbytes(), device)
-        nbytes = shape[0] * shape[1] * self.bins_host.dtype.itemsize
+        st = self._staging_of(device)
+        nbytes = self._page_bytes_at(s)
         ev = st.events[slot]
         if ev is not None:
             ev.synchronize()        # the buffer's last copy has completed
@@ -365,7 +376,8 @@ class PagedBinnedMatrix:
         self._host_page(s, e, host.numpy().view(self.bins_host.dtype)
                         .reshape(shape))
         with torch.cuda.device(device), torch.cuda.stream(st.stream):
-            raw = torch.empty(nbytes, dtype=torch.uint8, device=device)
+            if raw is None:
+                raw = torch.empty(nbytes, dtype=torch.uint8, device=device)
             raw.copy_(host, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(st.stream)
@@ -377,10 +389,16 @@ class PagedBinnedMatrix:
         """(start, end, page) of ``starts`` in order: cached pages straight
         from the device, the others uploaded ``ring_depth`` pages ahead by
         one worker thread; uploaded pages join the cache while it holds
-        fewer than ``cache_budget_bytes // page_nbytes()``. On the card the
-        consumer's stream waits on each upload's event, and the page is
-        recorded on that stream (the caching allocator keeps its memory
-        until the stream's work on it is done)."""
+        fewer than ``cache_budget_bytes // page_nbytes()``. The upload of
+        page i + ``ring_depth`` is asked for as page i is taken, its
+        device memory allocated then, on the consumer's thread, whatever
+        the worker's progress: a consumer that lets go of each page before
+        it takes the next (a pass, ``tree/paged.py _drive``) holds
+        ``ring_depth + 1`` streamed pages at most, and at that from the
+        first page on. On the card the consumer's stream waits on each
+        upload's event, and the page is recorded on that stream (the
+        caching allocator keeps its memory until the stream's work on it
+        is done)."""
         self._resident = None      # streaming supersedes a collapse
         cache = self._cache(device)
         page_bytes = self.page_nbytes()
@@ -388,9 +406,9 @@ class PagedBinnedMatrix:
         stats = self.ring_stats
         depth = self.ring_depth
 
-        def timed_fetch(s, slot):
+        def timed_fetch(s, slot, raw):
             t0 = time.perf_counter()
-            out = self._fetch(s, slot, device)
+            out = self._fetch(s, slot, device, raw)
             if out[2]:
                 with self._stats_lock:
                     stats["upload_s"] += time.perf_counter() - t0
@@ -398,9 +416,17 @@ class PagedBinnedMatrix:
                     stats["bytes"] += out[3]
             return out
 
+        def ask(ex, i):
+            s, raw = starts[i], None
+            if device.type == "cuda" and s not in cache:
+                with torch.cuda.device(device), \
+                        torch.cuda.stream(self._staging_of(device).stream):
+                    raw = torch.empty(self._page_bytes_at(s),
+                                      dtype=torch.uint8, device=device)
+            return ex.submit(timed_fetch, s, i % depth, raw)
+
         with ThreadPoolExecutor(1) as ex:
-            pending = deque(ex.submit(timed_fetch, s, i % depth)
-                            for i, s in enumerate(starts[:depth]))
+            pending = deque(ask(ex, i) for i in range(min(depth, len(starts))))
             for i in range(len(starts)):
                 t0 = time.perf_counter()
                 s, payload, uploaded, _ = pending.popleft().result()
@@ -408,8 +434,7 @@ class PagedBinnedMatrix:
                     with self._stats_lock:
                         stats["blocked_s"] += time.perf_counter() - t0
                 if i + depth < len(starts):
-                    pending.append(ex.submit(timed_fetch, starts[i + depth],
-                                             (i + depth) % depth))
+                    pending.append(ask(ex, i + depth))
                 if uploaded and device.type == "cuda":
                     e, page, ev = payload
                     stream = torch.cuda.current_stream(device)
@@ -419,6 +444,7 @@ class PagedBinnedMatrix:
                 if uploaded and len(cache) < max_cached:
                     cache[s] = payload
                 yield s, payload[0], payload[1]
+                payload = page = None
 
     def stream_pages(self, starts: List[int], device: torch.device):
         """(start, end, device page) for the page ``starts`` through the
@@ -513,7 +539,8 @@ class PagedBinnedMatrix:
         sums (``np.bincount``, in row order from 0.0 as
         ``FeatureSummary.from_data`` sums ties) at the bins' values, and a
         page re-bins through a table of each old bin's new bin
-        (:func:`search_bin` of the bins' values)."""
+        (:func:`search_bin` of the bins' values). Under a multi-rank
+        communicator the summaries merge across the ranks first."""
         F, n = self.n_features, self.n_rows
         n_real = self.n_real_bins().astype(np.int64)
         B = self.max_nbins + 1
@@ -541,6 +568,12 @@ class PagedBinnedMatrix:
             summaries = batch if summaries is None else [
                 a.merge(b).prune(max_bin * 8)
                 for a, b in zip(summaries, batch)]
+        from ..parallel import collective
+
+        if collective.is_distributed():
+            # every rank's pages: the merge across ranks (the JAX
+            # package's ``binned.py:800-819``)
+            summaries = collective.merge_summaries(summaries or [], max_bin)
         cuts = cuts_from_summaries(summaries or [], max_bin, feature_types)
         max_nbins = (int(cuts.n_real_bins().max(initial=0))
                      + int(self.has_missing))
@@ -634,6 +667,7 @@ class ApproxSource:
     def __init__(self, X: torch.Tensor, max_bin: int,
                  feature_types: Optional[List[str]] = None) -> None:
         self.Xt = X.t().contiguous()                              # [F, n]
+        self.n_rows = X.shape[0]
         self.has_missing = bool(torch.isnan(self.Xt).any())
         self.sketch = WeightedSketch(X, max_bin, feature_types)
 
@@ -645,3 +679,46 @@ class ApproxSource:
             self.has_missing)
         b = search_bin_t(self.Xt, table, n_real, max(max_nbins - 1, 0))
         return BinnedMatrix.from_bin_ids(b.t(), cuts, self.has_missing)
+
+
+def shard_binned(bm: BinnedMatrix, mesh) -> BinnedMatrix:
+    """A resident matrix over a data mesh (the JAX package's
+    ``_make_sharded_train_state``): rows padded to a multiple of the
+    mesh's size with rows at bin ``min(missing_bin, max_nbins - 1)`` (any
+    in-range bin: the trainer gives pad rows zero gradient, the weight-0
+    rows of the JAX package), then cut into the mesh's equal blocks of
+    rows, each on its device (``tree/shards.py RowShards``). The result's
+    ``bins`` is that ``RowShards``."""
+    from ..tree.shards import RowShards
+
+    bins = bm.bins
+    n, F = bins.shape
+    n_pad = -(-n // mesh.size) * mesh.size
+    if n_pad > n:
+        fill = torch.full((n_pad - n, F), min(bm.missing_bin,
+                                              bm.max_nbins - 1),
+                          dtype=bins.dtype, device=bins.device)
+        bins = torch.cat([bins, fill])
+    return BinnedMatrix(bins=RowShards.split_matrix(bins, mesh),
+                        cuts=bm.cuts, max_nbins=bm.max_nbins,
+                        has_missing=bm.has_missing)
+
+
+class MeshApproxSource:
+    """``tree_method="approx"`` over a data mesh: the sketch of ``inner``
+    (an :class:`ApproxSource` over every local row, or sharded
+    ingestion's source, whose sketch merges across ranks) with the real
+    rows' hessians, the matrix re-binned and cut into the mesh's shards
+    (:func:`shard_binned`). Every shard bins with the same cuts: the
+    sketch synchronised over the shards (the JAX package's
+    ``gbtree.py:331-354``)."""
+
+    def __init__(self, inner, mesh) -> None:
+        self.inner = inner
+        self.mesh = mesh
+        self.n = inner.n_rows
+        self.n_pad = -(-self.n // mesh.size) * mesh.size
+
+    def binned(self, weights: torch.Tensor) -> BinnedMatrix:
+        """``weights`` [n_pad]: the padded rows' hessians."""
+        return shard_binned(self.inner.binned(weights[:self.n]), self.mesh)

@@ -8,11 +8,13 @@ base margin, and its quantized form for training, built once per
 ``(max_bin, device)`` and cached. One made from a :class:`DataIter`
 (the JAX package's ``DMatrix._init_from_iter``) never holds the raw
 matrix whole: pass 1 sketches each batch (sampled to a quarter of
-``SKETCH_SAMPLE_ROWS`` when unweighted) and merges the summaries; pass
-2 bins each batch into a preallocated host array, or, under the
-iterator's ``cache_prefix``, a memmap at ``<cache_prefix>.bins`` that
-trains as a :class:`~.binned.PagedBinnedMatrix` (external memory) in
-pages of ``XTPU_PAGE_ROWS`` rows (default 1,000,000). Such a matrix is
+``SKETCH_SAMPLE_ROWS`` when unweighted) and merges the summaries (under
+a multi-rank communicator across the ranks too, with the missing slot
+and the categorical codes' range agreed); pass 2 bins each batch into
+a preallocated host array, or, under the iterator's ``cache_prefix``,
+a memmap at ``<cache_prefix>.bins`` that trains as a
+:class:`~.binned.PagedBinnedMatrix` (external memory) in pages of
+``XTPU_PAGE_ROWS`` rows (default 1,000,000). Such a matrix is
 quantized once, at ``max_bin``; training asks for the same ``max_bin``.
 
 ``feature_types`` marks categorical features with ``"c"`` (their values
@@ -45,6 +47,7 @@ batches, ``slice`` and ``save_binary``.
 from __future__ import annotations
 
 import os
+import time
 import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional
@@ -52,6 +55,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..logging_utils import logger
 from .adapters import to_dense
 from .binned import (BinnedMatrix, PagedBinnedMatrix, np_dtype_for,
                      search_bin, values_of_bins)
@@ -68,6 +72,9 @@ class MetaInfo:
     group_ptr: Optional[np.ndarray] = None     # [G + 1] int64 query offsets
     label_lower_bound: Optional[np.ndarray] = None  # [n] f32 (survival)
     label_upper_bound: Optional[np.ndarray] = None
+    # "row": each rank holds its rows, whose metric sums add across ranks
+    # (``metric/base.py global_mean``); "col": every rank holds every row
+    data_split_mode: str = "row"
     feature_names: Optional[List[str]] = None
     feature_types: Optional[List[str]] = None
 
@@ -173,14 +180,42 @@ class DataIter:
 
     def collect(self) -> Iterator[dict]:
         """Drive the callback protocol from a reset, yielding each batch's
-        keyword dict; resets again at the end."""
+        keyword dict; resets again at the end. A ``next()`` that raises
+        (a transient read failure of the batch source) is retried with
+        backoff before the error propagates (:func:`_retry_io`, the JAX
+        package's); each retry calls ``next`` with a fresh collector, so
+        a partly delivered batch is dropped, not duplicated."""
         self.reset()
         while True:
             batches: List[dict] = []
-            if not self.next(lambda **kw: batches.append(kw)):
+
+            def step() -> int:
+                batches.clear()
+                return self.next(lambda **kw: batches.append(kw))
+
+            if not _retry_io(step, "data iterator next()"):
                 break
             yield from batches
         self.reset()
+
+
+def _retry_io(fn, what: str, attempts: Optional[int] = None,
+              base_delay_s: float = 0.05):
+    """Bounded retry with exponential backoff (the JAX package's
+    ``_retry_io``): ``XTPU_IO_RETRIES`` (2) retries, each logged; the
+    last failure re-raises the original error."""
+    if attempts is None:
+        attempts = int(os.environ.get("XTPU_IO_RETRIES", "2"))
+    for a in range(attempts + 1):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 - re-raised on exhaustion
+            if a >= attempts:
+                raise
+            delay = base_delay_s * (2.0 ** a)
+            logger.warning("%s failed (%s); retry %d/%d in %.0f ms",
+                           what, e, a + 1, attempts, delay * 1e3)
+            time.sleep(delay)
 
 
 # get_float_info / set_float_info fields -> MetaInfo attributes
@@ -677,10 +712,27 @@ class DMatrix:
         elif groups:
             self.info.set_group(np.concatenate(groups))
         self.info.validate(n_rows)
+        from ..parallel import collective
+
+        if collective.is_distributed():
+            # multi-process external memory: every process streams ITS
+            # rows; the cuts come from the summary merge across the ranks
+            # and the missing slot must agree everywhere (reference: the
+            # sketch sync inside QuantileDMatrix under rabit,
+            # src/common/quantile.cc:147-276). Every rank must give at
+            # least one batch (the collectives are symmetric).
+            if ref is None:
+                summaries = collective.merge_summaries(summaries or [],
+                                                       max_bin)
+            has_missing = bool(int(collective.allreduce(
+                np.asarray([int(has_missing)], np.int64), op="max")[0]))
         if ref is not None:
             cuts = ref.cuts(max_bin)
         else:
             if feature_types is not None and summaries is not None:
+                if collective.is_distributed():
+                    cat_max = collective.allreduce(
+                        np.asarray(cat_max, np.float32), op="max")
                 # a categorical feature's cuts read only its largest code
                 for f, t in enumerate(feature_types):
                     if t == "c" and f < len(summaries):

@@ -7,12 +7,18 @@ over each run of ties), with row weights. Multiclass: one class against
 the rest, each class's area weighted by its rows' weight. A matrix with
 more than one query group: the mean of the queries' own areas, over the
 queries that have two rows or more and both classes (``aucpr``: a
-relevant row), unweighted, as the reference's ranking AUC. One process:
-the JAX package's distributed tiers (the gather of every row, the merge
-of local curves) wait with ROADMAP A.8.
+relevant row), unweighted, as the reference's ranking AUC. Under a
+multi-rank communicator (the JAX package's distributed tiers) each
+rank's rows are gathered for an exact global ranking
+(:func:`_gather_rows`), or, past ``XTPU_AUC_EXACT_MAX`` rows on a rank,
+the ranks' local curve areas are summed (:meth:`_AucBase._curve_merge`,
+reference ``auc.cc:308-314``); the ranking AUC sums the queries' areas
+and counts across ranks.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -126,9 +132,48 @@ def _grouped_auc(y: np.ndarray, p: np.ndarray, ptr: np.ndarray, kind: str):
     return float(np.sum(auc_q)), float(np.count_nonzero(valid))
 
 
+def _gather_rows(y: np.ndarray, p: np.ndarray, w: np.ndarray, info):
+    """Exact distributed AUC: every rank contributes its (label, pred,
+    weight) rows; their concatenation in rank order makes the global
+    ranking exact."""
+    from ..parallel.collective import get_communicator
+
+    comm = get_communicator()
+    if (not comm.is_distributed()
+            or getattr(info, "data_split_mode", "row") != "row"):
+        return y, p, w
+    parts = comm.allgather_objects(
+        (np.ascontiguousarray(y), np.ascontiguousarray(p),
+         np.ascontiguousarray(w)))
+    return (np.concatenate([a for a, _, _ in parts]),
+            np.concatenate([b for _, b, _ in parts]),
+            np.concatenate([c for _, _, c in parts]))
+
+
 class _AucBase(Metric):
     _fn = staticmethod(binary_roc_auc)
+    _curve = staticmethod(_roc_curve_area)
     _grouped_kind = "roc"
+
+    def _curve_merge(self, y, p, w, info):
+        """The reference's local-curve merge for large distributed evals
+        (``auc.cc:308-314``): None -> take the exact path. The size
+        decision uses a max-allreduce, so every rank branches the same
+        way whatever the shards' sizes."""
+        from ..parallel.collective import get_communicator
+
+        comm = get_communicator()
+        if (not comm.is_distributed()
+                or getattr(info, "data_split_mode", "row") != "row"):
+            return None
+        exact_max = int(os.environ.get("XTPU_AUC_EXACT_MAX", 1_000_000))
+        n_max = int(comm.allreduce(np.asarray([len(y)], np.int64),
+                                   op="max")[0])
+        if n_max <= exact_max:
+            return None
+        area, norm = self._curve(y, p, w)
+        s = comm.allreduce(np.asarray([area, norm], np.float64), op="sum")
+        return float(s[0] / s[1]) if s[1] > 0 else float("nan")
 
     def __call__(self, preds, info) -> float:
         y = np.asarray(info.labels, dtype=np.float64).reshape(-1)
@@ -140,6 +185,11 @@ class _AucBase(Metric):
                 y, p.reshape(-1), np.asarray(ptr, np.int64),
                 self._grouped_kind)
             return global_mean(total, valid, info)
+        if p.ndim == 1 or p.shape[1] == 1:
+            merged = self._curve_merge(y, p.reshape(-1), w, info)
+            if merged is not None:
+                return merged
+        y, p, w = _gather_rows(y, p, w, info)
         if p.ndim == 2 and p.shape[1] > 1:
             # one class against the rest, weighted by the class's weight
             total, wsum = 0.0, 0.0
@@ -163,4 +213,5 @@ class AUC(_AucBase):
 class AUCPR(_AucBase):
     name = "aucpr"
     _fn = staticmethod(binary_pr_auc)
+    _curve = staticmethod(_pr_curve_area)
     _grouped_kind = "pr"

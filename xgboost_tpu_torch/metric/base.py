@@ -1,5 +1,6 @@
 """Metric base: a named factory with ``name@param`` parsing (the port of
-the JAX package's ``metric/base.py``, single process)."""
+the JAX package's ``metric/base.py``). Weighted-mean metrics aggregate
+their partial sums over the active communicator (:func:`global_mean`)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,17 @@ import numpy as np
 
 
 def global_mean(numerator: float, denominator: float, info) -> float:
-    """A weighted-mean metric's ratio (the JAX package's ``global_mean``
-    in one process: its collective sums wait with ROADMAP A.8); NaN when
-    the denominator is 0."""
+    """A weighted-mean metric's ratio (the JAX package's ``global_mean``;
+    reference ``collective::GlobalRatio``, ``aggregator.h:115``): under a
+    multi-rank communicator both sides are summed over the ranks first
+    (not under column split, whose rows every rank holds); NaN when the
+    denominator is 0."""
+    from ..parallel.collective import get_communicator, global_ratio
+
+    if get_communicator().is_distributed():
+        row_split = getattr(info, "data_split_mode", "row") == "row"
+        return global_ratio(float(numerator), float(denominator),
+                            row_split=row_split)
     return (float(np.float64(numerator) / np.float64(denominator))
             if denominator != 0 else float("nan"))
 

@@ -140,12 +140,23 @@ class Objective:
         ``src/tree/fit_stump.cc``) -> [k] f32 base margin, one a target
         of a label matrix [n, k]. A label matrix's gradient sums add in
         the JAX package's order and one column in the port's own
-        (``ops/xla_order.py stump_sums``)."""
+        (``ops/xla_order.py stump_sums``). Under a multi-rank
+        communicator the sums cross the ranks (``collective.global_sum``,
+        the reference's ``GlobalSum``) and the step is taken in float64,
+        as the JAX package takes it, so every rank derives the same base
+        score from its rows."""
+        from ..parallel.collective import get_communicator, global_sum
+
         k = labels.shape[1] if labels.dim() == 2 else 1
         zero = torch.zeros((labels.shape[0], k), dtype=torch.float32,
                            device=labels.device)
         g, h = stump_sums(self.get_gradient(zero, labels, weights,
                                             **inputs)).unbind(-1)
+        if get_communicator().is_distributed():
+            gh = global_sum(np.stack([g.cpu().numpy(), h.cpu().numpy()]))
+            gs, hs = gh[0], gh[1]
+            return np.where(hs <= 0, 0.0, -gs / np.maximum(hs, 1e-10)
+                            ).astype(np.float32)
         est = torch.where(h <= 0, torch.zeros_like(g),
                           -g / torch.clamp(h, min=1e-10))
         return est.to(torch.float32).cpu().numpy()

@@ -83,11 +83,21 @@ packed page raises.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel in
 ``csrc/hist.cu`` runs (``ops/cuda/hist.py``) or the call raises.
+
+Under a data mesh (``tree/grow.py RowShards``) each shard builds its
+rows' histogram and the growers sum the shards' f32 partials. Every
+shard must quantise alike, so the scales come from outside: ``max_abs``
+[2] f32 is ``max|g|`` and ``max|h|`` reduced over every shard (the JAX
+package's ``pmax`` of the scale in each wrapper,
+``ops/pallas/histogram.py:333-334``, ``:463-464``, ``:613-614``,
+``ops/histogram.py:266-267``), and ``total_rows`` the rows of every
+shard, which K3's fixed-point exponent bounds. Without them (one
+device) each build takes its own rows' scale, as before.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,15 +208,25 @@ def unpack_u4(packed: torch.Tensor, n_features: int) -> torch.Tensor:
 
 # ---- K2: int8x2 ------------------------------------------------------------
 
-def quantise_int8x2(gpair: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def abs_max(gpair: torch.Tensor) -> torch.Tensor:
+    """max|x| of each component of gpair [n, 2] (0 without rows) -> [2]
+    f32: the quantisers' scale before any reduction over shards."""
+    if gpair.shape[0] == 0:
+        return torch.zeros(gpair.shape[1:], dtype=torch.float32,
+                           device=gpair.device)
+    return gpair.abs().amax(dim=0)
+
+
+def quantise_int8x2(gpair: torch.Tensor,
+                    max_abs: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """gpair [n, 2] f32 -> (q [n, 2] int32, inv [2] f32): the fixed-point
     quantisation of ``build_hist_prehot`` (``ops/histogram.py:264-269``)
-    and its dequantisation factor."""
-    if gpair.shape[0] == 0:
-        max_abs = torch.zeros(2, dtype=torch.float32, device=gpair.device)
-    else:
-        max_abs = gpair.abs().amax(dim=0)
-    max_abs = torch.clamp(max_abs, min=1e-30)
+    and its dequantisation factor. ``max_abs`` [2]: the scale reduced
+    over a mesh's shards (module docstring), else this gpair's own."""
+    if max_abs is None:
+        max_abs = abs_max(gpair)
+    max_abs = torch.clamp(max_abs.to(gpair.device), min=1e-30)
     # a true f32 division (a Python number over a tensor would go through
     # the reciprocal and round differently)
     scale = torch.full_like(max_abs, 32512.0) / max_abs
@@ -354,18 +374,21 @@ def _pow2(k: torch.Tensor) -> torch.Tensor:
     return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def fixed_point_scale(gpair: torch.Tensor) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def fixed_point_scale(gpair: torch.Tensor,
+                      max_abs: Optional[torch.Tensor] = None,
+                      total_rows: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """gpair [n, 2] f32 -> (2^k, 2^-k), [2] f32 each, per component:
     the largest power of two with ``n * max|x| * 2^k <= 2^62``, so that no
     int64 sum of the scaled, rounded values can overflow. k is clamped to
     [-100, 100], where both factors are normal f32 numbers: values below
-    the quantum 2^-100 (~8e-31) round to zero."""
-    n = gpair.shape[0]
-    if n == 0:
-        max_abs = torch.zeros(2, dtype=torch.float32, device=gpair.device)
-    else:
-        max_abs = gpair.abs().amax(dim=0)
+    the quantum 2^-100 (~8e-31) round to zero. Under a mesh ``max_abs``
+    and ``total_rows`` are every shard's (module docstring), so that
+    every shard takes the same k."""
+    n = gpair.shape[0] if total_rows is None else total_rows
+    if max_abs is None:
+        max_abs = abs_max(gpair)
+    max_abs = max_abs.to(gpair.device)
     # max|x| < 2^e with e the f32 exponent field minus 126 (subnormals and
     # zero read as e = -126, still an upper bound)
     e = ((max_abs.view(torch.int32) >> 23) & 0xFF) - 126
@@ -433,13 +456,15 @@ def build_hist_f32_u4_reference(packed: torch.Tensor, n_features: int,
 def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
                n_nodes: int, max_nbins: int, method: str = "auto",
                has_missing: bool = True, packed_u4: int = 0,
-               numeric: bool = True) -> torch.Tensor:
+               numeric: bool = True, max_abs: Optional[torch.Tensor] = None,
+               total_rows: Optional[int] = None) -> torch.Tensor:
     """bins [n, F] uint8/uint16/int32; gpair [n, 2] f32; rel_pos [n]
     int32 in [0, n_nodes] -> [n_nodes, F, max_nbins, 2] f32.
     ``has_missing``: the last bin slot is the missing slot; ``numeric``:
     no feature is categorical (both feed ``auto``'s choice only).
     ``packed_u4=F``: ``bins`` is a u4-packed page [n, ceil(F/2)] uint8
-    of F features."""
+    of F features. ``max_abs`` / ``total_rows``: a mesh's scale (module
+    docstring)."""
     kernel = resolve_hist_kernel(method, bins.shape[0], n_nodes, max_nbins,
                                  has_missing, numeric)
     if packed_u4 and kernel == "scan":
@@ -449,7 +474,7 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
     rel = rel_pos.to(torch.int32).contiguous()
     on_cpu = bins.device.type == "cpu"
     if kernel in ("int8x2", "scan"):
-        q, inv = quantise_int8x2(gpair)
+        q, inv = quantise_int8x2(gpair, max_abs)
         if on_cpu:
             if packed_u4:
                 return build_hist_int8x2_u4_reference(
@@ -463,7 +488,7 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
             return hist_scan_cuda(bins, q, rel, inv, n_nodes, max_nbins)
         return hist_int8x2_cuda(bins, q, rel, inv, n_nodes, max_nbins,
                                 packed_u4=packed_u4)
-    qscale, inv = fixed_point_scale(gpair)
+    qscale, inv = fixed_point_scale(gpair, max_abs, total_rows)
     if on_cpu:
         if packed_u4:
             return build_hist_f32_u4_reference(
@@ -480,14 +505,17 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
 def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
                      rel_pos: torch.Tensor, n_nodes: int, max_nbins: int,
                      method: str = "auto", has_missing: bool = True,
-                     packed_u4: int = 0) -> torch.Tensor:
+                     packed_u4: int = 0,
+                     max_abs: Optional[torch.Tensor] = None,
+                     total_rows: Optional[int] = None) -> torch.Tensor:
     """The K-target histogram [n_nodes, F, max_nbins, K, 2] of gpair
     [n, K, 2] (vector-leaf trees; the JAX package's
     ``build_hist_multi``): K passes of :func:`build_hist`, one a target,
     each through the kernel ``method`` gives a scalar build and each
     quantised with its own target's scale. (A K-channel pass that reads
     the bins once for every target is not in either package.)
-    ``packed_u4=F``: a u4-packed page, as :func:`build_hist` takes it."""
+    ``packed_u4=F``: a u4-packed page, as :func:`build_hist` takes it.
+    ``max_abs`` [K, 2]: each target's scale over a mesh's shards."""
     K = gpair.shape[1]
     F = packed_u4 or bins.shape[1]
     out = torch.empty((n_nodes, F, max_nbins, K, 2), dtype=torch.float32,
@@ -496,7 +524,10 @@ def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
         out[:, :, :, k] = build_hist(bins, gpair[:, k].contiguous(), rel_pos,
                                      n_nodes, max_nbins, method=method,
                                      has_missing=has_missing,
-                                     packed_u4=packed_u4)
+                                     packed_u4=packed_u4,
+                                     max_abs=None if max_abs is None
+                                     else max_abs[k],
+                                     total_rows=total_rows)
     return out
 
 
@@ -520,7 +551,9 @@ def fused_advance_coarse_reference(bins: torch.Tensor, q: torch.Tensor,
 
 def fused_advance_coarse(bins: torch.Tensor, gpair: torch.Tensor,
                          positions: torch.Tensor, prev: LevelSplits, lo: int,
-                         n_level: int, missing_bin: int):
+                         n_level: int, missing_bin: int,
+                         max_abs: Optional[torch.Tensor] = None,
+                         total_rows: Optional[int] = None):
     """One sweep at a level boundary of ``fused``: advance the rows below
     the previous level's splits ``prev`` and build the new level's coarse
     histogram -> (positions [n] int64, [n_level, F, COARSE_B, 2] f32).
@@ -532,10 +565,10 @@ def fused_advance_coarse(bins: torch.Tensor, gpair: torch.Tensor,
     TPU's memory, not of the function, and K5 has no such limit.)
     Elsewhere the plain advance runs, then ``build_hist`` over the coarse
     ids (K3 above 128 nodes). Both give the same integers
-    where both run."""
+    where both run. ``max_abs`` / ``total_rows``: a mesh's scale."""
     n = bins.shape[0]
     if n_level <= 128 and prev.feat.shape[0] <= 64 and int8x2_fits(n):
-        q, inv = quantise_int8x2(gpair)
+        q, inv = quantise_int8x2(gpair, max_abs)
         if bins.device.type == "cpu":
             return fused_advance_coarse_reference(
                 bins, q, inv, positions, prev, lo, n_level, missing_bin)
@@ -545,13 +578,15 @@ def fused_advance_coarse(bins: torch.Tensor, gpair: torch.Tensor,
                                          n_level, missing_bin)
     positions = advance_level(bins, positions, prev, missing_bin)
     hist = build_hist(coarse_bin_ids(bins, missing_bin), gpair,
-                      level_rel(positions, lo, n_level), n_level, COARSE_B)
+                      level_rel(positions, lo, n_level), n_level, COARSE_B,
+                      max_abs=max_abs, total_rows=total_rows)
     return positions, hist
 
 
 def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
                      rel: torch.Tensor, n_level: int, max_nbins: int,
-                     missing_bin: int):
+                     missing_bin: int, max_abs: Optional[torch.Tensor] = None,
+                     total_rows: Optional[int] = None):
     """One level of ``scan`` -> (fine [N, F, max_nbins, 2], coarse
     [N, F, COARSE_B, 2]). At most 128 nodes within the int8x2 guard: one
     K4 build, the coarse histogram folded from its int32 sums
@@ -559,10 +594,11 @@ def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
     TPU's f32 branch: K3 builds the fine histogram and, over
     ``coarse_bin_ids``, the coarse one. (The JAX package's opt-in bf16
     accumulator, ``XTPU_SCAN_ACC=bf16``, is not bit-compatible and not
-    ported: ROADMAP A.6.)"""
+    ported: ROADMAP A.6.) ``max_abs`` / ``total_rows``: a mesh's
+    scale."""
     if resolve_hist_kernel("scan", bins.shape[0], n_level,
                            max_nbins) == "scan":
-        q, inv = quantise_int8x2(gpair)
+        q, inv = quantise_int8x2(gpair, max_abs)
         rel = rel.to(torch.int32).contiguous()
         if bins.device.type == "cpu":
             acc = scan_acc_reference(bins, q, rel, n_level, max_nbins)
@@ -572,20 +608,25 @@ def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
 
         return hist_scan_cuda(bins, q, rel, inv, n_level, max_nbins,
                               with_coarse=True, missing_bin=missing_bin)
-    fine = build_hist(bins, gpair, rel, n_level, max_nbins, method="segment")
+    fine = build_hist(bins, gpair, rel, n_level, max_nbins, method="segment",
+                      max_abs=max_abs, total_rows=total_rows)
     coarse = build_hist(coarse_bin_ids(bins, missing_bin), gpair, rel,
-                        n_level, COARSE_B, method="segment")
+                        n_level, COARSE_B, method="segment", max_abs=max_abs,
+                        total_rows=total_rows)
     return fine, coarse
 
 
 def scan_advance_level(bins: torch.Tensor, gpair: torch.Tensor,
                        positions: torch.Tensor, prev: LevelSplits, lo: int,
-                       n_level: int, missing_bin: int, max_nbins: int):
+                       n_level: int, missing_bin: int, max_nbins: int,
+                       max_abs: Optional[torch.Tensor] = None,
+                       total_rows: Optional[int] = None):
     """A level boundary of ``scan``: the plain advance below ``prev``'s
     splits, then :func:`scan_level_hists` of the new level ->
     (positions, fine, coarse)."""
     positions = advance_level(bins, positions, prev, missing_bin)
     fine, coarse = scan_level_hists(bins, gpair,
                                     level_rel(positions, lo, n_level),
-                                    n_level, max_nbins, missing_bin)
+                                    n_level, max_nbins, missing_bin,
+                                    max_abs, total_rows)
     return positions, fine, coarse

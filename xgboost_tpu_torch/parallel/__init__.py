@@ -1,2 +1,6 @@
-"""Distributed helpers. Only ``resilience.RetryPolicy`` is here, for the
-serving client's retry; the collectives are ROADMAP A.8."""
+"""Distributed training: the host communicators (``collective``), their
+resilient wrapper and fault injection (``resilience``), sharded
+ingestion and ``train_per_host`` over ``torch.distributed``
+(``launch``) and the rendezvous endpoint (``tracker``). The data mesh
+itself is ``context.Mesh``; column split and the federated communicator
+are ROADMAP A.8."""

@@ -51,8 +51,16 @@ truncates the grown heap as the reference's depth-wise driver would have
 stopped (:func:`select_max_leaves`, ``TreeGrower._truncate_max_leaves``).
 Leaf-wise growth is ``tree/lossguide.py``.
 
+Row-split training over a data mesh (``context.Mesh``): ``bins`` is a
+``tree/shards.py RowShards``, each shard builds its histograms on its
+own device from its rows, with the scale reduced over the shards, and
+the shards' partials are summed in shard order before the one split
+search (the JAX package's ``_grow`` under ``shard_map``: its
+``allreduce`` and ``root_sum``). Sibling subtraction stays refused under
+a mesh, as in the JAX package.
+
 Not ported here (each raises where it is asked for): the mega schedule
-and sibling subtraction (ROADMAP A.6), meshes and column split (A.8).
+and sibling subtraction (ROADMAP A.6), column split (A.8).
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ from ..ops.split import (COARSE_B, WINDOW, CatInfo, assemble_two_level,
                          refine_bin_ids, refine_from_fine)
 from ..utils import random as xrandom
 from .param import TrainParam, _f32, calc_weight
+from .shards import RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -432,50 +441,67 @@ class HeapTree:
             is_cat_split=self.is_cat_split, cat_words=self.cat_words)
 
 
-def search_splits(bins: torch.Tensor, gpair: torch.Tensor,
-                  rel: torch.Tensor, n_nodes: int, parent_sum: torch.Tensor,
-                  n_real_bins: torch.Tensor, *, param: TrainParam,
-                  max_nbins: int, hist_method: str, has_missing: bool,
-                  schedule: Optional[str], cb: Optional[torch.Tensor] = None,
+def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
+                  rels: Sequence[torch.Tensor], n_nodes: int,
+                  parent_sum: torch.Tensor, n_real_bins: torch.Tensor, *,
+                  param: TrainParam, max_nbins: int, hist_method: str,
+                  has_missing: bool, schedule: Optional[str],
+                  cbs: Optional[Sequence[torch.Tensor]] = None,
                   hist_c: Optional[torch.Tensor] = None,
                   hist_f: Optional[torch.Tensor] = None,
                   feature_mask: Optional[torch.Tensor] = None,
-                  cat: Optional[CatInfo] = None, **monotone_kw):
-    """The best split of each of ``n_nodes`` nodes (rows by ``rel``, the
-    inactive ones at ``n_nodes``): the histogram and ``evaluate_splits``,
-    exact over every bin (``schedule`` None), or the two-level search of
-    ``coarse`` / ``fused`` (the coarse ids ``cb``) and ``scan``, its
-    winning slot decoded to a fine bin. ``hist_c`` / ``hist_f``: the
-    coarse (and, under ``scan``, fine) histograms when a level boundary's
-    sweep already built them. ``monotone_kw``: ``evaluate_splits``'
-    monotone arguments. Shared by :func:`grow_tree`'s levels and
+                  cat: Optional[CatInfo] = None, scale: Optional[dict] = None,
+                  **monotone_kw):
+    """The best split of each of ``n_nodes`` nodes over the shards of
+    ``rows`` (each shard's gradients ``gps`` and node of each row
+    ``rels``, the inactive ones at ``n_nodes``): each shard's histogram,
+    summed over the shards (``RowShards.reduce``), and
+    ``evaluate_splits``, exact over every bin (``schedule`` None), or the
+    two-level search of ``coarse`` / ``fused`` (the shards' coarse ids
+    ``cbs``) and ``scan``, its winning slot decoded to a fine bin.
+    ``hist_c`` / ``hist_f``: the summed coarse (and, under ``scan``,
+    fine) histograms when a level boundary's sweep already built them.
+    ``scale``: the mesh's quantiser keywords (``tree/shards.py
+    RowShards.scale``). ``monotone_kw``: ``evaluate_splits``' monotone
+    arguments. Shared by :func:`grow_tree`'s levels and
     ``tree/lossguide.py``'s node pairs."""
+    scale = scale or {}
     missing_bin = max_nbins - 1 if has_missing else max_nbins
+    shards = list(zip(rows.parts, gps, rels))
     if schedule is None:
-        hist = build_hist(bins, gpair, rel, n_nodes, max_nbins,
-                          method=hist_method, has_missing=has_missing,
-                          numeric=cat is None)
+        hist = rows.reduce([build_hist(b, g, r, n_nodes, max_nbins,
+                                       method=hist_method,
+                                       has_missing=has_missing,
+                                       numeric=cat is None, **scale)
+                            for b, g, r in shards])
         return evaluate_splits(hist, parent_sum, n_real_bins, param,
                                has_missing=has_missing,
                                feature_mask=feature_mask, cat=cat,
                                **monotone_kw)
     if schedule == "scan" and hist_f is None:
-        hist_f, hist_c = scan_level_hists(bins, gpair, rel, n_nodes,
-                                          max_nbins, missing_bin)
+        parts = [scan_level_hists(b, g, r, n_nodes, max_nbins, missing_bin,
+                                  **scale) for b, g, r in shards]
+        hist_f = rows.reduce([f for f, _ in parts])
+        hist_c = rows.reduce([c for _, c in parts])
     if hist_c is None:
-        hist_c = build_hist(cb, gpair, rel, n_nodes, COARSE_B)
+        hist_c = rows.reduce([build_hist(cb, g, r, n_nodes, COARSE_B,
+                                         **scale)
+                              for cb, (_, g, r) in zip(cbs, shards)])
     span = choose_refine_window(hist_c, parent_sum, n_real_bins, param,
                                 has_missing)
     if schedule == "scan":
         hist_r = refine_from_fine(hist_f, span, missing_bin)
     else:
-        # each row's window is its node's (rows outside the nodes take
-        # window 0 and add nothing)
-        span_row = torch.cat([span, torch.zeros_like(span[:1])]).to(
-            torch.int32)[rel.long()]
-        rb = refine_bin_ids(bins, span_row, missing_bin)
-        hist_r = build_hist(rb, gpair, rel, n_nodes,
-                            WINDOW + 4)[:, :, :WINDOW]
+        parts = []
+        for (b, g, r), sp in zip(shards, rows.to_shards(span)):
+            # each row's window is its node's (rows outside the nodes take
+            # window 0 and add nothing)
+            span_row = torch.cat([sp, torch.zeros_like(sp[:1])]).to(
+                torch.int32)[r.long()]
+            rb = refine_bin_ids(b, span_row, missing_bin)
+            parts.append(build_hist(rb, g, r, n_nodes, WINDOW + 4,
+                                    **scale)[:, :, :WINDOW])
+        hist_r = rows.reduce(parts)
     hist, n_real_eval = assemble_two_level(hist_c, hist_r, span,
                                            n_real_bins, has_missing)
     res = evaluate_splits(hist, parent_sum, n_real_eval, param,
@@ -485,7 +511,7 @@ def search_splits(bins: torch.Tensor, gpair: torch.Tensor,
     return res._replace(bin=decode_two_level_bin(res.bin, span_sel))
 
 
-def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
+def grow_tree(bins, gpair: torch.Tensor,
               n_real_bins: torch.Tensor, *, param: TrainParam,
               max_nbins: int, hist_method: str = "auto",
               has_missing: bool = True,
@@ -493,32 +519,43 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
               cat: Optional[CatInfo] = None,
               monotone: Optional[torch.Tensor] = None,
               constraint_sets: Optional[torch.Tensor] = None) -> GrownTree:
-    """One tree from bins [n, F] and gpair [n, 2] f32 on one device;
-    ``n_real_bins`` [F] int64 on the same device; ``feature_masks``: per
-    level a [n_level or 1, F] bool mask of the features its nodes may
-    split on (:func:`draw_feature_masks`), or None; ``cat``: the
-    categorical features (on the same device), or None; ``monotone`` [F]
-    int64 signs and ``constraint_sets`` [S, F] bool (the parsed
-    constraints, on the same device), or None."""
-    n, F = bins.shape
-    dev = bins.device
+    """One tree from bins [n, F] on one device, or the shards of a data
+    mesh (``tree/shards.py RowShards``), and gpair [n, 2] f32 over the
+    same rows on the (first) device; ``n_real_bins`` [F] int64 on that
+    device; ``feature_masks``: per level a [n_level or 1, F] bool mask of
+    the features its nodes may split on (:func:`draw_feature_masks`), or
+    None; ``cat``: the categorical features (on the same device), or
+    None; ``monotone`` [F] int64 signs and ``constraint_sets`` [S, F]
+    bool (the parsed constraints, on the same device), or None.
+
+    Under a mesh each shard builds its histograms from its rows and
+    advances its rows' positions; the sums and the split search are the
+    first device's, and the decisions go back to the shards (the JAX
+    package's ``_grow`` under ``shard_map``, ``allreduce`` and
+    ``root_sum``)."""
+    rows = RowShards.of(bins)
+    gps = rows.split(gpair)
+    scale = rows.scale(gps)
+    dev = rows.device
     max_depth = param.max_depth
     numeric = cat is None
     # out-of-range sentinel when the matrix carries no missing slot
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
-        resolve_hist_kernel(hist_method, n, 2 ** depth, max_nbins,
-                            has_missing, numeric)
+        resolve_hist_kernel(hist_method, rows.shard_rows, 2 ** depth,
+                            max_nbins, has_missing, numeric)
     schedule = two_level_schedule(hist_method, max_nbins, has_missing,
                                   numeric)
-    cb = (coarse_bin_ids(bins, missing_bin)
-          if schedule in ("coarse", "fused") else None)
+    cbs = ([coarse_bin_ids(b, missing_bin) for b in rows.parts]
+           if schedule in ("coarse", "fused") else None)
     n_real_slots = max_nbins - 1 if has_missing else max_nbins
 
-    tree = HeapTree(max_depth, gpair.sum(dim=0), param,
+    tree = HeapTree(max_depth, rows.reduce([g.sum(dim=0) for g in gps],
+                                           "mesh/root-sum"), param,
                     n_words=0 if numeric else (n_real_slots - 1) // 32 + 1,
                     monotone=monotone, constraint_sets=constraint_sets)
-    positions = torch.zeros((n,), dtype=torch.int64, device=dev)
+    positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
+                             device=b.device) for b in rows.parts]
     pending = None      # fused/scan: the splits whose advance is deferred
 
     for depth in range(max_depth):
@@ -529,25 +566,31 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
         if pending is not None:
             # the boundary sweep: advance below the previous level's
             # splits and build this level's histograms in one pass
+            outs = []
+            for b, g, p, pend in zip(rows.parts, gps, positions,
+                                     rows.to_shards(pending)):
+                if schedule == "scan":
+                    outs.append(scan_advance_level(
+                        b, g, p, pend, lo, n_level, missing_bin, max_nbins,
+                        **scale))
+                else:
+                    outs.append(fused_advance_coarse(
+                        b, g, p, pend, lo, n_level, missing_bin, **scale))
+            positions = [o[0] for o in outs]
             if schedule == "scan":
-                positions, hist_f, hist_c = scan_advance_level(
-                    bins, gpair, positions, pending, lo, n_level,
-                    missing_bin, max_nbins)
-            else:
-                positions, hist_c = fused_advance_coarse(
-                    bins, gpair, positions, pending, lo, n_level,
-                    missing_bin)
+                hist_f = rows.reduce([o[1] for o in outs])
+            hist_c = rows.reduce([o[-1] for o in outs])
             pending = None
-        rel = level_rel(positions, lo, n_level)
+        rels = [level_rel(p, lo, n_level) for p in positions]
         fmask, mono_kw = tree.constraint_args(
             lo, n_level, None if feature_masks is None
             else feature_masks[depth])
         res = search_splits(
-            bins, gpair, rel, n_level, tree.node_sum[lo:hi], n_real_bins,
+            rows, gps, rels, n_level, tree.node_sum[lo:hi], n_real_bins,
             param=param, max_nbins=max_nbins, hist_method=hist_method,
-            has_missing=has_missing, schedule=schedule, cb=cb,
+            has_missing=has_missing, schedule=schedule, cbs=cbs,
             hist_c=hist_c, hist_f=hist_f, feature_mask=fmask, cat=cat,
-            **mono_kw)
+            scale=scale, **mono_kw)
         can_split = tree.record(lo, n_level, res)
         if schedule in ("fused", "scan"):
             pending = tree.level_splits(lo, n_level, can_split)
@@ -555,13 +598,16 @@ def grow_tree(bins: torch.Tensor, gpair: torch.Tensor,
             is_split = torch.zeros((tree.max_nodes,), dtype=torch.bool,
                                    device=dev)
             is_split[lo:hi] = can_split
-            positions = update_positions(bins, positions, tree.split_feature,
-                                         tree.split_bin, tree.default_left,
-                                         is_split, missing_bin,
-                                         tree.is_cat_split, tree.cat_words)
+            heap = (tree.split_feature, tree.split_bin, tree.default_left,
+                    is_split, tree.is_cat_split, tree.cat_words)
+            positions = [
+                update_positions(b, p, sf, sb, dl, isp, missing_bin, ics, cw)
+                for b, p, (sf, sb, dl, isp, ics, cw) in zip(
+                    rows.parts, positions, rows.to_shards(heap))]
     if pending is not None:     # below the last level: the advance alone
-        positions = advance_level(bins, positions, pending, missing_bin)
-    return tree.finish(positions)
+        positions = [advance_level(b, p, pend, missing_bin) for b, p, pend
+                     in zip(rows.parts, positions, rows.to_shards(pending))]
+    return tree.finish(rows.gather(positions))
 
 
 # the device tensors of TreeGrower._on that are made from the cuts
@@ -655,16 +701,18 @@ class TreeGrower:
         return draw_feature_masks(tkeys, self._n_real_on(device) > 0,
                                   self.param, self.param.max_depth)
 
-    def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
+    def grow(self, bins, gpair: torch.Tensor,
              masks: Optional[List[torch.Tensor]]) -> GrownTree:
-        """One tree; ``masks``: its column samples from
+        """One tree from bins [n, F] or a mesh's ``RowShards`` and gpair
+        [n, 2] on the (first) device; ``masks``: its column samples from
         :meth:`feature_masks`, or None when no column is sampled."""
-        monotone, sets = self.constraints_on(bins.device)
-        g = grow_tree(bins, gpair, self._n_real_on(bins.device),
+        dev = gpair.device
+        monotone, sets = self.constraints_on(dev)
+        g = grow_tree(bins, gpair, self._n_real_on(dev),
                       param=self.param, max_nbins=self.max_nbins,
                       hist_method=self.hist_method,
                       has_missing=self.has_missing, feature_masks=masks,
-                      cat=self.cat_on(bins.device), monotone=monotone,
+                      cat=self.cat_on(dev), monotone=monotone,
                       constraint_sets=sets)
         if self.param.max_leaves > 0:
             g = self._truncate_max_leaves(g)

@@ -25,7 +25,13 @@ dispatching the advance and the evaluation as one program
 (``_apply_eval2``, the same numerics); eager calls have no such
 boundary, so here the two run the same calls. On categorical data or
 more than 256 bins they warn and fall back to ``auto``, as the JAX
-package's do. ``mega`` raises (ROADMAP A.6); meshes and column split are A.8.
+package's do. ``mega`` raises (ROADMAP A.6); column split is A.8.
+
+Under a data mesh (``tree/shards.py RowShards``) each shard keeps its
+rows' nodes; the pair's histogram is built on every shard and summed
+over them (the JAX package's four ``psum``s of a pair, one a build),
+the root's sums likewise, and the popped node's advance runs on every
+shard.
 
 Column samples are drawn on the host from ``np.random.RandomState(seed &
 0x7FFFFFFF)``, ``seed`` the last word of the tree's key, in the order the
@@ -53,6 +59,7 @@ from ..utils import random as xrandom
 from .grow import (TreeGrower, interaction_allowed_host, search_splits,
                    two_level_schedule)
 from .param import TrainParam, _f32, calc_weight
+from .shards import RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -67,21 +74,29 @@ class LossguideGrown(NamedTuple):
     tree: TreeModel
 
 
-def eval2(bins, gpair, positions, id0: int, id1: int, parent_sums, fmask,
-          n_real_bins, *, param: TrainParam, max_nbins: int,
+def pair_rel(positions: torch.Tensor, id0: int, id1: int) -> torch.Tensor:
+    """Each row's slot in a pair's histogram: 0 at node ``id0``, 1 at
+    ``id1``, 2 (inactive) elsewhere."""
+    return torch.where(positions == id0, 0,
+                       torch.where(positions == id1, 1, 2)).to(torch.int32)
+
+
+def eval2(rows: RowShards, gps, positions, id0: int, id1: int, parent_sums,
+          fmask, n_real_bins, *, param: TrainParam, max_nbins: int,
           hist_method: str, has_missing: bool, schedule: Optional[str],
-          cb=None, cat: Optional[CatInfo] = None, **monotone_kw
-          ) -> SplitResult:
+          cbs=None, cat: Optional[CatInfo] = None, scale=None,
+          **monotone_kw) -> SplitResult:
     """The best splits of nodes ``id0`` and ``id1`` (-1: none) from one
     histogram build over every row, the others inactive (the JAX
-    package's ``_eval2``): parent_sums [2, 2] f32, fmask [2, F] bool."""
-    rel = torch.where(positions == id0, 0,
-                      torch.where(positions == id1, 1, 2)).to(torch.int32)
-    return search_splits(bins, gpair, rel, 2, parent_sums, n_real_bins,
-                         param=param, max_nbins=max_nbins,
+    package's ``_eval2``), on every shard of ``rows`` (each shard's
+    gradients ``gps`` and nodes ``positions``) and summed over them:
+    parent_sums [2, 2] f32, fmask [2, F] bool."""
+    return search_splits(rows, gps, [pair_rel(p, id0, id1)
+                                     for p in positions], 2, parent_sums,
+                         n_real_bins, param=param, max_nbins=max_nbins,
                          hist_method=hist_method, has_missing=has_missing,
-                         schedule=schedule, cb=cb, feature_mask=fmask,
-                         cat=cat, **monotone_kw)
+                         schedule=schedule, cbs=cbs, feature_mask=fmask,
+                         cat=cat, scale=scale, **monotone_kw)
 
 
 def apply1(bins, positions, nid: int, feat: int, sbin: int, dleft: bool,
@@ -232,30 +247,55 @@ class LossguideGrower(TreeGrower):
         base = self.cuts.n_real_bins() > 0
         return [col_masks(self.param, k[1], len(base), base) for k in tkeys]
 
-    def _eval2(self, bins, *args, **kwargs) -> SplitResult:
-        """:func:`eval2` over resident bins (the paged grower's pass over
-        the pages, ``tree/paged.py``)."""
-        return eval2(bins, *args, **kwargs)
+    def _eval2(self, rows, *args, **kwargs) -> SplitResult:
+        """:func:`eval2` over resident shards (the paged grower's pass
+        over the pages, ``tree/paged.py``)."""
+        return eval2(rows, *args, **kwargs)
 
-    def _apply1(self, bins, positions, *args) -> torch.Tensor:
-        """:func:`apply1` over resident bins (the paged grower's pass)."""
-        return apply1(bins, positions, *args)
+    def _apply1(self, rows, positions, *args):
+        """:func:`apply1` on every shard (the paged grower's pass)."""
+        return [apply1(b, p, *a) for b, p, a in
+                zip(rows.parts, positions, rows.to_shards(args))]
 
-    def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
+    @staticmethod
+    def _root(gp: torch.Tensor) -> torch.Tensor:
+        """A block of rows' gradient sums (the vector-leaf grower sums in
+        the JAX package's order)."""
+        return gp.sum(dim=0)
+
+    def _rows(self, bins, gpair: torch.Tensor):
+        """(the shards, each shard's gradients, each shard's row nodes, the
+        root's sums, the rows ``auto``'s kernel choice reads, the quantiser
+        keywords) over resident bins or a mesh's shards (the paged
+        grower's: ``tree/paged.py``)."""
+        rows = RowShards.of(bins)
+        gps = rows.split(gpair)
+        positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
+                                 device=b.device) for b in rows.parts]
+        root = rows.reduce([self._root(g) for g in gps], "mesh/root-sum")
+        return rows, gps, positions, root, rows.shard_rows, rows.scale(gps)
+
+    @staticmethod
+    def _final(rows, positions) -> torch.Tensor:
+        """Each row's node over the local rows, in row order."""
+        return rows.gather(positions)
+
+    def grow(self, bins, gpair: torch.Tensor,
              node_mask: Callable[[int], np.ndarray]) -> LossguideGrown:
-        """One tree from bins [n, F] (or a paged matrix, through
-        :meth:`_eval2` / :meth:`_apply1`) and gpair [n, 2] f32 on one
-        device; ``node_mask``: its column sampler from
-        :meth:`feature_masks`."""
+        """One tree from bins [n, F], a mesh's ``RowShards`` or a paged
+        matrix (through :meth:`_eval2` / :meth:`_apply1`) and gpair
+        [n, 2] f32 on the (first) device; ``node_mask``: its column
+        sampler from :meth:`feature_masks`."""
         param = self.param
-        n, F = bins.shape
+        F = bins.shape[1]
         dev = gpair.device
         max_leaves = param.max_leaves if param.max_leaves > 0 else (
             2 ** max(param.max_depth, 1))
         cap = 2 * max_leaves - 1
         cat = self.cat_on(dev)
+        rows, gps, positions, root, n_k, scale = self._rows(bins, gpair)
         # refuse an unported method before the loop
-        resolve_hist_kernel(self.hist_method, n, 2, self.max_nbins,
+        resolve_hist_kernel(self.hist_method, n_k, 2, self.max_nbins,
                             self.has_missing, cat is None)
         n_real = self._n_real_on(dev)
         monotone, _ = self.constraints_on(dev)
@@ -264,9 +304,9 @@ class LossguideGrower(TreeGrower):
         mb = self.max_nbins - 1 if self.has_missing else self.max_nbins
         kw = dict(param=param, max_nbins=self.max_nbins,
                   hist_method=self.hist_method, has_missing=self.has_missing,
-                  schedule=self.schedule, cat=cat,
-                  cb=(coarse_bin_ids(bins, mb)
-                      if self.schedule in ("coarse", "fused") else None))
+                  schedule=self.schedule, cat=cat, scale=scale,
+                  cbs=([coarse_bin_ids(b, mb) for b in rows.parts]
+                       if self.schedule in ("coarse", "fused") else None))
 
         # the tree's host arrays, ids in allocation order
         sf = np.full(cap, -1, np.int32)
@@ -284,8 +324,7 @@ class LossguideGrower(TreeGrower):
         upper = np.full(cap, np.inf, np.float32)
         paths = np.zeros((cap, F), bool) if cons is not None else None
 
-        positions = torch.zeros((n,), dtype=torch.int64, device=dev)
-        gh[0] = gpair.sum(dim=0).cpu().numpy()
+        gh[0] = root.cpu().numpy()
         n_nodes, n_leaves, counter = 1, 1, 0
         pq: list = []       # (-gain, push order, node, split payload)
         min_gain = max(param.gamma, _EPS)
@@ -300,7 +339,7 @@ class LossguideGrower(TreeGrower):
                 ids = [i for i in ids if depth_of[i] < param.max_depth]
             if not ids:
                 if apply_args is not None:
-                    positions = self._apply1(bins, positions, *apply_args)
+                    positions = self._apply1(rows, positions, *apply_args)
                 return
             i0 = ids[0]
             i1 = ids[1] if len(ids) > 1 else -1
@@ -328,8 +367,8 @@ class LossguideGrower(TreeGrower):
                     node_upper=torch.from_numpy(np.asarray(
                         [upper[i0], upper[j1]], np.float32)).to(dev))
             if apply_args is not None:
-                positions = self._apply1(bins, positions, *apply_args)
-            res = self._eval2(bins, gpair, positions, i0, i1, psums, fm_t,
+                positions = self._apply1(rows, positions, *apply_args)
+            res = self._eval2(rows, gps, positions, i0, i1, psums, fm_t,
                               n_real, **kw, **mono_kw)
             host = pack_result(res, self.n_words).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
@@ -403,6 +442,7 @@ class LossguideGrower(TreeGrower):
             is_cat_split=ics[:n_nodes].copy(),
             cat_words=cwords[:n_nodes].copy(),
             base_weight=w.astype(np.float32))
+        positions = self._final(rows, positions)
         delta = torch.from_numpy(leaf_value).to(dev)[positions]
         return LossguideGrown(positions=positions, delta=delta, tree=tree)
 

@@ -30,8 +30,12 @@ targets), with its JSON. Prediction walks the trees as torch ops
 (``boosting/predict.py``); the packed walk (K1) takes scalar trees only,
 in both packages.
 
-The paged vector-leaf growers are ``tree/paged.py``'s. Not ported
-here: the mesh and column-split branches (A.8).
+The paged vector-leaf growers are ``tree/paged.py``'s. Under a data
+mesh (``tree/shards.py RowShards``) each shard builds its K-target
+histograms and the shards' partials and root sums are summed (the JAX
+package's row ``allreduce`` and root sum, ``tree/multi.py:89-128``);
+each target's scale is reduced over the shards. Not ported here: the
+column-split branches (A.8).
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ from ..ops.split import MultiSplitResult, evaluate_splits_multi
 from ..ops.xla_order import sum_in_xla_order
 from .grow import (GrownTree, HeapTree, TreeGrower, draw_feature_masks,
                    interaction_allowed_host)
-from .lossguide import LossguideGrower, LossguideGrown
+from .lossguide import LossguideGrower, LossguideGrown, pair_rel
 from .param import TrainParam, _f32, calc_weight
+from .shards import RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -106,7 +111,7 @@ def is_vector_leaf(trees) -> bool:
 
 # ---- depthwise ----------------------------------------------------------------
 
-def grow_multi_tree(bins: torch.Tensor, gpair: torch.Tensor,
+def grow_multi_tree(bins, gpair: torch.Tensor,
                     n_real_bins: torch.Tensor, *, param: TrainParam,
                     max_nbins: int, hist_method: str = "auto",
                     has_missing: bool = True,
@@ -117,17 +122,23 @@ def grow_multi_tree(bins: torch.Tensor, gpair: torch.Tensor,
     ``_grow_multi``), from bins [n, F] and gpair [n, K, 2] f32 on one
     device: the root's sums in the JAX package's order, then per level
     the K-target histogram, the shared split search, the heap's
-    bookkeeping and the rows' advance. ``feature_masks`` and
-    ``constraint_sets`` as :func:`tree.grow.grow_tree` takes them."""
-    n = bins.shape[0]
+    bookkeeping and the rows' advance. ``bins``, ``feature_masks`` and
+    ``constraint_sets`` as :func:`tree.grow.grow_tree` takes them (a
+    mesh's shards too)."""
+    rows = RowShards.of(bins)
+    gps = rows.split(gpair)
+    scale = rows.scale(gps)
+    dev = rows.device
     max_depth = param.max_depth
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
-        resolve_hist_kernel(hist_method, n, 2 ** depth, max_nbins,
-                            has_missing)
-    tree = HeapTree(max_depth, sum_in_xla_order(gpair, 0), param,
-                    constraint_sets=constraint_sets)
-    positions = torch.zeros((n,), dtype=torch.int64, device=bins.device)
+        resolve_hist_kernel(hist_method, rows.shard_rows, 2 ** depth,
+                            max_nbins, has_missing)
+    tree = HeapTree(max_depth, rows.reduce([sum_in_xla_order(g, 0)
+                                            for g in gps], "mesh/root-sum"),
+                    param, constraint_sets=constraint_sets)
+    positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
+                             device=b.device) for b in rows.parts]
     for depth in range(max_depth):
         lo = 2 ** depth - 1
         n_level = 2 ** depth
@@ -135,22 +146,23 @@ def grow_multi_tree(bins: torch.Tensor, gpair: torch.Tensor,
         fmask, _ = tree.constraint_args(
             lo, n_level, None if feature_masks is None
             else feature_masks[depth])
-        hist = build_hist_multi(bins, gpair, level_rel(positions, lo,
-                                                       n_level),
-                                n_level, max_nbins, method=hist_method,
-                                has_missing=has_missing)
+        hist = rows.reduce([build_hist_multi(
+            b, g, level_rel(p, lo, n_level), n_level, max_nbins,
+            method=hist_method, has_missing=has_missing, **scale)
+            for b, g, p in zip(rows.parts, gps, positions)])
         res = evaluate_splits_multi(hist, tree.node_sum[lo:hi], n_real_bins,
                                     param, has_missing=has_missing,
                                     feature_mask=fmask)
         del hist
         can_split = tree.record(lo, n_level, res)
         is_split = torch.zeros((tree.max_nodes,), dtype=torch.bool,
-                               device=bins.device)
+                               device=dev)
         is_split[lo:hi] = can_split
-        positions = update_positions(bins, positions, tree.split_feature,
-                                     tree.split_bin, tree.default_left,
-                                     is_split, missing_bin)
-    return tree.finish(positions)
+        heap = (tree.split_feature, tree.split_bin, tree.default_left,
+                is_split)
+        positions = [update_positions(b, p, *h, missing_bin) for b, p, h in
+                     zip(rows.parts, positions, rows.to_shards(heap))]
+    return tree.finish(rows.gather(positions))
 
 
 class MultiTargetGrower(TreeGrower):
@@ -167,12 +179,12 @@ class MultiTargetGrower(TreeGrower):
             tkeys, torch.ones(F, dtype=torch.bool, device=device),
             self.param, self.param.max_depth)
 
-    def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
+    def grow(self, bins, gpair: torch.Tensor,
              masks: Optional[List[torch.Tensor]]) -> GrownTree:
         """One tree from gpair [n, K, 2]; ``masks`` from
         :meth:`feature_masks`, or None."""
-        _, sets = self.constraints_on(bins.device)
-        g = grow_multi_tree(bins, gpair, self._n_real_on(bins.device),
+        _, sets = self.constraints_on(gpair.device)
+        g = grow_multi_tree(bins, gpair, self._n_real_on(gpair.device),
                             param=self.param, max_nbins=self.max_nbins,
                             hist_method=self.hist_method,
                             has_missing=self.has_missing,
@@ -198,17 +210,18 @@ class MultiTargetGrower(TreeGrower):
 
 # ---- leaf-wise ----------------------------------------------------------------
 
-def eval2_multi(bins, gpair, positions, id0: int, id1: int, parent_sums,
-                fmask, n_real_bins, *, param: TrainParam, max_nbins: int,
-                hist_method: str, has_missing: bool) -> MultiSplitResult:
+def eval2_multi(rows: RowShards, gps, positions, id0: int, id1: int,
+                parent_sums, fmask, n_real_bins, *, param: TrainParam,
+                max_nbins: int, hist_method: str, has_missing: bool,
+                scale=None) -> MultiSplitResult:
     """The best splits of nodes ``id0`` and ``id1`` (-1: none) from one
     K-target build over every row, the others inactive (the JAX
-    package's ``_eval2_multi``): parent_sums [2, K, 2] f32, fmask [2, F]
-    bool."""
-    rel = torch.where(positions == id0, 0,
-                      torch.where(positions == id1, 1, 2)).to(torch.int32)
-    hist = build_hist_multi(bins, gpair, rel, 2, max_nbins,
-                            method=hist_method, has_missing=has_missing)
+    package's ``_eval2_multi``), on every shard and summed over them:
+    parent_sums [2, K, 2] f32, fmask [2, F] bool."""
+    hist = rows.reduce([build_hist_multi(
+        b, g, pair_rel(p, id0, id1), 2, max_nbins, method=hist_method,
+        has_missing=has_missing, **(scale or {}))
+        for b, g, p in zip(rows.parts, gps, positions)])
     return evaluate_splits_multi(hist, parent_sums, n_real_bins, param,
                                  has_missing=has_missing, feature_mask=fmask)
 
@@ -234,28 +247,35 @@ class MultiLossguideGrower(LossguideGrower):
     ``2 * max_leaves - 1``; column samples from the scalar lossguide's
     host sampler (``col_masks``)."""
 
-    def _eval2(self, bins, *args, **kwargs) -> MultiSplitResult:
-        return eval2_multi(bins, *args, **kwargs)
+    def _eval2(self, rows, *args, **kwargs) -> MultiSplitResult:
+        return eval2_multi(rows, *args, **kwargs)
 
-    def grow(self, bins: torch.Tensor, gpair: torch.Tensor,
+    @staticmethod
+    def _root(gp: torch.Tensor) -> torch.Tensor:
+        return sum_in_xla_order(gp, 0)
+
+    def grow(self, bins, gpair: torch.Tensor,
              node_mask: Callable[[int], np.ndarray]) -> LossguideGrown:
-        """One tree from bins [n, F] (or a paged matrix, through
-        :meth:`_eval2` / :meth:`_apply1`) and gpair [n, K, 2] f32 on one
-        device; ``node_mask``: its column sampler."""
+        """One tree from bins [n, F], a mesh's ``RowShards`` or a paged
+        matrix (through :meth:`_eval2` / :meth:`_apply1`) and gpair
+        [n, K, 2] f32 on the (first) device; ``node_mask``: its column
+        sampler."""
         param = self.param
-        n, F = bins.shape
+        F = bins.shape[1]
         K = gpair.shape[1]
         dev = gpair.device
         max_leaves = param.max_leaves if param.max_leaves > 0 else (
             2 ** max(param.max_depth, 1))
         cap = 2 * max_leaves - 1
-        resolve_hist_kernel(self.hist_method, n, 2, self.max_nbins,
+        rows, gps, positions, root, n_k, scale = self._rows(bins, gpair)
+        resolve_hist_kernel(self.hist_method, n_k, 2, self.max_nbins,
                             self.has_missing)
         n_real = self._n_real_on(dev)
         cons = self.constraint_sets
         mb = self.max_nbins - 1 if self.has_missing else self.max_nbins
         kw = dict(param=param, max_nbins=self.max_nbins,
-                  hist_method=self.hist_method, has_missing=self.has_missing)
+                  hist_method=self.hist_method, has_missing=self.has_missing,
+                  scale=scale)
 
         sf = np.full(cap, -1, np.int32)
         sb = np.zeros(cap, np.int32)
@@ -268,8 +288,7 @@ class MultiLossguideGrower(LossguideGrower):
         depth_of = np.zeros(cap, np.int32)
         paths = np.zeros((cap, F), bool) if cons is not None else None
 
-        positions = torch.zeros((n,), dtype=torch.int64, device=dev)
-        gh[0] = sum_in_xla_order(gpair, 0).cpu().numpy()
+        gh[0] = root.cpu().numpy()
         n_nodes, n_leaves, counter = 1, 1, 0
         pq: list = []       # (-gain, push order, node, split payload)
         min_gain = max(param.gamma, _EPS)
@@ -293,7 +312,7 @@ class MultiLossguideGrower(LossguideGrower):
             psums = torch.from_numpy(np.stack(
                 [gh[i0], gh[i1] if i1 >= 0 else np.zeros((K, 2))]).astype(
                     np.float32)).to(dev)
-            res = self._eval2(bins, gpair, positions, i0, i1, psums,
+            res = self._eval2(rows, gps, positions, i0, i1, psums,
                               torch.from_numpy(fm).to(dev), n_real, **kw)
             host = pack_multi_result(res).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
@@ -322,7 +341,7 @@ class MultiLossguideGrower(LossguideGrower):
             if paths is not None:
                 paths[li] = paths[ri] = paths[nid]
                 paths[li, feat] = paths[ri, feat] = True
-            positions = self._apply1(bins, positions, nid, feat, rbin, rdl,
+            positions = self._apply1(rows, positions, nid, feat, rbin, rdl,
                                      False, None, li, ri, mb)
             eval_nodes(li, ri)
 
@@ -343,5 +362,6 @@ class MultiLossguideGrower(LossguideGrower):
             sum_hess=gh[:n_nodes, :, 1].sum(axis=1).astype(np.float32),
             gain=np.where(is_leaf, 0.0, gn[:n_nodes]).astype(np.float32),
             base_weight=w.astype(np.float32))
+        positions = self._final(rows, positions)
         delta = torch.from_numpy(leaf_value).to(dev)[positions]
         return LossguideGrown(positions=positions, delta=delta, tree=tree)

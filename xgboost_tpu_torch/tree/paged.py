@@ -62,6 +62,14 @@ The JAX package also stops a tree's passes one level after a level
 with no split; the port runs every level (a level without active nodes
 splits nothing, so the tree is the same).
 
+Row split across processes: under a multi-rank communicator each rank
+streams its own pages, and each level's histograms (the pass's, the
+two-level pass's coarse and fine, a leaf-wise pair's) and the root's
+sums are summed across the ranks on the host
+(``tree/shards.py host_allreduce``, the JAX package's
+``_host_allreduce``), so every rank grows the same tree. A page's
+int8x2 scale stays its own, as in the JAX package.
+
 Not in the port yet (each raises): sibling subtraction (ROADMAP A.6) and
 the paged mesh tier (A.8).
 """
@@ -82,6 +90,7 @@ from ..ops.xla_order import sum_in_xla_order
 from .grow import GrownTree, HeapTree, TreeGrower
 from .lossguide import LossguideGrower, apply1
 from .multi import MultiLossguideGrower, MultiTargetGrower
+from .shards import aligned, host_allreduce
 
 TWO_LEVEL = ("coarse", "fused", "scan", "mega")
 
@@ -125,12 +134,8 @@ class _PageKernels:
             carry = body(carry, page, s, e, False)
         for s, e, page in paged.stream_pages(streamed, device):
             carry = body(carry, page, s, e, True)
+            del page    # the ring's next upload may take its place
         return carry
-
-    @staticmethod
-    def _aligned(gp: torch.Tensor) -> torch.Tensor:
-        # the kernels take 16-byte aligned rows
-        return gp.clone() if gp.data_ptr() % 16 else gp
 
     def _hist(self, paged, page, gp, rel, n_nodes) -> torch.Tensor:
         """A page's full-width histogram; [p, K, 2] gradients build the
@@ -141,7 +146,7 @@ class _PageKernels:
                                     method=self.hist_method,
                                     has_missing=self.has_missing,
                                     packed_u4=packed)
-        return build_hist(page, self._aligned(gp), rel, n_nodes,
+        return build_hist(page, aligned(gp), rel, n_nodes,
                           self.max_nbins, method=self.hist_method,
                           has_missing=self.has_missing, packed_u4=packed,
                           numeric=self.numeric)
@@ -193,7 +198,7 @@ class _PageKernels:
                 pos = self._advance(paged, page, pos, prev)
                 positions[s:e] = pos
             rel = level_rel(pos, lo, n_level)
-            gp = self._aligned(gpair[s:e])
+            gp = aligned(gpair[s:e])
             hist_c.add_(build_hist(coarse_bin_ids(paged.decode_page(page),
                                                   mb),
                                    gp, rel, n_level, COARSE_B))
@@ -274,7 +279,8 @@ class _PagedLevels:
                         else self.max_nbins)
         tree = HeapTree(
             param.max_depth,
-            sum_in_xla_order(gpair, 0) if self.multi else gpair.sum(dim=0),
+            host_allreduce(sum_in_xla_order(gpair, 0) if self.multi
+                           else gpair.sum(dim=0), label="paged/root-sum"),
             param, n_words=0 if cat is None else (n_real_slots - 1) // 32 + 1,
             monotone=None if self.multi else monotone, constraint_sets=sets)
         positions = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -289,7 +295,8 @@ class _PagedLevels:
                                             lo, n_level, parent, n_real,
                                             fmask, mono_kw)
             else:
-                hist = pk.adv_hist(paged, gpair, positions, prev, lo, n_level)
+                hist = host_allreduce(pk.adv_hist(paged, gpair, positions,
+                                                  prev, lo, n_level))
                 if self.multi:
                     res = evaluate_splits_multi(
                         hist, parent, n_real, param,
@@ -313,8 +320,8 @@ class _PagedLevels:
                          parent, n_real, fmask, mono_kw):
         """One level of the page-major two-level schedule (module
         docstring) -> its split search."""
-        hist_c, hist_f = self._pk.two_level_pass(paged, gpair, positions,
-                                                 prev, lo, n_level)
+        hist_c, hist_f = (host_allreduce(h) for h in self._pk.two_level_pass(
+            paged, gpair, positions, prev, lo, n_level))
         span = choose_refine_window(hist_c, parent, n_real, self.param,
                                     self.has_missing)
         hist_r = refine_from_fine(hist_f, span, self._pk.missing_bin)
@@ -389,9 +396,28 @@ class _PagedPairs:
                                 self.has_missing,
                                 numeric=not self.cuts.is_cat().any())
 
+    def _rows(self, paged, gpair: torch.Tensor):
+        """``LossguideGrower._rows`` over pages: the matrix, the whole
+        gradients and row nodes, and the root's sums across the ranks."""
+        return (paged, gpair, torch.zeros((gpair.shape[0],),
+                                          dtype=torch.int64,
+                                          device=gpair.device),
+                host_allreduce(self._root(gpair), label="paged/root-sum"),
+                paged.shape[0], {})
+
+    @staticmethod
+    def _final(paged, positions) -> torch.Tensor:
+        return positions
+
     def _apply1(self, paged, positions, *args):
         _check_rows(paged, positions.shape[0])
         return self._pk.apply1(paged, positions, *args)
+
+    def _pair_hist(self, paged, gpair, positions, i0, i1):
+        """The pair's histogram over this rank's pages, summed across the
+        ranks."""
+        return host_allreduce(self._pk.pair_hist(paged, gpair, positions,
+                                                 i0, i1))
 
 
 class PagedLossguideGrower(_PagedPairs, LossguideGrower):
@@ -406,7 +432,7 @@ class PagedLossguideGrower(_PagedPairs, LossguideGrower):
     def _eval2(self, paged, gpair, positions, i0, i1, psums, fmask, n_real,
                *, cat=None, monotone=None, node_lower=None, node_upper=None,
                **_):
-        hist = self._pk.pair_hist(paged, gpair, positions, i0, i1)
+        hist = self._pair_hist(paged, gpair, positions, i0, i1)
         return evaluate_splits(hist, psums, n_real, self.param,
                                has_missing=self.has_missing,
                                feature_mask=fmask, cat=cat, monotone=monotone,
@@ -423,7 +449,7 @@ class PagedMultiLossguideGrower(_PagedPairs, MultiLossguideGrower):
 
     def _eval2(self, paged, gpair, positions, i0, i1, psums, fmask, n_real,
                **_):
-        hist = self._pk.pair_hist(paged, gpair, positions, i0, i1)
+        hist = self._pair_hist(paged, gpair, positions, i0, i1)
         return evaluate_splits_multi(hist, psums, n_real, self.param,
                                      has_missing=self.has_missing,
                                      feature_mask=fmask)

@@ -13,6 +13,7 @@ tree; the tree it is given is left as it was.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import List
 
 import numpy as np
@@ -115,9 +116,19 @@ def refresh_tree(tree: TreeModel, X: np.ndarray, gpair: np.ndarray,
                                base_weight=weight, leaf_value=leaf_value)
 
 
-def sync_trees(trees: List[TreeModel]) -> List[TreeModel]:
-    """Reference ``TreeSyncher``: the trees of rank 0 on every process.
-    One process holds the only copy, so the trees come back as they are
-    (a communicator comes with ROADMAP A.8)."""
-    return trees
+def sync_trees(trees: List[TreeModel], communicator=None
+               ) -> List[TreeModel]:
+    """Reference ``TreeSyncher``: the trees of rank 0 on every process
+    (the JAX package's ``sync_trees``), broadcast as their JSON over
+    ``communicator`` (by default the active one). One process holds the
+    only copy, so the trees come back as they are."""
+    from ..parallel.collective import get_communicator
+
+    comm = communicator if communicator is not None else get_communicator()
+    if not comm.is_distributed():
+        return trees
+    payload = (json.dumps([t.to_json() for t in trees])
+               if comm.get_rank() == 0 else None)
+    payload = comm.broadcast(payload, root=0)
+    return [TreeModel.from_json(o) for o in json.loads(payload)]
 

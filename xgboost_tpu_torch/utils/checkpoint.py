@@ -384,8 +384,10 @@ class CheckpointManager:
 
     Responsibilities: compute the data fingerprint once, find the resume
     snapshot, write boundary snapshots (sync or background), prune old
-    ones. (The JAX package's agreement on one round across ranks waits
-    with the distributed tier, ROADMAP A.8.)"""
+    ones. Under a multi-rank communicator the ranks agree on one resume
+    round, the oldest of their newest valid snapshots
+    (``parallel/resilience.py agree_round``), as the JAX package's
+    do."""
 
     def __init__(self, config: CheckpointConfig) -> None:
         self.config = config
@@ -407,9 +409,26 @@ class CheckpointManager:
             return None
         found = latest_valid_snapshot(cfg.directory, cfg.name,
                                       fingerprint=self.fingerprint)
-        if found is None or found[0].round <= 0:
+        local_round = found[0].round if found else 0
+        from ..parallel.resilience import agree_round
+
+        agreed = agree_round(local_round)
+        if agreed <= 0:
             return None
-        snap = found[0]
+        if found is not None and agreed == found[0].round:
+            snap = found[0]
+        else:
+            # another rank holds less history: resume from the agreed
+            # (older) round; it must exist locally, or the world cannot
+            # restart from one state
+            path = snapshot_path(cfg.directory, agreed, cfg.name)
+            try:
+                snap = load_snapshot(path)
+            except SnapshotCorrupt as e:
+                raise SnapshotError(
+                    f"ranks agreed to resume from round {agreed} but this "
+                    f"rank's copy is missing/invalid ({e}); clear the "
+                    "checkpoint directories to restart from scratch") from e
         self.resumed_from = snap.round
         logger.info("auto-resume: continuing from snapshot round %d (%s)",
                     snap.round, cfg.directory)
