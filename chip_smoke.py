@@ -334,7 +334,27 @@ counts set to 0 just before and read just after:
   merged cuts; seconds a round and the collective's host time); and two
   ``InMemoryCommunicator`` thread ranks, each training 2 of the first 4
   pages of ``higgs_batches`` (one sha256, held against one rank over all
-  4 pages). Every run prints its seconds a round beside one device's.
+  4 pages). Every run prints its seconds a round beside one device's;
+- column-split training (``column_split``) at the same shape: first K2
+  and K4 (128 nodes) and K3 (256 and 512) at one level of one feature
+  shard (1,000,000 x 7, the shard's own scale) against their plain
+  versions and timed (``col_shard_kernels``); then on a column mesh of 4
+  feature shards of this card (``data_split_mode="col"``: every row, 7
+  columns a shard, the best-split exchange and the decision OR)
+  ``auto`` (K2 a shard), ``scan`` (K4), ``coarse`` and ``fused`` (K2 on
+  the coarse ids; K5 never launched), depth 10 (K3 above 128 nodes), 3
+  rounds each, lossguide at 255 leaves (2 rounds), vector leaves at the
+  MediaMill shape on 2 shards (2 rounds) and ``approx`` (3 rounds), each
+  held node by node against the ``distributed`` phase's one-device model
+  of the same parameters (the trees' sha256 compared, predictions
+  within rtol 1e-5 + atol 1e-5), launches shards x one device's, two
+  ``auto`` runs one sha256; and 4 vertical federated parties on
+  ``InMemoryCommunicator`` threads (a block of 7 columns each, labels on
+  rank 0) training depthwise 3 rounds and lossguide at 255 leaves 2
+  rounds (one sha256 on every party, one device's trees, K2 4 x one
+  device's builds), the held-out 100,000 rows predicted by the
+  decision-bit protocol against K1's predictions; seconds a round and
+  the communicator's host seconds beside one device's.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -6122,8 +6142,11 @@ def distributed(xt, dev, tmp):
 
     card = gpu_line()
     t_phase = time.perf_counter()
-    runs, summary = [], {"s_round": {}}
+    # "one": the one-device models, their launches and seconds a round,
+    # which the ``column_split`` phase holds its runs against
+    runs, summary = [], {"s_round": {}, "one": {}}
     X, y = higgs_like(DIST_ROWS + DIST_TEST_ROWS, 28, seed=0)
+    summary["data"] = (X, y)
     Xtr, ytr = X[:DIST_ROWS], y[:DIST_ROWS]
     dtr = xt.DMatrix(Xtr, label=ytr)
     dte = xt.DMatrix(X[DIST_ROWS:], label=y[DIST_ROWS:])
@@ -6162,6 +6185,7 @@ def distributed(xt, dev, tmp):
             raise AssertionError(f"{label}: mesh predictions differ by "
                                  f"{np.abs(pa - pb).max()} end to end")
         summary["s_round"][label] = {"one": s1, "mesh": sm}
+        summary["one"][label] = (one, c1, s1)
         log(f"distributed {label}: {shards} shards of {dev}, {full} of "
             f"{len(one.gbm.trees)} trees the same in full"
             + (f", near ties at {ties}" if ties else "")
@@ -6208,6 +6232,7 @@ def distributed(xt, dev, tmp):
                              f"times on the mesh, {c1['hist_scan']} on one "
                              "device")
     summary["s_round"]["lossguide"] = {"one": s1, "mesh": sm}
+    summary["one"]["lossguide"] = (one, c1, s1)
     log(f"distributed lossguide 255 leaves: {full} of {len(one.gbm.trees)} "
         f"trees the same in full" + (f", near ties at {ties}" if ties
                                      else "")
@@ -6236,6 +6261,8 @@ def distributed(xt, dev, tmp):
                                   Ym[:MM_TRAIN_ROWS], DIST_MM_ROUNDS,
                                   vector=True)
     summary["s_round"]["vector leaves"] = {"one": s1, "mesh": sm}
+    summary["one"]["vector leaves"] = (one, c1, s1)
+    summary["mediamill"] = (Xm[:MM_TRAIN_ROWS], Ym[:MM_TRAIN_ROWS])
     log(f"distributed vector leaves ({MM_LABELS} labels, "
         f"{DIST_MM_SHARDS} shards): K2 {cm['hist_int8x2']} on the mesh, "
         f"{c1['hist_int8x2']} on one device"
@@ -6259,6 +6286,7 @@ def distributed(xt, dev, tmp):
                                         dict(ap, mesh=mesh), one, Xtr, ytr,
                                         DIST_ROUNDS)
     summary["s_round"]["approx"] = {"one": s1, "mesh": sm}
+    summary["one"]["approx"] = (one, c1, s1)
     log(f"distributed approx: held-out logloss {ll}; {full} of "
         f"{len(one.gbm.trees)} trees the same in full"
         + (f", near ties at {ties}" if ties else "")
@@ -6461,6 +6489,350 @@ def distributed(xt, dev, tmp):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return runs, summary
+
+
+COL_SHARDS = 4               # feature shards of 7 of the 28 columns each
+COL_ROUNDS = 3
+COL_MM_SHARDS = 2
+COL_PARTIES = 4              # vertical parties, a block of 7 columns each
+# (one device's histogram builds a round, kernel -> the kernel each
+# feature shard runs in its place, builds a round): ``auto`` takes K2
+# where one device takes K4 (``auto_selects_scan(col_split=True)``), and
+# under column split ``fused`` advances first and builds its coarse
+# histogram with K2, never launching K5
+K2_K4 = ("hist_scan", "hist_int8x2")
+COL_RUNS = (
+    ("auto", {}, "auto", {"hist_int8x2": K2_K4}),
+    ("scan", {"hist_method": "scan"}, "fused", {"hist_scan": ("hist_scan",)}),
+    ("coarse", {"hist_method": "coarse"}, "fused",
+     {"hist_int8x2": ("hist_int8x2", "fused_advance_coarse")}),
+    ("fused", {"hist_method": "fused"}, "fused",
+     {"hist_int8x2": ("hist_int8x2", "fused_advance_coarse")}),
+    ("depth 10", {"max_depth": 10}, "depth 10",
+     {"hist_int8x2": K2_K4, "hist_f32": ("hist_f32",)}),
+)
+# a kernel's launches one device makes a level where the ``distributed``
+# phase kept no model of the same parameters (``scan`` and ``coarse`` grow
+# ``fused``'s trees; one device launches K4 8 and K2 16 a round at depth
+# 8)
+COL_ONE_DEVICE = {"scan": {"hist_scan": 1}, "coarse": {"hist_int8x2": 2}}
+COL_SHARD_LEVELS = (("hist_int8x2", 128), ("hist_scan", 128),
+                    ("hist_f32", 256), ("hist_f32", 512))
+
+
+class TimedComm:
+    """A communicator whose collectives add their host seconds to
+    ``seconds`` (the vertical parties' exchange time)."""
+
+    def __init__(self, inner):
+        self.inner, self.seconds = inner, 0.0
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if name not in ("allreduce", "allgather_objects", "broadcast"):
+            return attr
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return attr(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return timed
+
+
+def tree_digest(bst) -> str:
+    """sha256 of the model's trees (a column-split model's learner
+    parameters name its split mode)."""
+    return hashlib.sha256(json.dumps(
+        [t.to_json() for t in bst.gbm.trees]).encode()).hexdigest()
+
+
+def col_same_trees(one, col, label):
+    """``col``'s trees against one device's node by node: children,
+    features, bins, default directions and categorical words exactly,
+    leaves and thresholds within rtol 1e-5 + atol 1e-5. Returns whether
+    the trees' bytes are one device's."""
+    if len(one.gbm.trees) != len(col.gbm.trees):
+        raise AssertionError(f"{label}: {len(col.gbm.trees)} trees against "
+                             f"{len(one.gbm.trees)}")
+    for t, (a, b) in enumerate(zip(one.gbm.trees, col.gbm.trees)):
+        for f in ("left_child", "right_child", "split_feature", "split_bin",
+                  "default_left", "is_leaf", "is_cat_split", "cat_words"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{label} tree {t}: {f} differs from "
+                                     "one device's")
+        for f in ("leaf_value", "split_value"):
+            if not np.allclose(getattr(a, f), getattr(b, f), rtol=1e-5,
+                               atol=1e-5):
+                raise AssertionError(f"{label} tree {t}: {f} differs from "
+                                     "one device's")
+    return tree_digest(one) == tree_digest(col)
+
+
+def col_shard_kernels(dev, dtr, mesh):
+    """K2, K4 (at 128 nodes) and K3 (at depth 10's 256 and 512) at one
+    level of one feature shard at its real shape: ``dtr``'s bins laid out
+    as the column mesh lays them out (``data/binned.py
+    pad_features_for_mesh``: every row, 7 of the 28 features), logistic
+    gradients at a seeded margin with the shard's own scale (every shard
+    holds every row). Each wrapper (``build_hist`` under ``pallas``,
+    ``scan`` and ``auto`` above 128 nodes, as the column growers call it)
+    must launch its kernel and equal its plain version bit for bit, on
+    two launches with the totals against the row sums
+    (:func:`check_hist`), then is timed. Returns ({kernel: max
+    |kernel - plain|}, {(kernel, N): (ms, plain_ms, library_ms,
+    bound)})."""
+    from xgboost_tpu_torch.data.binned import pad_features_for_mesh
+    from xgboost_tpu_torch.ops import histogram as H
+
+    bm = dtr.binned(HIGGS_PARAMS["max_bin"], dev)
+    B, hm = bm.max_nbins, bm.has_missing
+    cols = pad_features_for_mesh(bm, mesh).bins
+    b = cols.parts[1]
+    if b.shape != (bm.shape[0], 28 // mesh.size) or cols.pad:
+        raise AssertionError(f"a feature shard is {tuple(b.shape)}")
+    if not torch.equal(b, bm.bins[:, cols.offsets[1]:cols.offsets[2]]):
+        raise AssertionError("the feature shard is not its block of columns")
+    y = torch.from_numpy(dtr.get_label()).to(dev)
+    g = torch.Generator(device=dev).manual_seed(170)
+    p = torch.sigmoid(torch.randn(y.shape[0], generator=g, device=dev))
+    gp = torch.stack([p - y, p * (1 - p)], 1).contiguous()
+    m = b.shape[0]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    errs, timed = {}, {}
+    for i, (name, N) in enumerate(COL_SHARD_LEVELS):
+        label = f"col shard {name} {m} x {b.shape[1]} N={N}"
+        gg = torch.Generator(device=dev).manual_seed(180 + i)
+        rel = torch.randint(0, N, (m,), generator=gg, device=dev,
+                            dtype=torch.int32)
+        rel = torch.where(torch.rand(m, generator=gg, device=dev) < 0.1,
+                          torch.full_like(rel, N), rel).contiguous()
+        method = {"hist_int8x2": "pallas", "hist_scan": "scan"}.get(name,
+                                                                    "auto")
+        reset_counts()
+        got = H.build_hist(b, gp, rel, N, B, method=method, has_missing=hm,
+                           col_split=True)
+        torch.cuda.synchronize()
+        if read_counts()[name] != 1:
+            raise AssertionError(f"{label}: the wrapper did not launch "
+                                 f"{name}")
+        if name == "hist_f32":
+            qs, inv3 = H.fixed_point_scale(gp)
+            want = H.build_hist_f32_reference(b, gp, rel, qs, inv3, N, B)
+        else:
+            q, inv = H.quantise_int8x2(gp)
+            plain = (H.build_hist_scan_reference if name == "hist_scan"
+                     else H.build_hist_int8x2_reference)
+            want = plain(b, q, rel, inv, N, B)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the wrapper differs from the "
+                                 "plain version")
+        errs[name] = max(errs.get(name, 0.0), check_hist(
+            b, gp, rel, N, B, label, only=(name,))[name])
+        t, n_active = time_hist(b, gp, rel, N, B, flush, only=(name,))
+        ms, plain_ms, lib_ms = t[name]
+        timed[(name, N)] = (ms, plain_ms, lib_ms, hist_bound_ms(
+            b, N, B, n_active, 2 if name in k3_precisions() else 4))
+    del flush
+    log(f"column_split kernels at one level of feature shard 1 ({m} x "
+        f"{b.shape[1]}, {B} slots, its own scale): every wrapper launched "
+        f"its kernel and equals the plain version bit for bit; "
+        + "; ".join(f"{k} N={N} {ms:.6f} ms (plain {pm:.6f}, library "
+                    f"{lm:.6f}, bound {bd[0]:.6f} {bd[1]})"
+                    for (k, N), (ms, pm, lm, bd) in timed.items()))
+    return errs, timed
+
+
+def vertical_parties(xt, dev, params, X, y, rounds, Xte=None):
+    """``params`` trained by ``COL_PARTIES`` vertical parties on
+    ``InMemoryCommunicator`` threads, each with a block of the columns of
+    every row, only rank 0 with labels; with ``Xte`` every party also
+    predicts its block of those rows (``federated_vertical_margin``).
+    Returns (each rank's booster, predictions, seconds a round and
+    communicator host seconds, and the launches of all the ranks)."""
+    from xgboost_tpu_torch.parallel.collective import (
+        InMemoryCommunicator, set_thread_local_communicator)
+
+    comms = [TimedComm(c) for c in
+             InMemoryCommunicator.make_world(COL_PARTIES)]
+    w = X.shape[1] // COL_PARTIES
+    out, errs = [None] * COL_PARTIES, []
+
+    def party(r):
+        set_thread_local_communicator(comms[r])
+        try:
+            blk = slice(r * w, (r + 1) * w)
+            dm = xt.DMatrix(X[:, blk], label=y if r == 0 else None,
+                            data_split_mode="col")
+            clock = RoundClock()
+            b = xt.train(dict(params, data_split_mode="col"), dm, rounds,
+                         verbose_eval=False, callbacks=[clock.callback])
+            train_s = comms[r].seconds
+            pred = (None if Xte is None else
+                    b.predict(xt.DMatrix(Xte[:, blk], data_split_mode="col")))
+            out[r] = (b, pred, clock.seconds(), train_s,
+                      comms[r].seconds - train_s)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+        finally:
+            set_thread_local_communicator(None)
+
+    reset_counts()
+    threads = [threading.Thread(target=party, args=(r,))
+               for r in range(COL_PARTIES)]
+    [t.start() for t in threads]
+    [t.join() for t in threads]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if errs:
+        raise errs[0]
+    return out, counts
+
+
+def column_split(xt, dev, dist):
+    """The ``column_split`` phase (module docstring): returns (the
+    main-path runs' launch counts, a summary dict)."""
+    from xgboost_tpu_torch.context import Mesh
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    X, y = dist["data"]
+    Xtr, ytr = X[:DIST_ROWS], y[:DIST_ROWS]
+    dtr = xt.DMatrix(Xtr, label=ytr)
+    mesh = Mesh([dev] * COL_SHARDS)
+    runs, summary = [], {"s_round": {}, "same_bytes": {}}
+    summary["shard_kernels"] = col_shard_kernels(dev, dtr, mesh)
+    hist_names = ("hist_int8x2", "hist_scan", "hist_f32",
+                  "fused_advance_coarse")
+
+    def against(label, one, c1, s1, params, data, rounds, launches,
+                shards=COL_SHARDS, per_round=None):
+        """``params`` on a column mesh of ``shards`` shards of ``dev``
+        against one device's ``one`` (its launches ``c1``, or one
+        device's per round ``per_round``): the trees node by node,
+        predictions at rtol 1e-5 + atol 1e-5, every kernel of
+        ``launches`` ({kernel the shards run: one device's kernels in its
+        place}) launched shards x one device's, K5 never."""
+        m = Mesh([dev] * shards)
+        col, cm, sm = timed_train(xt, f"column {label}", dict(
+            params, mesh=m, data_split_mode="col"), data, rounds)
+        runs.append(cm)
+        same = col_same_trees(one, col, f"column {label}")
+        pa = col.predict(data)
+        pb = one.predict(data)
+        if not np.allclose(pa, pb, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"column {label}: predictions differ by "
+                                 f"{np.abs(pa - pb).max()}")
+        for k, theirs in launches.items():
+            n1 = (sum(c1[t] for t in theirs) if c1 is not None
+                  else per_round[k] * rounds)
+            if cm[k] != shards * n1 or cm[k] == 0:
+                raise AssertionError(
+                    f"column {label}: {k} launched {cm[k]} times, want "
+                    f"{shards} shards x one device's {n1}")
+        if cm["fused_advance_coarse"]:
+            raise AssertionError(f"column {label}: K5 launched "
+                                 f"{cm['fused_advance_coarse']} times")
+        summary["s_round"][label] = {"one": s1, "column": sm}
+        summary["same_bytes"][label] = same
+        log(f"column_split {label}: {shards} feature shards of {dev}, every "
+            f"tree node by node one device's, trees' sha256 "
+            f"{'==' if same else '!='} one device's; launches "
+            f"{ {k: cm[k] for k in hist_names if cm[k]} } = {shards} x one "
+            f"device's; predictions within "
+            f"{float(np.abs(pa - pb).max()):.3e}; seconds a round one "
+            f"device {s1}, column mesh {sm} [{card}]")
+        return col, cm
+
+    # -- the column mesh against one device: auto (K2 a shard), scan (K4),
+    # coarse and fused (K2 on the coarse ids, K5 never), depth 10 (K3)
+    for label, extra, ref, launches in COL_RUNS:
+        one, c1, s1 = dist["one"][ref]
+        params = dict(HIGGS_PARAMS, **extra)
+        if label in COL_ONE_DEVICE:
+            col, _ = against(label, one, None, s1, params, dtr, COL_ROUNDS,
+                             launches, per_round={
+                                 k: v * params["max_depth"] for k, v in
+                                 COL_ONE_DEVICE[label].items()})
+        else:
+            col, _ = against(label, one, c1, s1, params, dtr, COL_ROUNDS,
+                             launches)
+        if label == "auto":
+            again, c2, _ = timed_train(xt, "column auto again", dict(
+                params, mesh=mesh, data_split_mode="col"), dtr, COL_ROUNDS)
+            runs.append(c2)
+            if tree_digest(again) != tree_digest(col):
+                raise AssertionError("two runs of the column mesh gave two "
+                                     "models")
+            summary["col_sha"] = tree_digest(col)
+
+    # -- lossguide at 255 leaves, vector leaves at the MediaMill shape on 2
+    # shards, approx: each against the distributed phase's one device
+    one, c1, s1 = dist["one"]["lossguide"]
+    against("lossguide", one, c1, s1, dict(
+        HIGGS_PARAMS, grow_policy="lossguide", max_leaves=255), dtr,
+        DIST_LG_ROUNDS, {"hist_int8x2": K2_K4})
+    one, c1, s1 = dist["one"]["vector leaves"]
+    Xm, Ym = dist["mediamill"]
+    against("vector leaves", one, c1, s1,
+            dict(MM_PARAMS, multi_strategy="multi_output_tree"),
+            xt.DMatrix(Xm, label=Ym), DIST_MM_ROUNDS,
+            {"hist_int8x2": ("hist_int8x2",)}, shards=COL_MM_SHARDS)
+    one, c1, s1 = dist["one"]["approx"]
+    against("approx", one, c1, s1, dict(HIGGS_PARAMS, tree_method="approx"),
+            dtr, DIST_ROUNDS, {"hist_int8x2": K2_K4})
+
+    # -- vertical federated parties: 4 threads of 7 columns, labels on
+    # rank 0; depthwise 3 rounds with the held-out rows predicted by the
+    # decision-bit protocol, lossguide 255 leaves 2 rounds
+    Xte = X[DIST_ROWS:]
+    for label, ref, params, rounds, test in (
+            ("vertical depthwise", "auto", dict(HIGGS_PARAMS), COL_ROUNDS,
+             Xte),
+            ("vertical lossguide", "lossguide", dict(
+                HIGGS_PARAMS, grow_policy="lossguide", max_leaves=255),
+             DIST_LG_ROUNDS, None)):
+        one, c1, s1 = dist["one"][ref]
+        out, cv = vertical_parties(xt, dev, params, Xtr, ytr, rounds, test)
+        runs.append(cv)
+        shas = {tree_digest(b) for b, *_ in out}
+        if len(shas) != 1:
+            raise AssertionError(f"{label}: the parties hold "
+                                 f"{len(shas)} models")
+        same = col_same_trees(one, out[0][0], label)
+        builds = sum(c1[k] for k in K2_K4)
+        if cv["hist_int8x2"] != COL_PARTIES * builds:
+            raise AssertionError(f"{label}: K2 launched {cv['hist_int8x2']}"
+                                 f" times, want {COL_PARTIES} parties x one "
+                                 f"device's {builds}")
+        pred_gap = None
+        if test is not None:
+            want = one.predict(xt.DMatrix(test))
+            pred_gap = max(float(np.abs(p - want).max())
+                           for _, p, *_ in out)
+            if not all(np.allclose(p, want, rtol=1e-5, atol=1e-5)
+                       for _, p, *_ in out):
+                raise AssertionError(f"{label}: the parties' predictions "
+                                     f"differ from K1's by {pred_gap}")
+        s_round = [o[2] for o in out]
+        comm_s = [o[3] for o in out]
+        summary["s_round"][label] = {"one": s1, "parties": s_round,
+                                     "comm_s": comm_s,
+                                     "predict_comm_s": [o[4] for o in out]}
+        summary["same_bytes"][label] = same
+        log(f"column_split {label}: {COL_PARTIES} parties on threads of "
+            f"{dev}, one sha256 {shas.pop()[:16]}... "
+            f"({'==' if same else '!='} one device's trees), K2 "
+            f"{cv['hist_int8x2']} = {COL_PARTIES} x one device's {builds}"
+            + ("" if pred_gap is None else
+               f"; {len(Xte)} held-out rows by the decision-bit protocol "
+               f"within {pred_gap:.3e} of K1's (the protocol's host time "
+               f"{[round(o[4], 6) for o in out]} s)")
+            + f"; seconds a round one device {s1}, parties {s_round[0]}; "
+            f"communicator host seconds in training {comm_s} [{card}]")
     summary["phase_s"] = time.perf_counter() - t_phase
     return runs, summary
 
@@ -7321,6 +7693,14 @@ def main() -> int:
         f"round, collective host time {dist['procs_collective_s']} s; mesh "
         f"sha256 {dist['mesh_sha']} [{card}]")
 
+    # ---- main path: column-split training (feature shards on a column
+    # mesh of this card, vertical federated parties on threads)
+    col_runs, col = column_split(xt, dev, dist)
+    del dist["one"], dist["data"], dist["mediamill"]
+    log(f"column_split: {col['phase_s']:.1f} s; seconds a round "
+        f"{col['s_round']}; trees' bytes one device's {col['same_bytes']}; "
+        f"column mesh sha256 {col['col_sha']} [{card}]")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -7418,7 +7798,8 @@ def main() -> int:
             *cov_runs, rf_counts, gb_counts, *bf16_counts.values(),
             *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
             *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
-            *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs]
+            *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs,
+            *col_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -7564,6 +7945,20 @@ def main() -> int:
                      f"{DIST_SHARDS}, scale over the shards, N={N}",
             "launches": sum(c[name] for c in dist_runs),
             "max_abs_err": sk_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms})
+    # the column_split phase's kernels at one level of one feature shard
+    # (``col_shard_kernels``)
+    ck_errs, ck_times = col["shard_kernels"]
+    for (name, N), (ms, plain_ms, lib_ms, bound) in ck_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/hist.cu",
+            "replaces": "xgboost_tpu/ops/pallas/histogram.py" + where[name],
+            "shape": f"col shard {DIST_ROWS} x {28 // COL_SHARDS} of "
+                     f"{COL_SHARDS}, N={N}",
+            "launches": sum(c[name] for c in col_runs),
+            "max_abs_err": ck_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))

@@ -104,8 +104,28 @@ def test_noop_communicator_and_module_level_calls():
         assert c is comm and C.get_communicator() is comm
     with pytest.raises(ValueError, match="unknown communicator"):
         C.init("carrier-pigeon")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        C.init("federated")
+    # the federated communicator connects to its server (the gRPC case is
+    # ``tests/test_torch_federated.py``); grpc is imported only there
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="grpc"):
+            C.init("federated", federated_server_address="localhost:1",
+                   federated_world_size=1, federated_rank=0)
+    else:
+        from xgboost_tpu_torch.parallel.federated import (
+            FederatedCommunicator, run_federated_server)
+
+        server = run_federated_server(1, port=0)
+        try:
+            C.init("federated",
+                   federated_server_address=f"localhost:{server.port}",
+                   federated_world_size=1, federated_rank=0)
+            assert isinstance(C.get_communicator(), FederatedCommunicator)
+            assert C.allgather("x") == ["x"]
+        finally:
+            C.finalize()
+            server.stop(0)
     with pytest.raises(RuntimeError, match="init_distributed"):
         C.init("torch")                     # no process group here
 

@@ -266,15 +266,24 @@ def test_mesh_refuses_exact_and_gblinear(tmesh, params, exc, words):
 
 def test_mesh_refuses_the_unported(tmesh):
     """Sibling subtraction stays refused (as under the JAX package's
-    mesh), and so do column split and a paged matrix on a mesh (ROADMAP
-    A.8)."""
+    mesh), under row and column split alike; column split itself trains
+    on a mesh (``tests/test_torch_col_split.py``) and ``exact`` under it
+    is refused with the JAX package's words."""
     X, y = _binary(400, 4, seed=2)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        xt.train({"device": "cpu", "mesh": tmesh, "hist_method": "auto+sub"},
+    for mode in ("row", "col"):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            xt.train({"device": "cpu", "mesh": tmesh, "data_split_mode": mode,
+                      "hist_method": "auto+sub"},
+                     xt.DMatrix(X, label=y), 1, verbose_eval=False)
+    with pytest.raises(NotImplementedError,
+                       match="data_split_mode=col supports "
+                             "tree_method=hist/approx"):
+        xt.train({"device": "cpu", "mesh": tmesh, "data_split_mode": "col",
+                  "tree_method": "exact"}, xt.DMatrix(X, label=y), 1,
+                 verbose_eval=False)
+    b = xt.train({"device": "cpu", "mesh": tmesh, "data_split_mode": "col"},
                  xt.DMatrix(X, label=y), 1, verbose_eval=False)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        xt.train({"device": "cpu", "mesh": tmesh, "data_split_mode": "col"},
-                 xt.DMatrix(X, label=y), 1, verbose_eval=False)
+    assert b.num_boosted_rounds() == 1
 
 
 def test_paged_matrix_on_a_mesh_refuses(tmesh, tmp_path, monkeypatch):

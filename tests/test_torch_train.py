@@ -577,9 +577,7 @@ def test_train_runs_on_the_card_unless_asked():
 
 @pytest.mark.parametrize("params,item", [
     ({"grow_policy": "lossguide", "hist_method": "mega"}, "A.6"),
-    ({"booster": "gblinear", "data_split_mode": "col"}, "A.8"),
     ({"max_leaves": 4, "hist_method": "scan+sub"}, "A.6"),
-    ({"data_split_mode": "col"}, "A.8"),
     ({"hist_method": "mega"}, "A.6"),
     ({"hist_method": "scan+sub"}, "A.6"),
     ({"grow_policy": "lossguide", "hist_method": "scan+sub"}, "A.6"),
@@ -589,5 +587,22 @@ def test_unported_options_name_their_roadmap_item(params, item):
     X = rng.randn(50, 2).astype(np.float32)
     dm = xt.DMatrix(X, label=(X[:, 0] > 0).astype(np.float32))
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+        xt.train(dict({"objective": "binary:logistic", "device": "cpu"},
+                      **params), dm, 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"booster": "gblinear", "data_split_mode": "col"},
+    {"data_split_mode": "col"},
+])
+def test_column_split_needs_a_mesh_or_a_communicator(params):
+    """Column split trains on a mesh or across vertical parties
+    (``tests/test_torch_col_split.py``, ``tests/test_torch_vertical.py``);
+    with neither it is refused with the JAX package's words."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(50, 2).astype(np.float32)
+    dm = xt.DMatrix(X, label=(X[:, 0] > 0).astype(np.float32))
+    with pytest.raises(ValueError, match="data_split_mode=col requires a "
+                                         "mesh"):
         xt.train(dict({"objective": "binary:logistic", "device": "cpu"},
                       **params), dm, 1)

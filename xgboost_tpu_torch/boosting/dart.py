@@ -30,7 +30,11 @@ above 1) is walked over the bins (``boosting/predict.py
 margin_binned``), or, under ``tree_method="approx"`` / ``"exact"``,
 whose training matrix keeps no bins, over its raw values (kernel K1).
 An evaluation set recomputes its margin over the whole
-weighted forest whenever the forest changes (kernel K1).
+weighted forest whenever the forest changes (kernel K1). Vertical
+federated parties (``GBTree.vertical``) hold only some of the features,
+so every such walk goes through the parties' decision-bit protocol
+(the Booster's ``state["vertical_walk"]``, ``tree/vertical.py
+federated_vertical_margin``).
 """
 
 from __future__ import annotations
@@ -143,7 +147,8 @@ class Dart(GBTree):
         base = state["base"]
         if not self.trees:
             m = base
-        elif state["is_train"] and state["binned"] is not None:
+        elif (state["is_train"] and state["binned"] is not None
+              and not self.vertical):
             m = base + self.margin_delta_binned(
                 state["binned"], 0, len(self.trees), base.device)
         else:
@@ -218,6 +223,8 @@ class Dart(GBTree):
         binned = state["binned"]
         dev = state["base"].device
         w = np.asarray(self.weight_drop, np.float32)[idx]
+        if self.vertical:       # the parties' decision-bit walk
+            return state["vertical_walk"](idx, w)
         zero = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)
         if binned is None:      # approx / exact: the raw values through K1
             return PackedForest.from_trees(
@@ -240,7 +247,7 @@ class Dart(GBTree):
         package's ``on_resume``)."""
         self._store(state, state["margin"])
         binned = state.get("binned")
-        if self._ring_off or binned is None:
+        if self._ring_off or binned is None or self.vertical:
             return
         dev = state["base"].device
         zero = torch.zeros(self.n_groups, dtype=torch.float32, device=dev)

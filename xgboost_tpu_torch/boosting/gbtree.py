@@ -40,7 +40,15 @@ and gradients over the padded rows, whose pad rows are zero: row
 sampling draws over the padded row count, as the JAX package's mesh
 draws (``gbtree.py:505-508``); the threefry stream is counter-based, so
 the real rows draw one device's bits. ``n_rows`` trims the round's
-delta to the real rows.
+delta to the real rows. Under a column mesh (``data_split_mode="col"``
+with a mesh) ``bins`` is a ``tree/shards.py ColShards`` (every row, the
+features padded and cut into blocks, ``data/binned.py
+pad_features_for_mesh``), and the growers pad their per-feature arrays
+alike. Vertical federated parties (``data_split_mode="col"`` under a
+multi-rank communicator, no mesh; :attr:`GBTree.vertical`) grow with
+``tree/vertical.py``'s growers, and an adaptive objective's leaves are
+refreshed on the label rank and reach the others through
+``apply_with_labels``.
 """
 
 from __future__ import annotations
@@ -58,7 +66,9 @@ from ..tree.multi import (MultiLossguideGrower, MultiTargetGrower,
 from ..tree.paged import (PagedGrower, PagedLossguideGrower,
                           PagedMultiLossguideGrower, PagedMultiTargetGrower)
 from ..tree.param import TrainParam, _f32
+from ..tree.shards import ColShards
 from ..tree.tree import TreeModel
+from ..tree.vertical import VerticalFederatedGrower, VerticalLossguideGrower
 from ..utils import random as xrandom
 from .predict import margin_binned, stack_trees
 
@@ -129,6 +139,9 @@ class GBTree:
         self._grower: Optional[TreeGrower] = None
         # "hist", "approx" or "exact", set by the Booster
         self.tree_method = "hist"
+        # vertical federated parties (column split over a communicator),
+        # set by the Booster
+        self.vertical = False
 
     # -- training -------------------------------------------------------------
     @property
@@ -149,10 +162,14 @@ class GBTree:
         kw = dict(hist_method=self.hist_method,
                   has_missing=binned.has_missing,
                   constraint_sets=self.constraint_sets)
-        if self.vector_leaf:
-            cls = _GROWERS[(True, lossguide, binned.is_paged)]
+        if self.vertical:
+            cls = (VerticalLossguideGrower if lossguide
+                   else VerticalFederatedGrower)
         else:
-            cls = _GROWERS[(False, lossguide, binned.is_paged)]
+            cls = _GROWERS[(self.vector_leaf, lossguide, binned.is_paged)]
+            if isinstance(getattr(binned, "bins", None), ColShards):
+                kw["feature_pad"] = binned.bins.pad
+        if not self.vector_leaf:
             kw["monotone"] = self.monotone
         g = self._grower
         if (self.tree_method == "approx" and type(g) is cls
@@ -243,15 +260,33 @@ class GBTree:
                     pos = torch.from_numpy(tree.heap_map.astype(
                         np.int64)).to(gp.device)[
                             grown.positions[:margin.shape[0]]]
-                    d = obj.refresh_leaves(
-                        tree, pos, margin[:, k], labels, weights, eta,
-                        alphas[min(k, len(alphas) - 1)])[pos]
+                    d = self._refresh(obj, tree, pos, margin[:, k], labels,
+                                      weights, eta,
+                                      alphas[min(k, len(alphas) - 1)])[pos]
                 self.trees.append(tree)
                 self.tree_info.append(k)
                 delta = d if delta is None else delta + d
             deltas.append(delta)
         self.iteration_indptr.append(len(self.trees))
         return torch.stack(deltas, dim=1)[:n_rows]
+
+    def _refresh(self, obj, tree: TreeModel, pos: torch.Tensor,
+                 margin: torch.Tensor, labels, weights, eta: float,
+                 alpha: float) -> torch.Tensor:
+        """``obj.refresh_leaves`` of one tree; vertical parties run it on
+        the label rank (the leaves are label quantiles), whose leaves
+        reach every rank (the JAX package's ``apply_with_labels`` around
+        ``update_tree_leaf``)."""
+        if not self.vertical:
+            return obj.refresh_leaves(tree, pos, margin, labels, weights,
+                                      eta, alpha)
+        from ..parallel.collective import apply_with_labels
+
+        tree.leaf_value = np.asarray(apply_with_labels(
+            lambda: obj.refresh_leaves(tree, pos, margin, labels, weights,
+                                       eta, alpha).cpu().numpy()),
+            np.float32)
+        return torch.from_numpy(tree.leaf_value).to(pos.device)
 
     def _do_boost_multi(self, binned, grower, gpair: torch.Tensor,
                         key: xrandom.Key) -> torch.Tensor:

@@ -59,6 +59,21 @@ matrix under a multi-rank communicator is refused
 (:meth:`Booster._check_row_comm_sync`), and the paged tier syncs each
 level through the communicator. ``tree_method="exact"`` and
 ``gblinear`` refuse a mesh.
+
+Column split (``data_split_mode="col"``, reference ``DataSplitMode::kCol``)
+trains the pooled columns' model two ways. On a mesh: the training
+matrix's features padded and cut into the shards' blocks, every row on
+every shard (``data/binned.py pad_features_for_mesh``; the growers'
+``ColShards``). Across vertical federated parties (a multi-rank
+communicator and no mesh, :meth:`Booster._is_vertical_federated`): each
+rank's ``DMatrix`` holds its block of features, built with
+``data_split_mode="col"``, and only the label rank its labels; the base
+score, gradients, leaf refreshes and metrics are the label rank's,
+broadcast by ``collective.apply_with_labels``, and margins and
+predictions walk the trees by the decision-bit protocol
+(``tree/vertical.py federated_vertical_margin``). ``exact`` is refused
+under both, vector leaves and ``gblinear`` across parties, and a paged
+matrix under both, with the JAX package's words.
 """
 
 from __future__ import annotations
@@ -83,7 +98,8 @@ from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
 from .data.binned import (ApproxSource, BinnedMatrix, MeshApproxSource,
-                          PagedApproxSource, shard_binned)
+                          PagedApproxSource, pad_features_for_mesh,
+                          shard_binned)
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
@@ -102,6 +118,7 @@ from .tree.multi import is_vector_leaf
 from .tree.param import (TrainParam, parse_interaction_constraints,
                          parse_monotone_constraints)
 from .tree.updaters import UPDATERS, prune_tree, refresh_tree, sync_trees
+from .tree.vertical import federated_vertical_margin
 from .utils import random as xrandom
 from .utils.ubjson import dumps_ubjson, loads_ubjson
 
@@ -333,15 +350,12 @@ class Booster:
         booster = self.learner_params.get("booster", "gbtree")
         if booster not in ("gbtree", "dart", "gblinear"):
             raise ValueError(f"unknown booster: {booster}")
-        if self.learner_params.get("data_split_mode", "row") != "row":
-            raise NotImplementedError(
-                "column-split training is not in the PyTorch port yet "
-                "(ROADMAP A.8)")
+        ms = self.learner_params.get("multi_strategy", "one_output_per_tree")
+        self._check_split_mode(tm, booster, ms, dtrain)
         if booster == "gblinear" and self.ctx.mesh is not None:
             raise NotImplementedError(
                 "booster=gblinear does not support a device mesh; train "
                 "mesh configs with booster=gbtree or dart")
-        ms = self.learner_params.get("multi_strategy", "one_output_per_tree")
         if ms not in ("one_output_per_tree", "multi_output_tree"):
             raise ValueError(f"unknown multi_strategy: {ms}")
         if self.tree_param.grow_policy not in ("depthwise", "lossguide"):
@@ -371,6 +385,7 @@ class Booster:
             self._configure_linear()
         else:
             self._configure_trees(dtrain, booster, tm, ms)
+            self.gbm.vertical = self._is_vertical_federated()
         if self.base_margin_ is None:
             bs = self.learner_params.get("base_score")
             if bs is not None:
@@ -378,11 +393,17 @@ class Booster:
                 self.base_margin_ = np.full(
                     n_groups, float(np.asarray(margin).reshape(-1)[0]),
                     np.float32)
-            elif dtrain is not None and dtrain.info.labels is not None:
+            elif dtrain is not None and (dtrain.info.labels is not None
+                                         or self._is_vertical_federated()):
                 st = self._state_of(dtrain, is_train=True)
-                self.base_margin_ = self.obj.init_estimation(
-                    st["labels"], st["weights"],
-                    **self._obj_inputs(st)).reshape(-1)
+                # column split: every rank holds the rows, whose sums no
+                # rank reduces; vertical parties take the label rank's
+                row_split = self.learner_params.get(
+                    "data_split_mode", "row") == "row"
+                self.base_margin_ = np.asarray(self._with_labels(
+                    lambda: self.obj.init_estimation(
+                        st["labels"], st["weights"], row_split=row_split,
+                        **self._obj_inputs(st)).reshape(-1)), np.float32)
             else:
                 self.base_margin_ = np.zeros(n_groups, np.float32)
         if not self._eval_metrics and not bool(self.learner_params.get(
@@ -392,6 +413,58 @@ class Booster:
             self.feature_names = dtrain.info.feature_names
             self.feature_types = dtrain.info.feature_types
         self._configured = True
+
+    def _check_split_mode(self, tm: str, booster: str, ms: str,
+                          dtrain: Optional[DMatrix]) -> None:
+        """``data_split_mode``'s checks, with the JAX package's words
+        (``core.py:591-625``, ``:451-461``)."""
+        dsm = self.learner_params.get("data_split_mode", "row")
+        if dsm not in ("row", "col"):
+            raise ValueError(f"unknown data_split_mode: {dsm}")
+        if dsm != "col":
+            return
+        if self.ctx.mesh is None and not collective.is_distributed():
+            raise ValueError(
+                "data_split_mode=col requires a mesh (in-process column "
+                "sharding) or an active distributed communicator "
+                "(vertical federated training)")
+        if tm == "exact":
+            # the reference's ColMaker has no distributed support
+            raise NotImplementedError(
+                "data_split_mode=col supports tree_method=hist/approx")
+        if self.ctx.mesh is None:
+            if ms == "multi_output_tree":
+                raise NotImplementedError(
+                    "vertical federated column split supports scalar trees "
+                    "only")
+            if booster == "gblinear":
+                raise NotImplementedError(
+                    "vertical federated column split supports tree "
+                    "boosters only (the reference's linear updaters run "
+                    "under DataSplitMode::kRow)")
+            if dtrain is not None and \
+                    dtrain.info.data_split_mode != "col":
+                # the flag keeps the metrics' and objectives' reductions
+                # off the ranks; without it the ranks would deadlock
+                raise ValueError(
+                    "vertical federated training requires the DMatrix to be "
+                    "constructed with data_split_mode='col' (got "
+                    f"{dtrain.info.data_split_mode!r})")
+
+    def _is_vertical_federated(self) -> bool:
+        """Column split across communicator ranks, no mesh: rows and
+        margins are on every rank, the features are split and the labels
+        may be the label rank's only (the JAX package's
+        ``_is_vertical_federated``)."""
+        return (self.learner_params.get("data_split_mode", "row") == "col"
+                and self.ctx.mesh is None and collective.is_distributed())
+
+    def _with_labels(self, fn: Callable) -> Any:
+        """``fn()``, or, across vertical parties, the label rank's
+        ``fn()`` on every rank (``collective.apply_with_labels``)."""
+        if not self._is_vertical_federated():
+            return fn()
+        return collective.apply_with_labels(fn)
 
     def _configure_trees(self, dtrain: Optional[DMatrix], booster: str,
                          tm: str, ms: str) -> None:
@@ -482,10 +555,15 @@ class Booster:
         """Parse the monotone and interaction constraints for the forest
         (the JAX package's ``_make_gbm``): over the training matrix's
         features, or the loaded model's when no matrix was seen; names in
-        the interaction sets are the feature names."""
+        the interaction sets are the feature names. Vertical parties parse
+        them over the global features, every party's in rank order."""
         names = self.feature_names or (
             dtrain.info.feature_names if dtrain is not None else None)
         nf = self._num_features or (len(names) if names else 0)
+        if dtrain is not None and self._is_vertical_federated():
+            # the parties' constraints are over every party's features
+            nf = int(sum(collective.get_communicator().allgather_objects(
+                int(dtrain.num_col()))))
         self.gbm.monotone = parse_monotone_constraints(
             self.tree_param.monotone_constraints, nf)
         self.gbm.constraint_sets = parse_interaction_constraints(
@@ -526,6 +604,10 @@ class Booster:
             self._check_row_comm_sync(paged=(
                 getattr(st["binned"], "is_paged", False)
                 or isinstance(st.get("source"), PagedApproxSource)))
+        if "vertical_walk" not in st and self._is_vertical_federated():
+            # dart's dropped trees, walked by the parties' protocol
+            st["vertical_walk"] = lambda idx, w, dm=dm: \
+                self._vertical_margin_delta(dm, 0, 0, idx, w)
         if st["margin"] is None and self.base_margin_ is not None:
             n = dm.num_row()
             if dm.info.base_margin is not None:
@@ -647,9 +729,17 @@ class Booster:
         its rows padded to a multiple of the mesh's size with weight-0
         rows and cut into the mesh's shards (the JAX package's
         ``_make_sharded_train_state``; ``data/binned.py shard_binned``,
-        ``MeshApproxSource``), made once a cache entry."""
+        ``MeshApproxSource``), or, under column split, its features
+        padded and cut into the shards' blocks
+        (``pad_features_for_mesh``), made once a cache entry."""
         mesh = self.ctx.mesh
         src = st["binned"] if st["binned"] is not None else st.get("source")
+        col = self.learner_params.get("data_split_mode", "row") == "col"
+        if col and (getattr(src, "is_paged", False)
+                    or isinstance(src, PagedApproxSource)):
+            raise NotImplementedError(
+                "external-memory (paged) training supports "
+                "data_split_mode=row only")
         if mesh is None:
             return src
         if "mesh_source" not in st:
@@ -658,9 +748,11 @@ class Booster:
                 raise NotImplementedError(
                     "paged matrices over a device mesh are not in the "
                     "PyTorch port yet (ROADMAP A.8)")
-            st["mesh_source"] = (shard_binned(src, mesh)
-                                 if isinstance(src, BinnedMatrix)
-                                 else MeshApproxSource(src, mesh))
+            if isinstance(src, BinnedMatrix):
+                layout = pad_features_for_mesh if col else shard_binned
+                st["mesh_source"] = layout(src, mesh)
+            else:
+                st["mesh_source"] = MeshApproxSource(src, mesh, col=col)
         return st["mesh_source"]
 
     def _binned_for_walk(self, st: Dict[str, Any]):
@@ -696,6 +788,8 @@ class Booster:
         on the cached matrix: over its bins when it keeps no raw values
         (and has the training cuts), else through the packed walk (kernel
         K1 on the card)."""
+        if self._is_vertical_federated():
+            return self._vertical_margin_delta(st["dm"], lo, hi)
         binned = self._binned_for_walk(st)
         if binned is not None:
             return self.gbm.margin_delta_binned(binned, lo, hi, self.device)
@@ -711,6 +805,34 @@ class Booster:
                                      self.gbm.tree_info[lo:hi], self.n_groups,
                                      None if w is None else w[lo:hi])
         return pf.margin(X, zero)
+
+    def _vertical_margin_delta(self, dm: DMatrix, lo: int, hi: int,
+                               idx: Optional[Sequence[int]] = None,
+                               weights: Optional[np.ndarray] = None
+                               ) -> torch.Tensor:
+        """The margin [n, G] of trees [lo, hi), each at its weight (or of
+        the trees ``idx`` at ``weights``: dart's dropped ones), on this
+        party's block of features by the decision-bit protocol (the JAX
+        package's ``_vertical_margin_delta``): the block's offset is the
+        grower's, or, for a loaded model, the sum of the lower ranks'
+        widths."""
+        comm = collective.get_communicator()
+        g = getattr(self.gbm, "_grower", None)
+        if g is not None and getattr(g, "f_offset", None) is not None:
+            offset = g.f_offset
+        else:
+            widths = comm.allgather_objects(int(dm.num_col()))
+            offset = int(sum(widths[:comm.get_rank()]))
+        if idx is None:
+            idx = range(lo, hi)
+            w = self.gbm.tree_weights()
+            weights = None if w is None else w[lo:hi]
+        out = federated_vertical_margin(
+            [self.gbm.trees[i] for i in idx],
+            [self.gbm.tree_info[i] for i in idx], self.n_groups,
+            np.asarray(dm.values(), np.float32), offset, comm,
+            tree_weights=weights)
+        return torch.from_numpy(out).to(self.device)
 
     def _cached_margin(self, dm: DMatrix, is_train: bool = False
                        ) -> torch.Tensor:
@@ -732,7 +854,8 @@ class Booster:
                fobj: Optional[Callable] = None) -> None:
         """One boosting round (reference ``XGBoosterUpdateOneIter``);
         ``fobj(margin, dtrain)`` -> (grad, hess): a custom objective."""
-        if dtrain.info.labels is None and fobj is None:
+        if dtrain.info.labels is None and fobj is None \
+                and not self._is_vertical_federated():
             raise ValueError("training needs labels: DMatrix(X, label=y)")
         self._configure(dtrain)
         if self.tree_param.process_type == "update":
@@ -810,6 +933,14 @@ class Booster:
         """The round's [n, K, 2] gradient: the objective's, or the custom
         ``fobj``'s on the margin as numpy (squeezed), reshaped to the
         margin's shape."""
+        if fobj is None and self._is_vertical_federated():
+            # margins are on every party, labels on the label rank: its
+            # gradient reaches the others (reference ApplyWithLabels in
+            # ObjFunction::GetGradient)
+            g = collective.apply_with_labels(lambda: self.obj.get_gradient(
+                margin, st["labels"], st["weights"], iteration,
+                **self._obj_inputs(st)).cpu().numpy())
+            return torch.from_numpy(np.asarray(g)).to(margin.device)
         if fobj is None:
             return self.obj.get_gradient(margin, st["labels"], st["weights"],
                                          iteration, **self._obj_inputs(st))
@@ -937,18 +1068,27 @@ class Booster:
         custom metric, given the margin (``output_margin``) or the
         transformed predictions, as numpy."""
         self._configure(None)
+        vertical = self._is_vertical_federated()
         msg = f"[{iteration}]"
         for dm, name in evals:
-            if dm.info.labels is None:
+            if dm.info.labels is None and not vertical:
                 raise ValueError(f"eval set {name!r} has no labels")
             margin = self._cached_margin(dm)
             preds = _squeeze(self.obj.pred_transform(margin).cpu().numpy())
             for metric in self._eval_metrics:
-                msg += f"\t{name}-{metric.full_name}:{metric(preds, dm.info):.6f}"
+                # vertical parties: the label rank's score (reference
+                # ApplyWithLabels around Metric::Evaluate)
+                score = self._with_labels(
+                    lambda m=metric: float(m(preds, dm.info)))
+                msg += f"\t{name}-{metric.full_name}:{score:.6f}"
             if feval is not None:
-                res = feval(_squeeze(margin.cpu().numpy()) if output_margin
-                            else preds, dm)
-                for mname, val in (res if isinstance(res, list) else [res]):
+                def custom(dm=dm, margin=margin, preds=preds):
+                    res = feval(_squeeze(margin.cpu().numpy())
+                                if output_margin else preds, dm)
+                    return [(str(k), float(v)) for k, v in
+                            (res if isinstance(res, list) else [res])]
+
+                for mname, val in self._with_labels(custom):
                     msg += f"\t{name}-{mname}:{val:.6f}"
         return msg
 
@@ -1008,15 +1148,37 @@ class Booster:
         self._require_model()
         if validate_features:
             self._validate_features(data)
+        vertical = self._is_vertical_federated()
         if pred_contribs or pred_interactions:
             if is_vector_leaf(self.gbm.trees):
                 raise NotImplementedError(
                     "SHAP contributions are not supported for "
                     "multi_output_tree models")
+            if vertical:
+                raise NotImplementedError(
+                    "SHAP contributions are not available under vertical "
+                    "federated column split (no party sees all features)")
             return self._predict_contribs(data, approx_contribs,
                                           pred_interactions, iteration_range,
                                           strict_shape)
+        if vertical and pred_leaf:
+            raise NotImplementedError(
+                "pred_leaf is not available under vertical federated column "
+                "split")
         dev = self.device
+        if vertical:
+            # every split is decided by one party: the decision-bit walk
+            lo, hi = self.gbm._tree_range(iteration_range)
+            margin = self._vertical_margin_delta(data, lo, hi)
+            if data.info.base_margin is not None:
+                margin = margin + torch.from_numpy(np.asarray(
+                    data.info.base_margin, np.float32)).to(dev).reshape(
+                        margin.shape[0], -1)
+            else:
+                margin = margin + torch.from_numpy(self._base_np()).to(dev)
+            out = margin if output_margin else self.obj.pred_transform(margin)
+            out = out.cpu().numpy()
+            return out if strict_shape else _squeeze(out)
         X = torch.from_numpy(np.ascontiguousarray(data.values())).to(dev)
         if isinstance(self.gbm, GBLinear):
             if pred_leaf:

@@ -681,6 +681,28 @@ class ApproxSource:
         return BinnedMatrix.from_bin_ids(b.t(), cuts, self.has_missing)
 
 
+def feature_pad_for_mesh(F: int, world: int) -> int:
+    """The columns a column-split mesh pads the feature axis by, so that
+    every shard holds an equal block (the JAX package's one definition of
+    the rule: the bins, and the monotone, constraint-set and categorical
+    arrays of every grower, ``TreeGrower.padded``, are padded by it)."""
+    return (-F) % world
+
+
+def pad_features_for_mesh(bm: BinnedMatrix, mesh) -> BinnedMatrix:
+    """A resident matrix over a column-split mesh (the JAX package's
+    ``pad_features_for_mesh``, reference ``DataSplitMode::kCol``): the
+    features padded to a multiple of the mesh's size with bin-0 columns
+    whose real-bin count is 0 (they never win a split), then cut into
+    the mesh's equal blocks of features, every row on every shard. The
+    result's ``bins`` is a ``tree/shards.py ColShards``."""
+    from ..tree.shards import ColShards
+
+    return BinnedMatrix(bins=ColShards.split_matrix(bm.bins, mesh),
+                        cuts=bm.cuts, max_nbins=bm.max_nbins,
+                        has_missing=bm.has_missing)
+
+
 def shard_binned(bm: BinnedMatrix, mesh) -> BinnedMatrix:
     """A resident matrix over a data mesh (the JAX package's
     ``_make_sharded_train_state``): rows padded to a multiple of the
@@ -711,14 +733,19 @@ class MeshApproxSource:
     rows' hessians, the matrix re-binned and cut into the mesh's shards
     (:func:`shard_binned`). Every shard bins with the same cuts: the
     sketch synchronised over the shards (the JAX package's
-    ``gbtree.py:331-354``)."""
+    ``gbtree.py:331-354``). ``col``: a column mesh, whose shards take
+    every row of a block of the re-binned features
+    (:func:`pad_features_for_mesh`, the JAX package's
+    ``gbtree.py:378-390``); rows are not padded."""
 
-    def __init__(self, inner, mesh) -> None:
+    def __init__(self, inner, mesh, col: bool = False) -> None:
         self.inner = inner
         self.mesh = mesh
+        self.col = col
         self.n = inner.n_rows
-        self.n_pad = -(-self.n // mesh.size) * mesh.size
+        self.n_pad = self.n if col else -(-self.n // mesh.size) * mesh.size
 
     def binned(self, weights: torch.Tensor) -> BinnedMatrix:
         """``weights`` [n_pad]: the padded rows' hessians."""
-        return shard_binned(self.inner.binned(weights[:self.n]), self.mesh)
+        layout = pad_features_for_mesh if self.col else shard_binned
+        return layout(self.inner.binned(weights[:self.n]), self.mesh)

@@ -228,7 +228,12 @@ _FLOAT_FIELDS = {"label": "labels", "weight": "weights",
 class DMatrix:
     """Dense float32 feature matrix with NaN for missing entries, or a
     matrix built from a :class:`DataIter` (module docstring). ``data``
-    may be a path or URI (``data/fileio.py``)."""
+    may be a path or URI (``data/fileio.py``). ``data_split_mode``:
+    ``"row"``, or ``"col"`` for a vertical party's block of features of
+    every row (its ``MetaInfo`` flag keeps the metrics' and the
+    iterator's reductions off the ranks, whose rows are the same)."""
+
+    _data_split_mode = "row"    # subclasses with their own __init__ too
 
     def __init__(self, data: Any, label: Any = None, *, weight: Any = None,
                  base_margin: Any = None, missing: float = np.nan,
@@ -238,7 +243,10 @@ class DMatrix:
                  label_lower_bound: Any = None,
                  label_upper_bound: Any = None,
                  enable_categorical: bool = False,
-                 max_bin: int = 256) -> None:
+                 max_bin: int = 256, data_split_mode: str = "row") -> None:
+        if data_split_mode not in ("row", "col"):
+            raise ValueError(f"unknown data_split_mode: {data_split_mode}")
+        self._data_split_mode = data_split_mode
         self._binned: Dict[tuple, BinnedMatrix] = {}
         self._cuts: Dict[int, HistogramCuts] = {}
         # iterator-built: the host bins (array, or paged) and their max_bin
@@ -263,7 +271,7 @@ class DMatrix:
         self.X, feature_names, feature_types = _dense(
             data, missing, feature_names, feature_types)
         self._n_rows = self.X.shape[0]
-        self.info = MetaInfo()
+        self.info = MetaInfo(data_split_mode=self._data_split_mode)
         self.feature_names = feature_names
         self.feature_types = feature_types
         if not enable_categorical and feature_types is not None \
@@ -576,7 +584,8 @@ class DMatrix:
             label_lower_bound=rows(info.label_lower_bound),
             label_upper_bound=rows(info.label_upper_bound),
             feature_names=info.feature_names,
-            feature_types=info.feature_types)
+            feature_types=info.feature_types,
+            data_split_mode=info.data_split_mode)
         return out
 
     @property
@@ -692,7 +701,7 @@ class DMatrix:
                     for a, b in zip(summaries, part)]
         self.X = None
         self._n_rows = n_rows
-        self.info = MetaInfo()
+        self.info = MetaInfo(data_split_mode=self._data_split_mode)
         if labels:
             self.info.labels = self._labels(np.concatenate(labels), n_rows)
         if weights:
@@ -714,7 +723,8 @@ class DMatrix:
         self.info.validate(n_rows)
         from ..parallel import collective
 
-        if collective.is_distributed():
+        row_split = self._data_split_mode == "row"
+        if collective.is_distributed() and row_split:
             # multi-process external memory: every process streams ITS
             # rows; the cuts come from the summary merge across the ranks
             # and the missing slot must agree everywhere (reference: the
@@ -730,7 +740,7 @@ class DMatrix:
             cuts = ref.cuts(max_bin)
         else:
             if feature_types is not None and summaries is not None:
-                if collective.is_distributed():
+                if collective.is_distributed() and row_split:
                     cat_max = collective.allreduce(
                         np.asarray(cat_max, np.float32), op="max")
                 # a categorical feature's cuts read only its largest code
@@ -787,8 +797,10 @@ class QuantileDMatrix(DMatrix):
                  feature_names: Optional[List[str]] = None,
                  feature_types: Optional[List[str]] = None,
                  group: Any = None, qid: Any = None,
-                 enable_categorical: bool = False) -> None:
+                 enable_categorical: bool = False,
+                 data_split_mode: str = "row") -> None:
         self.max_bin = max_bin
+        self._data_split_mode = data_split_mode
         if isinstance(data, DataIter):
             self._binned, self._cuts = {}, {}
             self._quantized, self._max_bin = None, None
@@ -798,6 +810,7 @@ class QuantileDMatrix(DMatrix):
         super().__init__(data, label, weight=weight, base_margin=base_margin,
                          missing=missing, feature_names=feature_names,
                          feature_types=feature_types, group=group, qid=qid,
-                         enable_categorical=enable_categorical)
+                         enable_categorical=enable_categorical,
+                         data_split_mode=data_split_mode)
         if ref is not None:
             self._cuts[max_bin] = ref.cuts(max_bin)

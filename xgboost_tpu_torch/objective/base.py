@@ -135,6 +135,7 @@ class Objective:
 
     def init_estimation(self, labels: torch.Tensor,
                         weights: Optional[torch.Tensor] = None,
+                        row_split: bool = True,
                         **inputs: Any) -> np.ndarray:
         """One Newton step from margin 0 (reference ``fit_stump``,
         ``src/tree/fit_stump.cc``) -> [k] f32 base margin, one a target
@@ -144,7 +145,9 @@ class Objective:
         communicator the sums cross the ranks (``collective.global_sum``,
         the reference's ``GlobalSum``) and the step is taken in float64,
         as the JAX package takes it, so every rank derives the same base
-        score from its rows."""
+        score from its rows; ``row_split=False`` (column split: every rank
+        holds every row) keeps the sums local, the one-device step (the
+        JAX package's ``global_sum(row_split=)``)."""
         from ..parallel.collective import get_communicator, global_sum
 
         k = labels.shape[1] if labels.dim() == 2 else 1
@@ -152,7 +155,7 @@ class Objective:
                            device=labels.device)
         g, h = stump_sums(self.get_gradient(zero, labels, weights,
                                             **inputs)).unbind(-1)
-        if get_communicator().is_distributed():
+        if row_split and get_communicator().is_distributed():
             gh = global_sum(np.stack([g.cpu().numpy(), h.cpu().numpy()]))
             gs, hs = gh[0], gh[1]
             return np.where(hs <= 0, 0.0, -gs / np.maximum(hs, 1e-10)

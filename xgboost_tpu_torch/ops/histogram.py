@@ -127,12 +127,13 @@ def int8x2_fits(n_rows: int) -> bool:
 
 
 def auto_selects_scan(n_rows: int, max_nbins: int, has_missing: bool,
-                      numeric: bool = True) -> bool:
+                      numeric: bool = True, col_split: bool = False) -> bool:
     """True where the JAX package's ``auto`` runs the sorted build
-    (``tree/grow.py auto_selects_coarse`` for row-split data, without its
-    backend test: the port follows the TPU's choice). ``numeric``: no
-    feature is categorical."""
-    return (numeric and max_nbins <= 256 + int(has_missing)
+    (``tree/grow.py auto_selects_coarse``, without its backend test: the
+    port follows the TPU's choice). ``numeric``: no feature is
+    categorical; ``col_split``: features sharded (a column mesh or
+    vertical parties), where it never does."""
+    return (numeric and not col_split and max_nbins <= 256 + int(has_missing)
             and max_nbins - int(has_missing) >= AUTO_SCAN_MIN_BINS
             and n_rows >= AUTO_SCAN_MIN_ROWS)
 
@@ -148,7 +149,7 @@ def refuse_categorical_two_level(method: str) -> None:
 
 def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
                         max_nbins: int, has_missing: bool = True,
-                        numeric: bool = True) -> str:
+                        numeric: bool = True, col_split: bool = False) -> str:
     """``hist_method`` -> ``"scan"`` (K4), ``"int8x2"`` (K2), ``"f32"``
     (K3), or ``"bf16x2"`` / ``"bf16"`` (K3 on rows rounded to bfloat16,
     at every level, as the JAX package's ``pallas:bf16x2`` /
@@ -162,7 +163,8 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     build as the JAX package's does; ``pallas`` / ``pallas:int8x2`` there
     refuse rather than wrap. ``numeric=False`` (a categorical feature):
     ``auto`` never takes K4, and ``coarse``, ``fused`` and ``scan``
-    raise."""
+    raise. ``col_split`` (feature-sharded bins): ``auto`` never takes K4
+    either."""
     base = method[:-len("+nosub")] if method.endswith("+nosub") else method
     if not numeric and base in ("coarse", "fused", "scan"):
         refuse_categorical_two_level(method)
@@ -171,7 +173,8 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     if base in ("auto", "coarse", "fused"):
         if n_nodes > 128 or not int8x2_fits(n_rows):
             return "f32"
-        if auto_selects_scan(n_rows, max_nbins, has_missing, numeric):
+        if auto_selects_scan(n_rows, max_nbins, has_missing, numeric,
+                             col_split):
             return "scan"
         return "int8x2"
     if base == "prehot":
@@ -457,16 +460,18 @@ def build_hist(bins: torch.Tensor, gpair: torch.Tensor, rel_pos: torch.Tensor,
                n_nodes: int, max_nbins: int, method: str = "auto",
                has_missing: bool = True, packed_u4: int = 0,
                numeric: bool = True, max_abs: Optional[torch.Tensor] = None,
-               total_rows: Optional[int] = None) -> torch.Tensor:
+               total_rows: Optional[int] = None,
+               col_split: bool = False) -> torch.Tensor:
     """bins [n, F] uint8/uint16/int32; gpair [n, 2] f32; rel_pos [n]
     int32 in [0, n_nodes] -> [n_nodes, F, max_nbins, 2] f32.
     ``has_missing``: the last bin slot is the missing slot; ``numeric``:
     no feature is categorical (both feed ``auto``'s choice only).
     ``packed_u4=F``: ``bins`` is a u4-packed page [n, ceil(F/2)] uint8
     of F features. ``max_abs`` / ``total_rows``: a mesh's scale (module
-    docstring)."""
+    docstring); ``col_split``: feature-sharded bins (``auto`` keeps off
+    K4)."""
     kernel = resolve_hist_kernel(method, bins.shape[0], n_nodes, max_nbins,
-                                 has_missing, numeric)
+                                 has_missing, numeric, col_split)
     if packed_u4 and kernel == "scan":
         raise ValueError(
             f"hist_method={method!r} runs K4, which takes no u4-packed bins "
@@ -507,7 +512,8 @@ def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
                      method: str = "auto", has_missing: bool = True,
                      packed_u4: int = 0,
                      max_abs: Optional[torch.Tensor] = None,
-                     total_rows: Optional[int] = None) -> torch.Tensor:
+                     total_rows: Optional[int] = None,
+                     col_split: bool = False) -> torch.Tensor:
     """The K-target histogram [n_nodes, F, max_nbins, K, 2] of gpair
     [n, K, 2] (vector-leaf trees; the JAX package's
     ``build_hist_multi``): K passes of :func:`build_hist`, one a target,
@@ -515,7 +521,8 @@ def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
     quantised with its own target's scale. (A K-channel pass that reads
     the bins once for every target is not in either package.)
     ``packed_u4=F``: a u4-packed page, as :func:`build_hist` takes it.
-    ``max_abs`` [K, 2]: each target's scale over a mesh's shards."""
+    ``max_abs`` [K, 2]: each target's scale over a mesh's shards;
+    ``col_split`` as :func:`build_hist` takes it."""
     K = gpair.shape[1]
     F = packed_u4 or bins.shape[1]
     out = torch.empty((n_nodes, F, max_nbins, K, 2), dtype=torch.float32,
@@ -527,7 +534,8 @@ def build_hist_multi(bins: torch.Tensor, gpair: torch.Tensor,
                                      packed_u4=packed_u4,
                                      max_abs=None if max_abs is None
                                      else max_abs[k],
-                                     total_rows=total_rows)
+                                     total_rows=total_rows,
+                                     col_split=col_split)
     return out
 
 

@@ -1,6 +1,6 @@
 """Distributed training: the host communicators (``collective``), their
 resilient wrapper and fault injection (``resilience``), sharded
 ingestion and ``train_per_host`` over ``torch.distributed``
-(``launch``) and the rendezvous endpoint (``tracker``). The data mesh
-itself is ``context.Mesh``; column split and the federated communicator
-are ROADMAP A.8."""
+(``launch``), the rendezvous endpoint (``tracker``), the gRPC federated
+communicator of vertical parties (``federated``) and its restricted
+codec (``wire``). The data mesh itself is ``context.Mesh``."""

@@ -18,7 +18,9 @@ and ``TorchProcessCommunicator`` (one rank per OS process over
 Host objects travel over a ``gloo`` group: under a NCCL default group
 the communicator makes a ``gloo`` group of its own, so no pickled
 object and no host array goes through NCCL, and NCCL carries no
-collective of training (ROADMAP A.8).
+collective of training (ROADMAP A.8). ``parallel/federated.py`` adds
+the gRPC federated communicator, whose wire is the restricted codec of
+``parallel/wire.py``.
 """
 
 from __future__ import annotations
@@ -255,16 +257,22 @@ _comm_tls = threading.local()
 def init(communicator: str = "noop", **kwargs: Any) -> None:
     """Initialise the process-global communicator by name (reference
     ``Communicator::Init``; names mirror CommunicatorType: ``torch`` and
-    its alias ``rabit`` take ``torch.distributed``'s default group)."""
+    its alias ``rabit`` take ``torch.distributed``'s default group,
+    ``federated`` connects to a ``parallel/federated.py`` server at
+    ``federated_server_address`` as ``federated_rank`` of
+    ``federated_world_size``)."""
     global _comm
     if communicator in ("noop", "none"):
         _comm = NoOpCommunicator()
     elif communicator in ("torch", "rabit"):  # rabit name kept for parity
         _comm = TorchProcessCommunicator(**kwargs)
     elif communicator == "federated":
-        raise NotImplementedError(
-            "the federated communicator is not in the PyTorch port yet "
-            "(ROADMAP A.8)")
+        from .federated import FederatedCommunicator
+
+        _comm = FederatedCommunicator(
+            kwargs.pop("federated_server_address"),
+            int(kwargs.pop("federated_world_size")),
+            int(kwargs.pop("federated_rank")), **kwargs)
     else:
         raise ValueError(f"unknown communicator type: {communicator}")
 
@@ -442,11 +450,22 @@ def global_ratio(numerator: float, denominator: float,
 def apply_with_labels(fn, comm: Optional[Communicator] = None,
                       label_rank: int = 0):
     """Reference ``collective::ApplyWithLabels`` (aggregator.h:36): only
-    ``label_rank`` computes ``fn()`` and the result is broadcast to every
-    rank. Row split replicates nothing, so every rank holds labels and
-    this is the broadcast of the label rank's result."""
+    ``label_rank`` computes ``fn()`` and the result reaches every rank
+    (vertical federated parties: only the label rank holds labels). The
+    result is wire-encoded on the label rank (``parallel/wire.py``, never
+    a pickle: the parties may not trust each other), its length maxed
+    and the zero-padded bytes sum-reduced, the other ranks adding zeros:
+    one symmetric reduction, as the JAX package's."""
     comm = comm or get_communicator()
     if not comm.is_distributed():
         return fn()
-    out = fn() if comm.get_rank() == label_rank else None
-    return comm.broadcast(out, root=label_rank)
+    from . import wire
+
+    payload = wire.encode(fn()) if comm.get_rank() == label_rank else b""
+    n = int(comm.allreduce(np.asarray([len(payload)], np.int64),
+                           op="max")[0])
+    buf = np.zeros(n, np.uint8)
+    buf[:len(payload)] = np.frombuffer(payload, np.uint8)
+    # the reduction may widen the dtype; one rank adds each byte
+    buf = np.asarray(comm.allreduce(buf, op="sum")).astype(np.uint8)
+    return wire.decode(buf.tobytes())

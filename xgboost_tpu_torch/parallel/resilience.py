@@ -37,13 +37,12 @@ INSIDE the payload (two control elements appended to reductions, a
 ``(header, crc, obj)`` wrapper on gathers), so every collective stays
 exactly one inner op and a pre-op transient failure can be retried by
 one rank alone without desynchronising the group. The gathers' CRC is
-over the object's pickle (the JAX package's over its wire encoding,
-which stays with the federated communicator, ROADMAP A.8).
+over the object's wire encoding (``parallel/wire.py``), as the JAX
+package's; an object the codec refuses goes without one.
 """
 
 from __future__ import annotations
 
-import pickle
 import random
 import threading
 import time
@@ -54,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from ..logging_utils import logger
+from . import wire
 from .collective import Communicator, get_communicator
 
 
@@ -346,8 +346,8 @@ class ResilientCommunicator(Communicator):
                 lambda: self._inner.allgather_objects(obj), what)
         header = self._header("allgather", (), "object")
         try:
-            crc = zlib.crc32(pickle.dumps(obj, protocol=4))
-        except Exception:  # not picklable (rich objects): skip the crc
+            crc = zlib.crc32(wire.encode(obj))
+        except Exception:  # not wire-encodable (rich objects): skip the crc
             crc = None
         wrapped = (header, crc, obj)
         slots = self._attempts(
@@ -368,7 +368,7 @@ class ResilientCommunicator(Communicator):
                     "— ranks disagree on the collective schedule"),
                     seq, peer=rank)
             if rcrc is not None:
-                if zlib.crc32(pickle.dumps(robj, protocol=4)) != rcrc:
+                if zlib.crc32(wire.encode(robj)) != rcrc:
                     self.stats["corruptions"] += 1
                     raise self._forensics(CollectiveCorruption(
                         f"{what}: rank {rank} payload CRC mismatch: "

@@ -59,8 +59,26 @@ search (the JAX package's ``_grow`` under ``shard_map``: its
 ``allreduce`` and ``root_sum``). Sibling subtraction stays refused under
 a mesh, as in the JAX package.
 
+Column split over a data mesh (``data_split_mode="col"``, the JAX
+package's ``_grow`` with ``split_mode="col"``): ``bins`` is a
+``tree/shards.py ColShards``, every shard holding all the rows of one
+block of features. Each shard builds its histograms (no reduction:
+every shard has every row) and searches its own features, with the
+monotone, categorical, column-sample and interaction arrays sliced to
+them (in the pooled layout, ``tree/shards.py FeatureBlock``: the
+prefix sums then round as one device's); :meth:`ColShards.exchange`
+keeps each node's best shard and the heap records the winner with its
+global feature. Rows advance in two
+passes (``ops/partition.py``): each shard decides the rows of the nodes
+it owns, and the ORed bits move the rows on every shard. ``fused`` and
+``scan`` advance at the end of each level, as ``coarse`` does, and
+build the next level's histograms through K2 / K4 alone: the JAX
+package runs its XLA body there too, never the fused kernel. ``auto``
+never takes the sorted build under column split
+(``ops/histogram.py auto_selects_scan``).
+
 Not ported here (each raises where it is asked for): the mega schedule
-and sibling subtraction (ROADMAP A.6), column split (A.8).
+and sibling subtraction (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -82,7 +100,7 @@ from ..ops.split import (COARSE_B, WINDOW, CatInfo, assemble_two_level,
                          refine_bin_ids, refine_from_fine)
 from ..utils import random as xrandom
 from .param import TrainParam, _f32, calc_weight
-from .shards import RowShards
+from .shards import ColShards, FeatureBlock, RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -451,7 +469,7 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
                   hist_f: Optional[torch.Tensor] = None,
                   feature_mask: Optional[torch.Tensor] = None,
                   cat: Optional[CatInfo] = None, scale: Optional[dict] = None,
-                  **monotone_kw):
+                  block: Optional[FeatureBlock] = None, **monotone_kw):
     """The best split of each of ``n_nodes`` nodes over the shards of
     ``rows`` (each shard's gradients ``gps`` and node of each row
     ``rels``, the inactive ones at ``n_nodes``): each shard's histogram,
@@ -464,16 +482,51 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
     ``scale``: the mesh's quantiser keywords (``tree/shards.py
     RowShards.scale``). ``monotone_kw``: ``evaluate_splits``' monotone
     arguments. Shared by :func:`grow_tree`'s levels and
-    ``tree/lossguide.py``'s node pairs."""
+    ``tree/lossguide.py``'s node pairs.
+
+    Over a column mesh's ``ColShards`` each shard runs this search on
+    its own features and the shards' results go through the best-split
+    exchange. ``block``: the bins are the features ``block`` of the
+    pooled layout (a column shard, or a vertical party), whose
+    per-feature arguments ``n_real_bins``, ``feature_mask``, ``cat`` and
+    ``monotone`` cover the pooled features: the shard's histograms are
+    placed in that layout (``tree/shards.py FeatureBlock``), its
+    features the only ones with real bins, so that the search is one
+    device's over them; the result's features are global, and ``auto``
+    keeps off K4."""
+    if isinstance(rows, ColShards):
+        # the pooled layout is the unpadded one, as one device's
+        F = rows.n_features
+        results = []
+        for s, (b, g, r) in enumerate(zip(rows.parts, gps, rels)):
+            dev = rows.devices[s]
+            kw = {k: v[..., :F].to(dev) if k == "monotone" else v.to(dev)
+                  for k, v in monotone_kw.items()}
+            results.append(search_splits(
+                RowShards([b]), [g], [r], n_nodes, parent_sum.to(dev),
+                n_real_bins[:F].to(dev), param=param, max_nbins=max_nbins,
+                hist_method=hist_method, has_missing=has_missing,
+                schedule=schedule, cbs=None if cbs is None else [cbs[s]],
+                feature_mask=None if feature_mask is None
+                else feature_mask[..., :F].to(dev),
+                cat=None if cat is None else CatInfo(
+                    cat.is_cat[:F].to(dev), cat.is_onehot[:F].to(dev)),
+                block=rows.block(s, has_missing), **kw))
+        return rows.exchange(results, with_cat=cat is not None)
     scale = scale or {}
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     shards = list(zip(rows.parts, gps, rels))
+    embed = (lambda h: h) if block is None else block.embed
+    if block is not None:
+        n_real_bins = block.restrict(n_real_bins)
     if schedule is None:
-        hist = rows.reduce([build_hist(b, g, r, n_nodes, max_nbins,
-                                       method=hist_method,
-                                       has_missing=has_missing,
-                                       numeric=cat is None, **scale)
-                            for b, g, r in shards])
+        hist = embed(rows.reduce([build_hist(b, g, r, n_nodes, max_nbins,
+                                             method=hist_method,
+                                             has_missing=has_missing,
+                                             numeric=cat is None,
+                                             col_split=block is not None,
+                                             **scale)
+                                  for b, g, r in shards]))
         return evaluate_splits(hist, parent_sum, n_real_bins, param,
                                has_missing=has_missing,
                                feature_mask=feature_mask, cat=cat,
@@ -481,27 +534,30 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
     if schedule == "scan" and hist_f is None:
         parts = [scan_level_hists(b, g, r, n_nodes, max_nbins, missing_bin,
                                   **scale) for b, g, r in shards]
-        hist_f = rows.reduce([f for f, _ in parts])
-        hist_c = rows.reduce([c for _, c in parts])
+        hist_f = embed(rows.reduce([f for f, _ in parts]))
+        hist_c = embed(rows.reduce([c for _, c in parts]))
     if hist_c is None:
-        hist_c = rows.reduce([build_hist(cb, g, r, n_nodes, COARSE_B,
-                                         **scale)
-                              for cb, (_, g, r) in zip(cbs, shards)])
+        hist_c = embed(rows.reduce([build_hist(cb, g, r, n_nodes, COARSE_B,
+                                               col_split=block is not None,
+                                               **scale)
+                                    for cb, (_, g, r) in zip(cbs, shards)]))
     span = choose_refine_window(hist_c, parent_sum, n_real_bins, param,
                                 has_missing)
     if schedule == "scan":
         hist_r = refine_from_fine(hist_f, span, missing_bin)
     else:
         parts = []
-        for (b, g, r), sp in zip(shards, rows.to_shards(span)):
+        own_span = span if block is None else block.local(span)
+        for (b, g, r), sp in zip(shards, rows.to_shards(own_span)):
             # each row's window is its node's (rows outside the nodes take
             # window 0 and add nothing)
             span_row = torch.cat([sp, torch.zeros_like(sp[:1])]).to(
                 torch.int32)[r.long()]
             rb = refine_bin_ids(b, span_row, missing_bin)
             parts.append(build_hist(rb, g, r, n_nodes, WINDOW + 4,
+                                    col_split=block is not None,
                                     **scale)[:, :, :WINDOW])
-        hist_r = rows.reduce(parts)
+        hist_r = embed(rows.reduce(parts))
     hist, n_real_eval = assemble_two_level(hist_c, hist_r, span,
                                            n_real_bins, has_missing)
     res = evaluate_splits(hist, parent_sum, n_real_eval, param,
@@ -509,6 +565,28 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
                           feature_mask=feature_mask, **monotone_kw)
     span_sel = torch.gather(span, 1, res.feature.clamp(min=0)[:, None])[:, 0]
     return res._replace(bin=decode_two_level_bin(res.bin, span_sel))
+
+
+def advance_heap(rows, positions: List[torch.Tensor], heap,
+                 missing_bin: int) -> List[torch.Tensor]:
+    """Each shard's rows one level down below the heap's splits ``heap``
+    (split feature, bin, default direction, is-split, and the
+    categorical flags and words or None, [max_nodes] on the first
+    device): ``update_positions`` on every shard, or, over a column
+    mesh's ``ColShards``, its two passes, the shards' owned bits ORed
+    between them."""
+    sf, sb, dl, isp, ics, cw = heap
+    if isinstance(rows, ColShards):
+        bits = rows.decide([
+            update_positions(b, p, *h[:4], missing_bin, h[4], h[5],
+                             feat_offset=off)
+            for b, p, h, off in zip(rows.parts, positions,
+                                    rows.to_shards(heap), rows.offsets)])
+        return rows.split(update_positions(None, positions[0], sf, sb, dl,
+                                           isp, missing_bin, ics, cw,
+                                           decided=bits))
+    return [update_positions(b, p, *h[:4], missing_bin, h[4], h[5])
+            for b, p, h in zip(rows.parts, positions, rows.to_shards(heap))]
 
 
 def grow_tree(bins, gpair: torch.Tensor,
@@ -532,8 +610,10 @@ def grow_tree(bins, gpair: torch.Tensor,
     advances its rows' positions; the sums and the split search are the
     first device's, and the decisions go back to the shards (the JAX
     package's ``_grow`` under ``shard_map``, ``allreduce`` and
-    ``root_sum``)."""
+    ``root_sum``). Over a column mesh's ``ColShards`` the per-feature
+    arguments cover the padded global features (module docstring)."""
     rows = RowShards.of(bins)
+    col = isinstance(rows, ColShards)
     gps = rows.split(gpair)
     scale = rows.scale(gps)
     dev = rows.device
@@ -543,9 +623,12 @@ def grow_tree(bins, gpair: torch.Tensor,
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
         resolve_hist_kernel(hist_method, rows.shard_rows, 2 ** depth,
-                            max_nbins, has_missing, numeric)
+                            max_nbins, has_missing, numeric, col)
     schedule = two_level_schedule(hist_method, max_nbins, has_missing,
                                   numeric)
+    # column split: the decision OR stands between the advance and the
+    # next build, so every schedule advances at the end of its level
+    deferred = schedule in ("fused", "scan") and not col
     cbs = ([coarse_bin_ids(b, missing_bin) for b in rows.parts]
            if schedule in ("coarse", "fused") else None)
     n_real_slots = max_nbins - 1 if has_missing else max_nbins
@@ -592,18 +675,17 @@ def grow_tree(bins, gpair: torch.Tensor,
             hist_c=hist_c, hist_f=hist_f, feature_mask=fmask, cat=cat,
             scale=scale, **mono_kw)
         can_split = tree.record(lo, n_level, res)
-        if schedule in ("fused", "scan"):
+        if deferred:
             pending = tree.level_splits(lo, n_level, can_split)
         else:
             is_split = torch.zeros((tree.max_nodes,), dtype=torch.bool,
                                    device=dev)
             is_split[lo:hi] = can_split
-            heap = (tree.split_feature, tree.split_bin, tree.default_left,
-                    is_split, tree.is_cat_split, tree.cat_words)
-            positions = [
-                update_positions(b, p, sf, sb, dl, isp, missing_bin, ics, cw)
-                for b, p, (sf, sb, dl, isp, ics, cw) in zip(
-                    rows.parts, positions, rows.to_shards(heap))]
+            positions = advance_heap(
+                rows, positions, (tree.split_feature, tree.split_bin,
+                                  tree.default_left, is_split,
+                                  tree.is_cat_split, tree.cat_words),
+                missing_bin)
     if pending is not None:     # below the last level: the advance alone
         positions = [advance_level(b, p, pend, missing_bin) for b, p, pend
                      in zip(rows.parts, positions, rows.to_shards(pending))]
@@ -619,12 +701,16 @@ class TreeGrower:
     truncates its heap under ``max_leaves`` and turns it into a
     :class:`TreeModel`. ``monotone`` (one sign a feature) and
     ``constraint_sets`` (bool [S, F]): the parsed constraints
-    (``tree/param.py``), or None."""
+    (``tree/param.py``), or None. ``feature_pad``: the columns a column
+    mesh pads the features by (``data/binned.py
+    feature_pad_for_mesh``); every per-feature array the grower makes
+    is padded with them (no real bin, no constraint, numeric)."""
 
     def __init__(self, param: TrainParam, max_nbins: int, cuts,
                  hist_method: str = "auto", has_missing: bool = True,
                  monotone: Optional[Sequence[int]] = None,
-                 constraint_sets: Optional[np.ndarray] = None) -> None:
+                 constraint_sets: Optional[np.ndarray] = None,
+                 feature_pad: int = 0) -> None:
         if param.sampling_method not in ("uniform", "gradient_based"):
             raise ValueError(
                 f"unknown sampling_method {param.sampling_method!r}; use "
@@ -639,7 +725,16 @@ class TreeGrower:
                          else np.asarray(monotone, np.int64))
         self.constraint_sets = (None if constraint_sets is None
                                 else np.asarray(constraint_sets, bool))
+        self.feature_pad = feature_pad
         self._on = {}
+
+    def padded(self, a: np.ndarray) -> np.ndarray:
+        """A per-feature host array (features on its last axis) padded
+        with zeros (False) for the column mesh's pad columns."""
+        if not self.feature_pad:
+            return a
+        width = [(0, 0)] * (a.ndim - 1) + [(0, self.feature_pad)]
+        return np.pad(a, width)
 
     @staticmethod
     def check_depth(param: TrainParam) -> None:
@@ -666,17 +761,19 @@ class TreeGrower:
 
     def _n_real_on(self, device: torch.device) -> torch.Tensor:
         return self._host_on("n_real", device, lambda: torch.from_numpy(
-            self.cuts.n_real_bins().astype(np.int64)))
+            self.padded(self.cuts.n_real_bins().astype(np.int64))))
 
     def constraints_on(self, device: torch.device):
         """(monotone [F] int64, constraint_sets [S, F] bool) on
         ``device``, each None when unconstrained."""
         return (self._host_on("monotone", device, lambda: None
                               if self.monotone is None
-                              else torch.from_numpy(self.monotone)),
+                              else torch.from_numpy(
+                                  self.padded(self.monotone))),
                 self._host_on("sets", device, lambda: None
                               if self.constraint_sets is None
-                              else torch.from_numpy(self.constraint_sets)))
+                              else torch.from_numpy(
+                                  self.padded(self.constraint_sets))))
 
     def cat_on(self, device: torch.device) -> Optional[CatInfo]:
         """The categorical features on ``device`` (one-hot with at most
@@ -689,9 +786,9 @@ class TreeGrower:
                            <= self.param.max_cat_to_onehot)
         return CatInfo(
             self._host_on("is_cat", device,
-                          lambda: torch.from_numpy(is_cat)),
+                          lambda: torch.from_numpy(self.padded(is_cat))),
             self._host_on("is_onehot", device,
-                          lambda: torch.from_numpy(onehot)))
+                          lambda: torch.from_numpy(self.padded(onehot))))
 
     def feature_masks(self, tkeys: Sequence[xrandom.Key],
                       device: torch.device):
@@ -756,6 +853,11 @@ class TreeGrower:
                                    torch.zeros_like(g.cat_words))
                        if cat else None))
 
+    def _split_values(self, sf: np.ndarray, sb: np.ndarray) -> np.ndarray:
+        """The raw thresholds of split features ``sf`` at bins ``sb``
+        (the vertical growers': from each feature's owner)."""
+        return self.cuts.split_values(sf, sb)
+
     def to_tree_model(self, g: GrownTree) -> TreeModel:
         """Pull the heap to the host, compact it, attach raw thresholds."""
         sf = g.split_feature.cpu().numpy()
@@ -763,7 +865,7 @@ class TreeGrower:
         cat = g.is_cat_split is not None
         return TreeModel.from_heap(
             split_feature=sf, split_bin=sb,
-            split_value=self.cuts.split_values(sf, sb),
+            split_value=self._split_values(sf, sb),
             default_left=g.default_left.cpu().numpy(),
             is_leaf=g.is_leaf.cpu().numpy(), active=g.active.cpu().numpy(),
             leaf_value=g.leaf_value.cpu().numpy(),

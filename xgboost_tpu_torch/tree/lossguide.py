@@ -25,13 +25,20 @@ dispatching the advance and the evaluation as one program
 (``_apply_eval2``, the same numerics); eager calls have no such
 boundary, so here the two run the same calls. On categorical data or
 more than 256 bins they warn and fall back to ``auto``, as the JAX
-package's do. ``mega`` raises (ROADMAP A.6); column split is A.8.
+package's do. ``mega`` raises (ROADMAP A.6).
 
+The grower's state is one shape whatever holds the bins: a list of
+gradients and a list of row nodes, one entry a shard (:meth:`_rows`).
 Under a data mesh (``tree/shards.py RowShards``) each shard keeps its
 rows' nodes; the pair's histogram is built on every shard and summed
 over them (the JAX package's four ``psum``s of a pair, one a build),
 the root's sums likewise, and the popped node's advance runs on every
-shard.
+shard. A paged matrix is one entry (``tree/paged.py``). Over a column
+mesh (``ColShards``, the JAX package's ``_eval2_col`` / ``_apply1_col``)
+each shard searches the pair over its own features and the best-split
+exchange picks each node's winner; the popped node's rows move on the
+shard that owns its split feature, whose decisions go to every shard
+(every other shard's bits are zero, so they are the OR of all).
 
 Column samples are drawn on the host from ``np.random.RandomState(seed &
 0x7FFFFFFF)``, ``seed`` the last word of the tree's key, in the order the
@@ -59,7 +66,7 @@ from ..utils import random as xrandom
 from .grow import (TreeGrower, interaction_allowed_host, search_splits,
                    two_level_schedule)
 from .param import TrainParam, _f32, calc_weight
-from .shards import RowShards
+from .shards import ColShards, RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -201,13 +208,15 @@ class LossguideGrower(TreeGrower):
     def __init__(self, param: TrainParam, max_nbins: int, cuts,
                  hist_method: str = "auto", has_missing: bool = True,
                  monotone: Optional[Sequence[int]] = None,
-                 constraint_sets: Optional[np.ndarray] = None) -> None:
+                 constraint_sets: Optional[np.ndarray] = None,
+                 feature_pad: int = 0) -> None:
         if param.max_leaves <= 0 and param.max_depth <= 0:
             raise ValueError(
                 "grow_policy=lossguide needs max_leaves > 0 or max_depth > 0")
         super().__init__(param, max_nbins, cuts, hist_method=hist_method,
                          has_missing=has_missing, monotone=monotone,
-                         constraint_sets=constraint_sets)
+                         constraint_sets=constraint_sets,
+                         feature_pad=feature_pad)
         numeric = not cuts.is_cat().any()
         base = hist_method
         sfx = ""
@@ -243,8 +252,9 @@ class LossguideGrower(TreeGrower):
                       device: torch.device) -> List[Callable]:
         """Each tree's column sampler (:func:`col_masks`) from the last
         word of its key, as the JAX package seeds it; its draws come as
-        the tree's nodes are evaluated."""
-        base = self.cuts.n_real_bins() > 0
+        the tree's nodes are evaluated (a column mesh's pad columns have
+        no real bin and take no draw)."""
+        base = self.padded(self.cuts.n_real_bins()) > 0
         return [col_masks(self.param, k[1], len(base), base) for k in tkeys]
 
     def _eval2(self, rows, *args, **kwargs) -> SplitResult:
@@ -252,9 +262,17 @@ class LossguideGrower(TreeGrower):
         over the pages, ``tree/paged.py``)."""
         return eval2(rows, *args, **kwargs)
 
-    def _apply1(self, rows, positions, *args):
-        """:func:`apply1` on every shard (the paged grower's pass)."""
-        return [apply1(b, p, *a) for b, p, a in
+    def _apply1(self, rows, positions, nid, feat, *args):
+        """:func:`apply1` on every shard (the paged grower's pass); over a
+        column mesh on the shard that owns ``feat``, whose rows' nodes go
+        to every shard (module docstring)."""
+        if isinstance(rows, ColShards):
+            s = feat // rows.f_local
+            a = rows.to_shards(args)[s]
+            moved = apply1(rows.parts[s], positions[s], nid,
+                           feat - rows.offsets[s], *a)
+            return rows.split(moved.to(rows.device))
+        return [apply1(b, p, nid, feat, *a) for b, p, a in
                 zip(rows.parts, positions, rows.to_shards(args))]
 
     @staticmethod
@@ -266,14 +284,19 @@ class LossguideGrower(TreeGrower):
     def _rows(self, bins, gpair: torch.Tensor):
         """(the shards, each shard's gradients, each shard's row nodes, the
         root's sums, the rows ``auto``'s kernel choice reads, the quantiser
-        keywords) over resident bins or a mesh's shards (the paged
-        grower's: ``tree/paged.py``)."""
+        keywords) over resident bins or a mesh's shards, row or column
+        (the paged grower's, one entry a list: ``tree/paged.py``)."""
         rows = RowShards.of(bins)
         gps = rows.split(gpair)
         positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
                                  device=b.device) for b in rows.parts]
         root = rows.reduce([self._root(g) for g in gps], "mesh/root-sum")
         return rows, gps, positions, root, rows.shard_rows, rows.scale(gps)
+
+    def _feature_width(self, F: int) -> int:
+        """The width of the column samples and interaction paths: the
+        bins' (the vertical grower's: every party's features)."""
+        return F
 
     @staticmethod
     def _final(rows, positions) -> torch.Tensor:
@@ -287,7 +310,7 @@ class LossguideGrower(TreeGrower):
         [n, 2] f32 on the (first) device; ``node_mask``: its column
         sampler from :meth:`feature_masks`."""
         param = self.param
-        F = bins.shape[1]
+        F = self._feature_width(bins.shape[1])
         dev = gpair.device
         max_leaves = param.max_leaves if param.max_leaves > 0 else (
             2 ** max(param.max_depth, 1))
@@ -296,11 +319,13 @@ class LossguideGrower(TreeGrower):
         rows, gps, positions, root, n_k, scale = self._rows(bins, gpair)
         # refuse an unported method before the loop
         resolve_hist_kernel(self.hist_method, n_k, 2, self.max_nbins,
-                            self.has_missing, cat is None)
+                            self.has_missing, cat is None,
+                            isinstance(rows, ColShards))
         n_real = self._n_real_on(dev)
         monotone, _ = self.constraints_on(dev)
         mono = self.monotone
-        cons = self.constraint_sets
+        cons = (None if self.constraint_sets is None
+                else self.padded(self.constraint_sets))
         mb = self.max_nbins - 1 if self.has_missing else self.max_nbins
         kw = dict(param=param, max_nbins=self.max_nbins,
                   hist_method=self.hist_method, has_missing=self.has_missing,
@@ -434,7 +459,7 @@ class LossguideGrower(TreeGrower):
             left_child=lc[:n_nodes].copy(), right_child=rc[:n_nodes].copy(),
             parent=pa[:n_nodes].copy(), split_feature=sf[:n_nodes].copy(),
             split_bin=sb[:n_nodes].copy(),
-            split_value=self.cuts.split_values(sf[:n_nodes], sb[:n_nodes]),
+            split_value=self._split_values(sf[:n_nodes], sb[:n_nodes]),
             default_left=dl[:n_nodes].copy(), is_leaf=is_leaf,
             leaf_value=leaf_value,
             sum_hess=gh[:n_nodes, 1].astype(np.float32),

@@ -34,8 +34,13 @@ The paged vector-leaf growers are ``tree/paged.py``'s. Under a data
 mesh (``tree/shards.py RowShards``) each shard builds its K-target
 histograms and the shards' partials and root sums are summed (the JAX
 package's row ``allreduce`` and root sum, ``tree/multi.py:89-128``);
-each target's scale is reduced over the shards. Not ported here: the
-column-split branches (A.8).
+each target's scale is reduced over the shards. Over a column mesh
+(``ColShards``, the JAX package's ``col_split`` branches of
+``_grow_multi`` and ``_eval2_multi_col``) each shard builds and searches
+its own features over every row, the shards' results cross the scalar
+trees' best-split exchange, and the rows advance through the owners'
+decisions (``tree/grow.py advance_heap``). Vertical federated parties
+take scalar trees only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,14 +52,14 @@ import numpy as np
 import torch
 
 from ..ops.histogram import build_hist_multi, resolve_hist_kernel
-from ..ops.partition import level_rel, update_positions
+from ..ops.partition import level_rel
 from ..ops.split import MultiSplitResult, evaluate_splits_multi
 from ..ops.xla_order import sum_in_xla_order
-from .grow import (GrownTree, HeapTree, TreeGrower, draw_feature_masks,
-                   interaction_allowed_host)
+from .grow import (GrownTree, HeapTree, TreeGrower, advance_heap,
+                   draw_feature_masks, interaction_allowed_host)
 from .lossguide import LossguideGrower, LossguideGrown, pair_rel
 from .param import TrainParam, _f32, calc_weight
-from .shards import RowShards
+from .shards import ColShards, RowShards
 from .tree import TreeModel
 
 _EPS = 1e-6  # reference kRtEps
@@ -124,7 +129,7 @@ def grow_multi_tree(bins, gpair: torch.Tensor,
     the K-target histogram, the shared split search, the heap's
     bookkeeping and the rows' advance. ``bins``, ``feature_masks`` and
     ``constraint_sets`` as :func:`tree.grow.grow_tree` takes them (a
-    mesh's shards too)."""
+    mesh's shards, row or column, too)."""
     rows = RowShards.of(bins)
     gps = rows.split(gpair)
     scale = rows.scale(gps)
@@ -133,7 +138,8 @@ def grow_multi_tree(bins, gpair: torch.Tensor,
     missing_bin = max_nbins - 1 if has_missing else max_nbins
     for depth in range(max_depth):      # refuse an unported method up front
         resolve_hist_kernel(hist_method, rows.shard_rows, 2 ** depth,
-                            max_nbins, has_missing)
+                            max_nbins, has_missing,
+                            col_split=isinstance(rows, ColShards))
     tree = HeapTree(max_depth, rows.reduce([sum_in_xla_order(g, 0)
                                             for g in gps], "mesh/root-sum"),
                     param, constraint_sets=constraint_sets)
@@ -146,23 +152,51 @@ def grow_multi_tree(bins, gpair: torch.Tensor,
         fmask, _ = tree.constraint_args(
             lo, n_level, None if feature_masks is None
             else feature_masks[depth])
-        hist = rows.reduce([build_hist_multi(
-            b, g, level_rel(p, lo, n_level), n_level, max_nbins,
-            method=hist_method, has_missing=has_missing, **scale)
-            for b, g, p in zip(rows.parts, gps, positions)])
-        res = evaluate_splits_multi(hist, tree.node_sum[lo:hi], n_real_bins,
-                                    param, has_missing=has_missing,
-                                    feature_mask=fmask)
-        del hist
+        res = search_multi(rows, gps, [level_rel(p, lo, n_level)
+                                       for p in positions], n_level,
+                           tree.node_sum[lo:hi], n_real_bins, fmask,
+                           param=param, max_nbins=max_nbins,
+                           hist_method=hist_method, has_missing=has_missing,
+                           scale=scale)
         can_split = tree.record(lo, n_level, res)
         is_split = torch.zeros((tree.max_nodes,), dtype=torch.bool,
                                device=dev)
         is_split[lo:hi] = can_split
-        heap = (tree.split_feature, tree.split_bin, tree.default_left,
-                is_split)
-        positions = [update_positions(b, p, *h, missing_bin) for b, p, h in
-                     zip(rows.parts, positions, rows.to_shards(heap))]
+        positions = advance_heap(rows, positions, (
+            tree.split_feature, tree.split_bin, tree.default_left, is_split,
+            None, None), missing_bin)
     return tree.finish(rows.gather(positions))
+
+
+def search_multi(rows, gps, rels, n_nodes: int, parent_sum: torch.Tensor,
+                 n_real_bins: torch.Tensor, fmask, *, param: TrainParam,
+                 max_nbins: int, hist_method: str, has_missing: bool,
+                 scale=None) -> MultiSplitResult:
+    """The best vector-leaf splits of ``n_nodes`` nodes (each shard's
+    gradients ``gps`` [n_s, K, 2] and node of each row ``rels``): the
+    shards' K-target histograms summed and searched once, or, over a
+    column mesh's ``ColShards``, each shard's searched over its own
+    features and the results exchanged (features global)."""
+    if isinstance(rows, ColShards):
+        # (the vector-leaf search's sums are elementwise in a fixed order,
+        # ``ops/xla_order.py``: no pooled layout is needed)
+        results = []
+        for s, (b, g, r) in enumerate(zip(rows.parts, gps, rels)):
+            res = evaluate_splits_multi(
+                build_hist_multi(b, g, r, n_nodes, max_nbins,
+                                 method=hist_method, has_missing=has_missing,
+                                 col_split=True),
+                parent_sum.to(b.device), rows.local(n_real_bins, s), param,
+                has_missing=has_missing, feature_mask=rows.local(fmask, s))
+            results.append(res._replace(feature=res.feature
+                                        + rows.offsets[s]))
+        return rows.exchange(results)
+    hist = rows.reduce([build_hist_multi(
+        b, g, r, n_nodes, max_nbins, method=hist_method,
+        has_missing=has_missing, **(scale or {}))
+        for b, g, r in zip(rows.parts, gps, rels)])
+    return evaluate_splits_multi(hist, parent_sum, n_real_bins, param,
+                                 has_missing=has_missing, feature_mask=fmask)
 
 
 class MultiTargetGrower(TreeGrower):
@@ -174,7 +208,7 @@ class MultiTargetGrower(TreeGrower):
         """The trees' column samples; a vector-leaf tree draws its mask
         from every feature (the JAX package's ``MultiTargetGrower.grow``),
         where a scalar tree draws from those with real bins."""
-        F = len(self.cuts.n_real_bins())
+        F = len(self.padded(self.cuts.n_real_bins()))
         return draw_feature_masks(
             tkeys, torch.ones(F, dtype=torch.bool, device=device),
             self.param, self.param.max_depth)
@@ -217,13 +251,13 @@ def eval2_multi(rows: RowShards, gps, positions, id0: int, id1: int,
     """The best splits of nodes ``id0`` and ``id1`` (-1: none) from one
     K-target build over every row, the others inactive (the JAX
     package's ``_eval2_multi``), on every shard and summed over them:
-    parent_sums [2, K, 2] f32, fmask [2, F] bool."""
-    hist = rows.reduce([build_hist_multi(
-        b, g, pair_rel(p, id0, id1), 2, max_nbins, method=hist_method,
-        has_missing=has_missing, **(scale or {}))
-        for b, g, p in zip(rows.parts, gps, positions)])
-    return evaluate_splits_multi(hist, parent_sums, n_real_bins, param,
-                                 has_missing=has_missing, feature_mask=fmask)
+    parent_sums [2, K, 2] f32, fmask [2, F] bool (over a column mesh,
+    :func:`search_multi`'s exchange)."""
+    return search_multi(rows, gps, [pair_rel(p, id0, id1)
+                                    for p in positions], 2, parent_sums,
+                        n_real_bins, fmask, param=param, max_nbins=max_nbins,
+                        hist_method=hist_method, has_missing=has_missing,
+                        scale=scale)
 
 
 def pack_multi_result(res: MultiSplitResult) -> torch.Tensor:
@@ -269,9 +303,11 @@ class MultiLossguideGrower(LossguideGrower):
         cap = 2 * max_leaves - 1
         rows, gps, positions, root, n_k, scale = self._rows(bins, gpair)
         resolve_hist_kernel(self.hist_method, n_k, 2, self.max_nbins,
-                            self.has_missing)
+                            self.has_missing,
+                            col_split=isinstance(rows, ColShards))
         n_real = self._n_real_on(dev)
-        cons = self.constraint_sets
+        cons = (None if self.constraint_sets is None
+                else self.padded(self.constraint_sets))
         mb = self.max_nbins - 1 if self.has_missing else self.max_nbins
         kw = dict(param=param, max_nbins=self.max_nbins,
                   hist_method=self.hist_method, has_missing=self.has_missing,

@@ -398,25 +398,26 @@ class _PagedPairs:
 
     def _rows(self, paged, gpair: torch.Tensor):
         """``LossguideGrower._rows`` over pages: the matrix, the whole
-        gradients and row nodes, and the root's sums across the ranks."""
-        return (paged, gpair, torch.zeros((gpair.shape[0],),
-                                          dtype=torch.int64,
-                                          device=gpair.device),
+        gradients and row nodes as the one entry of their lists, and the
+        root's sums across the ranks."""
+        return (paged, [gpair], [torch.zeros((gpair.shape[0],),
+                                             dtype=torch.int64,
+                                             device=gpair.device)],
                 host_allreduce(self._root(gpair), label="paged/root-sum"),
                 paged.shape[0], {})
 
     @staticmethod
     def _final(paged, positions) -> torch.Tensor:
-        return positions
+        return positions[0]
 
     def _apply1(self, paged, positions, *args):
-        _check_rows(paged, positions.shape[0])
-        return self._pk.apply1(paged, positions, *args)
+        _check_rows(paged, positions[0].shape[0])
+        return [self._pk.apply1(paged, positions[0], *args)]
 
-    def _pair_hist(self, paged, gpair, positions, i0, i1):
+    def _pair_hist(self, paged, gps, positions, i0, i1):
         """The pair's histogram over this rank's pages, summed across the
         ranks."""
-        return host_allreduce(self._pk.pair_hist(paged, gpair, positions,
+        return host_allreduce(self._pk.pair_hist(paged, gps[0], positions[0],
                                                  i0, i1))
 
 
@@ -429,10 +430,10 @@ class PagedLossguideGrower(_PagedPairs, LossguideGrower):
         super().__init__(*args, **kwargs)
         self._init_pages()
 
-    def _eval2(self, paged, gpair, positions, i0, i1, psums, fmask, n_real,
+    def _eval2(self, paged, gps, positions, i0, i1, psums, fmask, n_real,
                *, cat=None, monotone=None, node_lower=None, node_upper=None,
                **_):
-        hist = self._pair_hist(paged, gpair, positions, i0, i1)
+        hist = self._pair_hist(paged, gps, positions, i0, i1)
         return evaluate_splits(hist, psums, n_real, self.param,
                                has_missing=self.has_missing,
                                feature_mask=fmask, cat=cat, monotone=monotone,
@@ -447,9 +448,9 @@ class PagedMultiLossguideGrower(_PagedPairs, MultiLossguideGrower):
         super().__init__(*args, **kwargs)
         self._init_pages()
 
-    def _eval2(self, paged, gpair, positions, i0, i1, psums, fmask, n_real,
+    def _eval2(self, paged, gps, positions, i0, i1, psums, fmask, n_real,
                **_):
-        hist = self._pair_hist(paged, gpair, positions, i0, i1)
+        hist = self._pair_hist(paged, gps, positions, i0, i1)
         return evaluate_splits_multi(hist, psums, n_real, self.param,
                                      has_missing=self.has_missing,
                                      feature_mask=fmask)
