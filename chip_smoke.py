@@ -354,7 +354,28 @@ counts set to 0 just before and read just after:
   rounds (one sha256 on every party, one device's trees, K2 4 x one
   device's builds), the held-out 100,000 rows predicted by the
   decision-bit protocol against K1's predictions; seconds a round and
-  the communicator's host seconds beside one device's.
+  the communicator's host seconds beside one device's;
+- external memory over a data mesh (``paged_mesh``) at the HIGGS shape:
+  4,000,000 x 28 rows of ``higgs_batch`` in 4 pages of 1,000,000 (28
+  features, ``max_bin`` 256, depth 8) on a mesh of 4 shards of this card,
+  each shard streaming its own 250,000 rows of each page through the
+  ring and the mesh page cache: first K4, K2 and K3 at one shard's block
+  of a page (250,000 x 28, N = 128, and K3 at 512) with the block's own
+  quantiser scale, through ``build_hist``, against their plain versions
+  and timed (``paged_shard_kernels``); one device's paged round beside
+  it (2 of 4 pages cached); ``auto`` 3 rounds at 0, 2 and 4 mesh pages
+  cached (one sha256; K4 shards x pages x levels a round, K5 never; the
+  ring's uploads), ``scan`` (K2 for each block's coarse build beside
+  K4), depth 10 (K3 at the levels of 256 and 512) and lossguide at 64
+  leaves (2 rounds), each held round by round against the resident
+  4-shard mesh of the same rows under ``certified_trees``; one traced
+  round (``obs.trace`` with sync armed, exported as Perfetto JSON: the
+  seconds a level in the page passes, the shards' reduction, the split
+  search and the advance; ``obs.memory``'s peak of the round; the
+  untraced model's bytes); MediaMill vector leaves on 2 shards in pages
+  of 8,192 rows (K2 a target, block and level); and the card against the
+  CPU port's paged mesh on 262,144 HIGGS rows (2 shards, K4's rows a
+  block), one round under the certificate.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -4253,10 +4274,13 @@ def vector_trees_agree(a, b, label, eta, lam):
     return ties, gap
 
 
-def paged_card_against_cpu(xt, label, params, dm, dev, capped=False):
+def paged_card_against_cpu(xt, label, params, dm, dev, capped=False,
+                           cpu_extra=None):
     """One round of ``params`` on the paged matrix ``dm`` on the card and
-    on the CPU port, each device streaming the same pages under the same
-    page-cache budget (its own cache), from the same intercept. Scalar
+    on the CPU port (``params`` updated by ``cpu_extra`` there: a CPU mesh
+    for a mesh of the card), each device streaming the same pages under
+    the same page-cache budget (its own cache), from the same intercept.
+    Scalar
     trees are held to :func:`certified_trees` (the int8x2 quanta of the
     CPU's gradient over all rows, which bound each page's own; each
     leaf's rows from the CPU's ``pred_leaf``), vector-leaf trees to
@@ -4267,7 +4291,7 @@ def paged_card_against_cpu(xt, label, params, dm, dev, capped=False):
     with NoPlainBuilds():
         card = xt.train(params, dm, 1, verbose_eval=False)
     t_card = time.perf_counter() - t0
-    cpu_p = dict(params, device="cpu")
+    cpu_p = dict(params, device="cpu", **(cpu_extra or {}))
     t0 = time.perf_counter()
     cpu = xt.train(cpu_p, dm, 1, verbose_eval=False)
     t_cpu = time.perf_counter() - t0
@@ -6837,6 +6861,348 @@ def column_split(xt, dev, dist):
     return runs, summary
 
 
+PM_ROWS = 4_000_000           # 4 pages of ``EXT_BATCH_ROWS`` (the HIGGS rule)
+PM_SHARDS = 4                 # p_loc = 250,000 rows a shard and page
+PM_ROUNDS = 3
+PM_BUDGETS = (0, 2, 4)        # mesh pages cached
+PM_DEEP_DEPTH = 10            # one round: K3 at the levels of 256 and 512
+PM_LG_LEAVES = 64
+PM_LG_ROUNDS = 2
+PM_MM_SHARDS = 2
+PM_MM_ROUNDS = 2
+PM_GAP_ROWS = 262_144         # card against CPU: 2 pages of 131,072 rows
+PM_GAP_SHARDS = 2             # on 2 shards: 65,536 rows a block, K4's rows
+# one shard's block of a page, at a level of N nodes, through the method
+# whose kernel the main path runs there: K4 (``auto``), K2 (``scan``'s
+# coarse builds; ``pallas`` here), K3 (depth 10's levels, and at 128)
+PM_SHARD_LEVELS = (("hist_scan", 128, "auto"), ("hist_int8x2", 128, "pallas"),
+                   ("hist_f32", 128, "pallas:f32"), ("hist_f32", 512, "auto"))
+
+
+def paged_shard_kernels(dev, paged, labels, world):
+    """Each kernel of the ``paged_mesh`` phase at one shard's block of one
+    page (``PagedBinnedMatrix._mesh_block``: p_loc rows of the shard, the
+    bins the ring uploads), logistic gradients at a seeded margin with the
+    block's own quantiser scale (each (shard, page) block quantises alone,
+    as the JAX package's paged mesh does), through ``build_hist`` as the
+    page kernels call it: it must launch its kernel and equal the plain
+    version bit for bit (and on two launches, :func:`check_hist`), then
+    timed at that shape. Returns ({kernel: max |kernel - plain|},
+    {(kernel, N): (ms, plain_ms, library_ms, bound)})."""
+    from xgboost_tpu_torch.ops import histogram as H
+
+    _, n_loc, p_loc = paged.mesh_layout(world)
+    d = 1
+    b = torch.from_numpy(paged._mesh_block(0, d, n_loc, p_loc)).to(dev)
+    B, hm = paged.max_nbins, paged.has_missing
+    y = torch.from_numpy(labels[d * n_loc:d * n_loc + p_loc]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(210)
+    p = torch.sigmoid(torch.randn(p_loc, generator=g, device=dev))
+    gp = torch.stack([p - y, p * (1 - p)], 1).contiguous()
+    q, inv = H.quantise_int8x2(gp)
+    qs, inv3 = H.fixed_point_scale(gp)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    errs, timed = {}, {}
+    for i, (name, N, method) in enumerate(PM_SHARD_LEVELS):
+        label = (f"{name} block of shard {d} of {world}, {p_loc} x "
+                 f"{b.shape[1]} N={N}")
+        gg = torch.Generator(device=dev).manual_seed(220 + i)
+        rel = torch.randint(0, N, (p_loc,), generator=gg, device=dev,
+                            dtype=torch.int32)
+        rel = torch.where(torch.rand(p_loc, generator=gg, device=dev) < 0.1,
+                          torch.full_like(rel, N), rel).contiguous()
+        reset_counts()
+        got = H.build_hist(b, gp, rel, N, B, method=method, has_missing=hm)
+        torch.cuda.synchronize()
+        if read_counts()[name] != 1:
+            raise AssertionError(f"paged shard: build_hist({method!r}) did "
+                                 f"not launch {name}: {read_counts()}")
+        if name == "hist_f32":
+            want = H.build_hist_f32_reference(b, gp, rel, qs, inv3, N, B)
+        elif name == "hist_scan":
+            want = H.build_hist_scan_reference(b, q, rel, inv, N, B)
+        else:
+            want = H.build_hist_int8x2_reference(b, q, rel, inv, N, B)
+        if not torch.equal(got, want):
+            raise AssertionError(f"paged shard {label}: the kernel differs "
+                                 f"from the plain version by "
+                                 f"{float((got - want).abs().max())}")
+        errs[name] = max(errs.get(name, 0.0), check_hist(
+            b, gp, rel, N, B, f"paged {label}", only=(name,))[name])
+        t, n_active = time_hist(b, gp, rel, N, B, flush, only=(name,))
+        ms, plain_ms, lib_ms = t[name]
+        timed[(name, N)] = (ms, plain_ms, lib_ms, hist_bound_ms(
+            b, N, B, n_active, 2 if name in k3_precisions() else 4))
+    del flush
+    log("paged mesh kernels at one shard's block of a page ("
+        f"{p_loc} x {b.shape[1]}, {B} slots, the block's own scale): every "
+        "wrapper launched its kernel and equals the plain version bit for "
+        "bit; " + "; ".join(
+            f"{k} N={N} {ms:.6f} ms (plain {pm:.6f}, index_add_ {lm:.6f}, "
+            f"bound {bd[0]:.6f} {bd[1]})"
+            for (k, N), (ms, pm, lm, bd) in timed.items()))
+    return errs, timed
+
+
+def rows_of_leaves(bst, dm):
+    """Each tree's {leaf: rows} of ``dm`` under ``bst`` (``pred_leaf``)."""
+    leaves = bst.predict(dm, pred_leaf=True)
+    out = []
+    for t in range(leaves.shape[1]):
+        idx, n = np.unique(leaves[:, t], return_counts=True)
+        out.append(dict(zip(idx.tolist(), n.tolist())))
+    return out
+
+
+def paged_mesh(xt, dev, tmp):
+    """The ``paged_mesh`` phase (module docstring): returns (the main-path
+    runs' launch counts, a summary dict)."""
+    from xgboost_tpu_torch.context import Mesh
+    from xgboost_tpu_torch.obs import memory as obs_memory
+    from xgboost_tpu_torch.obs import trace as obs_trace
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    env_keep = {k: os.environ.get(k) for k in (
+        "XTPU_PAGED_COLLAPSE", "XTPU_PAGE_ROWS", "XTPU_PAGE_CACHE_BYTES")}
+    os.environ.update(XTPU_PAGED_COLLAPSE="0",
+                      XTPU_PAGE_ROWS=str(EXT_BATCH_ROWS),
+                      XTPU_PAGE_CACHE_BYTES="0")
+    runs, out = [], {"s_round": {}}
+    try:
+        t0 = time.perf_counter()
+        dm = xt.QuantileDMatrix(higgs_batches(
+            xt, PM_ROWS, 28, os.path.join(tmp, "pm")), max_bin=256)
+        dres = xt.QuantileDMatrix(higgs_batches(xt, PM_ROWS, 28, None),
+                                  max_bin=256, ref=dm)
+        paged = dm.binned(256, dev)
+        labels = dm.get_label()
+        if not paged.is_paged or dres.is_paged:
+            raise AssertionError("paged_mesh: the matrices' tiers")
+        mesh = Mesh([dev] * PM_SHARDS)
+        n_pad, n_loc, p_loc = paged.mesh_layout(PM_SHARDS)
+        n_mesh = n_loc // p_loc
+        unit = paged.mesh_page_nbytes(PM_SHARDS)
+        log(f"paged_mesh: {PM_ROWS} x 28 in {paged.n_pages()} pages of "
+            f"{paged.page_rows} (and resident) in "
+            f"{time.perf_counter() - t0:.3f} s; {PM_SHARDS} shards of "
+            f"{n_loc} rows, {n_mesh} mesh pages of {p_loc} rows a shard, "
+            f"{unit} B each")
+        out["shard_kernels"] = paged_shard_kernels(dev, paged, labels,
+                                                   PM_SHARDS)
+        p = dict(HIGGS_PARAMS)
+        depth = p["max_depth"]
+
+        def counted(label, params, data, rounds, want, **kw):
+            """A run under the launch counts and a round clock; ``want``:
+            {kernel: launches}; K5 never."""
+            with NoPlainBuilds():
+                bst, c, s = timed_train(xt, label, params, data, rounds,
+                                        **kw)
+            runs.append(c)
+            for k, v in dict(want, fused_advance_coarse=0).items():
+                if c[k] != v:
+                    raise AssertionError(f"paged_mesh {label}: {k} launched "
+                                         f"{c[k]} times, want {v}")
+            out["s_round"][label] = s
+            return bst, c, s
+
+        def by_round(label, params, rounds, capped=False):
+            """The paged mesh round by round from the resident mesh's
+            model before it (a continuation walks its trees over the pages
+            to the same margins) against the resident mesh's trees, under
+            :func:`certified_trees` (the quantiser scales differ by
+            design: a page's block against the shard's rows)."""
+            res, cr, sr = timed_train(xt, f"{label} resident mesh",
+                                      dict(params, mesh=mesh), dres, rounds)
+            runs.append(cr)
+            rows = rows_of_leaves(res, dres)
+            per = len(res.gbm.trees) // rounds
+            full, ties, gap = 0, {}, 0.0
+            tp = res.tree_param
+            for r in range(rounds):
+                before = bytes(res[0:r].save_raw("ubj")) if r else None
+                with NoPlainBuilds():
+                    bst, c = train_launches(
+                        f"{label} paged mesh round {r}", lambda: xt.train(
+                            dict(params, mesh=mesh), dm, 1,
+                            verbose_eval=False, xgb_model=before))
+                runs.append(c)
+                for k in range(per):
+                    t = r * per + k
+                    tie, g, _ = certified_trees(
+                        bst.gbm.trees[t], res.gbm.trees[t],
+                        f"paged mesh {label} tree {t}", tp.eta,
+                        tp.reg_lambda, LOGISTIC_QUANTA, rows[t],
+                        capped=capped)
+                    gap = max(gap, g)
+                    if tie:
+                        ties[t] = tie
+                    else:
+                        full += 1
+            if not full:
+                raise AssertionError(f"paged mesh {label}: no tree the "
+                                     "resident mesh's in full")
+            log(f"paged_mesh {label} against the resident {PM_SHARDS}-shard "
+                f"mesh, round by round: {full} of {len(res.gbm.trees)} "
+                f"trees the same in full" + (f", near ties at {ties}"
+                                             if ties else "")
+                + f", largest leaf gap {gap:.3e}; resident mesh seconds a "
+                f"round {sr} [{card}]")
+            return {"full": full, "trees": len(res.gbm.trees), "ties": ties,
+                    "gap": gap}
+
+        # -- one device's paged round, 2 of 4 pages cached (the reference)
+        paged.set_cache_budget(2 * paged.page_nbytes())
+        one, c1, s1 = counted("one device 2 cached", p, dm, PM_ROUNDS,
+                              {"hist_scan": paged.n_pages() * depth
+                               * PM_ROUNDS, "hist_int8x2": 0})
+        # -- auto on the mesh at 0, 2 and 4 mesh pages cached: one model
+        digests, uploads = {}, {}
+        k4 = PM_SHARDS * n_mesh * depth * PM_ROUNDS
+        for k in PM_BUDGETS:
+            paged.set_cache_budget(k * unit)
+            paged.reset_ring_stats()
+            bst, c, s = counted(f"auto mesh {k} cached", dict(p, mesh=mesh),
+                                dm, PM_ROUNDS, {"hist_scan": k4,
+                                                "hist_int8x2": 0,
+                                                "hist_f32": 0})
+            digests[k] = digest(bst)
+            uploads[k] = paged.ring_stats["uploads"]
+            want = PM_ROUNDS * (depth + 1) * (n_mesh - k) + k
+            if uploads[k] != want or paged.cached_mesh_pages() != k:
+                raise AssertionError(f"paged_mesh at {k} cached: {uploads[k]}"
+                                     f" uploads, want {want}; "
+                                     f"{paged.cached_mesh_pages()} cached")
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"paged_mesh: the budgets gave models "
+                                 f"{digests}")
+        out["sha"] = digests[0]
+        log(f"paged_mesh auto ({PM_SHARDS} shards x {n_mesh} mesh pages, "
+            f"{PM_ROUNDS} rounds): one sha256 {digests[0][:16]}... at "
+            f"{PM_BUDGETS} mesh pages cached; K4 {k4} a run = shards x "
+            f"pages x levels x rounds, K5 0; uploads {uploads}; seconds a "
+            f"round " + ", ".join(f"{k} cached {out['s_round'][f'auto mesh {k} cached']}"
+                                  for k in PM_BUDGETS)
+            + f"; one device (2 of 4 cached) {s1} [{card}]")
+        out["certified"] = {"auto": by_round("auto", p, PM_ROUNDS)}
+        # -- scan at 2 cached: K2 for each block's coarse build, K4 fine
+        paged.set_cache_budget(2 * unit)
+        sc, _, _ = counted("scan mesh 2 cached", dict(
+            p, mesh=mesh, hist_method="scan"), dm, PM_ROUNDS,
+            {"hist_scan": k4, "hist_int8x2": k4, "hist_f32": 0})
+        out["certified"]["scan"] = by_round("scan", dict(
+            p, hist_method="scan"), 1)
+        # -- depth 10, every page cached: K3 at the levels of 256 and 512
+        paged.set_cache_budget(n_mesh * unit)
+        blocks = PM_SHARDS * n_mesh
+        counted("depth 10 mesh", dict(p, mesh=mesh, max_depth=PM_DEEP_DEPTH),
+                dm, 1, {"hist_scan": blocks * 8, "hist_f32": blocks * 2})
+        out["certified"]["depth 10"] = by_round(
+            "depth 10", dict(p, max_depth=PM_DEEP_DEPTH), 1)
+        # -- lossguide at 64 leaves, 2 of 4 cached: K4 a block and pair
+        paged.set_cache_budget(2 * unit)
+        lg = dict(p, grow_policy="lossguide", max_leaves=PM_LG_LEAVES,
+                  max_depth=0)
+        out["certified"]["lossguide"] = by_round("lossguide", lg,
+                                                  PM_LG_ROUNDS, capped=True)
+        lg_k4 = sum(c["hist_scan"] for c in runs[-PM_LG_ROUNDS:])
+        if lg_k4 % blocks or not lg_k4:
+            raise AssertionError(f"paged_mesh lossguide: K4 {lg_k4}, not "
+                                 f"{blocks} a pair")
+        log(f"paged_mesh lossguide {PM_LG_LEAVES} leaves: K4 {lg_k4} = "
+            f"{blocks} blocks x {lg_k4 // blocks} pair builds in "
+            f"{PM_LG_ROUNDS} rounds")
+        # -- the traced round: spans a level, the memory peak, same model
+        paged.set_cache_budget(2 * unit)
+        untraced, _ = train_launches("traced round, untraced twin",
+                                     lambda: xt.train(dict(p, mesh=mesh),
+                                                      dm, 1,
+                                                      verbose_eval=False))
+        obs_trace.enable()
+        obs_trace.set_sync(True)
+        mon = obs_memory.enable()
+        try:
+            traced, c = train_launches("traced round", lambda: xt.train(
+                dict(p, mesh=mesh), dm, 1, verbose_eval=False))
+            path = os.path.join(tmp, "paged_mesh_trace.json")
+            n_spans = obs_trace.export(path)
+            spans = obs_trace.tracer().spans()
+            peaks = mon.round_peaks()
+        finally:
+            obs_trace.set_sync(False)
+            obs_trace.disable()
+            obs_memory.disable()
+        runs.append(c)
+        if digest(traced) != digest(untraced):
+            raise AssertionError("paged_mesh: the traced round's model "
+                                 "differs from the untraced one")
+        doc = json.load(open(path))
+        if len([e for e in doc["traceEvents"] if e["ph"] == "X"]) != n_spans:
+            raise AssertionError("paged_mesh: the Perfetto export lost spans")
+        level = {}
+        for s in spans:
+            level[s.name] = level.get(s.name, 0.0) + s.dur
+        hist = [s.args["depth"] for s in spans if s.name == "paged/hist"]
+        if hist != list(range(depth)):
+            raise AssertionError(f"paged_mesh trace: paged/hist at depths "
+                                 f"{hist}")
+        out["trace"] = {k: v / depth for k, v in sorted(level.items())
+                        if k.startswith(("paged/", "ring/"))}
+        out["trace_round"] = {k: level[k] for k in sorted(level)
+                              if k.startswith("Booster.")}
+        out["peak_round"] = peaks
+        log(f"paged_mesh traced round ({n_spans} spans, Perfetto JSON "
+            f"{os.path.getsize(path)} B; sync armed; the untraced model's "
+            f"bytes): seconds a level "
+            + ", ".join(f"{k} {v:.6f}" for k, v in out["trace"].items())
+            + "; the round's sections " + ", ".join(
+                f"{k} {v:.6f} s" for k, v in out["trace_round"].items())
+            + f"; device memory peak of the round {peaks} B (the "
+            f"allocator's, over {PM_SHARDS} shards of one card) [{card}]")
+        # -- MediaMill vector leaves on 2 shards, pages of 8,192 rows
+        Xm, Ym = mediamill_like(EXT_SEED)
+        Xm, Ym = Xm[:MM_TRAIN_ROWS], Ym[:MM_TRAIN_ROWS]
+        os.environ["XTPU_PAGE_ROWS"] = str(PLO_MM_PAGE_ROWS)
+        dmm = xt.QuantileDMatrix(typed_batches(
+            xt, Xm, Ym, PLO_MM_PAGE_ROWS, None, f"{tmp}/pm_mm"), max_bin=256)
+        pmm = dmm.binned(256, dev)
+        m2 = Mesh([dev] * PM_MM_SHARDS)
+        _, mm_loc, mm_p = pmm.mesh_layout(PM_MM_SHARDS)
+        pmm.set_cache_budget(2 * pmm.mesh_page_nbytes(PM_MM_SHARDS))
+        mm_blocks = PM_MM_SHARDS * (mm_loc // mm_p)
+        bmm, _, smm = counted("vector leaves mesh", dict(
+            MM_PARAMS, multi_strategy="multi_output_tree", mesh=m2), dmm,
+            PM_MM_ROUNDS, {"hist_int8x2": mm_blocks * MM_LABELS
+                           * MM_PARAMS["max_depth"] * PM_MM_ROUNDS,
+                           "hist_scan": 0})
+        if bmm.gbm.trees[0].leaf_value.shape[1] != MM_LABELS:
+            raise AssertionError("paged_mesh: no vector leaves")
+        log(f"paged_mesh vector leaves ({MM_TRAIN_ROWS} x {MM_FEATURES}, "
+            f"{MM_LABELS} labels, {PM_MM_SHARDS} shards x {mm_loc // mm_p} "
+            f"mesh pages of {mm_p} rows, 2 cached): seconds a round {smm}")
+        # -- the card against the CPU port on the same pages and mesh
+        gaps = {}
+        os.environ["XTPU_PAGE_ROWS"] = str(PM_GAP_ROWS // 2)
+        dg = xt.QuantileDMatrix(higgs_batches(
+            xt, PM_GAP_ROWS, 28, f"{tmp}/pm_gap"), max_bin=256)
+        pg = dg.binned(256, dev)
+        pg.set_cache_budget(pg.mesh_page_nbytes(PM_GAP_SHARDS))
+        gaps["HIGGS"] = paged_card_against_cpu(
+            xt, "paged mesh card vs CPU", dict(
+                p, mesh=Mesh([dev] * PM_GAP_SHARDS)), dg, dev,
+            cpu_extra={"mesh": Mesh(["cpu"] * PM_GAP_SHARDS)})
+        out["card_cpu"] = gaps
+    finally:
+        for k, v in env_keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["phase_s"] = time.perf_counter() - t_phase
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -7701,6 +8067,15 @@ def main() -> int:
         f"{col['s_round']}; trees' bytes one device's {col['same_bytes']}; "
         f"column mesh sha256 {col['col_sha']} [{card}]")
 
+    # ---- main path: external memory over a data mesh (each shard of this
+    # card streams its own rows of each page), traced once
+    with tempfile.TemporaryDirectory(prefix="xtt_pm_") as tmp:
+        pm_runs, pm = paged_mesh(xt, dev, tmp)
+    log(f"paged_mesh: {pm['phase_s']:.1f} s; seconds a round "
+        f"{pm['s_round']}; sha256 {pm['sha']}; seconds a level "
+        f"{pm['trace']}; peak of the traced round {pm['peak_round']} B "
+        f"[{card}]")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -7799,7 +8174,7 @@ def main() -> int:
             *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
             *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
             *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs,
-            *col_runs]
+            *col_runs, *pm_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -7959,6 +8334,21 @@ def main() -> int:
                      f"{COL_SHARDS}, N={N}",
             "launches": sum(c[name] for c in col_runs),
             "max_abs_err": ck_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms})
+    # the paged_mesh phase's kernels at one shard's block of a page, with
+    # the block's own scale (``paged_shard_kernels``)
+    pk_errs, pk_times = pm["shard_kernels"]
+    pm_p = EXT_BATCH_ROWS // PM_SHARDS
+    for (name, N), (ms, plain_ms, lib_ms, bound) in pk_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xgboost_tpu_torch/csrc/hist.cu",
+            "replaces": "xgboost_tpu/ops/pallas/histogram.py" + where[name],
+            "shape": f"paged mesh shard block {pm_p} x 28 of {PM_SHARDS} "
+                     f"shards, the block's own scale, N={N}",
+            "launches": sum(c[name] for c in pm_runs),
+            "max_abs_err": pk_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))

@@ -287,9 +287,9 @@ def test_mesh_refuses_the_unported(tmesh):
 
 
 def test_paged_matrix_on_a_mesh_refuses(tmesh, tmp_path, monkeypatch):
-    """The paged mesh tier stays ROADMAP A.8: a paged matrix on a mesh
-    raises (pages train across ranks through a communicator,
-    ``tests/test_torch_paged_comm.py``)."""
+    """A paged matrix on a mesh trains (``tests/test_torch_paged_mesh.py``)
+    and refuses what the JAX package's paged mesh refuses, in its words:
+    ``approx`` over pages on a mesh, and column split on pages."""
     from test_torch_paged import PortIter
 
     monkeypatch.setenv("XTPU_PAGED_COLLAPSE", "0")
@@ -297,9 +297,14 @@ def test_paged_matrix_on_a_mesh_refuses(tmesh, tmp_path, monkeypatch):
     X, y = _binary(400, 4, seed=6)
     qdm = xt.QuantileDMatrix(PortIter(X, y, 2, cache_prefix=str(
         tmp_path / "m")), max_bin=16)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        xt.train({"device": "cpu", "mesh": tmesh, "max_bin": 16}, qdm, 1,
-                 verbose_eval=False)
+    p = {"device": "cpu", "mesh": tmesh, "max_bin": 16}
+    with pytest.raises(NotImplementedError,
+                       match="supports row split without a device mesh"):
+        xt.train(dict(p, tree_method="approx"), qdm, 1, verbose_eval=False)
+    with pytest.raises(NotImplementedError,
+                       match="supports data_split_mode=row only"):
+        xt.train(dict(p, data_split_mode="col"), qdm, 1, verbose_eval=False)
+    assert xt.train(p, qdm, 1, verbose_eval=False).num_boosted_rounds() == 1
 
 
 def test_two_mesh_runs_give_one_model(tmesh):

@@ -487,18 +487,18 @@ def test_unported_paged_configurations_raise(params, item, tmp_path,
 
 
 def test_unported_paged_methods_raise(tmp_path, monkeypatch):
-    """The paged mesh tier (A.8) raises; a paged matrix trains only at its
-    own max_bin."""
+    """The paged mesh tier's layout is the JAX package's (its training:
+    ``tests/test_torch_paged_mesh.py``); a paged matrix trains only at
+    its own max_bin."""
     _set(monkeypatch)
     X, y = _data(51, n=1000)
     tq = xt.QuantileDMatrix(PortIter(X, y, 2, cache_prefix=str(
         tmp_path / "m")), max_bin=16)
     paged = tq.binned(16, CPU)
-    for fn, item in ((lambda: paged.mesh_layout(2), "A.8"),
-                     (lambda: paged.pages_sharded(None, "data"), "A.8")):
-        with pytest.raises(NotImplementedError, match=item.replace(".",
-                                                                   r"\.")):
-            fn()
+    jpaged = JaxPaged(bins_host=paged.bins_host, cuts=None,
+                      max_nbins=paged.max_nbins, page_rows=paged.page_rows)
+    for world in (1, 2, 3, 8):
+        assert paged.mesh_layout(world) == jpaged.mesh_layout(world)
     with pytest.raises(ValueError, match="max_bin=16"):
         xt.train({"objective": "binary:logistic", "max_bin": 32,
                    "device": "cpu"}, tq, 1, verbose_eval=False)

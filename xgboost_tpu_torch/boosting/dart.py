@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..registry import BOOSTERS
 from ..serve.packed import PackedForest
 from ..tree.param import _f32
 from .gbtree import GBTree
@@ -55,6 +56,7 @@ _DART_KEYS = ("rate_drop", "one_drop", "skip_drop", "sample_type",
 RING_ROUNDS = 64
 
 
+@BOOSTERS.register("dart")
 class Dart(GBTree):
     name = "dart"
     supports_margin_cache = False

@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..registry import BOOSTERS, LINEAR_UPDATERS
+
 
 def _soft_threshold(x: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.sign(x) * torch.clamp(x.abs() - alpha, min=0.0)
@@ -48,6 +50,7 @@ def _bias_step(gpair: torch.Tensor, eta: float
     return dbias, g + h * dbias[None, :], h
 
 
+@LINEAR_UPDATERS.register("shotgun")
 def shotgun(X: torch.Tensor, gpair: torch.Tensor, W: torch.Tensor,
             bias: torch.Tensor, *, eta: float, lam: float, alpha: float
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -64,6 +67,7 @@ def shotgun(X: torch.Tensor, gpair: torch.Tensor, W: torch.Tensor,
     return W + dW, bias + dbias, delta
 
 
+@LINEAR_UPDATERS.register("coord_descent")
 def coord_descent(X: torch.Tensor, gpair: torch.Tensor, W: torch.Tensor,
                   bias: torch.Tensor, *, eta: float, lam: float,
                   alpha: float, XT: Optional[torch.Tensor] = None
@@ -88,9 +92,6 @@ def coord_descent(X: torch.Tensor, gpair: torch.Tensor, W: torch.Tensor,
         Wc[f] = w_old + dw
     delta = X @ (Wc - W) + dbias[None, :]
     return Wc, bias + dbias, delta
-
-
-UPDATERS = {"shotgun": shotgun, "coord_descent": coord_descent}
 
 
 def linear_features(dm, device: torch.device) -> torch.Tensor:
@@ -124,6 +125,7 @@ def page_features(page: torch.Tensor, ptrs: torch.Tensor, vals: torch.Tensor,
                        vals[gb])
 
 
+@BOOSTERS.register("gblinear")
 class GBLinear:
     """Linear model W [F, K], bias [K] (None before the first round)."""
 
@@ -219,7 +221,7 @@ class GBLinear:
             self.bias = torch.zeros(self.n_groups, dtype=torch.float32,
                                     device=X.device)
         # unknown names keep shotgun, as the JAX package's registry does
-        fn = UPDATERS.get(self.updater, shotgun)
+        fn = LINEAR_UPDATERS.get(self.updater) or shotgun
         kw = dict(eta=self.eta, lam=self.reg_lambda, alpha=self.reg_alpha)
         if fn is coord_descent:
             if "linear_XT" not in state:

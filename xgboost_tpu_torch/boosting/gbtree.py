@@ -58,6 +58,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..registry import BOOSTERS
 from ..tree.exact import ExactGrower
 from ..tree.grow import TreeGrower
 from ..tree.lossguide import LossguideGrower
@@ -116,6 +117,7 @@ _GROWERS = {
 }
 
 
+@BOOSTERS.register("gbtree")
 class GBTree:
     name = "gbtree"
     # the Booster's margin caches move by each round's delta (dart's old

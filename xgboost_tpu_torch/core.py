@@ -57,8 +57,20 @@ mesh whose communicator spans processes (``parallel/launch.py``) sums
 its shards' histograms across the ranks too; without one, a resident
 matrix under a multi-rank communicator is refused
 (:meth:`Booster._check_row_comm_sync`), and the paged tier syncs each
-level through the communicator. ``tree_method="exact"`` and
-``gblinear`` refuse a mesh.
+level through the communicator. A paged matrix on a mesh stays paged
+(``data/binned.py PagedMeshMatrix``): each shard streams its own rows of
+each page, the gradients padded to the mesh layout's ``n_pad`` rows
+(``PagedBinnedMatrix.mesh_layout``). ``tree_method="exact"`` and
+``gblinear`` refuse a mesh, and ``approx`` over pages refuses one with
+the JAX package's words.
+
+Each round runs the JAX package's ``Monitor("Booster")`` sections
+``GetGradient``, ``BoostOneIter`` and ``UpdateCache`` (``obs/monitor.py``;
+spans of those names under ``XTPU_TRACE``, the table at verbosity >= 3
+when ``train`` ends), the debug observer's two summaries
+(``utils/observer.py``, ``XGBOOST_TPU_DEBUG_OUTPUT``) and, under
+``XTPU_FLIGHT_MEM``, the memory monitor's round boundary
+(:meth:`Booster._mem_round`).
 
 Column split (``data_split_mode="col"``, reference ``DataSplitMode::kCol``)
 trains the pooled columns' model two ways. On a mesh: the training
@@ -98,8 +110,8 @@ from .callback import CallbackContainer, EarlyStopping, EvaluationMonitor
 from .config import get_config
 from .context import Context
 from .data.binned import (ApproxSource, BinnedMatrix, MeshApproxSource,
-                          PagedApproxSource, pad_features_for_mesh,
-                          shard_binned)
+                          PagedApproxSource, PagedMeshMatrix,
+                          pad_features_for_mesh, shard_binned)
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
 from .metric import get_metric
@@ -109,6 +121,8 @@ from .objective.base import (NumericalDivergence, Objective,
                              guard_gradient)
 from .objective.survival import sort_by_time
 from .parallel import collective
+from .obs import memory as obs_memory
+from .obs.monitor import Monitor
 from .obs.training_log import TrainingLog
 from .ops import shap as shap_ops
 from .ops.shap import ShapPack, build_shap_pack
@@ -119,6 +133,7 @@ from .tree.param import (TrainParam, parse_interaction_constraints,
                          parse_monotone_constraints)
 from .tree.updaters import UPDATERS, prune_tree, refresh_tree, sync_trees
 from .tree.vertical import federated_vertical_margin
+from .utils import observer
 from .utils import random as xrandom
 from .utils.ubjson import dumps_ubjson, loads_ubjson
 
@@ -196,6 +211,9 @@ class Booster:
         # range)
         self._packed: Dict[tuple, Union[PackedForest, ShapPack]] = {}
         self._packed_lock = threading.Lock()
+        # the round's timing table (reference ``common::Monitor``), printed
+        # at verbosity >= 3 when ``train`` ends
+        self._monitor = Monitor("Booster")
         if params:
             self.set_param(params)
         self.device = self.ctx.torch_device()   # raises without CUDA
@@ -692,8 +710,12 @@ class Booster:
         resident_binned``; ``XTPU_PAGED_COLLAPSE=0`` keeps it paged);
         anything else as it is. Multi-rank row split keeps the paged
         tier: its per-level histogram allreduce is the cross-rank sync
-        (:meth:`_check_row_comm_sync`), as in the JAX package."""
-        if not binned.is_paged or collective.get_world_size() > 1:
+        (:meth:`_check_row_comm_sync`), as in the JAX package. A mesh keeps
+        it too, for training and evaluation alike: the collapse would put
+        every page on one device of a mesh that is there to split them
+        (each shard streams its own rows, ``tree/paged.py``)."""
+        if (not binned.is_paged or collective.get_world_size() > 1
+                or self.ctx.mesh is not None):
             return binned
         res = binned.resident_binned(self.device)
         return binned if res is None else res
@@ -742,13 +764,15 @@ class Booster:
                 "data_split_mode=row only")
         if mesh is None:
             return src
+        if isinstance(src, PagedApproxSource):
+            raise NotImplementedError(
+                "tree_method=approx over external-memory pages supports "
+                "row split without a device mesh (single- or multi-host)")
         if "mesh_source" not in st:
-            if getattr(src, "is_paged", False) or isinstance(
-                    src, PagedApproxSource):
-                raise NotImplementedError(
-                    "paged matrices over a device mesh are not in the "
-                    "PyTorch port yet (ROADMAP A.8)")
-            if isinstance(src, BinnedMatrix):
+            if getattr(src, "is_paged", False):
+                # the bins stay on the host and stream to each shard
+                st["mesh_source"] = PagedMeshMatrix(src, mesh)
+            elif isinstance(src, BinnedMatrix):
                 layout = pad_features_for_mesh if col else shard_binned
                 st["mesh_source"] = layout(src, mesh)
             else:
@@ -866,8 +890,32 @@ class Booster:
             margin = self._cached_margin(dtrain, is_train=True)
         else:
             margin = self.gbm.training_margin(st, self._walk_trees)
-        gpair = self._gradient(margin, st, dtrain, iteration, fobj)
+        with self._monitor.section("GetGradient") as sec:
+            gpair = self._gradient(margin, st, dtrain, iteration, fobj)
+            sec.sync_on(gpair)
+        if observer.enabled():
+            observer.observe("gpair", gpair, iteration)
         self._boost_round(st, margin, gpair, iteration, refresh=True)
+        if observer.enabled():
+            observer.observe("margin", st["margin"], iteration)
+        if obs_memory.enabled():
+            self._mem_round(st)
+
+    def _mem_round(self, st: Dict[str, Any]) -> None:
+        """The memory monitor's round boundary (callers test
+        ``obs_memory.enabled()``, so the default path stays free): book
+        the margin cache (the CPU's accounting), sample the watermark and
+        close the round's window."""
+        obs_memory.watch_device(self.device)
+        if self.ctx.mesh is not None:
+            for d in self.ctx.mesh.devices:
+                obs_memory.watch_device(d)
+        margin = st.get("margin")
+        if margin is not None:
+            obs_memory.book("carry/margin",
+                            margin.numel() * margin.element_size())
+        obs_memory.sample("round")
+        obs_memory.note_round()
 
     def update_batch(self, dtrain: DMatrix,
                      iterations: Sequence[int]) -> bool:
@@ -967,6 +1015,22 @@ class Booster:
         if refresh and self.obj.info.zero_hess:
             adaptive = dict(obj=self.obj, margin=margin,
                             labels=st["labels"], weights=st["weights"])
+        with self._monitor.section("BoostOneIter") as sec:
+            delta = self._grow_round(st, margin, gpair, key, adaptive)
+            sec.sync_on(delta)
+        with self._monitor.section("UpdateCache") as sec:
+            if self.gbm.supports_margin_cache:
+                st["margin"] = margin + delta
+            else:
+                st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
+            sec.sync_on(st["margin"])
+        st["n_trees"] = self.gbm.version()
+        self._packed = {}
+
+    def _grow_round(self, st: Dict[str, Any], margin: torch.Tensor,
+                    gpair: torch.Tensor, key, adaptive: Dict[str, Any]):
+        """The round's trees from ``gpair`` -> the margin's delta (None
+        for a booster without a margin cache, which recomputes it)."""
         src = self._grow_source(st)
         if self.ctx.mesh is not None:
             # the mesh's pad rows carry zero gradient (weight 0 in the JAX
@@ -977,13 +1041,9 @@ class Booster:
                 (n_pad - gpair.shape[0],) + tuple(gpair.shape[1:]))])
             adaptive["n_rows"] = st["n"]
         if self.gbm.supports_margin_cache:
-            st["margin"] = margin + self.gbm.do_boost(src, gpair, key,
-                                                      **adaptive)
-        else:
-            self.gbm.do_boost(src, gpair, key, state=st, **adaptive)
-            st["margin"] = self.gbm.compute_margin(st, self._walk_trees)
-        st["n_trees"] = self.gbm.version()
-        self._packed = {}
+            return self.gbm.do_boost(src, gpair, key, **adaptive)
+        self.gbm.do_boost(src, gpair, key, state=st, **adaptive)
+        return None
 
     def boost(self, dtrain: DMatrix, grad: Any, hess: Any) -> None:
         """One round from gradients the caller computed (reference
@@ -1709,6 +1769,7 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     if ck is not None:
         ck.close(raise_errors=True)
     bst = container.after_training(bst)
+    bst._monitor.maybe_print()   # one table a run (reference: destructor)
     if evals_result is not None:
         evals_result.update(container.history)
     return bst

@@ -12,10 +12,13 @@ into the last real bin, NaN -> the missing bin (on the CPU for the
 batches of an iterator).
 
 :class:`PagedBinnedMatrix` is the external-memory tier (the JAX
-package's class of that name, single device): the bins stay in host
-memory (a memmap under the iterator's ``cache_prefix``) and stream to
-the device in row pages through an HBM page cache and a prefetch ring
-(module docstring of ``tree/paged.py``).
+package's class of that name): the bins stay in host memory (a memmap
+under the iterator's ``cache_prefix``) and stream to the device in row
+pages through a device page cache and a prefetch ring (module docstring
+of ``tree/paged.py``), or, over a data mesh (:class:`PagedMeshMatrix`),
+to each shard's device in blocks of its own rows. The ring records
+``ring/upload`` and ``ring/blocked`` spans (``obs/trace.py``) and books
+the page caches for the memory monitor (``obs/memory.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import memory as _mem
+from ..obs import trace as _trace
 from .quantile import (FeatureSummary, HistogramCuts, WeightedSketch,
                        cuts_from_summaries)
 
@@ -216,7 +221,16 @@ class PagedBinnedMatrix:
     packing pages and, on the card, queueing their copies), ``blocked_s``
     (the consumer's wall time waiting for a page), ``uploads`` and
     ``bytes`` (pages and transport bytes shipped); reset with
-    :meth:`reset_ring_stats`."""
+    :meth:`reset_ring_stats`.
+
+    Over a data mesh of ``world`` shards (:meth:`mesh_layout`,
+    :meth:`stream_pages_sharded`) a mesh page is every shard's block of
+    ``p_loc`` of its rows, each uploaded to its shard's device through
+    that device's staging buffers; it costs :meth:`mesh_page_nbytes` of
+    the same budget and caches apart from the pages of one device, under
+    its local start (the shards of one card share a device name, so a
+    cache keyed by device would mix their rows). The ring and its
+    statistics are shared."""
 
     bins_host: np.ndarray
     cuts: HistogramCuts
@@ -230,7 +244,13 @@ class PagedBinnedMatrix:
     def __post_init__(self) -> None:
         # per device: {page start: (page end, device page)}
         self._device_cache: Dict[str, Dict[int, Tuple[int, torch.Tensor]]] = {}
+        # a mesh's pages (:meth:`stream_pages_sharded`), by local start:
+        # (local end, every shard's block); apart from ``_device_cache``,
+        # whose key is a device, since a mesh's shards may share one
+        self._mesh_cache: Dict[int, Tuple[int, List[torch.Tensor]]] = {}
+        self._mesh_of = None       # the mesh (and rows) it holds
         self._staging: Dict[str, _Staging] = {}
+        self._mesh_staging: Dict[str, _Staging] = {}
         self._resident: Optional[Tuple[str, BinnedMatrix]] = None
         self._stats_lock = threading.Lock()
         self.ring_stats = {"upload_s": 0.0, "blocked_s": 0.0, "uploads": 0,
@@ -326,7 +346,15 @@ class PagedBinnedMatrix:
         if nbytes is None:
             nbytes = int(os.environ.get("XTPU_PAGE_CACHE_BYTES", 4 << 30))
         self.cache_budget_bytes = int(nbytes)
+        self._drop_caches()
+
+    def _drop_caches(self) -> None:
+        """Drop the device page caches (one device's and a mesh's) and a
+        resident collapse."""
         self._device_cache.clear()
+        self._mesh_cache.clear()
+        _mem.unbook("page_cache")
+        _mem.unbook("page_cache/mesh")
         self._resident = None
 
     def reset_ring_stats(self) -> None:
@@ -385,30 +413,36 @@ class PagedBinnedMatrix:
         page = raw.view(_TORCH_DTYPES[self.bins_host.dtype]).view(shape)
         return s, (e, page, ev), True, nbytes
 
-    def _ring(self, starts: List[int], device: torch.device):
-        """(start, end, page) of ``starts`` in order: cached pages straight
-        from the device, the others uploaded ``ring_depth`` pages ahead by
-        one worker thread; uploaded pages join the cache while it holds
-        fewer than ``cache_budget_bytes // page_nbytes()``. The upload of
-        page i + ``ring_depth`` is asked for as page i is taken, its
-        device memory allocated then, on the consumer's thread, whatever
-        the worker's progress: a consumer that lets go of each page before
-        it takes the next (a pass, ``tree/paged.py _drive``) holds
+    def _ring(self, starts: List[int], fetch, alloc, cache: dict,
+              unit_bytes: int, settle, book_key: str = "page_cache"):
+        """``(start, end, payload)`` of the page ``starts`` in order, the
+        prefetch ring shared by one device's pages and a mesh's
+        (:meth:`stream_pages_sharded`): cached pages straight from
+        ``cache``, the others uploaded ``ring_depth`` pages ahead by one
+        worker thread, ``fetch(start, slot, raw) -> (start, (end,
+        payload, ...), uploaded, bytes)``; an uploaded page joins
+        ``cache`` while it holds fewer than ``cache_budget_bytes //
+        unit_bytes``. The upload of page i + ``ring_depth`` is asked for
+        as page i is taken, its device memory (``alloc(start)``, on the
+        card) allocated then, on the consumer's thread, whatever the
+        worker's progress: a consumer that lets go of each page before it
+        takes the next (a pass, ``tree/paged.py _drive``) holds
         ``ring_depth + 1`` streamed pages at most, and at that from the
-        first page on. On the card the consumer's stream waits on each
-        upload's event, and the page is recorded on that stream (the
-        caching allocator keeps its memory until the stream's work on it
-        is done)."""
+        first page on. ``settle(payload)`` makes the consumer's streams
+        wait on an upload's events and records its memory on them (the
+        caching allocator keeps it until their work on it is done). The
+        cache's bytes are booked under ``book_key`` for the memory
+        monitor's CPU accounting (``obs/memory.py``)."""
         self._resident = None      # streaming supersedes a collapse
-        cache = self._cache(device)
-        page_bytes = self.page_nbytes()
-        max_cached = self.cache_budget_bytes // page_bytes if page_bytes else 0
+        max_cached = self.cache_budget_bytes // unit_bytes if unit_bytes \
+            else 0
         stats = self.ring_stats
         depth = self.ring_depth
 
         def timed_fetch(s, slot, raw):
             t0 = time.perf_counter()
-            out = self._fetch(s, slot, device, raw)
+            with _trace.span("ring/upload"):
+                out = fetch(s, slot, raw)
             if out[2]:
                 with self._stats_lock:
                     stats["upload_s"] += time.perf_counter() - t0
@@ -417,41 +451,60 @@ class PagedBinnedMatrix:
             return out
 
         def ask(ex, i):
-            s, raw = starts[i], None
-            if device.type == "cuda" and s not in cache:
-                with torch.cuda.device(device), \
-                        torch.cuda.stream(self._staging_of(device).stream):
-                    raw = torch.empty(self._page_bytes_at(s),
-                                      dtype=torch.uint8, device=device)
+            s = starts[i]
+            raw = None if s in cache else alloc(s)
             return ex.submit(timed_fetch, s, i % depth, raw)
 
         with ThreadPoolExecutor(1) as ex:
             pending = deque(ask(ex, i) for i in range(min(depth, len(starts))))
             for i in range(len(starts)):
                 t0 = time.perf_counter()
-                s, payload, uploaded, _ = pending.popleft().result()
+                with _trace.span("ring/blocked"):
+                    s, payload, uploaded, _ = pending.popleft().result()
                 if uploaded:
                     with self._stats_lock:
                         stats["blocked_s"] += time.perf_counter() - t0
                 if i + depth < len(starts):
                     pending.append(ask(ex, i + depth))
-                if uploaded and device.type == "cuda":
-                    e, page, ev = payload
-                    stream = torch.cuda.current_stream(device)
-                    stream.wait_event(ev)
-                    page.record_stream(stream)
-                    payload = (e, page)
-                if uploaded and len(cache) < max_cached:
-                    cache[s] = payload
-                yield s, payload[0], payload[1]
-                payload = page = None
+                if uploaded:
+                    payload = settle(payload)
+                    if len(cache) < max_cached:
+                        cache[s] = payload
+                        _mem.book(book_key, len(cache) * unit_bytes)
+                yield (s,) + tuple(payload)
+                payload = None
+
+    def _settle(self, device: torch.device, payload):
+        """One device's upload: the consumer's stream waits on its event
+        (see :meth:`_ring`)."""
+        if device.type != "cuda":
+            return payload
+        e, page, ev = payload
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(ev)
+        page.record_stream(stream)
+        return (e, page)
+
+    def _alloc(self, device: torch.device, s: int):
+        """A page's device memory, on the staging stream (see
+        :meth:`_ring`); None off the card."""
+        if device.type != "cuda":
+            return None
+        with torch.cuda.device(device), \
+                torch.cuda.stream(self._staging_of(device).stream):
+            return torch.empty(self._page_bytes_at(s), dtype=torch.uint8,
+                               device=device)
 
     def stream_pages(self, starts: List[int], device: torch.device):
         """(start, end, device page) for the page ``starts`` through the
         ring, pages in transport layout."""
         if not starts or self.n_rows == 0:
             return
-        yield from self._ring(list(starts), device)
+        fetch = self._fetch     # read once a pass
+        yield from self._ring(
+            list(starts), lambda s, slot, raw: fetch(s, slot, device, raw),
+            lambda s: self._alloc(device, s), self._cache(device),
+            self.page_nbytes(), lambda p: self._settle(device, p))
 
     def pages(self, device: torch.device):
         """(start, end, device page) of every page, in order."""
@@ -503,8 +556,10 @@ class PagedBinnedMatrix:
                 warnings.warn(f"resident collapse of the paged matrix failed "
                               f"({exc}); it keeps streaming", stacklevel=2)
                 cache.clear()
+                _mem.unbook("page_cache")
                 return None
             cache.clear()
+            _mem.unbook("page_cache")
             self._resident = (key, BinnedMatrix(
                 bins=bins, cuts=self.cuts, max_nbins=self.max_nbins,
                 has_missing=self.has_missing))
@@ -621,16 +676,249 @@ class PagedBinnedMatrix:
         grown[old_n:] = search_bin(torch.from_numpy(X), self.cuts,
                                    self.max_nbins - 1).numpy()
         self.bins_host = grown
-        self._device_cache.clear()
-        self._resident = None
+        self._drop_caches()
 
-    # -- not in the port yet --------------------------------------------------
-    def mesh_layout(self, *args, **kwargs):
-        raise NotImplementedError(
-            "paged matrices over a device mesh are not in the PyTorch port "
-            "yet (ROADMAP A.8)")
+    # -- pages over a data mesh -----------------------------------------------
+    def mesh_layout(self, world: int) -> Tuple[int, int, int]:
+        """The rows over a mesh of ``world`` shards -> ``(n_pad, n_loc,
+        p_loc)`` (the JAX package's ``mesh_layout``): shard d holds rows
+        [d * n_loc, min((d + 1) * n_loc, n)); a mesh page is ``p_loc =
+        ceil(min(page_rows, n) / world)`` rows of each shard, and
+        ``n_loc`` is rounded up to a multiple of ``p_loc``, so that every
+        shard's block of every page has one shape. Per-row vectors pad to
+        ``n_pad = world * n_loc`` rows, the pad rows with zero gradient."""
+        p_loc = max(1, -(-min(self.page_rows, max(self.n_rows, 1)) // world))
+        n_loc = max(1, -(-self.n_rows // world))
+        n_loc = -(-n_loc // p_loc) * p_loc
+        return world * n_loc, n_loc, p_loc
 
-    pages_sharded = stream_pages_sharded = cached_split_mesh = mesh_layout
+    def mesh_page_nbytes(self, world: int) -> int:
+        """Device (and host-to-device) bytes of one mesh page, every
+        shard's block, in transport layout: what it costs the page-cache
+        budget."""
+        p_loc = self.mesh_layout(world)[2]
+        return (world * p_loc * self.page_width()
+                * self.bins_host.dtype.itemsize)
+
+    def _mesh_block(self, s_loc: int, d: int, n_loc: int, p_loc: int,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Shard ``d``'s block of the mesh page at local row ``s_loc``:
+        its rows [d * n_loc + s_loc, + p_loc) in transport layout, the
+        rows past the matrix at bin ``min(missing_bin, max_nbins - 1)``
+        (the JAX package's fill), into ``out`` when given."""
+        n = self.n_rows
+        g0 = d * n_loc + s_loc
+        k = max(0, min(g0 + p_loc, n) - g0)
+        if out is None:
+            out = np.empty((p_loc, self.page_width()), self.bins_host.dtype)
+        src = self.bins_host[g0:g0 + k]
+        fill = min(self.missing_bin, self.max_nbins - 1)
+        if self.packed:
+            if k:
+                _pack_into(src, out[:k])
+            if k < p_loc:
+                out[k:] = self._pack_host(np.full(
+                    (1, self.n_features), fill, self.bins_host.dtype))[0]
+        else:
+            if k:
+                np.copyto(out[:k], src)
+            out[k:] = fill
+        return out
+
+    def _mesh_staging_of(self, device: torch.device,
+                         nbytes: int) -> _Staging:
+        """The ring's staging buffers of one device of a mesh, each holding
+        that device's blocks of one mesh page."""
+        key = self._key(device)
+        st = self._mesh_staging.get(key)
+        if st is None or st.bufs[0].numel() != nbytes:
+            st = self._mesh_staging[key] = _Staging(self.ring_depth, nbytes,
+                                                    device)
+        return st
+
+    def _mesh_groups(self, devices) -> Dict[str, List[int]]:
+        """The shards of each distinct device, in shard order."""
+        groups: Dict[str, List[int]] = {}
+        for d, dev in enumerate(devices):
+            groups.setdefault(self._key(dev), []).append(d)
+        return groups
+
+    def _fetch_mesh(self, s_loc: int, slot: int, devices,
+                    raws: Optional[List[Optional[torch.Tensor]]]):
+        """(start, (end, blocks[, events]), uploaded, bytes) of the mesh
+        page at local row ``s_loc``: the cached page, or each shard's
+        block built on the host and, on the card, copied through its
+        device's staging buffer ``slot`` into ``raws[d]`` (allocated by
+        the consumer, :meth:`_ring`); a CPU shard's block is the host
+        array itself."""
+        world = len(devices)
+        _, n_loc, p_loc = self.mesh_layout(world)
+        hit = self._mesh_cache.get(s_loc)
+        if hit is not None:
+            return s_loc, hit, False, 0
+        W, dt = self.page_width(), self.bins_host.dtype
+        bb = p_loc * W * dt.itemsize
+        blocks: List[Optional[torch.Tensor]] = [None] * world
+        events = []
+        for _, idxs in self._mesh_groups(devices).items():
+            dev = torch.device(devices[idxs[0]])
+            if dev.type != "cuda":
+                for d in idxs:
+                    blocks[d] = torch.from_numpy(self._mesh_block(
+                        s_loc, d, n_loc, p_loc))
+                continue
+            st = self._mesh_staging_of(dev, len(idxs) * bb)
+            ev = st.events[slot]
+            if ev is not None:
+                ev.synchronize()    # the buffer's last copies have completed
+            buf = st.bufs[slot]
+            with torch.cuda.device(dev), torch.cuda.stream(st.stream):
+                for j, d in enumerate(idxs):
+                    host = buf[j * bb:(j + 1) * bb]
+                    self._mesh_block(s_loc, d, n_loc, p_loc,
+                                     host.numpy().view(dt).reshape(p_loc, W))
+                    raws[d].copy_(host, non_blocking=True)
+                    blocks[d] = raws[d].view(_TORCH_DTYPES[dt]).view(p_loc,
+                                                                    W)
+                ev = torch.cuda.Event()
+                ev.record(st.stream)
+            st.events[slot] = ev
+            events.append((dev, ev, idxs))
+        payload = (s_loc + p_loc, blocks)
+        if events:
+            payload = payload + (events,)
+        return s_loc, payload, True, world * bb
+
+    def _alloc_mesh(self, devices, s_loc: int):
+        """Each CUDA shard's device memory for one mesh page, on its
+        device's staging stream (see :meth:`_ring`)."""
+        if all(torch.device(d).type != "cuda" for d in devices):
+            return None
+        p_loc = self.mesh_layout(len(devices))[2]
+        bb = p_loc * self.page_width() * self.bins_host.dtype.itemsize
+        raws: List[Optional[torch.Tensor]] = [None] * len(devices)
+        for _, idxs in self._mesh_groups(devices).items():
+            dev = torch.device(devices[idxs[0]])
+            if dev.type != "cuda":
+                continue
+            st = self._mesh_staging_of(dev, len(idxs) * bb)
+            with torch.cuda.device(dev), torch.cuda.stream(st.stream):
+                for d in idxs:
+                    raws[d] = torch.empty(bb, dtype=torch.uint8, device=dev)
+        return raws
+
+    @staticmethod
+    def _settle_mesh(payload):
+        """A mesh page's uploads: each device's stream waits on its event
+        and takes its blocks' memory (see :meth:`_ring`)."""
+        if len(payload) == 2:
+            return payload
+        e, blocks, events = payload
+        for dev, ev, idxs in events:
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(ev)
+            for d in idxs:
+                blocks[d].record_stream(stream)
+        return (e, blocks)
+
+    def _check_mesh(self, mesh) -> None:
+        """The mesh cache holds one mesh's pages: another mesh (or a
+        matrix that grew) starts it anew."""
+        key = (tuple(self._key(d) for d in mesh.devices), self.n_rows)
+        if self._mesh_of != key:
+            self._mesh_cache.clear()
+            _mem.unbook("page_cache/mesh")
+            self._mesh_of = key
+
+    def pages_sharded(self, mesh):
+        """(local start, local end, every shard's block) of every mesh
+        page, in order (the JAX package's ``pages_sharded``): external
+        memory over a data mesh, each shard streaming its own rows
+        (reference: ``SparsePageDMatrix`` under row split,
+        ``src/data/sparse_page_dmatrix.cc``, one process a GPU; here one
+        mesh shard a device, and a device may repeat)."""
+        n_loc, p_loc = self.mesh_layout(mesh.size)[1:]
+        yield from self.stream_pages_sharded(list(range(0, n_loc, p_loc)),
+                                             mesh)
+
+    def stream_pages_sharded(self, starts: List[int], mesh):
+        """(local start, local end, blocks) for the mesh pages at the local
+        ``starts``, through the ring: ``blocks[d]`` is shard d's
+        [p_loc, page_width()] block on its device, in transport layout. A
+        mesh page costs :meth:`mesh_page_nbytes` of the page-cache budget
+        and caches, every shard's block in one entry, by its local start,
+        apart from one device's pages."""
+        if not starts:
+            return
+        self._check_mesh(mesh)
+        devices = mesh.devices
+        fetch = self._fetch_mesh
+        yield from self._ring(
+            list(starts), lambda s, slot, raw: fetch(s, slot, devices, raw),
+            lambda s: self._alloc_mesh(devices, s), self._mesh_cache,
+            self.mesh_page_nbytes(mesh.size), self._settle_mesh,
+            "page_cache/mesh")
+
+    def cached_split_mesh(self, mesh):
+        """``(cached, streamed)`` of the mesh pages (see
+        :meth:`cached_split`): [(local start, local end, blocks)] in the
+        mesh cache and the local starts that upload this visit, a prefix
+        and the rest."""
+        self._check_mesh(mesh)
+        n_loc, p_loc = self.mesh_layout(mesh.size)[1:]
+        cached, streamed = [], []
+        for s in range(0, n_loc, p_loc):
+            hit = self._mesh_cache.get(s)
+            if hit is None:
+                streamed.append(s)
+            else:
+                cached.append((s, hit[0], hit[1]))
+        return cached, streamed
+
+    def cached_mesh_pages(self) -> int:
+        return len(self._mesh_cache)
+
+
+class PagedMeshMatrix:
+    """A paged matrix over a data mesh, as the growers take it (the JAX
+    package's paged branch of ``_make_sharded_train_state``): the bins
+    stay on the host and stream to each shard in its own blocks
+    (:meth:`PagedBinnedMatrix.stream_pages_sharded`); only per-row
+    vectors (gradients, positions) live on the shards' devices, padded
+    to ``n_pad`` rows (:meth:`PagedBinnedMatrix.mesh_layout`), the pad
+    rows with zero gradient."""
+
+    is_paged = True
+
+    def __init__(self, paged: PagedBinnedMatrix, mesh) -> None:
+        self.paged = paged
+        self.mesh = mesh
+
+    @property
+    def layout(self) -> Tuple[int, int, int]:
+        """``(n_pad, n_loc, p_loc)``, read at each call: a matrix that
+        grew has another."""
+        return self.paged.mesh_layout(self.mesh.size)
+
+    @property
+    def n_pad(self) -> int:
+        return self.layout[0]
+
+    @property
+    def cuts(self) -> HistogramCuts:
+        return self.paged.cuts
+
+    @property
+    def max_nbins(self) -> int:
+        return self.paged.max_nbins
+
+    @property
+    def has_missing(self) -> bool:
+        return self.paged.has_missing
+
+    @property
+    def shape(self):
+        return (self.n_pad, self.paged.n_features)
 
 
 class PagedApproxSource:

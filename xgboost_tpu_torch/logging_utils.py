@@ -13,3 +13,5 @@ if not logger.handlers:
                                       "%H:%M:%S"))
     logger.addHandler(_h)
     logger.setLevel(logging.INFO)
+
+from .obs.monitor import Monitor  # noqa: E402,F401  (its older home)

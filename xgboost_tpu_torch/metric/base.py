@@ -4,9 +4,11 @@ their partial sums over the active communicator (:func:`global_mean`)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
+
+from ..registry import METRICS
 
 
 def global_mean(numerator: float, denominator: float, info) -> float:
@@ -51,21 +53,15 @@ class Metric:
         return np.ones(n, dtype=np.float64)
 
 
-METRICS: Dict[str, type] = {}
-
-
-def register(*names: str):
-    def deco(cls):
-        for n in names:
-            METRICS[n] = cls
-        return cls
-    return deco
+def register(name: str, *aliases: str):
+    """Register a metric class under ``name`` and ``aliases``
+    (``registry.METRICS``)."""
+    return METRICS.register(name, *aliases)
 
 
 def get_metric(name: str) -> Metric:
     base, _, param = name.partition("@")
-    cls = METRICS.get(base)
-    if cls is None:
+    if base not in METRICS:
         raise ValueError(f"unknown metric {name!r} (supported: "
-                         f"{sorted(METRICS)})")
-    return cls(param or None)
+                         f"{METRICS.keys()})")
+    return METRICS.create(base, param or None)

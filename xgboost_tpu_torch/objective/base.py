@@ -19,6 +19,7 @@ import torch
 
 from ..logging_utils import logger
 from ..ops.xla_order import stump_sums
+from ..registry import OBJECTIVES
 
 
 class NumericalDivergence(RuntimeError):
@@ -175,21 +176,15 @@ class Objective:
                 **{k: str(v) for k, v in self.params.items()}}
 
 
-OBJECTIVES: Dict[str, type] = {}
-
-
-def register(*names: str):
-    def deco(cls):
-        for n in names:
-            OBJECTIVES[n] = cls
-        return cls
-    return deco
+def register(name: str, *aliases: str):
+    """Register an objective class under ``name`` and ``aliases``
+    (``registry.OBJECTIVES``)."""
+    return OBJECTIVES.register(name, *aliases)
 
 
 def get_objective(name: str,
                   params: Optional[Dict[str, Any]] = None) -> Objective:
-    cls = OBJECTIVES.get(name)
-    if cls is None:
+    if name not in OBJECTIVES:
         raise ValueError(f"unknown objective {name!r} (supported: "
-                         f"{sorted(OBJECTIVES)})")
-    return cls(params)
+                         f"{OBJECTIVES.keys()})")
+    return OBJECTIVES.create(name, params)

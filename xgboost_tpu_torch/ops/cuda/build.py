@@ -109,6 +109,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def loaded() -> List[str]:
+    """The libraries loaded so far: CUDA sources by name, host ones as
+    ``host:<name>``."""
+    return sorted(_libs)
+
+
 def _host_target(name: str) -> Path:
     src = CSRC / f"{name}.cc"
     if not src.exists():

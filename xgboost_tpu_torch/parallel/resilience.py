@@ -53,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from ..logging_utils import logger
+from ..obs import trace as _trace
 from . import wire
 from .collective import Communicator, get_communicator
 
@@ -246,9 +247,14 @@ class ResilientCommunicator(Communicator):
     def _attempts(self, fn: Callable[[], Any], what: str) -> Any:
         pol = self.policy
         attempt = 0
+        label = current_op_label()
         while True:
             try:
-                return self._with_timeout(fn, what)
+                with _trace.span("collective/" + (label or "op"),
+                                 "collective",
+                                 {"what": what, "attempt": attempt}
+                                 if _trace.enabled() else None):
+                    return self._with_timeout(fn, what)
             except RETRYABLE_ERRORS as e:
                 retryable = True
                 err = e
@@ -259,6 +265,9 @@ class ResilientCommunicator(Communicator):
                 raise err
             delay = pol.delay(attempt, self._rng)
             self.stats["retries"] += 1
+            _trace.instant("collective/retry", "collective",
+                           {"what": what, "attempt": attempt,
+                            "delay_ms": round(delay * 1e3, 3)})
             if self._on_retry is not None:
                 self._on_retry(what, attempt, err)
             logger.warning("collective %s failed (%s); retry %d/%d in %.0f ms",

@@ -28,6 +28,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..registry import PREDICTORS
+
 # ------------------------------------------------------------ word layout
 #
 #   bits  0..15  left-child offset, relative to the node's own flat index
@@ -92,6 +94,8 @@ def tree_step(n_rows: int) -> int:
     return min(TREE_CHUNK, 1 << max(budget, 1).bit_length() - 1)
 
 
+@PREDICTORS.register("gpu_predictor", "cpu_predictor", "tpu_predictor",
+                     "auto")
 class PackedForest:
     """Forest-major packed node arrays plus the walk-side metadata.
 

@@ -37,6 +37,8 @@ import torch
 
 from ..context import resolve_device
 from ..logging_utils import logger
+from ..obs import memory as _mem
+from ..obs import trace as _trace
 from ..obs.metrics import Family, Sample, get_registry
 from .batcher import MicroBatcher, PredictRequest
 from .buckets import BucketLadder
@@ -284,16 +286,18 @@ class Server:
         try:
             outs = []
             off = 0
-            for size in self.shap_ladder.chunks(n):
-                if deadline is not None and time.perf_counter() > deadline:
-                    self.metrics.inc("deadline_exceeded")
-                    raise DeadlineExceeded(
-                        f"contribs deadline of {t_ms}ms exceeded after "
-                        f"{off}/{n} rows")
-                bucket = self.shap_ladder.bucket_for(size)
-                outs.append(self._run_contribs_padded(
-                    sm, X[off:off + size], bucket)[:size])
-                off += size
+            with _trace.span("serve/contribs", args={"rows": n}):
+                for size in self.shap_ladder.chunks(n):
+                    if deadline is not None \
+                            and time.perf_counter() > deadline:
+                        self.metrics.inc("deadline_exceeded")
+                        raise DeadlineExceeded(
+                            f"contribs deadline of {t_ms}ms exceeded "
+                            f"after {off}/{n} rows")
+                    bucket = self.shap_ladder.bucket_for(size)
+                    outs.append(self._run_contribs_padded(
+                        sm, X[off:off + size], bucket)[:size])
+                    off += size
         except BaseException:
             self.metrics.inc("errors")
             raise
@@ -380,17 +384,21 @@ class Server:
         latencies (skipped for warmup batches)."""
         with self._stage_lock, self._on_stream():
             t0 = time.perf_counter()
-            Xp = self.ladder.pad(X, bucket)
+            with _trace.span("serve/pad"):
+                Xp = self.ladder.pad(X, bucket)
             t1 = time.perf_counter()
-            xd = self._stage(Xp, self._staging)
-            self._sync()
+            with _trace.span("serve/h2d"):
+                xd = self._stage(Xp, self._staging)
+                self._sync()
             t2 = time.perf_counter()
-            margin_d = sm.margin_padded(xd)
-            value_d = sm.transform(margin_d)
-            self._sync()
+            with _trace.span("serve/compute"):
+                margin_d = sm.margin_padded(xd)
+                value_d = sm.transform(margin_d)
+                self._sync()
             t3 = time.perf_counter()
-            margin = margin_d.cpu().numpy()
-            value = value_d.cpu().numpy()
+            with _trace.span("serve/d2h"):
+                margin = margin_d.cpu().numpy()
+                value = value_d.cpu().numpy()
             t4 = time.perf_counter()
         if not warm:
             self.metrics.observe("pad", t1 - t0)
@@ -420,12 +428,15 @@ class Server:
         try:
             values, margins = [], []
             off = 0
-            for size in self.ladder.chunks(n):
-                bucket = self.ladder.bucket_for(size)
-                v, m = self._run_padded(sm, rows[off:off + size], bucket)
-                values.append(v[:size])
-                margins.append(m[:size])
-                off += size
+            with _trace.span("serve/batch", args={"rows": n}):
+                for size in self.ladder.chunks(n):
+                    bucket = self.ladder.bucket_for(size)
+                    v, m = self._run_padded(sm, rows[off:off + size],
+                                            bucket)
+                    values.append(v[:size])
+                    margins.append(m[:size])
+                    off += size
+            _mem.sample("serve/batch")   # the batch's boundary
             value = np.concatenate(values) if len(values) > 1 else values[0]
             margin = (np.concatenate(margins) if len(margins) > 1
                       else margins[0])

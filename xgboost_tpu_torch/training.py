@@ -163,6 +163,8 @@ def cv(params: Dict[str, Any], dtrain: DMatrix, num_boost_round: int = 10,
             history = {k: v[: best + 1] for k, v in history.items()}
             break
     container.after_training(booster)
+    for fold in booster.cvfolds:  # one timing table a fold, verbosity >= 3
+        fold.bst._monitor.maybe_print()
     if as_pandas:
         try:
             import pandas as pd

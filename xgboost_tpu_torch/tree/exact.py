@@ -30,6 +30,7 @@ import torch
 
 from ..ops.partition import update_positions
 from ..ops.split import SplitResult
+from ..registry import TREE_UPDATERS
 from .grow import GrownTree, HeapTree
 from .param import TrainParam, _f32, calc_gain
 from .tree import TreeModel
@@ -192,6 +193,7 @@ def grow_exact(ranks: torch.Tensor, gpair: torch.Tensor,
     return tree.finish(positions)
 
 
+@TREE_UPDATERS.register("grow_colmaker", "exact")
 class ExactGrower:
     """The grower of ``tree_method="exact"`` (numerical features only)
     over one matrix's :class:`ExactQuantization`."""

@@ -98,6 +98,7 @@ from ..ops.split import (COARSE_B, WINDOW, CatInfo, assemble_two_level,
                          choose_refine_window, coarse_bin_ids,
                          decode_two_level_bin, evaluate_splits,
                          refine_bin_ids, refine_from_fine)
+from ..registry import TREE_UPDATERS
 from ..utils import random as xrandom
 from .param import TrainParam, _f32, calc_weight
 from .shards import ColShards, FeatureBlock, RowShards
@@ -696,6 +697,8 @@ def grow_tree(bins, gpair: torch.Tensor,
 _CUTS_KEYS = ("n_real", "is_cat", "is_onehot")
 
 
+@TREE_UPDATERS.register("grow_quantile_histmaker", "grow_gpu_hist",
+                         "grow_histmaker")
 class TreeGrower:
     """Host-side wrapper of depthwise growth: runs :func:`grow_tree`,
     truncates its heap under ``max_leaves`` and turns it into a

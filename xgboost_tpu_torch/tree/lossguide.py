@@ -59,6 +59,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..ops.histogram import resolve_hist_kernel
 from ..ops.partition import cat_goes_right, gather_bins
 from ..ops.split import CatInfo, SplitResult, coarse_bin_ids
@@ -364,7 +365,10 @@ class LossguideGrower(TreeGrower):
                 ids = [i for i in ids if depth_of[i] < param.max_depth]
             if not ids:
                 if apply_args is not None:
-                    positions = self._apply1(rows, positions, *apply_args)
+                    with _trace.span("lossguide/apply"):
+                        positions = self._apply1(rows, positions,
+                                                 *apply_args)
+                        _trace.sync(positions)
                 return
             i0 = ids[0]
             i1 = ids[1] if len(ids) > 1 else -1
@@ -392,10 +396,15 @@ class LossguideGrower(TreeGrower):
                     node_upper=torch.from_numpy(np.asarray(
                         [upper[i0], upper[j1]], np.float32)).to(dev))
             if apply_args is not None:
-                positions = self._apply1(rows, positions, *apply_args)
-            res = self._eval2(rows, gps, positions, i0, i1, psums, fm_t,
-                              n_real, **kw, **mono_kw)
-            host = pack_result(res, self.n_words).cpu().numpy()
+                with _trace.span("lossguide/apply"):
+                    positions = self._apply1(rows, positions, *apply_args)
+                    _trace.sync(positions)
+            with _trace.span("lossguide/eval"):
+                res = self._eval2(rows, gps, positions, i0, i1, psums, fm_t,
+                                  n_real, **kw, **mono_kw)
+                _trace.sync(res)
+            with _trace.span("lossguide/fetch"):
+                host = pack_result(res, self.n_words).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
                 if nid < 0:
                     continue

@@ -51,6 +51,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..ops.histogram import build_hist_multi, resolve_hist_kernel
 from ..ops.partition import level_rel
 from ..ops.split import MultiSplitResult, evaluate_splits_multi
@@ -348,9 +349,12 @@ class MultiLossguideGrower(LossguideGrower):
             psums = torch.from_numpy(np.stack(
                 [gh[i0], gh[i1] if i1 >= 0 else np.zeros((K, 2))]).astype(
                     np.float32)).to(dev)
-            res = self._eval2(rows, gps, positions, i0, i1, psums,
-                              torch.from_numpy(fm).to(dev), n_real, **kw)
-            host = pack_multi_result(res).cpu().numpy()
+            with _trace.span("lossguide/eval"):
+                res = self._eval2(rows, gps, positions, i0, i1, psums,
+                                  torch.from_numpy(fm).to(dev), n_real, **kw)
+                _trace.sync(res)
+            with _trace.span("lossguide/fetch"):
+                host = pack_multi_result(res).cpu().numpy()
             for slot, nid in ((0, i0), (1, i1)):
                 if nid < 0:
                     continue
@@ -377,8 +381,10 @@ class MultiLossguideGrower(LossguideGrower):
             if paths is not None:
                 paths[li] = paths[ri] = paths[nid]
                 paths[li, feat] = paths[ri, feat] = True
-            positions = self._apply1(rows, positions, nid, feat, rbin, rdl,
-                                     False, None, li, ri, mb)
+            with _trace.span("lossguide/apply"):
+                positions = self._apply1(rows, positions, nid, feat, rbin,
+                                         rdl, False, None, li, ri, mb)
+                _trace.sync(positions)
             eval_nodes(li, ri)
 
         # the weights: f32 from the f32 sums, times eta

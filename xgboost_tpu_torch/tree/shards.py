@@ -94,6 +94,16 @@ class RowShards:
         return RowShards([aligned(bins[d * m:(d + 1) * m].to(dev))
                           for d, dev in enumerate(mesh.devices)], mesh)
 
+    @staticmethod
+    def blocks(n_rows: int, devices: Sequence[torch.device]) -> "RowShards":
+        """Shards of ``n_rows`` rows each on ``devices``, with no bins held
+        (zero columns): the per-row layout of a paged matrix, whose bins
+        stream (``tree/paged.py``; one device is one shard). No
+        communicator: the paged tier reduces across ranks itself
+        (:func:`host_allreduce`)."""
+        return RowShards([torch.empty((n_rows, 0), dtype=torch.uint8,
+                                      device=d) for d in devices])
+
     @property
     def n_shards(self) -> int:
         return len(self.parts)

@@ -18,6 +18,7 @@ from typing import List
 
 import numpy as np
 
+from ..registry import TREE_UPDATERS
 from .param import TrainParam
 from .tree import TreeModel
 
@@ -25,6 +26,7 @@ from .tree import TreeModel
 UPDATERS = ("refresh", "prune", "sync")
 
 
+@TREE_UPDATERS.register("prune")
 def prune_tree(tree: TreeModel, param: TrainParam) -> TreeModel:
     """Turn every split whose children are leaves and whose gain is below
     ``gamma`` into a leaf of its base weight, bottom up (reference
@@ -92,6 +94,7 @@ def route_rows(tree: TreeModel, X: np.ndarray) -> np.ndarray:
     return pos
 
 
+@TREE_UPDATERS.register("refresh")
 def refresh_tree(tree: TreeModel, X: np.ndarray, gpair: np.ndarray,
                  param: TrainParam, refresh_leaf: bool = True) -> TreeModel:
     """A copy of ``tree`` with every node's hessian sum and base weight
@@ -116,6 +119,7 @@ def refresh_tree(tree: TreeModel, X: np.ndarray, gpair: np.ndarray,
                                base_weight=weight, leaf_value=leaf_value)
 
 
+@TREE_UPDATERS.register("sync")
 def sync_trees(trees: List[TreeModel], communicator=None
                ) -> List[TreeModel]:
     """Reference ``TreeSyncher``: the trees of rank 0 on every process
