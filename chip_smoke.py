@@ -375,7 +375,38 @@ counts set to 0 just before and read just after:
   untraced model's bytes); MediaMill vector leaves on 2 shards in pages
   of 8,192 rows (K2 a target, block and level); and the card against the
   CPU port's paged mesh on 262,144 HIGGS rows (2 shards, K4's rows a
-  block), one round under the certificate.
+  block), one round under the certificate;
+- the continuous train -> serve loop (``continuous_pipeline``) at the
+  HIGGS width: 4 pages of 250,000 x 28 rows of ``higgs_batch`` (seed 22)
+  and 100,000 held-out rows through ``pipeline.Pipeline`` (depth 8,
+  ``eta`` 0.1, 10 rounds an epoch, 40 and 1,000,000 rows at the end,
+  a snapshot every 5 rounds, gates ``auc`` and ``logloss`` at 0.01), each
+  promotion hot-swapped into a ``Server`` that 3 client threads load
+  with 1- and 512-row requests (none may fail; every sampled answer its
+  version's artifact's ``Booster.predict`` bit for bit; K4 exactly 8 a
+  round, K2 / K3 / K5 never, K1 from the gates, the walks and the
+  server; held-out logloss falling each epoch); a second workdir killed
+  mid-epoch (epoch 1, round 5, the newest snapshot torn) and after the
+  manifest commit (epoch 2), then finished by a fresh pipeline: every
+  artifact run 1's sha256, both black-box bundles verified and rendered
+  by ``python -m xgboost_tpu_torch.obs postmortem`` with the CUDA
+  allocator's peak on this card, and the page log's replay of the last
+  epoch its artifact's bytes; one canary rollback (``Server`` back at v1
+  bit for bit, v2 listed as rolled back); insight armed with the in-carry
+  eval over 10 rounds on the main path's 1M-row matrix (the disarmed
+  run's sha256; every record with the fused tier's scalars; in-carry
+  scores the host path's within rtol 1e-6; device busy over 3 profiled
+  rounds armed and not); 4 ``InMemoryCommunicator`` thread ranks each
+  reducing a 250,000-row K4 histogram through ``RowShards.reduce`` in
+  flight-recorder spans, then ``sync_clocks``, their rings merged by
+  ``python -m xgboost_tpu_torch.obs merge`` (one track a rank, every
+  offset within its uncertainty); and the CLI's ``pipeline`` mode as a
+  subprocess on 2 libsvm pages of 50,000 rows (exit 0, ``command=status``
+  2 promotions). It logs seconds an epoch by stage (the pipeline's
+  spans), the promotion latency and insight's cost.
+
+Every phase logs its seconds (``phase <name>: N s``), and the run ends
+with a ``phase seconds:`` JSON line before the kernels' line.
 
 It times each kernel, its plain version, one PyTorch library call for
 the same function where there is one, and the kernel's bound, at the
@@ -434,6 +465,19 @@ _T0 = time.perf_counter()
 def log(*args):
     """A line of the run's log, after the seconds since the start."""
     print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
+
+
+_PHASE_T0 = [_T0]
+PHASE_SECONDS = {}
+
+
+def phase_line(name):
+    """The seconds since the previous phase line (the first: since the
+    start), logged and kept in ``PHASE_SECONDS`` under ``name``."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
 
 
 def gpu_line() -> str:
@@ -2315,15 +2359,27 @@ EXT_CACHED_PAGES = 4
 EXT_SEED = 11
 
 
+# higgs_batch's batches, made once: the external-memory, paged left-out,
+# distributed and paged mesh phases stream the same batches of the same
+# seed, each QuantileDMatrix in two passes (~1.3 GB of host memory)
+_BATCHES = {}
+
+
 def higgs_batch(seed, i, m, F):
     """Batch ``i`` of ``m`` rows of ``higgs_like``'s rule (N(0, 1)
     features, labels from a fixed linear rule plus noise), the rule's
-    weights from ``seed`` and the batch's draws from (seed, i)."""
-    w = np.random.default_rng(seed).standard_normal(F).astype(np.float32)
-    rng = np.random.default_rng([seed, i])
-    X = rng.standard_normal((m, F), dtype=np.float32)
-    logit = X @ w + rng.standard_normal(m).astype(np.float32) * 1.5
-    return X, (logit > 0).astype(np.float32)
+    weights from ``seed`` and the batch's draws from (seed, i). Made once
+    for the run; each call gets its own copy."""
+    key = (seed, i, m, F)
+    hit = _BATCHES.get(key)
+    if hit is None:
+        w = np.random.default_rng(seed).standard_normal(F).astype(
+            np.float32)
+        rng = np.random.default_rng([seed, i])
+        X = rng.standard_normal((m, F), dtype=np.float32)
+        logit = X @ w + rng.standard_normal(m).astype(np.float32) * 1.5
+        hit = _BATCHES[key] = (X, (logit > 0).astype(np.float32))
+    return hit[0].copy(), hit[1].copy()
 
 
 def higgs_batches(xt, n_rows, F, cache_prefix, seed=EXT_SEED):
@@ -5438,6 +5494,26 @@ def http_client(port, jobs, start_at):
     return out, time.time()
 
 
+# the serving phase's Python-parser process: writes the agaricus-width
+# libsvm file (argv[1], argv[2] rows) and saves what the Python parser
+# reads from it, with its seconds, to the npz argv[3]
+PY_PARSE = r"""
+import sys, time
+import numpy as np
+from xgboost_tpu_torch.data import fileio
+from xgboost_tpu_torch.testing import agaricus_rows, write_libsvm
+path, n, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+write_libsvm(path, *agaricus_rows(n, seed=8))
+t0 = time.perf_counter()
+ref = fileio._parse_python(path, False, ",")
+seconds = time.perf_counter() - t0
+np.savez(out, seconds=seconds, columns=ref[5],
+         none=np.array([a is None for a in ref[:5]]),
+         **{f"a{k}": (np.zeros(0) if a is None else np.asarray(a))
+            for k, a in enumerate(ref[:5])})
+"""
+
+
 def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
     """The ``serving_stack`` phase: the HTTP front end over a 2-replica
     ``FleetRouter`` on the card (``POST /v1/predict`` from 4 threads, each
@@ -5455,8 +5531,7 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
     from xgboost_tpu_torch.serve import (FleetConfig, FleetRouter,
                                          ServeConfig, Server)
     from xgboost_tpu_torch.serve.frontend import make_http_server
-    from xgboost_tpu_torch.testing import (agaricus_rows, make_forest_model,
-                                           write_libsvm)
+    from xgboost_tpu_torch.testing import make_forest_model
 
     card = gpu_line()
     runs, out = [], {}
@@ -5685,13 +5760,19 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
         code_p, text, _ = http_call(port, "/metrics")
         code_l, models, _ = http_call(port, "/v1/models")
         code_r, report, _ = http_call(port, "/v1/model/higgs/report")
+        from xgboost_tpu_torch.obs.insight import model_inspect
+
+        live = fl.registry.get("higgs")
+        want_report = json.loads(json.dumps(dict(
+            model_inspect(live.booster), name="higgs",
+            version=live.version)))
         if (code_h, code_m, code_p, code_l, code_r) != \
-                (200, 200, 200, 200, 501) or health["status"] != "ok" \
+                (200, 200, 200, 200, 200) or health["status"] != "ok" \
                 or health["n_replicas"] != 1 \
                 or models != [{"name": "higgs", "version": 1,
                                "n_features": 28, "n_groups": 1,
                                "n_trees": len(booster.gbm.trees)}] \
-                or "ROADMAP A.10" not in report["error"]:
+                or report != want_report:
             raise AssertionError(f"GET routes: {code_h} {health}; {code_m}; "
                                  f"{code_p}; {code_l} {models}; {code_r} "
                                  f"{report}")
@@ -5712,9 +5793,18 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
                 f"{served} / {prom_req}, sent {sent}, errors "
                 f"{snap['counters'].get('errors')}")
         log(f"serving_stack: /healthz, /v1/metrics, /metrics ("
-            f"{len(samples)} samples), /v1/models parse; /report 501 naming "
-            f"A.10; routed {routed} = sent {total}, serve requests "
+            f"{len(samples)} samples), /v1/models parse; /report 200, the "
+            f"served version's model_inspect; routed {routed} = sent "
+            f"{total}, serve requests "
             f"{served} = predict requests sent {sent['predict']}")
+
+        # -- 8's Python half, beside sections 5-7: the 1,000,000-row
+        # libsvm file written and read by the Python parser in a process
+        # of its own
+        big = os.path.join(tmp, "agaricus_1m.txt")
+        py_parse = spawn_python(tmp, "py_parse", "-c", PY_PARSE, big,
+                                str(SS_PARSE_ROWS),
+                                os.path.join(tmp, "py_parse.npz"))
 
         # -- 5. the jsonl loop as python -m xgboost_tpu_torch serve
         path = os.path.join(tmp, "higgs.json")
@@ -5827,16 +5917,20 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
         f"{hashlib.sha256(saved_bytes(a)).hexdigest()[:16]}...; K4 "
         f"{c_batch['hist_scan']})")
 
-    # -- 8. the native text parser on a 1,000,000-row libsvm file
-    big = os.path.join(tmp, "agaricus_1m.txt")
-    write_libsvm(big, *agaricus_rows(SS_PARSE_ROWS, seed=8))
+    # -- 8. the native text parser on a 1,000,000-row libsvm file, against
+    # the Python parser's arrays of the same file (from its own process)
+    rc, _, err = finish_module(py_parse, timeout=900)
+    if rc != 0:
+        raise AssertionError(f"the Python parser's process: exit {rc}: "
+                             f"{err[-2000:]}")
+    with np.load(os.path.join(tmp, "py_parse.npz")) as z:
+        ref = tuple(None if z["none"][k] else z[f"a{k}"] for k in range(5)) \
+            + (int(z["columns"]),)
+        t_py = float(z["seconds"])
     build.load_host("text_parser")
     t0 = time.perf_counter()
     nat = fileio._parse_native(big, False, ",")
     t_nat = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = fileio._parse_python(big, False, ",")
-    t_py = time.perf_counter() - t0
     for k, (u, v) in enumerate(zip(nat[:5], ref[:5])):
         if (u is None) != (v is None) or (
                 u is not None and not np.array_equal(u, v)):
@@ -5848,7 +5942,8 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
         f"({os.path.getsize(big) / 1e6:.1f} MB, agaricus widths): native "
         f"parser {t_nat:.4f} s = {SS_PARSE_ROWS / t_nat:.1f} rows/s, "
         f"Python parser {t_py:.4f} s = {SS_PARSE_ROWS / t_py:.1f} rows/s "
-        f"(host clock), the same arrays [{card}]")
+        f"(host clock, in its own process beside sections 5-7), the same "
+        f"arrays [{card}]")
     os.remove(big)
     return runs, out
 
@@ -7203,6 +7298,514 @@ def paged_mesh(xt, dev, tmp):
     return runs, out
 
 
+# the continuous_pipeline phase (``continuous_pipeline``): the train ->
+# serve loop at the HIGGS width, 4 pages of 250,000 rows of the HIGGS
+# rule (its own seed) and 100,000 held-out rows
+CP_SEED = 22
+CP_PAGES = 4
+CP_PAGE_ROWS = 250_000
+CP_HOLDOUT = 100_000
+CP_ROUNDS = 10                 # rounds an epoch: 40 rounds in all
+CP_CHECKPOINT = 5
+CP_CLIENTS = 3
+CP_SIZES = (1, 512)
+CP_CLI_ROWS = 100_000          # 2 CLI pages of 50,000 rows
+CP_CLI_PAGE = 50_000
+CP_INSIGHT_ROUNDS = 10
+CP_FLIGHT_ROWS = 250_000
+CP_WORLD = 4
+CP_STAGES = ("ingest", "train", "gates", "artifact", "swap", "canary")
+
+
+def write_libsvm_rows(path, X, y):
+    """Dense rows as ``label 0:v 1:v ...`` lines."""
+    cols = [f"{j}:" for j in range(X.shape[1])]
+    with open(path, "w") as fh:
+        for lab, row in zip(y.tolist(), X.tolist()):
+            fh.write(f"{int(lab)} " + " ".join(
+                c + repr(v) for c, v in zip(cols, row)) + "\n")
+
+
+def pipeline_stage_seconds(spans):
+    """Each ``pipeline/<stage>`` span's seconds, summed (a step's spans)."""
+    out = {s: 0.0 for s in CP_STAGES}
+    for s in spans:
+        if s.name.startswith("pipeline/") and s.name[9:] in out:
+            out[s.name[9:]] += s.t1 - s.t0
+    return out
+
+
+_CHILDREN = []
+
+
+def spawn_python(tmp, tag, *args):
+    """``python args`` (``-m module ...`` or ``-c code ...``) started in
+    the background from the root of the checkout, its output to files
+    under ``tmp`` -> a handle for :func:`finish_module`
+    (:func:`stop_children` ends any left running)."""
+    out = open(os.path.join(tmp, f"{tag}.out"), "w+")
+    err = open(os.path.join(tmp, f"{tag}.err"), "w+")
+    proc = subprocess.Popen([sys.executable, *args], stdout=out, stderr=err,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    _CHILDREN.append(proc)
+    return proc, out, err
+
+
+def stop_children():
+    """Kill every :func:`spawn_python` process still running."""
+    while _CHILDREN:
+        proc = _CHILDREN.pop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_module(handle, timeout=600):
+    """Wait for a :func:`spawn_python` process -> (exit code, its stdout,
+    its stderr); a process past ``timeout`` is killed and raises."""
+    proc, out, err = handle
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    texts = []
+    for fh in (out, err):
+        fh.seek(0)
+        texts.append(fh.read())
+        fh.close()
+    return rc, texts[0], texts[1]
+
+
+def continuous_pipeline(xt, dev, tmp, dtr, dte):
+    """The ``continuous_pipeline`` phase (module docstring): returns (the
+    main-path runs' launch counts, a summary dict)."""
+    from xgboost_tpu_torch.context import Mesh
+    from xgboost_tpu_torch.obs import insight as obs_insight
+    from xgboost_tpu_torch.obs import trace as obs_trace
+    from xgboost_tpu_torch.obs.flight import FlightRecorder, verify_bundle
+    from xgboost_tpu_torch.ops import histogram as H
+    from xgboost_tpu_torch.ops.cuda import hist as K
+    from xgboost_tpu_torch.parallel.collective import InMemoryCommunicator
+    from xgboost_tpu_torch.pipeline import (GateRule, KilledByChaos,
+                                            Pipeline, PipelineConfig,
+                                            PipelineFaultPlan)
+    from xgboost_tpu_torch.serve import Server
+    from xgboost_tpu_torch.tree.shards import RowShards
+
+    card = gpu_line()
+    name = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    runs, out = [], {}
+    pages = [higgs_batch(CP_SEED, i, CP_PAGE_ROWS, 28)
+             for i in range(CP_PAGES)]
+    Xh, yh = higgs_batch(CP_SEED, 99, CP_HOLDOUT, 28)
+    params = dict(HIGGS_PARAMS)
+
+    def config(workdir, **kw):
+        return PipelineConfig(
+            workdir=os.path.join(tmp, workdir), params=params,
+            rounds_per_epoch=CP_ROUNDS, checkpoint_every=CP_CHECKPOINT,
+            gates=(GateRule("auc", max_regression=0.01),
+                   GateRule("logloss", max_regression=0.01)), **kw)
+
+    def artifacts(workdir):
+        d = os.path.join(tmp, workdir, "models")
+        return {fn: hashlib.sha256(open(os.path.join(d, fn), "rb").read())
+                .hexdigest() for fn in sorted(os.listdir(d))
+                if fn.endswith(".ubj")}
+
+    # -- 1. the uninterrupted run, served while it promotes
+    srv = Server(max_batch=512)
+    pipe = Pipeline(config("run"), server=srv, holdout=(Xh, yh))
+    answers, failures, seen, stop = [], [], set(), threading.Event()
+
+    def client(tid):
+        i = tid
+        while not stop.is_set():
+            n = CP_SIZES[i % len(CP_SIZES)]
+            lo = (i * 7919) % (CP_HOLDOUT - n)
+            try:
+                got = srv.predict(Xh[lo:lo + n])
+                seen.add(got.version)
+                if i % 5 == 0:
+                    answers.append((got.version, lo, n, np.asarray(got)))
+            except Exception as err:  # noqa: BLE001 - the check's target
+                failures.append(repr(err))
+            i += CP_CLIENTS
+            time.sleep(0.005)
+
+    obs_trace.enable(capacity=1 << 16)
+    epochs = []
+    threads = []
+    reset_counts()
+    t_run = time.perf_counter()
+    try:
+        with NoPlainBuilds():
+            for e in range(CP_PAGES):
+                obs_trace.reset()
+                t0 = time.perf_counter()
+                rep = pipe.step(*pages[e])
+                secs = time.perf_counter() - t0
+                if not threads:
+                    threads = [threading.Thread(target=client, args=(t,))
+                               for t in range(CP_CLIENTS)]
+                    for t in threads:
+                        t.start()
+                epochs.append((secs, pipeline_stage_seconds(
+                    obs_trace.tracer().spans()), rep))
+        # the clients go on until the last promotion has answered
+        t0 = time.perf_counter()
+        while CP_PAGES not in seen and time.perf_counter() - t0 < 10:
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        obs_trace.disable()
+    t_run = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    c_run = read_counts()
+    runs.append(c_run)
+    srv.close()
+    actions = [r["action"] for _, _, rep in epochs for r in rep]
+    if actions != ["promoted"] * CP_PAGES or \
+            pipe.status()["promotions"] != CP_PAGES:
+        raise AssertionError(f"continuous_pipeline: decisions {actions}")
+    if failures:
+        raise AssertionError(f"continuous_pipeline: {len(failures)} "
+                             f"requests failed: {failures[:3]}")
+    want = {k: 0 for k in K.LAUNCHES}
+    want["hist_scan"] = HIGGS_PARAMS["max_depth"] * CP_PAGES * CP_ROUNDS
+    if {k: c_run[k] for k in K.LAUNCHES} != want or \
+            c_run["walk_packed"] < 1:
+        raise AssertionError(f"continuous_pipeline launched {c_run}, want "
+                             f"{want} and K1")
+    versions = sorted({v for v, _, _, _ in answers})
+    if sorted(seen) != list(range(1, CP_PAGES + 1)):
+        raise AssertionError(f"continuous_pipeline: the clients were "
+                             f"answered by versions {sorted(seen)}")
+    preds = {}
+    for v in versions:
+        path = os.path.join(tmp, "run", "models", f"v{v:06d}.ubj")
+        preds[v] = xt.Booster({"device": str(dev)}, model_file=open(
+            path, "rb").read()).predict(xt.DMatrix(Xh))
+    for v, lo, n, got in answers:
+        if not np.array_equal(got, preds[v][lo:lo + n]):
+            raise AssertionError(f"continuous_pipeline: an answer of "
+                                 f"version {v} ({n} rows at {lo}) differs "
+                                 "from its artifact's Booster.predict")
+    ll = [rep[0]["scores"]["logloss"] for _, _, rep in epochs]
+    aucs = [rep[0]["scores"]["auc"] for _, _, rep in epochs]
+    if not all(b < a for a, b in zip(ll, ll[1:])):
+        raise AssertionError(f"continuous_pipeline: holdout logloss {ll}")
+    promo_ms = [rep[0]["promotion_ms"] for _, _, rep in epochs]
+    ref = artifacts("run")
+    out.update(run_s=t_run, epochs=[(s, st) for s, st, _ in epochs],
+               promotion_ms=promo_ms, logloss=ll, auc=aucs,
+               requests=len(answers) * 5, versions=versions)
+    log(f"continuous_pipeline: {CP_PAGES} epochs of {CP_PAGE_ROWS} x 28 "
+        f"rows ({CP_ROUNDS} rounds each, {CP_PAGES * CP_PAGE_ROWS} rows at "
+        f"the end) in "
+        f"{t_run:.3f} s; decisions {actions}; holdout logloss {ll}, AUC "
+        f"{aucs}; ~{len(answers) * 5} requests from {CP_CLIENTS} clients "
+        f"answered by versions {sorted(seen)}, none failed, the sampled "
+        f"{len(answers)} equal to their artifact's Booster.predict bit for "
+        f"bit; launches K4 {c_run['hist_scan']} "
+        f"({c_run['hist_scan'] // (CP_PAGES * CP_ROUNDS)} a round), K1 "
+        f"{c_run['walk_packed']}, K2 / K3 / K5 0 [{card}]")
+    for e, (secs, st, _) in enumerate(epochs):
+        log(f"continuous_pipeline epoch {e}: {secs:.3f} s; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+            + f" s; promotion latency (manifest commit to serving) "
+            f"{promo_ms[e]:.3f} ms [{card}]")
+
+    # -- 6 (started here, checked after the canary). The CLI's pipeline
+    # mode as a subprocess, beside the recovery and canary runs
+    t_cli = time.perf_counter()
+    Xc, yc = higgs_batch(CP_SEED, 50, CP_CLI_ROWS, 28)
+    Xch, ych = higgs_batch(CP_SEED, 51, 20_000, 28)
+    data, hold = os.path.join(tmp, "cli.libsvm"), \
+        os.path.join(tmp, "cli_holdout.libsvm")
+    write_libsvm_rows(data, Xc, yc)
+    write_libsvm_rows(hold, Xch, ych)
+    wd = os.path.join(tmp, "cli")
+    cli = spawn_python(tmp, "cli", "-m", "xgboost_tpu_torch", "pipeline",
+                       f"workdir={wd}", f"data={data}", f"holdout={hold}",
+                       "gate=auc:0.01", f"page_rows={CP_CLI_PAGE}",
+                       "objective=binary:logistic", "max_depth=8",
+                       "eta=0.1", "max_bin=256", f"device={dev.type}")
+
+    # -- 2. crash recovery: two kills, then a clean finish, in a new workdir
+    t0 = time.perf_counter()
+    bundles = []
+    reset_counts()
+    with NoPlainBuilds():
+        plan = PipelineFaultPlan(kill_stage="mid_epoch", kill_epoch=1,
+                                 kill_round=CP_ROUNDS + CP_ROUNDS // 2,
+                                 corrupt_newest_snapshot=True)
+        p1 = Pipeline(config("crash"), holdout=(Xh, yh), chaos=plan)
+        try:
+            for e in range(2):
+                p1.step(*pages[e])
+            raise AssertionError("continuous_pipeline: no mid_epoch kill")
+        except KilledByChaos as err:
+            bundles.append(err.bundle)
+        plan = PipelineFaultPlan(kill_stage="post_manifest", kill_epoch=2)
+        p2 = Pipeline(config("crash"), holdout=(Xh, yh), chaos=plan)
+        try:
+            p2.run_pending()
+            p2.step(*pages[2])
+            raise AssertionError("continuous_pipeline: no post_manifest "
+                                 "kill")
+        except KilledByChaos as err:
+            bundles.append(err.bundle)
+        # both bundles rendered by the CLI beside the clean finish
+        render = spawn_python(tmp, "postmortem", "-m",
+                              "xgboost_tpu_torch.obs", "postmortem",
+                              *bundles)
+        p3 = Pipeline(config("crash"), holdout=(Xh, yh))
+        p3.run_pending()
+        p3.step(*pages[3])
+        got = artifacts("crash")
+        if got != ref:
+            raise AssertionError(f"continuous_pipeline: recovered artifacts "
+                                 f"{got} against {ref}")
+        replay = p3._replay_model(CP_PAGES - 1)
+        last = open(os.path.join(tmp, "run", "models",
+                                 f"v{CP_PAGES:06d}.ubj"), "rb").read()
+        if bytes(replay.save_raw("ubj")) != last:
+            raise AssertionError("continuous_pipeline: the page log's "
+                                 "replay differs from the last artifact")
+    torch.cuda.synchronize()
+    runs.append(read_counts())
+    peaks = []
+    for b in bundles:
+        doc = verify_bundle(b)
+        devs = (doc.get("memory") or {}).get("devices") or []
+        if not devs or devs[0]["name"] != name or \
+                devs[0]["peak_bytes"] <= 0:
+            raise AssertionError(f"continuous_pipeline: bundle {b} memory "
+                                 f"{doc.get('memory')}")
+        peaks.append(devs[0]["peak_bytes"])
+    out["recovery_s"] = time.perf_counter() - t0
+
+    # -- 3. one canary rollback
+    t0 = time.perf_counter()
+    reset_counts()
+    srv = Server(max_batch=512)
+    with NoPlainBuilds():
+        pc = Pipeline(config("canary", canary_max_regression=-0.9),
+                      server=srv, holdout=(Xh, yh))
+        pc.step(*pages[0])
+        oracle = np.asarray(srv.predict(Xh[:512]))
+        rep = pc.step(*pages[1])
+    torch.cuda.synchronize()
+    runs.append(read_counts())
+    again = np.asarray(srv.predict(Xh[:512]))
+    if rep[0]["action"] != "rolled_back" or \
+            srv.registry.get("model").version != 1 or \
+            not np.array_equal(again, oracle) or \
+            pc.manifest.state["rolled_back"] != [2] or \
+            pc.manifest.active["version"] != 1:
+        raise AssertionError(f"continuous_pipeline canary: {rep}")
+    srv.close()
+    canary = rep[0]["canary"]
+    log(f"continuous_pipeline canary: {canary['metric']} "
+        f"{canary['candidate']:.6f} against {canary['baseline']:.6f} "
+        f"(allowed -0.9): rolled back to v1, the Server's answers v1's bit "
+        f"for bit, the manifest lists v2 rolled back; "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+    rc, _, err = finish_module(cli)
+    if rc != 0:
+        raise AssertionError(f"continuous_pipeline CLI: exit {rc}: "
+                             f"{err[-3000:]}")
+    from xgboost_tpu_torch.pipeline.cli import _status
+
+    st = _status(wd)
+    if st["promotions"] != 2 or st["pages"] != 2:
+        raise AssertionError(f"continuous_pipeline CLI status: {st}")
+    log(f"continuous_pipeline CLI: python -m xgboost_tpu_torch pipeline on "
+        f"{CP_CLI_ROWS} libsvm rows in pages of {CP_CLI_PAGE} (beside the "
+        f"recovery and canary runs): exit 0, command=status "
+        f"{st['promotions']} promotions, active version "
+        f"{st['active_version']}; {time.perf_counter() - t_cli:.3f} s from "
+        f"its start [{card}]")
+
+    rc, text, err = finish_module(render)
+    if rc != 0 or text.count("postmortem: chaos-kill") != 2 or \
+            name not in text:
+        raise AssertionError(f"continuous_pipeline: postmortem exit {rc}: "
+                             f"{text[-2000:]} {err[-2000:]}")
+    log(f"continuous_pipeline recovery: killed mid_epoch (epoch 1, round "
+        f"{CP_ROUNDS // 2}, newest snapshot torn) and post_manifest (epoch "
+        f"2), then "
+        f"finished: {len(got)} artifacts with run 1's sha256; the page "
+        f"log's replay of epoch {CP_PAGES - 1} the last artifact's bytes; "
+        f"2 bundles verified and rendered by python -m "
+        f"xgboost_tpu_torch.obs postmortem (exit 0), CUDA allocator peaks "
+        f"{peaks} B on {name}; {out['recovery_s']:.3f} s (the rendering "
+        f"beside it) [{card}]")
+
+    # -- 5. the flight recorder over a 4-rank thread world
+    t0 = time.perf_counter()
+    comms = InMemoryCommunicator.make_world(CP_WORLD)
+    inputs = [hist_inputs(CP_FLIGHT_ROWS, 28, 256, 128, dev, seed=300 + r)
+              for r in range(CP_WORLD)]
+    results, errs = [None] * CP_WORLD, []
+    # the launch counters are read-modify-writes: one launch at a time
+    launching = threading.Lock()
+
+    def rank(r):
+        try:
+            rec = FlightRecorder(comm=comms[r], tracer=obs_trace.Tracer(
+                4096, annotate_device=False))
+            bins, gpair, rel = inputs[r]
+            shards = RowShards([bins], Mesh([dev], comm=comms[r]))
+            with rec.span("flight/hist", "train"), launching:
+                q, inv = H.quantise_int8x2(gpair)
+                h = K.hist_scan_cuda(bins, q, rel, inv, 128, 256)
+            with rec.span("flight/reduce", "train"):
+                total = shards.reduce([h], label="flight/hist")
+            clk = rec.sync_clocks(pings=8)
+            path = os.path.join(tmp, f"ring_{r}.json")
+            rec.export_ring(path)
+            results[r] = (path, clk, h, total)
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errs.append((r, repr(e)))
+
+    reset_counts()
+    ts = [threading.Thread(target=rank, args=(r,)) for r in range(CP_WORLD)]
+    with NoPlainBuilds():
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+    torch.cuda.synchronize()
+    c_fl = read_counts()
+    runs.append(c_fl)
+    if errs or c_fl["hist_scan"] != CP_WORLD:
+        raise AssertionError(f"continuous_pipeline flight: {errs} {c_fl}")
+    # each rank's K4 histogram against its plain version, and every
+    # rank's reduction against their sum
+    want_total = 0
+    for r, (bins, gpair, rel) in enumerate(inputs):
+        q, inv = H.quantise_int8x2(gpair)
+        plain = H.build_hist_scan_reference(bins, q, rel, inv, 128, 256)
+        if not torch.equal(results[r][2], plain):
+            raise AssertionError(f"continuous_pipeline flight: rank {r}'s "
+                                 "K4 histogram differs from its plain "
+                                 "version")
+        want_total = want_total + plain
+    for r in results:
+        if not torch.allclose(r[3], want_total, rtol=1e-6, atol=1e-3):
+            raise AssertionError("continuous_pipeline flight: a rank's "
+                                 "reduced histogram is not the ranks' sum")
+    merged = os.path.join(tmp, "merged.json")
+    merge = spawn_python(tmp, "merge", "-m", "xgboost_tpu_torch.obs",
+                         "merge", *[r[0] for r in results], "-o", merged)
+    t_flight = time.perf_counter() - t0
+
+    # -- 4. insight on the main path's 1M-row matrix
+    t0 = time.perf_counter()
+    p_ins = dict(HIGGS_PARAMS, eval_metric=["logloss", "error"])
+    ev = [(dte, "test")]
+    res_off, res_on = {}, {}
+    with NoPlainBuilds():
+        t1 = time.perf_counter()
+        off, c_off = train_launches("insight disarmed", lambda: xt.train(
+            p_ins, dtr, CP_INSIGHT_ROUNDS, evals=ev, evals_result=res_off,
+            verbose_eval=False))
+        t_off = time.perf_counter() - t1
+        obs_insight.enable(eval=True)
+        try:
+            t1 = time.perf_counter()
+            on, c_on = train_launches("insight armed", lambda: xt.train(
+                p_ins, dtr, CP_INSIGHT_ROUNDS, evals=ev, evals_result=res_on,
+                verbose_eval=False))
+            t_on = time.perf_counter() - t1
+            timer_on, _, s_on = seconds_per_round(HIGGS_PARAMS, dtr)
+            busy_on, _ = profile_rounds("insight armed", timer_on, dtr,
+                                        top=4)
+        finally:
+            obs_insight.disable()
+        timer_off, _, s_off = seconds_per_round(HIGGS_PARAMS, dtr)
+        busy_off, _ = profile_rounds("insight disarmed", timer_off, dtr,
+                                     top=4)
+    runs += [c_off, c_on]
+    if digest(on) != digest(off) or on._insight_blocked or \
+            timer_on._insight_blocked:
+        raise AssertionError("continuous_pipeline insight: the armed model "
+                             "differs or the telemetry latch tripped")
+    recs = on.training_log.records
+    if len(recs) != CP_INSIGHT_ROUNDS or any(
+            "grad_norm" not in r or "hess_norm" not in r
+            or len(r["gain_per_level"]) != HIGGS_PARAMS["max_depth"]
+            for r in recs):
+        raise AssertionError(f"continuous_pipeline insight: records "
+                             f"{recs[:1]}")
+    ins = on._insight_scores
+    p_te = on.predict(dte)
+    for m in ("logloss", "error"):
+        host = float(xt.metric.get_metric(m)(p_te, dte.info))
+        carry = ins["scores"][("test", m)]
+        if abs(carry - host) > 1e-6 * abs(host):
+            raise AssertionError(f"continuous_pipeline insight: in-carry "
+                                 f"{m} {carry} against the host's {host}")
+        gap = max(abs(a - b) for a, b in zip(res_on["test"][m],
+                                             res_off["test"][m]))
+        if gap > 1e-6:
+            raise AssertionError(f"continuous_pipeline insight: {m} history "
+                                 f"{res_on['test'][m]} / "
+                                 f"{res_off['test'][m]}")
+    out["insight"] = {"s_round": (s_on, s_off), "busy": (busy_on, busy_off),
+                      "train_s": (t_on, t_off)}
+    log(f"continuous_pipeline insight: {CP_INSIGHT_ROUNDS} rounds on "
+        f"1,000,000 x 28 with the in-carry eval of 100,000 rows armed: "
+        f"sha256 {digest(on)[:16]} the disarmed run's, every record with "
+        f"grad_norm, hess_norm and {HIGGS_PARAMS['max_depth']} "
+        f"gain_per_level entries, in-carry scores the host path's within "
+        f"rtol 1e-6; train {t_on:.3f} / {t_off:.3f} s armed / not, seconds "
+        f"a round {s_on:.6f} / {s_off:.6f}, device busy over 3 profiled "
+        f"rounds {busy_on:.3f} / {busy_off:.3f} ms; "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+    rc, _, err = finish_module(merge)
+    with open(merged) as fh:
+        doc = json.load(fh)
+    tracks = {e["pid"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    names = [e["args"]["name"] for e in doc["traceEvents"]
+             if e["name"] == "process_name"]
+    clocks = [r[1] for r in results]
+    if rc != 0 or tracks != set(range(CP_WORLD)) or \
+            len(names) != CP_WORLD or \
+            any(abs(c.offset_s) > c.err_s for c in clocks):
+        raise AssertionError(f"continuous_pipeline flight: merge exit "
+                             f"{rc} {err[-1000:]}, "
+                             f"tracks {tracks}, clocks "
+                             f"{[c.to_dict() for c in clocks]}")
+    us = [(round(c.offset_s * 1e6, 1), round(c.err_s * 1e6, 1))
+          for c in clocks]
+    log(f"continuous_pipeline flight: {CP_WORLD} thread ranks, each one K4 "
+        f"histogram of {CP_FLIGHT_ROWS} x 28 reduced through RowShards; "
+        f"python -m xgboost_tpu_torch.obs merge: one track a rank; clock "
+        f"offsets / uncertainty {us} us; {t_flight:.3f} s, the merge "
+        f"beside the insight runs [{card}]")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    per_epoch = [s for s, _ in out["epochs"]]
+    log(f"continuous_pipeline: seconds an epoch {per_epoch}, by stage "
+        + "; ".join(f"{k} {[round(st[k], 3) for _, st in out['epochs']]}"
+                    for k in CP_STAGES)
+        + f"; promotion latency {promo_ms} ms; insight seconds a round "
+        f"{s_on:.6f} armed / {s_off:.6f} not, device busy {busy_on:.3f} / "
+        f"{busy_off:.3f} ms over 3 rounds; phase {out['phase_s']:.1f} s "
+        f"[{card}]")
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -7358,6 +7961,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    phase_line("build")
+
     # --------------------------------------------- kernel vs plain version
     rng = np.random.RandomState(0)
     raw = make_forest_model(500, 8, 28, seed=0)
@@ -7442,6 +8047,8 @@ def main() -> int:
     del X3, Xc
     torch.cuda.synchronize()
 
+    phase_line("K1 checks")
+
     # ------------------------------------------ main path: Booster.predict
     n_big = 100_000
     Xbig = rng.randn(n_big, 28).astype(np.float32)
@@ -7487,6 +8094,8 @@ def main() -> int:
     log(f"slice vs plain: max_abs_err={err.max()} over {n_big} rows, "
         f"{visits_big} internal-node visits; Booster.predict's margins equal "
         f"the kernel-order fold bit for bit")
+
+    phase_line("Booster.predict")
 
     # ----------------------------------------------- main path: the Server
     sizes = (1, 8, 64, 512)
@@ -7537,6 +8146,8 @@ def main() -> int:
         s = snap["stages"][st]
         log(f"  stage {st}: p50 {s['p50_ms']} ms p99 {s['p99_ms']} ms")
 
+    phase_line("Server")
+
     # ------------------------------ K2 / K3 / K4 against their plain versions
     F = 28
     hist_errs = {}
@@ -7568,6 +8179,8 @@ def main() -> int:
     for i, case in enumerate(U4_CASES):
         for k, e in check_u4(*case, dev, seed=120 + i).items():
             hist_errs[k] = max(hist_errs.get(k, 0.0), e)
+
+    phase_line("K2-K5 checks")
 
     # -------------------------------------- main path: training, depth 8
     X, y, w_rule = higgs_like(1_100_000, F, seed=0, rule=True)
@@ -7617,6 +8230,8 @@ def main() -> int:
         f"{auto_s:.6f} s")
     profile_rounds("auto", timer, dtr, top=16)
 
+    phase_line("train depth 8")
+
     # ------------------------------------- main path: training, depth 10
     d10 = xt.DMatrix(X[:200_000], label=y[:200_000])
     deep, deep_counts = train_launches("train depth 10", lambda: xt.train(
@@ -7637,6 +8252,8 @@ def main() -> int:
         f"1-5, host clock); K3's kernels {k3_ms:.3f} ms of {dev10:.3f} ms "
         f"device busy over 3 rounds ({k3_ms / dev10 * 100:.2f}%)")
 
+    phase_line("train depth 10")
+
     # ------------------------------- main path: training below 65,536 rows
     d50 = xt.DMatrix(X[:50_000], label=y[:50_000])
     res50 = {}
@@ -7651,6 +8268,8 @@ def main() -> int:
     if not ll50[-1] < ll50[0]:
         raise AssertionError(f"train logloss did not fall: {ll50}")
     log(f"train 50,000 rows: logloss {ll50[0]} -> {ll50[-1]}")
+
+    phase_line("train 50,000 rows")
 
     # ------------- main path: the two-level schedules at the HIGGS shape
     # launches a round at depth 8: K2 for every coarse and refine build
@@ -7698,6 +8317,8 @@ def main() -> int:
         raise AssertionError("coarse, fused and scan saved different models")
     log("coarse, fused and scan saved the same model bytes")
 
+    phase_line("two-level schedules")
+
     # ------------------ main path: fused and scan at depth 10 on 200k rows
     deep2 = {}
     for method, want in (("fused", {"fused_advance_coarse": 7,
@@ -7718,6 +8339,8 @@ def main() -> int:
         raise AssertionError("fused and scan at depth 10 saved different "
                              "models")
     log("fused and scan at depth 10 saved the same model bytes")
+
+    phase_line("two-level depth 10")
 
     # ------------------- main path: multiclass at the Covertype shape
     # multi:softprob over 7 classes with row and column sampling and early
@@ -7898,6 +8521,8 @@ def main() -> int:
         errs.append(check_kernel(f"Covertype 7-group n={n}", cov_pf,
                                  Xte_dev[:n].contiguous(), cov_base, sch)[0])
 
+    phase_line("covertype")
+
     # ---- main path: BASELINE config #4 in full (categorical codes, dart)
     (covdart_runs, covdart_errs, covdart_k1, covdart_k2, covdart_s,
      covdart_busy, covdart_model) = covertype_categorical_dart(
@@ -7908,6 +8533,8 @@ def main() -> int:
     log(f"covertype_categorical_dart: {covdart_s:.6f} s a round, device busy "
         f"{covdart_busy:.3f} ms over 3 rounds; Covertype one-hot gbtree "
         f"{cov_s:.6f} s a round, busy {cov_busy:.3f} ms")
+
+    phase_line("covertype_categorical_dart")
 
     # ---- main path: leaf-wise growth, max_leaves and the constraints
     (lg_runs, lg_errs, lg_k1, lg_pair, lg_k1_time,
@@ -7922,6 +8549,8 @@ def main() -> int:
         f"{lg['auc']:.6f} (depthwise {auto_auc10:.6f}); constrained AUC "
         f"{ {k: round(v[0], 6) for k, v in lg['constrained'].items()} }; "
         f"model sha256 {lg['digest']}")
+
+    phase_line("lossguide_constraints")
 
     # ---- main path: the linear booster, SHAP on the card, the wrappers,
     # cv and the CLI
@@ -7950,12 +8579,17 @@ def main() -> int:
     cov_labels = yc[:sum(COVTYPE_CLASS_COUNTS)]
     del Xc, dcov, dcte, covdart_model
 
+    phase_line("gblinear, shap, sklearn_cv_cli")
+
     # ---- main path: the serving stack (HTTP / jsonl front ends, fleet,
     # contribs route), the NaN policies, update_batch, the native parser
     with tempfile.TemporaryDirectory(prefix="xtt_serving_") as tmp:
         t0 = time.perf_counter()
-        ss_runs, ss = serving_stack(xt, dev, raw, booster, Xbig, pred, X, y,
-                                    tmp)
+        try:
+            ss_runs, ss = serving_stack(xt, dev, raw, booster, Xbig, pred, X,
+                                        y, tmp)
+        finally:
+            stop_children()
         t_ss = time.perf_counter() - t0
     lat = ss["latency_ms"]
     log(f"serving_stack {t_ss:.1f} s: 1-row p50 / p99 {lat[1][0]:.3f} / "
@@ -7967,6 +8601,8 @@ def main() -> int:
         f"{ss['contribs_rows_per_s'][1]:.1f} rows/s; parser native / "
         f"Python {ss['parse_rows_per_s'][0]:.1f} / "
         f"{ss['parse_rows_per_s'][1]:.1f} rows/s [{card}]")
+
+    phase_line("serving_stack")
 
     # ---- main path: multi-target training at the MediaMill shape
     mt_runs, mt_errs, mt_k1, mt_times, mt = multi_target(xt, dev)
@@ -7980,6 +8616,8 @@ def main() -> int:
         if isinstance(v, dict) and "ll" in v)
         + f"; HIGGS-shape vector leaves {mt['higgs']['s_round']:.6f} s a "
         f"round, rmse {mt['higgs']['rmse'][0]} -> {mt['higgs']['rmse'][1]}")
+
+    phase_line("multi_target")
 
     # ---- main path: the rest of the objectives (quantile regression,
     # survival, insurance claims)
@@ -8001,6 +8639,8 @@ def main() -> int:
         f"rounds, held-out {v['metric']} {v['m'][0]} -> {v['m'][1]}"
         for k, v in ins.items() if isinstance(v, dict)))
 
+    phase_line("objectives")
+
     # ---- main path: tree_method approx at the HIGGS shape, and the three
     # tree methods at XGBoost's Kaggle Higgs speed test
     ax_runs, ax = approx_higgs(xt, dev, X, y)
@@ -8016,6 +8656,8 @@ def main() -> int:
         f"{kg[k]['auc'][1]}, ams@0.15 {kg[k]['ams'][1]}"
         for k in ("hist", "approx", "exact")))
 
+    phase_line("approx_higgs, kaggle_higgs_speedtest")
+
     # ------- main path: BASELINE config #3 in full (rank:ndcg at MSLR shape)
     mslr_runs, mslr_errs, mslr_k1, mslr_hist, mslr = mslr_ranking(xt, dev)
     errs += mslr_k1
@@ -8025,6 +8667,8 @@ def main() -> int:
         f"{mslr['busy_ms'] / 3:.3f} ms a round (histograms "
         f"{mslr['hist_ms']:.3f}, LambdaRank gradient {mslr['grad_ms']:.3f}); "
         f"held-out ndcg@10 {mslr['ndcg'][0]} -> {mslr['ndcg'][1]}")
+
+    phase_line("mslr_ranking")
 
     # ---- main path: BASELINE config #1, the agaricus demos from libsvm files
     with tempfile.TemporaryDirectory(prefix="xtt_agaricus_") as tmp:
@@ -8038,6 +8682,8 @@ def main() -> int:
         f"device busy {ag['busy_ms'] / 3:.3f} ms a round; held-out error "
         f"{ag['error']}, rmse {ag['rmse']}; model sha256 {ag['digests']}")
 
+    phase_line("agaricus_walkthrough")
+
     # --------- main path: external memory at the HIGGS-11M shape (paged)
     with tempfile.TemporaryDirectory(prefix="xtt_ext_") as tmp:
         ext_runs, ext_busy, ext_s, ext_dm = external_memory(xt, dev, F, tmp)
@@ -8050,6 +8696,8 @@ def main() -> int:
         f"re-sketch {plo['resketch_s']} s a round, gblinear "
         f"{plo['gblinear_s']:.6f} s a round [{card}]")
 
+    phase_line("external_memory, paged_left_outs")
+
     # ---- main path: row-split distributed training (a data mesh of shards
     # on this card, two gloo processes, paged ranks)
     with tempfile.TemporaryDirectory(prefix="xtt_dist_") as tmp:
@@ -8059,6 +8707,8 @@ def main() -> int:
         f"round, collective host time {dist['procs_collective_s']} s; mesh "
         f"sha256 {dist['mesh_sha']} [{card}]")
 
+    phase_line("distributed")
+
     # ---- main path: column-split training (feature shards on a column
     # mesh of this card, vertical federated parties on threads)
     col_runs, col = column_split(xt, dev, dist)
@@ -8066,6 +8716,8 @@ def main() -> int:
     log(f"column_split: {col['phase_s']:.1f} s; seconds a round "
         f"{col['s_round']}; trees' bytes one device's {col['same_bytes']}; "
         f"column mesh sha256 {col['col_sha']} [{card}]")
+
+    phase_line("column_split")
 
     # ---- main path: external memory over a data mesh (each shard of this
     # card streams its own rows of each page), traced once
@@ -8075,6 +8727,17 @@ def main() -> int:
         f"{pm['s_round']}; sha256 {pm['sha']}; seconds a level "
         f"{pm['trace']}; peak of the traced round {pm['peak_round']} B "
         f"[{card}]")
+
+    phase_line("paged_mesh")
+
+    # ---- main path: the continuous train -> serve pipeline (a served,
+    # gated, crash-safe loop), insight, the flight recorder, the CLI
+    with tempfile.TemporaryDirectory(prefix="xtt_cp_") as tmp:
+        try:
+            cp_runs, cp = continuous_pipeline(xt, dev, tmp, dtr, dte)
+        finally:
+            stop_children()
+    phase_line("continuous_pipeline")
 
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -8174,7 +8837,7 @@ def main() -> int:
             *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
             *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
             *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs,
-            *col_runs, *pm_runs]
+            *col_runs, *pm_runs, *cp_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",
@@ -8351,6 +9014,9 @@ def main() -> int:
             "max_abs_err": pk_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib_ms})
+    phase_line("times on card")
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

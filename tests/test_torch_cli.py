@@ -125,7 +125,7 @@ def test_continuation_and_save_period(files):
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["serve", "model={d}/absent.json"], ModelLoadError, "cannot load"),
-    (["pipeline", "workdir=w"], NotImplementedError, "A.10"),
+    (["pipeline", "workdir={d}/pw"], ValueError, "needs data"),
     (["{conf}", "task=cook"], ValueError, "unknown task"),
     (["{conf}", "oops"], ValueError, "key=value"),
 ])

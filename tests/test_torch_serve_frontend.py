@@ -6,8 +6,8 @@ package's recursion rounds in float32), and the same status codes,
 ``error_type``s and Prometheus family names. The JAX package's
 ``recompiles`` counter and ``recompiles_after_warmup`` gauge count its
 compile cache, which the port does not have; every other family is
-common. ``GET /v1/model/<name>/report`` answers 501 naming ROADMAP A.10
-in the port."""
+common. ``GET /v1/model/<name>/report`` answers the JAX package's
+report."""
 
 import io
 import json
@@ -183,11 +183,10 @@ def test_get_routes(model, both):
     assert c1 == c2 == 200
     assert s1["counters"]["requests"] == s2["counters"]["requests"] == 1
     assert s1["models"] == s2["models"] and s1["buckets"] == s2["buckets"]
-    # /report: the JAX package's insight report; the port names A.10
-    code, rep = ours.call("/v1/model/m/report")
-    assert code == 501 and rep["error_type"] == "NotImplementedError"
-    assert "ROADMAP A.10" in rep["error"]
-    assert theirs.call("/v1/model/m/report")[0] == 200
+    # /report: the served version's model_inspect, the JAX package's JSON
+    (c1, r1), (c2, r2) = ours.call("/v1/model/m/report"), \
+        theirs.call("/v1/model/m/report")
+    assert c1 == c2 == 200 and r1 == r2
     assert ours.call("/v1/model/nope/report")[0] == \
         theirs.call("/v1/model/nope/report")[0] == 404
 

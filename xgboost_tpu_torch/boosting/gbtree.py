@@ -53,7 +53,7 @@ refreshed on the label rank and reach the others through
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -144,6 +144,10 @@ class GBTree:
         # vertical federated parties (column split over a communicator),
         # set by the Booster
         self.vertical = False
+        # insight's fused tier: keep the round's grown heaps (on the
+        # device) in ``last_grown`` for its telemetry (``core.py``)
+        self.keep_grown = False
+        self.last_grown: Optional[List[Any]] = None
 
     # -- training -------------------------------------------------------------
     @property
@@ -235,6 +239,7 @@ class GBTree:
             eta = self.tree_param.eta / npt
             alphas = obj.alphas()
         deltas = []
+        kept = [] if self.keep_grown else None
         for k in range(K):
             keys = tkeys[k * npt:(k + 1) * npt]
             if method == "approx":
@@ -255,6 +260,8 @@ class GBTree:
                         src if src.is_paged else src.bins, gp,
                         None if masks_k is None else masks_k[p])
                 tree = grower.to_tree_model(grown)
+                if kept is not None:
+                    kept.append(grown)
                 d = grown.delta
                 if adaptive:
                     # grower positions -> the compact tree's node ids (of
@@ -269,6 +276,7 @@ class GBTree:
                 self.tree_info.append(k)
                 delta = d if delta is None else delta + d
             deltas.append(delta)
+        self.last_grown = kept
         self.iteration_indptr.append(len(self.trees))
         return torch.stack(deltas, dim=1)[:n_rows]
 

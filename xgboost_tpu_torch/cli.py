@@ -21,8 +21,12 @@ HTTP front end with ``http_port``.
 Training snapshots: ``checkpoint_dir`` (a snapshot every
 ``checkpoint_every`` rounds, default 10, the newest ``checkpoint_keep``
 kept, default 3; ``resume``, default ``auto``, takes the newest valid one
-up; ``utils/checkpoint.py``). The JAX package's ``pipeline`` mode is not
-in the port yet: it raises naming ROADMAP A.10.
+up; ``utils/checkpoint.py``).
+
+``python -m xgboost_tpu_torch pipeline workdir=DIR data=PATH
+[holdout=PATH] [gate=metric:max_regression] [page_rows=N] [key=value
+...]`` runs the continuous train -> serve loop over a workdir
+(``pipeline/cli.py``; ``command=status`` prints its state).
 """
 
 from __future__ import annotations
@@ -169,9 +173,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         return serve_main(argv[1:])
     if argv[0] == "pipeline":
-        raise NotImplementedError(
-            "the CLI's pipeline mode is not in the PyTorch port yet "
-            "(ROADMAP A.10)")
+        from .pipeline.cli import pipeline_main
+
+        return pipeline_main(argv[1:])
     pairs = parse_config_file(argv[0])
     for extra in argv[1:]:      # key=value arguments, the last one wins
         if "=" not in extra:

@@ -33,8 +33,16 @@ re-processes a model's trees round by round with the ``updater`` list
 objectives (``train(obj=)``, ``update(fobj=)``, :meth:`Booster.boost`)
 and metrics (``custom_metric=`` / ``feval=``) take and give numpy.
 ``predict(pred_leaf=True)`` walks the trees as torch ops
-(``boosting/predict.py leaf_positions``); dumps, importances and the
-structural report are ``dump.py``'s.
+(``boosting/predict.py leaf_positions``); dumps and importances are
+``dump.py``'s, the structural report ``obs/insight.py``'s.
+
+Insight telemetry (``obs/insight.py``, ``XTPU_INSIGHT`` /
+``XTPU_INSIGHT_EVAL``) reads each round without changing it: where the
+round is the JAX package's fused round (:meth:`Booster._batchable`) the
+scalars come from the grown heap and the gradient on the card, with the
+in-carry eval's partial sums, in one host fetch
+(:meth:`Booster._note_insight_round`); elsewhere from the committed
+trees on the host (:meth:`Booster._note_host_round`).
 
 Under ``tree_method="approx"`` or ``"exact"`` the training matrix's
 cache entry keeps no bins: it keeps what the method grows from
@@ -114,6 +122,7 @@ from .data.binned import (ApproxSource, BinnedMatrix, MeshApproxSource,
                           pad_features_for_mesh, shard_binned)
 from .data.dmatrix import DMatrix
 from .interop import is_reference_model, reference_to_native_json
+from .logging_utils import logger
 from .metric import get_metric
 from .objective import get_objective
 from .objective.adaptive import label_matrix_refusal
@@ -121,9 +130,10 @@ from .objective.base import (NumericalDivergence, Objective,
                              guard_gradient)
 from .objective.survival import sort_by_time
 from .parallel import collective
+from .obs import insight as obs_insight
 from .obs import memory as obs_memory
+from .obs.insight import TrainingLog
 from .obs.monitor import Monitor
-from .obs.training_log import TrainingLog
 from .ops import shap as shap_ops
 from .ops.shap import ShapPack, build_shap_pack
 from .serve.packed import PackedForest
@@ -204,9 +214,16 @@ class Booster:
         self._configured = False
         self._caches: Dict[int, Dict[str, Any]] = {}
         self._eval_metrics: List = []
-        # the eval history of ``train`` (``obs/training_log.py``), which a
-        # training snapshot carries
+        # the eval history of ``train`` and insight's round telemetry
+        # (``obs/insight.py TrainingLog``), which a training snapshot carries
         self.training_log: Optional[TrainingLog] = None
+        # insight's in-carry eval: the eval sets train() armed, their carry
+        # (bins against the training cuts, margins) and the last round's
+        # scores; the latch that disarms telemetry after it failed
+        self._insight_state: Optional[Dict[str, Any]] = None
+        self._insight_scores: Optional[Dict[str, Any]] = None
+        self._insight_evals: Optional[List[Tuple[DMatrix, str]]] = None
+        self._insight_blocked = False
         # packed forests by tree range, and SHAP path tables by ("shap",
         # range)
         self._packed: Dict[tuple, Union[PackedForest, ShapPack]] = {}
@@ -895,11 +912,149 @@ class Booster:
             sec.sync_on(gpair)
         if observer.enabled():
             observer.observe("gpair", gpair, iteration)
-        self._boost_round(st, margin, gpair, iteration, refresh=True)
+        prior_trees = len(getattr(self.gbm, "trees", ()))
+        ins = None
+        if (obs_insight.enabled() and not self._insight_blocked
+                and self._batchable(st)):
+            # bound before the round: the eval carry's margins are the
+            # caches' as the round finds them
+            ins = self._insight_binding(st)
+            self.gbm.keep_grown = True
+        try:
+            self._boost_round(st, margin, gpair, iteration, refresh=True)
+        finally:
+            self.gbm.keep_grown = False
+        if ins is not None:
+            self._note_insight_round(ins, st, iteration, gpair)
+        elif obs_insight.enabled():
+            self._note_host_round(iteration, prior_trees)
         if observer.enabled():
             observer.observe("margin", st["margin"], iteration)
         if obs_memory.enabled():
             self._mem_round(st)
+
+    # ---------------------------------------------------------------- insight
+    def _insight_binding(self, st: Dict[str, Any]) -> Dict[str, Any]:
+        """The insight carry of the training entry ``st`` (the JAX
+        package's ``_insight_binding``): always the telemetry; the
+        in-carry eval only when every armed eval set qualifies (labels,
+        raw values or the training matrix's own bins, one output group, no
+        mesh or vertical parties) and every metric has an in-carry twin.
+        An eval set's margin is a COPY of its cache's, which the rounds
+        then move; a carry made for another entry or forest is rebuilt."""
+        ist = self._insight_state
+        if (ist is not None and ist["state"] is st
+                and ist["version"] == self.gbm.version()):
+            return ist
+        ist = {"state": st, "version": self.gbm.version(), "evals": (),
+               "specs": ()}
+        self._insight_state = ist
+        evals = self._insight_evals
+        if (not obs_insight.eval_enabled() or not evals
+                or self.n_groups != 1 or not self._eval_metrics
+                or self.ctx.mesh is not None
+                or self._is_vertical_federated()):
+            return ist
+        specs = obs_insight.metric_specs(self._eval_metrics)
+        if specs is None:
+            return ist
+        carry = []
+        for dm, name in evals:
+            y = dm.info.labels
+            n = dm.num_row()
+            if y is None or len(y) != n or y.ndim != 1:
+                return ist
+            est = self._state_of(dm, is_train=False)
+            if dm is st["dm"]:
+                eb = st["binned"]
+            elif dm.X is not None:
+                eb = est.get("insight_bins")
+                if eb is None or eb.cuts is not st["binned"].cuts:
+                    eb = est["insight_bins"] = BinnedMatrix.from_dense(
+                        dm.X, st["binned"].cuts, self.device)
+            else:
+                return ist
+            w = est["weights"]
+            carry.append({
+                "name": name, "info": dm.info, "bins": eb.bins,
+                "missing": int(eb.missing_bin),
+                "margin": self._cached_margin(dm).clone(),
+                "labels": est["labels"],
+                "weights": (w if w is not None
+                            else torch.ones_like(est["labels"]))})
+        ist.update(evals=tuple(carry), specs=specs)
+        return ist
+
+    def _note_insight_round(self, ins: Dict[str, Any], st: Dict[str, Any],
+                            iteration: int, gpair: torch.Tensor) -> None:
+        """Land one fused-tier round (the JAX package's
+        ``_note_insight_round``): the scalars of its grown heap and
+        gradient, the NaN guard's count and each armed eval set's metric
+        partials after its margin moved by the new tree, fetched in ONE
+        host copy and logged; ``eval_set`` then serves the round's scores
+        from ``_insight_scores``. A failure here disarms the telemetry
+        (logged once) and leaves the committed round as it is."""
+        grown = self.gbm.last_grown
+        self.gbm.last_grown = None
+        try:
+            telem = obs_insight.grown_telemetry(
+                obs_insight.stack_grown(grown), gpair,
+                max(self.tree_param.max_depth, 1))
+            telem["nan_guard_bad_rows"] = (
+                ~torch.isfinite(st["margin"]).all(dim=-1)).sum()
+            partials = []
+            for ev in ins["evals"]:
+                ev["margin"] = ev["margin"] + obs_insight.walk_leaf_delta(
+                    grown[0], ev["bins"], ev["missing"],
+                    max(self.tree_param.max_depth, 1))[:, None]
+                preds = self.obj.pred_transform(ev["margin"])[:, 0]
+                for name, t in ins["specs"]:
+                    partials.extend(obs_insight.metric_partial(
+                        name, preds, ev["labels"], ev["weights"], t))
+            scalars, host = obs_insight.fetch_round(telem, partials)
+        except Exception:
+            logger.warning("insight round telemetry failed; disarming it "
+                           "for this booster", exc_info=True)
+            self._insight_blocked = True
+            self._insight_state = self._insight_scores = None
+            return
+        ins["version"] = self.gbm.version()
+        if self.training_log is None:
+            self.training_log = TrainingLog()
+        self.training_log.log_round(iteration, scalars)
+        if not ins["evals"]:
+            self._insight_scores = None
+            return
+        scores: Dict[Tuple[str, str], float] = {}
+        i = 0
+        for ev in ins["evals"]:
+            for (name, _), metric in zip(ins["specs"], self._eval_metrics):
+                scores[(ev["name"], metric.full_name)] = \
+                    obs_insight.finalize_partial(name, host[i], host[i + 1],
+                                                 ev["info"])
+                i += 2
+        self._insight_scores = {
+            "iteration": int(iteration),
+            "names": tuple(ev["name"] for ev in ins["evals"]),
+            "scores": scores}
+
+    def _note_host_round(self, iteration: int, prior_trees: int) -> None:
+        """The other tiers' telemetry (the JAX package's
+        ``_note_host_round``): the round's scalars from the trees it
+        committed, on the host (``obs/insight.py round_telemetry_host``)."""
+        trees = getattr(self.gbm, "trees", None)
+        if trees is None or len(trees) <= prior_trees:
+            return
+        try:
+            scalars = obs_insight.round_telemetry_host(trees[prior_trees:])
+        except Exception:   # telemetry must never break training
+            logger.warning("host round telemetry failed", exc_info=True)
+            return
+        if scalars is None:
+            return
+        if self.training_log is None:
+            self.training_log = TrainingLog()
+        self.training_log.log_round(iteration, scalars)
 
     def _mem_round(self, st: Dict[str, Any]) -> None:
         """The memory monitor's round boundary (callers test
@@ -1129,6 +1284,17 @@ class Booster:
         transformed predictions, as numpy."""
         self._configure(None)
         vertical = self._is_vertical_federated()
+        ins = self._insight_scores
+        if (feval is None and not vertical and ins is not None
+                and ins["iteration"] == iteration
+                and tuple(n for _, n in evals) == ins["names"]):
+            # the scores the insight-armed round already computed in-carry
+            msg = f"[{iteration}]"
+            for _, name in evals:
+                for metric in self._eval_metrics:
+                    score = ins["scores"][(name, metric.full_name)]
+                    msg += f"\t{name}-{metric.full_name}:{score:.6f}"
+            return msg
         msg = f"[{iteration}]"
         for dm, name in evals:
             if dm.info.labels is None and not vertical:
@@ -1522,9 +1688,10 @@ class Booster:
         return self.get_score(fmap, importance_type="weight")
 
     def inspect(self) -> Dict[str, Any]:
-        """The structural report of ``dump.model_inspect``."""
+        """The structural report (``obs/insight.py model_inspect``): every
+        importance type, the trees' depth and leaf-count histograms."""
         self._require_model()
-        return dump.model_inspect(self)
+        return obs_insight.model_inspect(self)
 
     def get_split_value_histogram(self, feature: str, fmap: str = "",
                                   bins: Optional[int] = None,
@@ -1716,9 +1883,8 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
     if early_stopping_rounds is not None:
         callbacks.append(EarlyStopping(rounds=early_stopping_rounds,
                                        maximize=maximize, save_best=False))
-    container = CallbackContainer(
-        callbacks, metric=custom_metric if custom_metric is not None
-        else feval)
+    metric_fn = custom_metric if custom_metric is not None else feval
+    container = CallbackContainer(callbacks, metric=metric_fn)
     ck = resumed = None
     if checkpoint is not None:
         from .utils.checkpoint import CheckpointManager
@@ -1743,6 +1909,11 @@ def train(params: Dict[str, Any], dtrain: DMatrix,
             # snapshot's history
             container.history = bst.training_log
     bst.training_log = container.history
+    if (obs_insight.eval_enabled() and evals and metric_fn is None
+            and obj is None):
+        # the in-carry eval: the armed rounds move these eval sets'
+        # margins and score them (Booster._insight_binding)
+        bst._insight_evals = list(evals)
     bst = container.before_training(bst)
     start = bst.num_boosted_rounds()
     end = (max(start, num_boost_round) if resumed is not None

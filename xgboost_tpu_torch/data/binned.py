@@ -363,12 +363,12 @@ class PagedBinnedMatrix:
 
     def streaming_overlap(self) -> Optional[float]:
         """The share of upload time hidden behind the consumer since the
-        last :meth:`reset_ring_stats`, ``max(0, 1 - blocked / upload)``;
-        None before any upload."""
-        up = self.ring_stats["upload_s"]
-        if up <= 0:
-            return None
-        return max(0.0, 1.0 - self.ring_stats["blocked_s"] / up)
+        last :meth:`reset_ring_stats`, ``max(0, 1 - blocked / upload)``
+        (``obs/flight.py hidden_fraction``); None before any upload."""
+        from ..obs.flight import hidden_fraction
+
+        return hidden_fraction(self.ring_stats["upload_s"],
+                               self.ring_stats["blocked_s"])
 
     def _staging_of(self, device: torch.device) -> _Staging:
         st = self._staging.get(self._key(device))

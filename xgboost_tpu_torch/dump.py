@@ -1,7 +1,7 @@
 """Model dumps: text, JSON and graphviz dot per tree, one DataFrame row
-per node, and the structural report of ``Booster.inspect`` (the JAX
-package's ``dump.py`` and ``obs/insight.py model_inspect``; reference
-``src/tree/tree_model.cc`` ``TreeGenerator``).
+per node, and feature importances (the JAX package's ``dump.py``;
+reference ``src/tree/tree_model.cc`` ``TreeGenerator``). The structural
+report of ``Booster.inspect`` is ``obs/insight.py model_inspect``.
 
 Node ids are the trees' compact BFS ids. A split prints as ``x <
 value`` going left ("yes") with the value at ``:.9g``, so two dumps are
@@ -12,7 +12,7 @@ accepted and ignored, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -188,35 +188,3 @@ def feature_scores(trees: List[TreeModel], importance_type: str,
     if importance_type in ("gain", "cover"):
         scores = {f: s / counts[f] for f, s in scores.items()}
     return {_fname(feature_names, f): v for f, v in scores.items()}
-
-
-def model_inspect(booster) -> Dict[str, Any]:
-    """Every importance type, the trees' depth and leaf-count histograms
-    and totals, and ``best_iteration`` when early stopping set it."""
-    report: Dict[str, Any] = {
-        "num_trees": int(booster.num_boosted_rounds()),
-        "num_features": int(booster.num_features()),
-        "importance": {t: booster.get_score(importance_type=t)
-                       for t in IMPORTANCE_TYPES},
-    }
-    bi = booster.attr("best_iteration")
-    if bi is not None:
-        report["best_iteration"] = int(bi)
-    depth_hist: Dict[str, int] = {}
-    leaf_hist: Dict[str, int] = {}
-    nodes = leaves = 0
-    for t in booster.gbm.trees:
-        d, nl = str(t.max_depth()), int(t.is_leaf.sum())
-        depth_hist[d] = depth_hist.get(d, 0) + 1
-        leaf_hist[str(nl)] = leaf_hist.get(str(nl), 0) + 1
-        nodes += t.num_nodes()
-        leaves += nl
-    report["tree_shape"] = {
-        "trees": len(booster.gbm.trees), "nodes_total": nodes,
-        "leaves_total": leaves,
-        "depth_hist": dict(sorted(depth_hist.items(),
-                                  key=lambda kv: int(kv[0]))),
-        "leaf_hist": dict(sorted(leaf_hist.items(),
-                                 key=lambda kv: int(kv[0]))),
-    }
-    return report

@@ -151,6 +151,7 @@ def _gather_rows(y: np.ndarray, p: np.ndarray, w: np.ndarray, info):
 
 
 class _AucBase(Metric):
+    maximize = True
     _fn = staticmethod(binary_roc_auc)
     _curve = staticmethod(_roc_curve_area)
     _grouped_kind = "roc"

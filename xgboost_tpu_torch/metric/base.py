@@ -29,6 +29,8 @@ def global_mean(numerator: float, denominator: float, info) -> float:
 
 class Metric:
     name: str = ""
+    # larger is better (the drift gates' and the canary's orientation)
+    maximize: bool = False
 
     def __init__(self, param: Optional[str] = None) -> None:
         self.param = param

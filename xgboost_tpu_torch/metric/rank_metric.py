@@ -18,6 +18,7 @@ from .base import Metric, global_mean, register
 
 
 class _TopKMetric(Metric):
+    maximize = True
     default_k = 0  # 0 = all
 
     @property
@@ -121,6 +122,8 @@ class PrecisionAt(_TopKMetric):
 class AMS(Metric):
     """Approximate median significance over the top ``ratio`` of the rows
     by score (``ams@0.15``, the default; reference ``EvalAMS``)."""
+
+    maximize = True
 
     name = "ams"
 

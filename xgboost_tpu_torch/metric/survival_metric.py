@@ -72,6 +72,7 @@ class CoxNegLogLik(Metric):
 
 @register("interval-regression-accuracy")
 class IntervalRegressionAccuracy(Metric):
+    maximize = True
     name = "interval-regression-accuracy"
 
     def __call__(self, preds, info) -> float:

@@ -13,22 +13,28 @@
 - :mod:`~.memory`: device-memory watermarks at stage boundaries (the
   CUDA allocator's counters; explicit bookings on the CPU) behind
   ``XTPU_FLIGHT_MEM=1``.
-- :mod:`~.training_log`: the per-round training log.
-
-The flight recorder, the insight telemetry and ``python -m ... obs``
-are ROADMAP A.10.
+- :mod:`~.flight`: the flight recorder: ``(rank, world)``-tagged rings,
+  clock-aligned merging of several ranks' rings, the overlap arithmetic,
+  and the crash black box (``python -m xgboost_tpu_torch.obs postmortem
+  <bundle>`` renders a bundle, ``merge`` joins rings).
+- :mod:`~.insight`: learning-health telemetry (round scalars and the
+  in-carry eval behind ``XTPU_INSIGHT`` / ``XTPU_INSIGHT_EVAL``), the
+  :class:`TrainingLog` (``obs/training_log.py`` re-exports it), and the
+  model report and diff.
 """
 
-from . import memory, metrics, monitor, trace
+from . import flight, insight, memory, metrics, monitor, trace
+from .flight import BlackBox, FlightRecorder, StragglerWarning
+from .insight import TrainingLog
 from .metrics import Family, HistogramData, MetricsRegistry, Sample, \
     get_registry
 from .monitor import Monitor, Timer, annotate, profile
 from .trace import Span, Tracer, span
-from .training_log import TrainingLog
 
 __all__ = [
-    "trace", "metrics", "memory", "monitor",
+    "trace", "metrics", "flight", "memory", "insight", "monitor",
     "Span", "Tracer", "span", "TrainingLog",
+    "FlightRecorder", "BlackBox", "StragglerWarning",
     "MetricsRegistry", "Family", "Sample", "HistogramData", "get_registry",
     "Monitor", "Timer", "annotate", "profile",
 ]

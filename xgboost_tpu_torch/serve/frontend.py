@@ -44,8 +44,9 @@ the micro-batcher:
     GET  /healthz      liveness + versions/queue/shed counters
                        (503 once the server stops accepting)
     GET  /v1/model/<name>/report
-                       501 with ``error_type`` NotImplementedError: the
-                       model report needs ``obs.insight`` (ROADMAP A.10)
+                       the served version's structure and importances
+                       (``obs/insight.py model_inspect``), 404 for an
+                       unknown model
 """
 
 from __future__ import annotations
@@ -236,15 +237,20 @@ def make_http_server(server: Server, port: int,
                 self._send(200, server.registry.describe())
             elif self.path.startswith("/v1/model/") \
                     and self.path.endswith("/report"):
+                # the served version's report, made on demand on the host
+                # (the scoring path is untouched)
                 name = self.path[len("/v1/model/"):-len("/report")]
+                from ..obs.insight import model_inspect
+
                 try:
-                    server.registry.get(name or None)
+                    sm = server.registry.get(name or None)
                 except UnknownModel as exc:
                     self._send(404, _error_obj(exc, None))
                     return
-                self._send(501, _error_obj(NotImplementedError(
-                    "the model report needs obs.insight, which is not in "
-                    "the PyTorch port yet (ROADMAP A.10)"), None))
+                report = model_inspect(sm.booster)
+                report["name"] = sm.name
+                report["version"] = sm.version
+                self._send(200, report)
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
 
