@@ -2278,11 +2278,13 @@ def seconds_per_round(params, dtr):
     return timer, per_round, float(np.median(per_round[1:]))
 
 
-def profile_rounds(label, timer, dtr, top=12):
+def profile_rounds(label, timer, dtr, top=12, calls=None):
     """Three more ``update`` rounds of ``timer`` (after its six timed ones)
     under ``torch.profiler``, timed on the host clock: the device's busy
     time summed from the profiler's device events
-    (:func:`device_event_rows`), its idle share, and the top kernels."""
+    (:func:`device_event_rows`), its idle share, and the top kernels.
+    ``calls``: a dict that takes the host's kernel launches and graph
+    launches of the three rounds (:func:`launch_calls`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2297,6 +2299,9 @@ def profile_rounds(label, timer, dtr, top=12):
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if dev_ms <= 0:
         raise AssertionError("torch.profiler saw no device time")
+    if calls is not None:
+        calls.update(launch_calls(prof), wall_ms=wall_prof * 1e3,
+                     busy_ms=dev_ms)
     log(f"profile of 3 {label} rounds: {wall_prof * 1e3:.3f} ms on the host "
         f"clock (profiler on), device busy {dev_ms:.3f} ms, device idle "
         f"{(1 - dev_ms / (wall_prof * 1e3)) * 100:.2f}% of those rounds; "
@@ -2313,6 +2318,20 @@ class DeviceRow:
 
     def __init__(self, key):
         self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def launch_calls(prof):
+    """The host's CUDA runtime calls in a profile: ``kernel`` launches
+    (``cudaLaunchKernel*``, a kernel outside any graph) and ``graph``
+    launches (``cudaGraphLaunch``, a whole captured body)."""
+    out = {"kernel": 0, "graph": 0}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("cudaLaunchKernel"):
+            out["kernel"] += 1
+        elif name.startswith("cudaGraphLaunch"):
+            out["graph"] += 1
+    return out
 
 
 def device_event_rows(prof):
@@ -4242,17 +4261,18 @@ def certified_trees(a, b, label, eta, lam, quanta, rows, capped=False):
     return ties, gap, worst
 
 
-def card_against_cpu(xt, name, params, X, rounds=GAP_ROUNDS, **dm_kw):
-    """The first ``GAP_ROWS`` rows on the card and on the CPU port, round
+def card_against_cpu(xt, name, params, X, rounds=GAP_ROUNDS,
+                     n_rows=GAP_ROWS, **dm_kw):
+    """The first ``n_rows`` rows on the card and on the CPU port, round
     by round: round r grows on both devices from the CPU model's margin
     before it (``base_margin``), so that only the devices' arithmetic
     differs, and its trees are held to :func:`certified_trees` (the
     int8x2 quanta of the CPU's gradient at that margin, each leaf's rows
     from ``pred_leaf``). Returns (trees the same in full, near-tie nodes
     by tree, the largest leaf gap, the largest gap over its bound)."""
-    rows = {k: (v[:GAP_ROWS] if isinstance(v, np.ndarray) else v)
+    rows = {k: (v[:n_rows] if isinstance(v, np.ndarray) else v)
             for k, v in dm_kw.items()}
-    Xg = X[:GAP_ROWS]
+    Xg = X[:n_rows]
     cpu_p = dict(params, device="cpu")
     ref = xt.train(cpu_p, xt.DMatrix(Xg, **rows), rounds, verbose_eval=False)
     full, ties, gap, worst = 0, {}, 0.0, 0.0
@@ -4284,7 +4304,7 @@ def card_against_cpu(xt, name, params, X, rounds=GAP_ROUNDS, **dm_kw):
                 ties[f"{r}.{t}"] = tie
             else:
                 full += 1
-    log(f"{name}: card vs CPU at {GAP_ROWS} rows, round by round from one "
+    log(f"{name}: card vs CPU at {n_rows} rows, round by round from one "
         f"margin, {rounds} rounds: {full} of {len(ref.gbm.trees)} trees the "
         f"same in full" + (f", near ties at {ties}" if ties else "")
         + f"; largest leaf gap {gap:.3e} ({worst:.3f} of its bound)")
@@ -5569,6 +5589,12 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
         replicas=2, min_replicas=1, max_replicas=2, replication=2,
         autoscale_interval_s=0, serve=ServeConfig(max_batch=512)))
     fl.warmup()
+    n_buckets = len(ServeConfig(max_batch=512).ladder().sizes)
+    for r in fl.replicas():
+        if r.registry.get("higgs").graphs.cache_size() != n_buckets:
+            raise AssertionError(f"replica {r.replica} captured "
+                                 f"{r.recompile_counter.compiles()} graphs "
+                                 f"for {n_buckets} buckets")
     httpd = make_http_server(fl, 0)
     port = httpd.server_address[1]
     server_thread = threading.Thread(target=httpd.serve_forever,
@@ -5631,6 +5657,11 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
                     p_ = httpd1.server_address[1] if who == "one" else port
                     versus[who].append(run_load(
                         pool, p_, f"HTTP predict ({who})"))
+                if one.recompiles_after_warmup or fl.recompiles_after_warmup:
+                    raise AssertionError(
+                        f"recompiles after warmup under HTTP load: one "
+                        f"{one.recompiles_after_warmup}, fleet "
+                        f"{fl.recompiles_after_warmup}")
             finally:
                 httpd1.shutdown()
                 httpd1.server_close()
@@ -5744,6 +5775,9 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
         if v2.version != 2 or not np.array_equal(v2, pred2[:4]) or \
                 back.version != 1:
             raise AssertionError("the swap or the rollback did not take")
+        if fl.recompiles_after_warmup != 0:
+            raise AssertionError(f"the fleet recompiled after warmup: "
+                                 f"{fl.recompiles_after_warmup}")
         check(load, oracles, "under load")
         versions = sorted({a[2][1]["version"] for a in load})
         if fl.n_replicas != 1 or victim in fl.replica_names():
@@ -5752,7 +5786,8 @@ def serving_stack(xt, dev, raw, booster, Xbig, pred, X, y, tmp):
             f"2, a rollback and a drained removal of replica {victim}: none "
             f"failed, versions answered {versions}, each equal to its "
             f"version's Booster.predict bit for bit; K1 launches "
-            f"{c_load['walk_packed']}")
+            f"{c_load['walk_packed']}; recompiles after warmup 0 (the "
+            f"swap's {n_buckets} captures a replica absorbed)")
 
         # -- 4. the GET routes and their counters
         code_h, health, _ = http_call(port, "/healthz")
@@ -7806,6 +7841,141 @@ def continuous_pipeline(xt, dev, tmp, dtr, dte):
     return runs, out
 
 
+# the mega_capture phase: the depthwise schedule at the deepest depth its
+# gates take (2^depth <= 64), lossguide at the lossguide phase's 255
+# leaves, and +sub over K2 at depth 8
+MC_DEPTH = 6
+MC_ROUNDS = 10
+SUB_ROWS = 200_000
+SUB_ROUNDS = 3
+
+
+def mega_capture(xt, dev, X, y, dtr):
+    """The ``mega_capture`` phase: ``hist_method="mega"`` as captured CUDA
+    graphs (``ops/cuda/graphs.py``). Depthwise at depth 6 on the HIGGS
+    rows: ``scan`` and ``mega`` 10 rounds each, alternated twice (one
+    sha256; one graph captured for the matrix and 6 replays a tree; K4
+    once a level, replays included), seconds a round and three profiled
+    rounds of each (device busy and idle, and the host's kernel launches
+    outside graphs and graph launches a round). Lossguide at 255 leaves
+    and ``max_depth`` 0: ``scan`` and ``mega`` 10 rounds, one sha256, 254
+    replays a tree. ``+sub`` over K2 (``prehot+sub``) at 200,000 rows and
+    depth 8: K2 once a level and the card against the CPU port under
+    ``certified_trees``. Returns (the runs' launch counts, a summary)."""
+    t_phase = time.perf_counter()
+    runs, out = [], {}
+    P = dict(HIGGS_PARAMS, max_depth=MC_DEPTH)
+
+    # -- depthwise: scan and mega, alternated
+    digests = []
+    for i, m in enumerate(("scan", "mega", "scan", "mega")):
+        with NoPlainBuilds():
+            b, c = train_launches(f"mega_capture {m} {i // 2}", lambda m=m:
+                                  xt.train(dict(P, hist_method=m), dtr,
+                                           MC_ROUNDS, verbose_eval=False))
+        loop = b.gbm._grower._mega
+        k4 = MC_DEPTH * MC_ROUNDS
+        if m == "scan":
+            if loop is not None or c["hist_scan"] != k4:
+                raise AssertionError(f"scan depth {MC_DEPTH} launched {c}")
+        else:
+            # one capture (its warm-up ran the body once), then the replays
+            if (loop.captures, loop.replays, loop.eager_runs) != \
+                    (1, k4, 0) or c["hist_scan"] != k4 + 1:
+                raise AssertionError(
+                    f"mega: captures {loop.captures}, replays "
+                    f"{loop.replays}, eager {loop.eager_runs}, launches {c}")
+        if c["hist_int8x2"] or c["hist_f32"] or c["fused_advance_coarse"]:
+            raise AssertionError(f"{m} launched {c}")
+        runs.append(c)
+        digests.append(hashlib.sha256(saved_bytes(b)).hexdigest())
+    if len(set(digests)) != 1:
+        raise AssertionError(f"scan and mega at depth {MC_DEPTH} saved "
+                             f"different models: {digests}")
+    log(f"mega_capture: scan and mega at depth {MC_DEPTH}, {MC_ROUNDS} "
+        f"rounds each, alternated twice: one sha256 {digests[0]}; mega one "
+        f"graph for the matrix, {MC_DEPTH} replays a tree, K4 "
+        f"{MC_DEPTH * MC_ROUNDS} + 1 (the capture's warm-up) a run")
+    secs, timers = {"scan": [], "mega": []}, {}
+    for m in ("scan", "mega", "scan", "mega"):
+        timer, per, s = seconds_per_round(dict(P, hist_method=m), dtr)
+        secs[m].append(s)
+        timers[m] = timer
+        log(f"mega_capture {m} seconds a round: "
+            f"{['%.6f' % t for t in per]}; median of rounds 1-5 {s:.6f} s")
+    loop = timers["mega"].gbm._grower._mega
+    if (loop.captures, loop.replays) != (1, 6 * MC_DEPTH):
+        raise AssertionError(f"a steady mega round captured: captures "
+                             f"{loop.captures}, replays {loop.replays}")
+    prof = {}
+    for m in ("scan", "mega"):
+        calls = {}
+        profile_rounds(f"mega_capture {m}", timers[m], dtr, top=8,
+                       calls=calls)
+        prof[m] = calls
+        log(f"mega_capture {m}: a profiled round launches "
+            f"{calls['kernel'] / 3:g} kernels outside graphs and "
+            f"{calls['graph'] / 3:g} graphs; device busy "
+            f"{calls['busy_ms']:.3f} ms of {calls['wall_ms']:.3f} ms over 3 "
+            f"rounds, idle {(1 - calls['busy_ms'] / calls['wall_ms']) * 100:.2f}%")
+    if loop.captures != 1 or loop.replays != 9 * MC_DEPTH:
+        raise AssertionError(f"profiled mega rounds: captures "
+                             f"{loop.captures}, replays {loop.replays}")
+    out.update(sha=digests[0], s_round={k: v for k, v in secs.items()},
+               prof=prof)
+
+    # -- lossguide: scan and mega at 255 leaves
+    lg_raw = {}
+    for m in ("scan", "mega"):
+        t0 = time.perf_counter()
+        with NoPlainBuilds():
+            b, c = train_launches(f"mega_capture lossguide {m}", lambda m=m:
+                                  xt.train(dict(LG_PARAMS, hist_method=m),
+                                           dtr, LG_ROUNDS,
+                                           verbose_eval=False))
+        t_run = time.perf_counter() - t0
+        pairs = sum(t.num_leaves() for t in b.gbm.trees)
+        loop = b.gbm._grower._mega
+        if m == "mega":
+            splits = (LG_PARAMS["max_leaves"] - 1) * LG_ROUNDS
+            if (loop.captures, loop.replays) != (1, splits):
+                raise AssertionError(f"lossguide mega: captures "
+                                     f"{loop.captures}, replays "
+                                     f"{loop.replays}")
+            # a replay a split, the root's search in each tree's load, and
+            # the first tree's warm-up and second load
+            if c["hist_scan"] != splits + LG_ROUNDS + 2:
+                raise AssertionError(f"lossguide mega launched {c}")
+        elif c["hist_scan"] != pairs:
+            raise AssertionError(f"lossguide scan launched {c}")
+        runs.append(c)
+        lg_raw[m] = hashlib.sha256(saved_bytes(b)).hexdigest()
+        out[f"lg_{m}_s"] = t_run
+        log(f"mega_capture lossguide {m}: {LG_ROUNDS} rounds of 255 leaves "
+            f"in {t_run:.3f} s (host clock), K4 {c['hist_scan']}, sha256 "
+            f"{lg_raw[m]}")
+    if lg_raw["scan"] != lg_raw["mega"]:
+        raise AssertionError(f"lossguide scan and mega differ: {lg_raw}")
+    out["lg_sha"] = lg_raw["mega"]
+
+    # -- +sub over K2 at 200,000 rows, depth 8
+    sub_p = dict(HIGGS_PARAMS, hist_method="prehot+sub")
+    dsub = xt.DMatrix(X[:SUB_ROWS], label=y[:SUB_ROWS])
+    with NoPlainBuilds():
+        b, c = train_launches("mega_capture prehot+sub", lambda: xt.train(
+            sub_p, dsub, SUB_ROUNDS, verbose_eval=False))
+    if c["hist_int8x2"] != 8 * SUB_ROUNDS or c["hist_scan"] or \
+            c["hist_f32"]:
+        raise AssertionError(f"prehot+sub launched {c}, expected K2 once a "
+                             "level")
+    runs.append(c)
+    full, ties, gap, worst = card_against_cpu(
+        xt, "prehot+sub", sub_p, X, rounds=2, n_rows=SUB_ROWS, label=y)
+    out.update(sub_full=full, sub_gap=gap)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return runs, out
+
+
 def train_launches(name, train):
     """Run ``train()`` with every launch count set to 0 just before and
     read just after; returns (its result, the counts)."""
@@ -8104,6 +8274,13 @@ def main() -> int:
     reset_counts()
     with Server(models={"higgs": raw}, max_batch=512) as srv:
         srv.warmup()
+        # one walk graph captured a bucket, all at warmup
+        n_buckets = len(srv.ladder.sizes)
+        if srv.recompile_counter.compiles() != n_buckets or \
+                srv.registry.get("higgs").graphs.cache_size() != n_buckets:
+            raise AssertionError(
+                f"the Server captured {srv.recompile_counter.compiles()} "
+                f"graphs for {n_buckets} buckets")
 
         def client(tid):
             for i in range(tid, n_req, n_threads):
@@ -8120,6 +8297,10 @@ def main() -> int:
             t.join()
         wall = time.perf_counter() - t0
         snap = srv.metrics_snapshot()
+        if srv.recompiles_after_warmup != 0 or \
+                snap["recompiles_after_warmup"] != 0:
+            raise AssertionError(f"the Server recompiled after warmup: "
+                                 f"{srv.recompiles_after_warmup}")
     counts_serve = read_counts()
     launches_serve = counts_serve["walk_packed"]
     if launches_serve < 1 or counts_serve["walk_spread"] != launches_serve:
@@ -8141,7 +8322,8 @@ def main() -> int:
         f"batches {snap['counters'].get('batches')}, kernel launches "
         f"{launches_serve} (spread {counts_serve['walk_spread']}, staged "
         f"{counts_serve['walk_staged']}); answers equal Booster.predict "
-        f"bit for bit")
+        f"bit for bit; {n_buckets} walk graphs captured at warmup (one a "
+        f"bucket), recompiles after warmup 0")
     for st in ("queue", "pad", "h2d", "compute", "d2h"):
         s = snap["stages"][st]
         log(f"  stage {st}: p50 {s['p50_ms']} ms p99 {s['p99_ms']} ms")
@@ -8739,6 +8921,14 @@ def main() -> int:
             stop_children()
     phase_line("continuous_pipeline")
 
+    # ---- main path: the mega schedule as captured graphs, and +sub
+    mc_runs, mc = mega_capture(xt, dev, X, y, dtr)
+    log(f"mega_capture: {mc['phase_s']:.1f} s; depth {MC_DEPTH} seconds a "
+        f"round scan {mc['s_round']['scan']} mega {mc['s_round']['mega']}; "
+        f"sha256 {mc['sha']}; lossguide {mc['lg_sha']} ({mc['lg_scan_s']:.3f}"
+        f" / {mc['lg_mega_s']:.3f} s for {LG_ROUNDS} rounds) [{card}]")
+    phase_line("mega_capture")
+
     # ------------------------------------------------------- times on card
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
@@ -8837,7 +9027,7 @@ def main() -> int:
             *ext_runs, *plo_runs, *covdart_runs, *mslr_runs, *ag_runs,
             *lg_runs, *mt_runs, *qr_runs, *surv_runs, *ins_runs, *ax_runs,
             *kg_runs, *gl_runs, *sh_runs, *sk_runs, *ss_runs, *dist_runs,
-            *col_runs, *pm_runs, *cp_runs]
+            *col_runs, *pm_runs, *cp_runs, *mc_runs]
     kernels = [{
         "name": "walk_packed",
         "route": "cuda",

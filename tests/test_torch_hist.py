@@ -288,9 +288,15 @@ def test_hist_method_map():
     for args in ((1000, 4, 256), (10 ** 6, 1, 256), (1000, 512, 256)):
         assert resolve_hist_kernel("pallas:bf16x2", *args) == "bf16x2"
         assert resolve_hist_kernel("pallas:bf16", *args) == "bf16"
-    for m in ("mega", "auto+sub"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_hist_kernel(m, 1000, 4, 256)
+    # mega builds its levels as scan; a +sub / +nosub suffix keeps the
+    # kernel (tree/grow.py decides the subtraction)
+    for args in ((1000, 4, 256), (1000, 256, 256), (2 ** 24, 1, 256)):
+        assert resolve_hist_kernel("mega", *args) == \
+            resolve_hist_kernel("scan", *args)
+        for m in ("auto", "prehot", "segment", "scan"):
+            assert resolve_hist_kernel(m + "+sub", *args) == \
+                resolve_hist_kernel(m + "+nosub", *args) == \
+                resolve_hist_kernel(m, *args)
     with pytest.raises(ValueError, match="unknown"):
         resolve_hist_kernel("magic", 1000, 4, 256)
 

@@ -24,7 +24,7 @@ counts asserted are the trees equal in full.
 - models saved by either package load into the other and predict the
   same bits; dumps and ``pred_leaf`` equal; refresh and prune over
   lossguide trees;
-- uncapped lossguide equals depthwise; the refusal of ``mega`` (A.6)
+- uncapped lossguide equals depthwise; ``mega`` trains scan's bytes
   and the two-level fall-back's warning (paged lossguide is
   ``tests/test_torch_paged_growers.py``).
 """
@@ -365,8 +365,15 @@ def test_refresh_and_prune_over_lossguide_trees(lg_models, updater):
 def test_lossguide_refusals_and_fall_back(binary):
     X, y = binary
     dm = xt.DMatrix(X[:500], label=y[:500])
-    with pytest.raises(NotImplementedError, match=r"A\.6"):
-        xt.train(dict(LG, hist_method="mega", **CPU), dm, 1)
+    # mega is the scan search on the device's greedy loop
+    # (tests/test_torch_mega.py): the same bytes once one method is
+    # recorded
+    raws = []
+    for m in ("scan", "mega"):
+        b = xt.train(dict(LG, hist_method=m, **CPU), dm, 1)
+        b.set_param({"hist_method": "scan"})
+        raws.append(bytes(b.save_raw("ubj")))
+    assert raws[0] == raws[1]
     with pytest.raises(ValueError, match="max_leaves > 0 or max_depth > 0"):
         xt.train(dict(LG, max_leaves=0, **CPU), dm, 1)
     with pytest.raises(ValueError, match="unknown grow_policy"):

@@ -265,16 +265,22 @@ def test_mesh_refuses_exact_and_gblinear(tmesh, params, exc, words):
 
 
 def test_mesh_refuses_the_unported(tmesh):
-    """Sibling subtraction stays refused (as under the JAX package's
-    mesh), under row and column split alike; column split itself trains
-    on a mesh (``tests/test_torch_col_split.py``) and ``exact`` under it
-    is refused with the JAX package's words."""
+    """Sibling subtraction is ignored under a mesh (as the JAX package's
+    is: one shard's share of the built children can pass its local half),
+    under row and column split alike: ``auto+sub`` saves ``auto``'s
+    bytes. Column split itself trains on a mesh
+    (``tests/test_torch_col_split.py``) and ``exact`` under it is refused
+    with the JAX package's words."""
     X, y = _binary(400, 4, seed=2)
     for mode in ("row", "col"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            xt.train({"device": "cpu", "mesh": tmesh, "data_split_mode": mode,
-                      "hist_method": "auto+sub"},
-                     xt.DMatrix(X, label=y), 1, verbose_eval=False)
+        raws = []
+        for m in ("auto", "auto+sub"):
+            b = xt.train({"device": "cpu", "mesh": tmesh,
+                          "data_split_mode": mode, "hist_method": m},
+                         xt.DMatrix(X, label=y), 2, verbose_eval=False)
+            b.set_param({"hist_method": "auto"})
+            raws.append(bytes(b.save_raw("ubj")))
+        assert raws[0] == raws[1], mode
     with pytest.raises(NotImplementedError,
                        match="data_split_mode=col supports "
                              "tree_method=hist/approx"):

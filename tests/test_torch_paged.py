@@ -469,7 +469,9 @@ def test_collapse_fires_within_the_budget_only(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"hist_method": "auto+sub"}, "A.6"),
+    # the JAX package's refusal of the two-level names on paged lossguide
+    ({"hist_method": "mega", "grow_policy": "lossguide", "max_leaves": 4},
+     "resident matrices only"),
     # the JAX package's permanent refusal (core.py:856-858)
     ({"data_split_mode": "col", "mesh": xt.make_data_mesh(
         devices=["cpu"] * 2)}, "data_split_mode=row only"),
@@ -484,6 +486,25 @@ def test_unported_paged_configurations_raise(params, item, tmp_path,
         xt.train(dict({"objective": "binary:logistic", "max_bin": 16,
                        "device": "cpu"}, **params), tq, 1,
                  verbose_eval=False)
+
+
+def test_paged_sub_suffix_is_dropped(tmp_path, monkeypatch):
+    """``"<kernel>+sub"`` on a paged matrix builds every node of a page
+    pass, as the JAX package's paged tier does (it drops the suffix):
+    ``auto+sub`` saves ``auto``'s bytes."""
+    _set(monkeypatch)
+    X, y = _data(53, n=1000)
+    raws = []
+    for m in ("auto", "auto+sub"):
+        tq = xt.QuantileDMatrix(PortIter(X, y, 2, cache_prefix=str(
+            tmp_path / m.replace("+", "_"))), max_bin=16)
+        b = xt.train({"objective": "binary:logistic", "max_bin": 16,
+                      "device": "cpu", "hist_method": m}, tq, 2,
+                     verbose_eval=False)
+        assert tq.binned(16, CPU).is_paged
+        b.set_param({"hist_method": "auto"})
+        raws.append(bytes(b.save_raw("ubj")))
+    assert raws[0] == raws[1]
 
 
 def test_unported_paged_methods_raise(tmp_path, monkeypatch):

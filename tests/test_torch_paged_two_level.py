@@ -225,10 +225,13 @@ def test_two_level_builds_do_not_depend_on_the_budget(budget, tmp_path,
 
 def test_page_kernels_take_auto_for_the_two_level_names():
     """The page passes under a two-level name are ``auto``'s plain builds
-    (the JAX package's ``_make_kernels``); ``+sub`` keeps its name."""
+    (the JAX package's ``_make_kernels``); a ``+sub`` / ``+nosub`` suffix
+    is dropped, as the JAX package's ``_strip_hist_suffix`` drops it."""
     for m in METHODS:
         assert _PageKernels(64, m, True).hist_method == "auto"
-    assert _PageKernels(64, "auto+sub", True).hist_method == "auto+sub"
+        assert _PageKernels(64, m + "+sub", True).hist_method == "auto"
+    assert _PageKernels(64, "auto+sub", True).hist_method == "auto"
+    assert _PageKernels(64, "prehot+nosub", True).hist_method == "prehot"
 
 
 @pytest.mark.parametrize("what", ["categorical", "bins"])

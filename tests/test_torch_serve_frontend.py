@@ -3,10 +3,10 @@ against the JAX package's on the same model and the same requests:
 predictions to ``RTOL`` (``tests/test_torch_serve.py``), SHAP
 contributions to ``JAX_TOL`` (``tests/test_torch_shap.py``: the JAX
 package's recursion rounds in float32), and the same status codes,
-``error_type``s and Prometheus family names. The JAX package's
-``recompiles`` counter and ``recompiles_after_warmup`` gauge count its
-compile cache, which the port does not have; every other family is
-common. ``GET /v1/model/<name>/report`` answers the JAX package's
+``error_type``s and Prometheus family names, every family common (the
+port's ``recompiles`` counter and ``recompiles_after_warmup`` gauge count
+its serving graphs' captures where the JAX package's count its compile
+cache). ``GET /v1/model/<name>/report`` answers the JAX package's
 report."""
 
 import io
@@ -32,9 +32,6 @@ from xgboost_tpu_torch.serve import frontend
 RTOL = 1e-6
 JAX_TOL = 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the JAX package's compile-cache series (no port counterpart)
-JAX_ONLY = {"xtpu_serve_recompiles_total",
-            "xtpu_serve_recompiles_after_warmup"}
 
 
 @pytest.fixture(scope="module")
@@ -208,7 +205,7 @@ def test_prometheus_families(model, both):
     assert c1 == c2 == 200
     f1, f2 = _families(t1), _families(t2)
     assert "xtpu_serve_stage_latency_seconds" in f1
-    assert f1 == {k: v for k, v in f2.items() if k not in JAX_ONLY}
+    assert f1 == f2
     stages = set(re.findall(r'stage="(\w+)"', t1))
     assert {"queue", "compute", "e2e", "shap"} <= stages
 

@@ -186,8 +186,8 @@ def test_schedules_grow_the_same_model(higgs, depth, monkeypatch):
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"hist_method": "mega"}, r"A\.6"),
-    ({"hist_method": "fused+sub"}, r"A\.6"),
+    ({"hist_method": "mega", "max_bin": 512}, "max_bin <= 256"),
+    ({"hist_method": "fused+sub", "max_bin": 300}, "max_bin <= 256"),
     ({"hist_method": "fused", "max_bin": 512}, "max_bin <= 256"),
     ({"hist_method": "scan", "max_bin": 300}, "max_bin <= 256"),
 ])

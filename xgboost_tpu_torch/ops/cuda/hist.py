@@ -36,7 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..split import COARSE_B, COARSE_SPAN
-from . import build
+from . import build, graphs
 
 # launches of each kernel in this process (the counts chip_smoke.py reads
 # to show that the main path went through the kernels)
@@ -128,8 +128,18 @@ def _common(bins: torch.Tensor, n_nodes: int, max_nbins: int,
 
 
 def _count(name: str) -> None:
+    """One launch of ``name``; under a graph capture it goes to the
+    capture's tally, and each replay adds it (``ops/cuda/graphs.py``)."""
+    if graphs.tally("hist", name):
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+def add_launches(name: str, k: int) -> None:
+    """``k`` launches of ``name`` run by graph replays."""
+    with _launch_lock:
+        LAUNCHES[name] += k
 
 
 def _int8x2_args(bins, q, rel, inv, n_nodes, max_nbins, packed_u4=0):

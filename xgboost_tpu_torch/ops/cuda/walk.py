@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import build
+from . import build, graphs
 
 # launches of the walk kernel in this process, in all and per schedule
 # (the counts chip_smoke.py reads to show that the main path went through
@@ -247,7 +247,6 @@ def walk_packed_cuda(words: torch.Tensor, values: torch.Tensor,
     :func:`walk_plan` picks). Launches on the current stream and does not
     synchronise.
     """
-    global LAUNCHES
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"walk_packed_cuda needs CUDA tensors, X is on {dev}")
@@ -305,7 +304,14 @@ def walk_packed_cuda(words: torch.Tensor, values: torch.Tensor,
             leaves.data_ptr() if leaves is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
-    with _launch_lock:
-        LAUNCHES += 1
-        SCHEDULE_LAUNCHES[plan.schedule] += 1
+    if not graphs.tally("walk", plan.schedule):    # a capture's, else ours
+        add_launches(plan.schedule, 1)
     return out, leaves
+
+
+def add_launches(schedule: str, k: int) -> None:
+    """``k`` launches on ``schedule`` (a launch, or graph replays)."""
+    global LAUNCHES
+    with _launch_lock:
+        LAUNCHES += k
+        SCHEDULE_LAUNCHES[schedule] += k

@@ -147,6 +147,18 @@ def refuse_categorical_two_level(method: str) -> None:
         "256; a matrix with categorical features trains with 'auto'")
 
 
+def split_hist_method(method: str) -> Tuple[str, bool]:
+    """``hist_method`` -> (its kernel name, sibling subtraction asked):
+    ``"<kernel>+sub"`` asks for the smaller-child build, ``"+nosub"`` is
+    the explicit spelling of the default (the JAX package's
+    ``tree/grow.py:285-295``). Whether the subtraction runs is
+    ``tree/grow.py sibling_subtraction``'s call."""
+    for suffix, sub in (("+sub", True), ("+nosub", False)):
+        if method.endswith(suffix):
+            return method[:-len(suffix)], sub
+    return method, False
+
+
 def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
                         max_nbins: int, has_missing: bool = True,
                         numeric: bool = True, col_split: bool = False) -> str:
@@ -165,7 +177,9 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
     ``auto`` never takes K4, and ``coarse``, ``fused`` and ``scan``
     raise. ``col_split`` (feature-sharded bins): ``auto`` never takes K4
     either."""
-    base = method[:-len("+nosub")] if method.endswith("+nosub") else method
+    base = split_hist_method(method)[0]
+    if base == "mega":          # the scan schedule's levels, one graph
+        base = "scan"
     if not numeric and base in ("coarse", "fused", "scan"):
         refuse_categorical_two_level(method)
     if base == "scan":
@@ -190,10 +204,6 @@ def resolve_hist_kernel(method: str, n_rows: int, n_nodes: int,
         return "f32"
     if base.startswith("pallas:") and base[len("pallas:"):] in K3_KERNELS:
         return base[len("pallas:"):]       # pallas:f32 / :bf16 / :bf16x2
-    if base == "mega" or method.endswith("+sub"):
-        raise NotImplementedError(
-            f"hist_method={method!r} is not in the PyTorch port yet "
-            "(the mega schedule and sibling subtraction, ROADMAP A.6)")
     raise ValueError(f"unknown hist method {method!r}")
 
 
@@ -625,16 +635,80 @@ def scan_level_hists(bins: torch.Tensor, gpair: torch.Tensor,
 
 
 def scan_advance_level(bins: torch.Tensor, gpair: torch.Tensor,
-                       positions: torch.Tensor, prev: LevelSplits, lo: int,
-                       n_level: int, missing_bin: int, max_nbins: int,
+                       positions: torch.Tensor, prev: LevelSplits, lo,
+                       n_level, missing_bin: int, max_nbins: int,
                        max_abs: Optional[torch.Tensor] = None,
-                       total_rows: Optional[int] = None):
+                       total_rows: Optional[int] = None,
+                       n_cap: Optional[int] = None):
     """A level boundary of ``scan``: the plain advance below ``prev``'s
     splits, then :func:`scan_level_hists` of the new level ->
-    (positions, fine, coarse)."""
+    (positions, fine, coarse).
+
+    ``n_cap`` (the ``mega`` schedule, the JAX package's
+    ``scan_advance_level(n_cap=)``): ``lo`` and ``n_level`` are 0-d
+    device tensors and the level is built at the static capacity of
+    ``n_cap`` nodes, the rows outside the level at ``n_cap``. Histogram
+    rows [0, n_level) are the uncapped build's bit for bit: each node's
+    sums are integers of its own rows, and the quantiser's scale is the
+    whole gradient's; the rows past ``n_level`` are zero."""
     positions = advance_level(bins, positions, prev, missing_bin)
+    cap = n_level if n_cap is None else n_cap
     fine, coarse = scan_level_hists(bins, gpair,
-                                    level_rel(positions, lo, n_level),
-                                    n_level, max_nbins, missing_bin,
+                                    level_rel(positions, lo, n_level, n_cap),
+                                    cap, max_nbins, missing_bin,
                                     max_abs, total_rows)
     return positions, fine, coarse
+
+
+def subtract_siblings(parent_hist: torch.Tensor, child_hist: torch.Tensor,
+                      built_is_left: torch.Tensor):
+    """The sibling subtraction (reference ``src/tree/hist/histogram.h:
+    192-207``; the JAX package's ``subtract_siblings``): from each
+    parent's histogram and one built child [P, ...], the other child is
+    the difference, in f32 -> (left, right) [P, ...] each."""
+    sibling = parent_hist - child_hist
+    pick = built_is_left.view((-1,) + (1,) * (child_hist.dim() - 1))
+    return (torch.where(pick, child_hist, sibling),
+            torch.where(pick, sibling, child_hist))
+
+
+def build_smaller_children(bins: torch.Tensor, gpair: torch.Tensor,
+                           positions: torch.Tensor, lo: int, n_level: int,
+                           built_is_left: torch.Tensor,
+                           parent_hist: torch.Tensor, max_nbins: int,
+                           method: str, has_missing: bool = True,
+                           numeric: bool = True) -> torch.Tensor:
+    """One level of ``"<kernel>+sub"`` (the JAX package's ``tree/grow.py:
+    755-775``): each parent's child with fewer rows (``built_is_left``
+    [n_level // 2], from the counts) is built from its rows gathered into
+    a buffer of ``max(n // 2, 1)`` rows (the rest zero bins and zero
+    gradients, inactive), and its sibling is ``parent_hist`` minus it ->
+    the level's [n_level, F, B, 2] f32, children interleaved. The
+    compacted build quantises with the gathered rows' own scale, as the
+    JAX package's does. The gather reads the row count from the device
+    (``torch.nonzero``): this build never enters a captured graph."""
+    n = bins.shape[0]
+    n_parents = n_level // 2
+    child = positions - lo
+    in_level = (child >= 0) & (child < n_level)
+    par = child >> 1
+    is_left = (child & 1) == 0
+    built = in_level & (is_left == built_is_left[par.clamp(0,
+                                                           n_parents - 1)])
+    cap = max(n // 2, 1)
+    idx = torch.nonzero(built)[:, 0]
+    m = idx.shape[0]
+    bins_c = torch.zeros((cap,) + tuple(bins.shape[1:]), dtype=bins.dtype,
+                         device=bins.device)
+    gp_c = torch.zeros((cap, 2), dtype=gpair.dtype, device=gpair.device)
+    par_c = torch.full((cap,), n_parents, dtype=torch.int32,
+                       device=bins.device)
+    bins_c[:m] = bins[idx]
+    gp_c[:m] = gpair[idx]
+    par_c[:m] = par[idx].to(torch.int32)
+    hist_b = build_hist(bins_c, gp_c, par_c, n_parents, max_nbins,
+                        method=method, has_missing=has_missing,
+                        numeric=numeric)
+    left, right = subtract_siblings(parent_hist, hist_b, built_is_left)
+    return torch.stack([left, right], dim=1).reshape(
+        (n_level,) + tuple(left.shape[1:]))

@@ -32,9 +32,12 @@ class LevelSplits(NamedTuple):
     """The splits of one level of ``n`` nodes starting at heap node ``lo``
     (the JAX package's ``"dense"`` payload of ``fused_advance_coarse``):
     feature (-1 where the node did not split), threshold bin, default
-    direction and whether the node split, [n] each."""
+    direction and whether the node split, [n] each. Under the ``mega``
+    schedule ``lo`` is a 0-d device tensor and the level is padded to its
+    capacity with nodes that did not split (:func:`advance_level` takes
+    both)."""
 
-    lo: int
+    lo: "int | torch.Tensor"
     feat: torch.Tensor
     thr: torch.Tensor
     dleft: torch.Tensor
@@ -97,12 +100,17 @@ def _route(bins, positions, feat, thr, dleft, splitting, missing_bin,
                        positions)
 
 
-def level_rel(positions: torch.Tensor, lo: int, n_level: int) -> torch.Tensor:
+def level_rel(positions: torch.Tensor, lo, n_level,
+              n_cap: Optional[int] = None) -> torch.Tensor:
     """[n] int32 position relative to the level of ``n_level`` nodes
-    starting at heap node ``lo``; ``n_level`` outside it (inactive)."""
+    starting at heap node ``lo``; ``n_level`` outside it (inactive).
+    ``n_cap``: the level padded to ``n_cap`` nodes (the ``mega``
+    schedule's capacity, ``tree/grow.py``): rows outside it take
+    ``n_cap``, and ``lo`` / ``n_level`` may be 0-d device tensors."""
+    cap = n_level if n_cap is None else n_cap
     in_level = (positions >= lo) & (positions < lo + n_level)
     return torch.where(in_level, positions - lo,
-                       torch.full_like(positions, n_level)).to(torch.int32)
+                       torch.full_like(positions, cap)).to(torch.int32)
 
 
 def update_positions(bins: torch.Tensor, positions: torch.Tensor,

@@ -76,6 +76,25 @@ def pack_mask(mask: torch.Tensor, n_words: int) -> torch.Tensor:
     return (bits << shifts).sum(dim=2)
 
 
+def bin_prefix_sums(hist: torch.Tensor) -> torch.Tensor:
+    """hist [N, F, nb, 2] f32 -> its prefix sums over the bins as
+    [N, F, 2, nb] f32: each (node, feature, component) summed in bin
+    order in float64, each sum rounded to f32 once. That is the CPU's
+    own ``cumsum`` of f32 (a float64 accumulator), and on the card the
+    scan of an axis that is not the innermost one runs in the same order:
+    CUDA's scan of an innermost axis splits each row among a number of
+    threads chosen from the count of rows, so the same node's sums would
+    round otherwise in a tensor of more nodes, and an f32 accumulator in
+    bin order drifts from the CPU's by up to a rounding a bin. So a level
+    searched at the ``mega`` schedule's padded capacity
+    (``tree/grow.py``) gives the unpadded level's bits, and the card's
+    sums are the CPU's. (With the bins outermost the scan's threads read
+    neighbouring addresses, but then a level of up to 128 nodes fills at
+    most 14 blocks: twice the device time on the card.)"""
+    return torch.cumsum(hist.to(torch.float64), dim=2).to(
+        torch.float32).movedim(3, 2)
+
+
 def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
                     n_real_bins: torch.Tensor, param: TrainParam,
                     has_missing: bool = True,
@@ -100,7 +119,7 @@ def evaluate_splits(hist: torch.Tensor, parent_sum: torch.Tensor,
     N, F, B, _ = hist.shape
     nb = B - 1 if has_missing else B                    # real-bin slots
     present = hist[:, :, :nb, :].movedim(3, 2)          # [N, F, 2, nb]
-    cum = torch.cumsum(present, dim=3)                  # missing -> right
+    cum = bin_prefix_sums(hist[:, :, :nb, :])           # missing -> right
     n_dirs = 2 if has_missing else 1
     if has_missing:
         miss = hist[:, :, B - 1, :]                     # [N, F, 2]
@@ -371,8 +390,7 @@ def choose_refine_window(hist_c: torch.Tensor, parent_sum: torch.Tensor,
     w + 1): the best coarse boundary over both missing directions under
     the min_child_weight test, first maximum on ties, clamped per feature
     so that the window stays on the feature's real coarse bins."""
-    present = hist_c[:, :, :COARSE_SPAN, :].movedim(3, 2)   # [N, F, 2, 16]
-    cum = torch.cumsum(present, dim=3)
+    cum = bin_prefix_sums(hist_c[:, :, :COARSE_SPAN, :])    # [N, F, 2, 16]
     if has_missing:
         miss = hist_c[:, :, COARSE_B - 1, :]                # [N, F, 2]
         left = torch.stack([cum, cum + miss[:, :, :, None]], dim=2)

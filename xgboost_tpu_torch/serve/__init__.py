@@ -6,7 +6,7 @@ jsonl and HTTP front ends (``python -m xgboost_tpu_torch serve ...``,
 ``serve/frontend.py``)."""
 
 from .batcher import MicroBatcher, PredictRequest
-from .buckets import BucketLadder
+from .buckets import BucketLadder, RecompileCounter
 from .client import ServeClient
 from .errors import (DeadlineExceeded, ModelLoadError, ServeError,
                      ServerClosed, ServerOverloaded, UnknownModel)
@@ -19,6 +19,6 @@ from .server import ServeConfig, Server
 __all__ = ["BucketLadder", "DeadlineExceeded", "FleetConfig", "FleetRouter",
            "LatencyHistogram", "MicroBatcher", "ModelLoadError",
            "ModelRegistry", "PackError", "PackedForest", "PredictRequest",
-           "ServeClient", "ServeConfig", "ServeError", "ServeMetrics",
-           "ServedModel", "Server", "ServerClosed", "ServerOverloaded",
-           "UnknownModel"]
+           "RecompileCounter", "ServeClient", "ServeConfig", "ServeError",
+           "ServeMetrics", "ServedModel", "Server", "ServerClosed",
+           "ServerOverloaded", "UnknownModel"]

@@ -1,15 +1,23 @@
-"""Bucketed batch shapes.
+"""Bucketed batch shapes and the recompile counter.
 
 Every device batch is padded to one of a small fixed set of row counts,
 so the set of batch shapes the walk sees is ``len(ladder)`` per model:
-the shapes a future CUDA-graph capture per bucket would need, and the
-shapes ``Server.warmup`` runs once up front. The contribs route has a
-ladder of its own (``ServeConfig.shap_ladder``).
+``Server.warmup`` captures each (model version, bucket) walk as a CUDA
+graph once up front (``serve/registry.py``), and every later batch
+replays one. The contribs route has a ladder of its own
+(``ServeConfig.shap_ladder``), whose buckets are prepared once each.
+
+:class:`RecompileCounter` makes the "zero recompiles after warmup"
+guarantee testable, as the JAX package's does over its jitted programs'
+trace caches: it reads the captures made (graphs on the card, prepared
+buckets on the CPU) and the contribs buckets prepared, so a capture after
+warmup shows as a counted recompile instead of an unexplained latency
+spike.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -72,3 +80,46 @@ class BucketLadder:
             raise ValueError(f"batch of {n} rows exceeds bucket {bucket}")
         return np.concatenate(
             [X, np.zeros((bucket - n,) + X.shape[1:], X.dtype)])
+
+
+class RecompileCounter:
+    """Counts the serving path's preparations (the JAX package's
+    ``RecompileCounter`` over ``_cache_size()``): each registered source
+    has ``cache_size()``, the preparations it has made, which never
+    decrease; ``mark()`` snapshots their sum after warmup and
+    ``since_mark()`` is the SLO number, recompiles after warmup."""
+
+    def __init__(self, fns: Sequence = ()) -> None:
+        self._fns: List = []
+        self._mark = 0
+        for f in fns:
+            self.register(f)
+
+    @classmethod
+    def for_forest_predictor(cls, registry) -> "RecompileCounter":
+        """Counter over a server's serving programs: the walk graphs of
+        every (model version, bucket) and the contribs route's prepared
+        buckets, both kept by its ``ModelRegistry``."""
+        return cls([registry])
+
+    def register(self, fn) -> None:
+        if not hasattr(fn, "cache_size"):
+            raise TypeError(f"{fn!r} counts no preparations (no "
+                            "cache_size)")
+        self._fns.append(fn)
+
+    def compiles(self) -> int:
+        """The captures made."""
+        return sum(int(f.cache_size()) for f in self._fns)
+
+    def mark(self) -> None:
+        self._mark = self.compiles()
+
+    def absorb(self, n: int) -> None:
+        """Fold ``n`` expected captures into the baseline (a hot-swapped
+        model's warmup captures are planned work, not an SLO
+        violation)."""
+        self._mark += int(n)
+
+    def since_mark(self) -> int:
+        return max(0, self.compiles() - self._mark)

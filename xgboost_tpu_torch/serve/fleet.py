@@ -246,6 +246,7 @@ class FleetRouter:
                     f"fleet at max_replicas={self.config.max_replicas}")
             old_place = {m: self.placement(m) for m in self._model_names()}
             srv = self._add_replica_locked()
+            c0 = self._recompiles_locked()
             moved = 0
             for mname, was in old_place.items():
                 now = self._ring.place(mname, self.config.replication)
@@ -261,7 +262,8 @@ class FleetRouter:
                     except (UnknownModel, KeyError):
                         pass
             if warm:
-                srv.mark_warm()
+                srv.mark_warm()  # fresh baseline; no absorb needed on it
+            self._absorb_fleet_locked(c0, exclude={srv.replica})
             self._inc("scale_up_events")
             logger.info("fleet: added replica %s (%d models placed)",
                         srv.replica, moved)
@@ -280,6 +282,7 @@ class FleetRouter:
             served = [m.name for m in victim.registry.models()]
             self._ring.remove(name)       # stop routing to it NOW
             del self._replicas[name]
+            c0 = self._recompiles_locked()
             for mname in served:
                 now = self._ring.place(mname, self.config.replication)
                 for tgt in now:
@@ -290,6 +293,7 @@ class FleetRouter:
                         src = victim.registry.get(mname)
                         dst.load_model(mname, src.booster,
                                        version=src.version, warm=True)
+            self._absorb_fleet_locked(c0)
             self._inc("scale_down_events")
         # drain OUTSIDE the lock: queued dispatches may take a while and
         # the router must keep serving the survivors meanwhile
@@ -301,6 +305,28 @@ class FleetRouter:
         for r in self._replicas.values():
             names.update(m.name for m in r.registry.models())
         return sorted(names)
+
+    def _recompiles_locked(self) -> Dict[str, int]:
+        """Each replica's recompiles after its warmup, before a fleet
+        operation."""
+        return {n: r.recompiles_after_warmup
+                for n, r in self._replicas.items()}
+
+    def _absorb_fleet_locked(self, before: Dict[str, int],
+                             exclude: Set[str] = frozenset()) -> None:
+        """Absorb the planned captures a fleet operation (a placement, a
+        swap) left on each warmed replica's count since ``before`` into
+        its baseline. Each replica counts its own graphs (the JAX
+        package's caches are process-global, so it spreads one replica's
+        delta over the fleet); a warmed Server's ``_warm_model`` absorbs
+        its own warmups, so this is what any other planned capture of the
+        operation left."""
+        for rname, r in self._replicas.items():
+            if rname in exclude or not r._warmed or rname not in before:
+                continue
+            extra = r.recompiles_after_warmup - before[rname]
+            if extra > 0:
+                r.recompile_counter.absorb(extra)
 
     # ------------------------------------------------------------- lifecycle
     def load_model(self, name: str, source, *,
@@ -324,6 +350,7 @@ class FleetRouter:
             placed = self._ring.place(name, self.config.replication)
             if not placed:
                 raise ServeError("fleet has no replicas")
+            c0 = self._recompiles_locked()
             prepared: List[Tuple[Server, object]] = []
             v = version
             for rname in placed:
@@ -345,6 +372,7 @@ class FleetRouter:
                 if swap:
                     r.metrics.inc("swaps")
                 out = sm
+            self._absorb_fleet_locked(c0)
             self._inc("promotions")
             return out
 
@@ -568,8 +596,16 @@ class FleetRouter:
                 agg[k] = agg.get(k, 0) + int(v)
         return {"fleet": fleet, "counters": agg,
                 "n_replicas": len(reps),
+                "recompiles_after_warmup": max(
+                    (snap.get("recompiles_after_warmup") or 0)
+                    for snap in reps.values()) if reps else 0,
                 "models": self.registry.describe(),
                 "replicas": reps}
+
+    @property
+    def recompiles_after_warmup(self) -> int:
+        return max((r.recompiles_after_warmup for r in self.replicas()),
+                   default=0)
 
     def _collect_obs(self) -> List[Family]:
         with self._lock:

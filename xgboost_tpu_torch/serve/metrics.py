@@ -25,10 +25,13 @@ STAGES = ("queue", "pad", "h2d", "compute", "d2h", "e2e", "shap")
 
 # always exposed (at 0 before the first increment): pre-declared series
 # let rate()/increase() see the first real increment, and give scrape
-# consumers a stable schema to alert on. The JAX package's "recompiles"
-# counts its executable-cache misses; the port has no such cache.
+# consumers a stable schema to alert on. "recompiles" is the serving
+# captures made since warmup (``buckets.py RecompileCounter``), written
+# at each periodic log line as the JAX package writes its executable-
+# cache misses.
 CORE_COUNTERS = ("requests", "rows", "batches", "sheds",
-                 "deadline_exceeded", "errors", "swaps", "rollbacks")
+                 "deadline_exceeded", "errors", "swaps", "rollbacks",
+                 "recompiles")
 
 
 class LatencyHistogram:
@@ -118,6 +121,12 @@ class ServeMetrics:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + by
 
+    def set(self, name: str, value: int) -> None:
+        """Overwrite a gauge-style counter (``recompiles``) under the lock
+        that :meth:`inc` and :meth:`snapshot` hold."""
+        with self._lock:
+            self.counters[name] = value
+
     def get_many(self, names: Sequence[str]) -> Dict[str, int]:
         """One locked read for several counters — a consistent cut."""
         with self._lock:
@@ -160,6 +169,7 @@ class ServeMetrics:
                 f"batches={c.get('batches', 0)}",
                 f"shed={c.get('sheds', 0)}",
                 f"deadline={c.get('deadline_exceeded', 0)}",
+                f"recompiles={c.get('recompiles', 0)}",
                 f"p50={e2e.percentile(50) * 1e3:.2f}ms",
                 f"p99={e2e.percentile(99) * 1e3:.2f}ms",
                 f"queue_p99={q.percentile(99) * 1e3:.2f}ms",

@@ -22,6 +22,16 @@ tables (the Booster's, ``ops/shap.py build_shap_pack``) are built on
 first use, once, under a lock, and the contribs run as float64 torch
 ops on the device.
 
+Each ServedModel captures its walk and transform once per bucket
+(:meth:`ServedModel.run_bucket`, ``ops/cuda/graphs.py CapturedLoop``:
+on the card a CUDA graph over a static input buffer of the bucket's
+shape, K1 and the transform replayed per batch; a vector-leaf forest's
+torch walk runs eagerly through the same entry). The registry counts
+every capture and every contribs bucket prepared
+(:meth:`ModelRegistry.cache_size`, what ``buckets.py RecompileCounter``
+reads), and frees a version's graphs when it leaves for good: unloaded,
+rolled back from, or pushed out of the rollback history by a swap.
+
 Model sources: an in-process ``Booster``, a path to a model file (JSON
 / UBJ, native or reference schema), or raw model ``bytes``.
 """
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from ..boosting.predict import margin_raw, stack_trees
+from ..ops.cuda.graphs import CapturedLoop
 from ..ops.shap import contribs
 from ..tree.multi import is_vector_leaf
 from .errors import ModelLoadError, UnknownModel
@@ -57,11 +68,28 @@ def _load_booster(source):
             f"{e}") from e
 
 
+class _BucketWalk:
+    """One bucket's serving program: the walk and the transform over a
+    static input buffer [rows, width] (the graph reads it in place)."""
+
+    def __init__(self, sm: "ServedModel", rows: int, width: int) -> None:
+        self.sm = sm
+        self.x = torch.zeros((rows, width), dtype=torch.float32,
+                             device=sm.device)
+        self.margin = self.value = None
+
+    def body(self) -> None:
+        self.margin = self.sm.margin_padded(self.x)
+        self.value = self.sm.transform(self.margin)
+
+
 class ServedModel:
-    """A Booster prepared for the serving hot path on ``device``."""
+    """A Booster prepared for the serving hot path on ``device``;
+    ``on_prepare`` is called with each capture or contribs bucket it
+    prepares (the registry's count)."""
 
     def __init__(self, name: str, booster, device: torch.device,
-                 version: int = 1) -> None:
+                 version: int = 1, on_prepare=None) -> None:
         self.name = name
         self.version = int(version)
         self.booster = booster
@@ -91,6 +119,38 @@ class ServedModel:
         self.min_columns = max(self.n_features, max_feature + 1)
         self._shap_pack = None
         self._shap_lock = threading.Lock()
+        self.graphs = CapturedLoop(f"serve/{self.key()}", device)
+        self._shap_buckets: set = set()
+        self._on_prepare = on_prepare or (lambda: None)
+
+    def stage_bucket(self, X: torch.Tensor):
+        """One bucket-padded batch ``X`` [R, width] (a pinned host buffer
+        on the card) copied into its bucket's static input buffer, on the
+        current stream -> the bucket's entry for :meth:`run_bucket`. The
+        entry holds its buffers and graph even if the model's graphs are
+        freed in between (an unload or a rollback racing the batch)."""
+        rows, width = X.shape
+        ent = self.graphs.entry((rows, width),
+                                lambda: _BucketWalk(self, rows, width))
+        ent.program.x.copy_(X, non_blocking=True)
+        return ent
+
+    def run_bucket(self, ent):
+        """(margin, value) [R, n_groups] on the device of the batch staged
+        in ``ent`` (:meth:`stage_bucket`): its captured walk and transform
+        replayed (captured on first use; a vector-leaf forest's torch walk
+        runs eagerly). The results live in the graph's memory until the
+        bucket's next batch: read them first."""
+        before = self.graphs.captures
+        prog = self.graphs.run_entry(ent, 1, capture=self.packed is not None)
+        if self.graphs.captures != before:
+            self._on_prepare()
+        return prog.margin, prog.value
+
+    def free_graphs(self) -> None:
+        """Drop every bucket's graph and its memory (the model is gone
+        from the registry)."""
+        self.graphs.clear()
 
     def key(self) -> str:
         return f"{self.name}@v{self.version}"
@@ -133,6 +193,10 @@ class ServedModel:
         batch (rows independent, as in the walk); the bias column holds
         the cover-weighted forest mean plus the base score, so every row
         sums to its margin."""
+        rows = X_dev.shape[0]
+        if rows not in self._shap_buckets:
+            self._shap_buckets.add(rows)
+            self._on_prepare()
         return contribs(self.shap_pack(), X_dev, self.base_np)
 
     def transform(self, margin: torch.Tensor) -> torch.Tensor:
@@ -161,11 +225,25 @@ class ModelRegistry:
         self._models: Dict[str, ServedModel] = {}
         self._versions: Dict[str, int] = {}
         self._history: Dict[str, List[ServedModel]] = {}
+        # preparations made by every model ever served here: walk graphs
+        # captured and contribs buckets prepared (never decreases)
+        self._prepared = 0
+        self._prep_lock = threading.Lock()
+
+    def _count_prepare(self) -> None:
+        with self._prep_lock:
+            self._prepared += 1
+
+    def cache_size(self) -> int:
+        """The preparations made (``buckets.py RecompileCounter``)."""
+        with self._prep_lock:
+            return self._prepared
 
     def _build(self, name: str, source, version: int) -> ServedModel:
         booster = _load_booster(source)
         try:
-            return ServedModel(name, booster, self.device, version=version)
+            return ServedModel(name, booster, self.device, version=version,
+                               on_prepare=self._count_prepare)
         except Exception as e:
             raise ModelLoadError(
                 f"model '{name}' loaded but failed to prepare for serving: "
@@ -199,6 +277,8 @@ class ModelRegistry:
             if prev is not None and prev is not sm:
                 hist = self._history.setdefault(sm.name, [])
                 hist.append(prev)
+                for gone in hist[:-self.HISTORY_DEPTH]:
+                    gone.free_graphs()
                 del hist[:-self.HISTORY_DEPTH]
             self._models[sm.name] = sm  # one assignment = the atomic swap
             self._versions[sm.name] = max(
@@ -223,13 +303,18 @@ class ModelRegistry:
                 raise UnknownModel(
                     f"no prior version to roll back to for model '{name}'")
             prev = hist.pop()
+            gone = self._models.get(name)
             self._models[name] = prev
+            if gone is not None and gone is not prev:
+                gone.free_graphs()
             return prev
 
     def unload(self, name: str) -> None:
         with self._lock:
-            if self._models.pop(name, None) is None:
+            gone = self._models.pop(name, None)
+            if gone is None:
                 raise UnknownModel(f"no served model named '{name}'")
+            gone.free_graphs()
 
     def get(self, name: Optional[str] = None) -> ServedModel:
         with self._lock:

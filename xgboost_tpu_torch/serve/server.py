@@ -6,7 +6,13 @@ them per model, and ``_dispatch`` runs the measured pipeline —
 bucket-pad (host) -> H2D from a pinned buffer -> packed walk +
 transform on the device -> D2H -> host slice back to per-request
 results. Every device batch is padded to a :class:`~.buckets.BucketLadder`
-shape, and ``warmup()`` runs each shape once.
+shape, and ``warmup()`` runs each shape once: on the card that captures
+each (model version, bucket)'s walk and transform as a CUDA graph over
+a static input buffer (``serve/registry.py``), which every later batch
+of the bucket replays. The :class:`~.buckets.RecompileCounter` counts
+the captures; after warmup it stays flat, the
+``recompiles_after_warmup`` SLO (0), and a swap's planned captures are
+absorbed into its baseline.
 
 On the card the results are BIT-IDENTICAL to ``Booster.predict()``: the
 walk kernel sums each row in a fixed order that does not depend on the
@@ -41,7 +47,7 @@ from ..obs import memory as _mem
 from ..obs import trace as _trace
 from ..obs.metrics import Family, Sample, get_registry
 from .batcher import MicroBatcher, PredictRequest
-from .buckets import BucketLadder
+from .buckets import BucketLadder, RecompileCounter
 from .errors import DeadlineExceeded, ServeError, ServerOverloaded
 from .metrics import ServeMetrics
 from .registry import ModelRegistry, ServedModel
@@ -114,6 +120,8 @@ class Server:
         self.metrics = ServeMetrics(
             labels=(("replica", replica),) if replica else ())
         self.registry = ModelRegistry(self.device)
+        self.recompile_counter = RecompileCounter.for_forest_predictor(
+            self.registry)
         self._closed = False
         self._warmed = False
         self._next_log = (time.perf_counter() + config.log_every_s
@@ -143,12 +151,18 @@ class Server:
             self.load_model(name, src)
 
     def _collect_obs(self):
-        """Registry collector for the live queue depth (state outside
-        ServeMetrics)."""
-        return [Family("xtpu_serve_queue_rows", "gauge",
-                       "rows currently queued in the micro-batcher",
-                       [Sample(self.batcher.queue_depth_rows(),
-                               self.metrics.labels)])]
+        """Registry collector for state that lives outside ServeMetrics:
+        the recompile SLO gauge and the live queue depth."""
+        lab = self.metrics.labels
+        return [
+            Family("xtpu_serve_recompiles_after_warmup", "gauge",
+                   "serving captures made since warmup (SLO: 0)",
+                   [Sample(self.recompiles_after_warmup
+                           if self._warmed else 0, lab)]),
+            Family("xtpu_serve_queue_rows", "gauge",
+                   "rows currently queued in the micro-batcher",
+                   [Sample(self.batcher.queue_depth_rows(), lab)]),
+        ]
 
     # ------------------------------------------------------- model lifecycle
     def load_model(self, name: str, source, *, version: Optional[int] = None,
@@ -186,8 +200,8 @@ class Server:
 
     def warmup(self, model: Optional[str] = None,
                n_features: Optional[int] = None) -> int:
-        """Run every (bucket, model) shape once up front. Returns the
-        number of warmup batches run."""
+        """Capture every (bucket, model) program up front; marks the
+        recompile baseline. Returns the number of warmup batches run."""
         targets = ([self.registry.get(model)] if model is not None
                    else self.registry.models())
         n = 0
@@ -199,14 +213,27 @@ class Server:
         return n
 
     def _warm_model(self, sm: ServedModel) -> int:
+        c0 = self.recompile_counter.compiles()
         for size in self.ladder.sizes:
             self._run_padded(sm, sm.warm_batch(size), size, warm=True)
             self.metrics.inc("warmup_batches")
+        if self._warmed:
+            # a post-warmup (swap) warm captures on purpose; keep the
+            # zero-recompile SLO about unplanned captures
+            self.recompile_counter.absorb(
+                self.recompile_counter.compiles() - c0)
         return len(self.ladder.sizes)
 
     def mark_warm(self) -> None:
-        """Report this server warm (``health_snapshot``'s ``warmed``)."""
+        """Snapshot the captures: everything after this counts as a
+        post-warmup recompile (the zero-recompile SLO); reports this
+        server warm (``health_snapshot``'s ``warmed``)."""
+        self.recompile_counter.mark()
         self._warmed = True
+
+    @property
+    def recompiles_after_warmup(self) -> int:
+        return self.recompile_counter.since_mark()
 
     # ------------------------------------------------------------- requests
     def submit(self, data, model: Optional[str] = None, *,
@@ -334,10 +361,12 @@ class Server:
     def warmup_contribs(self, model: Optional[str] = None) -> int:
         """Run every (shap bucket, model) shape once up front (the path
         tables are built by the first); skips models without a packed
-        forest. Returns the number of warmup batches run."""
+        forest. Returns the number of warmup batches run; their
+        preparations are planned (absorbed once the server is warm)."""
         targets = ([self.registry.get(model)] if model is not None
                    else self.registry.models())
         n = 0
+        c0 = self.recompile_counter.compiles()
         for sm in targets:
             if not sm.supports_contribs or sm.n_features <= 0:
                 continue
@@ -346,6 +375,9 @@ class Server:
                                           warm=True)
                 self.metrics.inc("warmup_batches")
                 n += 1
+        if self._warmed:
+            self.recompile_counter.absorb(
+                self.recompile_counter.compiles() - c0)
         return n
 
     # ------------------------------------------------------------- pipeline
@@ -362,11 +394,11 @@ class Server:
         if self._stream is not None:
             self._stream.synchronize()
 
-    def _stage(self, Xp: np.ndarray,
-               staging: Dict[Tuple[int, int], torch.Tensor]) -> torch.Tensor:
-        """The padded batch on the device: a copy from a pinned host
-        buffer of ``staging`` on the card, the array itself on the
-        CPU."""
+    def _pinned(self, Xp: np.ndarray,
+                staging: Dict[Tuple[int, int], torch.Tensor]
+                ) -> torch.Tensor:
+        """The padded batch in a pinned host buffer of ``staging`` on the
+        card (so its H2D copy is a DMA), the array itself on the CPU."""
         if self.device.type != "cuda":
             return torch.from_numpy(Xp)
         key = Xp.shape
@@ -375,7 +407,14 @@ class Server:
             buf = torch.empty(key, dtype=torch.float32, pin_memory=True)
             staging[key] = buf
         buf.numpy()[...] = Xp
-        return buf.to(self.device, non_blocking=True)
+        return buf
+
+    def _stage(self, Xp: np.ndarray,
+               staging: Dict[Tuple[int, int], torch.Tensor]) -> torch.Tensor:
+        """The padded batch on the device: a copy from a pinned host
+        buffer of ``staging`` on the card, the array itself on the
+        CPU."""
+        return self._pinned(Xp, staging).to(self.device, non_blocking=True)
 
     def _run_padded(self, sm: ServedModel, X: np.ndarray, bucket: int,
                     warm: bool = False):
@@ -388,12 +427,13 @@ class Server:
                 Xp = self.ladder.pad(X, bucket)
             t1 = time.perf_counter()
             with _trace.span("serve/h2d"):
-                xd = self._stage(Xp, self._staging)
+                # into the bucket's static buffer, which its graph reads
+                bucket_prog = sm.stage_bucket(
+                    self._pinned(Xp, self._staging))
                 self._sync()
             t2 = time.perf_counter()
             with _trace.span("serve/compute"):
-                margin_d = sm.margin_padded(xd)
-                value_d = sm.transform(margin_d)
+                margin_d, value_d = sm.run_bucket(bucket_prog)
                 self._sync()
             t3 = time.perf_counter()
             with _trace.span("serve/d2h"):
@@ -466,6 +506,7 @@ class Server:
             if now < self._next_log:
                 return
             self._next_log = now + self.config.log_every_s
+        self.metrics.set("recompiles", self.recompiles_after_warmup)
         logger.info(self.metrics.report_line(
             {"queue_rows": self.batcher.queue_depth_rows(),
              "models": len(self.registry.models())}))
@@ -489,6 +530,8 @@ class Server:
 
     def metrics_snapshot(self) -> Dict[str, object]:
         snap = self.metrics.snapshot()
+        snap["recompiles_after_warmup"] = (
+            self.recompiles_after_warmup if self._warmed else None)
         snap["queue_rows"] = self.batcher.queue_depth_rows()
         snap["models"] = self.registry.describe()
         snap["buckets"] = list(self.ladder.sizes)

@@ -56,8 +56,8 @@ Row-split training over a data mesh (``context.Mesh``): ``bins`` is a
 own device from its rows, with the scale reduced over the shards, and
 the shards' partials are summed in shard order before the one split
 search (the JAX package's ``_grow`` under ``shard_map``: its
-``allreduce`` and ``root_sum``). Sibling subtraction stays refused under
-a mesh, as in the JAX package.
+``allreduce`` and ``root_sum``). A mesh ignores ``+sub``, as the JAX
+package's does.
 
 Column split over a data mesh (``data_split_mode="col"``, the JAX
 package's ``_grow`` with ``split_mode="col"``): ``bins`` is a
@@ -77,8 +77,17 @@ package runs its XLA body there too, never the fused kernel. ``auto``
 never takes the sorted build under column split
 (``ops/histogram.py auto_selects_scan``).
 
-Not ported here (each raises where it is asked for): the mega schedule
-and sibling subtraction (ROADMAP A.6).
+The ``mega`` schedule (the JAX package's ``_mega_body``) is
+:class:`MegaLevels`: scan's level as one body at the static capacity
+``2^(max_depth-1)``, its level read from a device depth scalar, captured
+once per matrix as a CUDA graph and replayed ``max_depth`` times a tree
+(``ops/cuda/graphs.py``); outside the JAX package's gates
+(:func:`mega_applies`) ``mega`` trains as ``scan``, whose bytes it saves.
+A column mesh and the vertical parties train it as ``scan`` too.
+``"<kernel>+sub"`` builds each parent's smaller child over its gathered
+rows and subtracts it from the parent's histogram (the JAX package's
+opt-in, :func:`sibling_subtraction`): one-pass kernels only, no mesh, at
+least 8 rows.
 """
 
 from __future__ import annotations
@@ -88,10 +97,13 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.histogram import (build_hist, fused_advance_coarse,
+from ..obs import trace as _trace
+from ..ops.cuda.graphs import CapturedLoop
+from ..ops.histogram import (auto_selects_scan, build_hist,
+                             build_smaller_children, fused_advance_coarse,
                              refuse_categorical_two_level,
                              resolve_hist_kernel, scan_advance_level,
-                             scan_level_hists)
+                             scan_level_hists, split_hist_method)
 from ..ops.partition import (LevelSplits, advance_level, level_rel,
                              update_positions)
 from ..ops.split import (COARSE_B, WINDOW, CatInfo, assemble_two_level,
@@ -198,10 +210,12 @@ def draw_feature_masks(tkeys: Sequence[xrandom.Key], base_mask: torch.Tensor,
 def two_level_schedule(hist_method: str, max_nbins: int,
                        has_missing: bool, numeric: bool = True):
     """``"coarse"``, ``"fused"`` or ``"scan"`` when ``hist_method`` asks
-    for a two-level schedule, else None. Like the JAX package's, they
-    take numeric features (``numeric``) and at most 256 real bins."""
-    base = hist_method[:-len("+nosub")] if hist_method.endswith("+nosub") \
-        else hist_method
+    for a two-level schedule (``mega``: ``"scan"``, its levels), else
+    None. Like the JAX package's, they take numeric features
+    (``numeric``) and at most 256 real bins."""
+    base = split_hist_method(hist_method)[0]
+    if base == "mega":
+        base = "scan"
     if base not in ("coarse", "fused", "scan"):
         return None
     if not numeric:
@@ -211,6 +225,54 @@ def two_level_schedule(hist_method: str, max_nbins: int,
             f"hist_method={hist_method!r} supports numeric features and "
             "max_bin <= 256")
     return base
+
+
+# the JAX package's ``DENSE_LEVEL_MAX`` (``tree/grow.py:259-262``): the
+# mega schedule takes trees whose every level is at most this wide
+DENSE_LEVEL_MAX = 64
+
+
+def compaction_asked(hist_method: str, rows, col: bool = False) -> bool:
+    """The JAX package's ``use_compaction`` before its kernel test
+    (``tree/grow.py:285-296``): ``"<kernel>+sub"`` on one device without
+    a mesh and at least 8 rows. Under a mesh the suffix is ignored: one
+    shard's share of the built children can pass its local half."""
+    return (split_hist_method(hist_method)[1] and not col
+            and not rows.sharded and rows.shard_rows >= 8)
+
+
+def sibling_subtraction(hist_method: str, rows, max_nbins: int,
+                        has_missing: bool, numeric: bool,
+                        col: bool = False) -> bool:
+    """Whether a depthwise tree builds each parent's smaller child and
+    subtracts (``"<kernel>+sub"``, :func:`compaction_asked`): only over
+    the one-pass kernels, as in the JAX package. A two-level schedule
+    (and ``mega``) ignores the suffix, and so does ``auto`` where it takes
+    the sorted build, as the TPU's ``auto`` promotes to its scan schedule
+    there (``ops/histogram.py auto_selects_scan``)."""
+    base = split_hist_method(hist_method)[0]
+    if base in ("coarse", "fused", "scan", "mega"):
+        return False
+    if base == "auto" and auto_selects_scan(rows.shard_rows, max_nbins,
+                                            has_missing, numeric, col):
+        return False
+    return compaction_asked(hist_method, rows, col)
+
+
+def mega_applies(hist_method: str, param: TrainParam, numeric: bool,
+                 rows, col: bool = False) -> bool:
+    """The JAX package's ``use_mega`` gates (``tree/grow.py:374-378``) for
+    an explicit ``"mega"``: scan's numeric features, no smaller-child
+    compaction, ``max_depth >= 1`` with every level at most
+    ``DENSE_LEVEL_MAX`` wide (depth at most 6), ``colsample_bynode`` 1
+    (a node's draw depends on its level's width), and row split. Outside
+    them ``mega`` trains as the unrolled ``scan``, whose bits are the
+    same. ``auto`` stays on the port's ``auto`` (ROADMAP C)."""
+    return (split_hist_method(hist_method)[0] == "mega" and numeric
+            and not col and not compaction_asked(hist_method, rows, col)
+            and param.max_depth >= 1
+            and 2 ** param.max_depth <= DENSE_LEVEL_MAX
+            and param.colsample_bynode >= 1.0)
 
 
 def interaction_allowed_dev(path_level: torch.Tensor,
@@ -312,48 +374,71 @@ class HeapTree:
     def __init__(self, max_depth: int, root_sum: torch.Tensor,
                  param: TrainParam, n_words: int = 0,
                  monotone: Optional[torch.Tensor] = None,
-                 constraint_sets: Optional[torch.Tensor] = None) -> None:
+                 constraint_sets: Optional[torch.Tensor] = None,
+                 sentinel: bool = False) -> None:
         dev = root_sum.device
         self.max_nodes = max_nodes = 2 ** (max_depth + 1) - 1
+        # ``sentinel``: one more slot at ``max_nodes`` that the padded lanes
+        # of the mega schedule write and nothing reads (JAX's mode="drop")
+        size = max_nodes + int(sentinel)
         self.param = param
-        self.split_feature = torch.full((max_nodes,), -1, dtype=torch.int64,
+        self.split_feature = torch.empty((size,), dtype=torch.int64,
+                                         device=dev)
+        self.split_bin = torch.empty((size,), dtype=torch.int64, device=dev)
+        self.default_left = torch.empty((size,), dtype=torch.bool,
                                         device=dev)
-        self.split_bin = torch.zeros((max_nodes,), dtype=torch.int64,
-                                     device=dev)
-        self.default_left = torch.zeros((max_nodes,), dtype=torch.bool,
-                                        device=dev)
-        self.is_leaf = torch.ones((max_nodes,), dtype=torch.bool, device=dev)
-        self.active = torch.zeros((max_nodes,), dtype=torch.bool, device=dev)
-        self.active[0] = True
-        self.gain = torch.zeros((max_nodes,), dtype=torch.float32, device=dev)
-        self.node_sum = torch.zeros((max_nodes,) + tuple(root_sum.shape),
+        self.is_leaf = torch.empty((size,), dtype=torch.bool, device=dev)
+        self.active = torch.empty((size,), dtype=torch.bool, device=dev)
+        self.gain = torch.empty((size,), dtype=torch.float32, device=dev)
+        self.node_sum = torch.empty((size,) + tuple(root_sum.shape),
                                     dtype=torch.float32, device=dev)
-        self.node_sum[0] = root_sum
         self.min_gain = _f32(max(param.gamma, _EPS))
         # ``n_words`` > 0: categorical splits, their left sets in that many
         # words
         self.is_cat_split = self.cat_words = None
         if n_words:
-            self.is_cat_split = torch.zeros((max_nodes,), dtype=torch.bool,
+            self.is_cat_split = torch.empty((size,), dtype=torch.bool,
                                             device=dev)
-            self.cat_words = torch.zeros((max_nodes, n_words),
-                                         dtype=torch.int64, device=dev)
+            self.cat_words = torch.empty((size, n_words), dtype=torch.int64,
+                                         device=dev)
         # monotone constraints: each node's weight interval (reference
         # TreeEvaluator lower / upper bounds)
         self.monotone = monotone
         self.node_lower = self.node_upper = None
         if monotone is not None:
-            self.node_lower = torch.full((max_nodes,), float("-inf"),
-                                         dtype=torch.float32, device=dev)
-            self.node_upper = torch.full((max_nodes,), float("inf"),
-                                         dtype=torch.float32, device=dev)
+            self.node_lower = torch.empty((size,), dtype=torch.float32,
+                                          device=dev)
+            self.node_upper = torch.empty((size,), dtype=torch.float32,
+                                          device=dev)
         # interaction constraints: the features on each node's path
         self.constraint_sets = constraint_sets
         self.node_path = None
         if constraint_sets is not None:
-            self.node_path = torch.zeros(
-                (max_nodes, constraint_sets.shape[1]), dtype=torch.bool,
+            self.node_path = torch.empty(
+                (size, constraint_sets.shape[1]), dtype=torch.bool,
                 device=dev)
+        self.reset(root_sum)
+
+    def reset(self, root_sum: torch.Tensor) -> None:
+        """Every array back to a tree of one node with sums ``root_sum``,
+        in place (the mega schedule's buffers are its graph's)."""
+        self.split_feature.fill_(-1)
+        self.split_bin.zero_()
+        self.default_left.zero_()
+        self.is_leaf.fill_(True)
+        self.active.zero_()
+        self.active[0] = True
+        self.gain.zero_()
+        self.node_sum.zero_()
+        self.node_sum[0] = root_sum
+        if self.is_cat_split is not None:
+            self.is_cat_split.zero_()
+            self.cat_words.zero_()
+        if self.node_lower is not None:
+            self.node_lower.fill_(float("-inf"))
+            self.node_upper.fill_(float("inf"))
+        if self.node_path is not None:
+            self.node_path.zero_()
 
     def constraint_args(self, lo: int, n_level: int, feature_mask):
         """The split search's constraint arguments for the level of
@@ -427,6 +512,49 @@ class HeapTree:
                                         ).repeat_interleave(2, dim=0)
         return can_split
 
+    def record_at(self, idx: torch.Tensor, valid: torch.Tensor,
+                  res) -> torch.Tensor:
+        """:meth:`record` for a level padded to a static capacity (the
+        mega schedule): ``idx`` [N_cap] the heap ids of its lanes, device
+        tensors from the depth, ``valid`` the lanes inside the level. A
+        padded lane writes the sentinel slot only (the heap's
+        ``sentinel``). Returns can_split [N_cap], False on padded
+        lanes."""
+        M = self.max_nodes
+        drop = torch.where(valid, idx, M)
+        can_split = (valid & self.active[idx] & (res.gain > self.min_gain)
+                     & torch.isfinite(res.gain))
+        self.split_feature[drop] = torch.where(can_split, res.feature, -1)
+        self.split_bin[drop] = torch.where(can_split, res.bin, 0)
+        self.default_left[drop] = can_split & res.default_left
+        self.is_leaf[drop] = ~can_split
+        self.gain[drop] = torch.where(can_split, res.gain, 0.0)
+        li = torch.where(valid, 2 * idx + 1, M)
+        ri = torch.where(valid, 2 * idx + 2, M)
+        self.active[li] = can_split
+        self.active[ri] = can_split
+        cs = _rows(can_split, res.left_sum)
+        zero2 = torch.zeros_like(res.left_sum)
+        self.node_sum[li] = torch.where(cs, res.left_sum, zero2)
+        self.node_sum[ri] = torch.where(cs, res.right_sum, zero2)
+        feat = res.feature.clamp(min=0)
+        if self.monotone is not None:
+            (l_lo, l_hi), (r_lo, r_hi) = monotone_child_bounds(
+                res.left_sum, res.right_sum, self.monotone[feat],
+                self.node_lower[idx], self.node_upper[idx], self.param)
+            self.node_lower[li] = torch.where(can_split, l_lo, 0.0)
+            self.node_lower[ri] = torch.where(can_split, r_lo, 0.0)
+            self.node_upper[li] = torch.where(can_split, l_hi, 0.0)
+            self.node_upper[ri] = torch.where(can_split, r_hi, 0.0)
+        if self.node_path is not None:
+            fsel = (torch.arange(self.node_path.shape[1],
+                                 device=feat.device)[None, :]
+                    == feat[:, None]) & can_split[:, None]
+            child = self.node_path[idx] | fsel
+            self.node_path[li] = child
+            self.node_path[ri] = child
+        return can_split
+
     def level_splits(self, lo: int, n_level: int,
                      can_split: torch.Tensor) -> LevelSplits:
         """The splits of the recorded level, for the advance below it."""
@@ -442,22 +570,33 @@ class HeapTree:
         """The grown tree, with ``positions`` [n] the rows' final heap
         nodes: leaf weights ``calc_weight * eta`` and each row's delta, the
         leaf value at its node."""
-        w = calc_weight(self.node_sum[..., 0], self.node_sum[..., 1],
-                        self.param)
+        M = self.max_nodes
+
+        def own(t):
+            # the heap's own rows, copied off a sentinel heap's buffers
+            # (the mega schedule's, which its next tree writes again)
+            if t is None or t.shape[0] == M:
+                return t
+            return t[:M].clone()
+
+        node_sum, active, is_leaf = (own(self.node_sum), own(self.active),
+                                     own(self.is_leaf))
+        w = calc_weight(node_sum[..., 0], node_sum[..., 1], self.param)
         if self.monotone is not None:
-            w = torch.clamp(w, self.node_lower, self.node_upper)
+            w = torch.clamp(w, self.node_lower[:M], self.node_upper[:M])
         w = w * _f32(self.param.eta)
         zero = torch.zeros_like(w)
-        leaf_value = torch.where(_rows(self.active & self.is_leaf, w), w,
-                                 zero)
+        leaf_value = torch.where(_rows(active & is_leaf, w), w, zero)
         return GrownTree(
-            split_feature=self.split_feature, split_bin=self.split_bin,
-            default_left=self.default_left, is_leaf=self.is_leaf,
-            active=self.active, leaf_value=leaf_value,
-            node_sum=self.node_sum, gain=self.gain, positions=positions,
+            split_feature=own(self.split_feature),
+            split_bin=own(self.split_bin),
+            default_left=own(self.default_left), is_leaf=is_leaf,
+            active=active, leaf_value=leaf_value,
+            node_sum=node_sum, gain=own(self.gain), positions=positions,
             delta=leaf_value[positions],
-            base_weight=torch.where(_rows(self.active, w), w, zero),
-            is_cat_split=self.is_cat_split, cat_words=self.cat_words)
+            base_weight=torch.where(_rows(active, w), w, zero),
+            is_cat_split=own(self.is_cat_split),
+            cat_words=own(self.cat_words))
 
 
 def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
@@ -470,7 +609,8 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
                   hist_f: Optional[torch.Tensor] = None,
                   feature_mask: Optional[torch.Tensor] = None,
                   cat: Optional[CatInfo] = None, scale: Optional[dict] = None,
-                  block: Optional[FeatureBlock] = None, **monotone_kw):
+                  block: Optional[FeatureBlock] = None,
+                  hist: Optional[torch.Tensor] = None, **monotone_kw):
     """The best split of each of ``n_nodes`` nodes over the shards of
     ``rows`` (each shard's gradients ``gps`` and node of each row
     ``rels``, the inactive ones at ``n_nodes``): each shard's histogram,
@@ -494,7 +634,8 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
     placed in that layout (``tree/shards.py FeatureBlock``), its
     features the only ones with real bins, so that the search is one
     device's over them; the result's features are global, and ``auto``
-    keeps off K4."""
+    keeps off K4. ``hist``: the level's summed histogram when the caller
+    built it (sibling subtraction), for the exact search."""
     if isinstance(rows, ColShards):
         # the pooled layout is the unpadded one, as one device's
         F = rows.n_features
@@ -521,6 +662,11 @@ def search_splits(rows: RowShards, gps: Sequence[torch.Tensor],
     if block is not None:
         n_real_bins = block.restrict(n_real_bins)
     if schedule is None:
+        if hist is not None:
+            return evaluate_splits(hist, parent_sum, n_real_bins, param,
+                                   has_missing=has_missing,
+                                   feature_mask=feature_mask, cat=cat,
+                                   **monotone_kw)
         hist = embed(rows.reduce([build_hist(b, g, r, n_nodes, max_nbins,
                                              method=hist_method,
                                              has_missing=has_missing,
@@ -641,6 +787,12 @@ def grow_tree(bins, gpair: torch.Tensor,
     positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
                              device=b.device) for b in rows.parts]
     pending = None      # fused/scan: the splits whose advance is deferred
+    # "<kernel>+sub": each level past the root builds every parent's
+    # smaller child and subtracts it from the parent's histogram
+    sub = schedule is None and sibling_subtraction(
+        hist_method, rows, max_nbins, has_missing, numeric, col)
+    prev_hist = built_is_left = None
+    kernel = split_hist_method(hist_method)[0]
 
     for depth in range(max_depth):
         lo = 2 ** depth - 1
@@ -669,12 +821,26 @@ def grow_tree(bins, gpair: torch.Tensor,
         fmask, mono_kw = tree.constraint_args(
             lo, n_level, None if feature_masks is None
             else feature_masks[depth])
+        hist = None
+        if sub:
+            with _trace.span("grow/sub-build", args={"depth": depth}):
+                if depth == 0:
+                    hist = build_hist(rows.parts[0], gps[0], rels[0], 1,
+                                      max_nbins, method=kernel,
+                                      has_missing=has_missing,
+                                      numeric=numeric)
+                else:
+                    hist = build_smaller_children(
+                        rows.parts[0], gps[0], positions[0], lo, n_level,
+                        built_is_left, prev_hist, max_nbins, kernel,
+                        has_missing, numeric)
+            prev_hist = hist
         res = search_splits(
             rows, gps, rels, n_level, tree.node_sum[lo:hi], n_real_bins,
             param=param, max_nbins=max_nbins, hist_method=hist_method,
             has_missing=has_missing, schedule=schedule, cbs=cbs,
             hist_c=hist_c, hist_f=hist_f, feature_mask=fmask, cat=cat,
-            scale=scale, **mono_kw)
+            scale=scale, hist=hist, **mono_kw)
         can_split = tree.record(lo, n_level, res)
         if deferred:
             pending = tree.level_splits(lo, n_level, can_split)
@@ -687,10 +853,179 @@ def grow_tree(bins, gpair: torch.Tensor,
                                   tree.default_left, is_split,
                                   tree.is_cat_split, tree.cat_words),
                 missing_bin)
+            if sub and depth + 1 < max_depth:
+                # the next level's rows a node pick each parent's smaller
+                # child (the count bounds the compaction at n // 2; a tie
+                # builds the left one)
+                cn = positions[0] - (2 * lo + 1)
+                inside = (cn >= 0) & (cn < 2 * n_level)
+                counts = torch.bincount(
+                    torch.where(inside, cn, 2 * n_level),
+                    minlength=2 * n_level + 1)[:2 * n_level]
+                built_is_left = counts[0::2] <= counts[1::2]
     if pending is not None:     # below the last level: the advance alone
         positions = [advance_level(b, p, pend, missing_bin) for b, p, pend
                      in zip(rows.parts, positions, rows.to_shards(pending))]
     return tree.finish(rows.gather(positions))
+
+
+class MegaLevels:
+    """The depthwise ``mega`` schedule of one matrix (the JAX package's
+    ``_mega_body`` and its epilogue, ``tree/grow.py:399-627``): one body
+    for every level of a tree, over static buffers, captured once
+    (``ops/cuda/graphs.py CapturedLoop``) and replayed ``max_depth``
+    times a tree.
+
+    The body reads its level from a device depth scalar: ``n_level = 1
+    << d``, ``lo = n_level - 1``; every per-level array is padded to the
+    static capacity ``N_cap = 2^(max_depth - 1)``. Each replay runs
+    scan's level boundary (the advance below the pending splits, one K4
+    build of the level at ``N_cap`` nodes: :func:`scan_advance_level`
+    with ``n_cap``), the window, refine and exact search of the padded
+    level (rows past ``n_level`` search empty histograms), the heap's
+    bookkeeping (:meth:`HeapTree.record_at`: padded lanes write the
+    sentinel slot only) and keeps the level's splits pending for the next
+    replay; at ``d = 0`` the pending splits are inert and the advance is
+    the identity. Column samples come in as a [max_depth, 1, F] buffer
+    drawn on the host (:func:`draw_feature_masks`), indexed by the depth:
+    nothing random runs in the body. After the replays the epilogue
+    advances below the deepest level (exactly ``N_cap`` wide) and
+    :meth:`HeapTree.finish` copies the tree off the buffers, so the next
+    tree's replays (a multiclass round's next class) overwrite nothing
+    that is still read. Every stage is scan's, at the same nodes, so the
+    model's bytes are scan's (``ops/split.py bin_prefix_sums``: the
+    padded search rounds as the unpadded one).
+
+    Over a row mesh (``RowShards``) every shard's advance and build run
+    in the body and the reduction with them (the JAX package's
+    ``mega_row_axis``)."""
+
+    def __init__(self, rows: RowShards, n_real_bins: torch.Tensor, *,
+                 param: TrainParam, max_nbins: int, has_missing: bool,
+                 sampled: bool, monotone: Optional[torch.Tensor],
+                 constraint_sets: Optional[torch.Tensor]) -> None:
+        dev = rows.device
+        D = param.max_depth
+        self.rows = rows
+        self.param = param
+        self.max_nbins = max_nbins
+        self.has_missing = has_missing
+        self.missing_bin = max_nbins - 1 if has_missing else max_nbins
+        self.n_real_bins = n_real_bins
+        self.n_cap = N = 2 ** (D - 1)
+        self.gps = [torch.empty((b.shape[0], 2), dtype=torch.float32,
+                                device=b.device) for b in rows.parts]
+        self.positions = [torch.zeros((b.shape[0],), dtype=torch.int64,
+                                      device=b.device) for b in rows.parts]
+        self.max_abs = torch.zeros((2,), dtype=torch.float32, device=dev)
+        self.total_rows = 0
+        self.depth = torch.zeros((), dtype=torch.int64, device=dev)
+        self.lane = torch.arange(N, dtype=torch.int64, device=dev)
+        self.tree = HeapTree(D, torch.zeros((2,), dtype=torch.float32,
+                                            device=dev), param,
+                             monotone=monotone,
+                             constraint_sets=constraint_sets, sentinel=True)
+        # the splits whose advance waits for the next replay
+        self.feat_p = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        self.bin_p = torch.zeros((N,), dtype=torch.int64, device=dev)
+        self.dl_p = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self.cs_p = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self.masks = (torch.ones((D, 1, n_real_bins.shape[0]),
+                                 dtype=torch.bool, device=dev)
+                      if sampled else None)
+
+    def load(self, gps: Sequence[torch.Tensor], root_sum: torch.Tensor,
+             masks: Optional[List[torch.Tensor]]) -> None:
+        """One tree's inputs into the buffers, its state reset."""
+        for buf, g in zip(self.gps, gps):
+            buf.copy_(g)
+        scale = self.rows.scale(self.gps)
+        if scale:
+            self.max_abs.copy_(scale["max_abs"])
+            self.total_rows = scale["total_rows"]
+        for p in self.positions:
+            p.zero_()
+        self.depth.zero_()
+        self.tree.reset(root_sum)
+        self.feat_p.fill_(-1)
+        self.bin_p.zero_()
+        self.dl_p.zero_()
+        self.cs_p.zero_()
+        if self.masks is not None:
+            self.masks.copy_(torch.stack(masks))
+
+    def body(self) -> None:
+        """One level at the device depth; no host read."""
+        rows, tree, N = self.rows, self.tree, self.n_cap
+        scale = ({"max_abs": self.max_abs, "total_rows": self.total_rows}
+                 if rows.sharded else {})
+        n_level = torch.bitwise_left_shift(torch.ones_like(self.depth),
+                                           self.depth)
+        lo = n_level - 1
+        valid = self.lane < n_level
+        idx = lo + self.lane
+        prev = LevelSplits((n_level >> 1) - 1, self.feat_p, self.bin_p,
+                           self.dl_p, self.cs_p)
+        outs = [scan_advance_level(b, g, p, pend, lo, n_level,
+                                   self.missing_bin, self.max_nbins,
+                                   n_cap=N, **scale)
+                for b, g, p, pend in zip(rows.parts, self.gps,
+                                         self.positions,
+                                         rows.to_shards(prev))]
+        for p, o in zip(self.positions, outs):
+            p.copy_(o[0])
+        hist_f = rows.reduce([o[1] for o in outs])
+        hist_c = rows.reduce([o[2] for o in outs])
+        fmask = (None if self.masks is None
+                 else self.masks.index_select(0, self.depth.view(1))[0])
+        if tree.node_path is not None:
+            allowed = interaction_allowed_dev(tree.node_path[idx],
+                                              tree.constraint_sets)
+            fmask = allowed if fmask is None else fmask & allowed
+        mono_kw = {}
+        if tree.monotone is not None:
+            mono_kw = dict(monotone=tree.monotone,
+                           node_lower=tree.node_lower[idx],
+                           node_upper=tree.node_upper[idx])
+        res = search_splits(
+            rows, self.gps, [None] * rows.n_shards, N, tree.node_sum[idx],
+            self.n_real_bins, param=self.param, max_nbins=self.max_nbins,
+            hist_method="scan", has_missing=self.has_missing,
+            schedule="scan", hist_c=hist_c, hist_f=hist_f,
+            feature_mask=fmask, scale=scale, **mono_kw)
+        can_split = tree.record_at(idx, valid, res)
+        self.feat_p.copy_(torch.where(can_split, res.feature, -1))
+        self.bin_p.copy_(torch.where(can_split, res.bin, 0))
+        self.dl_p.copy_(can_split & res.default_left)
+        self.cs_p.copy_(can_split)
+        self.depth += 1
+
+    def finish(self) -> GrownTree:
+        """The epilogue: the rows advanced below the deepest level, and
+        the tree copied off the buffers."""
+        pend = LevelSplits(self.n_cap - 1, self.feat_p, self.bin_p,
+                           self.dl_p, self.cs_p)
+        positions = [advance_level(b, p, q, self.missing_bin)
+                     for b, p, q in zip(self.rows.parts, self.positions,
+                                        self.rows.to_shards(pend))]
+        return self.tree.finish(self.rows.gather(positions))
+
+
+def mega_key(rows: RowShards, *tensors) -> tuple:
+    """What a mega graph reads in place besides its own buffers: each
+    shard's bins (address, shape, type and device) and the per-feature
+    tensors (``ops/cuda/graphs.py``'s raw-pointer hazard)."""
+    def ident(t):
+        return (None if t is None else
+                (t.data_ptr(), tuple(t.shape), t.dtype, str(t.device)))
+    return (tuple(ident(b) for b in rows.parts),
+            tuple(ident(t) for t in tensors))
+
+
+def captures_on_one_device(rows: RowShards) -> bool:
+    """A mega body is captured where every shard sits on one device and
+    no host communicator joins the reduction (``ops/cuda/graphs.py``)."""
+    return rows.comm is None and len({str(d) for d in rows.devices}) == 1
 
 
 # the device tensors of TreeGrower._on that are made from the cuts
@@ -730,6 +1065,8 @@ class TreeGrower:
                                 else np.asarray(constraint_sets, bool))
         self.feature_pad = feature_pad
         self._on = {}
+        # the mega schedule's captured levels, one program a matrix
+        self._mega: Optional[CapturedLoop] = None
 
     def padded(self, a: np.ndarray) -> np.ndarray:
         """A per-feature host array (features on its last axis) padded
@@ -808,6 +1145,14 @@ class TreeGrower:
         :meth:`feature_masks`, or None when no column is sampled."""
         dev = gpair.device
         monotone, sets = self.constraints_on(dev)
+        rows = RowShards.of(bins)
+        if mega_applies(self.hist_method, self.param,
+                        self.cat_on(dev) is None, rows,
+                        isinstance(rows, ColShards)):
+            g = self._grow_mega(rows, gpair, masks, monotone, sets)
+            if self.param.max_leaves > 0:
+                g = self._truncate_max_leaves(g)
+            return g
         g = grow_tree(bins, gpair, self._n_real_on(dev),
                       param=self.param, max_nbins=self.max_nbins,
                       hist_method=self.hist_method,
@@ -817,6 +1162,37 @@ class TreeGrower:
         if self.param.max_leaves > 0:
             g = self._truncate_max_leaves(g)
         return g
+
+    def _grow_mega(self, rows: RowShards, gpair: torch.Tensor, masks,
+                   monotone, sets) -> GrownTree:
+        """One tree of the ``mega`` schedule (:class:`MegaLevels`): the
+        program of this matrix, its inputs loaded, ``max_depth`` replays
+        of its captured level (eager calls on the CPU, and where the
+        shards span devices or a communicator joins them, under the span
+        ``graphs/eager``)."""
+        two_level_schedule(self.hist_method, self.max_nbins,
+                           self.has_missing)    # refuses > 256 bins
+        dev = gpair.device
+        n_real = self._n_real_on(dev)
+        if self._mega is None:
+            self._mega = CapturedLoop("mega/depthwise", dev)
+        gps = rows.split(gpair)
+        root = rows.reduce([g.sum(dim=0) for g in gps], "mesh/root-sum")
+        key = mega_key(rows, n_real, monotone, sets) + (masks is not None,)
+
+        def make():
+            return MegaLevels(rows, n_real, param=self.param,
+                              max_nbins=self.max_nbins,
+                              has_missing=self.has_missing,
+                              sampled=masks is not None, monotone=monotone,
+                              constraint_sets=sets)
+
+        with _trace.span("grow/mega", args={"depth": self.param.max_depth}):
+            prog = self._mega.run(
+                key, make, self.param.max_depth,
+                lambda p: p.load(gps, root, masks),
+                capture=captures_on_one_device(rows))
+            return prog.finish()
 
     def _truncate_max_leaves(self, g: GrownTree) -> GrownTree:
         """Depth-wise growth under a ``max_leaves`` cap

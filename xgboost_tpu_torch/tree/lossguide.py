@@ -25,7 +25,11 @@ dispatching the advance and the evaluation as one program
 (``_apply_eval2``, the same numerics); eager calls have no such
 boundary, so here the two run the same calls. On categorical data or
 more than 256 bins they warn and fall back to ``auto``, as the JAX
-package's do. ``mega`` raises (ROADMAP A.6).
+package's do. ``mega`` on numeric resident bins or a row mesh, with no
+constraint and no column sample below the tree, runs the greedy loop on
+the device (:class:`MegaPairs`: one captured body a split, replayed
+``max_leaves - 1`` times, one fetch a tree); elsewhere it is ``scan``'s
+host loop, whose bytes are the same.
 
 The grower's state is one shape whatever holds the bins: a list of
 gradients and a list of row nodes, one entry a shard (:meth:`_rows`).
@@ -60,11 +64,13 @@ import numpy as np
 import torch
 
 from ..obs import trace as _trace
+from ..ops.cuda.graphs import CapturedLoop
 from ..ops.histogram import resolve_hist_kernel
 from ..ops.partition import cat_goes_right, gather_bins
 from ..ops.split import CatInfo, SplitResult, coarse_bin_ids
 from ..utils import random as xrandom
-from .grow import (TreeGrower, interaction_allowed_host, search_splits,
+from .grow import (TreeGrower, captures_on_one_device,
+                   interaction_allowed_host, mega_key, search_splits,
                    two_level_schedule)
 from .param import TrainParam, _f32, calc_weight
 from .shards import ColShards, RowShards
@@ -127,6 +133,191 @@ def apply1(bins, positions, nid: int, feat: int, sbin: int, dleft: bool,
                            go_right)
     child = torch.where(go_right, right_id, left_id)
     return torch.where(positions == nid, child, positions)
+
+
+def apply1_at(bins, positions, nid, feat, sbin, dleft, left_id, right_id,
+              missing_bin: int) -> torch.Tensor:
+    """:func:`apply1` for a numeric split given as 1-element device
+    tensors (the mega tier's body, no host read)."""
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    b = gather_bins(bins, rows, feat.clamp(min=0).expand(rows.shape[0]))
+    go_right = torch.where(b == missing_bin, ~dleft, b > sbin)
+    child = torch.where(go_right, right_id, left_id)
+    return torch.where(positions == nid, child, positions)
+
+
+class MegaPairs:
+    """The lossguide mega tier of one matrix (the JAX package's
+    ``_mega_greedy_loop``, ``tree/lossguide.py:283-330``): the greedy loop
+    over compact node arrays on the device, one split a replay of one
+    captured body (``ops/cuda/graphs.py CapturedLoop``), no host heap
+    between splits.
+
+    :meth:`load` runs the root's pair search; each :meth:`body` pops the
+    best candidate, applies its split to the rows, searches the two
+    children (K4 over the pair, scan's two-level search) and pushes
+    theirs. Its two exactness devices are the JAX package's:
+
+    - ``argmax`` with the first maximum is the host heap's ``(-gain,
+      push order)``: candidates are pushed in node-id order (the
+      children's ids are allocated in order, left first), so among equal
+      gains the smallest id was pushed first;
+    - ``gain_thresh``, the largest f32 at or below ``max(gamma, 1e-6)``
+      (``np.nextafter``), makes the f32 test ``gain > gain_thresh``
+      decide as the host's float64 ``gain > max(gamma, 1e-6)``.
+
+    A replay with nothing left to pop (``argmax`` of an all ``-inf``
+    queue) writes the sentinel slot ``cap`` only, moves no row and pushes
+    nothing."""
+
+    def __init__(self, grower: "LossguideGrower", rows: RowShards,
+                 n_real: torch.Tensor, max_leaves: int, cap: int) -> None:
+        param = grower.param
+        dev = rows.device
+        self.grower = grower
+        self.rows = rows
+        self.n_real = n_real
+        self.cap = cap
+        self.max_depth = param.max_depth
+        self.mb = (grower.max_nbins - 1 if grower.has_missing
+                   else grower.max_nbins)
+        t64 = max(param.gamma, _EPS)
+        c = np.float32(t64)
+        if float(c) > t64:
+            c = np.nextafter(c, np.float32(-np.inf))
+        self.gain_thresh = float(c)
+        C = cap + 1                  # the sentinel slot at ``cap``
+
+        def full(shape, v, dtype):
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        i64, f32 = torch.int64, torch.float32
+        self.gps = [torch.empty((b.shape[0], 2), dtype=f32, device=b.device)
+                    for b in rows.parts]
+        self.positions = [torch.zeros((b.shape[0],), dtype=i64,
+                                      device=b.device) for b in rows.parts]
+        self.max_abs = full((2,), 0.0, f32)
+        self.total_rows = 0
+        self.fmask = full((2, n_real.shape[0]), True, torch.bool)
+        self.n_nodes = full((1,), 1, i64)
+        self.sf, self.sb = full((C,), -1, i64), full((C,), 0, i64)
+        self.dl = full((C,), False, torch.bool)
+        self.lc, self.rc = full((C,), -1, i64), full((C,), -1, i64)
+        self.pa = full((C,), -1, i64)
+        self.gn = full((C,), 0.0, f32)
+        self.gh = full((C, 2), 0.0, f32)
+        self.depth_of = full((C,), 0, i64)
+        # the candidates: each node's best split, its gain -inf when none
+        self.cg = full((C,), float("-inf"), f32)
+        self.cf, self.cb = full((C,), 0, i64), full((C,), 0, i64)
+        self.cd = full((C,), False, torch.bool)
+        self.cls, self.crs = full((C, 2), 0.0, f32), full((C, 2), 0.0, f32)
+
+    def _scale(self) -> dict:
+        return ({"max_abs": self.max_abs, "total_rows": self.total_rows}
+                if self.rows.sharded else {})
+
+    def _eval(self, id0, id1, psums, fmask):
+        g = self.grower
+        return eval2(self.rows, self.gps, self.positions, id0, id1, psums,
+                     fmask, self.n_real, param=g.param,
+                     max_nbins=g.max_nbins, hist_method="scan",
+                     has_missing=g.has_missing, schedule="scan",
+                     scale=self._scale())
+
+    def _push(self, ok, child, res, slot) -> None:
+        idx = torch.where(ok, child, self.cap)
+        self.cg[idx] = res.gain[slot]
+        self.cf[idx] = res.feature[slot]
+        self.cb[idx] = res.bin[slot]
+        self.cd[idx] = res.default_left[slot]
+        self.cls[idx] = res.left_sum[slot]
+        self.crs[idx] = res.right_sum[slot]
+
+    def _ok(self, g) -> torch.Tensor:
+        return torch.isfinite(g) & (g > self.gain_thresh)
+
+    def load(self, gps, root: torch.Tensor, mask: torch.Tensor,
+             scale: dict) -> None:
+        """One tree's gradients into the buffers, the arrays reset, and
+        the root's search pushed."""
+        for buf, g in zip(self.gps, gps):
+            buf.copy_(g)
+        if scale:
+            self.max_abs.copy_(scale["max_abs"])
+            self.total_rows = scale["total_rows"]
+        for p in self.positions:
+            p.zero_()
+        self.n_nodes.fill_(1)
+        for t, v in ((self.sf, -1), (self.sb, 0), (self.dl, False),
+                     (self.lc, -1), (self.rc, -1), (self.pa, -1),
+                     (self.gn, 0.0), (self.gh, 0.0), (self.depth_of, 0),
+                     (self.cg, float("-inf")), (self.cf, 0), (self.cb, 0),
+                     (self.cd, False), (self.cls, 0.0), (self.crs, 0.0)):
+            t.fill_(v)
+        self.gh[0] = root
+        self.fmask.copy_(mask.expand(2, -1))
+        res = self._eval(0, -1, torch.stack([root, torch.zeros_like(root)]),
+                         torch.stack([mask, torch.zeros_like(mask)]))
+        self._push(self._ok(res.gain[0]), torch.zeros_like(self.n_nodes),
+                   res, 0)         # the root: node 0
+
+    def body(self) -> None:
+        """pop -> apply -> search the pair -> push; no host read (every
+        index a 1-element tensor: a 0-d one would index through
+        ``.item()``)."""
+        cap = self.cap
+        best = torch.argmax(self.cg[:cap]).view(1)  # the first maximum
+        bg = self.cg[best]
+        valid = bg > float("-inf")
+        nid = torch.where(valid, best, cap)
+        feat, rbin, rdl = self.cf[best], self.cb[best], self.cd[best]
+        lsum, rsum = self.cls[best], self.crs[best]
+        li = self.n_nodes.clone()
+        ri = li + 1
+        li_d = torch.where(valid, li, cap)
+        ri_d = torch.where(valid, ri, cap)
+        # (a Python value assigned by index would be copied from the host)
+        self.cg.index_fill_(0, nid, float("-inf"))
+        self.sf[nid] = feat
+        self.sb[nid] = rbin
+        self.dl[nid] = rdl
+        self.gn[nid] = bg
+        self.lc[nid] = li
+        self.rc[nid] = ri
+        self.pa[li_d] = nid
+        self.pa[ri_d] = nid
+        self.gh[li_d] = lsum
+        self.gh[ri_d] = rsum
+        dchild = self.depth_of[best] + 1
+        self.depth_of[li_d] = dchild
+        self.depth_of[ri_d] = dchild
+        self.n_nodes += 2 * valid.to(torch.int64)
+        args = (nid, feat, rbin, rdl, li, ri)
+        for p, b, a in zip(self.positions, self.rows.parts,
+                           self.rows.to_shards(args)):
+            p.copy_(apply1_at(b, p, *a, self.mb))
+        # rows sit at ids below n_nodes: after an empty pop no row is at
+        # li / ri and the search is inert, its pushes gated off
+        res = self._eval(li, ri, torch.cat([lsum, rsum]), self.fmask)
+        ok_d = valid if self.max_depth <= 0 else valid & (
+            dchild < self.max_depth)
+        self._push(ok_d & self._ok(res.gain[0]), li, res, 0)
+        self._push(ok_d & self._ok(res.gain[1]), ri, res, 1)
+
+    def fetch(self):
+        """The tree's arrays on the host (one copy) -> ([sf, sb, dl, lc,
+        rc, pa, gn, g sums, h sums] [n_nodes] float64 each, n_nodes)."""
+        cap = self.cap
+        cols = [self.sf, self.sb, self.dl, self.lc, self.rc, self.pa,
+                self.gn, self.gh[:, 0], self.gh[:, 1]]
+        packed = torch.cat([torch.stack([c[:cap].to(torch.float64)
+                                         for c in cols]),
+                            self.n_nodes.to(torch.float64)[None].expand(
+                                1, cap)])
+        host = packed.cpu().numpy()
+        nn = int(host[-1, 0])
+        return [c[:nn] for c in host[:-1]], nn
 
 
 def col_masks(param: TrainParam, seed: int, F: int,
@@ -224,11 +415,7 @@ class LossguideGrower(TreeGrower):
         for s in ("+sub", "+nosub"):
             if base.endswith(s):
                 base, sfx = base[:-len(s)], s
-        if base == "mega":
-            raise NotImplementedError(
-                "hist_method='mega' with grow_policy=lossguide is not in the "
-                "PyTorch port yet (lossguide's mega tier, ROADMAP A.6)")
-        if base in ("coarse", "fused", "scan") and (
+        if base in ("coarse", "fused", "scan", "mega") and (
                 not numeric or max_nbins > 256 + int(has_missing)):
             # the JAX package's warn-and-fall-back: an explicit two-level
             # request outside its preconditions trains with the exact search
@@ -242,6 +429,8 @@ class LossguideGrower(TreeGrower):
             base = "auto"
             self.hist_method = "auto" + sfx
         self.schedule = two_level_schedule(base, max_nbins, has_missing)
+        self.mega = base == "mega"
+        self._mega: Optional[CapturedLoop] = None
         self.n_words = ((max_nbins - int(has_missing) - 1) // 32 + 1
                         if not numeric else 1)
 
@@ -323,6 +512,9 @@ class LossguideGrower(TreeGrower):
                             self.has_missing, cat is None,
                             isinstance(rows, ColShards))
         n_real = self._n_real_on(dev)
+        if self._mega_applies(rows, cat):
+            return self._grow_mega(rows, gps, root, n_real, scale,
+                                   node_mask, max_leaves, cap)
         monotone, _ = self.constraints_on(dev)
         mono = self.monotone
         cons = (None if self.constraint_sets is None
@@ -454,8 +646,71 @@ class LossguideGrower(TreeGrower):
             eval_nodes(li, ri, apply_args=(nid, feat, rbin, rdl, ric, words,
                                            li, ri, mb))
 
-        # the weights: f32 from the f32 sums, clipped into each node's
-        # interval, times eta
+        tree, leaf_value = self._compact_tree(
+            n_nodes, sf, sb, dl, lc, rc, pa, gn, gh, ics, cwords, lower,
+            upper)
+        positions = self._final(rows, positions)
+        delta = torch.from_numpy(leaf_value).to(dev)[positions]
+        return LossguideGrown(positions=positions, delta=delta, tree=tree)
+
+    def _mega_applies(self, rows, cat) -> bool:
+        """The JAX package's gates of its lossguide mega tier
+        (``tree/lossguide.py:899-910``): an explicit ``"mega"`` on numeric
+        resident bins or a row mesh, no constraints, and no column
+        sample below the tree (``colsample_bylevel`` and ``_bynode`` 1:
+        every node's mask is the tree's, drawn before the loop). Elsewhere
+        the host loop runs over scan's pair search, whose bits are the
+        same."""
+        p = self.param
+        return (self.mega and type(self) is LossguideGrower
+                and isinstance(rows, RowShards) and cat is None
+                and self.monotone is None and self.constraint_sets is None
+                and p.colsample_bylevel >= 1.0
+                and p.colsample_bynode >= 1.0)
+
+    def _grow_mega(self, rows: RowShards, gps, root: torch.Tensor,
+                   n_real: torch.Tensor, scale: dict, node_mask,
+                   max_leaves: int, cap: int) -> LossguideGrown:
+        """One tree of the mega tier (:class:`MegaPairs`): the root's
+        search, ``max_leaves - 1`` replays of the captured split (eager
+        calls on the CPU, or where the shards span devices or a
+        communicator joins them), one fetch of the tree."""
+        dev = root.device
+        if self._mega is None:
+            self._mega = CapturedLoop("mega/lossguide", dev)
+        mask = torch.from_numpy(node_mask(0)).to(dev)
+        key = mega_key(rows, n_real) + (max_leaves,)
+
+        def make():
+            return MegaPairs(self, rows, n_real, max_leaves, cap)
+
+        with _trace.span("lossguide/mega", args={"leaves": max_leaves}):
+            prog = self._mega.run(
+                key, make, max_leaves - 1,
+                lambda p: p.load(gps, root, mask, scale),
+                capture=captures_on_one_device(rows))
+            with _trace.span("lossguide/fetch"):
+                host, nn = prog.fetch()
+        sf, sb, dl, lc, rc, pa, gn, gh0, gh1 = host
+        lower = np.full(nn, -np.inf, np.float32)
+        upper = np.full(nn, np.inf, np.float32)
+        tree, leaf_value = self._compact_tree(
+            nn, sf.astype(np.int32), sb.astype(np.int32), dl.astype(bool),
+            lc.astype(np.int32), rc.astype(np.int32), pa.astype(np.int32),
+            gn.astype(np.float32), np.stack([gh0, gh1], axis=1),
+            np.zeros(nn, bool), np.zeros((nn, self.n_words), np.uint32),
+            lower, upper)
+        positions = self._final(rows, [p.clone() for p in prog.positions])
+        delta = torch.from_numpy(leaf_value).to(dev)[positions]
+        return LossguideGrown(positions=positions, delta=delta, tree=tree)
+
+    def _compact_tree(self, n_nodes: int, sf, sb, dl, lc, rc, pa, gn, gh,
+                      ics, cwords, lower, upper):
+        """The finished tree from the greedy loop's host arrays (ids in
+        allocation order, ``n_nodes`` of them) -> (tree, leaf values):
+        the weights f32 from the f32 sums, clipped into each node's
+        interval, times eta."""
+        param = self.param
         w = calc_weight(torch.from_numpy(gh[:n_nodes, 0].astype(np.float32)),
                         torch.from_numpy(gh[:n_nodes, 1].astype(np.float32)),
                         param)
@@ -476,9 +731,7 @@ class LossguideGrower(TreeGrower):
             is_cat_split=ics[:n_nodes].copy(),
             cat_words=cwords[:n_nodes].copy(),
             base_weight=w.astype(np.float32))
-        positions = self._final(rows, positions)
-        delta = torch.from_numpy(leaf_value).to(dev)[positions]
-        return LossguideGrown(positions=positions, delta=delta, tree=tree)
+        return tree, leaf_value
 
     def to_tree_model(self, g: LossguideGrown) -> TreeModel:
         return g.tree

@@ -101,7 +101,8 @@ the JAX package pulls every level's decisions here). The ring's
 come from ``data/binned.py``; ``obs/memory.py`` samples
 ``paged/level`` at each level's end.
 
-Not in the port yet (raises): sibling subtraction (ROADMAP A.6).
+``"<kernel>+sub"`` builds every node of a page pass here, as in the JAX
+package (its paged tier drops the suffix).
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ import torch
 from ..data.binned import PagedMeshMatrix
 from ..obs import memory as _mem
 from ..obs import trace as _trace
-from ..ops.histogram import build_hist, build_hist_multi, resolve_hist_kernel
+from ..ops.histogram import (build_hist, build_hist_multi,
+                             resolve_hist_kernel, split_hist_method)
 from ..ops.partition import LevelSplits, advance_level, level_rel
 from ..ops.split import (COARSE_B, assemble_two_level,
                          choose_refine_window, coarse_bin_ids,
@@ -129,8 +131,7 @@ TWO_LEVEL = ("coarse", "fused", "scan", "mega")
 
 
 def _base(hist_method: str) -> str:
-    return hist_method[:-len("+nosub")] if hist_method.endswith(
-        "+nosub") else hist_method
+    return split_hist_method(hist_method)[0]
 
 
 def is_two_level(hist_method: str) -> bool:
@@ -139,9 +140,10 @@ def is_two_level(hist_method: str) -> bool:
 
 def page_method(hist_method: str) -> str:
     """The page builds' method (the JAX package's ``_make_kernels``): the
-    two-level names run plain builds through ``auto``; ``+sub`` keeps its
-    refusal (ROADMAP A.6)."""
-    return "auto" if is_two_level(hist_method) else hist_method
+    two-level names run plain builds through ``auto``; a ``+sub`` /
+    ``+nosub`` suffix is dropped, as the JAX package's paged tier drops
+    it (a page pass builds every node)."""
+    return "auto" if is_two_level(hist_method) else _base(hist_method)
 
 
 def _depth_args(depth: int):
